@@ -1,0 +1,2 @@
+from repro_torch.configs.base import (ModelConfig, MoEConfig,  # noqa: F401
+                                      ParamConfig, SSMConfig)

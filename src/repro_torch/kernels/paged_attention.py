@@ -1,0 +1,137 @@
+"""The paged-attention kernels' wrappers: decode (``paged_attention``) and
+chunked suffix prefill (``paged_prefill``) over the KV block pools, read
+in place through the block table.
+
+Replace the Pallas TPU kernels ``repro/kernels/paged_attention.py::
+paged_attention`` and ``::paged_prefill`` with the CUDA kernels in
+``csrc/paged_attention.cu`` (its header says what bounds them on the H100
+and how the design meets that). Layouts are the reference's: q grouped by
+kv head, pools ``(n_blocks, block_len, Hkv, hd)`` with block 0 the null
+block. A tensor on the CPU runs the plain version
+(:mod:`repro_torch.kernels.ref`); a CUDA tensor launches the kernel or
+raises, never falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256       # MAX_D * 32 in the kernel
+MAX_BLOCK_LEN = 128      # MAX_T * 32 in the kernel
+
+
+def _lib():
+    lib = build.library("paged_attention")
+    if lib.paged_attention_launch.argtypes is None:
+        lib.paged_attention_launch.argtypes = \
+            [_P] * 6 + [_I] * 6 + [_F, _F, _I, _I, _P]
+        lib.paged_attention_launch.restype = _I
+        lib.paged_prefill_launch.argtypes = \
+            [_P] * 6 + [_I] * 7 + [_F, _F, _I, _I, _P]
+        lib.paged_prefill_launch.restype = _I
+    return lib
+
+
+def _check(what, q, k_pool, v_pool, block_table, pos, n_slots, n_kv, hd):
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{what}: q dtype {q.dtype} not in {list(_DTYPES)}")
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape or \
+            tuple(k_pool.shape[2:]) != (n_kv, hd):
+        raise ValueError(f"{what}: pools {tuple(k_pool.shape)} / "
+                         f"{tuple(v_pool.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError(f"{what}: pool dtypes must match q ({q.dtype})")
+    if hd > MAX_HEAD_DIM or k_pool.shape[1] > MAX_BLOCK_LEN:
+        raise ValueError(f"{what}: head_dim {hd} > {MAX_HEAD_DIM} or "
+                         f"block_len {k_pool.shape[1]} > {MAX_BLOCK_LEN}")
+    if block_table.dim() != 2 or block_table.shape[0] != n_slots or \
+            block_table.dtype != torch.int32:
+        raise ValueError(f"{what}: block_table must be int32 (n_slots, "
+                         f"bps), got {block_table.dtype} "
+                         f"{tuple(block_table.shape)}")
+    if tuple(pos.shape) != (n_slots,) or pos.dtype != torch.int32:
+        raise ValueError(f"{what}: positions/offsets must be int32 "
+                         f"({n_slots},), got {pos.dtype} {tuple(pos.shape)}")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("block_table", block_table), ("positions", pos)):
+        if t.device != q.device:
+            raise ValueError(f"{what}: {name} on {t.device}, q on "
+                             f"{q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def paged_attention(q, k_pool, v_pool, block_table, positions, *,
+                    scale: float, softcap: float = 0.0, window: int = 0):
+    """Decode attention, one query token per slot. q (n_slots, Hkv, group,
+    hd); pools (n_blocks, block_len, Hkv, hd); block_table (n_slots, bps)
+    int32; positions (n_slots,) int32. Returns (n_slots, Hkv, group, hd)
+    in q.dtype; idle slots (all-null table rows) give exact zeros."""
+    if q.device.type == "cpu":
+        return ref.paged_attention_ref(q, k_pool, v_pool, block_table,
+                                       positions, scale=scale,
+                                       softcap=softcap, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    n_slots, n_kv, group, hd = q.shape
+    _check("paged_attention", q, k_pool, v_pool, block_table, positions,
+           n_slots, n_kv, hd)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.paged_attention_launch(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_table.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            n_slots, n_kv, group, hd, k_pool.shape[1], block_table.shape[1],
+            float(scale), float(softcap), int(window), _DTYPES[q.dtype],
+            stream)
+    build.check(lib, err, "paged_attention")
+    paged_attention.launches += 1
+    return out
+
+
+def paged_prefill(q, k_pool, v_pool, block_table, offsets, *,
+                  scale: float, softcap: float = 0.0, window: int = 0):
+    """Chunked suffix prefill. q (n_slots, sq, Hkv, group, hd), query i of
+    slot s at absolute position offsets[s] + i, the chunk's own K/V
+    already scattered into the pools. Returns (n_slots, sq, Hkv, group,
+    hd) in q.dtype; rows with nothing to attend give exact zeros."""
+    if q.device.type == "cpu":
+        return ref.paged_prefill_ref(q, k_pool, v_pool, block_table,
+                                     offsets, scale=scale, softcap=softcap,
+                                     window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_prefill: unsupported device {q.device}")
+    n_slots, sq, n_kv, group, hd = q.shape
+    _check("paged_prefill", q, k_pool, v_pool, block_table, offsets,
+           n_slots, n_kv, hd)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.paged_prefill_launch(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_table.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+            n_slots, sq, n_kv, group, hd, k_pool.shape[1],
+            block_table.shape[1], float(scale), float(softcap), int(window),
+            _DTYPES[q.dtype], stream)
+    build.check(lib, err, "paged_prefill")
+    paged_prefill.launches += 1
+    return out
+
+
+paged_attention.launches = 0
+paged_prefill.launches = 0

@@ -1,0 +1,117 @@
+"""Plain PyTorch versions of the three serving kernels.
+
+Each one computes what its CUDA kernel computes, with the same rounding
+points, and is what a kernel wrapper runs for a tensor on the CPU. The
+CUDA kernels are held against these on the card (chip_smoke.py,
+tests/test_torch_kernels.py) and these against the JAX kernels on the CPU.
+Signatures and layouts follow ``repro.kernels.ref``, except that
+:func:`sl_matmul_ref` takes the tile-CSR inputs the kernel takes.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30  # the mask fill of the reference attention
+
+
+def densify_tiles(B, A, v_t, rows_t, cols_t, scale: float, dtype):
+    """W = scale·B·A ⊕ V as one dense f32 product rounded once to
+    ``dtype``, with V given in tile-CSR form. Returns the (K/128·128,
+    N/128·128) padded W: exactly the tiles the kernel builds on chip."""
+    nkt, nnt, _ = rows_t.shape
+    k, r = B.shape
+    n = A.shape[1]
+    Bp = torch.zeros(nkt * 128, r, dtype=torch.float32, device=B.device)
+    Bp[:k] = B.float()
+    Ap = torch.zeros(r, nnt * 128, dtype=torch.float32, device=A.device)
+    Ap[:, :n] = A.float()
+    W = (Bp @ Ap) * scale
+    # padding slots sit at local (0, 0) with v = 0, so a plain add of
+    # every slot is exact; index_put_ with accumulate sums duplicates
+    kt = torch.arange(nkt, device=W.device).view(nkt, 1, 1) * 128
+    nt = torch.arange(nnt, device=W.device).view(1, nnt, 1) * 128
+    rows = (rows_t.long() + kt).reshape(-1)
+    cols = (cols_t.long() + nt).reshape(-1)
+    W.index_put_((rows, cols), v_t.float().reshape(-1), accumulate=True)
+    return W.to(dtype)
+
+
+def sl_matmul_ref(x, B, A, v_t, rows_t, cols_t, scale: float):
+    """y = x @ (scale·B·A ⊕ V) for x (M, K), B (K, r), A (r, N) and V as
+    tile-CSR (K/128, N/128, cap) arrays: W is built in f32, rounded to
+    x.dtype, then multiplied with f32 accumulation; output in x.dtype."""
+    k = x.shape[-1]
+    n = A.shape[1]
+    W = densify_tiles(B, A, v_t, rows_t, cols_t, scale, x.dtype)
+    return (x.float() @ W[:k, :n].float()).to(x.dtype)
+
+
+def paged_attention_ref(q, k_pool, v_pool, block_table, positions, *,
+                        scale: float, softcap: float = 0.0, window: int = 0):
+    """Decode attention over the paged pools, dense and in f32.
+
+    q: (n_slots, Hkv, group, hd); pools (n_blocks, block_len, Hkv, hd);
+    block_table (n_slots, blocks_per_slot) int32; positions (n_slots,).
+    Null blocks (table entry 0) and keys past the slot's position are
+    masked, masked probabilities are exactly 0, masked v rows are zeroed
+    (0 · NaN is NaN), and a slot with nothing valid outputs 0."""
+    n_slots, n_kv, group, hd = q.shape
+    block_len = k_pool.shape[1]
+    table = block_table.long()
+    k = k_pool[table].reshape(n_slots, -1, n_kv, hd).float()
+    v = v_pool[table].reshape(n_slots, -1, n_kv, hd).float()
+    view_len = k.shape[1]
+    kpos = torch.arange(view_len, device=q.device)
+    pos = positions.long()
+    valid = (kpos[None, :] <= pos[:, None]) & \
+        torch.repeat_interleave(block_table != 0, block_len, dim=1)
+    if window > 0:
+        valid &= (pos[:, None] - kpos[None, :]) < window
+    s = torch.einsum("shgd,slhd->shgl", q.float() * scale, k)
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    vm = valid[:, None, None, :]
+    s = torch.where(vm, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(vm, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    v = torch.where(valid[:, :, None, None], v, torch.zeros_like(v))
+    o = torch.einsum("shgl,slhd->shgd", p, v)
+    o = o / torch.where(l > 0, l, torch.ones_like(l))
+    return torch.where(l > 0, o, torch.zeros_like(o)).to(q.dtype)
+
+
+def paged_prefill_ref(q, k_pool, v_pool, block_table, offsets, *,
+                      scale: float, softcap: float = 0.0, window: int = 0):
+    """Chunked suffix prefill over the paged pools, dense and in f32.
+
+    q: (n_slots, sq, Hkv, group, hd), query i of slot s at absolute
+    position offsets[s] + i, attending key positions ≤ its own (prior
+    pages and the chunk, already scattered into the pools). Null blocks
+    are masked; v columns no query of the slot attends are zeroed; rows
+    with nothing valid output exact zeros."""
+    n_slots, sq, n_kv, group, hd = q.shape
+    block_len = k_pool.shape[1]
+    table = block_table.long()
+    k = k_pool[table].reshape(n_slots, -1, n_kv, hd).float()
+    v = v_pool[table].reshape(n_slots, -1, n_kv, hd).float()
+    view_len = k.shape[1]
+    kpos = torch.arange(view_len, device=q.device)
+    qpos = offsets.long()[:, None] + torch.arange(sq, device=q.device)[None]
+    valid = (kpos[None, None, :] <= qpos[:, :, None]) & \
+        torch.repeat_interleave(block_table != 0, block_len, dim=1)[:, None]
+    if window > 0:
+        valid &= (qpos[:, :, None] - kpos[None, None, :]) < window
+    s = torch.einsum("sqhgd,slhd->sqhgl", q.float() * scale, k)
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    mask = valid[:, :, None, None, :]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    vmask = valid.any(dim=1)                                  # (S, l)
+    v = torch.where(vmask[:, :, None, None], v, torch.zeros_like(v))
+    o = torch.einsum("sqhgl,slhd->sqhgd", p, v)
+    o = o / torch.where(l > 0, l, torch.ones_like(l))
+    return torch.where(l > 0, o, torch.zeros_like(o)).to(q.dtype)

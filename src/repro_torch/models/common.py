@@ -1,0 +1,152 @@
+"""Shared model building blocks and the parameter Builder, ported from
+``repro.models.common``.
+
+Parameters are plain nested dicts of tensors laid out as the reference's
+pytrees (stacked layers on a leading axis), so a reference checkpoint maps
+onto them leaf for leaf (``ckpt/convert.py``). The Builder walks the same
+path strings as the reference's: each SLTrain linear samples its support
+from ``seed ^ crc32(path)`` with the numpy sampler, so supports match the
+reference bit for bit. Values come from a ``torch.Generator`` and differ
+from the reference's ``jax.random`` draws.
+"""
+from __future__ import annotations
+
+import math
+import zlib
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import sltrain
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+def _name_hash(path: str) -> int:
+    return zlib.crc32(path.encode()) & 0x7FFFFFFF
+
+
+def tree_map(fn, tree, *rest):
+    """Map ``fn`` over the leaves of nested dicts of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree, prefix: str = ""):
+    """(``/``-joined path, leaf) pairs in insertion order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, f"{prefix}/{k}" if prefix else str(k))
+    else:
+        yield prefix, tree
+
+
+class Builder:
+    """Creates parameter/const trees at ``path`` on ``device``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device,
+                 path: str = "", seed: int = 0):
+        self.cfg = cfg
+        self.gen = gen
+        self.device = device
+        self.path = path
+        self.seed = seed
+        self.dtype = DTYPES[cfg.dtype]
+
+    def sub(self, name: str) -> "Builder":
+        return Builder(self.cfg, self.gen, self.device, f"{self.path}/{name}",
+                       self.seed)
+
+    def tensor(self, name: str, shape: Tuple[int, ...], init: str = "normal",
+               fan_in: Optional[int] = None, dtype=None):
+        dtype = dtype or self.dtype
+        if init == "ones":
+            return torch.ones(shape, dtype=dtype, device=self.device)
+        if init != "normal":
+            raise ValueError(init)
+        fan = fan_in if fan_in is not None else (
+            shape[0] if len(shape) >= 2 else shape[-1])
+        t = torch.randn(shape, generator=self.gen, device=self.device,
+                        dtype=torch.float32)
+        return (t * (1.0 / math.sqrt(fan))).to(dtype)
+
+    def linear(self, name: str, d_in: int, d_out: int):
+        """(params, consts) of one linear, parameterized as
+        ``cfg.param.mode`` says: a full-rank ``w`` or SLTrain factors."""
+        pc = self.cfg.param
+        b = self.sub(name)
+        consts: dict = {}
+        # per-matrix effective rank: global rank capped at half the min dim
+        r = max(4, min(pc.rank, min(d_in, d_out) // 2))
+        if pc.mode == "dense":
+            params = {"w": b.tensor("w", (d_in, d_out), "normal",
+                                    fan_in=d_in)}
+        elif pc.mode == "sltrain":
+            params, consts = sltrain.init_params(
+                self.gen, d_in, d_out, r, pc.delta, b.dtype,
+                pc.support_kind, seed=self.seed ^ _name_hash(b.path),
+                exec_mode=pc.exec_mode, device=self.device)
+        else:
+            raise NotImplementedError(
+                f"param.mode={pc.mode!r} is not ported yet (ROADMAP queue A "
+                "item 2: the lowrank and relora parameterizations)")
+        return params, consts
+
+
+def apply_linear(cfg: ModelConfig, params, consts, x):
+    if "w" in params:
+        return x @ params["w"]
+    # per-matrix scale alpha/r_eff (r_eff capped at init)
+    scale = cfg.param.alpha / params["B"].shape[-1]
+    return sltrain.sl_matmul(x, params, consts, scale, cfg.param.exec_mode)
+
+
+def stack_layers(builder: Builder, fn, n: int, name: str = "layer"):
+    """Stack per-layer (params, consts) along a new leading axis; ``fn`` is
+    called once per layer at path ``{name}{i}``."""
+    if n == 0:
+        return {}, {}
+    ps, cs = zip(*(fn(builder.sub(f"{name}{i}")) for i in range(n)))
+    params = tree_map(lambda *xs: torch.stack(xs), *ps) if ps[0] else {}
+    consts = tree_map(lambda *xs: torch.stack(xs), *cs) if cs[0] else {}
+    return params, consts
+
+
+def layer(tree, i: int):
+    """Layer ``i`` of a stacked tree (views, no copies)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# Normalization / activations / rope
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    """RMS norm computed in f32, returned in x.dtype."""
+    xf = x.float()
+    n = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (n * weight.float()).to(x.dtype)
+
+
+def rope(x, pos, theta: float = 10000.0):
+    """Rotary embedding, half-split layout (not interleaved). x: (...,
+    seq, heads, head_dim); pos: (..., seq)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device)
+                      * (math.log(theta) / half))
+    ang = pos[..., :, None].float() * freqs[None, :]       # (..., s, half)
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def silu(x):
+    return x * torch.sigmoid(x)

@@ -11,6 +11,12 @@ sys.path.insert(1, os.path.join(os.path.dirname(__file__), os.pardir))
 import repro.dist  # noqa: E402,F401  (import side effect: compat shims)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card and nvcc (the port's CUDA "
+        "kernels); skips inside a fixture elsewhere")
+
+
 def pytest_report_header(config):
     """Say up front whether the property tests run on real hypothesis or
     the seeded-loop fallback (tests/_propshim.py) — so a CI log always

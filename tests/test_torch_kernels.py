@@ -1,0 +1,236 @@
+"""The port's kernels (src/repro_torch/kernels) against the reference's
+Pallas kernels.
+
+On the CPU each kernel wrapper runs its plain PyTorch version; those are
+held here against the JAX kernels run through ``repro.kernels.ops`` in
+interpret mode, on the same numpy-seeded inputs: non-128 dims, f32 and
+bf16, GQA, softcap, sliding windows, a NaN-poisoned null block and idle
+slots. The CUDA kernels themselves are held against the plain versions
+on the card by tests/test_torch_gpu.py and chip_smoke.py.
+
+Tolerances (atol = rtol): f32 1e-4 (the same math, sums in another
+order); bf16 2e-2 (bf16 rounding of W tiles and outputs can tip one ulp
+where the sums' order differs).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import support as jsupport
+from repro.kernels import ops as jops
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as pa_kernel
+from repro_torch.kernels import sl_matmul as sl_kernel
+
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _close(got, want, dtype):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _j(a, dtype):
+    return jnp.asarray(a, jnp.float32).astype(JDT[dtype])
+
+
+def _t(a, dtype):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(TDT[dtype])
+
+
+def _f32(t):
+    return t.float().numpy()
+
+
+# ---------------------------------------------------------------------------
+# sl_matmul
+# ---------------------------------------------------------------------------
+
+SL_CASES = [
+    # (M, K, N, r, delta) — ragged K and N, one and several row blocks
+    (5, 200, 300, 16, 0.05),
+    (130, 256, 136, 8, 0.05),
+    (1, 136, 520, 32, 0.03),
+]
+
+
+def _sl_inputs(m, k, n, r, delta, seed):
+    rng = np.random.default_rng(seed)
+    rows, cols = jsupport.sample_support(seed, k, n, delta)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    B = rng.uniform(-1, 1, (k, r)).astype(np.float32)
+    A = rng.uniform(-1, 1, (r, n)).astype(np.float32) * np.sqrt(6.0 / k)
+    v = rng.uniform(-1, 1, rows.shape[0]).astype(np.float32) / np.sqrt(k)
+    return rows, cols, x, B, A, v
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SL_CASES)
+def test_sl_matmul_plain_matches_reference_kernel(case, dtype):
+    m, k, n, r, delta = case
+    rows, cols, x, B, A, v = _sl_inputs(m, k, n, r, delta, seed=k + n)
+    scale = 32.0 / r
+    jv_t, jrt, jct, jperm = jops.prepare_tiles(rows, cols, v, k, n)
+    want = jops.sl_matmul(_j(x, dtype), _j(B, dtype), _j(A, dtype), jv_t,
+                          jrt, jct, scale, interpret=True)
+    tiles = ops.prepare_tile_consts(rows, cols, k, n, pad=jrt.shape[-1])
+    np.testing.assert_array_equal(tiles["rows_t"].numpy(), np.asarray(jrt))
+    np.testing.assert_array_equal(tiles["cols_t"].numpy(), np.asarray(jct))
+    v_t = ops._gather_tiles(torch.from_numpy(v), tiles["perm"])
+    np.testing.assert_array_equal(v_t.numpy(), np.asarray(jv_t))
+    before = sl_kernel.sl_matmul.launches
+    got = ops.sl_matmul(_t(x, dtype), _t(B, dtype), _t(A, dtype), v_t,
+                        tiles["rows_t"], tiles["cols_t"], scale)
+    assert got.dtype == TDT[dtype] and got.shape == (m, n)
+    assert sl_kernel.sl_matmul.launches == before   # CPU: plain version
+    _close(_f32(got), want, dtype)
+
+
+def test_sl_linear_gathers_flat_v_like_reference():
+    m, k, n, r, delta = 4, 200, 300, 16, 0.05
+    rows, cols, x, B, A, v = _sl_inputs(m, k, n, r, delta, seed=7)
+    cap = jsupport.tile_cap(k, n, delta)
+    jt = jops.prepare_tile_consts(rows, cols, k, n, pad=cap)
+    vv = v.reshape(k, -1)                       # row-balanced (d_in, k)
+    want = jops.sl_linear(jnp.asarray(x), jnp.asarray(B), jnp.asarray(A),
+                          jnp.asarray(vv), jt["rows_t"], jt["cols_t"],
+                          jt["perm"], 2.0)
+    tt = ops.prepare_tile_consts(rows, cols, k, n, pad=cap)
+    got = ops.sl_linear(torch.from_numpy(x), torch.from_numpy(B),
+                        torch.from_numpy(A), torch.from_numpy(vv),
+                        tt["rows_t"], tt["cols_t"], tt["perm"], 2.0)
+    _close(got.numpy(), want, "float32")
+
+
+def test_sl_matmul_sums_colliding_padding_slots():
+    """Padding slots and a real entry share local (0, 0): the plain
+    version must add every slot (padding carries 0)."""
+    k, n, r = 128, 128, 4
+    rows = np.array([0, 0, 5], np.int32)
+    cols = np.array([0, 7, 3], np.int32)
+    v = np.array([2.0, -1.0, 0.5], np.float32)
+    tiles = ops.prepare_tile_consts(rows, cols, k, n, pad=8)
+    v_t = ops._gather_tiles(torch.from_numpy(v), tiles["perm"])
+    W = ref.densify_tiles(torch.zeros(k, r), torch.zeros(r, n), v_t,
+                          tiles["rows_t"], tiles["cols_t"], 1.0,
+                          torch.float32)
+    want = np.zeros((k, n), np.float32)
+    want[rows, cols] = v
+    np.testing.assert_array_equal(W.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# paged attention: decode and chunked prefill
+# ---------------------------------------------------------------------------
+
+def _pools(rng, n_slots, bps, block_len, n_kv, hd, last_pos):
+    """Random pools, a block table covering each slot's last position
+    (< 0: idle slot, all-null row) and a NaN-poisoned null block."""
+    n_blocks = 1 + n_slots * bps
+    kp = rng.standard_normal((n_blocks, block_len, n_kv, hd)).astype(
+        np.float32)
+    vp = rng.standard_normal((n_blocks, block_len, n_kv, hd)).astype(
+        np.float32)
+    kp[0] = np.nan
+    vp[0] = np.nan
+    table = np.zeros((n_slots, bps), np.int32)
+    nid = 1
+    for s, p in enumerate(last_pos):
+        if p < 0:
+            continue
+        for j in range(p // block_len + 1):
+            table[s, j] = nid
+            nid += 1
+    return kp, vp, table
+
+
+ATTN_CASES = [
+    # (block_len, n_kv, n_heads, hd, positions, softcap, window)
+    (8, 2, 4, 16, [19, 7, 5, -1], 0.0, 0),       # GQA group 2, idle slot
+    (8, 4, 4, 8, [0, 8, 23, 15], 0.0, 0),        # MHA, block boundaries
+    (16, 1, 4, 32, [40, 3, -1], 30.0, 0),        # group 4, softcap
+    (4, 2, 8, 16, [13, 2, 9], 0.0, 6),           # sliding window
+    (8, 2, 2, 64, [31, 17, 24, 5], 20.0, 10),    # softcap and window
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_paged_attention_plain_matches_reference_kernel(case, dtype):
+    block_len, n_kv, n_heads, hd, positions, cap, win = case
+    rng = np.random.default_rng(len(positions) * 31 + hd)
+    n_slots = len(positions)
+    bps = max(positions) // block_len + 2
+    kp, vp, table = _pools(rng, n_slots, bps, block_len, n_kv, hd,
+                           positions)
+    pos = np.maximum(np.asarray(positions, np.int32), 0)
+    q = rng.standard_normal((n_slots, n_heads, hd)).astype(np.float32)
+    kw = dict(scale=hd ** -0.5, softcap=cap, window=win)
+    want = jops.paged_attention(_j(q, dtype), _j(kp, dtype), _j(vp, dtype),
+                                jnp.asarray(table), jnp.asarray(pos),
+                                interpret=True, **kw)
+    before = pa_kernel.paged_attention.launches
+    got = ops.paged_attention(_t(q, dtype), _t(kp, dtype), _t(vp, dtype),
+                              torch.from_numpy(table), torch.from_numpy(pos),
+                              **kw)
+    assert pa_kernel.paged_attention.launches == before
+    assert got.dtype == TDT[dtype]
+    got = _f32(got)
+    assert np.isfinite(got).all()
+    for s, p in enumerate(positions):
+        if p < 0:
+            assert (got[s] == 0).all()                  # idle: exact zeros
+    _close(got, want, dtype)
+
+
+PREFILL_CASES = [
+    # (block_len, n_kv, n_heads, hd, sq, offsets, lengths, softcap, window)
+    (8, 2, 4, 16, 8, [0, 8, 16, 0], [8, 5, 3, 0], 0.0, 0),
+    (4, 1, 4, 32, 6, [4, 0, 12], [6, 6, 2], 25.0, 0),
+    (8, 4, 4, 8, 8, [16, 8], [8, 4], 0.0, 5),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PREFILL_CASES)
+def test_paged_prefill_plain_matches_reference_kernel(case, dtype):
+    block_len, n_kv, n_heads, hd, sq, offsets, lengths, cap, win = case
+    rng = np.random.default_rng(sq * 13 + hd)
+    n_slots = len(offsets)
+    last = [o + l - 1 if l > 0 else -1 for o, l in zip(offsets, lengths)]
+    bps = (max(offsets) + sq) // block_len + 1
+    kp, vp, table = _pools(rng, n_slots, bps, block_len, n_kv, hd, last)
+    offs = np.asarray(offsets, np.int32)
+    q = rng.standard_normal((n_slots, sq, n_heads, hd)).astype(np.float32)
+    kw = dict(scale=hd ** -0.5, softcap=cap, window=win)
+    want = jops.paged_prefill_attention(
+        _j(q, dtype), _j(kp, dtype), _j(vp, dtype), jnp.asarray(table),
+        jnp.asarray(offs), interpret=True, **kw)
+    before = pa_kernel.paged_prefill.launches
+    got = ops.paged_prefill_attention(
+        _t(q, dtype), _t(kp, dtype), _t(vp, dtype), torch.from_numpy(table),
+        torch.from_numpy(offs), **kw)
+    assert pa_kernel.paged_prefill.launches == before
+    got = _f32(got)
+    assert np.isfinite(got).all()
+    for s, l in enumerate(lengths):
+        if l == 0:
+            assert (got[s] == 0).all()                  # idle: exact zeros
+    _close(got, want, dtype)
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on a card never falls back
+    to the plain version."""
+    meta = torch.empty((2, 128), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sl_kernel.sl_matmul(meta, meta, meta, meta, meta, meta, 1.0)
+    q = torch.empty((1, 1, 1, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        pa_kernel.paged_attention(q, q, q, q, q, scale=1.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pa_kernel.paged_prefill(q[None], q, q, q, q, scale=1.0)
