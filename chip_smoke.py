@@ -142,14 +142,17 @@ def sl_case(gen, device, d_in, d_out, m, dtype, rank, delta, alpha, seed):
     return x, B, A, v_t, rows_t, cols_t, alpha / r
 
 
-def check_sl_matmul(timer, gen, device, cfg, m_decode, m_prefill):
+def check_sl_matmul(timer, gen, device, cfg, m_values):
+    """Every row count the engine gives the kernel (a decode batch and
+    each prefill bucket times the slots), so each row-block variant of
+    the kernel is held against the plain version."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import sl_matmul as slk
     d, f = cfg.d_model, cfg.d_ff
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for (d_in, d_out) in ((d, d), (d, f), (f, d)):
-            for m in (m_decode, m_prefill):
+            for m in m_values:
                 x, B, A, v_t, rt, ct, scale = sl_case(
                     gen, device, d_in, d_out, m, dtype, cfg.param.rank,
                     cfg.param.delta, cfg.param.alpha, seed=d_in * 7 + d_out)
@@ -247,7 +250,8 @@ ATTN_CASES = (
 
 
 def check_attention(timer, gen, device, cfg, n_slots, block_len, bps,
-                    sq):
+                    sqs):
+    """Decode, and chunked prefill at every suffix bucket in ``sqs``."""
     from repro_torch.kernels import paged_attention as pak
     from repro_torch.kernels import ref
     hd = cfg.resolved_head_dim
@@ -290,45 +294,55 @@ def check_attention(timer, gen, device, cfg, n_slots, block_len, bps,
                 f"{err:.3e} (tol {TOL[dtype]}) | kernel {t_k:.4f} ms, plain "
                 f"{t_p:.4f} ms, SDPA on gathered view {t_l:.4f} ms, bound "
                 f"{b:.4f} ms ({by})")
-            # chunked suffix prefill: sq queries per slot at its offset
-            offs = torch.tensor(offsets, dtype=torch.int32, device=device)
-            pre_pos = [o + sq - 1 if p >= 0 else -1
-                       for o, p in zip(offsets, positions)]
-            kp, vp, tbl, _ = attn_case(
-                gen, device, dtype, n_slots=n_slots, n_kv=n_kv, group=group,
-                hd=hd, block_len=block_len, bps=bps, positions=pre_pos)
-            q = torch.randn((n_slots, sq, n_kv, group, hd), generator=gen,
-                            device=device).to(dtype)
-            got = pak.paged_prefill(q, kp, vp, tbl, offs, **kw)
-            want = ref.paged_prefill_ref(q, kp, vp, tbl, offs, **kw)
-            torch.cuda.synchronize()
-            err = compare(f"paged_prefill {label} {dtype}", got, want, dtype)
-            last = offs + sq - 1
-            kv_b, _ = live_kv_bytes(kp, tbl, last)
-            ops_ = 0.0
-            for s in range(n_slots):
-                if pre_pos[s] < 0:
-                    continue
-                keys = offsets[s] + (sq + 1) / 2      # mean causal span
-                ops_ += 4.0 * sq * n_kv * group * keys * hd
-            b, by = bound_ms(nbytes(q, tbl, offs, got) + kv_b, ops_, dtype)
-            t_k = timer.ms(lambda: pak.paged_prefill(q, kp, vp, tbl, offs,
-                                                     **kw))
-            t_p = timer.ms(lambda: ref.paged_prefill_ref(q, kp, vp, tbl,
-                                                         offs, **kw))
-            qpos = offs[:, None] + torch.arange(sq, device=device)[None]
-            qd = q.reshape(n_slots, sq, n_kv * group, hd)
-            t_l = timer.ms(sdpa_on_view(qd, kp, vp, tbl, qpos, scale))
-            rows.append(dict(name="paged_prefill", shape=f"sq={sq} {label} "
-                             f"{str(dtype).split('.')[-1]}",
-                             max_abs_err=err, tol=TOL[dtype], ms=t_k,
-                             plain_ms=t_p, library_ms=t_l, bound_ms=b,
-                             bound_by=by))
-            say(f"kernel paged_prefill sq={sq} {label} {dtype}: max_abs_err"
-                f" {err:.3e} (tol {TOL[dtype]}) | kernel {t_k:.4f} ms, plain"
-                f" {t_p:.4f} ms, SDPA on gathered view {t_l:.4f} ms, bound "
-                f"{b:.4f} ms ({by})")
+            for sq in sqs:
+                rows.append(check_prefill(timer, gen, device, dtype, label,
+                                          n_kv, group, hd, block_len, bps,
+                                          sq, offsets, positions, kw))
     return rows
+
+
+def check_prefill(timer, gen, device, dtype, label, n_kv, group, hd,
+                  block_len, bps, sq, offsets, positions, kw):
+    """Chunked suffix prefill: sq queries per slot at its offset; slots
+    idle in ``positions`` get no pages (all-null rows)."""
+    from repro_torch.kernels import paged_attention as pak
+    from repro_torch.kernels import ref
+    n_slots = len(offsets)
+    offs = torch.tensor(offsets, dtype=torch.int32, device=device)
+    pre_pos = [o + sq - 1 if p >= 0 else -1
+               for o, p in zip(offsets, positions)]
+    kp, vp, tbl, _ = attn_case(
+        gen, device, dtype, n_slots=n_slots, n_kv=n_kv, group=group,
+        hd=hd, block_len=block_len, bps=bps, positions=pre_pos)
+    q = torch.randn((n_slots, sq, n_kv, group, hd), generator=gen,
+                    device=device).to(dtype)
+    got = pak.paged_prefill(q, kp, vp, tbl, offs, **kw)
+    want = ref.paged_prefill_ref(q, kp, vp, tbl, offs, **kw)
+    torch.cuda.synchronize()
+    err = compare(f"paged_prefill sq={sq} {label} {dtype}", got, want,
+                  dtype)
+    kv_b, _ = live_kv_bytes(kp, tbl, offs + sq - 1)
+    ops_ = 0.0
+    for s in range(n_slots):
+        if pre_pos[s] < 0:
+            continue
+        keys = offsets[s] + (sq + 1) / 2              # mean causal span
+        ops_ += 4.0 * sq * n_kv * group * keys * hd
+    b, by = bound_ms(nbytes(q, tbl, offs, got) + kv_b, ops_, dtype)
+    t_k = timer.ms(lambda: pak.paged_prefill(q, kp, vp, tbl, offs, **kw))
+    t_p = timer.ms(lambda: ref.paged_prefill_ref(q, kp, vp, tbl, offs,
+                                                 **kw))
+    qpos = offs[:, None] + torch.arange(sq, device=device)[None]
+    qd = q.reshape(n_slots, sq, n_kv * group, hd)
+    t_l = timer.ms(sdpa_on_view(qd, kp, vp, tbl, qpos, kw["scale"]))
+    say(f"kernel paged_prefill sq={sq} {label} {dtype}: max_abs_err"
+        f" {err:.3e} (tol {TOL[dtype]}) | kernel {t_k:.4f} ms, plain"
+        f" {t_p:.4f} ms, SDPA on gathered view {t_l:.4f} ms, bound "
+        f"{b:.4f} ms ({by})")
+    return dict(name="paged_prefill", shape=f"sq={sq} {label} "
+                f"{str(dtype).split('.')[-1]}", max_abs_err=err,
+                tol=TOL[dtype], ms=t_k, plain_ms=t_p, library_ms=t_l,
+                bound_ms=b, bound_by=by)
 
 
 # ---------------------------------------------------------------------------
@@ -366,12 +380,32 @@ def reset_launch_counts():
 def serve(cfg, params, consts, prompts, arrivals, *, exec_mode, attn_kernel,
           n_slots, max_len, block_len, new_tokens, device):
     """One engine run of the traffic through ``run_stream`` with prefix
-    sharing; returns (requests, stats, engine, wall seconds)."""
+    sharing; returns (requests, stats, engine, wall seconds). Each
+    dispatch (one prefill or decode program) is bracketed by CUDA events:
+    ``stats["span_s"]`` is the device time from each dispatch's start to
+    its last kernel's end, summed, and ``stats["token_shapes"]`` the
+    (slots, tokens per slot) of every dispatch, from which the row counts
+    the kernels saw follow."""
     from repro_torch.serve.engine import ServeEngine
     eng = ServeEngine(cfg, params, consts, n_slots=n_slots, max_len=max_len,
                       paged=True, block_len=block_len, exec_mode=exec_mode,
                       attn_kernel=attn_kernel, prefix_sharing=True,
                       device=device)
+    spans, shapes = [], set()
+
+    def bracket(fn, kind):
+        def run(params, consts, tokens, *args, **kwargs):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(params, consts, tokens, *args, **kwargs)
+            e.record()
+            spans.append((s, e))
+            shapes.add((kind, tuple(tokens.shape)))
+            return out
+        return run
+    eng._prefill_fn = bracket(eng._prefill_fn, "prefill")
+    eng._decode_fn = bracket(eng._decode_fn, "decode")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new_tokens=new_tokens, arrival=a)
@@ -379,6 +413,8 @@ def serve(cfg, params, consts, prompts, arrivals, *, exec_mode, attn_kernel,
     stats = eng.run_stream()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    stats["span_s"] = sum(s.elapsed_time(e) for s, e in spans) / 1e3
+    stats["token_shapes"] = shapes
     bad = [(r.uid, r.status) for r in reqs if r.status != "done"]
     if bad or stats["exhausted"] or len(stats["completed"]) != len(reqs):
         fail(f"{exec_mode}/{attn_kernel}: requests not completed: {bad}")
@@ -418,9 +454,10 @@ def phase_engine_f32(cfg, params, consts, prompts, arrivals, device, **kw):
     """Phase 3: the f32 engine along path A (fused sl_matmul + paged
     kernels) and path B (dense densify + gathered attention)."""
     reset_launch_counts()
-    a_reqs, _, _, a_wall = serve(cfg, params, consts, prompts, arrivals,
-                                 exec_mode="fused", attn_kernel="paged",
-                                 device=device, **kw)
+    a_reqs, a_stats, _, a_wall = serve(cfg, params, consts, prompts,
+                                       arrivals, exec_mode="fused",
+                                       attn_kernel="paged", device=device,
+                                       **kw)
     a_launches = launch_counts()
     reset_launch_counts()
     b_reqs, _, _, b_wall = serve(cfg, params, consts, prompts, arrivals,
@@ -451,7 +488,7 @@ def phase_engine_f32(cfg, params, consts, prompts, arrivals, device, **kw):
         + (f", ties (uid, token, top-2 gap): {ties}" if ties else "")
         + f" | path A {a_wall:.2f} s launches {a_launches}, path B "
         f"{b_wall:.2f} s")
-    return a_launches
+    return a_stats["token_shapes"]
 
 
 def check_forward(cfg, params, consts, device):
@@ -493,6 +530,7 @@ def phase_engine_bf16(cfg, params, consts, prompts, arrivals, device, **kw):
     hw = eng.obs.histogram("serve.ttft_wall_ms")
     ttft_ms = sorted((r.wall_first - r.wall_arrival) * 1e3 for r in reqs)
     ticks = sorted(r.t_first - r.arrival for r in reqs)
+    span = stats["span_s"]
     say(f"engine bf16 llama_1b (fused sl_matmul + paged kernels): "
         f"{len(stats['completed'])}/{len(reqs)} requests done, {tokens} "
         f"tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s, "
@@ -503,16 +541,41 @@ def phase_engine_bf16(cfg, params, consts, prompts, arrivals, device, **kw):
         f"{statistics.median(ttft_ms):.1f} max {ttft_ms[-1]:.1f} "
         f"(histogram p50 {hw.percentile(50):.1f}), ticks p50 "
         f"{statistics.median(ticks)} max {ticks[-1]} | launches {launches}")
-    return launches
+    # the device runs nothing between dispatches but the copies of each
+    # dispatch's few input and output integers: the wall time outside the
+    # dispatch spans is idle time spent on the host's scheduling; idle
+    # gaps inside a span (the host launching the next op) are not seen
+    say(f"engine bf16 dispatch spans, same run: {span:.3f} s of device time "
+        f"from each dispatch's start to its last kernel's end, of wall "
+        f"{wall:.3f} s: idle between dispatches "
+        f"{100 * (1 - span / wall):.1f}% (CUDA events around each dispatch)")
+    return launches, stats["token_shapes"], wall
 
 
-def phase_profile(cfg, params, consts, prompts, arrivals, device, **kw):
+def check_coverage(shapes, m_values, sqs):
+    """Every row count the engine gave ``sl_matmul`` and every suffix
+    length it gave ``paged_prefill`` was held against the plain version."""
+    ms = {int(np.prod(s)) for _, s in shapes}
+    pre = {s[1] for kind, s in shapes if kind == "prefill"}
+    if not ms <= set(m_values) or not pre <= set(sqs):
+        fail(f"the engine ran sl_matmul at M in {sorted(ms)} and "
+             f"paged_prefill at sq in {sorted(pre)}; checked only M in "
+             f"{sorted(m_values)} and sq in {sorted(sqs)}")
+    say(f"coverage: the engine ran sl_matmul at M in {sorted(ms)} and "
+        f"paged_prefill at sq in {sorted(pre)}, all checked above")
+
+
+def phase_profile(cfg, params, consts, prompts, arrivals, device,
+                  plain_wall, **kw):
     """Phase 5: where the time of a bf16 engine run goes — device busy
     share and the kernels by device time, from ``torch.profiler``. After
-    the launch counts are read; it drives a shorter run of the same path."""
+    the launch counts are read; it drives the same run once more, under a
+    profiler that records device activity only (no host-side op records,
+    which would slow the host and inflate the idle share). Busy and wall
+    time come from this one run; ``plain_wall`` (the unprofiled run's
+    wall) shows how far the profiler still slowed it."""
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, stats, _, wall = serve(cfg, params, consts, prompts, arrivals,
                                   device=device, **kw)
     events = [e for e in prof.events()
@@ -539,9 +602,10 @@ def phase_profile(cfg, params, consts, prompts, arrivals, device, **kw):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     total = sum(by_name.values())
     say(f"profile bf16 engine run ({stats['decode_steps']} decode steps, "
-        f"profiler on): wall {wall:.3f} s, device busy "
-        f"{busy_us / 1e6:.3f} s = {100 * busy_us / 1e6 / wall:.1f}% "
-        "(idle " f"{100 - 100 * busy_us / 1e6 / wall:.1f}%); device time by "
+        f"device-only profiler on): wall {wall:.3f} s (unprofiled run "
+        f"{plain_wall:.3f} s), device busy {busy_us / 1e6:.3f} s = "
+        f"{100 * busy_us / 1e6 / wall:.1f}% (idle "
+        f"{100 - 100 * busy_us / 1e6 / wall:.1f}%, same run); device time by "
         "kernel: " + "; ".join(f"{n[:48]} {100 * t / total:.1f}%"
                                for n, t in top))
 
@@ -601,11 +665,14 @@ def main() -> int:
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     timer = Timer(device)
-    n_slots, block_len, max_len, bucket = 4, 16, 128, 32
-    sl_rows = check_sl_matmul(timer, gen, device, cfg, n_slots,
-                              n_slots * bucket)
+    n_slots, block_len, max_len = 4, 16, 128
+    # prefill pads each slot's suffix to a power of two, at least 8
+    # (scheduler min_prefill_bucket); this traffic's suffixes fit in 32
+    buckets = (8, 16, 32)
+    m_values = (n_slots,) + tuple(n_slots * b for b in buckets)
+    sl_rows = check_sl_matmul(timer, gen, device, cfg, m_values)
     at_rows = check_attention(timer, gen, device, cfg, n_slots, block_len,
-                              max_len // block_len, bucket)
+                              max_len // block_len, buckets)
     del timer                       # free the L2 sweep buffer
 
     from repro_torch.models import lm
@@ -625,19 +692,21 @@ def main() -> int:
     kw = dict(n_slots=n_slots, max_len=max_len, block_len=block_len,
               new_tokens=16)
     check_forward(cfg32, params, consts, device)
-    phase_engine_f32(cfg32, params, consts, prompts, arrivals, device, **kw)
+    shapes = phase_engine_f32(cfg32, params, consts, prompts, arrivals,
+                              device, **kw)
 
     cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
     params16 = tree_map(lambda t: t.to(torch.bfloat16), params)
     del params
-    launches = phase_engine_bf16(cfg16, params16, consts, prompts, arrivals,
-                                 device, **kw)
+    launches, shapes16, wall16 = phase_engine_bf16(
+        cfg16, params16, consts, prompts, arrivals, device, **kw)
+    check_coverage(shapes | shapes16, m_values, buckets)
     phase_profile(cfg16, params16, consts, prompts, arrivals, device,
-                  exec_mode="fused", attn_kernel="paged", **kw)
+                  wall16, exec_mode="fused", attn_kernel="paged", **kw)
     line = kernels_line(sl_rows + at_rows, launches, {
         "sl_matmul": f"{n_slots}x{cfg.d_model}->{cfg.d_ff} bfloat16",
         "paged_attention": "32 heads bfloat16",
-        "paged_prefill": f"sq={bucket} 32 heads bfloat16"})
+        "paged_prefill": f"sq={buckets[-1]} 32 heads bfloat16"})
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

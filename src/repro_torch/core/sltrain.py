@@ -24,6 +24,7 @@ import math
 import torch
 
 from repro_torch.core import support as support_lib
+from repro_torch.device import resolve
 
 # Seed stride of the host-side re-sample when a sampled support exceeds
 # the deterministic tile_cap bound; the reference's value, so both
@@ -56,11 +57,12 @@ def prepare_fused_consts(rows, cols, d_in: int, d_out: int, delta: float,
 def init_params(gen: torch.Generator, d_in: int, d_out: int, rank: int,
                 delta: float, dtype=torch.bfloat16,
                 support_kind: str = "row_balanced", seed: int = 0,
-                exec_mode: str = "dense", device="cpu"):
+                exec_mode: str = "dense", device="cuda"):
     """(params, consts) with the reference's support, shapes and init
     laws (paper §3.3): Kaiming-uniform A, zero B, v ~ U[±1/sqrt(d_in)].
     Values come from ``gen`` (on ``device``); the support from the numpy
     sampler keyed by ``seed``, bit-identical to the reference."""
+    device = resolve(device)
     lim_a = math.sqrt(6.0 / d_in)
     lim_v = 1.0 / math.sqrt(d_in)
     rows, cols = support_lib.sample_support(seed, d_in, d_out, delta,

@@ -43,8 +43,11 @@ def _rand(rng, shape, dtype, device, lim=None):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", [
     # (M, K, N, r, delta): ragged dims, several row blocks, llama_1b decode
+    # (M = 4 slots) and prefill (M = 4 slots x bucket 8, 16, 32), which
+    # select each row-block variant of the kernel
     (5, 200, 300, 16, 0.05), (130, 256, 136, 8, 0.05),
     (1, 136, 520, 32, 0.03), (4, 2048, 5461, 512, 0.03),
+    (32, 2048, 5461, 512, 0.03), (64, 5461, 2048, 512, 0.03),
     (128, 5461, 2048, 512, 0.03)])
 def test_sl_matmul_kernel_matches_plain(cuda, case, dtype):
     m, k, n, r, delta = case
@@ -118,6 +121,7 @@ def test_paged_attention_kernel_matches_plain(cuda, case, dtype):
 @pytest.mark.parametrize("case", [
     # (block_len, n_kv, group, hd, sq, offsets, lengths, softcap, window)
     (8, 2, 2, 16, 8, [0, 8, 16, 0], [8, 5, 3, 0], 0.0, 0),
+    (16, 32, 1, 64, 8, [0, 16, 0, 16], [8, 5, 3, 0], 0.0, 0),
     (16, 32, 1, 64, 32, [0, 16, 0, 16], [24, 8, 3, 0], 0.0, 0),
     (16, 8, 4, 64, 32, [16, 0], [20, 32], 30.0, 12),
     (4, 1, 4, 32, 6, [4, 0, 12], [6, 6, 2], 25.0, 0)])

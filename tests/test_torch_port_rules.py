@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.ckpt.convert import from_jax_numpy
+from repro_torch.core import sltrain
 from repro_torch.models import lm, registry
 from repro_torch.serve.engine import ServeEngine
 
@@ -58,6 +59,8 @@ def test_entry_points_need_a_card_unless_cpu(no_card):
         lm.init_cache(cfg, 2, 32, paged=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         from_jax_numpy({"w": np.zeros(2, np.float32)}, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sltrain.init_params(torch.Generator(), 64, 64, 8, 0.05)
     params, consts = lm.init_lm(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(cfg, params, consts, paged=True, max_len=32)
