@@ -4,16 +4,26 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds every hand-written kernel from the sources in the checkout,
-holds each one against its plain PyTorch version at the serving path's
-real shapes (with timings), then drives the paged serving engine on the
+It builds every hand-written kernel from the sources in the checkout and
+holds each one against its plain PyTorch version at the real shapes of
+the two ported paths (with timings). Then it drives both paths on the
 paper's ``llama_1b`` config at full width and depth with random weights
-from a seed: once in float32 along two paths that must give the same
-greedy tokens (fused ``sl_matmul`` + paged kernels, and dense densify +
-gathered attention), and once in bfloat16, timed, with every kernel's
-launch count read around the run. Any failure exits non-zero. Without a
-CUDA device, or without the rest of the repository beside it, it exits
-non-zero and prints no result.
+from a seed:
+
+* serving: the paged engine once in float32 along two paths that must
+  give the same greedy tokens (fused ``sl_matmul`` + paged kernels, and
+  dense densify + gathered attention), and once in bfloat16, timed, with
+  every kernel's launch count read around the run, then profiled;
+* training: 3 float32 train steps with exec_mode "fused" (``sl_matmul``
+  forward and dx, ``sddmm`` dV) held against exec_mode "dense" (densify +
+  the eq.-(2) backward) from one init and one data stream; then the
+  ``Trainer`` in bfloat16 for 6 steps, timed, with the launch counts read
+  around the run and its checkpoint written; a device-only profile of one
+  more step; and, on ``llama_60m``, a run killed at step 4 and relaunched
+  from its checkpoint that must end bit-identical to an uninterrupted one.
+
+Any failure exits non-zero. Without a CUDA device, or without the rest of
+the repository beside it, it exits non-zero and prints no result.
 
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -23,16 +33,21 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# cuBLAS needs this set before its first call to run deterministically
+# (the kill/resume phase turns on torch.use_deterministic_algorithms)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
 # operations/s by input type, tensor cores for bf16, CUDA cores for f32.
@@ -49,11 +64,25 @@ FLUSH_BYTES = 256 << 20
 
 SL_SOURCE = "src/repro_torch/kernels/csrc/sl_matmul.cu"
 PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+SD_SOURCE = "src/repro_torch/kernels/csrc/sddmm.cu"
 REPLACES = {
     "sl_matmul": "src/repro/kernels/sl_matmul.py:63",
     "paged_attention": "src/repro/kernels/paged_attention.py:132",
     "paged_prefill": "src/repro/kernels/paged_attention.py:241",
+    "sddmm": "src/repro/kernels/sddmm.py:47",
 }
+# sddmm against its plain version (xᵀ·dy by cuBLAS, then the gather): the
+# kernel sums each slot over tokens in order; a GEMM may split the token
+# sum, and then the absolute error grows with sqrt(M) times the partial
+# sums' ulp
+SDDMM_ATOL, SDDMM_RTOL = 1e-3, 1e-4
+# f32 train parity, fused vs dense: step 1 runs from identical parameters,
+# so only the order of f32 sums differs (1e-5 relative). From step 2 on,
+# Adam divides each gradient by its own magnitude: an element whose
+# gradient is near zero can move by up to lr in either path, so later
+# losses and norms agree only to 1e-3 relative.
+TRAIN_TOL_STEP1 = 1e-5
+TRAIN_TOL_LATER = 1e-3
 
 
 def say(*parts) -> None:
@@ -142,45 +171,122 @@ def sl_case(gen, device, d_in, d_out, m, dtype, rank, delta, alpha, seed):
     return x, B, A, v_t, rows_t, cols_t, alpha / r
 
 
+def time_sl_matmul(timer, label, args, dtype):
+    """One sl_matmul case: held against the plain version, timed beside
+    it, beside torch.matmul on a pre-densified W, and its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sl_matmul as slk
+    x, B, A, v_t, rt, ct, scale = args
+    got = slk.sl_matmul(*args)
+    want = ref.sl_matmul_ref(*args)
+    torch.cuda.synchronize()
+    err = compare(f"sl_matmul {label}", got, want, dtype)
+    m, d_in = x.shape
+    r, d_out = A.shape
+    W = ref.densify_tiles(B, A, v_t, rt, ct, scale, dtype)
+    W = W[:d_in, :d_out].contiguous()
+    t_k = timer.ms(lambda: slk.sl_matmul(*args))
+    t_p = timer.ms(lambda: ref.sl_matmul_ref(*args))
+    t_l = timer.ms(lambda: torch.matmul(x, W))
+    # the least operations the function needs: densify W and multiply
+    # (2·K·N·r + 2·M·K·N), or keep it factored, (x·B)·A plus the sparse
+    # product (2·M·r·(K + N) + 2·M·nnz), whichever is fewer; nnz counts
+    # the support's entries (padding slots hold 0, sampled values never)
+    nnz = int((v_t != 0).sum())
+    ops_ = min(2.0 * d_in * d_out * r + 2.0 * m * d_in * d_out,
+               2.0 * m * r * (d_in + d_out) + 2.0 * m * nnz)
+    b, by = bound_ms(nbytes(x, B, A, v_t, rt, ct, got), ops_, dtype)
+    row = dict(name="sl_matmul", shape=label, max_abs_err=err,
+               tol=TOL[dtype], ms=t_k, plain_ms=t_p, library_ms=t_l,
+               bound_ms=b, bound_by=by)
+    say(f"kernel sl_matmul {label}: max_abs_err {err:.3e} (tol "
+        f"{TOL[dtype]}) | kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"torch.matmul on dense W {t_l:.4f} ms, bound {b:.4f} ms ({by}, "
+        f"{ops_ / 1e9:.2f} GFLOP)")
+    return row
+
+
+def dname(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
 def check_sl_matmul(timer, gen, device, cfg, m_values):
     """Every row count the engine gives the kernel (a decode batch and
     each prefill bucket times the slots), so each row-block variant of
     the kernel is held against the plain version."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import sl_matmul as slk
     d, f = cfg.d_model, cfg.d_ff
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for (d_in, d_out) in ((d, d), (d, f), (f, d)):
             for m in m_values:
-                x, B, A, v_t, rt, ct, scale = sl_case(
-                    gen, device, d_in, d_out, m, dtype, cfg.param.rank,
-                    cfg.param.delta, cfg.param.alpha, seed=d_in * 7 + d_out)
-                got = slk.sl_matmul(x, B, A, v_t, rt, ct, scale)
-                want = ref.sl_matmul_ref(x, B, A, v_t, rt, ct, scale)
-                torch.cuda.synchronize()
-                err = compare(f"sl_matmul {d_in}->{d_out} M={m} {dtype}",
-                              got, want, dtype)
-                W = ref.densify_tiles(B, A, v_t, rt, ct, scale, dtype)
-                W = W[:d_in, :d_out].contiguous()
-                t_k = timer.ms(lambda: slk.sl_matmul(x, B, A, v_t, rt, ct,
-                                                     scale))
-                t_p = timer.ms(lambda: ref.sl_matmul_ref(x, B, A, v_t, rt,
-                                                         ct, scale))
-                t_l = timer.ms(lambda: torch.matmul(x, W))
-                r = B.shape[1]
-                ops_ = 2.0 * d_in * d_out * r + 2.0 * m * d_in * d_out
-                b, by = bound_ms(nbytes(x, B, A, v_t, rt, ct, got), ops_,
-                                 dtype)
-                row = dict(name="sl_matmul", shape=f"{m}x{d_in}->{d_out} "
-                           f"{str(dtype).split('.')[-1]}", max_abs_err=err,
-                           tol=TOL[dtype], ms=t_k, plain_ms=t_p,
-                           library_ms=t_l, bound_ms=b, bound_by=by)
-                rows.append(row)
-                say(f"kernel sl_matmul {row['shape']}: max_abs_err "
-                    f"{err:.3e} (tol {TOL[dtype]}) | kernel {t_k:.4f} ms, "
-                    f"plain {t_p:.4f} ms, torch.matmul on dense W "
-                    f"{t_l:.4f} ms, bound {b:.4f} ms ({by})")
+                args = sl_case(gen, device, d_in, d_out, m, dtype,
+                               cfg.param.rank, cfg.param.delta,
+                               cfg.param.alpha, seed=d_in * 7 + d_out)
+                rows.append(time_sl_matmul(
+                    timer, f"{m}x{d_in}->{d_out} {dname(dtype)}", args,
+                    dtype))
+    return rows
+
+
+def time_sddmm(timer, label, x, dy, rt, ct, dtype):
+    """One sddmm case against its plain version, timed beside it and
+    beside torch.matmul(xᵀ, dy) in f32 plus the gather; its bound counts
+    2·M·(nkt·nnt·cap) operations (one multiply-add per slot and token)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sddmm as sdk
+    got = sdk.sddmm(x, dy, rt, ct)
+    want = ref.sddmm_ref(x, dy, rt, ct)
+    torch.cuda.synchronize()
+    atol, rtol = SDDMM_ATOL, SDDMM_RTOL
+    err = (got - want).abs()
+    if not torch.isfinite(got).all() or bool(
+            (err > atol + rtol * want.abs()).any()):
+        fail(f"sddmm {label}: kernel disagrees with its plain version: max "
+             f"abs err {err.max().item():.3e}, tolerance atol {atol} rtol "
+             f"{rtol}")
+    err = float(err.max().item())
+    nkt, nnt, cap = rt.shape
+    gr, gc = ref._tile_coords(rt, ct)
+    xf, dyf = x.float(), dy.float()
+    t_k = timer.ms(lambda: sdk.sddmm(x, dy, rt, ct))
+    t_p = timer.ms(lambda: ref.sddmm_ref(x, dy, rt, ct))
+    t_l = timer.ms(lambda: torch.matmul(xf.T, dyf)[gr, gc])
+    ops_ = 2.0 * x.shape[0] * nkt * nnt * cap
+    b, by = bound_ms(nbytes(x, dy, rt, ct, got), ops_, dtype)
+    say(f"kernel sddmm {label}: max_abs_err {err:.3e} (atol {atol} rtol "
+        f"{rtol}) | kernel {t_k:.4f} ms, plain {t_p:.4f} ms, torch.matmul "
+        f"f32 + gather {t_l:.4f} ms, bound {b:.4f} ms ({by}, "
+        f"{ops_ / 1e9:.2f} GFLOP)")
+    return dict(name="sddmm", shape=label, max_abs_err=err, tol=atol,
+                ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b,
+                bound_by=by)
+
+
+def check_train_kernels(timer, gen, device, cfg, m):
+    """The training path's kernel calls at M = batch x seq tokens, for each
+    projection shape: the forward sl_matmul, the dx sl_matmul on the
+    transposed factors and Wᵀ's tile consts, and sddmm."""
+    from repro_torch.kernels import ops
+    d, f = cfg.d_model, cfg.d_ff
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for (d_in, d_out) in ((d, d), (d, f), (f, d)):
+            x, B, A, v_t, rt, ct, scale = sl_case(
+                gen, device, d_in, d_out, m, dtype, cfg.param.rank,
+                cfg.param.delta, cfg.param.alpha, seed=d_in * 7 + d_out)
+            rows.append(time_sl_matmul(
+                timer, f"{m}x{d_in}->{d_out} {dname(dtype)}",
+                (x, B, A, v_t, rt, ct, scale), dtype))
+            dy = torch.randn((m, d_out), generator=gen, device=device).to(
+                dtype)
+            rows.append(time_sl_matmul(
+                timer, f"dx {m}x{d_out}->{d_in} {dname(dtype)}",
+                (dy, A.T.contiguous(), B.T.contiguous(),
+                 ops.transpose_tiles(v_t), ops.transpose_tiles(ct),
+                 ops.transpose_tiles(rt), scale), dtype))
+            rows.append(time_sddmm(
+                timer, f"{m}x({d_in},{d_out}) {dname(dtype)}", x, dy, rt,
+                ct, dtype))
     return rows
 
 
@@ -361,20 +467,22 @@ def traffic(vocab: int, n: int = 8, seed: int = 0):
     return prompts, np.cumsum(rng.poisson(2.0, size=n)).tolist()
 
 
-def launch_counts():
+def _wrappers():
     from repro_torch.kernels import paged_attention as pak
+    from repro_torch.kernels import sddmm as sdk
     from repro_torch.kernels import sl_matmul as slk
-    return {"sl_matmul": slk.sl_matmul.launches,
-            "paged_attention": pak.paged_attention.launches,
-            "paged_prefill": pak.paged_prefill.launches}
+    return {"sl_matmul": slk.sl_matmul, "paged_attention":
+            pak.paged_attention, "paged_prefill": pak.paged_prefill,
+            "sddmm": sdk.sddmm}
+
+
+def launch_counts():
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
 
 def reset_launch_counts():
-    from repro_torch.kernels import paged_attention as pak
-    from repro_torch.kernels import sl_matmul as slk
-    slk.sl_matmul.launches = 0
-    pak.paged_attention.launches = 0
-    pak.paged_prefill.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def serve(cfg, params, consts, prompts, arrivals, *, exec_mode, attn_kernel,
@@ -466,7 +574,7 @@ def phase_engine_f32(cfg, params, consts, prompts, arrivals, device, **kw):
     b_launches = launch_counts()
     if any(b_launches.values()):
         fail(f"path B (dense/gather) launched kernels: {b_launches}")
-    if not all(a_launches.values()):
+    if not all(n for k, n in a_launches.items() if k != "sddmm"):
         fail(f"path A (fused/paged) missed a kernel: {a_launches}")
     ties, same = [], 0
     for ra, rb in zip(a_reqs, b_reqs):
@@ -523,9 +631,9 @@ def phase_engine_bf16(cfg, params, consts, prompts, arrivals, device, **kw):
                                    exec_mode="fused", attn_kernel="paged",
                                    device=device, **kw)
     launches = launch_counts()
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k, n in launches.items() if n == 0 and k != "sddmm"]
     if missing:
-        fail(f"bf16 main path never launched {missing}: {launches}")
+        fail(f"bf16 serving path never launched {missing}: {launches}")
     tokens = sum(len(r.out) for r in reqs)
     hw = eng.obs.histogram("serve.ttft_wall_ms")
     ttft_ms = sorted((r.wall_first - r.wall_arrival) * 1e3 for r in reqs)
@@ -578,11 +686,27 @@ def phase_profile(cfg, params, consts, prompts, arrivals, device,
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, stats, _, wall = serve(cfg, params, consts, prompts, arrivals,
                                   device=device, **kw)
+    busy = device_busy(prof)
+    if busy is None:
+        say("profile: the profiler recorded no device time (not measured)")
+        return
+    busy_us, top = busy
+    say(f"profile bf16 engine run ({stats['decode_steps']} decode steps, "
+        f"device-only profiler on): wall {wall:.3f} s (unprofiled run "
+        f"{plain_wall:.3f} s), device busy {busy_us / 1e6:.3f} s = "
+        f"{100 * busy_us / 1e6 / wall:.1f}% (idle "
+        f"{100 - 100 * busy_us / 1e6 / wall:.1f}%, same run); device time by "
+        "kernel: " + "; ".join(f"{n[:48]} {pct:.1f}%" for n, pct in top))
+
+
+def device_busy(prof, n_top: int = 6):
+    """(busy µs, [(kernel name, % of device time)] for the top ``n_top``)
+    from a profiler's device events: busy is the union of the kernels'
+    intervals. None when the profiler recorded no device activity."""
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
-        say("profile: the profiler recorded no device time (not measured)")
-        return
+        return None
     busy_us, spans = 0.0, sorted((e.time_range.start, e.time_range.end)
                                  for e in events)
     cur_s, cur_e = spans[0]
@@ -599,29 +723,278 @@ def phase_profile(cfg, params, consts, prompts, arrivals, device,
                                                 "")
         by_name[n] = by_name.get(n, 0.0) + \
             (e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     total = sum(by_name.values())
-    say(f"profile bf16 engine run ({stats['decode_steps']} decode steps, "
-        f"device-only profiler on): wall {wall:.3f} s (unprofiled run "
-        f"{plain_wall:.3f} s), device busy {busy_us / 1e6:.3f} s = "
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
+    return busy_us, [(n, 100 * t / total) for n, t in top]
+
+
+# ---------------------------------------------------------------------------
+# phases 6 to 9: training at llama_1b (and kill/resume at llama_60m)
+# ---------------------------------------------------------------------------
+
+class ShapeRecorder:
+    """Records the (M, K, N) of every sl_matmul and sddmm call the fused
+    linear makes while it is active, by wrapping the two ``kernels.ops``
+    functions it calls (the kernel wrappers, and their launch counts, are
+    untouched)."""
+
+    def __init__(self):
+        self.shapes = {"sl_matmul": set(), "sddmm": set()}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._orig = (ops.sl_matmul, ops.sddmm)
+        sl, sd = self._orig
+
+        def sl_rec(x, B, A, *a, **k):
+            self.shapes["sl_matmul"].add((x.numel() // x.shape[-1],
+                                          x.shape[-1], A.shape[-1]))
+            return sl(x, B, A, *a, **k)
+
+        def sd_rec(x, dy, *a, **k):
+            self.shapes["sddmm"].add((x.numel() // x.shape[-1], x.shape[-1],
+                                      dy.shape[-1]))
+            return sd(x, dy, *a, **k)
+        ops.sl_matmul, ops.sddmm = sl_rec, sd_rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.sl_matmul, ops.sddmm = self._orig
+
+
+def train_config(cfg, *, steps, batch, seq, ckpt_dir, ckpt_every=0, lr=3e-3):
+    """The TrainConfig the port's launcher builds for these flags."""
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    oc = OptimizerConfig(lr=lr, warmup_steps=max(1, steps // 10),
+                         total_steps=steps)
+    return TrainConfig(model=cfg, optim=oc, seed=0, global_batch=batch,
+                       seq_len=seq, steps=steps, log_every=1,
+                       ckpt_every=ckpt_every, ckpt_dir=ckpt_dir,
+                       async_ckpt=False, keep_ckpts=1)
+
+
+def phase_train_parity(cfg, device, gen, *, batch, seq, steps=3):
+    """Phase 6: f32 training, fused (sl_matmul forward and dx, sddmm dV)
+    against dense (densify + eq.-(2) backward), from one init and one
+    SyntheticC4 stream, through the train step the Trainer runs. B is
+    drawn at random, as for serving, so that step 1 covers the low-rank
+    half of the forward, dx and dA too (B = 0 makes dA exactly 0)."""
+    from repro_torch.data.pipeline import SyntheticC4
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.optim import optimizers
+    from repro_torch.train import step as step_lib
+    tc = train_config(cfg, steps=steps, batch=batch, seq=seq, ckpt_dir="")
+    api = registry.get_api(cfg)
+    t0 = time.perf_counter()
+    params, consts = api.init(cfg, seed=tc.seed, device=device)
+    randomize_b(params, gen)
+    consts = ops.add_transposed_tiles(consts)
+    torch.cuda.synchronize()
+    say(f"init llama_1b f32 for training in {time.perf_counter() - t0:.1f} s")
+    data = SyntheticC4(cfg.vocab_size, seq, batch, seed=tc.seed)
+    batches = [{"tokens": torch.from_numpy(data.next_batch()["tokens"]).to(
+        device)} for _ in range(steps)]
+    out = {}
+    for mode in ("fused", "dense"):
+        c = dataclasses.replace(cfg, param=dataclasses.replace(
+            cfg.param, exec_mode=mode))
+        opt = optimizers.make(tc.optim)
+        fn = step_lib.make_train_step(c, api, opt)
+        p, st = params, opt.init(params)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = []
+        for b in batches:
+            p, st, m = fn(p, st, consts, b)
+            rows.append((float(m["loss"]), float(m["grad_norm"]),
+                         float(m["nonfinite"])))
+        wall = time.perf_counter() - t0
+        out[mode] = rows
+        launches = launch_counts()
+        want_zero = mode == "dense"
+        if want_zero == any(launches[k] for k in ("sl_matmul", "sddmm")):
+            fail(f"f32 {mode} training launched {launches}")
+        del p, st
+        say(f"train f32 llama_1b {mode}: {steps} steps in {wall:.2f} s, "
+            f"(loss, grad_norm, nonfinite) per step {rows} | launches "
+            f"{launches}")
+    for i, (f, d) in enumerate(zip(out["fused"], out["dense"])):
+        tol = TRAIN_TOL_STEP1 if i == 0 else TRAIN_TOL_LATER
+        for what, a, b in (("loss", f[0], d[0]), ("grad_norm", f[1], d[1])):
+            rel = abs(a - b) / max(abs(b), 1e-12)
+            if not (np.isfinite(a) and rel <= tol) or f[2] or d[2]:
+                fail(f"f32 train step {i + 1}: fused {what} {a!r} vs dense "
+                     f"{b!r}, relative difference {rel:.3e} > {tol}")
+    rel = [max(abs(f[k] - d[k]) / abs(d[k]) for k in (0, 1))
+           for f, d in zip(out["fused"], out["dense"])]
+    say(f"train f32 parity: fused vs dense largest relative difference of "
+        f"loss and grad norm per step {[f'{r:.2e}' for r in rel]} (tol "
+        f"{TRAIN_TOL_STEP1} at step 1, {TRAIN_TOL_LATER} after)")
+
+
+def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=6):
+    """Phase 7: the Trainer in bf16 (fused), as the launcher runs it: one
+    warm-up step plus five timed, its final checkpoint written. Launch
+    counts and the shapes the kernels saw are read around the run."""
+    from repro_torch.analysis import roofline
+    from repro_torch.train.trainer import Trainer
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tc = train_config(cfg, steps=steps, batch=batch, seq=seq,
+                      ckpt_dir=ckpt_dir)
+    tr = Trainer(tc, device=device, log_fn=lambda *a: None)
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with ShapeRecorder() as rec:
+        state = tr.run(state=state)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = tr.metrics_history
+    dts = [h["dt"] for h in hist]
+    losses = [h["loss"] for h in hist]
+    if len(hist) != steps or not all(np.isfinite(losses)) or any(
+            h["nonfinite"] for h in hist):
+        fail(f"bf16 training: losses {losses}")
+    n_lin = 7 * cfg.n_layers
+    want = {"sl_matmul": 2 * n_lin * steps, "sddmm": n_lin * steps,
+            "paged_attention": 0, "paged_prefill": 0}
+    if launches != want:
+        fail(f"bf16 training launched {launches}, expected {want} "
+             f"({n_lin} linears x {steps} steps: forward + dx, dV)")
+    med = statistics.median(dts[1:])
+    tokens = batch * seq
+    mfu = roofline.train_mfu(cfg, tokens, med)
+    say(f"train bf16 llama_1b (Trainer, fused): {steps} steps, losses "
+        f"{[round(x, 4) for x in losses]} | step ms (dispatch + sync) "
+        f"{[round(d * 1e3, 1) for d in dts]}, median of steps 2-{steps} "
+        f"{med * 1e3:.1f} ms = {tokens / med:.0f} tokens/s, MFU "
+        f"{100 * mfu:.3f}% of {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s "
+        f"(data sheet) | launches per step: sl_matmul "
+        f"{launches['sl_matmul'] // steps}, sddmm {launches['sddmm'] // steps}"
+        f" | max_memory_allocated {peak / 2**30:.2f} GiB | run wall "
+        f"{wall:.1f} s incl. checkpoint of step {steps} | {smi}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return tr, state, launches, rec.shapes, med
+
+
+def phase_train_profile(tr, state, device, med_s):
+    """Phase 8: a device-only profile of one more bf16 train step: time
+    by kernel and the idle share within that step."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in tr.data.next_batch().items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, m = tr._train_step(state.params, state.opt_state, state.consts,
+                                 batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = device_busy(prof, n_top=8)
+    if busy is None:
+        say("profile train step: the profiler recorded no device time "
+            "(not measured)")
+        return
+    busy_us, top = busy
+    say(f"profile bf16 train step (device-only profiler on): wall "
+        f"{wall * 1e3:.1f} ms (unprofiled median {med_s * 1e3:.1f} ms), "
+        f"device busy {busy_us / 1e3:.1f} ms = "
         f"{100 * busy_us / 1e6 / wall:.1f}% (idle "
-        f"{100 - 100 * busy_us / 1e6 / wall:.1f}%, same run); device time by "
-        "kernel: " + "; ".join(f"{n[:48]} {100 * t / total:.1f}%"
-                               for n, t in top))
+        f"{100 - 100 * busy_us / 1e6 / wall:.1f}%, same step); device time "
+        "by kernel: " + "; ".join(f"{n[:48]} {pct:.1f}%" for n, pct in top))
 
 
-def kernels_line(rows, launches, representative):
+def phase_kill_resume(device):
+    """Phase 9: the Trainer on llama_60m (full width, bf16, fused) with a
+    checkpoint every 3 steps, killed at step 4 by ``fault_hook`` and
+    relaunched, ends bit-identical to an uninterrupted run. Runs under
+    torch.use_deterministic_algorithms: the embedding's backward
+    accumulates by index, which is not deterministic on CUDA otherwise."""
+    from repro_torch.configs import llama_60m
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train.trainer import Trainer
+
+    class Kill(Exception):
+        pass
+
+    def hook(step):
+        if step == 4:
+            raise Kill()
+    cfg = dataclasses.replace(llama_60m.CONFIG, param=dataclasses.replace(
+        llama_60m.CONFIG.param, exec_mode="fused"))
+    root = os.path.join(ROOT, "build", "chip_smoke_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    quiet = dict(device=device, log_fn=lambda *a: None)
+    mk = lambda d: train_config(cfg, steps=6, batch=8, seq=256,
+                                ckpt_dir=os.path.join(root, d), ckpt_every=3)
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        ref = Trainer(mk("a"), **quiet).run()
+        try:
+            Trainer(mk("b"), fault_hook=hook, **quiet).run()
+            fail("kill/resume: the fault hook never fired")
+        except Kill:
+            pass
+        tr = Trainer(mk("b"), **quiet)
+        got = tr.run()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    shutil.rmtree(root, ignore_errors=True)
+    if tr.metrics_history[0]["step"] != 4:
+        fail(f"kill/resume: relaunch did not resume at step 4 "
+             f"({tr.metrics_history[0]['step']})")
+    a, b = tree_leaves(ref.params), tree_leaves(got.params)
+    same = sum(bool(torch.equal(x, y)) for x, y in zip(a, b))
+    if same != len(a):
+        fail(f"kill/resume: {len(a) - same} of {len(a)} param leaves differ "
+             "from the uninterrupted run")
+    say(f"kill/resume llama_60m (bf16, fused, deterministic algorithms): "
+        f"killed at step 4, resumed from step 3, {same}/{len(a)} param "
+        f"leaves bit-identical to the uninterrupted run after 6 steps "
+        f"({wall:.1f} s for the three runs)")
+
+
+def check_train_coverage(shapes, m, cfg):
+    """Every (M, K, N) the trainer gave sl_matmul and sddmm was checked in
+    the kernel phase (forward, dx and sddmm at the three projection
+    shapes)."""
+    d, f = cfg.d_model, cfg.d_ff
+    checked = {(m, a, b) for a, b in ((d, d), (d, f), (f, d))}
+    for k, seen in shapes.items():
+        if not seen or not seen <= checked:
+            fail(f"the trainer ran {k} at (M, K, N) in {sorted(seen)}; "
+                 f"checked only {sorted(checked)}")
+    say(f"coverage: the trainer ran sl_matmul at {sorted(shapes['sl_matmul'])}"
+        f" and sddmm at {sorted(shapes['sddmm'])} (M, K, N), all checked "
+        "above")
+
+
+def kernels_line(rows, by_path, representative):
     """One entry per kernel: the representative case's times and bound,
-    the largest error over all of the kernel's cases."""
+    the largest error over all of the kernel's cases; launches summed
+    over the main paths' runs (serving and training), each path's count
+    beside them."""
     out = []
     src = {"sl_matmul": SL_SOURCE, "paged_attention": PA_SOURCE,
-           "paged_prefill": PA_SOURCE}
+           "paged_prefill": PA_SOURCE, "sddmm": SD_SOURCE}
     for name, shape in representative.items():
         mine = [r for r in rows if r["name"] == name]
         rep = next(r for r in mine if r["shape"] == shape)
         out.append({
             "name": name, "route": "cuda", "source": src[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": sum(n[name] for n in by_path.values()),
+            "launches_by_path": {p: n[name] for p, n in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -633,6 +1006,40 @@ def kernels_line(rows, launches, representative):
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
+
+def run_serving(cfg, device, gen, n_slots, block_len, max_len, buckets,
+                m_values):
+    """Phases 3 to 5 on the serving path; returns its launch counts."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves, tree_map
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param=dataclasses.replace(
+        cfg.param, exec_mode="fused"))
+    params, consts = lm.init_lm(cfg32, seed=0, device=device)
+    randomize_b(params, gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    say(f"init llama_1b: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
+        f"{cfg.d_ff}, rank {cfg.param.rank}, {n_params / 1e6:.1f} M params, "
+        f"consts {sum(nbytes(t) for _, t in tree_leaves(consts)) / 2**30:.2f} "
+        f"GiB, in {time.perf_counter() - t0:.1f} s")
+    prompts, arrivals = traffic(cfg.vocab_size)
+    kw = dict(n_slots=n_slots, max_len=max_len, block_len=block_len,
+              new_tokens=16)
+    check_forward(cfg32, params, consts, device)
+    shapes = phase_engine_f32(cfg32, params, consts, prompts, arrivals,
+                              device, **kw)
+
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    params16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    del params
+    launches, shapes16, wall16 = phase_engine_bf16(
+        cfg16, params16, consts, prompts, arrivals, device, **kw)
+    check_coverage(shapes | shapes16, m_values, buckets)
+    phase_profile(cfg16, params16, consts, prompts, arrivals, device,
+                  wall16, exec_mode="fused", attn_kernel="paged", **kw)
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -670,43 +1077,39 @@ def main() -> int:
     # (scheduler min_prefill_bucket); this traffic's suffixes fit in 32
     buckets = (8, 16, 32)
     m_values = (n_slots,) + tuple(n_slots * b for b in buckets)
+    # the reference trainer's defaults: global batch 8, seq 256
+    batch, seq = 8, 256
     sl_rows = check_sl_matmul(timer, gen, device, cfg, m_values)
     at_rows = check_attention(timer, gen, device, cfg, n_slots, block_len,
                               max_len // block_len, buckets)
+    tr_rows = check_train_kernels(timer, gen, device, cfg, batch * seq)
     del timer                       # free the L2 sweep buffer
 
-    from repro_torch.models import lm
-    from repro_torch.models.common import tree_leaves, tree_map
-    t0 = time.perf_counter()
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param=dataclasses.replace(
-        cfg.param, exec_mode="fused"))
-    params, consts = lm.init_lm(cfg32, seed=0, device=device)
-    randomize_b(params, gen)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for _, t in tree_leaves(params))
-    say(f"init llama_1b: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
-        f"{cfg.d_ff}, rank {cfg.param.rank}, {n_params / 1e6:.1f} M params, "
-        f"consts {sum(nbytes(t) for _, t in tree_leaves(consts)) / 2**30:.2f} "
-        f"GiB, in {time.perf_counter() - t0:.1f} s")
-    prompts, arrivals = traffic(cfg.vocab_size)
-    kw = dict(n_slots=n_slots, max_len=max_len, block_len=block_len,
-              new_tokens=16)
-    check_forward(cfg32, params, consts, device)
-    shapes = phase_engine_f32(cfg32, params, consts, prompts, arrivals,
-                              device, **kw)
+    by_path = {"serve": run_serving(cfg, device, gen, n_slots, block_len,
+                                    max_len, buckets, m_values)}
+    torch.cuda.empty_cache()
 
-    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
-    params16 = tree_map(lambda t: t.to(torch.bfloat16), params)
-    del params
-    launches, shapes16, wall16 = phase_engine_bf16(
-        cfg16, params16, consts, prompts, arrivals, device, **kw)
-    check_coverage(shapes | shapes16, m_values, buckets)
-    phase_profile(cfg16, params16, consts, prompts, arrivals, device,
-                  wall16, exec_mode="fused", attn_kernel="paged", **kw)
-    line = kernels_line(sl_rows + at_rows, launches, {
-        "sl_matmul": f"{n_slots}x{cfg.d_model}->{cfg.d_ff} bfloat16",
+    phase_train_parity(dataclasses.replace(
+        cfg, dtype="float32", param=dataclasses.replace(
+            cfg.param, exec_mode="fused")), device, gen, batch=batch,
+        seq=seq)
+    torch.cuda.empty_cache()
+    cfg16 = dataclasses.replace(cfg, param=dataclasses.replace(
+        cfg.param, exec_mode="fused"))
+    tr, state, by_path["train"], shapes, med = phase_train_bf16(
+        cfg16, device, smi, batch=batch, seq=seq)
+    check_train_coverage(shapes, batch * seq, cfg)
+    phase_train_profile(tr, state, device, med)
+    del tr, state
+    torch.cuda.empty_cache()
+    phase_kill_resume(device)
+
+    m = batch * seq
+    line = kernels_line(sl_rows + at_rows + tr_rows, by_path, {
+        "sl_matmul": f"{m}x{cfg.d_model}->{cfg.d_ff} bfloat16",
         "paged_attention": "32 heads bfloat16",
-        "paged_prefill": f"sq={buckets[-1]} 32 heads bfloat16"})
+        "paged_prefill": f"sq={buckets[-1]} 32 heads bfloat16",
+        "sddmm": f"{m}x({cfg.d_model},{cfg.d_ff}) bfloat16"})
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

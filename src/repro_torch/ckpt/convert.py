@@ -1,10 +1,12 @@
 """Load the reference's numpy trees onto the port's tensors.
 
-The port's params/consts are nested dicts laid out as the reference's
-pytrees, so a leaf's ``/``-joined path (the key ``repro.ckpt.checkpoint``
-writes into ``arrays.npz``) names the same leaf on both sides. bf16 leaves
-travel as uint16 bit-views (the checkpoint's convention; no parameter of
-the port is a uint16) and are viewed back as bf16 here.
+The port's params/consts/optimizer state are nested dicts laid out as the
+reference's pytrees, so a leaf's ``/``-joined path (the key
+``repro.ckpt.checkpoint`` writes into ``arrays.npz``) names the same leaf
+on both sides. bf16 leaves travel as uint16 bit-views (the checkpoint's
+convention; no parameter of the port is a uint16) and are viewed back as
+bf16 here. The port's :class:`repro_torch.ckpt.checkpoint.CheckpointManager`
+is the other route: it restores the reference's checkpoints directly.
 """
 from __future__ import annotations
 
@@ -60,3 +62,11 @@ def from_jax_numpy(params, consts, device="cuda"):
     checkpoint stores them."""
     device = resolve(device)
     return _convert(params, device), _convert(consts, device)
+
+
+def opt_state_from_jax_numpy(opt_state, device="cuda"):
+    """The reference's AdamW state ({"mu", "nu", "step"} as numpy arrays,
+    nested or flat) as the port's (``repro_torch.optim.optimizers.adamw``
+    keeps the same tree: f32 moments mirroring the params and an int32
+    scalar step)."""
+    return _convert(opt_state, resolve(device))

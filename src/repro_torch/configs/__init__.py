@@ -1,2 +1,3 @@
 from repro_torch.configs.base import (ModelConfig, MoEConfig,  # noqa: F401
-                                      ParamConfig, SSMConfig)
+                                      OptimizerConfig, ParamConfig,
+                                      SSMConfig, ShardingConfig, TrainConfig)

@@ -1,9 +1,10 @@
 """Config dataclasses of the model side, copied from ``repro.configs.base``.
 
 Plain frozen dataclasses so configs hash and compare; ``ModelConfig.hash``
-gives the same digest as the reference for the same field values. The
-train-side configs (optimizer, sharding, trainer) arrive with the training
-slice of the port.
+gives the same digest as the reference for the same field values, so a
+checkpoint's ``config_hash`` agrees across the two packages. The
+train-side configs keep the reference's field names and defaults; the
+options the port does not run yet raise where they are used.
 """
 from __future__ import annotations
 
@@ -121,3 +122,59 @@ class ModelConfig:
         return hashlib.sha256(
             json.dumps(dataclasses.asdict(self), sort_keys=True, default=str).encode()
         ).hexdigest()[:16]
+
+
+# ---------------------------------------------------------------------------
+# Training / runtime
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"           # adamw | adam8bit | galore_adamw
+    lr: float = 3e-3
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_ratio: float = 0.1
+    # GaLore
+    galore_rank: int = 128
+    galore_update_proj_gap: int = 200
+    galore_scale: float = 0.25
+    # 8-bit Adam
+    q_block: int = 256
+
+
+@dataclass(frozen=True)
+class ShardingConfig:
+    """Sharding policy and train-step execution knobs. The port runs one
+    card with ``update_mode="global"``, ``remat="none"`` and no fsdp or
+    pod compression; the rest raises (ROADMAP queue A items 5 and 10)."""
+    batch_axes: Tuple[str, ...] = ("pod", "data")
+    model_axis: str = "model"
+    fsdp: bool = False
+    fsdp_axis: str = "data"
+    remat: str = "none"           # none | full | dots_saveable
+    grad_accum: int = 1
+    update_mode: str = "global"   # global | per_layer
+    pod_grad_compression: bool = False
+    seq_shard_decode: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimizerConfig = field(default_factory=OptimizerConfig)
+    sharding: ShardingConfig = field(default_factory=ShardingConfig)
+    seed: int = 42
+    global_batch: int = 8
+    seq_len: int = 256
+    steps: int = 50
+    log_every: int = 10
+    ckpt_every: int = 1000
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    async_ckpt: bool = True
+    keep_ckpts: int = 3

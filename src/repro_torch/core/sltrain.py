@@ -1,5 +1,5 @@
 """SLTrain linear layer: W = (alpha/r)·B·A ⊕_I V (paper §3.2), the port
-of ``repro.core.sltrain`` for the serving path (forward only).
+of ``repro.core.sltrain``.
 
 Two support layouts, as in the reference: ``row_balanced`` (each row holds
 exactly k = round(δ·d_out) entries; ``cols``/``v`` are (d_in, k) with
@@ -7,12 +7,17 @@ implicit rows) and ``iid`` (the paper's uniform sampling, flat COO).
 
 Execution modes ported here:
 
-* ``dense`` — densify W on the fly, then one matmul.
+* ``dense`` — densify W on the fly, then one matmul; a
+  ``torch.autograd.Function`` whose backward is the paper's eq. (2): G =
+  xᵀ·dy formed in f32, dB = scale·G·Aᵀ, dA = scale·Bᵀ·G, dV = G at the
+  support, dx = dy·Wᵀ with W recomputed, never saved.
 * ``fused`` — the hand-written ``sl_matmul`` kernel densifies W one
-  128×128 tile at a time on chip and consumes it at once; W never reaches
-  device memory. Needs the int32 tile consts {rows_t, cols_t, perm} that
-  ``init_params(..., exec_mode="fused")`` emits at the deterministic
-  ``support.tile_cap`` capacity.
+  128×128 tile at a time on chip and consumes it at once, forward and dx;
+  the ``sddmm`` kernel forms dV (``kernels/ops.sl_linear``). W never
+  reaches device memory. Needs the int32 tile consts {rows_t, cols_t,
+  perm} that ``init_params(..., exec_mode="fused")`` emits at the
+  deterministic ``support.tile_cap`` capacity; the trainer adds Wᵀ's
+  {rows_tT, cols_tT} for dx once (``kernels.ops.add_transposed_tiles``).
 
 ``sparse`` and ``quant`` raise ``NotImplementedError`` until their slice
 lands (ROADMAP queue A item 7).
@@ -129,12 +134,75 @@ def materialize(params, consts, scale: float):
 
 
 # ---------------------------------------------------------------------------
+# Dense-mode matmul with the paper's eq.-(2) backward
+# ---------------------------------------------------------------------------
+
+def _grads_from_G(xf, dyf, B, A, scale: float):
+    """(G f32, dB, dA) from the token contraction G = xᵀ·dy, taken with f32
+    operands so it accumulates in f32 (the reference's
+    ``preferred_element_type=f32``), never rounded through bf16."""
+    f32 = torch.float32
+    G = xf.to(f32).T @ dyf.to(f32)
+    dB = (scale * (G @ A.to(f32).T)).to(B.dtype)
+    dA = (scale * (B.to(f32).T @ G)).to(A.dtype)
+    return G, dB, dA
+
+
+class _DenseRB(torch.autograd.Function):
+    """Row-balanced dense mode: y = x @ densify_rb(...). Residuals are the
+    factored params and x (Alg. 1): the backward recomputes W."""
+
+    @staticmethod
+    def forward(ctx, x, B, A, v, cols, scale):
+        ctx.save_for_backward(x, B, A, v, cols)
+        ctx.scale = scale
+        return x @ densify_rb(B, A, v, cols, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, B, A, v, cols = ctx.saved_tensors
+        scale = ctx.scale
+        dy = dy.to(x.dtype)
+        xf = x.reshape(-1, x.shape[-1])
+        dyf = dy.reshape(-1, dy.shape[-1])
+        G, dB, dA = _grads_from_G(xf, dyf, B, A, scale)
+        dv = G.gather(1, cols.long()).to(v.dtype)
+        W = densify_rb(B, A, v, cols, scale)
+        dx = (dyf @ W.T).reshape(x.shape).to(x.dtype)
+        return dx, dB, dA, dv, None, None
+
+
+class _DenseCOO(torch.autograd.Function):
+    """COO (iid support) dense mode, as :class:`_DenseRB`. Like the
+    reference's COO backward it takes dy as it comes."""
+
+    @staticmethod
+    def forward(ctx, x, B, A, v, rows, cols, scale):
+        ctx.save_for_backward(x, B, A, v, rows, cols)
+        ctx.scale = scale
+        return x @ densify_coo(B, A, v, rows, cols, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, B, A, v, rows, cols = ctx.saved_tensors
+        scale = ctx.scale
+        xf = x.reshape(-1, x.shape[-1])
+        dyf = dy.reshape(-1, dy.shape[-1])
+        G, dB, dA = _grads_from_G(xf, dyf, B, A, scale)
+        dv = G[rows.long(), cols.long()].to(v.dtype)
+        W = densify_coo(B, A, v, rows, cols, scale)
+        dx = (dyf @ W.T).reshape(x.shape).to(x.dtype)
+        return dx, dB, dA, dv, None, None, None
+
+
+# ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
 
 def sl_matmul(x, params, consts, scale: float, exec_mode: str = "dense"):
-    """Apply one SLTrain linear (forward). params = {B, A, v}; consts =
-    {cols[, rows][, rows_t, cols_t, perm]}."""
+    """Apply one SLTrain linear, differentiable in x and the params.
+    params = {B, A, v}; consts = {cols[, rows][, rows_t, cols_t, perm,
+    rows_tT, cols_tT]}."""
     if exec_mode in ("sparse", "quant"):
         raise NotImplementedError(
             f"exec_mode={exec_mode!r} is not ported yet (ROADMAP queue A "
@@ -147,8 +215,13 @@ def sl_matmul(x, params, consts, scale: float, exec_mode: str = "dense"):
         from repro_torch.kernels import ops
         return ops.sl_linear(x, params["B"], params["A"], params["v"],
                              consts["rows_t"], consts["cols_t"],
-                             consts["perm"], scale)
+                             consts["perm"], scale,
+                             rows_tT=consts.get("rows_tT"),
+                             cols_tT=consts.get("cols_tT"))
     if exec_mode != "dense":
         raise ValueError(f"unknown exec_mode {exec_mode!r}")
-    return x @ materialize(params, consts, scale)
-
+    if "rows" not in consts:
+        return _DenseRB.apply(x, params["B"], params["A"], params["v"],
+                              consts["cols"], scale)
+    return _DenseCOO.apply(x, params["B"], params["A"], params["v"],
+                           consts["rows"], consts["cols"], scale)

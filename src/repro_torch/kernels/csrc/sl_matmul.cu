@@ -15,19 +15,19 @@
 // is taken in f32 in ascending tile order and rounded to T at the end.
 //
 // What bounds it on the H100: densifying a tile costs 128*128*r
-// multiply-adds and is redone for every block of 128 rows of x, while the
-// product itself costs M*128*128. At decode (M = a few slots) the densify
-// work is all there is: about 1.24 TFLOP per llama_1b decode step against
-// 2*M*K*N for the product, so the kernel is bound by operations, not
-// bytes (it reads only the factors and the tile-CSR arrays; W never
-// reaches device memory). This first version runs the densify on the
-// CUDA cores in f32 (register-tiled 128x128x32 steps from shared memory);
-// moving it to the tensor cores (wgmma on bf16 B and A with f32
-// accumulation) is the next step.
+// multiply-adds, while the product itself costs M*128*128. At decode
+// (M = a few slots) the densify work is all there is: about 1.24 TFLOP per
+// llama_1b decode step against 2*M*K*N for the product, so the kernel is
+// bound by operations, not bytes (it reads only the factors and the
+// tile-CSR arrays; W never reaches device memory). At training (M = 2048
+// tokens) the product dominates: 2*M*K*N against 2*K*N*r for the densify.
+// This first version runs both on the CUDA cores in f32 (register-tiled
+// 128x128x32 steps from shared memory); moving them to the tensor cores
+// (wgmma on bf16 operands with f32 accumulation) is the next step.
 //
 // Design against the pitfalls of the translation:
 // * The TPU grid walked K sequentially into one accumulator. Here every
-//   (k-tile, n-tile, row block) is its own block, writing an f32 partial
+//   (k-tile, n-tile[, row block]) is its own block, writing an f32 partial
 //   (nkt, M, N); a second kernel sums the partials over k-tiles in order.
 //   That fills the card at decode (688 blocks for 2048 -> 5461) and keeps
 //   the result deterministic (no float atomics in device memory).
@@ -37,8 +37,13 @@
 // * K and N need not be multiples of 128 (llama_1b d_ff = 5461): every
 //   load of x, B and A is bounds-checked and scalar, so nothing is padded
 //   or copied and no misaligned vector load can happen.
-// * A block covers up to 128 rows of x (RPT * 2), so a decode batch never
-//   splits and the densify runs once per tile per step.
+// * Up to 32 rows (a decode batch, a short prefill) one block covers all
+//   of x's rows (sl_tile_kernel, RPT * 2 rows), so each tile is densified
+//   once per call. Above that (prefill buckets, training's 2048 tokens and
+//   the backward's dx call on the transposed factors) one block per tile
+//   densifies it once and loops over 128-row blocks of x
+//   (sl_tile_loop_kernel); re-densifying per row block would cost
+//   M/128 times the densify work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,26 +74,16 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
-// One (k-tile, n-tile, row block): densify the W tile in shared memory,
-// round it to T, multiply the row block of x by it, write the f32 partial.
-// RPT = rows of x per thread; a block covers 2 * RPT rows.
-template <typename T, int RPT>
-__global__ void __launch_bounds__(THREADS, 2)
-sl_tile_kernel(const T* __restrict__ x, const T* __restrict__ B,
-               const T* __restrict__ A, const float* __restrict__ v_t,
-               const int* __restrict__ rows_t, const int* __restrict__ cols_t,
-               float* __restrict__ partial, int M, int K, int N, int r,
-               int cap, float scale) {
-  extern __shared__ float smem[];
-  float* Wt = smem;                       // [TILE][TILE]
-  float* Bs = Wt + TILE * TILE;           // [RK][BST]  (B chunk, transposed)
-  float* As = Bs + RK * BST;              // [RK][TILE]
-  float* xs = As + RK * TILE;             // [2 * RPT][TILE]
-
-  const int nt = blockIdx.x, kt = blockIdx.y;
-  const int nnt = gridDim.x;
+// Densify the (kt, nt) W tile into Wt (f32, [TILE][TILE]): scale * B·A in
+// f32 plus the tile's sparse values, rounded once to T. Bs and As are the
+// rank-chunk staging buffers. Ends with a __syncthreads().
+template <typename T>
+__device__ __forceinline__ void densify_tile(
+    const T* __restrict__ B, const T* __restrict__ A,
+    const float* __restrict__ v_t, const int* __restrict__ rows_t,
+    const int* __restrict__ cols_t, float* Wt, float* Bs, float* As, int kt,
+    int nt, int nnt, int K, int N, int r, int cap, float scale) {
   const int k0 = kt * TILE, n0 = nt * TILE;
-  const int m0 = blockIdx.z * (2 * RPT);
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
 
@@ -143,8 +138,36 @@ sl_tile_kernel(const T* __restrict__ x, const T* __restrict__ B,
   }
   __syncthreads();
 
-  // -- round the tile to T once; stage the row block of x --
+  // -- round the tile to T once --
   for (int e = tid; e < TILE * TILE; e += THREADS) Wt[e] = round_to<T>(Wt[e]);
+  __syncthreads();
+}
+
+// One (k-tile, n-tile, row block) for small M: densify the W tile in
+// shared memory, multiply the row block of x by it, write the f32
+// partial. RPT = rows of x per thread; a block covers 2 * RPT rows.
+template <typename T, int RPT>
+__global__ void __launch_bounds__(THREADS, 2)
+sl_tile_kernel(const T* __restrict__ x, const T* __restrict__ B,
+               const T* __restrict__ A, const float* __restrict__ v_t,
+               const int* __restrict__ rows_t, const int* __restrict__ cols_t,
+               float* __restrict__ partial, int M, int K, int N, int r,
+               int cap, float scale) {
+  extern __shared__ float smem[];
+  float* Wt = smem;                       // [TILE][TILE]
+  float* Bs = Wt + TILE * TILE;           // [RK][BST]  (B chunk, transposed)
+  float* As = Bs + RK * BST;              // [RK][TILE]
+  float* xs = As + RK * TILE;             // [2 * RPT][TILE]
+
+  const int nt = blockIdx.x, kt = blockIdx.y;
+  const int k0 = kt * TILE, n0 = nt * TILE;
+  const int m0 = blockIdx.z * (2 * RPT);
+  const int tid = threadIdx.x;
+
+  densify_tile<T>(B, A, v_t, rows_t, cols_t, Wt, Bs, As, kt, nt, gridDim.x,
+                  K, N, r, cap, scale);
+
+  // -- stage the row block of x --
   const int rows = min(2 * RPT, M - m0);
   for (int e = tid; e < rows * TILE; e += THREADS) {
     const int m = e / TILE, kk = e % TILE;
@@ -172,6 +195,77 @@ sl_tile_kernel(const T* __restrict__ x, const T* __restrict__ B,
       const int m = rg + 2 * i;
       if (m < rows)
         partial[((size_t)kt * M + m0 + m) * N + n0 + c] = o[i];
+    }
+  }
+}
+
+// One (k-tile, n-tile) for large M: densify the W tile once, then walk x
+// in blocks of 128 rows, each a register-tiled 128x128 product (8x8
+// outputs a thread) with x staged transposed, RK columns at a time, in
+// the densify's B buffer. Every output sums kk = 0..127 in order with
+// fmaf, as sl_tile_kernel does, so both variants give the same bits.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+sl_tile_loop_kernel(const T* __restrict__ x, const T* __restrict__ B,
+                    const T* __restrict__ A, const float* __restrict__ v_t,
+                    const int* __restrict__ rows_t,
+                    const int* __restrict__ cols_t,
+                    float* __restrict__ partial, int M, int K, int N, int r,
+                    int cap, float scale) {
+  extern __shared__ float smem[];
+  float* Wt = smem;                       // [TILE][TILE]
+  float* Bs = Wt + TILE * TILE;           // [RK][BST]  (B, then x, chunks)
+  float* As = Bs + RK * BST;              // [RK][TILE]
+
+  const int nt = blockIdx.x, kt = blockIdx.y;
+  const int k0 = kt * TILE, n0 = nt * TILE;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+
+  densify_tile<T>(B, A, v_t, rows_t, cols_t, Wt, Bs, As, kt, nt, gridDim.x,
+                  K, N, r, cap, scale);
+
+  for (int m0 = 0; m0 < M; m0 += TILE) {
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+    for (int c0 = 0; c0 < TILE; c0 += RK) {
+      // xs[kk][i] = x[m0 + i, k0 + c0 + kk]
+      for (int e = tid; e < RK * TILE; e += THREADS) {
+        const int kk = e % RK, i = e / RK;
+        const int gr = m0 + i, gc = k0 + c0 + kk;
+        Bs[kk * BST + i] =
+            (gr < M && gc < K) ? to_f(x[(size_t)gr * K + gc]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = 0; kk < RK; ++kk) {
+        float b[8], a[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) b[i] = Bs[kk * BST + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          a[j] = Wt[(c0 + kk) * TILE + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = fmaf(b[i], a[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + ty + 16 * i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + tx + 16 * j;
+        if (n < N) partial[((size_t)kt * M + m) * N + n] = acc[i][j];
+      }
     }
   }
 }
@@ -208,6 +302,25 @@ cudaError_t launch_rpt(const void* x, const void* B, const void* A,
 }
 
 template <typename T>
+cudaError_t launch_loop(const void* x, const void* B, const void* A,
+                        const float* v_t, const int* rows_t,
+                        const int* cols_t, float* partial, int M, int K,
+                        int N, int r, int nkt, int nnt, int cap, float scale,
+                        cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (TILE * TILE + RK * BST + RK * TILE);
+  cudaError_t err = cudaFuncSetAttribute(
+      sl_tile_loop_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nnt, nkt, 1);
+  sl_tile_loop_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(B),
+      static_cast<const T*>(A), v_t, rows_t, cols_t, partial, M, K, N, r,
+      cap, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t launch(const void* x, const void* B, const void* A,
                    const float* v_t, const int* rows_t, const int* cols_t,
                    float* partial, void* y, int M, int K, int N, int r,
@@ -221,8 +334,8 @@ cudaError_t launch(const void* x, const void* B, const void* A,
     err = launch_rpt<T, 16>(x, B, A, v_t, rows_t, cols_t, partial, M, K, N,
                             r, nkt, nnt, cap, scale, stream);
   else
-    err = launch_rpt<T, 64>(x, B, A, v_t, rows_t, cols_t, partial, M, K, N,
-                            r, nkt, nnt, cap, scale, stream);
+    err = launch_loop<T>(x, B, A, v_t, rows_t, cols_t, partial, M, K, N, r,
+                         nkt, nnt, cap, scale, stream);
   if (err != cudaSuccess) return err;
   const size_t mn = (size_t)M * N;
   const int threads = 256;

@@ -1,7 +1,8 @@
 """Wrappers around the kernels, as ``repro.kernels.ops`` has them: the
 tile-CSR support preparation, the flat-``v`` tile gather, the SLTrain
-linear of ``exec_mode="fused"`` (forward only) and the paged-attention
-calls with the GQA regroup.
+linear of ``exec_mode="fused"`` (a ``torch.autograd.Function`` whose
+forward and dx run ``sl_matmul`` and whose dV runs ``sddmm``) and the
+paged-attention calls with the GQA regroup.
 
 Dispatch follows the tensors: on the CPU each kernel wrapper runs its
 plain PyTorch version, on a CUDA tensor it launches the kernel or raises.
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.core import support as support_lib
 from repro_torch.kernels import paged_attention as pa_kernel
+from repro_torch.kernels import sddmm as sddmm_kernel
 from repro_torch.kernels import sl_matmul as sl_kernel
 
 
@@ -51,8 +53,32 @@ def prepare_tile_consts(rows: np.ndarray, cols: np.ndarray, d_in: int,
             "perm": torch.from_numpy(np.ascontiguousarray(perm))}
 
 
+def transpose_tiles(t):
+    """A tile array (..., nkt, nnt, cap) with its two tile axes swapped,
+    contiguous: the layout of Wᵀ's tiles."""
+    return t.transpose(-3, -2).contiguous()
+
+
+def add_transposed_tiles(consts):
+    """Give every fused linear in a consts tree the tile consts of Wᵀ that
+    the backward's dx call takes: ``rows_tT`` (Wᵀ's local rows, i.e. the
+    transposed ``cols_t``) and ``cols_tT`` (the transposed ``rows_t``).
+    The trainer calls this once on the consts of init, so the transposes
+    are built once per layer, not per step; it works on single layers and
+    on stacked (L, nkt, nnt, cap) arrays alike. Returns a new tree; the
+    arrays it shares are not copied. (Init's consts stay the reference's
+    tree, leaf for leaf.)"""
+    if not isinstance(consts, dict):
+        return consts
+    out = {k: add_transposed_tiles(v) for k, v in consts.items()}
+    if "rows_t" in out and "rows_tT" not in out:
+        out["rows_tT"] = transpose_tiles(out["cols_t"])
+        out["cols_tT"] = transpose_tiles(out["rows_t"])
+    return out
+
+
 # ---------------------------------------------------------------------------
-# The fused SLTrain linear (forward)
+# The fused SLTrain linear: sl_matmul forward and dx, sddmm dV
 # ---------------------------------------------------------------------------
 
 def _gather_tiles(v, perm):
@@ -61,6 +87,18 @@ def _gather_tiles(v, perm):
     vf = v.reshape(-1).float()
     safe = perm.clamp(0, vf.shape[0] - 1).long()
     return torch.where(perm >= 0, vf[safe], torch.zeros((), device=vf.device))
+
+
+def _scatter_tiles(dv_t, perm, numel: int):
+    """f32 tile grads → flat f32 grad of v through ``perm``. Every valid
+    perm entry appears exactly once (the tile-layout invariant), so a
+    plain indexed assignment is exact and no accumulating scatter is
+    needed: the result is the same on every run. Padding slots all write
+    one spare element past the end, which is dropped."""
+    idx = torch.where(perm >= 0, perm, numel).reshape(-1).long()
+    flat = torch.zeros(numel + 1, dtype=torch.float32, device=dv_t.device)
+    flat[idx] = dv_t.reshape(-1)
+    return flat[:numel]
 
 
 def sl_matmul(x, B, A, v_t, rows_t, cols_t, scale: float):
@@ -77,12 +115,87 @@ def sl_matmul(x, B, A, v_t, rows_t, cols_t, scale: float):
     return y.reshape(*lead, n)
 
 
-def sl_linear(x, B, A, v, rows_t, cols_t, perm, scale: float):
+def sddmm(x, dy, rows_t, cols_t):
+    """dv tiles (K/128, N/128, cap) f32 for the support (rows_t, cols_t);
+    x (..., K), dy (..., N). dy is cast to x's dtype first, as the
+    reference does (``ops.py:130``); products and sums stay f32."""
+    k = x.shape[-1]
+    n = dy.shape[-1]
+    return sddmm_kernel.sddmm(x.reshape(-1, k).contiguous(),
+                              dy.reshape(-1, n).to(x.dtype).contiguous(),
+                              rows_t, cols_t)
+
+
+def _fused_grads(x, B, A, v_t, rows_t, cols_t, rows_tT, cols_tT,
+                 scale: float, dy):
+    """Backward of the fused linear: (dx, dB, dA, dv_t f32), the local path
+    of the reference's ``_fused_grads``.
+
+    The plain products (x·B, dy·Aᵀ, dA, dB) take f32 operands and give f32
+    results, as the reference's ``preferred_element_type=f32`` does: a bf16
+    product returning bf16 would round the token contraction through bf16.
+    (PyTorch's f32 matmul keeps full f32 on the card unless TF32 is turned
+    on, which the port never does.) dV is the ``sddmm`` kernel's f32
+    output; dx is ``sl_matmul`` on the transposed factors and Wᵀ's tile
+    consts, with v_t's tile axes swapped."""
+    k = x.shape[-1]
+    n = dy.shape[-1]
+    dy = dy.to(x.dtype)
+    xf = x.reshape(-1, k)
+    dyf = dy.reshape(-1, n)
+    f32 = torch.float32
+    xB = xf.to(f32) @ B.to(f32)                                  # (M, r)
+    dA = (scale * (xB.T @ dyf.to(f32))).to(A.dtype)
+    dyA = dyf.to(f32) @ A.to(f32).T                              # (M, r)
+    dB = (scale * (xf.to(f32).T @ dyA)).to(B.dtype)
+    dv_t = sddmm(xf, dyf, rows_t, cols_t)
+    dx = sl_matmul(dyf, A.T.contiguous(), B.T.contiguous(),
+                   transpose_tiles(v_t), rows_tT, cols_tT, scale)
+    return dx.reshape(x.shape).to(x.dtype), dB, dA, dv_t
+
+
+class _SLLinear(torch.autograd.Function):
+    """y = x @ (scale·B·A ⊕ V) with the flat trainable ``v``. Residuals are
+    factored-sized (x, B, A, the f32 tile values): the dense W is never
+    saved, only ever built one 128×128 tile at a time inside the
+    kernels."""
+
+    @staticmethod
+    def forward(ctx, x, B, A, v, rows_t, cols_t, perm, rows_tT, cols_tT,
+                scale):
+        v_t = _gather_tiles(v, perm)
+        ctx.save_for_backward(x, B, A, v, v_t, rows_t, cols_t, perm,
+                              rows_tT, cols_tT)
+        ctx.scale = scale
+        return sl_matmul(x, B, A, v_t, rows_t, cols_t, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, B, A, v, v_t, rows_t, cols_t, perm, rows_tT, cols_tT = \
+            ctx.saved_tensors
+        if rows_tT is None:
+            raise ValueError(
+                "sl_linear backward needs Wᵀ's tile consts (rows_tT, "
+                "cols_tT): build them once per layer with "
+                "kernels.ops.add_transposed_tiles")
+        dx, dB, dA, dv_t = _fused_grads(x, B, A, v_t, rows_t, cols_t,
+                                        rows_tT, cols_tT, ctx.scale, dy)
+        dv = _scatter_tiles(dv_t, perm, v.numel())
+        return (dx, dB, dA, dv.reshape(v.shape).to(v.dtype), None, None,
+                None, None, None, None)
+
+
+def sl_linear(x, B, A, v, rows_t, cols_t, perm, scale: float, *,
+              rows_tT=None, cols_tT=None):
     """y = x @ (scale·B·A ⊕ V) with the trainable ``v`` in its flat layout
     (row-balanced (d_in, k) or COO (nnz,)), gathered into tile order
-    through ``perm`` for the kernel. Forward only: the backward kernels
-    arrive with the training slice."""
-    return sl_matmul(x, B, A, _gather_tiles(v, perm), rows_t, cols_t, scale)
+    through ``perm`` for the kernel; differentiable in x, B, A and v.
+    ``rows_tT``/``cols_tT`` are Wᵀ's tile consts for the dx call
+    (:func:`add_transposed_tiles` builds them once per layer); the
+    backward raises without them, and a forward-only caller never needs
+    them."""
+    return _SLLinear.apply(x, B, A, v, rows_t, cols_t, perm, rows_tT,
+                           cols_tT, scale)
 
 
 # ---------------------------------------------------------------------------

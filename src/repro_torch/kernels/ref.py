@@ -1,17 +1,26 @@
-"""Plain PyTorch versions of the three serving kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Each one computes what its CUDA kernel computes, with the same rounding
 points, and is what a kernel wrapper runs for a tensor on the CPU. The
 CUDA kernels are held against these on the card (chip_smoke.py,
 tests/test_torch_kernels.py) and these against the JAX kernels on the CPU.
 Signatures and layouts follow ``repro.kernels.ref``, except that
-:func:`sl_matmul_ref` takes the tile-CSR inputs the kernel takes.
+:func:`sl_matmul_ref` and :func:`sddmm_ref` take the tile-CSR inputs
+their kernels take.
 """
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30  # the mask fill of the reference attention
+
+
+def _tile_coords(rows_t, cols_t):
+    """Global (row, col) of every tile-CSR slot: tile origin + local."""
+    nkt, nnt, _ = rows_t.shape
+    kt = torch.arange(nkt, device=rows_t.device).view(nkt, 1, 1) * 128
+    nt = torch.arange(nnt, device=rows_t.device).view(1, nnt, 1) * 128
+    return rows_t.long() + kt, cols_t.long() + nt
 
 
 def densify_tiles(B, A, v_t, rows_t, cols_t, scale: float, dtype):
@@ -28,11 +37,9 @@ def densify_tiles(B, A, v_t, rows_t, cols_t, scale: float, dtype):
     W = (Bp @ Ap) * scale
     # padding slots sit at local (0, 0) with v = 0, so a plain add of
     # every slot is exact; index_put_ with accumulate sums duplicates
-    kt = torch.arange(nkt, device=W.device).view(nkt, 1, 1) * 128
-    nt = torch.arange(nnt, device=W.device).view(1, nnt, 1) * 128
-    rows = (rows_t.long() + kt).reshape(-1)
-    cols = (cols_t.long() + nt).reshape(-1)
-    W.index_put_((rows, cols), v_t.float().reshape(-1), accumulate=True)
+    rows, cols = _tile_coords(rows_t, cols_t)
+    W.index_put_((rows.reshape(-1), cols.reshape(-1)),
+                 v_t.float().reshape(-1), accumulate=True)
     return W.to(dtype)
 
 
@@ -44,6 +51,16 @@ def sl_matmul_ref(x, B, A, v_t, rows_t, cols_t, scale: float):
     n = A.shape[1]
     W = densify_tiles(B, A, v_t, rows_t, cols_t, scale, x.dtype)
     return (x.float() @ W[:k, :n].float()).to(x.dtype)
+
+
+def sddmm_ref(x, dy, rows_t, cols_t):
+    """dv_t (K/128, N/128, cap) f32 for x (M, K), dy (M, N): G = xᵀ·dy in
+    f32 (products of the inputs exact in f32, sums in f32) gathered at
+    every slot's tile origin + local (row, col). Padding slots sit at
+    local (0, 0) and get G there, as the kernel's do."""
+    G = x.float().T @ dy.float()
+    rows, cols = _tile_coords(rows_t, cols_t)
+    return G[rows, cols]
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_table, positions, *,

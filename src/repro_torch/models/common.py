@@ -37,10 +37,13 @@ def tree_map(fn, tree, *rest):
 
 
 def tree_leaves(tree, prefix: str = ""):
-    """(``/``-joined path, leaf) pairs in insertion order."""
+    """(``/``-joined path, leaf) pairs in the reference's flatten order
+    (sorted keys at every level): the checkpoint's keys and the order of
+    sums over leaves."""
     if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from tree_leaves(v, f"{prefix}/{k}" if prefix else str(k))
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k],
+                                   f"{prefix}/{k}" if prefix else str(k))
     else:
         yield prefix, tree
 
@@ -116,9 +119,13 @@ def stack_layers(builder: Builder, fn, n: int, name: str = "layer"):
     return params, consts
 
 
-def layer(tree, i: int):
-    """Layer ``i`` of a stacked tree (views, no copies)."""
-    return tree_map(lambda t: t[i], tree)
+def unstack(tree, n: int):
+    """The ``n`` per-layer trees of a stacked tree, as views (no copies).
+    One ``unbind`` per leaf: its backward stacks the layers' grads in one
+    op, where indexing each layer would add a full-size zero grad per
+    layer."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------

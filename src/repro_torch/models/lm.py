@@ -14,8 +14,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import attention, mlp
-from repro_torch.models.common import (DTYPES, Builder, layer, rms_norm,
-                                       stack_layers)
+from repro_torch.models.common import (DTYPES, Builder, rms_norm,
+                                       stack_layers, unstack)
 from repro_torch.serve.kv import PagedLayout
 
 
@@ -91,20 +91,27 @@ def _forward(cfg: ModelConfig, params, consts, tokens, caches=None,
     {"k", "v"} pool pair per layer) turns on the paged-cache path."""
     _check_family(cfg)
     h = params["embed"][tokens.long()]
-    stack, cstack = params["layers"]["k0"], consts.get("layers", {})
-    for i in range(stack["ln_attn"].shape[0]):
+    stack = params["layers"]["k0"]
+    n = stack["ln_attn"].shape[0]
+    layers = zip(unstack(stack, n),
+                 unstack(consts.get("layers", {}).get("k0", {}), n))
+    for i, (p, c) in enumerate(layers):
         kv = None if caches is None else caches[i]
-        h, _ = _apply_block(cfg, layer(stack, i),
-                            layer(cstack.get("k0", {}), i), h, cache=kv,
-                            **cache_kw)
+        h, _ = _apply_block(cfg, p, c, h, cache=kv, **cache_kw)
     h = rms_norm(h, params["ln_f"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ w.to(h.dtype)
 
 
-def apply_lm(cfg: ModelConfig, params, consts, tokens):
+def apply_lm(cfg: ModelConfig, params, consts, tokens, *,
+             remat: str = "none"):
     """tokens (B, S) → (logits (B, S, V), aux 0.0): the plain causal
-    forward, for parity with the reference's ``apply_lm``."""
+    forward, differentiable in the params (the train step's forward).
+    Rematerialization is not ported: ``remat`` other than "none" raises."""
+    if remat != "none":
+        raise NotImplementedError(
+            f"remat={remat!r} is not ported yet (ROADMAP queue A item 5: "
+            "the memory path); the port trains with remat='none'")
     return _forward(cfg, params, consts, tokens), 0.0
 
 

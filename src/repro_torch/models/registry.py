@@ -14,7 +14,7 @@ from repro_torch.configs.base import ModelConfig
 @dataclass(frozen=True)
 class ModelApi:
     init: Callable          # (cfg, seed=0, *, device) -> (params, consts)
-    apply: Callable         # (cfg, params, consts, batch) -> (logits, aux)
+    apply: Callable         # (cfg, params, consts, batch, remat) -> (logits, aux)
     init_cache: Callable    # (cfg, batch, max_len, *, paged, ...) -> cache
     decode_step: Callable   # (cfg, params, consts, tokens, cache, index) -> (logits, cache)
     prefill_step: Optional[Callable] = None
@@ -23,8 +23,8 @@ class ModelApi:
 def _lm_api() -> ModelApi:
     from repro_torch.models import lm
 
-    def apply(cfg, params, consts, batch):
-        return lm.apply_lm(cfg, params, consts, batch["tokens"])
+    def apply(cfg, params, consts, batch, remat="none"):
+        return lm.apply_lm(cfg, params, consts, batch["tokens"], remat=remat)
 
     return ModelApi(lm.init_lm, apply, lm.init_cache, lm.decode_step,
                     lm.prefill_step)

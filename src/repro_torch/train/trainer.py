@@ -1,0 +1,351 @@
+"""Training loop: logging, checkpoint/restart, preemption handling,
+straggler watchdog and divergence recovery, ported from
+``repro.train.trainer`` for one card.
+
+As in the reference:
+  * resume-from-latest is the default (a relaunch is a restart),
+  * SIGTERM/SIGINT triggers a synchronous checkpoint, then exit(42), so a
+    scheduler can requeue the job,
+  * a per-step deadline watchdog flags stragglers (``on_straggler`` is the
+    mitigation hook),
+  * ``fault_hook(step)`` lets tests crash the loop at exact steps to prove
+    kill/resume bit-exactness,
+  * every step carries the non-finite gate (train/step.py): a NaN/inf
+    loss or gradient never reaches the weights. After ``max_skips``
+    consecutive skipped steps the trainer rolls back to the newest intact
+    checkpoint and skips the data cursor forward (doubling per rollback);
+    after ``max_rollbacks`` rollbacks it gives up,
+  * corrupt batches (token ids out of range) are dropped on the host and
+    the cursor advances (bounded retries),
+  * checkpoints are checksummed; restore falls back to the newest intact
+    step (ckpt/checkpoint.py).
+Every recovery event lands on the obs registry
+(``resilience.nonfinite_steps``, ``resilience.rollbacks``,
+``resilience.bad_batches``) and the trace (``resilience.rollback``,
+``resilience.restore``).
+
+Each step's time ``dt`` is dispatch + sync: the host enqueues the whole
+step, then the sync phase waits on the device for the loss, so ``dt`` is
+the device time plus whatever dispatch did not overlap it, as in the
+reference. Not ported yet, and raising: a mesh (ROADMAP queue A item 10),
+chaos injection (item 8), ReLoRA and the other parameterizations
+(item 2), per-layer updates (item 5).
+"""
+from __future__ import annotations
+
+import signal
+import sys
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.analysis import roofline
+from repro_torch.ckpt.checkpoint import (CheckpointCorruptError,
+                                         CheckpointManager)
+from repro_torch.configs.base import TrainConfig
+from repro_torch.data.pipeline import SyntheticC4
+from repro_torch.device import resolve
+from repro_torch.kernels.ops import add_transposed_tiles
+from repro_torch.models import registry
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.optim import optimizers
+from repro_torch.train import step as step_lib
+
+
+@dataclass
+class TrainerState:
+    params: Any
+    opt_state: Any
+    consts: Any
+    step: int = 0
+
+
+@dataclass
+class StepTimeWatchdog:
+    """Flags steps slower than ``factor`` × the rolling median (straggler
+    detection). The response is a callback, so a deployment can re-dispatch
+    the straggler's data shard to a spare."""
+    factor: float = 3.0
+    window: int = 32
+    on_straggler: Optional[Callable[[int, float, float], None]] = None
+    times: List[float] = field(default_factory=list)
+    flagged: List[int] = field(default_factory=list)
+
+    def observe(self, step: int, dt: float) -> bool:
+        self.times.append(dt)
+        if len(self.times) > self.window:
+            self.times.pop(0)
+        med = float(np.median(self.times))
+        slow = len(self.times) >= 8 and dt > self.factor * med
+        if slow:
+            self.flagged.append(step)
+            if self.on_straggler:
+                self.on_straggler(step, dt, med)
+        return slow
+
+
+def _check_supported(tc: TrainConfig, mesh, chaos) -> None:
+    """Raise on what the port does not run yet, naming its ROADMAP item."""
+    sh, pc = tc.sharding, tc.model.param
+    if mesh is not None or sh.fsdp or sh.pod_grad_compression:
+        raise NotImplementedError(
+            "a mesh, fsdp and pod gradient compression are not ported yet "
+            "(ROADMAP queue A item 10: distribution); the port trains on "
+            "one card")
+    if chaos is not None:
+        raise NotImplementedError(
+            "chaos injection is not ported yet (ROADMAP queue A item 8); "
+            "fault_hook and the non-finite gate are")
+    if sh.update_mode != "global":
+        raise NotImplementedError(
+            f"update_mode={sh.update_mode!r} is not ported yet (ROADMAP "
+            "queue A item 5: per-layer updates); the port runs 'global'")
+    if pc.mode not in ("dense", "sltrain"):
+        raise NotImplementedError(
+            f"param.mode={pc.mode!r} is not ported yet (ROADMAP queue A "
+            "item 2: the lowrank and relora parameterizations)")
+
+
+class Trainer:
+    def __init__(self, tc: TrainConfig, *, device="cuda", mesh=None,
+                 log_fn=print,
+                 fault_hook: Optional[Callable[[int], None]] = None,
+                 chaos=None, max_skips: int = 2, max_rollbacks: int = 2,
+                 rollback_data_skip: int = 1,
+                 obs: Optional[obs_metrics.Registry] = None,
+                 trace: Optional[obs_trace.Trace] = None,
+                 metrics_out: Optional[str] = None):
+        _check_supported(tc, mesh, chaos)
+        self.device = resolve(device)
+        self.tc = tc
+        self.log = log_fn
+        self.fault_hook = fault_hook
+        # -- resilience policy (module docstring) --
+        self.max_skips = max_skips
+        self.max_rollbacks = max_rollbacks
+        self.rollback_data_skip = rollback_data_skip
+        self._skip_streak = 0
+        self._rollbacks = 0
+        self.cfg = tc.model
+        self.api = registry.get_api(self.cfg)
+        self.optimizer = optimizers.make(tc.optim)
+        self.ckpt = CheckpointManager(tc.ckpt_dir, keep=tc.keep_ckpts)
+        self.data = SyntheticC4(self.cfg.vocab_size, tc.seq_len,
+                                tc.global_batch, seed=tc.seed)
+        self.watchdog = StepTimeWatchdog()
+        self._preempted = False
+        self.metrics_history: List[Dict[str, float]] = []
+
+        # -- observability: own registry per trainer unless one is passed;
+        # a disabled trace makes every span a no-op
+        self.obs = obs if obs is not None else obs_metrics.Registry()
+        self.trace = trace if trace is not None \
+            else obs_trace.Trace(enabled=False)
+        self.metrics_out = metrics_out
+        self._c_steps = self.obs.counter("train.steps")
+        self._c_tokens = self.obs.counter(
+            "train.tokens", help="tokens consumed (global batch x seq)")
+        self._g_loss = self.obs.gauge("train.loss")
+        self._g_lr = self.obs.gauge("train.lr")
+        self._g_gnorm = self.obs.gauge("train.grad_norm")
+        self._g_tps = self.obs.gauge(
+            "train.tokens_per_sec", help="tokens / (dispatch + sync) time")
+        self._g_mfu = self.obs.gauge(
+            "train.mfu", help="6ND model-FLOPs utilisation vs the card's "
+            "peak (analysis.roofline.train_mfu)")
+        self._h_step = self.obs.histogram(
+            "train.step_ms", buckets=obs_metrics.ms_buckets())
+        phase_h = self.obs.histogram(
+            "train.phase_ms", buckets=obs_metrics.ms_buckets(),
+            help="per-step phase split: data | dispatch | sync")
+        self._h_phase = {k: phase_h.labels(phase=k)
+                         for k in ("data", "dispatch", "sync")}
+        self._c_nonfinite = self.obs.counter(
+            "resilience.nonfinite_steps",
+            help="steps whose update was skipped (non-finite loss/grads)")
+        self._c_rollbacks = self.obs.counter(
+            "resilience.rollbacks",
+            help="rollbacks to the newest intact checkpoint")
+        self._c_bad_batches = self.obs.counter(
+            "resilience.bad_batches",
+            help="corrupt data batches dropped by host-side validation")
+        self._train_step = step_lib.make_train_step(
+            self.cfg, self.api, self.optimizer, remat=tc.sharding.remat,
+            grad_accum=tc.sharding.grad_accum)
+
+    # -- state ----------------------------------------------------------------
+    def init_state(self) -> TrainerState:
+        """Params and consts from the model's init (the consts gain Wᵀ's
+        tile consts for the fused backward, built once here) and a fresh
+        optimizer state."""
+        params, consts = self.api.init(self.cfg, seed=self.tc.seed,
+                                       device=self.device)
+        opt_state = self.optimizer.init(params)
+        return TrainerState(params, opt_state, add_transposed_tiles(consts),
+                            step=0)
+
+    def save(self, state: TrainerState, background: Optional[bool] = None
+             ) -> None:
+        bg = self.tc.async_ckpt if background is None else background
+        self.ckpt.save(
+            state.step,
+            {"params": state.params, "opt_state": state.opt_state},
+            config_hash=self.cfg.hash(),
+            extra={"data": self.data.state_dict()},
+            background=bg)
+
+    def restore_or_init(self) -> TrainerState:
+        state = self.init_state()
+        if self.ckpt.latest_step() is None:
+            return state
+        try:
+            with self.trace.span("resilience.restore", cat="resilience"):
+                # step=None: checksum-verified, falls back newest → oldest
+                tree, manifest = self.ckpt.restore(
+                    {"params": state.params, "opt_state": state.opt_state},
+                    config_hash=self.cfg.hash())
+        except CheckpointCorruptError as e:
+            self.log(f"[trainer] every checkpoint failed verification "
+                     f"({e}): starting fresh")
+            return state
+        self.data.restore(manifest["extra"]["data"])
+        latest = int(manifest["step"])
+        self.log(f"[trainer] resumed from step {latest}")
+        return TrainerState(tree["params"], tree["opt_state"], state.consts,
+                            step=latest)
+
+    # -- resilience -------------------------------------------------------------
+    def _next_valid_batch(self, step: int):
+        """Next data batch, validated on the host; a corrupt batch is
+        dropped and the cursor advances."""
+        for _ in range(8):
+            batch = self.data.next_batch()
+            toks = batch["tokens"]
+            if toks.dtype.kind in "iu" and \
+                    bool(((toks >= 0) & (toks < self.cfg.vocab_size)).all()):
+                return batch
+            self._c_bad_batches.inc()
+            self.log(f"[trainer] corrupt batch at step {step + 1}: "
+                     "dropped, data cursor advanced")
+        raise RuntimeError("data pipeline produced 8 consecutive corrupt "
+                           "batches — not a transient fault, giving up")
+
+    def _rollback(self, reason: str) -> TrainerState:
+        """Restore the newest intact checkpoint and skip the data cursor
+        past the offending batches (doubling per rollback). Bounded by
+        ``max_rollbacks``."""
+        self._rollbacks += 1
+        self._c_rollbacks.inc()
+        if self._rollbacks > self.max_rollbacks:
+            raise RuntimeError(
+                f"{reason} persisted through {self.max_rollbacks} "
+                "rollbacks — giving up (raise --max-rollbacks or inspect "
+                "the data/optimizer)")
+        with self.trace.span("resilience.rollback", cat="resilience",
+                             n=self._rollbacks):
+            self.ckpt.wait()
+            state = self.restore_or_init()
+            skip = self.rollback_data_skip * (2 ** (self._rollbacks - 1))
+            self.data.skip(skip)
+        self._skip_streak = 0
+        self.log(f"[trainer] rollback #{self._rollbacks} ({reason}): "
+                 f"resumed step {state.step}, skipped {skip} data "
+                 f"batch(es) forward")
+        return state
+
+    # -- preemption -------------------------------------------------------------
+    def _install_signal_handlers(self):
+        def handler(signum, frame):
+            self._preempted = True
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                signal.signal(sig, handler)
+            except ValueError:
+                pass  # not on the main thread (tests)
+
+    # -- loop -------------------------------------------------------------------
+    def run(self, steps: Optional[int] = None,
+            state: Optional[TrainerState] = None) -> TrainerState:
+        tc = self.tc
+        total = steps if steps is not None else tc.steps
+        if state is None:
+            state = self.restore_or_init()
+        self._install_signal_handlers()
+        tokens_per_step = tc.global_batch * tc.seq_len
+        while state.step < total:
+            if self.fault_hook:
+                self.fault_hook(state.step)  # test hook: may raise/kill
+            with self.trace.span("train.step", cat="train",
+                                 step=state.step + 1):
+                t0 = time.perf_counter()
+                with self.trace.span("train.data", cat="train"):
+                    batch_np = self._next_valid_batch(state.step)
+                    batch = {k: torch.from_numpy(np.asarray(v)).to(
+                        self.device) for k, v in batch_np.items()}
+                t1 = time.perf_counter()
+                with self.trace.span("train.dispatch", cat="train"):
+                    params, opt_state, metrics = self._train_step(
+                        state.params, state.opt_state, state.consts, batch)
+                t2 = time.perf_counter()
+                with self.trace.span("train.sync", cat="train"):
+                    row = {k: float(v) for k, v in metrics.items()}
+                t3 = time.perf_counter()
+            # dt: dispatch + sync (excludes host-side data work), the
+            # watchdog's and the history's currency, as in the reference
+            dt = t3 - t1
+            self._h_phase["data"].observe((t1 - t0) * 1e3)
+            self._h_phase["dispatch"].observe((t2 - t1) * 1e3)
+            self._h_phase["sync"].observe((t3 - t2) * 1e3)
+            self._h_step.observe(dt * 1e3)
+            self._c_steps.inc()
+            self._c_tokens.inc(tokens_per_step)
+            state = TrainerState(params, opt_state, state.consts,
+                                 state.step + 1)
+            slow = self.watchdog.observe(state.step, dt)
+            row.update(step=state.step, dt=dt)
+            self.metrics_history.append(row)
+            skipped = row.get("nonfinite", 0.0) >= 1.0
+            if skipped:
+                # the step's gate already kept the pre-step state; here we
+                # only account and decide whether to escalate
+                self._c_nonfinite.inc()
+                self._skip_streak += 1
+                self.log(f"[trainer] non-finite loss/grads at step "
+                         f"{state.step}: update skipped "
+                         f"({self._skip_streak}/{self.max_skips} before "
+                         "rollback)")
+            else:
+                self._skip_streak = 0
+            self._g_loss.set(row["loss"])
+            self._g_lr.set(row["lr"])
+            self._g_gnorm.set(row["grad_norm"])
+            self._g_tps.set(tokens_per_step / dt if dt > 0 else 0.0)
+            self._g_mfu.set(roofline.train_mfu(self.cfg, tokens_per_step,
+                                               dt))
+            if state.step % tc.log_every == 0 or state.step == total:
+                self.log(f"[step {state.step:5d}] "
+                         f"loss={self._g_loss.value:.4f} "
+                         f"lr={self._g_lr.value or 0:.2e} {dt*1e3:.0f}ms "
+                         f"{self._g_tps.value:.0f}tok/s "
+                         f"mfu={self._g_mfu.value:.4f}"
+                         + (" STRAGGLER" if slow else ""))
+                if self.metrics_out:
+                    self.obs.write_jsonl(self.metrics_out,
+                                         extra={"step": state.step})
+            if skipped and self._skip_streak >= self.max_skips:
+                state = self._rollback("non-finite loss/grads")
+                continue
+            if self._preempted:
+                self.log("[trainer] preemption signal: checkpoint + exit 42")
+                self.save(state, background=False)
+                self.ckpt.wait()
+                sys.exit(42)
+            if tc.ckpt_every and state.step % tc.ckpt_every == 0:
+                self.save(state)
+        self.save(state, background=False)
+        self.ckpt.wait()
+        return state

@@ -14,6 +14,7 @@ import torch
 from repro_torch.core import support
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pa_kernel
+from repro_torch.kernels import sddmm as sddmm_kernel
 from repro_torch.kernels import sl_matmul as sl_kernel
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -39,35 +40,109 @@ def _rand(rng, shape, dtype, device, lim=None):
                                                       dtype=dtype)
 
 
+def _sl_args(rng, m, k, n, r, delta, dtype, dev, transposed=False):
+    """x, B, A, v_t, rows_t, cols_t, scale for one linear at (m, k, n); with
+    ``transposed`` the dx call's operands instead: dy (m, n), Aᵀ, Bᵀ and
+    Wᵀ's tile consts (the transposed support is no longer row-balanced)."""
+    rows, cols = support.sample_support(k + n, k, n, delta)
+    tiles = ops.add_transposed_tiles(ops.prepare_tile_consts(
+        rows, cols, k, n, pad=support.tile_cap(k, n, delta)))
+    tiles = {name: t.to(dev) for name, t in tiles.items()}
+    v = _rand(rng, rows.shape, torch.float32, dev, k ** -0.5)
+    v_t = ops._gather_tiles(v, tiles["perm"])
+    B = _rand(rng, (k, r), dtype, dev, 1.0)
+    A = _rand(rng, (r, n), dtype, dev, (6.0 / k) ** 0.5)
+    if transposed:
+        return (_rand(rng, (m, n), dtype, dev), A.T.contiguous(),
+                B.T.contiguous(), ops.transpose_tiles(v_t), tiles["rows_tT"],
+                tiles["cols_tT"], 8.0 / r)
+    return (_rand(rng, (m, k), dtype, dev), B, A, v_t, tiles["rows_t"],
+            tiles["cols_t"], 8.0 / r)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", [
-    # (M, K, N, r, delta): ragged dims, several row blocks, llama_1b decode
-    # (M = 4 slots) and prefill (M = 4 slots x bucket 8, 16, 32), which
-    # select each row-block variant of the kernel
-    (5, 200, 300, 16, 0.05), (130, 256, 136, 8, 0.05),
-    (1, 136, 520, 32, 0.03), (4, 2048, 5461, 512, 0.03),
-    (32, 2048, 5461, 512, 0.03), (64, 5461, 2048, 512, 0.03),
-    (128, 5461, 2048, 512, 0.03)])
+    # (M, K, N, r, delta, transposed): ragged dims, several row blocks,
+    # llama_1b decode (M = 4 slots) and prefill (M = 4 slots x bucket 8,
+    # 16, 32), which select each row-block variant of the kernel; then
+    # llama_1b training (M = 8 x 256 tokens), the forward and the dx call
+    # on the transposed factors and support
+    (5, 200, 300, 16, 0.05, False), (130, 256, 136, 8, 0.05, False),
+    (1, 136, 520, 32, 0.03, False), (4, 2048, 5461, 512, 0.03, False),
+    (32, 2048, 5461, 512, 0.03, False), (64, 5461, 2048, 512, 0.03, False),
+    (128, 5461, 2048, 512, 0.03, False),
+    (2048, 2048, 5461, 512, 0.03, False), (2048, 5461, 2048, 512, 0.03, True),
+    (300, 200, 300, 16, 0.05, True), (2048, 2048, 2048, 512, 0.03, True)])
 def test_sl_matmul_kernel_matches_plain(cuda, case, dtype):
-    m, k, n, r, delta = case
-    rng = np.random.default_rng(k + n)
-    rows, cols = support.sample_support(k + n, k, n, delta)
-    tiles = ops.prepare_tile_consts(rows, cols, k, n,
-                                    pad=support.tile_cap(k, n, delta))
-    tiles = {name: t.to(cuda) for name, t in tiles.items()}
-    v = _rand(rng, rows.shape, torch.float32, cuda, k ** -0.5)
-    args = (_rand(rng, (m, k), dtype, cuda), _rand(rng, (k, r), dtype, cuda,
-                                                   1.0),
-            _rand(rng, (r, n), dtype, cuda, (6.0 / k) ** 0.5),
-            ops._gather_tiles(v, tiles["perm"]), tiles["rows_t"],
-            tiles["cols_t"], 8.0 / r)
+    m, k, n, r, delta, transposed = case
+    args = _sl_args(np.random.default_rng(k + n), m, k, n, r, delta, dtype,
+                    cuda, transposed)
     before = sl_kernel.sl_matmul.launches
     got = sl_kernel.sl_matmul(*args)
     torch.cuda.synchronize()
     assert sl_kernel.sl_matmul.launches == before + 1
-    assert got.dtype == dtype and got.shape == (m, n)
+    assert got.dtype == dtype and got.shape == (m, k if transposed else n)
     _close(got, ref.sl_matmul_ref(*args), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [
+    # (M, K, N, delta): ragged K/N, M below, at and past a 32-row chunk,
+    # llama_1b training shapes
+    (5, 200, 300, 0.05), (33, 136, 520, 0.03), (300, 256, 136, 0.05),
+    (2048, 2048, 5461, 0.03), (2048, 5461, 2048, 0.03)])
+def test_sddmm_kernel_matches_plain(cuda, case, dtype):
+    m, k, n, delta = case
+    rng = np.random.default_rng(m + n)
+    rows, cols = support.sample_support(k * 3 + n, k, n, delta)
+    tiles = ops.prepare_tile_consts(rows, cols, k, n,
+                                    pad=support.tile_cap(k, n, delta))
+    rt, ct = tiles["rows_t"].to(cuda), tiles["cols_t"].to(cuda)
+    x = _rand(rng, (m, k), dtype, cuda)
+    dy = _rand(rng, (m, n), dtype, cuda)
+    before = sddmm_kernel.sddmm.launches
+    got = sddmm_kernel.sddmm(x, dy, rt, ct)
+    torch.cuda.synchronize()
+    assert sddmm_kernel.sddmm.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == rt.shape
+    # f32 sums over up to 2048 tokens in another order: the error grows
+    # like sqrt(M) ulp of the partial sums' size
+    torch.testing.assert_close(got.cpu(), ref.sddmm_ref(x, dy, rt, ct).cpu(),
+                               atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sl_linear_backward_on_card_matches_cpu(cuda, dtype):
+    """The fused linear's forward and backward (sl_matmul, sddmm, sl_matmul
+    on the transposed support) on the card against the same call on the
+    CPU, where every kernel wrapper runs its plain version."""
+    m, k, n, r, delta = 300, 200, 520, 16, 0.05
+    rng = np.random.default_rng(1)
+    rows, cols = support.sample_support(3, k, n, delta)
+    tiles = ops.add_transposed_tiles(ops.prepare_tile_consts(
+        rows, cols, k, n, pad=support.tile_cap(k, n, delta)))
+    host = [_rand(rng, shape, dtype, "cpu", lim) for shape, lim in (
+        ((m, k), None), ((k, r), 1.0), ((r, n), 0.2),
+        ((k, rows.shape[0] // k), 0.1))]
+    dy = _rand(rng, (m, n), dtype, "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_(True) for t in host]
+        t = {name: c.to(dev) for name, c in tiles.items()}
+        y = ops.sl_linear(*leaves, t["rows_t"], t["cols_t"], t["perm"], 0.5,
+                          rows_tT=t["rows_tT"], cols_tT=t["cols_tT"])
+        out[str(dev)] = [y] + list(torch.autograd.grad(y, leaves,
+                                                       dy.to(dev)))
+    for name, g, w in zip(("y", "dx", "dB", "dA", "dv"), out["cuda"],
+                          out["cpu"]):
+        assert g.dtype == w.dtype, name
+        scale = max(1.0, float(w.detach().float().abs().max()))
+        torch.testing.assert_close(g.detach().float().cpu(),
+                                   w.detach().float(),
+                                   atol=TOL[dtype] * scale, rtol=TOL[dtype])
 
 
 def _pools(rng, n_slots, bps, block_len, n_kv, hd, last_pos, dtype, dev):

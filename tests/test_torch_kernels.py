@@ -1,5 +1,5 @@
-"""The port's kernels (src/repro_torch/kernels) against the reference's
-Pallas kernels.
+"""The port's kernels (src/repro_torch/kernels) and the fused linear's
+autograd Function against the reference's Pallas kernels and custom VJP.
 
 On the CPU each kernel wrapper runs its plain PyTorch version; those are
 held here against the JAX kernels run through ``repro.kernels.ops`` in
@@ -12,6 +12,7 @@ Tolerances (atol = rtol): f32 1e-4 (the same math, sums in another
 order); bf16 2e-2 (bf16 rounding of W tiles and outputs can tip one ulp
 where the sums' order differs).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ from repro.core import support as jsupport
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pa_kernel
+from repro_torch.kernels import sddmm as sddmm_kernel
 from repro_torch.kernels import sl_matmul as sl_kernel
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -121,6 +123,120 @@ def test_sl_matmul_sums_colliding_padding_slots():
     want = np.zeros((k, n), np.float32)
     want[rows, cols] = v
     np.testing.assert_array_equal(W.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# sddmm and the fused linear's backward
+# ---------------------------------------------------------------------------
+
+SDDMM_CASES = [
+    # (M, K, N, delta) — ragged K/N, one token block and several
+    (7, 200, 300, 0.05),
+    (300, 136, 520, 0.03),
+    (130, 256, 136, 0.05),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SDDMM_CASES)
+def test_sddmm_plain_matches_reference_kernel(case, dtype):
+    """Every slot, padding slots (G at the tile's local (0, 0)) included."""
+    m, k, n, delta = case
+    rng = np.random.default_rng(m + k)
+    rows, cols = jsupport.sample_support(k * 3 + n, k, n, delta)
+    cap = jsupport.tile_cap(k, n, delta)
+    jt = jops.prepare_tile_consts(rows, cols, k, n, pad=cap)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    dy = rng.standard_normal((m, n)).astype(np.float32)
+    want = jops.sddmm(_j(x, dtype), jnp.asarray(dy), jt["rows_t"],
+                      jt["cols_t"], interpret=True)
+    tt = ops.prepare_tile_consts(rows, cols, k, n, pad=cap)
+    before = sddmm_kernel.sddmm.launches
+    got = ops.sddmm(_t(x, dtype), torch.from_numpy(dy), tt["rows_t"],
+                    tt["cols_t"])
+    assert sddmm_kernel.sddmm.launches == before        # CPU: plain version
+    assert got.dtype == torch.float32 and got.shape == tuple(want.shape)
+    # sums over tokens in f32 in another order; bf16 inputs are rounded
+    # identically on both sides (dy cast to x's dtype first)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["row_balanced", "iid"])
+def test_sl_linear_vjp_matches_reference(kind, dtype):
+    """y, dx, dB, dA and dv of the autograd Function against ``jax.vjp``
+    of the reference's custom-VJP ``sl_linear`` (Pallas in interpret
+    mode)."""
+    m, k, n, r, delta = 6, 200, 150, 8, 0.05
+    rows, cols, x, B, A, v = _sl_inputs(m, k, n, r, delta, seed=5)
+    if kind == "iid":
+        rows, cols = jsupport.sample_support(9, k, n, delta, "iid")
+        v = np.random.default_rng(9).uniform(-1, 1, rows.shape[0]).astype(
+            np.float32) / np.sqrt(k)
+    else:
+        v = v.reshape(k, -1)
+    cap = jsupport.tile_cap(k, n, delta, kind)
+    jt = jops.prepare_tile_consts(rows, cols, k, n, pad=cap)
+    dy = np.random.default_rng(6).standard_normal((m, n)).astype(np.float32)
+    y, vjp = jax.vjp(
+        lambda x_, B_, A_, v_: jops.sl_linear(
+            x_, B_, A_, v_, jt["rows_t"], jt["cols_t"], jt["perm"], 2.0),
+        _j(x, dtype), _j(B, dtype), _j(A, dtype), _j(v, dtype))
+    want = (y,) + vjp(_j(dy, dtype))
+    tt = ops.add_transposed_tiles(ops.prepare_tile_consts(rows, cols, k, n,
+                                                          pad=cap))
+    leaves = [_t(a, dtype).requires_grad_(True) for a in (x, B, A, v)]
+    ty = ops.sl_linear(*leaves, tt["rows_t"], tt["cols_t"], tt["perm"], 2.0,
+                       rows_tT=tt["rows_tT"], cols_tT=tt["cols_tT"])
+    got = (ty,) + torch.autograd.grad(ty, leaves, _t(dy, dtype))
+    for name, g, w in zip(("y", "dx", "dB", "dA", "dv"), got, want):
+        assert g.dtype == TDT[dtype] and g.shape == w.shape, name
+        w = np.asarray(w.astype(jnp.float32))
+        tol = TOL[dtype] * max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(_f32(g.detach()), w, atol=tol,
+                                   rtol=TOL[dtype], err_msg=name)
+
+
+def test_transposed_tiles_address_w_transpose():
+    """Wᵀ's tile consts densify to exactly the transpose of W."""
+    k, n, r = 200, 300, 4
+    rows, cols, _, B, A, v = _sl_inputs(3, k, n, r, 0.05, seed=4)
+    tt = ops.add_transposed_tiles(ops.prepare_tile_consts(
+        rows, cols, k, n, pad=jsupport.tile_cap(k, n, 0.05)))
+    v_t = ops._gather_tiles(torch.from_numpy(v), tt["perm"])
+    B_, A_ = torch.from_numpy(B), torch.from_numpy(A)
+    W = ref.densify_tiles(B_, A_, v_t, tt["rows_t"], tt["cols_t"], 1.5,
+                          torch.float32)[:k, :n]
+    WT = ref.densify_tiles(A_.T, B_.T, ops.transpose_tiles(v_t),
+                           tt["rows_tT"], tt["cols_tT"], 1.5,
+                           torch.float32)[:n, :k]
+    assert torch.equal(WT, W.T)
+
+
+def test_sl_linear_backward_needs_transposed_tiles():
+    """The backward never rebuilds Wᵀ's tile consts per step: without the
+    ones built at init it raises; forward-only callers need none."""
+    k, n, r = 200, 300, 4
+    rows, cols, x, B, A, v = _sl_inputs(3, k, n, r, 0.05, seed=4)
+    tt = ops.prepare_tile_consts(rows, cols, k, n,
+                                 pad=jsupport.tile_cap(k, n, 0.05))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, B, A, v)]
+    y = ops.sl_linear(*leaves, tt["rows_t"], tt["cols_t"], tt["perm"], 1.5)
+    assert y.shape == (3, n)
+    with pytest.raises(ValueError, match="add_transposed_tiles"):
+        y.sum().backward()
+
+
+def test_scatter_tiles_writes_each_support_entry_once():
+    k, n = 200, 300
+    rows, cols, *_ = _sl_inputs(1, k, n, 4, 0.05, seed=8)
+    tt = ops.prepare_tile_consts(rows, cols, k, n,
+                                 pad=jsupport.tile_cap(k, n, 0.05))
+    dv_t = torch.randn(tt["perm"].shape)
+    flat = ops._scatter_tiles(dv_t, tt["perm"], rows.shape[0])
+    assert torch.equal(ops._gather_tiles(flat, tt["perm"]),
+                       torch.where(tt["perm"] >= 0, dv_t, 0.0))
 
 
 # ---------------------------------------------------------------------------
@@ -234,3 +350,9 @@ def test_wrappers_refuse_other_devices():
         pa_kernel.paged_attention(q, q, q, q, q, scale=1.0)
     with pytest.raises(ValueError, match="unsupported device"):
         pa_kernel.paged_prefill(q[None], q, q, q, q, scale=1.0)
+
+
+def test_sddmm_wrapper_refuses_other_devices():
+    meta = torch.empty((2, 128), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sddmm_kernel.sddmm(meta, meta, meta, meta)

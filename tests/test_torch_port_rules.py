@@ -1,6 +1,7 @@
 """Rules of the PyTorch port: it imports neither jax nor the reference
-package, its entry points refuse to run without a card unless asked for
-the CPU, unported options raise, ``from_jax_numpy`` reads the reference's
+package, its entry points (serving and training) refuse to run without a
+card unless asked for the CPU, unported options raise naming their
+ROADMAP item, ``from_jax_numpy`` reads the reference's
 flat checkpoint layout (bf16 as uint16 bit-views), and ``chip_smoke.py``
 fails without a card or without the repository beside it."""
 import ast
@@ -88,6 +89,51 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm.init_lm(dataclasses.replace(cfg, param=dataclasses.replace(
             cfg.param, mode="lowrank")), device="cpu")
+
+
+def test_train_entry_points_need_a_card_unless_cpu(no_card, tmp_path):
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train
+    from repro_torch.train.trainer import Trainer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--smoke", "--steps", "1", "--ckpt-dir",
+                    str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(TrainConfig(model=_smoke(), ckpt_dir=str(tmp_path)))
+    tr = train.main(["--smoke", "--steps", "1", "--batch", "2", "--seq",
+                     "8", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    assert tr.device.type == "cpu" and len(tr.metrics_history) == 1
+
+
+@pytest.mark.parametrize("flags", [
+    ["--optimizer", "adam8bit"], ["--optimizer", "galore_adamw"],
+    ["--update-mode", "per_layer"], ["--fsdp", "--use-mesh"],
+    ["--use-mesh"], ["--multipod"], ["--chaos", "kill@3"],
+    ["--mode", "lowrank"], ["--mode", "relora"], ["--remat", "full"],
+    ["--layer-timing"], ["--jax-profile-dir", "x"]],
+    ids=lambda f: " ".join(f))
+def test_train_launcher_unported_options_raise(flags, tmp_path):
+    from repro_torch.launch import train
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train.main(["--smoke", "--steps", "1", "--device", "cpu",
+                    "--ckpt-dir", str(tmp_path), *flags])
+
+
+def test_trainer_unported_options_raise(tmp_path):
+    from repro_torch.configs.base import ShardingConfig, TrainConfig
+    from repro_torch.train.trainer import Trainer
+    tc = TrainConfig(model=_smoke(), ckpt_dir=str(tmp_path))
+    for kw in (dict(mesh=object()), dict(chaos=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(tc, device="cpu", **kw)
+    for sc in (ShardingConfig(pod_grad_compression=True),
+               ShardingConfig(fsdp=True),
+               ShardingConfig(update_mode="per_layer")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(dataclasses.replace(tc, sharding=sc), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm.apply_lm(_smoke(), {}, {}, torch.zeros((1, 2), dtype=torch.int64),
+                    remat="full")
 
 
 def test_from_jax_numpy_reads_flat_checkpoint_layout():
