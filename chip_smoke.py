@@ -6,7 +6,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds every hand-written kernel from the sources in the checkout and
 holds each one against its plain PyTorch version at the real shapes of
-the two ported paths (with timings). Then it drives both paths on the
+the three ported paths (with timings; ``adam8bit`` bit for bit at every
+leaf size the per-layer step updates). Then it drives the paths on the
 paper's ``llama_1b`` config at full width and depth with random weights
 from a seed:
 
@@ -14,13 +15,21 @@ from a seed:
   give the same greedy tokens (fused ``sl_matmul`` + paged kernels, and
   dense densify + gathered attention), and once in bfloat16, timed, with
   every kernel's launch count read around the run, then profiled;
-* training: 3 float32 train steps with exec_mode "fused" (``sl_matmul``
-  forward and dx, ``sddmm`` dV) held against exec_mode "dense" (densify +
-  the eq.-(2) backward) from one init and one data stream; then the
-  ``Trainer`` in bfloat16 for 6 steps, timed, with the launch counts read
-  around the run and its checkpoint written; a device-only profile of one
-  more step; and, on ``llama_60m``, a run killed at step 4 and relaunched
-  from its checkpoint that must end bit-identical to an uninterrupted one.
+* training: 3 float32 train steps from one init and one data stream in
+  pairs that must agree: exec_mode "fused" (``sl_matmul`` forward and dx,
+  ``sddmm`` dV) against "dense" (densify + the eq.-(2) backward),
+  per-layer updates against the global step (AdamW), and per-layer 8-bit
+  AdamW through the ``adam8bit`` kernel against global 8-bit AdamW; then
+  the ``Trainer`` in bfloat16 for 6 steps, timed, with the launch counts
+  read around the run and its checkpoint written; a device-only profile
+  of one more step;
+* the memory path: the ``Trainer`` in bfloat16 with per-layer updates and
+  8-bit AdamW (``adam8bit``) for 6 steps, timed, with launch counts,
+  per-layer update times and its peak device memory, which must stay
+  below the global AdamW run's; and, on ``llama_60m``, runs killed at
+  step 4 and relaunched from their checkpoint (global AdamW, and
+  per-layer 8-bit AdamW) that must end bit-identical to uninterrupted
+  ones, optimizer state and 8-bit codes included.
 
 Any failure exits non-zero. Without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -65,12 +74,24 @@ FLUSH_BYTES = 256 << 20
 SL_SOURCE = "src/repro_torch/kernels/csrc/sl_matmul.cu"
 PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 SD_SOURCE = "src/repro_torch/kernels/csrc/sddmm.cu"
+AD_SOURCE = "src/repro_torch/kernels/csrc/adam8bit.cu"
 REPLACES = {
     "sl_matmul": "src/repro/kernels/sl_matmul.py:63",
     "paged_attention": "src/repro/kernels/paged_attention.py:132",
     "paged_prefill": "src/repro/kernels/paged_attention.py:241",
     "sddmm": "src/repro/kernels/sddmm.py:47",
+    "adam8bit": "src/repro/kernels/adam8bit.py:78",
 }
+# the kernels each main path must launch
+PATH_KERNELS = {
+    "serve": ("sl_matmul", "paged_attention", "paged_prefill"),
+    "train": ("sl_matmul", "sddmm"),
+    "train_per_layer": ("sl_matmul", "sddmm", "adam8bit"),
+}
+# f32 operations per element of one 8-bit Adam step, counted from
+# csrc/adam8bit.cu: dequantize 4, the moments 7, the update 9, the
+# requantize 8 (the block maxima, divisions, roundings, the shift)
+ADAM8BIT_OPS = 28
 # sddmm against its plain version (xᵀ·dy by cuBLAS, then the gather): the
 # kernel sums each slot over tokens in order; a GEMM may split the token
 # sum, and then the absolute error grows with sqrt(M) times the partial
@@ -290,6 +311,112 @@ def check_train_kernels(timer, gen, device, cfg, m):
     return rows
 
 
+def adam8bit_sizes(cfg):
+    """{label: elements} of every update the per-layer step gives the
+    adam8bit kernel on ``cfg`` (an SLTrain llama config): a layer's slice
+    of each stacked leaf whose slices are whole 256-blocks, the whole
+    stacked leaf of each other one (the deferred leaves), and the
+    embedding and LM head whole."""
+    from repro_torch.core import support
+    d, f, n_layers, pc = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.param
+    hd = cfg.resolved_head_dim
+    linears = {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
+               "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d),
+               "gate": (d, f), "up": (d, f), "down": (f, d)}
+    per_layer = {"ln_attn": d, "ln_mlp": d}
+    for name, (a, b) in linears.items():
+        r = max(4, min(pc.rank, min(a, b) // 2))
+        per_layer[f"{name}.A"] = r * b
+        per_layer[f"{name}.B"] = a * r
+        per_layer[f"{name}.v"] = support.nnz_for(a, b, pc.delta,
+                                                 pc.support_kind)
+    names = {}
+    for name, n in per_layer.items():
+        if n % 256:
+            names.setdefault(n_layers * n, []).append(f"{name} deferred")
+        else:
+            names.setdefault(n, []).append(f"{name} slice")
+    names.setdefault(d, []).append("ln_f")
+    for name in ["embed"] + ([] if cfg.tie_embeddings else ["lm_head"]):
+        names.setdefault(cfg.padded_vocab * d, []).append(name)
+    return {", ".join(v): n for n, v in names.items()}
+
+
+def adam8bit_case(gen, device, n, dtype):
+    """p (zero-padded to 256-blocks) in ``dtype``, an f32 gradient (zero in
+    the padding) and moments quantized from random values."""
+    from repro_torch.optim import quant
+    nq = -(-n // 256)
+
+    def padded(t):
+        out = torch.zeros(nq * 256, device=device)
+        out[:n] = t
+        return out.reshape(nq, 256)
+    p = padded(torch.randn(n, generator=gen, device=device)).to(dtype)
+    g = padded(torch.randn(n, generator=gen, device=device) * 1e-2)
+    m = torch.randn(n, generator=gen, device=device) * 1e-3
+    v = torch.randn(n, generator=gen, device=device).abs() * 1e-5
+    mc, ms, _ = quant.quantize_blockwise(m, 256, True)
+    vc, vs, _ = quant.quantize_blockwise(v, 256, False)
+    return [p, g, mc, ms, vc, vs]
+
+
+def check_adam8bit(timer, gen, device, cfg, steps=3):
+    """The adam8bit kernel against its plain version at every leaf size
+    the llama_1b per-layer step updates, in bf16 and f32 params, with
+    weight decay 0 and 0.1: ``steps`` chained steps, each from the
+    previous step's outputs of the same version, and every parameter,
+    code and scale must be equal bit for bit (the kernel runs the plain
+    version's IEEE operations). Timed in place, as the per-layer sweep
+    calls it; the bound counts p, g, both codes and scales read once and
+    p, codes and scales written once."""
+    from repro_torch.kernels import adam8bit as adk
+    from repro_torch.kernels import ops, ref
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, n in adam8bit_sizes(cfg).items():
+            for wd in (0.0, 0.1):
+                kern = adam8bit_case(gen, device, n, dtype)
+                plain = [t.clone() for t in kern]
+                for step in range(1, steps + 1):
+                    scalars = ops.adam8bit_scalars(
+                        lr=1e-3, b1=0.9, b2=0.999, bc1=1 - 0.9 ** step,
+                        bc2=1 - 0.999 ** step, eps=1e-8, wd=wd,
+                        device=device)
+                    got = adk.adam8bit_update(*kern, scalars, n,
+                                              inplace=True)
+                    want = ref.adam8bit_ref(*plain, scalars, n)
+                    torch.cuda.synchronize()
+                    for what, a, b in zip(("p", "m_codes", "m_scales",
+                                           "v_codes", "v_scales"), got,
+                                          want):
+                        if not torch.equal(a, b):
+                            err = (a.float() - b.float()).abs().max()
+                            fail(f"adam8bit {label} {dname(dtype)} wd {wd} "
+                                 f"step {step}: {what} differs from the "
+                                 f"plain version (max abs err "
+                                 f"{err.item():.3e}; bitwise expected)")
+                    plain = [want[0], plain[1]] + list(want[1:])
+                t_k = timer.ms(lambda: adk.adam8bit_update(
+                    *kern, scalars, n, inplace=True))
+                t_p = timer.ms(lambda: ref.adam8bit_ref(*plain, scalars, n))
+                p, g, mc, ms, vc, vs = kern
+                moved = nbytes(p, g, mc, ms, vc, vs, scalars) + \
+                    nbytes(p, mc, ms, vc, vs)
+                b, by = bound_ms(moved, ADAM8BIT_OPS * n, torch.float32)
+                shape = f"{label} n={n} {dname(dtype)} wd {wd}"
+                rows.append(dict(name="adam8bit", shape=shape, n=n,
+                                 dtype=dtype, max_abs_err=0.0, tol=0.0,
+                                 ms=t_k, plain_ms=t_p, library_ms=None,
+                                 bound_ms=b, bound_by=by))
+                say(f"kernel adam8bit {shape}: {steps} steps bit-identical "
+                    f"to the plain version (p, codes, scales) | kernel "
+                    f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b:.4f} ms "
+                    f"({by}, {moved / 1e6:.1f} MB)")
+                del kern, plain
+    return rows
+
+
 def attn_case(gen, device, dtype, *, n_slots, n_kv, group, hd, block_len,
               bps, positions):
     """Random pools and a block table covering each slot's positions;
@@ -468,12 +595,13 @@ def traffic(vocab: int, n: int = 8, seed: int = 0):
 
 
 def _wrappers():
+    from repro_torch.kernels import adam8bit as adk
     from repro_torch.kernels import paged_attention as pak
     from repro_torch.kernels import sddmm as sdk
     from repro_torch.kernels import sl_matmul as slk
     return {"sl_matmul": slk.sl_matmul, "paged_attention":
             pak.paged_attention, "paged_prefill": pak.paged_prefill,
-            "sddmm": sdk.sddmm}
+            "sddmm": sdk.sddmm, "adam8bit": adk.adam8bit_update}
 
 
 def launch_counts():
@@ -574,7 +702,7 @@ def phase_engine_f32(cfg, params, consts, prompts, arrivals, device, **kw):
     b_launches = launch_counts()
     if any(b_launches.values()):
         fail(f"path B (dense/gather) launched kernels: {b_launches}")
-    if not all(n for k, n in a_launches.items() if k != "sddmm"):
+    if not all(a_launches[k] for k in PATH_KERNELS["serve"]):
         fail(f"path A (fused/paged) missed a kernel: {a_launches}")
     ties, same = [], 0
     for ra, rb in zip(a_reqs, b_reqs):
@@ -631,7 +759,7 @@ def phase_engine_bf16(cfg, params, consts, prompts, arrivals, device, **kw):
                                    exec_mode="fused", attn_kernel="paged",
                                    device=device, **kw)
     launches = launch_counts()
-    missing = [k for k, n in launches.items() if n == 0 and k != "sddmm"]
+    missing = [k for k in PATH_KERNELS["serve"] if launches[k] == 0]
     if missing:
         fail(f"bf16 serving path never launched {missing}: {launches}")
     tokens = sum(len(r.out) for r in reqs)
@@ -734,17 +862,23 @@ def device_busy(prof, n_top: int = 6):
 
 class ShapeRecorder:
     """Records the (M, K, N) of every sl_matmul and sddmm call the fused
-    linear makes while it is active, by wrapping the two ``kernels.ops``
-    functions it calls (the kernel wrappers, and their launch counts, are
-    untouched)."""
+    linear makes, and the (elements, dtype) of every 8-bit Adam update,
+    while it is active, by wrapping the ``kernels.ops`` functions they
+    call (the kernel wrappers, and their launch counts, are untouched)."""
 
     def __init__(self):
         self.shapes = {"sl_matmul": set(), "sddmm": set()}
+        self.adam8bit = set()
 
     def __enter__(self):
         from repro_torch.kernels import ops
-        self._orig = (ops.sl_matmul, ops.sddmm)
-        sl, sd = self._orig
+        self._orig = (ops.sl_matmul, ops.sddmm, ops.adam8bit_update)
+        sl, sd, ad = self._orig
+
+        def ad_rec(p, *a, **k):
+            self.adam8bit.add((p.numel(), p.dtype))
+            return ad(p, *a, **k)
+        ops.adam8bit_update = ad_rec
 
         def sl_rec(x, B, A, *a, **k):
             self.shapes["sl_matmul"].add((x.numel() // x.shape[-1],
@@ -760,31 +894,75 @@ class ShapeRecorder:
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
-        ops.sl_matmul, ops.sddmm = self._orig
+        ops.sl_matmul, ops.sddmm, ops.adam8bit_update = self._orig
 
 
-def train_config(cfg, *, steps, batch, seq, ckpt_dir, ckpt_every=0, lr=3e-3):
+def train_config(cfg, *, steps, batch, seq, ckpt_dir, ckpt_every=0, lr=3e-3,
+                 optimizer="adamw", update_mode="global"):
     """The TrainConfig the port's launcher builds for these flags."""
-    from repro_torch.configs.base import OptimizerConfig, TrainConfig
-    oc = OptimizerConfig(lr=lr, warmup_steps=max(1, steps // 10),
-                         total_steps=steps)
-    return TrainConfig(model=cfg, optim=oc, seed=0, global_batch=batch,
-                       seq_len=seq, steps=steps, log_every=1,
-                       ckpt_every=ckpt_every, ckpt_dir=ckpt_dir,
+    from repro_torch.configs.base import (OptimizerConfig, ShardingConfig,
+                                          TrainConfig)
+    oc = OptimizerConfig(name=optimizer, lr=lr,
+                         warmup_steps=max(1, steps // 10), total_steps=steps)
+    return TrainConfig(model=cfg, optim=oc,
+                       sharding=ShardingConfig(update_mode=update_mode),
+                       seed=0, global_batch=batch, seq_len=seq, steps=steps,
+                       log_every=1, ckpt_every=ckpt_every, ckpt_dir=ckpt_dir,
                        async_ckpt=False, keep_ckpts=1)
 
 
+def train_fn(cfg, api, optimizer, update_mode):
+    """The train step the Trainer builds for ``update_mode``."""
+    from repro_torch.train import perlayer
+    from repro_torch.train import step as step_lib
+    if update_mode == "per_layer":
+        return perlayer.make_perlayer_train_step(cfg, api, optimizer)
+    return step_lib.make_train_step(cfg, api, optimizer)
+
+
+def adam8bit_launches_per_step(optimizer, params, opt_state):
+    """adam8bit launches one per-layer step makes: one per head leaf and
+    the embedding, one per layer for each stacked leaf whose state slices
+    along the layer axis, one for each deferred leaf."""
+    from repro_torch.models.common import tree_leaves
+    n = 0
+    for path, leaf in tree_leaves(params):
+        parts = tuple(path.split("/"))
+        if parts[0] != "layers":
+            n += 1
+            continue
+        st = optimizer.stack_state(optimizer.leaf_state(opt_state, parts),
+                                   leaf, leaf.shape[0])
+        n += leaf.shape[0] if st is not None else 1
+    return n
+
+
+def param_rel_diff(a, b):
+    """The worst relative difference over param leaves: max |a - b| over
+    max |b|, leaf by leaf."""
+    from repro_torch.models.common import tree_leaves
+    worst = 0.0
+    for (_, x), (_, y) in zip(tree_leaves(a), tree_leaves(b)):
+        d = (x.float() - y.float()).abs().max().item()
+        worst = max(worst, d / max(y.float().abs().max().item(), 1e-30))
+    return worst
+
+
 def phase_train_parity(cfg, device, gen, *, batch, seq, steps=3):
-    """Phase 6: f32 training, fused (sl_matmul forward and dx, sddmm dV)
-    against dense (densify + eq.-(2) backward), from one init and one
-    SyntheticC4 stream, through the train step the Trainer runs. B is
-    drawn at random, as for serving, so that step 1 covers the low-rank
-    half of the forward, dx and dA too (B = 0 makes dA exactly 0)."""
+    """Phase 6: f32 training from one init and one SyntheticC4 stream,
+    through the train steps the Trainer runs, in pairs that must agree:
+    exec_mode fused (sl_matmul forward and dx, sddmm dV) against dense
+    (densify + eq.-(2) backward); per-layer updates against the global
+    step (AdamW, fused); and per-layer 8-bit AdamW through the adam8bit
+    kernel against global 8-bit AdamW (its plain update). B is drawn at
+    random, as for serving, so that step 1 covers the low-rank half of
+    the forward, dx and dA too (B = 0 makes dA exactly 0). The per-layer
+    steps update their params in place: each run starts from a copy."""
     from repro_torch.data.pipeline import SyntheticC4
     from repro_torch.kernels import ops
     from repro_torch.models import registry
+    from repro_torch.models.common import tree_map
     from repro_torch.optim import optimizers
-    from repro_torch.train import step as step_lib
     tc = train_config(cfg, steps=steps, batch=batch, seq=seq, ckpt_dir="")
     api = registry.get_api(cfg)
     t0 = time.perf_counter()
@@ -796,43 +974,71 @@ def phase_train_parity(cfg, device, gen, *, batch, seq, steps=3):
     data = SyntheticC4(cfg.vocab_size, seq, batch, seed=tc.seed)
     batches = [{"tokens": torch.from_numpy(data.next_batch()["tokens"]).to(
         device)} for _ in range(steps)]
-    out = {}
-    for mode in ("fused", "dense"):
-        c = dataclasses.replace(cfg, param=dataclasses.replace(
-            cfg.param, exec_mode=mode))
-        opt = optimizers.make(tc.optim)
-        fn = step_lib.make_train_step(c, api, opt)
-        p, st = params, opt.init(params)
+    dense = dataclasses.replace(cfg, param=dataclasses.replace(
+        cfg.param, exec_mode="dense"))
+    # name: (config, optimizer, update mode, kernels it must launch)
+    runs = {
+        "fused": (cfg, "adamw", "global", ("sl_matmul", "sddmm")),
+        "dense": (dense, "adamw", "global", ()),
+        "per_layer adamw": (cfg, "adamw", "per_layer",
+                            ("sl_matmul", "sddmm")),
+        "global adam8bit": (cfg, "adam8bit", "global",
+                            ("sl_matmul", "sddmm")),
+        "per_layer adam8bit": (cfg, "adam8bit", "per_layer",
+                               ("sl_matmul", "sddmm", "adam8bit")),
+    }
+    pairs = (("fused", "dense"), ("per_layer adamw", "fused"),
+             ("per_layer adam8bit", "global adam8bit"))
+    out, first = {}, {}
+    for name, (c, opt_name, mode, kernels) in runs.items():
+        opt = optimizers.make(dataclasses.replace(tc.optim, name=opt_name))
+        fn = train_fn(c, api, opt, mode)
+        p = tree_map(torch.clone, params) if mode == "per_layer" else params
+        st = opt.init(p)
+        want_adam = adam8bit_launches_per_step(opt, p, st) * steps \
+            if "adam8bit" in kernels else 0
         reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rows = []
-        for b in batches:
+        for i, b in enumerate(batches):
             p, st, m = fn(p, st, consts, b)
             rows.append((float(m["loss"]), float(m["grad_norm"]),
                          float(m["nonfinite"])))
+            if i == 0 and name in ("per_layer adamw", "fused",
+                                   "per_layer adam8bit", "global adam8bit"):
+                first[name] = tree_map(torch.clone, p)
         wall = time.perf_counter() - t0
-        out[mode] = rows
+        out[name] = rows
         launches = launch_counts()
-        want_zero = mode == "dense"
-        if want_zero == any(launches[k] for k in ("sl_matmul", "sddmm")):
-            fail(f"f32 {mode} training launched {launches}")
+        bad = [k for k in ("sl_matmul", "sddmm")
+               if bool(launches[k]) != (k in kernels)]
+        if bad or launches["adam8bit"] != want_adam:
+            fail(f"f32 {name} training launched {launches} (expected "
+                 f"{kernels}, adam8bit {want_adam})")
         del p, st
-        say(f"train f32 llama_1b {mode}: {steps} steps in {wall:.2f} s, "
-            f"(loss, grad_norm, nonfinite) per step {rows} | launches "
-            f"{launches}")
-    for i, (f, d) in enumerate(zip(out["fused"], out["dense"])):
-        tol = TRAIN_TOL_STEP1 if i == 0 else TRAIN_TOL_LATER
-        for what, a, b in (("loss", f[0], d[0]), ("grad_norm", f[1], d[1])):
-            rel = abs(a - b) / max(abs(b), 1e-12)
-            if not (np.isfinite(a) and rel <= tol) or f[2] or d[2]:
-                fail(f"f32 train step {i + 1}: fused {what} {a!r} vs dense "
-                     f"{b!r}, relative difference {rel:.3e} > {tol}")
-    rel = [max(abs(f[k] - d[k]) / abs(d[k]) for k in (0, 1))
-           for f, d in zip(out["fused"], out["dense"])]
-    say(f"train f32 parity: fused vs dense largest relative difference of "
-        f"loss and grad norm per step {[f'{r:.2e}' for r in rel]} (tol "
-        f"{TRAIN_TOL_STEP1} at step 1, {TRAIN_TOL_LATER} after)")
+        say(f"train f32 llama_1b {name} ({opt_name}, {mode}): {steps} steps "
+            f"in {wall:.2f} s, (loss, grad_norm, nonfinite) per step {rows}"
+            f" | launches {launches}")
+    for a_name, b_name in pairs:
+        for i, (f, d) in enumerate(zip(out[a_name], out[b_name])):
+            tol = TRAIN_TOL_STEP1 if i == 0 else TRAIN_TOL_LATER
+            for what, a, b in (("loss", f[0], d[0]),
+                               ("grad_norm", f[1], d[1])):
+                rel = abs(a - b) / max(abs(b), 1e-12)
+                if not (np.isfinite(a) and rel <= tol) or f[2] or d[2]:
+                    fail(f"f32 train step {i + 1}: {a_name} {what} {a!r} vs "
+                         f"{b_name} {b!r}, relative difference {rel:.3e} > "
+                         f"{tol}")
+        rel = [max(abs(f[k] - d[k]) / abs(d[k]) for k in (0, 1))
+               for f, d in zip(out[a_name], out[b_name])]
+        pdiff = (f", worst relative param difference after step 1 "
+                 f"{param_rel_diff(first[a_name], first[b_name]):.3e}"
+                 if b_name in first else "")
+        say(f"train f32 parity: {a_name} vs {b_name} largest relative "
+            f"difference of loss and grad norm per step "
+            f"{[f'{r:.2e}' for r in rel]} (tol {TRAIN_TOL_STEP1} at step 1, "
+            f"{TRAIN_TOL_LATER} after){pdiff}")
 
 
 def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=6):
@@ -864,7 +1070,7 @@ def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=6):
         fail(f"bf16 training: losses {losses}")
     n_lin = 7 * cfg.n_layers
     want = {"sl_matmul": 2 * n_lin * steps, "sddmm": n_lin * steps,
-            "paged_attention": 0, "paged_prefill": 0}
+            "paged_attention": 0, "paged_prefill": 0, "adam8bit": 0}
     if launches != want:
         fail(f"bf16 training launched {launches}, expected {want} "
              f"({n_lin} linears x {steps} steps: forward + dx, dV)")
@@ -881,12 +1087,12 @@ def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=6):
         f" | max_memory_allocated {peak / 2**30:.2f} GiB | run wall "
         f"{wall:.1f} s incl. checkpoint of step {steps} | {smi}")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    return tr, state, launches, rec.shapes, med
+    return tr, state, launches, rec.shapes, med, peak
 
 
-def phase_train_profile(tr, state, device, med_s):
-    """Phase 8: a device-only profile of one more bf16 train step: time
-    by kernel and the idle share within that step."""
+def phase_train_profile(tr, state, device, med_s, label="train step"):
+    """Phase 8: a device-only profile of one more bf16 train step of
+    ``tr``: time by kernel and the idle share within that step."""
     from torch.profiler import ProfilerActivity, profile
     batch = {k: torch.from_numpy(v).to(device)
              for k, v in tr.data.next_batch().items()}
@@ -900,11 +1106,11 @@ def phase_train_profile(tr, state, device, med_s):
         wall = time.perf_counter() - t0
     busy = device_busy(prof, n_top=8)
     if busy is None:
-        say("profile train step: the profiler recorded no device time "
+        say(f"profile {label}: the profiler recorded no device time "
             "(not measured)")
         return
     busy_us, top = busy
-    say(f"profile bf16 train step (device-only profiler on): wall "
+    say(f"profile bf16 {label} (device-only profiler on): wall "
         f"{wall * 1e3:.1f} ms (unprofiled median {med_s * 1e3:.1f} ms), "
         f"device busy {busy_us / 1e3:.1f} ms = "
         f"{100 * busy_us / 1e6 / wall:.1f}% (idle "
@@ -912,12 +1118,125 @@ def phase_train_profile(tr, state, device, med_s):
         "by kernel: " + "; ".join(f"{n[:48]} {pct:.1f}%" for n, pct in top))
 
 
-def phase_kill_resume(device):
-    """Phase 9: the Trainer on llama_60m (full width, bf16, fused) with a
+def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak,
+                        steps=6):
+    """Phase 9: the memory path, as ``launch.train --optimizer adam8bit
+    --update-mode per_layer --exec-mode fused --layer-timing`` runs it:
+    the Trainer in bf16 with per-layer updates and 8-bit AdamW through the
+    adam8bit kernel, one warm-up step plus five timed, its final
+    checkpoint written. Launch counts, the kernels' shapes and the peak of
+    ``torch.cuda.max_memory_allocated`` (reset after init) are read around
+    the run; the peak must stay below the global AdamW run's."""
+    from repro_torch.analysis import roofline
+    from repro_torch.core import memory
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.trainer import Trainer
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_ckpt_perlayer")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tc = train_config(cfg, steps=steps, batch=batch, seq=seq,
+                      ckpt_dir=ckpt_dir, optimizer="adam8bit",
+                      update_mode="per_layer")
+    tr = Trainer(tc, device=device, log_fn=lambda *a: None,
+                 layer_timing=True)
+    state = tr.init_state()
+    per_step = adam8bit_launches_per_step(tr.optimizer, state.params,
+                                          state.opt_state)
+    consts_b = sum(nbytes(t) for _, t in tree_leaves(state.consts))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with ShapeRecorder() as rec:
+        state = tr.run(state=state)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = tr.metrics_history
+    dts = [h["dt"] for h in hist]
+    losses = [h["loss"] for h in hist]
+    if len(hist) != steps or not all(np.isfinite(losses)) or any(
+            h["nonfinite"] for h in hist):
+        fail(f"bf16 per-layer training: losses {losses}")
+    n_lin = 7 * cfg.n_layers
+    # a forward, then a forward and a backward per layer in each sweep
+    want = {"sl_matmul": 5 * n_lin * steps, "sddmm": 2 * n_lin * steps,
+            "paged_attention": 0, "paged_prefill": 0,
+            "adam8bit": per_step * steps}
+    if launches != want:
+        fail(f"bf16 per-layer training launched {launches}, expected {want}")
+    lt = tr.obs.get("train.perlayer.layer_update_ms")
+    if lt is None or lt.count != cfg.n_layers * steps:
+        fail("per-layer timing recorded "
+             f"{None if lt is None else lt.count} layer updates, expected "
+             f"{cfg.n_layers * steps}")
+    med = statistics.median(dts[1:])
+    tokens = batch * seq
+    mfu = roofline.train_mfu(cfg, tokens, med)
+    pc = cfg.param
+    inv = memory.llama_inventory(
+        n_layers=cfg.n_layers, d_model=cfg.d_model, d_ff=cfg.d_ff,
+        vocab=cfg.padded_vocab, n_heads=cfg.n_heads,
+        tie_embeddings=cfg.tie_embeddings)
+    kw = dict(rank=pc.rank, delta=pc.delta, support_kind=pc.support_kind,
+              index_bytes=4)
+    est = memory.training_estimate(inv, "sltrain", optimizer="adam8bit",
+                                   update_mode="per_layer", fused_opt=True,
+                                   **kw)
+    est_g = memory.training_estimate(inv, "sltrain", optimizer="adamw",
+                                     update_mode="global", moment_bytes=4,
+                                     **kw)
+    say(f"train bf16 llama_1b (Trainer, per_layer, adam8bit, fused): {steps} "
+        f"steps, losses {[round(x, 4) for x in losses]} | step ms (dispatch "
+        f"+ sync) {[round(d * 1e3, 1) for d in dts]}, median of steps "
+        f"2-{steps} {med * 1e3:.1f} ms = {tokens / med:.0f} tokens/s, MFU "
+        f"{100 * mfu:.3f}% of {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s (data "
+        f"sheet) | launches per step: sl_matmul "
+        f"{launches['sl_matmul'] // steps}, sddmm "
+        f"{launches['sddmm'] // steps}, adam8bit "
+        f"{launches['adam8bit'] // steps} | train.perlayer.layer_update_ms "
+        f"over {lt.count} layer updates: mean {lt.sum / lt.count:.2f} "
+        f"(histogram bucket p50 {lt.percentile(50):.0f}) | run wall "
+        f"{wall:.1f} s incl. checkpoint of step {steps} | {smi}")
+    say(f"memory bf16 llama_1b: max_memory_allocated per_layer + adam8bit "
+        f"{peak / 2**30:.2f} GiB vs global AdamW {global_peak / 2**30:.2f} "
+        f"GiB (same script run); training_estimate (int32 indices, f32 "
+        f"scales, bf16 params): per_layer + adam8bit {est.total_bytes / 2**30:.2f}"
+        f" GiB (params {est.param_bytes / 2**30:.2f}, grads "
+        f"{est.grad_bytes / 2**30:.2f}, 8-bit state "
+        f"{est.optim_bytes / 2**30:.2f}), global AdamW "
+        f"{est_g.total_bytes / 2**30:.2f} GiB; the estimate leaves out the "
+        f"activations (saved boundaries, the head's logits and loss, one "
+        f"layer's recompute, the kernels' scratch) and counts int32 COO "
+        f"indices where the fused linear keeps tile consts for W and Wᵀ "
+        f"({consts_b / 2**30:.2f} GiB here)")
+    if not peak < global_peak:
+        fail(f"per-layer peak {peak / 2**30:.2f} GiB is not below the global "
+             f"AdamW peak {global_peak / 2**30:.2f} GiB")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return tr, state, launches, rec.adam8bit, med
+
+
+def check_adam8bit_coverage(seen, rows):
+    """Every (elements, dtype) the per-layer step gave the adam8bit kernel
+    was held against the plain version in the kernel phase."""
+    checked = {(r["n"], r["dtype"]) for r in rows if r["name"] == "adam8bit"}
+    if not seen or not seen <= checked:
+        fail(f"the per-layer step ran adam8bit at (elements, dtype) "
+             f"{sorted(seen, key=str)}; checked only "
+             f"{sorted(checked, key=str)}")
+    say(f"coverage: the per-layer step ran adam8bit at "
+        f"{sorted(n for n, _ in seen)} elements "
+        f"({sorted({dname(d) for _, d in seen})}), all checked above")
+
+
+def phase_kill_resume(device, optimizer="adamw", update_mode="global"):
+    """Phase 10: the Trainer on llama_60m (full width, bf16, fused) with a
     checkpoint every 3 steps, killed at step 4 by ``fault_hook`` and
-    relaunched, ends bit-identical to an uninterrupted run. Runs under
-    torch.use_deterministic_algorithms: the embedding's backward
-    accumulates by index, which is not deterministic on CUDA otherwise."""
+    relaunched, ends bit-identical to an uninterrupted run: every param
+    leaf and every optimizer-state leaf (the 8-bit codes and scales
+    included). Runs under torch.use_deterministic_algorithms: the
+    embedding's backward accumulates by index, which is not deterministic
+    on CUDA otherwise."""
     from repro_torch.configs import llama_60m
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.train.trainer import Trainer
@@ -934,7 +1253,8 @@ def phase_kill_resume(device):
     shutil.rmtree(root, ignore_errors=True)
     quiet = dict(device=device, log_fn=lambda *a: None)
     mk = lambda d: train_config(cfg, steps=6, batch=8, seq=256,
-                                ckpt_dir=os.path.join(root, d), ckpt_every=3)
+                                ckpt_dir=os.path.join(root, d), ckpt_every=3,
+                                optimizer=optimizer, update_mode=update_mode)
     torch.use_deterministic_algorithms(True)
     try:
         t0 = time.perf_counter()
@@ -953,15 +1273,23 @@ def phase_kill_resume(device):
     if tr.metrics_history[0]["step"] != 4:
         fail(f"kill/resume: relaunch did not resume at step 4 "
              f"({tr.metrics_history[0]['step']})")
-    a, b = tree_leaves(ref.params), tree_leaves(got.params)
-    same = sum(bool(torch.equal(x, y)) for x, y in zip(a, b))
-    if same != len(a):
-        fail(f"kill/resume: {len(a) - same} of {len(a)} param leaves differ "
-             "from the uninterrupted run")
-    say(f"kill/resume llama_60m (bf16, fused, deterministic algorithms): "
-        f"killed at step 4, resumed from step 3, {same}/{len(a)} param "
-        f"leaves bit-identical to the uninterrupted run after 6 steps "
-        f"({wall:.1f} s for the three runs)")
+    out = {}
+    for what, a, b in (("param", ref.params, got.params),
+                       ("optimizer-state", ref.opt_state, got.opt_state)):
+        a, b = tree_leaves(a), tree_leaves(b)
+        same = sum(bool(torch.equal(x, y)) for x, y in zip(a, b))
+        if same != len(a) or len(a) != len(b):
+            fail(f"kill/resume {optimizer} {update_mode}: {len(a) - same} "
+                 f"of {len(a)} {what} leaves differ from the uninterrupted "
+                 "run")
+        out[what] = f"{same}/{len(a)}"
+    n8 = sum(t.dtype == torch.int8 for t in tree_leaves(got.opt_state))
+    say(f"kill/resume llama_60m (bf16, fused, {optimizer}, {update_mode}, "
+        f"deterministic algorithms): killed at step 4, resumed from step 3, "
+        f"{out['param']} param leaves and {out['optimizer-state']} "
+        f"optimizer-state leaves ({n8} of them int8 codes) bit-identical to "
+        f"the uninterrupted run after 6 steps ({wall:.1f} s for the three "
+        "runs)")
 
 
 def check_train_coverage(shapes, m, cfg):
@@ -982,11 +1310,12 @@ def check_train_coverage(shapes, m, cfg):
 def kernels_line(rows, by_path, representative):
     """One entry per kernel: the representative case's times and bound,
     the largest error over all of the kernel's cases; launches summed
-    over the main paths' runs (serving and training), each path's count
-    beside them."""
+    over the main paths' runs (serving, training, per-layer training),
+    each path's count beside them."""
     out = []
     src = {"sl_matmul": SL_SOURCE, "paged_attention": PA_SOURCE,
-           "paged_prefill": PA_SOURCE, "sddmm": SD_SOURCE}
+           "paged_prefill": PA_SOURCE, "sddmm": SD_SOURCE,
+           "adam8bit": AD_SOURCE}
     for name, shape in representative.items():
         mine = [r for r in rows if r["name"] == name]
         rep = next(r for r in mine if r["shape"] == shape)
@@ -1083,7 +1412,12 @@ def main() -> int:
     at_rows = check_attention(timer, gen, device, cfg, n_slots, block_len,
                               max_len // block_len, buckets)
     tr_rows = check_train_kernels(timer, gen, device, cfg, batch * seq)
+    # its own generator: the later phases draw the same B as before
+    ad_gen = torch.Generator(device=device)
+    ad_gen.manual_seed(1)
+    ad_rows = check_adam8bit(timer, ad_gen, device, cfg)
     del timer                       # free the L2 sweep buffer
+    torch.cuda.empty_cache()
 
     by_path = {"serve": run_serving(cfg, device, gen, n_slots, block_len,
                                     max_len, buckets, m_values)}
@@ -1096,20 +1430,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     cfg16 = dataclasses.replace(cfg, param=dataclasses.replace(
         cfg.param, exec_mode="fused"))
-    tr, state, by_path["train"], shapes, med = phase_train_bf16(
-        cfg16, device, smi, batch=batch, seq=seq)
+    tr, state, by_path["train"], shapes, med, global_peak = \
+        phase_train_bf16(cfg16, device, smi, batch=batch, seq=seq)
     check_train_coverage(shapes, batch * seq, cfg)
     phase_train_profile(tr, state, device, med)
     del tr, state
     torch.cuda.empty_cache()
+    tr, state, by_path["train_per_layer"], seen, med = phase_perlayer_bf16(
+        cfg16, device, smi, batch=batch, seq=seq, global_peak=global_peak)
+    check_adam8bit_coverage(seen, ad_rows)
+    phase_train_profile(tr, state, device, med,
+                        label="per-layer 8-bit train step")
+    del tr, state
+    torch.cuda.empty_cache()
     phase_kill_resume(device)
+    phase_kill_resume(device, optimizer="adam8bit", update_mode="per_layer")
 
     m = batch * seq
-    line = kernels_line(sl_rows + at_rows + tr_rows, by_path, {
+    embed = [r["shape"] for r in ad_rows if r["n"] == max(
+        x["n"] for x in ad_rows) and r["dtype"] == torch.bfloat16
+        and r["shape"].endswith("wd 0.1")][0]
+    line = kernels_line(sl_rows + at_rows + tr_rows + ad_rows, by_path, {
         "sl_matmul": f"{m}x{cfg.d_model}->{cfg.d_ff} bfloat16",
         "paged_attention": "32 heads bfloat16",
         "paged_prefill": f"sq={buckets[-1]} 32 heads bfloat16",
-        "sddmm": f"{m}x({cfg.d_model},{cfg.d_ff}) bfloat16"})
+        "sddmm": f"{m}x({cfg.d_model},{cfg.d_ff}) bfloat16",
+        "adam8bit": embed})
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -65,8 +65,10 @@ def from_jax_numpy(params, consts, device="cuda"):
 
 
 def opt_state_from_jax_numpy(opt_state, device="cuda"):
-    """The reference's AdamW state ({"mu", "nu", "step"} as numpy arrays,
-    nested or flat) as the port's (``repro_torch.optim.optimizers.adamw``
-    keeps the same tree: f32 moments mirroring the params and an int32
-    scalar step)."""
+    """The reference's optimizer state ({"mu", "nu", "step"} as numpy
+    arrays, nested or flat) as the port's, which keeps the same trees:
+    AdamW's f32 moments mirroring the params, 8-bit AdamW's
+    ``{"codes": int8, "scales": f32}`` per moment and leaf, and an int32
+    scalar step. Every dtype carries over as it is, int8 codes bit for
+    bit."""
     return _convert(opt_state, resolve(device))

@@ -151,8 +151,9 @@ class OptimizerConfig:
 @dataclass(frozen=True)
 class ShardingConfig:
     """Sharding policy and train-step execution knobs. The port runs one
-    card with ``update_mode="global"``, ``remat="none"`` and no fsdp or
-    pod compression; the rest raises (ROADMAP queue A items 5 and 10)."""
+    card: ``update_mode`` "global" or "per_layer", ``remat`` "none",
+    "full" or "dots_saveable"; fsdp and pod compression raise (ROADMAP
+    queue A item 10)."""
     batch_axes: Tuple[str, ...] = ("pod", "data")
     model_axis: str = "model"
     fsdp: bool = False

@@ -1,8 +1,9 @@
 """Wrappers around the kernels, as ``repro.kernels.ops`` has them: the
 tile-CSR support preparation, the flat-``v`` tile gather, the SLTrain
 linear of ``exec_mode="fused"`` (a ``torch.autograd.Function`` whose
-forward and dx run ``sl_matmul`` and whose dV runs ``sddmm``) and the
-paged-attention calls with the GQA regroup.
+forward and dx run ``sl_matmul`` and whose dV runs ``sddmm``), the 8-bit
+Adam step on a leaf of any shape, and the paged-attention calls with the
+GQA regroup.
 
 Dispatch follows the tensors: on the CPU each kernel wrapper runs its
 plain PyTorch version, on a CUDA tensor it launches the kernel or raises.
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import support as support_lib
+from repro_torch.kernels import adam8bit as adam8bit_kernel
 from repro_torch.kernels import paged_attention as pa_kernel
 from repro_torch.kernels import sddmm as sddmm_kernel
 from repro_torch.kernels import sl_matmul as sl_kernel
@@ -196,6 +198,78 @@ def sl_linear(x, B, A, v, rows_t, cols_t, perm, scale: float, *,
     them."""
     return _SLLinear.apply(x, B, A, v, rows_t, cols_t, perm, rows_tT,
                            cols_tT, scale)
+
+
+# ---------------------------------------------------------------------------
+# 8-bit Adam (a parameter leaf of any shape)
+# ---------------------------------------------------------------------------
+
+def adam8bit_scalars(*, lr, b1, b2, bc1, bc2, eps, wd, omb1=None, omb2=None,
+                     device):
+    """The kernel's (10,) f32 scalars [lr, b1, b2, 1-b1, 1-b2, bc1, bc2,
+    eps, wd, 0] on ``device``; ``lr``/``bc1``/``bc2`` may be device
+    tensors (the optimizer's step-dependent values, read without a host
+    sync). ``omb1``/``omb2`` default to ``1 - b1``/``1 - b2`` computed in
+    Python double, then rounded to f32, as the reference's wrapper does:
+    an f32 ``1 - b2`` would lose about half the bits of the ~1e-3
+    difference."""
+    if omb1 is None:
+        omb1 = 1.0 - b1
+    if omb2 is None:
+        omb2 = 1.0 - b2
+    vals = (lr, b1, b2, omb1, omb2, bc1, bc2, eps, wd, 0.0)
+    if not any(isinstance(x, torch.Tensor) for x in vals):
+        return torch.tensor(vals, dtype=torch.float32, device=device)
+    return torch.stack([torch.as_tensor(x, dtype=torch.float32,
+                                        device=device).reshape(())
+                        for x in vals])
+
+
+def adam8bit_update(p, g, m_codes, m_scales, v_codes, v_scales, *,
+                    lr=None, b1=None, b2=None, bc1=None, bc2=None, eps=None,
+                    wd=None, q: int = 256, omb1=None, omb2=None,
+                    scalars=None, inplace: bool = False):
+    """One fused 8-bit Adam step on a leaf of any shape: p (any shape, f32
+    or bf16) and its gradient g (the same shape, or already f32), the
+    moments' codes (n_q, q) int8 and scales (n_q,) f32. The step's scalars
+    come one by one, as the reference takes them, or prebuilt by
+    :func:`adam8bit_scalars` as ``scalars``. The leaf is padded to whole
+    q-blocks; the kernel masks the lanes past its element count.
+
+    Returns (new_p (p's shape), m_codes, m_scales, v_codes, v_scales).
+    With ``inplace`` the new values are written into p and the given
+    codes and scales (p, a contiguous leaf or layer slice, and its state
+    keep their storage), and those are returned."""
+    if q != adam8bit_kernel.Q:
+        raise ValueError(f"adam8bit: q_block {q}; the kernel takes "
+                         f"{adam8bit_kernel.Q}-element blocks")
+    if scalars is None:
+        scalars = adam8bit_scalars(lr=lr, b1=b1, b2=b2, bc1=bc1, bc2=bc2,
+                                   eps=eps, wd=wd, omb1=omb1, omb2=omb2,
+                                   device=p.device)
+    shape = p.shape
+    n = p.numel()
+    pad = (-n) % q
+
+    def blk(a, dtype):
+        f = a.reshape(-1).to(dtype)
+        if pad:
+            f = torch.nn.functional.pad(f, (0, pad))
+        return f.reshape(-1, q)
+
+    pb = p.reshape(-1, q) if not pad and p.is_contiguous() \
+        else blk(p, p.dtype)
+    gb = blk(g.contiguous(), torch.float32)
+    new_p, mc, ms, vc, vs = adam8bit_kernel.adam8bit_update(
+        pb, gb, m_codes.reshape(-1, q), m_scales.reshape(-1),
+        v_codes.reshape(-1, q), v_scales.reshape(-1), scalars, n,
+        inplace=inplace)
+    new_p = new_p.reshape(-1)[:n].reshape(shape)
+    if inplace:
+        if pad or not p.is_contiguous():
+            p.copy_(new_p)
+        return p, m_codes, m_scales, v_codes, v_scales
+    return new_p, mc, ms, vc, vs
 
 
 # ---------------------------------------------------------------------------

@@ -6,10 +6,12 @@ CUDA kernels are held against these on the card (chip_smoke.py,
 tests/test_torch_kernels.py) and these against the JAX kernels on the CPU.
 Signatures and layouts follow ``repro.kernels.ref``, except that
 :func:`sl_matmul_ref` and :func:`sddmm_ref` take the tile-CSR inputs
-their kernels take.
+their kernels take and :func:`adam8bit_ref` takes ``n_valid`` as an
+integer.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30  # the mask fill of the reference attention
@@ -61,6 +63,49 @@ def sddmm_ref(x, dy, rows_t, cols_t):
     G = x.float().T @ dy.float()
     rows, cols = _tile_coords(rows_t, cols_t)
     return G[rows, cols]
+
+
+# the f32 reciprocals of the 8-bit codec's scales (optim/quant.py)
+INV_127 = float(np.float32(1.0 / 127.0))
+INV_255 = float(np.float32(1.0 / 255.0))
+
+
+def adam8bit_ref(p, g, m_codes, m_scales, v_codes, v_scales, scalars,
+                 n_valid=None):
+    """One blockwise 8-bit Adam step on (n_q, Q) blocks, as the
+    ``adam8bit`` kernel computes it: p (f32 or bf16), g f32, codes int8,
+    scales f32 (n_q,), ``scalars`` f32 (10,) = [lr, b1, b2, 1-b1, 1-b2,
+    bc1, bc2, eps, wd, 0] and ``n_valid`` the count of real elements (None
+    = all). Lanes at flat index ≥ n_valid get g = m = v = 0 exactly.
+    Every operation is one IEEE f32 operation in the order the reference
+    writes it (``repro/kernels/ref.py:21``), no fused multiply-add, and the
+    scales multiply by the f32 reciprocal of 127 and 255 as the compiled
+    reference does. The scalars stay tensors, so on the card every
+    division is a true division (a CPU scalar would turn it into a
+    multiplication by the reciprocal). Returns (new_p, m_codes, m_scales,
+    v_codes, v_scales)."""
+    lr, b1, b2, omb1, omb2, bc1, bc2, eps, wd = [scalars[i]
+                                                 for i in range(9)]
+    g = g.float()
+    pf = p.float()
+    m = m_codes.float() * m_scales[:, None]
+    v = torch.clamp(v_codes.float() + 128.0, min=0.5) * v_scales[:, None]
+    if n_valid is not None:
+        idx = torch.arange(p.numel(), device=p.device).reshape(p.shape)
+        valid = idx < n_valid
+        zero = torch.zeros((), device=p.device)
+        g = torch.where(valid, g, zero)
+        m = torch.where(valid, m, zero)
+        v = torch.where(valid, v, zero)
+    m = b1 * m + omb1 * g
+    v = b2 * v + omb2 * g * g
+    u = (m / bc1) / (torch.sqrt(v / bc2) + eps) + wd * pf
+    new_p = (pf - lr * u).to(p.dtype)
+    ms = torch.amax(torch.abs(m), dim=1) * INV_127
+    mc = torch.round(m / torch.clamp(ms, min=1e-12)[:, None])
+    vs = torch.amax(v, dim=1) * INV_255
+    vc = torch.round(v / torch.clamp(vs, min=1e-12)[:, None]) - 128.0
+    return new_p, mc.to(torch.int8), ms, vc.to(torch.int8), vs
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_table, positions, *,

@@ -6,6 +6,8 @@ Usage:
   python -m repro_torch.launch.train --arch llama_1b --exec-mode fused --steps 20
   python -m repro_torch.launch.train --arch llama_60m --smoke --steps 6 \\
       --device cpu --ckpt-dir $(mktemp -d)
+  python -m repro_torch.launch.train --arch llama_1b --optimizer adam8bit \\
+      --update-mode per_layer --exec-mode fused --layer-timing --steps 20
 
 The flags are the reference's. ``--exec-mode`` is applied to the config
 before init, so ``fused`` gets its tile consts. Options the port does not
@@ -52,8 +54,8 @@ def build_train_config(args) -> TrainConfig:
 
 
 def _refuse_unported(args) -> None:
-    """The flags the Trainer never sees; the rest (optimizer, mode,
-    update mode, fsdp, remat) it refuses itself."""
+    """The flags the Trainer never sees; the rest (optimizer, mode, fsdp)
+    it refuses itself."""
     if args.multipod or args.use_mesh:
         raise NotImplementedError(
             "--multipod and --use-mesh are not ported yet (ROADMAP queue A "
@@ -61,10 +63,6 @@ def _refuse_unported(args) -> None:
     if args.chaos:
         raise NotImplementedError(
             "--chaos is not ported yet (ROADMAP queue A item 8)")
-    if args.layer_timing:
-        raise NotImplementedError(
-            "--layer-timing (per-layer updates) is not ported yet (ROADMAP "
-            "queue A item 5: the memory path)")
     if args.jax_profile_dir:
         raise NotImplementedError(
             "--jax-profile-dir records a jax.profiler trace; the port has "
@@ -96,7 +94,11 @@ def main(argv=None):
     ap.add_argument("--remat", default="none")
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--update-mode", default="global",
-                    choices=["global", "per_layer"])
+                    choices=["global", "per_layer"],
+                    help="per_layer = layer-wise backward sweep with "
+                         "in-sweep optimizer updates (repro_torch.train."
+                         "perlayer; the adam8bit kernel under --exec-mode "
+                         "fused)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--ckpt-dir",
@@ -110,7 +112,9 @@ def main(argv=None):
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome-trace JSON of per-step spans "
                          "(data/dispatch/sync; repro_torch.obs.trace)")
-    ap.add_argument("--layer-timing", action="store_true")
+    ap.add_argument("--layer-timing", action="store_true",
+                    help="with --update-mode per_layer: record per-layer "
+                         "update times (train.perlayer.layer_update_ms)")
     ap.add_argument("--jax-profile-dir", default=None)
     ap.add_argument("--chaos", default=None,
                     help="fault-injection spec 'kind@step[:arg],...'")
@@ -130,7 +134,8 @@ def main(argv=None):
     trace = obs_trace.Trace(enabled=bool(args.trace_out))
     trainer = Trainer(tc, device=args.device, trace=trace,
                       metrics_out=args.metrics_out,
-                      max_rollbacks=args.max_rollbacks)
+                      max_rollbacks=args.max_rollbacks,
+                      layer_timing=args.layer_timing)
     state = trainer.run()
     print(f"final step {state.step}: "
           f"loss={trainer.metrics_history[-1]['loss']:.4f}")

@@ -11,6 +11,7 @@ from the reference's ``jax.random`` draws.
 """
 from __future__ import annotations
 
+import functools
 import math
 import zlib
 from typing import Optional, Tuple
@@ -117,6 +118,40 @@ def stack_layers(builder: Builder, fn, n: int, name: str = "layer"):
     params = tree_map(lambda *xs: torch.stack(xs), *ps) if ps[0] else {}
     consts = tree_map(lambda *xs: torch.stack(xs), *cs) if cs[0] else {}
     return params, consts
+
+
+def remat_wrap(fn, remat: str):
+    """Apply the remat policy ("none" | "full" | "dots_saveable") to a
+    layer function: the one owner of the policy names, as the reference's
+    ``remat_wrap``, so the train forward (``lm.apply_lm``) and the
+    per-layer sweep (``train/perlayer.py``) recompute under the same
+    policy. "full" saves nothing inside the layer and recomputes it in
+    the backward (``torch.utils.checkpoint``, non-reentrant);
+    "dots_saveable" saves the outputs of 2-D matrix products (``aten.mm``,
+    ``aten.addmm``) and recomputes the rest, the counterpart of the
+    reference's ``checkpoint_dots_with_no_batch_dims``: batched einsums
+    and the kernels' calls are recomputed. Recomputation runs the same
+    operations on the same inputs, so no value changes."""
+    if remat == "none":
+        return fn
+    if remat not in ("full", "dots_saveable"):
+        raise ValueError(f"unknown remat policy {remat!r}: expected none, "
+                         "full or dots_saveable")
+    from torch.utils import checkpoint as ckpt
+
+    kw = {}
+    if remat == "dots_saveable":
+        saved = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+        def policy(ctx, op, *args, **kwargs):
+            return (ckpt.CheckpointPolicy.MUST_SAVE if op in saved
+                    else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, policy)
+
+    def wrapped(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 def unstack(tree, n: int):

@@ -5,7 +5,8 @@ Parameters keep the reference's scan layout: per-layer leaves stacked on a
 leading axis under ``params["layers"]["k0"]`` (the reference's one-kind
 layer pattern of the llama family), so a reference checkpoint maps onto
 them leaf for leaf. The forward walks the layers in a Python loop over
-views of the stacks.
+views of the stacks; the per-layer train step drives its segments
+(``embed_apply``, ``period_apply``, ``head_apply``) one at a time.
 """
 from __future__ import annotations
 
@@ -14,8 +15,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import attention, mlp
-from repro_torch.models.common import (DTYPES, Builder, rms_norm,
-                                       stack_layers, unstack)
+from repro_torch.models.common import (DTYPES, Builder, remat_wrap,
+                                       rms_norm, stack_layers, unstack)
 from repro_torch.serve.kv import PagedLayout
 
 
@@ -85,34 +86,98 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
     return params, consts
 
 
-def _forward(cfg: ModelConfig, params, consts, tokens, caches=None,
-             **cache_kw):
-    """Embed, the layer stack, final norm and unembed. ``caches`` (one
-    {"k", "v"} pool pair per layer) turns on the paged-cache path."""
-    _check_family(cfg)
-    h = params["embed"][tokens.long()]
-    stack = params["layers"]["k0"]
-    n = stack["ln_attn"].shape[0]
-    layers = zip(unstack(stack, n),
-                 unstack(consts.get("layers", {}).get("k0", {}), n))
-    for i, (p, c) in enumerate(layers):
-        kv = None if caches is None else caches[i]
-        h, _ = _apply_block(cfg, p, c, h, cache=kv, **cache_kw)
+def embed_apply(cfg: ModelConfig, params, tokens, patch_embeds=None):
+    """The model's input segment: the token embedding. Takes only the
+    params it reads ({"embed": leaf}), so the per-layer sweep can
+    differentiate it against exactly that leaf. (Patch embeddings are the
+    vlm family's, not ported: ROADMAP queue A item 9.)"""
+    if patch_embeds is not None:
+        raise NotImplementedError(
+            "patch embeddings (the vlm family) are not ported yet (ROADMAP "
+            "queue A item 9: the other model families)")
+    return params["embed"][tokens.long()]
+
+
+def period_apply(cfg: ModelConfig, p, c, x):
+    """One layer of the stack (the llama pattern's one-block period):
+    (params {"k0": ...}, consts, x) → (x', aux). The per-layer backward
+    sweep differentiates this exact function, so the train forward and
+    the sweep's recompute cannot drift. The llama family has no auxiliary
+    loss: aux is 0.0."""
+    x, _ = _apply_block(cfg, p["k0"], c.get("k0", {}), x)
+    return x, 0.0
+
+
+def head_apply(cfg: ModelConfig, params, h):
+    """Final norm and unembed. ``params`` needs only the head leaves:
+    {"ln_f", "lm_head"} (untied) or {"ln_f", "embed"} (tied)."""
     h = rms_norm(h, params["ln_f"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ w.to(h.dtype)
 
 
+def _layers(cfg: ModelConfig, params, consts):
+    """The per-layer (params, consts) views of the stacks, in order."""
+    n = params["layers"]["k0"]["ln_attn"].shape[0]
+    return zip(unstack(params["layers"], n),
+               unstack(consts.get("layers", {}), n))
+
+
+def _walk(cfg: ModelConfig, params, consts, h, *, remat: str = "none",
+          saves=None):
+    """The layer stack, as ``apply_lm`` and ``forward_saving_boundaries``
+    both run it; ``saves`` (a list) receives each layer's input."""
+    _check_family(cfg)
+    step = remat_wrap(lambda p, c, x: period_apply(cfg, p, c, x), remat)
+    for p, c in _layers(cfg, params, consts):
+        if saves is not None:
+            saves.append(h)
+        h, _ = step(p, c, h)
+    return h
+
+
 def apply_lm(cfg: ModelConfig, params, consts, tokens, *,
              remat: str = "none"):
     """tokens (B, S) → (logits (B, S, V), aux 0.0): the plain causal
-    forward, differentiable in the params (the train step's forward).
-    Rematerialization is not ported: ``remat`` other than "none" raises."""
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported yet (ROADMAP queue A item 5: "
-            "the memory path); the port trains with remat='none'")
-    return _forward(cfg, params, consts, tokens), 0.0
+    forward, differentiable in the params (the train step's forward),
+    each layer under the ``remat`` policy (``models.common.remat_wrap``)."""
+    h = embed_apply(cfg, params, tokens)
+    h = _walk(cfg, params, consts, h, remat=remat)
+    return head_apply(cfg, params, h), 0.0
+
+
+def forward_saving_boundaries(cfg: ModelConfig, params, consts, tokens, *,
+                              patch_embeds=None):
+    """The same forward as :func:`apply_lm` up to the final norm, run
+    without autograd, keeping each layer's input: the roots the per-layer
+    backward sweep (``train/perlayer.py``) re-runs one layer at a time
+    from. The saved boundaries are the only activations kept across
+    layers.
+
+    Returns a dict, as the reference's for the llama family (``xs`` a list
+    where the reference stacks the inputs):
+      xs    — the n layers' (B, S, d) inputs, the embedding's output first,
+      h_top — the last layer's output (the head's input),
+      aux   — (n_layers,) f32 zeros (the llama family has no aux loss).
+    """
+    with torch.no_grad():
+        h0 = embed_apply(cfg, params, tokens, patch_embeds)
+        xs = []
+        h_top = _walk(cfg, params, consts, h0, saves=xs)
+    return {"xs": xs, "h_top": h_top,
+            "aux": torch.zeros(len(xs), dtype=torch.float32,
+                               device=h0.device)}
+
+
+def _forward(cfg: ModelConfig, params, consts, tokens, caches, **cache_kw):
+    """Embed, the layers over their paged caches (one {"k", "v"} pool
+    pair per layer), final norm and unembed: the serving steps' forward."""
+    _check_family(cfg)
+    h = embed_apply(cfg, params, tokens)
+    for i, (p, c) in enumerate(_layers(cfg, params, consts)):
+        h, _ = _apply_block(cfg, p["k0"], c.get("k0", {}), h,
+                            cache=caches[i], **cache_kw)
+    return head_apply(cfg, params, h)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Uniform model API, ported from ``repro.models.registry``: the llama
-family exposes init / apply / init_cache / decode_step / prefill_step so
-the engine and tests stay arch-agnostic. Other families raise until their
+family exposes init / apply / init_cache / decode_step / prefill_step and
+the segmented per-layer API, so the engine, the trainers and the tests
+stay arch-agnostic. Other families raise until their
 slice lands (ROADMAP queue A item 9)."""
 from __future__ import annotations
 
@@ -12,12 +13,27 @@ from repro_torch.configs.base import ModelConfig
 
 
 @dataclass(frozen=True)
+class PerLayerApi:
+    """The segmented forward the per-layer backward sweep drives
+    (``repro_torch.train.perlayer``): one callable per model segment, each
+    taking exactly the params it reads, so the sweep can differentiate
+    segments in isolation. ``forward_boundaries`` runs the same math as
+    ``ModelApi.apply``."""
+    forward_boundaries: Callable  # (cfg, params, consts, batch) -> dict
+    embed: Callable               # (cfg, {"embed": leaf}, tokens, patches) -> h0
+    period: Callable              # (cfg, p_period, c_period, x) -> (x', aux)
+    head: Callable                # (cfg, head_params, h_top) -> logits
+
+
+@dataclass(frozen=True)
 class ModelApi:
     init: Callable          # (cfg, seed=0, *, device) -> (params, consts)
     apply: Callable         # (cfg, params, consts, batch, remat) -> (logits, aux)
     init_cache: Callable    # (cfg, batch, max_len, *, paged, ...) -> cache
     decode_step: Callable   # (cfg, params, consts, tokens, cache, index) -> (logits, cache)
     prefill_step: Optional[Callable] = None
+    # segmented per-layer API (the update_mode="per_layer" train path)
+    perlayer: Optional[PerLayerApi] = None
 
 
 def _lm_api() -> ModelApi:
@@ -26,8 +42,15 @@ def _lm_api() -> ModelApi:
     def apply(cfg, params, consts, batch, remat="none"):
         return lm.apply_lm(cfg, params, consts, batch["tokens"], remat=remat)
 
+    def forward_boundaries(cfg, params, consts, batch):
+        return lm.forward_saving_boundaries(
+            cfg, params, consts, batch["tokens"],
+            patch_embeds=batch.get("patches"))
+
+    pl = PerLayerApi(forward_boundaries, lm.embed_apply, lm.period_apply,
+                     lm.head_apply)
     return ModelApi(lm.init_lm, apply, lm.init_cache, lm.decode_step,
-                    lm.prefill_step)
+                    lm.prefill_step, perlayer=pl)
 
 
 _FAMILY_API = {"llama": _lm_api}

@@ -1,5 +1,5 @@
-"""AdamW with global-norm clipping and the warmup-cosine schedule, ported
-from ``repro.optim.optimizers``.
+"""AdamW and blockwise 8-bit AdamW with global-norm clipping and the
+warmup-cosine schedule, ported from ``repro.optim.optimizers``.
 
 Interface, as the reference's:
 
@@ -8,27 +8,50 @@ Interface, as the reference's:
     new_params, new_state, stats = opt.update(grads, state, params)
 
 Trees are nested dicts of tensors. ``update`` is functional (new tensors,
-the inputs untouched), so the train step can select the old state
-bit-exactly when a step is non-finite. It runs through the same
-``prepare``/``update_slice`` split as the reference: the step's scalars
-once, then one leaf at a time. The state mirrors the reference's tree: f32
-moments ``mu``/``nu`` shaped like the params and an int32 scalar ``step``,
-so checkpoints restore across the two packages. The optimizer never sees
-the fixed SLTrain support (consts live outside the trainable tree).
+the inputs untouched), so the global train step can select the old state
+bit-exactly when a step is non-finite. The states mirror the reference's
+trees, so checkpoints restore across the two packages: AdamW keeps f32
+moments ``mu``/``nu`` shaped like the params, 8-bit AdamW keeps
+``{"codes": int8 (n_blocks, q_block), "scales": f32 (n_blocks,)}`` per
+moment and leaf, and both an int32 scalar ``step``. The optimizer never
+sees the fixed SLTrain support (consts live outside the trainable tree).
 
-``adam8bit`` and ``galore_adamw`` are not ported yet (ROADMAP queue A
-item 5) and raise.
+Per-layer API (``repro_torch.train.perlayer``), as the reference's: the
+one-step scalar math is split out of ``update`` so a layer-wise backward
+sweep can apply one layer's update while only that layer's gradients
+exist:
+
+    ctx, stats = opt.prepare(state, global_grad_norm)   # step/lr/clip/bias
+    new_p, new_ls = opt.update_slice(ctx, p, g, ls, full_ndim=...)
+    state = opt.finish(state, ctx)                      # bump step counter
+
+``ls`` is one param leaf's state (``leaf_state``/``with_leaf_state``
+address it by tree path); ``stack_state`` reshapes it so a leading
+layer-stack axis of size n can be sliced, returning None when it cannot
+(8-bit blocks that straddle layer boundaries), and the sweep then updates
+that leaf once at the end from its accumulated gradient. Weight decay
+applies to leaves whose full (stacked) leaf has at least 2 dims:
+``full_ndim`` passes that rank for a layer's slice. The global ``update``
+runs through the same ``prepare``/``update_slice`` path, so per-layer and
+global modes agree leaf for leaf by construction.
+
+``update_slice_fused`` is 8-bit AdamW's kernel dispatch (the ``adam8bit``
+kernel, one fused pass). Its one caller is the per-layer sweep, and it
+writes the new values into the parameter and state tensors it is given
+(and returns them), which keeps the sweep's memory at one layer. ``galore_adamw`` is not
+ported yet (ROADMAP queue A item 5) and raises.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.models import common
 from repro_torch.models.common import tree_map
+from repro_torch.optim import quant
 from repro_torch.optim.schedule import warmup_cosine
 
 
@@ -36,8 +59,15 @@ from repro_torch.optim.schedule import warmup_cosine
 class Optimizer:
     init: Callable      # params -> state
     update: Callable    # (grads, state, params) -> (new_params, new_state, stats)
-    prepare: Callable   # (state, gnorm) -> (ctx, stats)
-    update_slice: Callable  # (ctx, p, g, {"mu", "nu"}) -> (new_p, {"mu", "nu"})
+    # --- per-layer slice API (repro_torch.train.perlayer) ---
+    prepare: Callable = None        # (state, gnorm) -> (ctx, stats)
+    update_slice: Callable = None   # (ctx, p, g, ls, full_ndim=None)
+    update_slice_fused: Optional[Callable] = None  # kernel dispatch
+    leaf_state: Callable = None     # (state, path) -> ls
+    with_leaf_state: Callable = None  # (state, path, ls) -> state
+    stack_state: Callable = None    # (ls, p_leaf, n) -> ls | None
+    unstack_state: Callable = None  # (ls_stacked, p_leaf, n) -> ls
+    finish: Callable = None         # (state, ctx) -> state
 
 
 def tree_leaves(tree):
@@ -51,17 +81,27 @@ def _global_norm(grads):
                           for g in tree_leaves(grads)))
 
 
-def adamw(oc: OptimizerConfig) -> Optimizer:
+# -- nested-dict path addressing (all param/state trees here are dicts) -----
+
+def _tree_get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _tree_set(tree, path, val):
+    if not path:
+        return val
+    out = dict(tree)
+    out[path[0]] = _tree_set(tree[path[0]], path[1:], val)
+    return out
+
+
+def _prepare_fn(oc: OptimizerConfig):
+    """(state, gnorm) -> (ctx, stats): the step's clip scale, bias
+    corrections and learning rate, all device scalars (no host sync)."""
     lr_fn = warmup_cosine(oc)
     b1, b2 = oc.beta1, oc.beta2
-
-    def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device)
-        device = tree_leaves(params)[0].device
-        return {"mu": tree_map(zeros, params),
-                "nu": tree_map(zeros, params),
-                "step": torch.zeros((), dtype=torch.int32, device=device)}
 
     def prepare(state, gnorm):
         step = state["step"] + 1
@@ -74,13 +114,55 @@ def adamw(oc: OptimizerConfig) -> Optimizer:
         ctx = {"step": step, "scale": scale, "bc1": bc1, "bc2": bc2,
                "lr": lr}
         return ctx, {"grad_norm": gnorm, "lr": lr}
+    return prepare
 
-    def update_slice(ctx, p, g, ls):
+
+def _moment_api():
+    """leaf_state / with_leaf_state / finish of the {"mu", "nu", "step"}
+    states both optimizers keep."""
+    def leaf_state(state, path):
+        return {"mu": _tree_get(state["mu"], path),
+                "nu": _tree_get(state["nu"], path)}
+
+    def with_leaf_state(state, path, ls):
+        out = dict(state)
+        out["mu"] = _tree_set(state["mu"], path, ls["mu"])
+        out["nu"] = _tree_set(state["nu"], path, ls["nu"])
+        return out
+
+    def finish(state, ctx):
+        return {**state, "step": ctx["step"]}
+    return leaf_state, with_leaf_state, finish
+
+
+def _decays(oc: OptimizerConfig, p, full_ndim) -> bool:
+    nd = p.dim() if full_ndim is None else full_ndim
+    return oc.weight_decay > 0 and nd >= 2
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+def adamw(oc: OptimizerConfig) -> Optimizer:
+    b1, b2 = oc.beta1, oc.beta2
+    prepare = _prepare_fn(oc)
+    leaf_state, with_leaf_state, finish = _moment_api()
+
+    def init(params):
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device)
+        device = tree_leaves(params)[0].device
+        return {"mu": tree_map(zeros, params),
+                "nu": tree_map(zeros, params),
+                "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def update_slice(ctx, p, g, ls, full_ndim=None):
         g = g.float() * ctx["scale"]
         m = b1 * ls["mu"] + (1 - b1) * g
         v = b2 * ls["nu"] + (1 - b2) * g * g
         u = (m / ctx["bc1"]) / (torch.sqrt(v / ctx["bc2"]) + oc.eps)
-        if oc.weight_decay > 0 and p.dim() >= 2:
+        if _decays(oc, p, full_ndim):
             u = u + oc.weight_decay * p.float()
         new_p = (p.float() - ctx["lr"] * u).to(p.dtype)
         return new_p, {"mu": m, "nu": v}
@@ -97,13 +179,136 @@ def adamw(oc: OptimizerConfig) -> Optimizer:
             nu = tree_map(lambda t: t[1]["nu"], paired)
         return new_params, {"mu": mu, "nu": nu, "step": ctx["step"]}, stats
 
-    return Optimizer(init, update, prepare, update_slice)
+    def stack_state(ls, p_leaf, n):
+        # moments mirror the param leaf, whose leading axis IS the stack
+        return ls
+
+    def unstack_state(ls, p_leaf, n):
+        return ls
+
+    return Optimizer(init, update, prepare=prepare, update_slice=update_slice,
+                     leaf_state=leaf_state, with_leaf_state=with_leaf_state,
+                     stack_state=stack_state, unstack_state=unstack_state,
+                     finish=finish)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise 8-bit AdamW (paper §5.1 "8-bit SLTrain")
+# ---------------------------------------------------------------------------
+
+def adam8bit(oc: OptimizerConfig) -> Optimizer:
+    b1, b2 = oc.beta1, oc.beta2
+    block = oc.q_block
+    prepare = _prepare_fn(oc)
+    leaf_state, with_leaf_state, finish = _moment_api()
+
+    def init(params):
+        def qz(signed):
+            def go(p):
+                z = torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device)
+                codes, scales, _ = quant.quantize_blockwise(z, block, signed)
+                return {"codes": codes, "scales": scales}
+            return go
+        device = tree_leaves(params)[0].device
+        return {"mu": tree_map(qz(True), params),
+                "nu": tree_map(qz(False), params),
+                "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def update_slice(ctx, p, g, ls, full_ndim=None):
+        """The plain path: dequantize -> f32 Adam -> requantize. Blocks
+        are independent, so applying this to a layer slice whose flat size
+        is a whole number of q-blocks equals the global update of those
+        blocks."""
+        g = g.float() * ctx["scale"]
+        n = p.numel()
+        m = quant.dequantize_blockwise(ls["mu"]["codes"], ls["mu"]["scales"],
+                                       n, p.shape, True)
+        v = quant.dequantize_blockwise(ls["nu"]["codes"], ls["nu"]["scales"],
+                                       n, p.shape, False)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        u = (m / ctx["bc1"]) / (torch.sqrt(v / ctx["bc2"]) + oc.eps)
+        if _decays(oc, p, full_ndim):
+            u = u + oc.weight_decay * p.float()
+        new_p = (p.float() - ctx["lr"] * u).to(p.dtype)
+        mc, ms, _ = quant.quantize_blockwise(m, block, True)
+        vc, vs, _ = quant.quantize_blockwise(v, block, False)
+        return new_p, {"mu": {"codes": mc, "scales": ms},
+                       "nu": {"codes": vc, "scales": vs}}
+
+    def update_slice_fused(ctx, p, g, ls, full_ndim=None):
+        """The ``adam8bit`` kernel: one fused pass, the f32 moments only
+        in registers. The new parameter, codes and scales are written into
+        ``p`` and ``ls``'s tensors (a contiguous leaf or layer slice and
+        its state views), which are returned. The kernel's (10,) scalars
+        are built once per step and weight decay, on the step's ``ctx``."""
+        from repro_torch.kernels import ops
+        g = g.float() * ctx["scale"]
+        wd = oc.weight_decay if _decays(oc, p, full_ndim) else 0.0
+        cache = ctx.setdefault("adam8bit_scalars", {})
+        key = (wd, p.device)
+        if key not in cache:
+            cache[key] = ops.adam8bit_scalars(
+                lr=ctx["lr"], b1=b1, b2=b2, bc1=ctx["bc1"], bc2=ctx["bc2"],
+                eps=oc.eps, wd=wd, device=p.device)
+        new_p, mc, ms, vc, vs = ops.adam8bit_update(
+            p, g, ls["mu"]["codes"], ls["mu"]["scales"],
+            ls["nu"]["codes"], ls["nu"]["scales"], q=block,
+            scalars=cache[key], inplace=True)
+        return new_p, {"mu": {"codes": mc, "scales": ms},
+                       "nu": {"codes": vc, "scales": vs}}
+
+    def update(grads, state, params):
+        with torch.no_grad():
+            ctx, stats = prepare(state, _global_norm(grads))
+            paired = tree_map(
+                lambda p, g, m, v: update_slice(ctx, p, g,
+                                                {"mu": m, "nu": v}),
+                params, grads, state["mu"], state["nu"])
+            new_params = tree_map(lambda t: t[0], paired)
+            mu = tree_map(lambda t: t[1]["mu"], paired)
+            nu = tree_map(lambda t: t[1]["nu"], paired)
+        return new_params, {"mu": mu, "nu": nu, "step": ctx["step"]}, stats
+
+    def stack_state(ls, p_leaf, n):
+        """Views of the codes/scales with a leading axis of the n layer
+        slices. Possible exactly when each slice is a whole number of
+        q-blocks; otherwise blocks straddle layer boundaries and the leaf
+        takes the deferred full-gradient path (returns None)."""
+        if n <= 0 or p_leaf.numel() % n:
+            return None
+        per = p_leaf.numel() // n
+        if per % block:
+            return None
+        bpl = per // block
+
+        def go(moment):
+            return {"codes": moment["codes"].reshape(n, bpl, block),
+                    "scales": moment["scales"].reshape(n, bpl)}
+        return {"mu": go(ls["mu"]), "nu": go(ls["nu"])}
+
+    def unstack_state(ls, p_leaf, n):
+        def go(moment):
+            return {"codes": moment["codes"].reshape(-1, block),
+                    "scales": moment["scales"].reshape(-1)}
+        return {"mu": go(ls["mu"]), "nu": go(ls["nu"])}
+
+    return Optimizer(init, update, prepare=prepare, update_slice=update_slice,
+                     update_slice_fused=update_slice_fused,
+                     leaf_state=leaf_state, with_leaf_state=with_leaf_state,
+                     stack_state=stack_state, unstack_state=unstack_state,
+                     finish=finish)
 
 
 def make(oc: OptimizerConfig) -> Optimizer:
-    if oc.name != "adamw":
+    if oc.name == "adamw":
+        return adamw(oc)
+    if oc.name == "adam8bit":
+        return adam8bit(oc)
+    if oc.name == "galore_adamw":
         raise NotImplementedError(
-            f"optimizer {oc.name!r} is not ported yet (ROADMAP queue A item "
-            "5: the memory path, adam8bit and galore_adamw); the port "
-            "trains with adamw")
-    return adamw(oc)
+            "optimizer 'galore_adamw' is not ported yet (ROADMAP queue A "
+            "item 5: the memory path's GaLore baseline); the port trains "
+            "with adamw and adam8bit")
+    raise ValueError(f"unknown optimizer {oc.name!r}")

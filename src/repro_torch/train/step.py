@@ -85,15 +85,12 @@ def make_train_step(cfg: ModelConfig, api: ModelApi, optimizer: Optimizer,
     """train_step(params, opt_state, consts, batch) -> (params, opt_state,
     metrics). With ``grad_accum`` > 1 the global batch is split into
     microbatches run one after the other, their grads summed in f32 and
-    averaged, as the reference's microbatch scan does."""
+    averaged, as the reference's microbatch scan does. ``remat`` is the
+    layers' rematerialization policy (``models.common.remat_wrap``)."""
     if cfg.param.mode == "sltrain" and cfg.param.exec_mode == "quant":
         raise ValueError(
             "exec_mode='quant' is serve-only (int8 codes are not trainable) "
             "— train with dense or fused")
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported yet (ROADMAP queue A item 5: "
-            "the memory path); the port trains with remat='none'")
     loss_fn = make_loss_fn(cfg, api, remat, aux_coef)
 
     def train_step(params, opt_state, consts, batch):

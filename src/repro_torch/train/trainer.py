@@ -27,9 +27,12 @@ Every recovery event lands on the obs registry
 Each step's time ``dt`` is dispatch + sync: the host enqueues the whole
 step, then the sync phase waits on the device for the loss, so ``dt`` is
 the device time plus whatever dispatch did not overlap it, as in the
-reference. Not ported yet, and raising: a mesh (ROADMAP queue A item 10),
-chaos injection (item 8), ReLoRA and the other parameterizations
-(item 2), per-layer updates (item 5).
+reference. ``update_mode="per_layer"`` runs the per-layer update sweep
+(``train/perlayer.py``), which updates the params and the optimizer state
+in place; checkpoints copy them to the host synchronously, so a
+background write never sees a later step's values. Not ported yet, and
+raising: a mesh (ROADMAP queue A item 10), chaos injection (item 8),
+ReLoRA and the other parameterizations (item 2), GaLore (item 5).
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ from repro_torch.models import registry
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import optimizers
+from repro_torch.train import perlayer
 from repro_torch.train import step as step_lib
 
 
@@ -100,10 +104,9 @@ def _check_supported(tc: TrainConfig, mesh, chaos) -> None:
         raise NotImplementedError(
             "chaos injection is not ported yet (ROADMAP queue A item 8); "
             "fault_hook and the non-finite gate are")
-    if sh.update_mode != "global":
-        raise NotImplementedError(
-            f"update_mode={sh.update_mode!r} is not ported yet (ROADMAP "
-            "queue A item 5: per-layer updates); the port runs 'global'")
+    if sh.update_mode not in ("global", "per_layer"):
+        raise ValueError(f"unknown update_mode {sh.update_mode!r}: "
+                         "expected 'global' or 'per_layer'")
     if pc.mode not in ("dense", "sltrain"):
         raise NotImplementedError(
             f"param.mode={pc.mode!r} is not ported yet (ROADMAP queue A "
@@ -118,7 +121,8 @@ class Trainer:
                  rollback_data_skip: int = 1,
                  obs: Optional[obs_metrics.Registry] = None,
                  trace: Optional[obs_trace.Trace] = None,
-                 metrics_out: Optional[str] = None):
+                 metrics_out: Optional[str] = None,
+                 layer_timing: bool = False):
         _check_supported(tc, mesh, chaos)
         self.device = resolve(device)
         self.tc = tc
@@ -173,9 +177,22 @@ class Trainer:
         self._c_bad_batches = self.obs.counter(
             "resilience.bad_batches",
             help="corrupt data batches dropped by host-side validation")
-        self._train_step = step_lib.make_train_step(
-            self.cfg, self.api, self.optimizer, remat=tc.sharding.remat,
-            grad_accum=tc.sharding.grad_accum)
+        self._layer_timing = layer_timing
+        self._train_step = self._build_train_step()
+
+    def _build_train_step(self):
+        """The step for the configured update_mode: the global step, or
+        the per-layer sweep (with per-layer update timing on this
+        trainer's registry when ``layer_timing``)."""
+        sh = self.tc.sharding
+        if sh.update_mode == "per_layer":
+            return perlayer.make_perlayer_train_step(
+                self.cfg, self.api, self.optimizer, remat=sh.remat,
+                grad_accum=sh.grad_accum,
+                layer_timing=self.obs if self._layer_timing else None)
+        return step_lib.make_train_step(
+            self.cfg, self.api, self.optimizer, remat=sh.remat,
+            grad_accum=sh.grad_accum)
 
     # -- state ----------------------------------------------------------------
     def init_state(self) -> TrainerState:

@@ -5,13 +5,16 @@ it also runs where only the port's dependencies are installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances (atol = rtol), as in chip_smoke.py: f32 1e-4, bf16 2e-2.
+Tolerances (atol = rtol), as in chip_smoke.py: f32 1e-4, bf16 2e-2. The
+``adam8bit`` kernel runs the same IEEE operations as its plain version and
+is held to it bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import support
+from repro_torch.kernels import adam8bit as adam8bit_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pa_kernel
 from repro_torch.kernels import sddmm as sddmm_kernel
@@ -222,6 +225,84 @@ def test_paged_prefill_kernel_matches_plain(cuda, case, dtype):
     _close(got, ref.paged_prefill_ref(q, kp, vp, table, offs, **kw), dtype)
 
 
+def _adam8bit_state(rng, n, dtype, dev):
+    """p (padded to whole 256-blocks), f32 g, and 8-bit moments quantized
+    from random values, on ``dev``."""
+    from repro_torch.optim import quant
+    nq = -(-n // 256)
+    p = torch.zeros(nq * 256)
+    p[:n] = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    g = torch.zeros(nq * 256)
+    g[:n] = torch.from_numpy((rng.standard_normal(n) * 1e-2).astype(
+        np.float32))
+    m = torch.from_numpy((rng.standard_normal(n) * 1e-3).astype(np.float32))
+    v = torch.from_numpy((np.abs(rng.standard_normal(n)) * 1e-5).astype(
+        np.float32))
+    mc, ms, _ = quant.quantize_blockwise(m, 256, True)
+    vc, vs, _ = quant.quantize_blockwise(v, 256, False)
+    return [t.to(dev) for t in (p.to(dtype).reshape(nq, 256),
+                                g.reshape(nq, 256), mc, ms, vc, vs)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inplace", [False, True], ids=["out", "inplace"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [256, 2048, 64 * 256 + 3, 333121])
+def test_adam8bit_kernel_matches_plain_bitwise(cuda, n, dtype, inplace):
+    """Three steps, each from the previous step's outputs: parameters,
+    codes and scales equal the plain version's bit for bit, the padded
+    tail included (n = 64·256 + 3; 333,121 is one layer of llama_1b's
+    mlp/down/v)."""
+    rng = np.random.default_rng(n)
+    args = _adam8bit_state(rng, n, dtype, cuda)
+    want = [t.clone() for t in args]
+    for step in range(1, 4):
+        scalars = ops.adam8bit_scalars(
+            lr=1e-3, b1=0.9, b2=0.999, bc1=1 - 0.9 ** step,
+            bc2=1 - 0.999 ** step, eps=1e-8, wd=0.1 if step % 2 else 0.0,
+            device=cuda)
+        before = adam8bit_kernel.adam8bit_update.launches
+        out = adam8bit_kernel.adam8bit_update(*args, scalars, n,
+                                              inplace=inplace)
+        assert adam8bit_kernel.adam8bit_update.launches == before + 1
+        if inplace:
+            assert all(a is b for a, b in zip(out, args[:1] + args[2:]))
+        want_out = ref.adam8bit_ref(*want, scalars, n)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("p", "m_codes", "m_scales", "v_codes",
+                               "v_scales"), out, want_out):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            assert torch.equal(a, b), f"step {step}: {name}"
+        tail = out[1].reshape(-1)[n:], out[3].reshape(-1)[n:]
+        assert (tail[0] == 0).all() and (tail[1] == -128).all()
+        args = [out[0], args[1]] + list(out[1:])
+        want = [want_out[0], want[1]] + list(want_out[1:])
+
+
+@pytest.mark.gpu
+def test_adam8bit_leaf_update_on_card_matches_cpu(cuda):
+    """The leaf wrapper (padding, layer-slice views, in place) on the card
+    against the same call on the CPU: the same IEEE operations, so equal
+    bit for bit."""
+    rng = np.random.default_rng(0)
+    p = torch.from_numpy(rng.standard_normal((3, 5, 61)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((3, 5, 61)).astype(np.float32))
+    from repro_torch.optim import quant
+    mc, ms, _ = quant.quantize_blockwise(p * 1e-3, 256, True)
+    vc, vs, _ = quant.quantize_blockwise(p * p * 1e-5, 256, False)
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, bc1=0.19, bc2=0.002, eps=1e-8,
+              wd=0.1)
+    res = {}
+    for dev in ("cpu", cuda):
+        t = [x.to(dev).clone() for x in (p, g, mc, ms, vc, vs)]
+        for dtype in DTYPES:
+            out = ops.adam8bit_update(t[0].to(dtype), *t[1:], **kw)
+            res[(str(dev), dtype)] = [x.cpu() for x in out]
+    for dtype in DTYPES:
+        for a, b in zip(res[("cuda", dtype)], res[("cpu", dtype)]):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 def test_wrappers_refuse_bad_inputs(cuda):
     """The wrappers check before they launch: a wrong dtype, shape or
@@ -242,3 +323,20 @@ def test_wrappers_refuse_bad_inputs(cuda):
     tbl = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         pa_kernel.paged_attention(q, pool, pool, tbl, tbl[:, 0], scale=1.0)
+    # adam8bit: a wrong code dtype, mismatched block counts, a misaligned p
+    p = torch.zeros((2, 256), device=cuda)
+    codes = torch.zeros((2, 256), dtype=torch.int8, device=cuda)
+    sc = torch.zeros(2, device=cuda)
+    s10 = torch.zeros(10, device=cuda)
+    with pytest.raises(TypeError, match="m_codes"):
+        adam8bit_kernel.adam8bit_update(p, p, codes.float(), sc, codes, sc,
+                                        s10, 512)
+    with pytest.raises(ValueError, match="v_scales"):
+        adam8bit_kernel.adam8bit_update(p, p, codes, sc, codes, sc[:1], s10,
+                                        512)
+    with pytest.raises(ValueError, match="n_valid"):
+        adam8bit_kernel.adam8bit_update(p, p, codes, sc, codes, sc, s10, 100)
+    odd = torch.zeros(2 * 256 + 1, device=cuda)[1:].reshape(2, 256)
+    with pytest.raises(ValueError, match="aligned"):
+        adam8bit_kernel.adam8bit_update(odd, p, codes, sc, codes, sc, s10,
+                                        512)

@@ -106,11 +106,10 @@ def test_train_entry_points_need_a_card_unless_cpu(no_card, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--optimizer", "adam8bit"], ["--optimizer", "galore_adamw"],
-    ["--update-mode", "per_layer"], ["--fsdp", "--use-mesh"],
+    ["--optimizer", "galore_adamw"], ["--fsdp", "--use-mesh"],
     ["--use-mesh"], ["--multipod"], ["--chaos", "kill@3"],
-    ["--mode", "lowrank"], ["--mode", "relora"], ["--remat", "full"],
-    ["--layer-timing"], ["--jax-profile-dir", "x"]],
+    ["--mode", "lowrank"], ["--mode", "relora"],
+    ["--jax-profile-dir", "x"]],
     ids=lambda f: " ".join(f))
 def test_train_launcher_unported_options_raise(flags, tmp_path):
     from repro_torch.launch import train
@@ -119,21 +118,56 @@ def test_train_launcher_unported_options_raise(flags, tmp_path):
                     "--ckpt-dir", str(tmp_path), *flags])
 
 
+@pytest.mark.parametrize("flags", [
+    ["--optimizer", "adam8bit"], ["--update-mode", "per_layer"],
+    ["--remat", "full"], ["--remat", "dots_saveable"],
+    ["--update-mode", "per_layer", "--layer-timing"],
+    ["--optimizer", "adam8bit", "--update-mode", "per_layer",
+     "--exec-mode", "fused", "--layer-timing"]],
+    ids=lambda f: " ".join(f))
+def test_train_launcher_memory_path_options_run(flags, tmp_path):
+    """The memory path's flags (8-bit Adam, per-layer updates, remat,
+    per-layer timing) run one step on the CPU."""
+    from repro_torch.launch import train
+    tr = train.main(["--smoke", "--steps", "1", "--batch", "2", "--seq",
+                     "8", "--device", "cpu", "--ckpt-dir", str(tmp_path),
+                     *flags])
+    row = tr.metrics_history[0]
+    assert len(tr.metrics_history) == 1 and np.isfinite(row["loss"])
+    assert row["nonfinite"] == 0.0
+    timed = "--layer-timing" in flags
+    h = tr.obs.get("train.perlayer.layer_update_ms")
+    assert (h is not None and h.count == tr.cfg.n_layers) == timed
+
+
 def test_trainer_unported_options_raise(tmp_path):
-    from repro_torch.configs.base import ShardingConfig, TrainConfig
+    from repro_torch.configs.base import (OptimizerConfig, ShardingConfig,
+                                          TrainConfig)
     from repro_torch.train.trainer import Trainer
     tc = TrainConfig(model=_smoke(), ckpt_dir=str(tmp_path))
     for kw in (dict(mesh=object()), dict(chaos=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(tc, device="cpu", **kw)
     for sc in (ShardingConfig(pod_grad_compression=True),
-               ShardingConfig(fsdp=True),
-               ShardingConfig(update_mode="per_layer")):
+               ShardingConfig(fsdp=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(dataclasses.replace(tc, sharding=sc), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.apply_lm(_smoke(), {}, {}, torch.zeros((1, 2), dtype=torch.int64),
-                    remat="full")
+        Trainer(dataclasses.replace(tc, optim=OptimizerConfig(
+            name="galore_adamw")), device="cpu")
+    # per-layer updates and remat run now; unknown names still raise
+    for sc in (ShardingConfig(update_mode="per_layer"),
+               ShardingConfig(update_mode="per_layer", remat="full")):
+        Trainer(dataclasses.replace(tc, sharding=sc), device="cpu")
+    with pytest.raises(ValueError, match="update_mode"):
+        Trainer(dataclasses.replace(tc, sharding=ShardingConfig(
+            update_mode="sideways")), device="cpu")
+    params, consts = lm.init_lm(_smoke(), device="cpu")
+    toks = torch.zeros((1, 2), dtype=torch.int64)
+    with pytest.raises(ValueError, match="remat"):
+        lm.apply_lm(_smoke(), params, consts, toks, remat="most")
+    full, _ = lm.apply_lm(_smoke(), params, consts, toks, remat="full")
+    assert torch.equal(full, lm.apply_lm(_smoke(), params, consts, toks)[0])
 
 
 def test_from_jax_numpy_reads_flat_checkpoint_layout():

@@ -206,7 +206,7 @@ def test_adamw_clipped_step_matches_reference(wd):
             np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-6,
                                        atol=1e-7, err_msg=name)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optimizers.make(OptimizerConfig(name="adam8bit"))
+        optimizers.make(OptimizerConfig(name="galore_adamw"))
 
 
 def test_nonfinite_gate_keeps_old_state_bit_exact():
