@@ -6,15 +6,20 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds every hand-written kernel from the sources in the checkout and
 holds each one against its plain PyTorch version at the real shapes of
-the three ported paths (with timings; ``adam8bit`` bit for bit at every
-leaf size the per-layer step updates). Then it drives the paths on the
+the ported paths (with timings; ``adam8bit`` bit for bit at every leaf
+size the per-layer step updates). Then it drives the paths on the
 paper's ``llama_1b`` config at full width and depth with random weights
 from a seed:
 
-* serving: the paged engine once in float32 along two paths that must
-  give the same greedy tokens (fused ``sl_matmul`` + paged kernels, and
-  dense densify + gathered attention), and once in bfloat16, timed, with
-  every kernel's launch count read around the run, then profiled;
+* serving: the paged engine in float32 along paths that must give the
+  same greedy tokens: fused ``sl_matmul`` + paged kernels, and
+  ``sparse_decode=True`` (``sparse_matmul``), each against dense densify
+  + gathered attention; the model calibrated to int8 on the card, its
+  quant artifact written under build/ and read back bit for bit, and
+  served in exec_mode quant (``quant_sparse_matmul``) against a dense
+  engine on the dequantized weights. Then each of the three paths once
+  in bfloat16, timed, with every kernel's launch count read around the
+  run, then profiled;
 * training: 3 float32 train steps from one init and one data stream in
   pairs that must agree: exec_mode "fused" (``sl_matmul`` forward and dx,
   ``sddmm`` dV) against "dense" (densify + the eq.-(2) backward),
@@ -75,19 +80,27 @@ SL_SOURCE = "src/repro_torch/kernels/csrc/sl_matmul.cu"
 PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 SD_SOURCE = "src/repro_torch/kernels/csrc/sddmm.cu"
 AD_SOURCE = "src/repro_torch/kernels/csrc/adam8bit.cu"
+SP_SOURCE = "src/repro_torch/kernels/csrc/sparse_decode.cu"
 REPLACES = {
     "sl_matmul": "src/repro/kernels/sl_matmul.py:63",
     "paged_attention": "src/repro/kernels/paged_attention.py:132",
     "paged_prefill": "src/repro/kernels/paged_attention.py:241",
     "sddmm": "src/repro/kernels/sddmm.py:47",
     "adam8bit": "src/repro/kernels/adam8bit.py:78",
+    "sparse_matmul": "src/repro/kernels/sparse_decode.py:57",
+    "quant_sparse_matmul": "src/repro/kernels/sparse_decode.py:109",
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
     "serve": ("sl_matmul", "paged_attention", "paged_prefill"),
     "train": ("sl_matmul", "sddmm"),
     "train_per_layer": ("sl_matmul", "sddmm", "adam8bit"),
+    "serve_sparse": ("sparse_matmul", "paged_attention", "paged_prefill"),
+    "serve_quant": ("quant_sparse_matmul", "paged_attention",
+                    "paged_prefill"),
 }
+EXEC_PATH = {"fused": "serve", "sparse": "serve_sparse",
+             "quant": "serve_quant"}
 # f32 operations per element of one 8-bit Adam step, counted from
 # csrc/adam8bit.cu: dequantize 4, the moments 7, the update 9, the
 # requantize 8 (the block maxima, divisions, roundings, the shift)
@@ -249,6 +262,82 @@ def check_sl_matmul(timer, gen, device, cfg, m_values):
     return rows
 
 
+def sparse_decode_case(gen, device, d_in, d_out, m, dtype, delta, seed):
+    """One linear's sparse term at real width in both decode layouts: the
+    f32 tile-CSR of v ~ U(±1/sqrt(d_in)) on a sampled support, and its
+    int8 layout (codes against per-channel absmax scales); x of m rows;
+    the support's entry count."""
+    from repro_torch.core import support
+    from repro_torch.kernels import ops
+    from repro_torch.quant import layout
+    rows, cols = support.sample_support(seed, d_in, d_out, delta)
+    cap = support.tile_cap(d_in, d_out, delta)
+    tiles = ops.prepare_tile_consts(rows, cols, d_in, d_out, pad=cap)
+    v = (torch.rand(rows.shape[0], generator=gen, device=device) * 2 - 1) \
+        * d_in ** -0.5
+    v_t = ops._gather_tiles(v, tiles["perm"].to(device))
+    vh = v.cpu().numpy()
+    S = np.zeros((d_in, d_out), np.float32)
+    S[rows, cols] = vh
+    sc = layout.channel_scales(S)
+    q = layout.build_quant_consts(rows, cols,
+                                  layout.quantize_values(vh, cols, sc), sc,
+                                  d_in, d_out, delta, "row_balanced")
+    x = torch.randn((m, d_in), generator=gen, device=device).to(dtype)
+    sp = [v_t] + [tiles[k].to(device) for k in ("rows_t", "cols_t")]
+    qp = [q[k].to(device) for k in ("qv_t", "rows_q", "cols_q", "qscale")]
+    return x, sp, qp, rows.shape[0]
+
+
+def check_sparse_decode(timer, gen, device, cfg, m_values):
+    """sparse_matmul and quant_sparse_matmul against their plain versions
+    at every (M, K, N) the llama_1b engine gives them (M: the decode batch
+    and each prefill bucket times the slots), timed beside the plain
+    version and beside torch.matmul on the pre-densified S (in x's dtype;
+    dequantized for the int8 layout), which the port never calls. The
+    bound: each input read and y written once over the memory rate, or
+    2·M·nnz operations, the larger."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_decode as spk
+    d, f = cfg.d_model, cfg.d_ff
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for (d_in, d_out) in ((d, d), (d, f), (f, d)):
+            for m in m_values:
+                x, sp, qp, nnz = sparse_decode_case(
+                    gen, device, d_in, d_out, m, dtype, cfg.param.delta,
+                    seed=d_in * 7 + d_out)
+                label = f"{m}x{d_in}->{d_out} {dname(dtype)}"
+                for name, fn, plain, args, dense in (
+                        ("sparse_matmul", spk.sparse_matmul,
+                         ref.sparse_matmul_ref, sp, ref._tile_dense(*sp)),
+                        ("quant_sparse_matmul", spk.quant_sparse_matmul,
+                         ref.quant_sparse_matmul_ref, qp,
+                         ref._tile_dense(*qp[:3]) * qp[3].reshape(1, -1))):
+                    got = fn(x, *args, d_out)
+                    want = plain(x, *args, d_out)
+                    torch.cuda.synchronize()
+                    err = compare(f"{name} {label}", got, want, dtype)
+                    S = dense[:d_in, :d_out].to(dtype).contiguous()
+                    t_k = timer.ms(lambda: fn(x, *args, d_out))
+                    t_p = timer.ms(lambda: plain(x, *args, d_out))
+                    t_l = timer.ms(lambda: torch.matmul(x, S))
+                    ops_ = 2.0 * m * nnz
+                    moved = nbytes(x, *args, got)
+                    b, by = bound_ms(moved, ops_, dtype)
+                    rows.append(dict(name=name, shape=label,
+                                     max_abs_err=err, tol=TOL[dtype],
+                                     ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                     bound_ms=b, bound_by=by))
+                    say(f"kernel {name} {label}: max_abs_err {err:.3e} "
+                        f"(tol {TOL[dtype]}) | kernel {t_k:.4f} ms, plain "
+                        f"{t_p:.4f} ms, torch.matmul on dense S {t_l:.4f} "
+                        f"ms, bound {b:.4f} ms ({by}, {moved / 1e6:.2f} "
+                        f"MB)")
+                    del S
+    return rows
+
+
 def time_sddmm(timer, label, x, dy, rt, ct, dtype):
     """One sddmm case against its plain version, timed beside it and
     beside torch.matmul(xᵀ, dy) in f32 plus the gather; its bound counts
@@ -311,6 +400,14 @@ def check_train_kernels(timer, gen, device, cfg, m):
     return rows
 
 
+def linear_shapes(cfg):
+    """{name: (d_in, d_out)} of one llama layer's SLTrain linears."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    return {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
+            "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d),
+            "gate": (d, f), "up": (d, f), "down": (f, d)}
+
+
 def adam8bit_sizes(cfg):
     """{label: elements} of every update the per-layer step gives the
     adam8bit kernel on ``cfg`` (an SLTrain llama config): a layer's slice
@@ -318,11 +415,8 @@ def adam8bit_sizes(cfg):
     stacked leaf of each other one (the deferred leaves), and the
     embedding and LM head whole."""
     from repro_torch.core import support
-    d, f, n_layers, pc = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.param
-    hd = cfg.resolved_head_dim
-    linears = {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
-               "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d),
-               "gate": (d, f), "up": (d, f), "down": (f, d)}
+    d, n_layers, pc = cfg.d_model, cfg.n_layers, cfg.param
+    linears = linear_shapes(cfg)
     per_layer = {"ln_attn": d, "ln_mlp": d}
     for name, (a, b) in linears.items():
         r = max(4, min(pc.rank, min(a, b) // 2))
@@ -599,9 +693,12 @@ def _wrappers():
     from repro_torch.kernels import paged_attention as pak
     from repro_torch.kernels import sddmm as sdk
     from repro_torch.kernels import sl_matmul as slk
+    from repro_torch.kernels import sparse_decode as spk
     return {"sl_matmul": slk.sl_matmul, "paged_attention":
             pak.paged_attention, "paged_prefill": pak.paged_prefill,
-            "sddmm": sdk.sddmm, "adam8bit": adk.adam8bit_update}
+            "sddmm": sdk.sddmm, "adam8bit": adk.adam8bit_update,
+            "sparse_matmul": spk.sparse_matmul,
+            "quant_sparse_matmul": spk.quant_sparse_matmul}
 
 
 def launch_counts():
@@ -614,7 +711,8 @@ def reset_launch_counts():
 
 
 def serve(cfg, params, consts, prompts, arrivals, *, exec_mode, attn_kernel,
-          n_slots, max_len, block_len, new_tokens, device):
+          n_slots, max_len, block_len, new_tokens, device,
+          sparse_decode=False):
     """One engine run of the traffic through ``run_stream`` with prefix
     sharing; returns (requests, stats, engine, wall seconds). Each
     dispatch (one prefill or decode program) is bracketed by CUDA events:
@@ -625,8 +723,8 @@ def serve(cfg, params, consts, prompts, arrivals, *, exec_mode, attn_kernel,
     from repro_torch.serve.engine import ServeEngine
     eng = ServeEngine(cfg, params, consts, n_slots=n_slots, max_len=max_len,
                       paged=True, block_len=block_len, exec_mode=exec_mode,
-                      attn_kernel=attn_kernel, prefix_sharing=True,
-                      device=device)
+                      sparse_decode=sparse_decode, attn_kernel=attn_kernel,
+                      prefix_sharing=True, device=device)
     spans, shapes = [], set()
 
     def bracket(fn, kind):
@@ -653,7 +751,8 @@ def serve(cfg, params, consts, prompts, arrivals, *, exec_mode, attn_kernel,
     stats["token_shapes"] = shapes
     bad = [(r.uid, r.status) for r in reqs if r.status != "done"]
     if bad or stats["exhausted"] or len(stats["completed"]) != len(reqs):
-        fail(f"{exec_mode}/{attn_kernel}: requests not completed: {bad}")
+        fail(f"{eng.cfg.param.exec_mode}/{attn_kernel}: requests not "
+             f"completed: {bad}")
     for r in reqs:
         if len(r.out) != new_tokens or not all(0 <= t < cfg.vocab_size
                                                for t in r.out):
@@ -686,9 +785,31 @@ def randomize_b(params, gen):
     walk(params)
 
 
+def same_tokens(what, a_reqs, b_reqs, cfg, params, consts, device):
+    """Greedy tokens of run A against run B, request by request: the only
+    excuse for a difference is a top-2 gap below 1e-4 in B's dense logits
+    (``params``, ``consts`` are B's weights); the rest of that request is
+    then not compared. Returns (equal tokens, ties)."""
+    ties, same = [], 0
+    for ra, rb in zip(a_reqs, b_reqs):
+        for i, (ta, tb) in enumerate(zip(ra.out, rb.out)):
+            if ta == tb:
+                same += 1
+                continue
+            gap = top2_gap(cfg, params, consts, rb.prompt + rb.out[:i],
+                           device)
+            if gap >= 1e-4:
+                fail(f"{what}: f32 request {ra.uid} token {i}: {ta} vs {tb}, "
+                     f"top-2 gap {gap:.3e} in the dense run (not a tie)")
+            ties.append((ra.uid, i, gap))
+            break
+    return same, ties
+
+
 def phase_engine_f32(cfg, params, consts, prompts, arrivals, device, **kw):
     """Phase 3: the f32 engine along path A (fused sl_matmul + paged
-    kernels) and path B (dense densify + gathered attention)."""
+    kernels) and path B (dense densify + gathered attention). Returns path
+    A's dispatch shapes and path B's requests."""
     reset_launch_counts()
     a_reqs, a_stats, _, a_wall = serve(cfg, params, consts, prompts,
                                        arrivals, exec_mode="fused",
@@ -704,36 +825,152 @@ def phase_engine_f32(cfg, params, consts, prompts, arrivals, device, **kw):
         fail(f"path B (dense/gather) launched kernels: {b_launches}")
     if not all(a_launches[k] for k in PATH_KERNELS["serve"]):
         fail(f"path A (fused/paged) missed a kernel: {a_launches}")
-    ties, same = [], 0
-    for ra, rb in zip(a_reqs, b_reqs):
-        for i, (ta, tb) in enumerate(zip(ra.out, rb.out)):
-            if ta == tb:
-                same += 1
-                continue
-            gap = top2_gap(cfg, params, consts, rb.prompt + rb.out[:i],
-                           device)
-            if gap >= 1e-4:
-                fail(f"f32 request {ra.uid} token {i}: fused/paged {ta} vs "
-                     f"dense/gather {tb}, path B top-2 gap {gap:.3e} "
-                     "(not a tie)")
-            ties.append((ra.uid, i, gap))
-            break
+    same, ties = same_tokens("fused/paged vs dense/gather", a_reqs, b_reqs,
+                             cfg, params, consts, device)
     total = sum(len(r.out) for r in a_reqs)
     say(f"engine f32 llama_1b: {len(a_reqs)} requests, {total} tokens; "
         f"fused/paged == dense/gather on {same}/{total} tokens"
         + (f", ties (uid, token, top-2 gap): {ties}" if ties else "")
         + f" | path A {a_wall:.2f} s launches {a_launches}, path B "
         f"{b_wall:.2f} s")
-    return a_stats["token_shapes"]
+    return a_stats["token_shapes"], b_reqs
+
+
+def phase_sparse_f32(cfg, params, consts, prompts, arrivals, b_reqs,
+                     device, **kw):
+    """The f32 engine with ``sparse_decode=True`` (the ``sparse_matmul``
+    kernel + paged kernels) against path B's dense/gather tokens."""
+    reset_launch_counts()
+    reqs, stats, eng, wall = serve(cfg, params, consts, prompts, arrivals,
+                                   exec_mode=None, sparse_decode=True,
+                                   attn_kernel="paged", device=device, **kw)
+    launches = launch_counts()
+    if eng.cfg.param.exec_mode != "sparse":
+        fail(f"sparse_decode=True ran exec_mode {eng.cfg.param.exec_mode}")
+    if not all(launches[k] for k in PATH_KERNELS["serve_sparse"]) or \
+            launches["sl_matmul"] or launches["quant_sparse_matmul"]:
+        fail(f"sparse/paged launched the wrong kernels: {launches}")
+    same, ties = same_tokens("sparse/paged vs dense/gather", reqs, b_reqs,
+                             cfg, params, consts, device)
+    total = sum(len(r.out) for r in reqs)
+    say(f"engine f32 llama_1b sparse_decode=True: sparse/paged == "
+        f"dense/gather on {same}/{total} tokens"
+        + (f", ties (uid, token, top-2 gap): {ties}" if ties else "")
+        + f" | {wall:.2f} s, launches {launches}")
+    return stats["token_shapes"]
+
+
+def dequantized(qparams, qconsts):
+    """The params of a calibrated tree with every SLTrain linear's v
+    replaced by dequant(qv) in v's own (COO) order: each tile slot's code
+    times its column's scale, put back through the layout's ``perm``.
+    Densified with the error-folded B', A', that is the weight the int8
+    decode computes with."""
+    from repro_torch.kernels import ops
+
+    def one(v, qv_t, cols_q, qscale, perm):
+        nnt = qscale.shape[0]
+        nt = torch.arange(nnt, device=qv_t.device).view(1, nnt, 1)
+        vals = qv_t.float() * qscale.reshape(-1)[cols_q.long() + 128 * nt]
+        return ops._scatter_tiles(vals, perm, v.numel()).reshape(v.shape)
+
+    def walk(p, c):
+        if "qv_t" in c:
+            v = p["v"]
+            lead = v.shape[:-2] if "rows" not in c else v.shape[:-1]
+            n = int(np.prod(lead))
+            flat = [t.reshape((n,) + tuple(t.shape[len(lead):])) for t in
+                    (v, c["qv_t"], c["cols_q"], c["qscale"], c["perm"])]
+            out = torch.stack([one(*(t[i] for t in flat)) for i in range(n)])
+            return {**p, "v": out.reshape(v.shape).to(v.dtype)}
+        return {k: walk(x, c.get(k, {})) if isinstance(x, dict) else x
+                for k, x in p.items()}
+    return walk(qparams, qconsts)
+
+
+def phase_quant_f32(cfg, params, consts, prompts, arrivals, device, **kw):
+    """Calibrate llama_1b on the card, write the quant artifact under
+    build/ and load it back bit for bit, then serve it in exec_mode quant
+    (the ``quant_sparse_matmul`` kernel + paged kernels) against a
+    dense/gather engine on the dequantized weights (B', A' and v :=
+    dequant(qv)): the same greedy tokens. Returns the loaded artifact's
+    trees and the quant run's dispatch shapes."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.quant import calibrate
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qp, qc, st = calibrate.calibrate_model(cfg, params, consts)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    n_lin = len(linear_shapes(cfg)) * cfg.n_layers
+    if st["n_matrices"] != n_lin:
+        fail(f"calibrate: {st['n_matrices']} matrices, expected {n_lin}")
+    say(f"calibrate llama_1b f32 on the card (host scales and codes, "
+        f"torch.linalg.svd fold on the card): {t_cal:.1f} s, n_matrices "
+        f"{st['n_matrices']}, {st['nnz']} int8 codes, max_abs_err "
+        f"{st['max_abs_err']:.4e}")
+    art = os.path.join(ROOT, "build", "chip_smoke_quant")
+    t0 = time.perf_counter()
+    ckpt.save_quant_artifact(art, qp, qc, config_hash=cfg.hash(), extra=st)
+    t_save = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(art, f)) for f in os.listdir(art))
+    t0 = time.perf_counter()
+    lp, lc, man = ckpt.load_quant_artifact(art, device=device)
+    t_load = time.perf_counter() - t0
+    shutil.rmtree(art, ignore_errors=True)
+    n_leaves = 0
+    for saved, loaded in ((qp, lp), (qc, lc)):
+        a, b = dict(tree_leaves(saved)), dict(tree_leaves(loaded))
+        if a.keys() != b.keys():
+            fail(f"artifact: leaves differ: {sorted(a.keys() ^ b.keys())}")
+        for key in a:
+            if a[key].dtype != b[key].dtype or not torch.equal(a[key],
+                                                               b[key]):
+                fail(f"artifact: leaf {key} did not load bit for bit")
+        n_leaves += len(a)
+    if man["extra"]["n_matrices"] != n_lin:
+        fail(f"artifact manifest: {man['extra']}")
+    say(f"quant artifact: {size / 2**30:.2f} GiB under build/, saved in "
+        f"{t_save:.1f} s, loaded in {t_load:.1f} s, {n_leaves} leaves bit "
+        "for bit")
+    del qp, qc
+
+    reset_launch_counts()
+    q_reqs, q_stats, _, q_wall = serve(cfg, lp, lc, prompts, arrivals,
+                                       exec_mode="quant",
+                                       attn_kernel="paged", device=device,
+                                       **kw)
+    launches = launch_counts()
+    if not all(launches[k] for k in PATH_KERNELS["serve_quant"]) or \
+            launches["sl_matmul"] or launches["sparse_matmul"]:
+        fail(f"quant/paged launched the wrong kernels: {launches}")
+    dp = dequantized(lp, lc)
+    reset_launch_counts()
+    d_reqs, _, _, d_wall = serve(cfg, dp, lc, prompts, arrivals,
+                                 exec_mode="dense", attn_kernel="gather",
+                                 device=device, **kw)
+    if any(launch_counts().values()):
+        fail(f"dense/gather on dequantized weights launched kernels: "
+             f"{launch_counts()}")
+    same, ties = same_tokens("quant/paged vs dense/gather on dequantized "
+                             "weights", q_reqs, d_reqs, cfg, dp, lc, device)
+    total = sum(len(r.out) for r in q_reqs)
+    say(f"engine f32 llama_1b exec_mode quant (loaded artifact) == "
+        f"dense/gather on the dequantized weights on {same}/{total} tokens"
+        + (f", ties (uid, token, top-2 gap): {ties}" if ties else "")
+        + f" | quant {q_wall:.2f} s launches {launches}, dense "
+        f"{d_wall:.2f} s")
+    return lp, lc, q_stats["token_shapes"]
 
 
 def check_forward(cfg, params, consts, device):
     """The plain forward on a small input: finite logits of the expected
-    shape, fused against dense within f32 tolerance."""
+    shape, fused and sparse against dense within f32 tolerance."""
     from repro_torch.models import lm
     toks = torch.arange(3, 19, device=device)[None]
     out = {}
-    for mode in ("fused", "dense"):
+    for mode in ("fused", "sparse", "dense"):
         c = dataclasses.replace(cfg, param=dataclasses.replace(
             cfg.param, exec_mode=mode))
         out[mode], _ = lm.apply_lm(c, params, consts, toks)
@@ -742,32 +979,58 @@ def check_forward(cfg, params, consts, device):
         if tuple(lg.shape) != want or not torch.isfinite(lg).all():
             fail(f"apply_lm {mode}: shape {tuple(lg.shape)} (want {want}) "
                  "or non-finite logits")
-    err = (out["fused"] - out["dense"]).abs().max().item()
     scale = out["dense"].abs().max().item()
-    if err > 1e-3 * max(1.0, scale):
-        fail(f"apply_lm fused vs dense: max abs err {err:.3e} at logit "
-             f"scale {scale:.3e}")
-    say(f"forward f32 llama_1b: logits {want} finite, fused vs dense max "
-        f"abs err {err:.3e} (tol 1e-3 x max(1, {scale:.2f}))")
+    errs = {}
+    for mode in ("fused", "sparse"):
+        errs[mode] = (out[mode] - out["dense"]).abs().max().item()
+        if errs[mode] > 1e-3 * max(1.0, scale):
+            fail(f"apply_lm {mode} vs dense: max abs err {errs[mode]:.3e} "
+                 f"at logit scale {scale:.3e}")
+    say(f"forward f32 llama_1b: logits {want} finite, max abs err vs dense: "
+        f"fused {errs['fused']:.3e}, sparse {errs['sparse']:.3e} (tol 1e-3 x "
+        f"max(1, {scale:.2f}))")
 
 
-def phase_engine_bf16(cfg, params, consts, prompts, arrivals, device, **kw):
-    """Phase 4: the main path in bf16 (fused + paged), timed, with every
-    kernel's launch count read around the run."""
+def sparse_bytes_per_step(cfg, quant: bool) -> int:
+    """Modeled bytes of the sparse term one decode step reads over all
+    SLTrain linears (quant.layout.sparse_decode_bytes)."""
+    from repro_torch.quant import layout
+    pc = cfg.param
+    return cfg.n_layers * sum(
+        layout.sparse_decode_bytes(a, b, pc.delta, pc.support_kind,
+                                   quant=quant)
+        for a, b in linear_shapes(cfg).values())
+
+
+def phase_engine_bf16(cfg, params, consts, prompts, arrivals, device,
+                      exec_mode="fused", **kw):
+    """Phase 4: a serving path in bf16 (``exec_mode`` fused, sparse or
+    quant, with the paged kernels), timed, with every kernel's launch
+    count read around the run."""
+    path = EXEC_PATH[exec_mode]
     reset_launch_counts()
     reqs, stats, eng, wall = serve(cfg, params, consts, prompts, arrivals,
-                                   exec_mode="fused", attn_kernel="paged",
+                                   exec_mode=exec_mode, attn_kernel="paged",
                                    device=device, **kw)
     launches = launch_counts()
-    missing = [k for k in PATH_KERNELS["serve"] if launches[k] == 0]
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     if missing:
-        fail(f"bf16 serving path never launched {missing}: {launches}")
+        fail(f"bf16 {exec_mode} serving path never launched {missing}: "
+             f"{launches}")
+    kernel = PATH_KERNELS[path][0]
     tokens = sum(len(r.out) for r in reqs)
     hw = eng.obs.histogram("serve.ttft_wall_ms")
     ttft_ms = sorted((r.wall_first - r.wall_arrival) * 1e3 for r in reqs)
     ticks = sorted(r.t_first - r.arrival for r in reqs)
     span = stats["span_s"]
-    say(f"engine bf16 llama_1b (fused sl_matmul + paged kernels): "
+    steps = stats["decode_steps"] + eng.dispatches["prefill"]
+    extra = ""
+    if exec_mode != "fused":
+        extra = (f" | modeled sparse-term bytes per step "
+                 f"{sparse_bytes_per_step(cfg, exec_mode == 'quant') / 1e6:.2f}"
+                 f" MB ({kernel} launches per step "
+                 f"{launches[kernel] / steps:.0f})")
+    say(f"engine bf16 llama_1b ({exec_mode}: {kernel} + paged kernels): "
         f"{len(stats['completed'])}/{len(reqs)} requests done, {tokens} "
         f"tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s, "
         f"{stats['decode_steps']} decode steps, "
@@ -776,28 +1039,31 @@ def phase_engine_bf16(cfg, params, consts, prompts, arrivals, device, **kw):
         f"{eng.prefill_traffic['tokens_total']} | TTFT wall ms p50 "
         f"{statistics.median(ttft_ms):.1f} max {ttft_ms[-1]:.1f} "
         f"(histogram p50 {hw.percentile(50):.1f}), ticks p50 "
-        f"{statistics.median(ticks)} max {ticks[-1]} | launches {launches}")
+        f"{statistics.median(ticks)} max {ticks[-1]} | launches {launches}"
+        + extra)
     # the device runs nothing between dispatches but the copies of each
     # dispatch's few input and output integers: the wall time outside the
     # dispatch spans is idle time spent on the host's scheduling; idle
     # gaps inside a span (the host launching the next op) are not seen
-    say(f"engine bf16 dispatch spans, same run: {span:.3f} s of device time "
-        f"from each dispatch's start to its last kernel's end, of wall "
-        f"{wall:.3f} s: idle between dispatches "
+    say(f"engine bf16 {exec_mode} dispatch spans, same run: {span:.3f} s of "
+        f"device time from each dispatch's start to its last kernel's end, "
+        f"of wall {wall:.3f} s: idle between dispatches "
         f"{100 * (1 - span / wall):.1f}% (CUDA events around each dispatch)")
     return launches, stats["token_shapes"], wall
 
 
-def check_coverage(shapes, m_values, sqs):
-    """Every row count the engine gave ``sl_matmul`` and every suffix
-    length it gave ``paged_prefill`` was held against the plain version."""
+def check_coverage(shapes, m_values, sqs, kernel="sl_matmul"):
+    """Every row count the engine gave ``kernel`` and every suffix length
+    it gave ``paged_prefill`` was held against the plain version (the
+    kernel phases check each kernel at every M in ``m_values``, at the
+    three projection shapes, in bf16 and f32)."""
     ms = {int(np.prod(s)) for _, s in shapes}
     pre = {s[1] for kind, s in shapes if kind == "prefill"}
     if not ms <= set(m_values) or not pre <= set(sqs):
-        fail(f"the engine ran sl_matmul at M in {sorted(ms)} and "
+        fail(f"the engine ran {kernel} at M in {sorted(ms)} and "
              f"paged_prefill at sq in {sorted(pre)}; checked only M in "
              f"{sorted(m_values)} and sq in {sorted(sqs)}")
-    say(f"coverage: the engine ran sl_matmul at M in {sorted(ms)} and "
+    say(f"coverage: the engine ran {kernel} at M in {sorted(ms)} and "
         f"paged_prefill at sq in {sorted(pre)}, all checked above")
 
 
@@ -819,7 +1085,8 @@ def phase_profile(cfg, params, consts, prompts, arrivals, device,
         say("profile: the profiler recorded no device time (not measured)")
         return
     busy_us, top = busy
-    say(f"profile bf16 engine run ({stats['decode_steps']} decode steps, "
+    say(f"profile bf16 engine run, exec_mode {kw['exec_mode']} "
+        f"({stats['decode_steps']} decode steps, "
         f"device-only profiler on): wall {wall:.3f} s (unprofiled run "
         f"{plain_wall:.3f} s), device busy {busy_us / 1e6:.3f} s = "
         f"{100 * busy_us / 1e6 / wall:.1f}% (idle "
@@ -1069,8 +1336,8 @@ def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=6):
             h["nonfinite"] for h in hist):
         fail(f"bf16 training: losses {losses}")
     n_lin = 7 * cfg.n_layers
-    want = {"sl_matmul": 2 * n_lin * steps, "sddmm": n_lin * steps,
-            "paged_attention": 0, "paged_prefill": 0, "adam8bit": 0}
+    want = {k: 0 for k in launches}
+    want.update(sl_matmul=2 * n_lin * steps, sddmm=n_lin * steps)
     if launches != want:
         fail(f"bf16 training launched {launches}, expected {want} "
              f"({n_lin} linears x {steps} steps: forward + dx, dV)")
@@ -1159,9 +1426,9 @@ def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak,
         fail(f"bf16 per-layer training: losses {losses}")
     n_lin = 7 * cfg.n_layers
     # a forward, then a forward and a backward per layer in each sweep
-    want = {"sl_matmul": 5 * n_lin * steps, "sddmm": 2 * n_lin * steps,
-            "paged_attention": 0, "paged_prefill": 0,
-            "adam8bit": per_step * steps}
+    want = {k: 0 for k in launches}
+    want.update(sl_matmul=5 * n_lin * steps, sddmm=2 * n_lin * steps,
+                adam8bit=per_step * steps)
     if launches != want:
         fail(f"bf16 per-layer training launched {launches}, expected {want}")
     lt = tr.obs.get("train.perlayer.layer_update_ms")
@@ -1310,12 +1577,13 @@ def check_train_coverage(shapes, m, cfg):
 def kernels_line(rows, by_path, representative):
     """One entry per kernel: the representative case's times and bound,
     the largest error over all of the kernel's cases; launches summed
-    over the main paths' runs (serving, training, per-layer training),
-    each path's count beside them."""
+    over the main paths' runs (serving fused, sparse and quant, training,
+    per-layer training), each path's count beside them."""
     out = []
     src = {"sl_matmul": SL_SOURCE, "paged_attention": PA_SOURCE,
            "paged_prefill": PA_SOURCE, "sddmm": SD_SOURCE,
-           "adam8bit": AD_SOURCE}
+           "adam8bit": AD_SOURCE, "sparse_matmul": SP_SOURCE,
+           "quant_sparse_matmul": SP_SOURCE}
     for name, shape in representative.items():
         mine = [r for r in rows if r["name"] == name]
         rep = next(r for r in mine if r["shape"] == shape)
@@ -1338,7 +1606,8 @@ def kernels_line(rows, by_path, representative):
 
 def run_serving(cfg, device, gen, n_slots, block_len, max_len, buckets,
                 m_values):
-    """Phases 3 to 5 on the serving path; returns its launch counts."""
+    """Phases 3 to 5 on the serving paths (fused, sparse, quant); returns
+    each path's launch counts from its bf16 run."""
     from repro_torch.models import lm
     from repro_torch.models.common import tree_leaves, tree_map
     t0 = time.perf_counter()
@@ -1356,18 +1625,34 @@ def run_serving(cfg, device, gen, n_slots, block_len, max_len, buckets,
     kw = dict(n_slots=n_slots, max_len=max_len, block_len=block_len,
               new_tokens=16)
     check_forward(cfg32, params, consts, device)
-    shapes = phase_engine_f32(cfg32, params, consts, prompts, arrivals,
-                              device, **kw)
+    shapes = {"fused": set(), "sparse": set(), "quant": set()}
+    fused, b_reqs = phase_engine_f32(cfg32, params, consts, prompts,
+                                     arrivals, device, **kw)
+    shapes["fused"] |= fused
+    shapes["sparse"] |= phase_sparse_f32(cfg32, params, consts, prompts,
+                                         arrivals, b_reqs, device, **kw)
+    qparams, qconsts, quant = phase_quant_f32(cfg32, params, consts, prompts,
+                                              arrivals, device, **kw)
+    shapes["quant"] |= quant
 
     cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
-    params16 = tree_map(lambda t: t.to(torch.bfloat16), params)
-    del params
-    launches, shapes16, wall16 = phase_engine_bf16(
-        cfg16, params16, consts, prompts, arrivals, device, **kw)
-    check_coverage(shapes | shapes16, m_values, buckets)
-    phase_profile(cfg16, params16, consts, prompts, arrivals, device,
-                  wall16, exec_mode="fused", attn_kernel="paged", **kw)
-    return launches
+    to16 = lambda tree: tree_map(lambda t: t.to(torch.bfloat16), tree)
+    params16, qparams16 = to16(params), to16(qparams)
+    del params, qparams
+    by_path = {}
+    for mode, p, c in (("fused", params16, consts),
+                       ("sparse", params16, consts),
+                       ("quant", qparams16, qconsts)):
+        launches, s16, wall16 = phase_engine_bf16(
+            cfg16, p, c, prompts, arrivals, device, exec_mode=mode, **kw)
+        by_path[EXEC_PATH[mode]] = launches
+        shapes[mode] |= s16
+        phase_profile(cfg16, p, c, prompts, arrivals, device, wall16,
+                      exec_mode=mode, attn_kernel="paged", **kw)
+    for mode, kernel in (("fused", "sl_matmul"), ("sparse", "sparse_matmul"),
+                         ("quant", "quant_sparse_matmul")):
+        check_coverage(shapes[mode], m_values, buckets, kernel)
+    return by_path
 
 
 def main() -> int:
@@ -1411,6 +1696,10 @@ def main() -> int:
     sl_rows = check_sl_matmul(timer, gen, device, cfg, m_values)
     at_rows = check_attention(timer, gen, device, cfg, n_slots, block_len,
                               max_len // block_len, buckets)
+    # its own generator: the later phases draw the same B as before
+    sp_gen = torch.Generator(device=device)
+    sp_gen.manual_seed(2)
+    sp_rows = check_sparse_decode(timer, sp_gen, device, cfg, m_values)
     tr_rows = check_train_kernels(timer, gen, device, cfg, batch * seq)
     # its own generator: the later phases draw the same B as before
     ad_gen = torch.Generator(device=device)
@@ -1419,8 +1708,8 @@ def main() -> int:
     del timer                       # free the L2 sweep buffer
     torch.cuda.empty_cache()
 
-    by_path = {"serve": run_serving(cfg, device, gen, n_slots, block_len,
-                                    max_len, buckets, m_values)}
+    by_path = run_serving(cfg, device, gen, n_slots, block_len, max_len,
+                          buckets, m_values)
     torch.cuda.empty_cache()
 
     phase_train_parity(dataclasses.replace(
@@ -1450,12 +1739,16 @@ def main() -> int:
     embed = [r["shape"] for r in ad_rows if r["n"] == max(
         x["n"] for x in ad_rows) and r["dtype"] == torch.bfloat16
         and r["shape"].endswith("wd 0.1")][0]
-    line = kernels_line(sl_rows + at_rows + tr_rows + ad_rows, by_path, {
+    decode = f"{n_slots}x{cfg.d_model}->{cfg.d_ff} bfloat16"
+    line = kernels_line(sl_rows + at_rows + tr_rows + ad_rows + sp_rows,
+                        by_path, {
         "sl_matmul": f"{m}x{cfg.d_model}->{cfg.d_ff} bfloat16",
         "paged_attention": "32 heads bfloat16",
         "paged_prefill": f"sq={buckets[-1]} 32 heads bfloat16",
         "sddmm": f"{m}x({cfg.d_model},{cfg.d_ff}) bfloat16",
-        "adam8bit": embed})
+        "adam8bit": embed,
+        "sparse_matmul": decode,
+        "quant_sparse_matmul": decode})
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,6 +1,6 @@
 """Atomic, checksummed checkpoints in the reference's on-disk format,
-ported from ``repro.ckpt.checkpoint`` (the quant artifact waits for
-ROADMAP queue A item 7).
+and the versioned int8 quant artifact, ported from
+``repro.ckpt.checkpoint``.
 
 Layout per checkpoint:   <dir>/step_<N:08d>/
     manifest.json   — step, config hash, data-pipeline state, leaf keys,
@@ -36,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve
 from repro_torch.models.common import tree_leaves
 
 _SEP = "/"
@@ -276,3 +277,78 @@ class CheckpointManager:
         tensors = {k: _to_tensor(a, dtypes.get(k, str(a.dtype)))
                    for k, a in flat.items()}
         return _unflatten_like(template, tensors), manifest
+
+
+# -- quant artifacts (repro_torch.quant) ---------------------------------------
+# A quant artifact is a template-free export: the loader has no calibrated
+# consts to init a template from, so the nested trees are rebuilt from the
+# "/"-joined keys themselves (both trees are dict-only, so that is exact).
+# The format string is versioned so that a stale artifact fails loudly
+# instead of mis-dequantizing. File names, keys and the bf16 bit-views are
+# the reference's, so each package loads the other's artifact bit for bit.
+QUANT_FORMAT = "sltrain-quant-v1"
+
+
+def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key in sorted(flat):
+        node = tree
+        parts = key.split(_SEP)
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = flat[key]
+    return tree
+
+
+def save_quant_artifact(directory: str, params: Any, consts: Any, *,
+                        config_hash: str = "",
+                        extra: Optional[Dict[str, Any]] = None) -> str:
+    """Atomically export a calibrated (params, consts) pair as a versioned
+    int8 serve artifact: ``<directory>/{manifest.json, arrays.npz}``."""
+    pflat, pdt = _flatten_with_paths(params)
+    cflat, cdt = _flatten_with_paths(consts)
+    flat = {**{"params" + _SEP + k: v for k, v in pflat.items()},
+            **{"consts" + _SEP + k: v for k, v in cflat.items()}}
+    dtypes = {**{"params" + _SEP + k: v for k, v in pdt.items()},
+              **{"consts" + _SEP + k: v for k, v in cdt.items()}}
+    manifest = {
+        "format": QUANT_FORMAT,
+        "config_hash": config_hash,
+        "extra": extra or {},
+        "leaves": sorted(flat),
+        "dtypes": dtypes,
+    }
+    tmp = directory.rstrip(os.sep) + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    np.savez(os.path.join(tmp, "arrays.npz"), **flat)
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(directory):
+        shutil.rmtree(directory)
+    os.replace(tmp, directory)
+    return directory
+
+
+def load_quant_artifact(directory: str, device="cuda"
+                        ) -> Tuple[Any, Any, Dict[str, Any]]:
+    """Load a :func:`save_quant_artifact` export (of either package) onto
+    ``device``. Returns (params, consts, manifest) with every leaf
+    bit-identical to what was saved, in its saved dtype."""
+    device = resolve(device)
+    with open(os.path.join(directory, "manifest.json")) as f:
+        manifest = json.load(f)
+    fmt = manifest.get("format")
+    if fmt != QUANT_FORMAT:
+        raise ValueError(f"unknown quant artifact format {fmt!r} in "
+                         f"{directory} (expected {QUANT_FORMAT!r})")
+    dtypes = manifest["dtypes"]
+    flat = {}
+    with np.load(os.path.join(directory, "arrays.npz")) as z:
+        for k in z.files:
+            arr = z[k]
+            flat[k] = _to_tensor(arr, dtypes.get(k, str(arr.dtype))).to(
+                device)
+    tree = _nest(flat)
+    return tree.get("params", {}), tree.get("consts", {}), manifest

@@ -31,7 +31,10 @@ class ParamConfig:
       "fused"  — the hand-written ``sl_matmul`` kernel densifies W one
                  128×128 tile at a time on chip; W never reaches device
                  memory. Init emits int32 tile consts (core/sltrain.py).
-      "sparse", "quant" — not ported yet (core/sltrain.py raises).
+      "sparse" — factored decode: (x·B)·A in f32 plus x·S from the
+                 ``sparse_matmul`` kernel; forward-only (serving).
+      "quant"  — int8 decode of a calibrated quant artifact through the
+                 ``quant_sparse_matmul`` kernel; forward-only (serving).
     """
     mode: str = "dense"
     rank: int = 128

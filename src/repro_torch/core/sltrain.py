@@ -19,8 +19,17 @@ Execution modes ported here:
   deterministic ``support.tile_cap`` capacity; the trainer adds Wᵀ's
   {rows_tT, cols_tT} for dx once (``kernels.ops.add_transposed_tiles``).
 
-``sparse`` and ``quant`` raise ``NotImplementedError`` until their slice
-lands (ROADMAP queue A item 7).
+* ``sparse`` — the factored decode: (x·B)·A·scale in f32 plus x·S from
+  the hand-written ``sparse_matmul`` kernel over the same tile consts as
+  ``fused`` (``init_params(..., exec_mode="sparse")`` emits them too); W
+  is never formed (``kernels/ops.sl_decode``). The reference's sparse
+  mode runs the same math as an XLA scatter (``_sl_matmul_sparse``).
+* ``quant`` — the int8 decode of a calibrated quant artifact
+  (``repro_torch.quant``): the same low-rank term plus x·dequant(S) from
+  the ``quant_sparse_matmul`` kernel (``kernels/ops.sl_quant_decode``).
+
+``sparse`` and ``quant`` are forward-only: a call that needs a gradient
+raises ``NotImplementedError`` (ROADMAP queue A item 7b).
 """
 from __future__ import annotations
 
@@ -66,14 +75,17 @@ def init_params(gen: torch.Generator, d_in: int, d_out: int, rank: int,
     """(params, consts) with the reference's support, shapes and init
     laws (paper §3.3): Kaiming-uniform A, zero B, v ~ U[±1/sqrt(d_in)].
     Values come from ``gen`` (on ``device``); the support from the numpy
-    sampler keyed by ``seed``, bit-identical to the reference."""
+    sampler keyed by ``seed``, bit-identical to the reference.
+    ``exec_mode`` "fused" and "sparse" add the tile consts {rows_t,
+    cols_t, perm} that their kernels read (the reference's sparse mode
+    emits only the support: its XLA path reads it directly)."""
     device = resolve(device)
     lim_a = math.sqrt(6.0 / d_in)
     lim_v = 1.0 / math.sqrt(d_in)
     rows, cols = support_lib.sample_support(seed, d_in, d_out, delta,
                                             support_kind)
     tiles = None
-    if exec_mode == "fused":
+    if exec_mode in ("fused", "sparse"):
         rows, cols, tiles = prepare_fused_consts(
             rows, cols, d_in, d_out, delta, support_kind, seed)
     if support_kind == "row_balanced":
@@ -202,11 +214,10 @@ class _DenseCOO(torch.autograd.Function):
 def sl_matmul(x, params, consts, scale: float, exec_mode: str = "dense"):
     """Apply one SLTrain linear, differentiable in x and the params.
     params = {B, A, v}; consts = {cols[, rows][, rows_t, cols_t, perm,
-    rows_tT, cols_tT]}."""
+    rows_tT, cols_tT][, qv_t, rows_q, cols_q, qscale]}. Modes "sparse" and
+    "quant" are forward-only."""
     if exec_mode in ("sparse", "quant"):
-        raise NotImplementedError(
-            f"exec_mode={exec_mode!r} is not ported yet (ROADMAP queue A "
-            "item 7: sparse and int8 decode)")
+        return _decode(x, params, consts, scale, exec_mode)
     if exec_mode == "fused":
         if "perm" not in consts:
             raise ValueError(
@@ -225,3 +236,29 @@ def sl_matmul(x, params, consts, scale: float, exec_mode: str = "dense"):
                               consts["cols"], scale)
     return _DenseCOO.apply(x, params["B"], params["A"], params["v"],
                            consts["rows"], consts["cols"], scale)
+
+
+def _decode(x, params, consts, scale: float, exec_mode: str):
+    """The forward-only factored decode of exec_mode "sparse" / "quant"."""
+    from repro_torch.kernels import ops
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *params.values())):
+        raise NotImplementedError(
+            f"exec_mode={exec_mode!r} is forward-only: its gradient (training "
+            "in this mode) is not ported yet (ROADMAP queue A item 7b)")
+    if exec_mode == "quant":
+        if "qv_t" not in consts:
+            raise ValueError(
+                "exec_mode='quant' needs quantized consts {qv_t, rows_q, "
+                "cols_q, qscale} — run repro_torch.quant.calibrate on the "
+                "trained checkpoint and serve the exported artifact")
+        return ops.sl_quant_decode(x, params["B"], params["A"],
+                                   consts["qv_t"], consts["rows_q"],
+                                   consts["cols_q"], consts["qscale"], scale)
+    if "perm" not in consts:
+        raise ValueError(
+            "exec_mode='sparse' needs tile consts {rows_t, cols_t, perm} — "
+            "init the layer with exec_mode='sparse' or 'fused'")
+    return ops.sl_decode(x, params["B"], params["A"],
+                         ops._gather_tiles(params["v"], consts["perm"]),
+                         consts["rows_t"], consts["cols_t"], scale)

@@ -28,6 +28,7 @@ SOURCES = {
     "paged_attention": CSRC / "paged_attention.cu",
     "sddmm": CSRC / "sddmm.cu",
     "adam8bit": CSRC / "adam8bit.cu",
+    "sparse_decode": CSRC / "sparse_decode.cu",
 }
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

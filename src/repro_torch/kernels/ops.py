@@ -2,8 +2,10 @@
 tile-CSR support preparation, the flat-``v`` tile gather, the SLTrain
 linear of ``exec_mode="fused"`` (a ``torch.autograd.Function`` whose
 forward and dx run ``sl_matmul`` and whose dV runs ``sddmm``), the 8-bit
-Adam step on a leaf of any shape, and the paged-attention calls with the
-GQA regroup.
+Adam step on a leaf of any shape, the paged-attention calls with the
+GQA regroup, and the factored decode of ``exec_mode="sparse"`` and
+``"quant"`` (the low-rank term as f32 matmuls, the sparse term through
+the ``sparse_matmul`` or ``quant_sparse_matmul`` kernel).
 
 Dispatch follows the tensors: on the CPU each kernel wrapper runs its
 plain PyTorch version, on a CUDA tensor it launches the kernel or raises.
@@ -18,6 +20,7 @@ from repro_torch.kernels import adam8bit as adam8bit_kernel
 from repro_torch.kernels import paged_attention as pa_kernel
 from repro_torch.kernels import sddmm as sddmm_kernel
 from repro_torch.kernels import sl_matmul as sl_kernel
+from repro_torch.kernels import sparse_decode as sd_kernel
 
 
 # ---------------------------------------------------------------------------
@@ -313,3 +316,44 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table, offsets, *,
         offsets.to(torch.int32).contiguous(), scale=scale, softcap=softcap,
         window=window)
     return out.reshape(n_slots, sq, n_heads, hd)
+
+
+# ---------------------------------------------------------------------------
+# Factored decode (the sparse-only kernels + the low-rank term)
+# ---------------------------------------------------------------------------
+
+def _lowrank_f32(xf, B, A, scale: float):
+    """(x·B)·A·scale with f32 operands and results: bf16 intermediate
+    roundings would drift from the densified path."""
+    f32 = torch.float32
+    return ((xf.to(f32) @ B.to(f32)) @ A.to(f32)) * scale
+
+
+def sl_decode(x, B, A, v_t, rows_t, cols_t, scale: float):
+    """SLTrain linear without densifying W, ``exec_mode="sparse"``:
+    (x·B)·A·scale in f32 plus x·S from the ``sparse_matmul`` kernel (S as
+    f32 tile-CSR), summed in f32 and rounded to x.dtype. As in the
+    reference, the kernel's term comes back in x.dtype and is added in
+    f32. x (..., K) of any leading shape; K and N need no padding."""
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    n = A.shape[-1]
+    xf = x.reshape(-1, k).contiguous()
+    y_sp = sd_kernel.sparse_matmul(xf, v_t, rows_t, cols_t, n)
+    y = _lowrank_f32(xf, B, A, scale) + y_sp.to(torch.float32)
+    return y.to(x.dtype).reshape(*lead, n)
+
+
+def sl_quant_decode(x, B, A, qv_t, rows_q, cols_q, qscale, scale: float):
+    """Quantized SLTrain linear, ``exec_mode="quant"``: (x·B)·A·scale in
+    f32 (B and A the error-folded factors of quant.calibrate) plus
+    x·dequant(S) from the ``quant_sparse_matmul`` kernel (int8 codes,
+    int16 tile-local indices, per-channel f32 scales), summed in f32 and
+    rounded to x.dtype."""
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    n = A.shape[-1]
+    xf = x.reshape(-1, k).contiguous()
+    y_sp = sd_kernel.quant_sparse_matmul(xf, qv_t, rows_q, cols_q, qscale, n)
+    y = _lowrank_f32(xf, B, A, scale) + y_sp.to(torch.float32)
+    return y.to(x.dtype).reshape(*lead, n)

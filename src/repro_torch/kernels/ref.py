@@ -7,7 +7,10 @@ tests/test_torch_kernels.py) and these against the JAX kernels on the CPU.
 Signatures and layouts follow ``repro.kernels.ref``, except that
 :func:`sl_matmul_ref` and :func:`sddmm_ref` take the tile-CSR inputs
 their kernels take and :func:`adam8bit_ref` takes ``n_valid`` as an
-integer.
+integer. :func:`sparse_matmul_ref` and :func:`quant_sparse_matmul_ref`
+are the tile-level plain versions of the two sparse-decode kernels (the
+reference has none: it holds them through :func:`sl_decode_ref` and
+:func:`sl_quant_decode_ref`, which take flat COO inputs as its do).
 """
 from __future__ import annotations
 
@@ -63,6 +66,59 @@ def sddmm_ref(x, dy, rows_t, cols_t):
     G = x.float().T @ dy.float()
     rows, cols = _tile_coords(rows_t, cols_t)
     return G[rows, cols]
+
+
+def _tile_dense(vals_t, rows_t, cols_t):
+    """The f32 (K/128·128, N/128·128) matrix of a tile-CSR array: every
+    slot's value added at its tile origin + local (row, col). Padding
+    slots sit at local (0, 0) with value 0, so they add exactly 0."""
+    nkt, nnt, _ = rows_t.shape
+    S = torch.zeros(nkt * 128, nnt * 128, dtype=torch.float32,
+                    device=vals_t.device)
+    rows, cols = _tile_coords(rows_t, cols_t)
+    S.index_put_((rows.reshape(-1), cols.reshape(-1)),
+                 vals_t.float().reshape(-1), accumulate=True)
+    return S
+
+
+def sparse_matmul_ref(x, v_t, rows_t, cols_t, n: int):
+    """y = x @ S for x (M, K) and S (K, n) as f32 tile-CSR (K/128, n/128,
+    cap) arrays: f32 products and sums, one rounding to x.dtype."""
+    k = x.shape[-1]
+    S = _tile_dense(v_t, rows_t, cols_t)
+    return (x.float() @ S[:k, :n]).to(x.dtype)
+
+
+def quant_sparse_matmul_ref(x, qv_t, rows_q, cols_q, qscale, n: int):
+    """y = x @ dequant(S) for the int8 tile-CSR layout: the tile of codes,
+    its columns times the per-output-channel scales ``qscale`` (n/128,
+    128), then f32 products and sums, one rounding to x.dtype."""
+    k = x.shape[-1]
+    S = _tile_dense(qv_t, rows_q, cols_q) * qscale.reshape(1, -1)
+    return (x.float() @ S[:k, :n]).to(x.dtype)
+
+
+def _densify_coo(B, A, rows, cols, v, scale: float):
+    W = (B.float() @ A.float()) * scale
+    return W.index_put_((rows.long(), cols.long()), v.float(),
+                        accumulate=True)
+
+
+def sl_decode_ref(x, B, A, rows, cols, v, scale: float):
+    """The factored decode path's oracle: W = scale·B·A ⊕ V densified in
+    f32 from flat COO (rows, cols, v), then x @ W in f32, rounded to
+    x.dtype."""
+    W = _densify_coo(B, A, rows, cols, v, scale)
+    return (x.float() @ W).to(x.dtype)
+
+
+def sl_quant_decode_ref(x, B, A, rows, cols, qv, ch_scales, scale: float):
+    """The quantized decode path's oracle: dequantize the flat COO int8
+    codes ``qv`` against the (d_out,) per-output-channel scales, densify in
+    f32 and multiply in f32, rounded to x.dtype."""
+    v = qv.float() * ch_scales.float()[cols.long()]
+    W = _densify_coo(B, A, rows, cols, v, scale)
+    return (x.float() @ W).to(x.dtype)
 
 
 # the f32 reciprocals of the 8-bit codec's scales (optim/quant.py)

@@ -4,12 +4,18 @@ weights and serve batched requests through the paged engine.
 Usage (from the repository root, ``PYTHONPATH=src``):
   python -m repro_torch.launch.serve --arch llama_1b --paged --stream \
       --prefix-sharing --exec-mode fused
+  python -m repro_torch.launch.serve --arch llama_1b --paged --sparse-decode
+  python -m repro_torch.launch.serve --arch llama_60m --smoke --paged \
+      --quant-ckpt /path/to/artifact          # exec_mode quant
   python -m repro_torch.launch.serve --arch llama_60m --smoke --paged \
       --device cpu
 
-``--exec-mode`` is applied to the config before init, so ``fused`` gets
-the tile consts its kernel reads. The reference's checkpoint, sparse and
-quant decode, mesh and chaos flags are not ported yet.
+``--exec-mode`` (and ``--sparse-decode``) is applied to the config before
+init, so ``fused`` and ``sparse`` get the tile consts their kernels read.
+``--quant-ckpt`` serves a quant artifact (``python -m
+repro_torch.quant.calibrate``) instead of a seeded init. The reference's
+``--ckpt-dir``, ``--quant-fallback``, mesh and chaos flags are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -35,9 +41,19 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--new-tokens", type=int, default=16)
-    ap.add_argument("--exec-mode", default=None, choices=("dense", "fused"),
+    ap.add_argument("--sparse-decode", action="store_true",
+                    help="factored SLTrain decode: shorthand for "
+                         "--exec-mode sparse")
+    ap.add_argument("--exec-mode", default=None,
+                    choices=("dense", "sparse", "fused", "quant"),
                     help="SLTrain execution mode: 'fused' runs every linear "
-                         "through the sl_matmul kernel")
+                         "through the sl_matmul kernel, 'sparse' through "
+                         "sparse_matmul, 'quant' through quant_sparse_matmul "
+                         "(requires --quant-ckpt)")
+    ap.add_argument("--quant-ckpt", default=None,
+                    help="serve a calibrated int8 quant artifact (python -m "
+                         "repro_torch.quant.calibrate) instead of a seeded "
+                         "init; defaults --exec-mode to 'quant'")
     ap.add_argument("--paged", action="store_true",
                     help="block-paged KV cache (the only cache the port has)")
     ap.add_argument("--block-len", type=int, default=16,
@@ -67,14 +83,29 @@ def main(argv=None):
     if not args.paged:
         ap.error("the port serves with the paged KV cache only: pass --paged")
 
+    if args.sparse_decode and args.exec_mode is not None:
+        ap.error("pass either --sparse-decode or --exec-mode, not both")
     cfg = (registry.get_smoke_config(args.arch) if args.smoke
            else registry.get_config(args.arch))
-    if args.exec_mode is not None:
+    exec_mode = "sparse" if args.sparse_decode else args.exec_mode
+    if args.quant_ckpt:
+        exec_mode = exec_mode or "quant"
+        cfg = dataclasses.replace(cfg, param=dataclasses.replace(
+            cfg.param, mode="sltrain"))
+    if exec_mode is not None:
         cfg = dataclasses.replace(
-            cfg, param=dataclasses.replace(cfg.param,
-                                           exec_mode=args.exec_mode))
-    api = registry.get_api(cfg)
-    params, consts = api.init(cfg, 0, device=args.device)
+            cfg, param=dataclasses.replace(cfg.param, exec_mode=exec_mode))
+    if args.quant_ckpt:
+        # the artifact carries both trees (error-folded B/A and the int8
+        # tile-CSR consts): no init is needed
+        from repro_torch.ckpt.checkpoint import load_quant_artifact
+        params, consts, qman = load_quant_artifact(args.quant_ckpt,
+                                                   device=args.device)
+        print(f"quant artifact: {args.quant_ckpt} "
+              f"({qman['extra'].get('n_matrices', '?')} matrices)")
+    else:
+        params, consts = registry.get_api(cfg).init(cfg, 0,
+                                                    device=args.device)
     trace = obs_trace.Trace(enabled=bool(args.trace_out))
     eng = ServeEngine(cfg, params, consts, n_slots=args.slots,
                       max_len=args.max_len, paged=True,

@@ -16,7 +16,10 @@ decode is per-slot (a (n_slots,) position vector). With
 ``attn_kernel="paged"`` the reads go through the hand-written
 paged-attention kernels; with ``"gather"`` through the gathered view.
 Every linear runs as ``exec_mode`` says: ``"fused"`` through the
-``sl_matmul`` kernel, ``"dense"`` by densifying W.
+``sl_matmul`` kernel, ``"dense"`` by densifying W, ``"sparse"`` (or
+``sparse_decode=True``) as the factored decode through the
+``sparse_matmul`` kernel, ``"quant"`` through the ``quant_sparse_matmul``
+kernel on the consts of a calibrated quant artifact (repro_torch.quant).
 
 Observability: the counters, TTFT histograms and trace spans of the
 reference engine, on the port's copy of ``repro.obs``. Resilience: every
@@ -26,9 +29,9 @@ deadlines) or ``failed`` (a run loop's step budget ran out; calling it
 again resumes).
 
 Not ported yet, and refused when asked for: the contiguous ``paged=False``
-cache, ``sparse_decode``/``exec_mode`` "sparse" and "quant", a device
-``mesh``, ``quant_fallback`` and the ``tick_hook`` fault-injection hook
-(ROADMAP queue A items 6-10).
+cache, a device ``mesh``, ``quant_fallback`` (serving an int8 request
+through the bf16 sparse path instead) and the ``tick_hook``
+fault-injection hook (ROADMAP queue A items 6-10 and 7b).
 """
 from __future__ import annotations
 
@@ -80,9 +83,15 @@ class Request:
     deadline_ticks: Optional[int] = None
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
+def _not_ported(what: str, item) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue A "
                                f"item {item})")
+
+
+def _all_keys(tree) -> set:
+    if isinstance(tree, dict):
+        return set(tree).union(*(_all_keys(v) for v in tree.values()))
+    return set()
 
 
 class ServeEngine:
@@ -101,15 +110,18 @@ class ServeEngine:
                  device="cuda"):
         if not paged:
             raise _not_ported("the contiguous KV cache (paged=False)", 6)
-        if sparse_decode:
-            raise _not_ported("sparse decode", 7)
         if mesh is not None:
             raise _not_ported("serving on a device mesh", 10)
         if quant_fallback:
-            raise _not_ported("quant_fallback", 7)
+            raise _not_ported("quant_fallback", "7b")
         if tick_hook is not None:
             raise _not_ported("the tick_hook fault-injection hook", 8)
         if exec_mode is not None:
+            # the explicit serve-time mode supersedes the sparse_decode
+            # shorthand
+            if sparse_decode:
+                raise ValueError("pass either sparse_decode or exec_mode, "
+                                 "not both")
             if cfg.param.mode != "sltrain":
                 raise ValueError(f"exec_mode={exec_mode!r} requires "
                                  "param.mode='sltrain'")
@@ -118,9 +130,23 @@ class ServeEngine:
             cfg = dataclasses.replace(
                 cfg, param=dataclasses.replace(cfg.param,
                                                exec_mode=exec_mode))
-        if cfg.param.mode == "sltrain" and \
-                cfg.param.exec_mode in ("sparse", "quant"):
-            raise _not_ported(f"exec_mode={cfg.param.exec_mode!r}", 7)
+        if sparse_decode and cfg.param.mode == "sltrain":
+            cfg = dataclasses.replace(
+                cfg, param=dataclasses.replace(cfg.param, exec_mode="sparse"))
+        # fail at construction, not at the first dispatch, when the consts
+        # lack what the decode kernels read
+        mode = cfg.param.exec_mode if cfg.param.mode == "sltrain" else None
+        if mode == "quant" and "qv_t" not in _all_keys(consts):
+            raise ValueError(
+                "exec_mode='quant' needs calibrated consts (qv_t/rows_q/"
+                "cols_q/qscale) — load a quant artifact (python -m "
+                "repro_torch.quant.calibrate, then "
+                "ckpt.checkpoint.load_quant_artifact) and pass its "
+                "params/consts")
+        if mode == "sparse" and "perm" not in _all_keys(consts):
+            raise ValueError(
+                "exec_mode='sparse' needs the tile consts {rows_t, cols_t, "
+                "perm}: init the model with exec_mode 'sparse' or 'fused'")
         if attn_kernel is not None:
             cfg = dataclasses.replace(cfg, attn_kernel=attn_kernel)
         if cfg.attn_kernel not in ("gather", "paged"):

@@ -76,7 +76,7 @@ from repro_torch.models.common import (remat_wrap, tree_leaves, tree_map,
 from repro_torch.models.registry import ModelApi
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.optim.optimizers import Optimizer
-from repro_torch.train.step import cross_entropy
+from repro_torch.train.step import check_trainable, cross_entropy
 
 _SLICE_API = ("prepare", "update_slice", "leaf_state", "with_leaf_state",
               "stack_state", "unstack_state", "finish")
@@ -140,10 +140,7 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
             "grad_specs (fsdp gradient placement) is not ported yet "
             "(ROADMAP queue A item 10: distribution); the port trains on "
             "one card")
-    if cfg.param.mode == "sltrain" and cfg.param.exec_mode == "quant":
-        raise ValueError(
-            "exec_mode='quant' is serve-only (int8 codes are not trainable) "
-            "— train with dense or fused")
+    check_trainable(cfg)
     if fused_opt is None:
         fused_opt = cfg.param.exec_mode == "fused"
     upd = optimizer.update_slice

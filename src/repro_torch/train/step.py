@@ -79,6 +79,21 @@ def _value_and_grad(loss_fn, params, consts, batch):
             tree_map(lambda p: order[id(p)], live))
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Refuse the SLTrain exec modes no train step runs: "quant" (as the
+    reference does) and "sparse" (not ported)."""
+    if cfg.param.mode != "sltrain":
+        return
+    if cfg.param.exec_mode == "quant":
+        raise ValueError(
+            "exec_mode='quant' is serve-only (int8 codes are not trainable) "
+            "— train with dense or fused")
+    if cfg.param.exec_mode == "sparse":
+        raise NotImplementedError(
+            "training in exec_mode='sparse' is not ported yet (ROADMAP queue "
+            "A item 7b) — train with dense or fused")
+
+
 def make_train_step(cfg: ModelConfig, api: ModelApi, optimizer: Optimizer,
                     *, remat: str = "none", grad_accum: int = 1,
                     aux_coef: float = 0.01):
@@ -87,10 +102,7 @@ def make_train_step(cfg: ModelConfig, api: ModelApi, optimizer: Optimizer,
     microbatches run one after the other, their grads summed in f32 and
     averaged, as the reference's microbatch scan does. ``remat`` is the
     layers' rematerialization policy (``models.common.remat_wrap``)."""
-    if cfg.param.mode == "sltrain" and cfg.param.exec_mode == "quant":
-        raise ValueError(
-            "exec_mode='quant' is serve-only (int8 codes are not trainable) "
-            "— train with dense or fused")
+    check_trainable(cfg)
     loss_fn = make_loss_fn(cfg, api, remat, aux_coef)
 
     def train_step(params, opt_state, consts, batch):

@@ -19,6 +19,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pa_kernel
 from repro_torch.kernels import sddmm as sddmm_kernel
 from repro_torch.kernels import sl_matmul as sl_kernel
+from repro_torch.kernels import sparse_decode as sd_kernel
+from repro_torch.quant import layout
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DTYPES = [torch.float32, torch.bfloat16]
@@ -303,6 +305,74 @@ def test_adam8bit_leaf_update_on_card_matches_cpu(cuda):
             assert torch.equal(a, b)
 
 
+def _decode_args(rng, m, k, n, delta, dtype, dev):
+    """x (m, k) and one support in both sparse-decode layouts: (v_t,
+    rows_t, cols_t) for sparse_matmul and (qv_t, rows_q, cols_q, qscale)
+    for quant_sparse_matmul."""
+    rows, cols = support.sample_support(3 * k + n, k, n, delta)
+    tiles = ops.prepare_tile_consts(rows, cols, k, n,
+                                    pad=support.tile_cap(k, n, delta))
+    v = rng.uniform(-1, 1, rows.shape).astype(np.float32) * k ** -0.5
+    v_t = ops._gather_tiles(torch.from_numpy(v), tiles["perm"])
+    qv = rng.integers(-127, 128, rows.shape).astype(np.int8)
+    sc = rng.uniform(1e-3, 1e-2, n).astype(np.float32)
+    q = layout.build_quant_consts(rows, cols, qv, sc, k, n, delta,
+                                  "row_balanced")
+    return (_rand(rng, (m, k), dtype, dev),
+            [t.to(dev) for t in (v_t, tiles["rows_t"], tiles["cols_t"])],
+            [q[key].to(dev) for key in ("qv_t", "rows_q", "cols_q",
+                                        "qscale")])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [
+    # (M, K, N, delta): ragged dims, several row blocks, and llama_1b's
+    # decode (M = 4 slots) and prefill (4 slots x bucket 8, 16, 32) rows
+    (5, 200, 300, 0.05), (1, 136, 520, 0.03), (130, 256, 136, 0.05),
+    (4, 2048, 5461, 0.03), (32, 2048, 5461, 0.03), (64, 5461, 2048, 0.03),
+    (128, 2048, 2048, 0.03)])
+def test_sparse_decode_kernels_match_plain(cuda, case, dtype):
+    m, k, n, delta = case
+    x, sp, qp = _decode_args(np.random.default_rng(k + n), m, k, n, delta,
+                             dtype, cuda)
+    for fn, plain, args in (
+            (sd_kernel.sparse_matmul, ref.sparse_matmul_ref, sp),
+            (sd_kernel.quant_sparse_matmul, ref.quant_sparse_matmul_ref,
+             qp)):
+        before = fn.launches
+        got = fn(x, *args, n)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.dtype == dtype and got.shape == (m, n)
+        _close(got, plain(x, *args, n), dtype)
+
+
+@pytest.mark.gpu
+def test_sparse_decode_kernels_sum_colliding_padding_slots(cuda):
+    """Padding slots share local (0, 0) with a real entry; the kernels add
+    them all (padding carries 0)."""
+    rows = np.array([0, 0, 5], np.int32)
+    cols = np.array([0, 7, 3], np.int32)
+    tiles = ops.prepare_tile_consts(rows, cols, 128, 128, pad=8)
+    v_t = ops._gather_tiles(torch.tensor([2.0, -1.0, 0.5]),
+                            tiles["perm"]).to(cuda)
+    x = torch.eye(128, device=cuda)[:6]
+    y = sd_kernel.sparse_matmul(x, v_t, tiles["rows_t"].to(cuda),
+                                tiles["cols_t"].to(cuda), 128)
+    assert (y[0, 0].item(), y[0, 7].item(), y[5, 3].item()) == \
+        (2.0, -1.0, 0.5)
+    assert float(y.abs().sum()) == 3.5
+    q = layout.build_quant_consts(rows, cols, np.array([3, -4, 5], np.int8),
+                                  np.full(128, 0.5, np.float32), 128, 128,
+                                  0.05, "iid")
+    y = sd_kernel.quant_sparse_matmul(
+        x, *[q[k].to(cuda) for k in ("qv_t", "rows_q", "cols_q", "qscale")],
+        128)
+    assert (y[0, 0].item(), y[0, 7].item(), y[5, 3].item()) == \
+        (1.5, -2.0, 2.5)
+
+
 @pytest.mark.gpu
 def test_wrappers_refuse_bad_inputs(cuda):
     """The wrappers check before they launch: a wrong dtype, shape or
@@ -340,3 +410,14 @@ def test_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError, match="aligned"):
         adam8bit_kernel.adam8bit_update(odd, p, codes, sc, codes, sc, s10,
                                         512)
+    # sparse decode: a wrong x dtype, index dtype or scale shape
+    x, sp, qp = _decode_args(np.random.default_rng(0), 4, 256, 256, 0.05,
+                             torch.float32, cuda)
+    with pytest.raises(TypeError):
+        sd_kernel.sparse_matmul(x.half(), *sp, 256)
+    with pytest.raises(ValueError, match="rows_t"):
+        sd_kernel.sparse_matmul(x, sp[0], sp[1].long(), sp[2], 256)
+    with pytest.raises(ValueError, match="qscale"):
+        sd_kernel.quant_sparse_matmul(x, *qp[:3], qp[3][:1], 256)
+    with pytest.raises(ValueError, match="rows_q"):
+        sd_kernel.quant_sparse_matmul(x, qp[0], qp[1].int(), *qp[2:], 256)

@@ -74,14 +74,17 @@ def test_unported_options_raise():
     cfg = _smoke()
     params, consts = lm.init_lm(cfg, device="cpu")
     kw = dict(max_len=32, device="cpu")
-    for bad in (dict(paged=False), dict(paged=True, sparse_decode=True),
-                dict(paged=True, exec_mode="sparse"),
-                dict(paged=True, exec_mode="quant"),
-                dict(paged=True, mesh=object()),
+    for bad in (dict(paged=False), dict(paged=True, mesh=object()),
                 dict(paged=True, quant_fallback=True),
                 dict(paged=True, tick_hook=lambda e: None)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServeEngine(cfg, params, consts, **kw, **bad)
+    # sparse and quant decode run now, and check their consts up front
+    for bad in (dict(exec_mode="sparse"), dict(sparse_decode=True),
+                dict(exec_mode="quant"),
+                dict(exec_mode="sparse", sparse_decode=True)):
+        with pytest.raises(ValueError):
+            ServeEngine(cfg, params, consts, paged=True, **kw, **bad)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.get_config("gemma2_2b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -109,7 +112,7 @@ def test_train_entry_points_need_a_card_unless_cpu(no_card, tmp_path):
     ["--optimizer", "galore_adamw"], ["--fsdp", "--use-mesh"],
     ["--use-mesh"], ["--multipod"], ["--chaos", "kill@3"],
     ["--mode", "lowrank"], ["--mode", "relora"],
-    ["--jax-profile-dir", "x"]],
+    ["--jax-profile-dir", "x"], ["--exec-mode", "sparse"]],
     ids=lambda f: " ".join(f))
 def test_train_launcher_unported_options_raise(flags, tmp_path):
     from repro_torch.launch import train
