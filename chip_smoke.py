@@ -7,7 +7,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 It builds every hand-written kernel from the sources in the checkout and
 holds each one against its plain PyTorch version at the real shapes of
 the ported paths (with timings; ``adam8bit`` bit for bit at every leaf
-size the per-layer step updates). Then it drives the paths on the
+size the per-layer step updates; ``sl_matmul`` in bfloat16 also against
+its own rerun, bit for bit, with both of its variants timed at the
+engine's row counts). Then it drives the paths on the
 paper's ``llama_1b`` config at full width and depth with random weights
 from a seed:
 
@@ -155,6 +157,37 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def kernel_name(mangled: str) -> str:
+    """The first length-prefixed name ending in "kernel" in a mangled
+    symbol ("...17sl_tc_gemm_kernelEPK..." gives "sl_tc_gemm_kernel")."""
+    for i, ch in enumerate(mangled):
+        if ch.isdigit() and not mangled[i + 1:i + 2].isdigit():
+            j = i
+            while j > 0 and mangled[j - 1].isdigit():
+                j -= 1
+            for k in range(j, i + 1):
+                name = mangled[i + 1:i + 1 + int(mangled[k:i + 1])]
+                if name.endswith("kernel"):
+                    return name
+    return mangled
+
+
+def ptxas_report(log: str):
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name, its
+    registers, its spills, and any line that warns."""
+    name, spill = "?", ""
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            name = kernel_name(line.split("'")[1])
+        elif "spill" in line:
+            spill = line
+        elif "registers" in line:
+            yield f"{name}: {line.split(':', 1)[-1].strip()}; {spill}"
+        elif "warning" in line.lower() or "C7519" in line:
+            yield f"{name}: {line}"
+
+
 def bound_ms(nbytes: float, ops: float, dtype):
     """The least time the card could take: bytes over the memory rate or
     operations over the peak for the input type, whichever is larger."""
@@ -206,8 +239,12 @@ def sl_case(gen, device, d_in, d_out, m, dtype, rank, delta, alpha, seed):
 
 
 def time_sl_matmul(timer, label, args, dtype):
-    """One sl_matmul case: held against the plain version, timed beside
-    it, beside torch.matmul on a pre-densified W, and its bound."""
+    """One sl_matmul case: held against the plain version (and, in bf16,
+    against itself on a rerun, bit for bit), timed beside it, beside
+    torch.matmul on a pre-densified W, its bound and the design's own
+    floor; up to the single pass's row limit also the two-stage variant
+    (the crossover), and the padded operand copies where the plan makes
+    them."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import sl_matmul as slk
     x, B, A, v_t, rt, ct, scale = args
@@ -217,6 +254,11 @@ def time_sl_matmul(timer, label, args, dtype):
     err = compare(f"sl_matmul {label}", got, want, dtype)
     m, d_in = x.shape
     r, d_out = A.shape
+    plan = slk.plan(m, d_in, d_out, r, dtype)
+    if dtype == torch.bfloat16 and not torch.equal(got,
+                                                   slk.sl_matmul(*args)):
+        fail(f"sl_matmul {label}: a rerun on the same inputs gave other "
+             f"bits")
     W = ref.densify_tiles(B, A, v_t, rt, ct, scale, dtype)
     W = W[:d_in, :d_out].contiguous()
     t_k = timer.ms(lambda: slk.sl_matmul(*args))
@@ -227,16 +269,30 @@ def time_sl_matmul(timer, label, args, dtype):
     # product (2·M·r·(K + N) + 2·M·nnz), whichever is fewer; nnz counts
     # the support's entries (padding slots hold 0, sampled values never)
     nnz = int((v_t != 0).sum())
-    ops_ = min(2.0 * d_in * d_out * r + 2.0 * m * d_in * d_out,
-               2.0 * m * r * (d_in + d_out) + 2.0 * m * nnz)
+    dense_ops = 2.0 * d_in * d_out * r + 2.0 * m * d_in * d_out
+    ops_ = min(dense_ops, 2.0 * m * r * (d_in + d_out) + 2.0 * m * nnz)
     b, by = bound_ms(nbytes(x, B, A, v_t, rt, ct, got), ops_, dtype)
+    # the design's own floor: it densifies W and multiplies, at the peak
+    floor = dense_ops / PEAK_OPS[dtype] * 1e3
     row = dict(name="sl_matmul", shape=label, max_abs_err=err,
                tol=TOL[dtype], ms=t_k, plain_ms=t_p, library_ms=t_l,
-               bound_ms=b, bound_by=by)
-    say(f"kernel sl_matmul {label}: max_abs_err {err:.3e} (tol "
-        f"{TOL[dtype]}) | kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"torch.matmul on dense W {t_l:.4f} ms, bound {b:.4f} ms ({by}, "
-        f"{ops_ / 1e9:.2f} GFLOP)")
+               bound_ms=b, bound_by=by, variant=plan.variant)
+    extra = ""
+    if plan.variant == "single_pass":
+        two = slk.plan(m, d_in, d_out, r, dtype, small_m_max=0)
+        row["two_stage_ms"] = timer.ms(lambda: slk.launch(two, *args))
+        extra += f", two-stage variant {row['two_stage_ms']:.4f} ms"
+    pads = [name for name, shape in (
+        ("x", plan.x_pad), ("B", plan.b_pad), ("A", plan.a_pad)) if shape]
+    if pads:
+        row["pad_ms"] = timer.ms(lambda: slk.pad_operands(plan, x, B, A))
+        extra += (f", of which padded copies of {'/'.join(pads)} "
+                  f"{row['pad_ms']:.4f} ms")
+    say(f"kernel sl_matmul {label} ({plan.variant}): max_abs_err {err:.3e} "
+        f"(tol {TOL[dtype]}) | kernel {t_k:.4f} ms{extra}, plain "
+        f"{t_p:.4f} ms, torch.matmul on dense W {t_l:.4f} ms, bound "
+        f"{b:.4f} ms ({by}, {ops_ / 1e9:.2f} GFLOP), design floor "
+        f"{floor:.4f} ms ({dense_ops / 1e9:.2f} GFLOP)")
     return row
 
 
@@ -246,8 +302,9 @@ def dname(dtype) -> str:
 
 def check_sl_matmul(timer, gen, device, cfg, m_values):
     """Every row count the engine gives the kernel (a decode batch and
-    each prefill bucket times the slots), so each row-block variant of
-    the kernel is held against the plain version."""
+    each prefill bucket times the slots), so each variant of the kernel
+    is held against the plain version; in bf16 both variants are timed
+    at each, which places the crossover."""
     d, f = cfg.d_model, cfg.d_ff
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -1596,7 +1653,8 @@ def kernels_line(rows, by_path, representative):
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"], "shape": shape,
-            "cases": len(mine)})
+            "cases": len(mine),
+            **{k: rep[k] for k in ("variant", "pad_ms") if k in rep}})
     return {"kernels": out}
 
 
@@ -1678,9 +1736,8 @@ def main() -> int:
     say(f"build: {len(build.SOURCES)} kernels with nvcc in "
         f"{time.perf_counter() - t0:.1f} s (parallel, sm_90a)")
     for lib in build.SOURCES:
-        for line in build.build_log(lib).splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  ptxas {lib}: {line.strip()}")
+        for line in ptxas_report(build.build_log(lib)):
+            say(f"  ptxas {lib}: {line}")
 
     cfg = llama_1b.CONFIG
     gen = torch.Generator(device=device)

@@ -78,7 +78,14 @@ def _sl_args(rng, m, k, n, r, delta, dtype, dev, transposed=False):
     (32, 2048, 5461, 512, 0.03, False), (64, 5461, 2048, 512, 0.03, False),
     (128, 5461, 2048, 512, 0.03, False),
     (2048, 2048, 5461, 512, 0.03, False), (2048, 5461, 2048, 512, 0.03, True),
-    (300, 200, 300, 16, 0.05, True), (2048, 2048, 2048, 512, 0.03, True)])
+    (300, 200, 300, 16, 0.05, True), (2048, 2048, 2048, 512, 0.03, True),
+    # bf16 two-stage with a rank that is no multiple of 16 (and rows of A
+    # no multiple of 8); M on each side of the crossover of the bf16
+    # variants; a llama_7b-width linear
+    (256, 200, 300, 8, 0.05, False),
+    (sl_kernel.SMALL_M_MAX, 2048, 5461, 512, 0.03, False),
+    (sl_kernel.SMALL_M_MAX + 1, 2048, 5461, 512, 0.03, False),
+    (256, 4096, 11008, 1024, 0.05, False)])
 def test_sl_matmul_kernel_matches_plain(cuda, case, dtype):
     m, k, n, r, delta, transposed = case
     args = _sl_args(np.random.default_rng(k + n), m, k, n, r, delta, dtype,
@@ -89,6 +96,37 @@ def test_sl_matmul_kernel_matches_plain(cuda, case, dtype):
     assert sl_kernel.sl_matmul.launches == before + 1
     assert got.dtype == dtype and got.shape == (m, k if transposed else n)
     _close(got, ref.sl_matmul_ref(*args), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # (M, K, N, r, delta, transposed): the single pass at decode rows and
+    # the two stages at training rows, forward and dx
+    (4, 2048, 5461, 512, 0.03, False), (2048, 5461, 2048, 512, 0.03, False),
+    (2048, 2048, 5461, 512, 0.03, True)])
+def test_sl_matmul_bf16_rerun_gives_same_bits(cuda, case):
+    """Two calls on the same bf16 inputs give the same bits: every f32 sum
+    runs in a fixed order and no float atomic touches device memory."""
+    m, k, n, r, delta, transposed = case
+    args = _sl_args(np.random.default_rng(m + k), m, k, n, r, delta,
+                    torch.bfloat16, cuda, transposed)
+    first = sl_kernel.sl_matmul(*args)
+    second = sl_kernel.sl_matmul(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 64, sl_kernel.SMALL_M_MAX])
+def test_sl_matmul_bf16_variants_match_plain(cuda, m):
+    """Below the crossover the two-stage variant, forced, agrees with the
+    plain version as the single pass does."""
+    args = _sl_args(np.random.default_rng(m), m, 2048, 5461, 512, 0.03,
+                    torch.bfloat16, cuda)
+    want = ref.sl_matmul_ref(*args)
+    for small_m_max in (sl_kernel.SMALL_M_MAX, 0):
+        p = sl_kernel.plan(m, 2048, 5461, 512, torch.bfloat16, small_m_max)
+        _close(sl_kernel.launch(p, *args), want, torch.bfloat16)
 
 
 @pytest.mark.gpu

@@ -92,6 +92,68 @@ def test_sl_matmul_plain_matches_reference_kernel(case, dtype):
     _close(_f32(got), want, dtype)
 
 
+PLAN_CASES = [
+    # (M, K, N, r, dtype, variant, partial, w_t, x_pad, b_pad, a_pad):
+    # llama_1b training (M = 2048) forward and dx in bf16 allocate no f32
+    # (nkt, M, N) partial, only the bf16 Wᵀ (nnt·128, nkt·128) and the
+    # padded copies of d_ff = 5461-wide operands
+    (2048, 2048, 5461, 512, torch.bfloat16, "two_stage", None,
+     (43 * 128, 16 * 128), None, None, (512, 5464)),
+    (2048, 5461, 2048, 512, torch.bfloat16, "two_stage", None,
+     (16 * 128, 43 * 128), (2048, 5464), None, None),
+    (2048, 2048, 2048, 512, torch.bfloat16, "two_stage", None,
+     (16 * 128, 16 * 128), None, None, None),
+    # a decode batch and the prefill buckets, up to the crossover: one
+    # pass with the small f32 partials; one row past it: two stages
+    (4, 2048, 5461, 512, torch.bfloat16, "single_pass", (16, 4, 5461),
+     None, None, None, (512, 5464)),
+    (sl_kernel.SMALL_M_MAX, 5461, 2048, 512, torch.bfloat16, "single_pass",
+     (43, sl_kernel.SMALL_M_MAX, 2048), None,
+     (sl_kernel.SMALL_M_MAX, 5464), None, None),
+    (sl_kernel.SMALL_M_MAX + 1, 200, 300, 12, torch.bfloat16, "two_stage",
+     None, (384, 256), None, (200, 16), (12, 304)),
+    # f32 keeps the CUDA-core kernels with their f32 partials, unpadded
+    (4, 2048, 5461, 512, torch.float32, "f32", (16, 4, 5461), None, None,
+     None, None),
+    (2048, 5461, 2048, 512, torch.float32, "f32", (43, 2048, 2048), None,
+     None, None, None),
+]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_sl_matmul_plan(case):
+    m, k, n, r, dtype, *want = case
+    assert tuple(sl_kernel.plan(m, k, n, r, dtype)) == tuple(want)
+
+
+def test_sl_matmul_plan_two_stage_scratch_is_small():
+    """At llama_1b's training shape the bf16 scratch is the 22.5 MB W,
+    against 716 MB of f32 partials; moving the crossover to 0 sends even
+    a decode batch through the two stages."""
+    two = sl_kernel.plan(2048, 2048, 5461, 512, torch.bfloat16)
+    f32 = sl_kernel.plan(2048, 2048, 5461, 512, torch.float32)
+    assert np.prod(two.w_t) * 2 == 22_544_384
+    assert np.prod(f32.partial) * 4 == 715_784_192
+    assert sl_kernel.plan(4, 2048, 5461, 512, torch.bfloat16,
+                          small_m_max=0).variant == "two_stage"
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_sl_matmul_launch_refuses_non_cuda_tensors(device):
+    """The entry points that take a plan launch the kernel or raise: they
+    never run the plain version, and never hand host memory to the
+    kernel."""
+    p = sl_kernel.plan(4, 200, 300, 12, torch.bfloat16)
+    x, B, A = (torch.zeros(s, dtype=torch.bfloat16, device=device)
+               for s in ((4, 200), (200, 12), (12, 300)))
+    consts = [torch.zeros((2, 3, 4), dtype=dt, device=device)
+              for dt in (torch.float32, torch.int32, torch.int32)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        sl_kernel.launch(p, x, B, A, *consts, 1.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sl_kernel.pad_operands(p, x, B, A)
+
+
 def test_sl_linear_gathers_flat_v_like_reference():
     m, k, n, r, delta = 4, 200, 300, 16, 0.05
     rows, cols, x, B, A, v = _sl_inputs(m, k, n, r, delta, seed=7)
