@@ -9,7 +9,9 @@ holds each one against its plain PyTorch version at the real shapes of
 the ported paths (with timings; ``adam8bit`` bit for bit at every leaf
 size the per-layer step updates; ``sl_matmul`` in bfloat16 also against
 its own rerun, bit for bit, with both of its variants timed at the
-engine's row counts). Then it drives the paths on the
+engine's row counts; ``sparse_matmul`` and the bfloat16 ``paged_prefill``
+against their own reruns too, with their launch plans printed). Then it
+drives the paths on the
 paper's ``llama_1b`` config at full width and depth with random weights
 from a seed:
 
@@ -365,6 +367,12 @@ def check_sparse_decode(timer, gen, device, cfg, m_values):
                     gen, device, d_in, d_out, m, dtype, cfg.param.delta,
                     seed=d_in * 7 + d_out)
                 label = f"{m}x{d_in}->{d_out} {dname(dtype)}"
+                p = spk.plan(m, d_in, d_out, torch.cuda.get_device_properties(
+                    device).multi_processor_count)
+                say(f"sparse_matmul {label}: {p.splits} splits of "
+                    f"{-(-d_in // 128)} k-tiles, {p.blocks} blocks of "
+                    f"{p.rows_per_block} rows, f32 partials "
+                    f"{p.partial_bytes / 1e6:.3f} MB")
                 for name, fn, plain, args, dense in (
                         ("sparse_matmul", spk.sparse_matmul,
                          ref.sparse_matmul_ref, sp, ref._tile_dense(*sp)),
@@ -375,6 +383,11 @@ def check_sparse_decode(timer, gen, device, cfg, m_values):
                     want = plain(x, *args, d_out)
                     torch.cuda.synchronize()
                     err = compare(f"{name} {label}", got, want, dtype)
+                    # the split sum adds the partials in a fixed order
+                    if name == "sparse_matmul" and not torch.equal(
+                            got, fn(x, *args, d_out)):
+                        fail(f"{name} {label}: a rerun on the same inputs "
+                             f"gave other bits")
                     S = dense[:d_in, :d_out].to(dtype).contiguous()
                     t_k = timer.ms(lambda: fn(x, *args, d_out))
                     t_p = timer.ms(lambda: plain(x, *args, d_out))
@@ -703,8 +716,25 @@ def check_prefill(timer, gen, device, dtype, label, n_kv, group, hd,
     got = pak.paged_prefill(q, kp, vp, tbl, offs, **kw)
     want = ref.paged_prefill_ref(q, kp, vp, tbl, offs, **kw)
     torch.cuda.synchronize()
-    err = compare(f"paged_prefill sq={sq} {label} {dtype}", got, want,
-                  dtype)
+    what = f"paged_prefill sq={sq} {label} {dtype}"
+    err = compare(what, got, want, dtype)
+    idle = [s for s in range(n_slots) if pre_pos[s] < 0]
+    if any(bool((got[s] != 0).any()) for s in idle):
+        fail(f"{what}: an idle slot's rows are not exactly zero")
+    if dtype == torch.bfloat16:
+        if not torch.equal(got, pak.paged_prefill(q, kp, vp, tbl, offs,
+                                                  **kw)):
+            fail(f"{what}: a rerun on the same inputs gave other bits")
+        warps, row_blocks, _ = pak.prefill_plan(sq, group, hd)
+        # 64-key stages a block walks: from the first key its rows' window
+        # reaches to its last row's position
+        win = kw["window"]
+        stages = max(-(-(o + sq - (max(0, o - win + 1) if win else 0))
+                       // pak.TC_KEYS_PER_STAGE)
+                     for o, p in zip(offsets, pre_pos) if p >= 0)
+        say(f"paged_prefill sq={sq} {label} bf16: warps a block {warps} "
+            f"(16 query rows each), blocks {n_slots * n_kv * row_blocks}, "
+            f"stages of {pak.TC_KEYS_PER_STAGE} keys up to {stages}")
     kv_b, _ = live_kv_bytes(kp, tbl, offs + sq - 1)
     ops_ = 0.0
     for s in range(n_slots):

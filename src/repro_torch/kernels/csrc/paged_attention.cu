@@ -14,7 +14,7 @@
 // (n_slots, sq, Hkv, group, hd) with query i at offsets[s] + i. Query
 // rows of a (slot, kv head) are flattened group-major, so row rr sits at
 // position off + rr / group; decode is the case sq = 1 of the same
-// indexing, so both kernels share one body.
+// indexing, so decode and the f32 prefill share one body (attend).
 //
 // Numerics follow the TPU kernels: q * scale in f32, optional tanh
 // softcap, online softmax in f32 with running max m (starting at -1e30),
@@ -27,20 +27,61 @@
 // are zeroed on load, because 0 * NaN is NaN and unallocated pages hold
 // garbage.
 //
-// What bounds it on the H100: bytes. Each (slot, kv head) reads its live
+// What bounds them on the H100: bytes. Each (slot, kv head) reads its live
 // K/V blocks once (2 * live_tokens * hd * dtype bytes) and does about
 // 4 * rows * live_tokens * hd operations, far below the card's
-// operations-per-byte balance point. The design reads only live blocks:
-// each block reads its own table entries and stops at the last block any
-// of its rows can see (blocks past it are fully masked and change
-// nothing), and skips blocks wholly before every row's window. One thread
-// block owns one (slot, kv head, 16 query rows), so a kv head's K/V
-// block is staged in shared memory once for its whole GQA group. Each of
-// the 4 warps owns 4 query rows; lanes split the keys of a block for the
-// scores and the head dimension for the accumulator.
+// operations-per-byte balance point. At the engine's shapes (4 slots, a
+// few dozen live keys) that is well under a microsecond of HBM time, so
+// what a launch really waits on is its chain of dependent steps: the
+// table entry, then the page, then the math on it.
+//
+// Both kernels read only live blocks: a block stops at the last key any
+// of its rows can see (later keys are fully masked and change nothing)
+// and skips keys wholly before every row's window. One thread block owns
+// one (slot, kv head) and a run of its query rows, so a kv head's K/V is
+// staged in shared memory once for its whole GQA group.
+//
+// attend (decode in f32 and bf16, prefill in f32; the first version): 16
+// query rows a block, each of the 4 warps owns 4 rows one after another;
+// lanes split the keys of a block for the scores and the head dimension
+// for the accumulator, all on the CUDA cores in f32.
+//
+// prefill_tc_kernel (prefill in bf16) runs both products on the tensor
+// cores, mma.sync m16n8k16 (bf16 in, f32 accumulate):
+// * each warp owns 16 query rows, the m16 of the MMA; a block holds up to
+//   8 warps, all sq * group rows of a (slot, kv head) up to 128 (the
+//   wrapper's prefill_plan; rows past the end of the last warp's tile are
+//   masked and never stored);
+// * keys come 64 at a time (4 pages of 16 at llama_1b), each key's
+//   head slice (hd bf16, contiguous) copied with 16-byte cp.async through
+//   the block table into padded shared rows (hd + 8: ldmatrix reads them
+//   without bank conflicts). Two stages: the next 64 keys load while the
+//   warps run this stage's MMAs. A key that no row of the block can see
+//   (null block, past the last row, before every row's window) is
+//   zero-filled instead of read, so the NaN-filled null block and stale
+//   rows never reach an MMA operand, and V rows no row attends are zero;
+// * S = Q K^T: Q's fragments are loaded once from global into registers,
+//   K's through ldmatrix; then, per row, the f32 scale, the optional tanh
+//   softcap, the masks and the online softmax in f32 on the accumulator
+//   fragments, with quad shuffles for each row's max and sum;
+// * O += P V: P's accumulator fragments are the A operand directly (the
+//   m16n8 C layout of two key n-tiles is the m16k16 A layout), V through
+//   ldmatrix.trans.
+// Numerics: QK^T products of bf16 are exact in f32, so only the order of
+// the f32 sum differs from the reference. The scale multiplies the f32
+// score instead of q; at hd 64 it is a power of two, so the bits equal
+// scaling q first (elsewhere they may differ in the last bit). P is not
+// rounded to bf16 as a whole: the reference multiplies p in f32, so P is
+// split into a bf16 high part and the bf16 rounding of its remainder, and
+// each goes through its own PV MMA: P is carried to ~2^-17 relative
+// instead of 2^-9, for 2x the PV MMAs of a stage, which is not what
+// bounds the kernel. l sums the f32 p. hd must be a multiple of 16, at
+// most 128 (the wrapper raises otherwise).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -229,39 +270,366 @@ paged_prefill_kernel(const T* q, const T* kp, const T* vp, const int* table,
             bps, scale, softcap, window);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 prefill on the tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int KS = 64;                   // keys per stage
+constexpr int TC_MAX_WARPS = 8;          // 16 query rows each
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+// what rounding v to bf16 left over
+__device__ __forceinline__ float rest(float v) {
+  return v - __bfloat162float(__float2bfloat16(v));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int KT>
+constexpr size_t tc_smem_bytes() {
+  // K and V, two stages each, rows of 16 * KT + 8 bf16; a flag per key
+  return (size_t)2 * 2 * KS * (16 * KT + 8) * sizeof(bf16) +
+         2 * KS * sizeof(int);
+}
+
+// grid (n_slots, Hkv, row blocks), 32 * warps threads; hd = 16 * KT.
+// Block z owns rows [z * 16 * warps, ...) of its (slot, kv head); warp w
+// the 16 of them from 16 * w, its thread (g = lane / 4, t = lane % 4)
+// rows g and g + 8 of those.
+template <int KT>
+__global__ void __launch_bounds__(TC_MAX_WARPS * 32)
+prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
+                  const bf16* __restrict__ vp, const int* __restrict__ table,
+                  const int* __restrict__ offsets, bf16* __restrict__ out,
+                  int sq, int n_kv, int group, int block_len, int bps,
+                  float scale, float softcap, int window) {
+  constexpr int HD = 16 * KT, LDS = HD + 8, CH = HD / 8;
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);    // [2][KS][LDS]
+  bf16* Vs = Ks + 2 * KS * LDS;                   // [2][KS][LDS]
+  int* seen = reinterpret_cast<int*>(Vs + 2 * KS * LDS);   // [2][KS]
+
+  const int s = blockIdx.x, h = blockIdx.y;
+  const int n_rows = sq * group;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rb0 = blockIdx.z * (blockDim.x / 2);  // 16 rows a warp
+  const int rb1 = min(rb0 + (int)blockDim.x / 2, n_rows);
+  const int off = offsets[s];
+  const int qmin = off + rb0 / group, qmax = off + (rb1 - 1) / group;
+  // the keys some row of the block can see, and the stages covering them
+  const int klo = window > 0 ? max(0, qmin - window + 1) : 0;
+  const int khi = min(bps * block_len - 1, qmax);
+  const int n_stages = khi >= klo ? (khi - klo) / KS + 1 : 0;
+
+  auto load_stage = [&](int st) {
+    const int buf = st & 1, kb = klo + st * KS;
+    bf16* kd = Ks + buf * KS * LDS;
+    bf16* vd = Vs + buf * KS * LDS;
+    for (int e = tid; e < KS * CH; e += blockDim.x) {
+      const int kk = e / CH, c = e % CH, kpos = kb + kk;
+      const int phys =
+          kpos <= khi ? table[(size_t)s * bps + kpos / block_len] : 0;
+      const bool ok = phys != 0;
+      const size_t src =
+          (((size_t)phys * block_len + kpos % block_len) * n_kv + h) * HD +
+          8 * c;
+      cp_async16(kd + kk * LDS + 8 * c, ok ? kp + src : kp, ok ? 16 : 0);
+      cp_async16(vd + kk * LDS + 8 * c, ok ? vp + src : vp, ok ? 16 : 0);
+      if (c == 0) seen[buf * KS + kk] = ok;
+    }
+    cp_async_commit();
+  };
+  if (n_stages > 0) load_stage(0);
+
+  // this thread's two rows: 0 = g, 1 = g + 8 of the warp's 16
+  const int r0 = rb0 + 16 * warp + g;
+  const bool warp_live = rb0 + 16 * warp < rb1;
+  bool row_ok[2];
+  int qpos[2];
+  const bf16* qrow[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int rr = r0 + 8 * u;
+    row_ok[u] = rr < rb1;
+    qpos[u] = off + rr / group;
+    qrow[u] = q + ((((size_t)s * sq + rr / group) * n_kv + h) * group +
+                   rr % group) * HD;
+  }
+  // Q's A fragments, k = hd in steps of 16
+  uint32_t qf[KT][4];
+#pragma unroll
+  for (int ks = 0; ks < KT; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int u = i & 1, d = 16 * ks + 2 * t + 8 * (i >> 1);
+      qf[ks][i] = row_ok[u]
+                      ? *reinterpret_cast<const uint32_t*>(qrow[u] + d)
+                      : 0u;
+    }
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[2 * KT][4];
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
+
+  for (int st = 0; st < n_stages; ++st) {
+    if (st + 1 < n_stages) {
+      load_stage(st + 1);
+      cp_async_wait<1>();       // this stage's copies have landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();            // ... everyone's, and its flags
+    const int buf = st & 1, kb = klo + st * KS;
+    const bf16* kd = Ks + buf * KS * LDS;
+    const bf16* vd = Vs + buf * KS * LDS;
+    const int* sn = seen + buf * KS;
+    if (warp_live) {
+      // S = Q K^T over the stage's 64 keys: 8 n-tiles of 8 keys
+      float sc[KS / 8][4];
+#pragma unroll
+      for (int j = 0; j < KS / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[j][i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < KS / 8; j += 2)
+#pragma unroll
+        for (int ks = 0; ks < KT; ++ks) {
+          uint32_t b[4];
+          ldsm_x4(b, kd + (8 * j + (lane & 7) + 8 * (lane >> 4)) * LDS +
+                         16 * ks + 8 * ((lane >> 3) & 1));
+          mma16816(sc[j], qf[ks], b[0], b[1]);
+          mma16816(sc[j + 1], qf[ks], b[2], b[3]);
+        }
+      // scale, softcap, masks, online softmax; sc becomes p
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float mx = NEG_INF;
+        unsigned okb = 0;
+#pragma unroll
+        for (int j = 0; j < KS / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int kk = 8 * j + 2 * t + c, kpos = kb + kk;
+            float v = sc[j][2 * u + c] * scale;
+            if (softcap > 0.f) v = tanhf(v / softcap) * softcap;
+            const bool ok = row_ok[u] && sn[kk] && kpos <= qpos[u] &&
+                            (window <= 0 || qpos[u] - kpos < window);
+            okb |= (unsigned)ok << (2 * j + c);
+            sc[j][2 * u + c] = ok ? v : NEG_INF;
+            mx = fmaxf(mx, sc[j][2 * u + c]);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[u], mx);
+        const float alpha = expf(m[u] - m_new);
+        float psum = 0.f;
+#pragma unroll
+        for (int j = 0; j < KS / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = (okb >> (2 * j + c)) & 1u
+                                ? expf(sc[j][2 * u + c] - m_new)
+                                : 0.f;
+            sc[j][2 * u + c] = p;
+            psum += p;
+          }
+        psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+        psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+        l[u] = alpha * l[u] + psum;
+        m[u] = m_new;
+#pragma unroll
+        for (int j = 0; j < 2 * KT; ++j) {
+          o[j][2 * u] *= alpha;
+          o[j][2 * u + 1] *= alpha;
+        }
+      }
+      // O += P V, P as a bf16 high part and a bf16 remainder
+#pragma unroll
+      for (int kc = 0; kc < KS / 16; ++kc) {
+        // A fragment of keys 16 kc .. 16 kc + 15: n-tiles 2 kc, 2 kc + 1
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float a = sc[2 * kc + (i >> 1)][2 * (i & 1)];
+          const float b = sc[2 * kc + (i >> 1)][2 * (i & 1) + 1];
+          hi[i] = pack2(a, b);
+          lo[i] = pack2(rest(a), rest(b));
+        }
+#pragma unroll
+        for (int dn = 0; dn < KT; ++dn) {
+          uint32_t b[4];
+          ldsm_x4_t(b, vd + (16 * kc + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                LDS +
+                           16 * dn + 8 * (lane >> 4));
+          mma16816(o[2 * dn], hi, b[0], b[1]);
+          mma16816(o[2 * dn + 1], hi, b[2], b[3]);
+          mma16816(o[2 * dn], lo, b[0], b[1]);
+          mma16816(o[2 * dn + 1], lo, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();            // the buffer is free for stage st + 2
+  }
+
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    if (!row_ok[u]) continue;
+    bf16* orow = out + (qrow[u] - q);
+#pragma unroll
+    for (int j = 0; j < 2 * KT; ++j) {
+      const float a = l[u] > 0.f ? o[j][2 * u] / l[u] : 0.f;
+      const float b = l[u] > 0.f ? o[j][2 * u + 1] / l[u] : 0.f;
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) = pack2(a, b);
+    }
+  }
+}
+
 size_t smem_bytes(int hd, int block_len) {
   return sizeof(float) * ((size_t)ROWS * hd + (size_t)block_len * (hd + 1) +
                           (size_t)block_len * hd + (size_t)WARPS * block_len);
 }
 
-template <typename T>
-cudaError_t launch(bool decode, const void* q, const void* kp,
-                   const void* vp, const int* table, const int* pos,
-                   void* out, int n_slots, int sq, int n_kv, int group,
-                   int hd, int block_len, int bps, float scale,
-                   float softcap, int window, cudaStream_t stream) {
-  const size_t smem = smem_bytes(hd, block_len);
-  const dim3 grid(n_slots, n_kv, (sq * group + ROWS - 1) / ROWS);
-  cudaError_t err;
-  if (decode) {
-    err = cudaFuncSetAttribute(paged_decode_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+// Runs set() at a kernel instantiation's first launch on each device and
+// not again: the dynamic shared-memory attribute holds for the kernel on
+// that device until the process ends. One static of this type in each
+// launcher instantiation.
+struct OncePerDevice {
+  std::atomic<unsigned> done{0};   // bit d: set on device d
+  template <typename F>
+  cudaError_t operator()(F set) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
-    paged_decode_kernel<T><<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(kp),
-        static_cast<const T*>(vp), table, pos, static_cast<T*>(out), n_kv,
-        group, hd, block_len, bps, scale, softcap, window);
-  } else {
-    err = cudaFuncSetAttribute(paged_prefill_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    paged_prefill_kernel<T><<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(kp),
-        static_cast<const T*>(vp), table, pos, static_cast<T*>(out), sq,
-        n_kv, group, hd, block_len, bps, scale, softcap, window);
+    const unsigned bit = dev < 32 ? 1u << dev : 0u;
+    if (bit && (done.load(std::memory_order_acquire) & bit))
+      return cudaSuccess;
+    err = set();
+    if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+    return err;
   }
+};
+
+// attend's shared memory depends on hd and block_len: its kernels are
+// allowed the card's whole opt-in maximum once; the wrapper refuses
+// shapes above it (paged_attention_smem_bytes).
+template <typename K>
+cudaError_t allow_max_smem(OncePerDevice& once, K kernel) {
+  return once([kernel] {
+    int dev = 0, most = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  });
+}
+
+// attend's kernels: decode in T, and the f32 prefill.
+template <typename T>
+cudaError_t launch_decode(const void* q, const void* kp, const void* vp,
+                          const int* table, const int* pos, void* out,
+                          int n_slots, int n_kv, int group, int hd,
+                          int block_len, int bps, float scale, float softcap,
+                          int window, cudaStream_t stream) {
+  static OncePerDevice smem_attr;
+  cudaError_t err = allow_max_smem(smem_attr, paged_decode_kernel<T>);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_slots, n_kv, (group + ROWS - 1) / ROWS);
+  paged_decode_kernel<T><<<grid, THREADS, smem_bytes(hd, block_len),
+                           stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), table, pos, static_cast<T*>(out), n_kv,
+      group, hd, block_len, bps, scale, softcap, window);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_prefill_f32(const void* q, const void* kp, const void* vp,
+                               const int* table, const int* offsets,
+                               void* out, int n_slots, int sq, int n_kv,
+                               int group, int hd, int block_len, int bps,
+                               float scale, float softcap, int window,
+                               cudaStream_t stream) {
+  static OncePerDevice smem_attr;
+  cudaError_t err = allow_max_smem(smem_attr, paged_prefill_kernel<float>);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_slots, n_kv, (sq * group + ROWS - 1) / ROWS);
+  paged_prefill_kernel<float><<<grid, THREADS, smem_bytes(hd, block_len),
+                                stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kp),
+      static_cast<const float*>(vp), table, offsets,
+      static_cast<float*>(out), sq, n_kv, group, hd, block_len, bps, scale,
+      softcap, window);
+  return cudaGetLastError();
+}
+
+template <int KT>
+cudaError_t launch_tc(const void* q, const void* kp, const void* vp,
+                      const int* table, const int* offsets, void* out,
+                      int n_slots, int sq, int n_kv, int group,
+                      int block_len, int bps, float scale, float softcap,
+                      int window, int warps, int row_blocks,
+                      cudaStream_t stream) {
+  static OncePerDevice smem_attr;
+  constexpr size_t smem = tc_smem_bytes<KT>();
+  cudaError_t err = smem_attr([] {
+    return cudaFuncSetAttribute(prefill_tc_kernel<KT>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+  });
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_slots, n_kv, row_blocks);
+  prefill_tc_kernel<KT><<<grid, 32 * warps, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
+      static_cast<const bf16*>(vp), table, offsets, static_cast<bf16*>(out),
+      sq, n_kv, group, block_len, bps, scale, softcap, window);
   return cudaGetLastError();
 }
 
@@ -278,35 +646,51 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool,
                                       int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(true, q, k_pool, v_pool, table,
-                                      positions, out, n_slots, 1, n_kv, group,
-                                      hd, block_len, bps, scale, softcap,
-                                      window, s);
-  return (int)launch<float>(true, q, k_pool, v_pool, table, positions, out,
-                            n_slots, 1, n_kv, group, hd, block_len, bps,
-                            scale, softcap, window, s);
+    return (int)launch_decode<__nv_bfloat16>(q, k_pool, v_pool, table,
+                                             positions, out, n_slots, n_kv,
+                                             group, hd, block_len, bps, scale,
+                                             softcap, window, s);
+  return (int)launch_decode<float>(q, k_pool, v_pool, table, positions, out,
+                                   n_slots, n_kv, group, hd, block_len, bps,
+                                   scale, softcap, window, s);
 }
 
+// Prefill: f32 runs attend; bf16 runs the tensor-core kernel, for hd a
+// multiple of 16 up to 128, with warps (1 .. 8, 16 query rows each) and
+// row_blocks from the wrapper's prefill_plan covering sq * group rows
+// (f32 ignores both).
 extern "C" int paged_prefill_launch(const void* q, const void* k_pool,
                                     const void* v_pool, const int* table,
                                     const int* offsets, void* out,
                                     int n_slots, int sq, int n_kv, int group,
                                     int hd, int block_len, int bps,
                                     float scale, float softcap, int window,
-                                    int dtype, void* stream) {
+                                    int warps, int row_blocks, int dtype,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(false, q, k_pool, v_pool, table,
-                                      offsets, out, n_slots, sq, n_kv, group,
-                                      hd, block_len, bps, scale, softcap,
-                                      window, s);
-  return (int)launch<float>(false, q, k_pool, v_pool, table, offsets, out,
-                            n_slots, sq, n_kv, group, hd, block_len, bps,
-                            scale, softcap, window, s);
+  if (dtype != 1)
+    return (int)launch_prefill_f32(q, k_pool, v_pool, table, offsets, out,
+                                   n_slots, sq, n_kv, group, hd, block_len,
+                                   bps, scale, softcap, window, s);
+  if (warps < 1 || warps > TC_MAX_WARPS ||
+      row_blocks * warps * 16 < sq * group)
+    return (int)cudaErrorInvalidValue;
+  switch (hd) {
+#define TC_CASE(KT)                                                        \
+  case 16 * KT:                                                            \
+    return (int)launch_tc<KT>(q, k_pool, v_pool, table, offsets, out,      \
+                              n_slots, sq, n_kv, group, block_len, bps,    \
+                              scale, softcap, window, warps, row_blocks, s);
+    TC_CASE(1) TC_CASE(2) TC_CASE(3) TC_CASE(4)
+    TC_CASE(5) TC_CASE(6) TC_CASE(7) TC_CASE(8)
+#undef TC_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-// Shared memory one launch needs, so the wrapper can refuse shapes the
-// card cannot hold before launching.
+// Shared memory one launch of attend needs, so the wrapper can refuse
+// shapes the card cannot hold before launching.
 extern "C" long long paged_attention_smem_bytes(int hd, int block_len) {
   return (long long)smem_bytes(hd, block_len);
 }

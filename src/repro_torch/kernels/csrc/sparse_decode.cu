@@ -23,37 +23,68 @@
 // the scale row, which gives the same bits as multiplying each code by its
 // column's scale as it is scattered.
 //
-// What bounds it on the H100: at decode (M = a few slots) the work is
+// What bounds them on the H100: at decode (M = a few slots) the work is
 // 2 * M * nnz operations on 12 bytes (f32 value, two int32 indices) or 5
-// bytes (int8 code, two int16 indices) per slot, so the kernel is bound by
-// bytes: at llama_1b's 2048 -> 5461 (cap 688, 473,344 slots) 5.68 MB or
+// bytes (int8 code, two int16 indices) per slot, so the kernels are bound
+// by bytes: at llama_1b's 2048 -> 5461 (cap 688, 473,344 slots) 5.68 MB or
 // 2.37 MB plus scales, 1.7 or 0.7 us at 3.35 TB/s. Each decode step
-// launches it 168 times, so at these sizes launch overhead dominates.
+// launches one of them 168 times. What a launch really waits on is one
+// block's chain of k-tiles: each k-tile is a dependent HBM load of its
+// slots, a scatter, a contraction and a clean-up, each behind a barrier.
 //
-// Design (a first version: right and deterministic, not yet fast):
-// * The TPU grid walks the k-tiles sequentially into one accumulator. Here
-//   one block owns one (n-tile, row block of x) and loops over the
-//   k-tiles in order, each thread keeping its outputs' f32 sums in
-//   registers: one fmaf chain over k = 0..K-1 per output, so the result is
-//   the same bits on every run (the serving tests compare greedy tokens).
-// * Each k-tile of S is scattered into a 128x128 f32 tile in shared memory
-//   (64 KB) and contracted with the staged row block of x. Real entries are
-//   unique; padding slots all land on (0, 0), possibly on a real entry, so
-//   the scatter uses shared atomicAdd, and adding 0 changes nothing. After
-//   the contraction each thread writes 0 back at its slots, so the tile is
-//   all zero again without clearing all 16K cells per k-tile.
-// * K and N need not be multiples of 128 (llama_1b d_ff = 5461): x's loads
-//   are bounds-checked and y's stores masked, so nothing is padded or
-//   copied. Up to 8 rows one block covers all of x (RPT = 4); above that
-//   blocks of 32 rows (RPT = 16) cover the prefill's 32, 64, 128 rows.
+// Both kernels scatter each k-tile of S into a 128x128 f32 tile in shared
+// memory (64 KB) and contract it with the staged rows of x. Real entries
+// are unique; padding slots all land on (0, 0), possibly on a real entry,
+// so the scatter uses shared atomicAdd, and adding 0 changes nothing.
+// After the contraction each thread writes 0 back at its slots, so the
+// tile is all zero again without clearing all 16K cells per k-tile. K and
+// N need not be multiples of 128 (llama_1b d_ff = 5461): x's loads are
+// bounds-checked and y's stores masked, so nothing is padded or copied. Up
+// to 8 rows one block covers all of x; above that blocks of 32 rows cover
+// the prefill's 32, 64, 128 rows; sparse_matmul also has blocks of 4 rows
+// for up to 4, the engine's decode batch.
+//
+// sparse_matmul (sparse_split_kernel) fills the card by splitting K: the
+// grid is (n-tiles, row blocks, splits), and block z walks the k-tiles
+// [z * nkt / splits, (z + 1) * nkt / splits) of its n-tile. The wrapper's
+// plan (kernels/sparse_decode.py::plan) picks the fewest splits that put
+// about two blocks on every SM, at most one per k-tile: 301 blocks of 2-3
+// k-tiles at decode 2048 -> 5461 instead of 43 blocks of 16; one split
+// where the row blocks already fill the grid. Inside a block:
+// * a block fetches its next k-tile's slots and x's rows into registers
+//   while it contracts the current one, so only the first k-tile waits on
+//   HBM, and skips the padding slots' zero values in the scatter (~200 of
+//   them a tile contend for cell (0, 0));
+// * the contraction is bound by shared-memory loads, not by its fmafs:
+//   each thread takes one column and half of the tile's 128 k for all R
+//   rows of the block (4 up to 4 rows, 8, or 32), reading S once per k
+//   and x as float4 broadcasts: 64 + 16 R loads a k-tile instead of the
+//   first version's (1 + R / 2) * 128.
+// Numerics of the split sum: each thread keeps one f32 fmaf chain per
+// output over its half of each k-tile, k-tiles in order; the two halves
+// are added, first half first. Each split writes that sum to an f32
+// partial (splits, M, N) in wrapper-allocated scratch; the last block of
+// an (n-tile, row block) to finish -- found through an int32 counter in
+// scratch, after __threadfence -- adds the partials in split order, 0
+// first, rounds once to T, and resets the counter to 0 for the next
+// launch. No float atomics touch device memory, so a rerun gives the same
+// bits; only the order of the k sum differs from the reference's. With
+// one split the block writes y from its sum directly.
+//
+// quant_sparse_matmul (sparse_decode_kernel, Int8Values) keeps the first
+// version's body: one block per (n-tile, row block) walks all k-tiles in
+// order, one fmaf chain per output.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
 constexpr int TILE = 128;        // S tile edge (support.TILE)
 constexpr int THREADS = 256;
+constexpr int PREF = 4;          // slots a thread holds in registers
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -69,14 +100,245 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(v);
 }
 
-// The value of slot e (global slot index) in column c of n-tile nt.
-struct F32Values {
-  const float* __restrict__ v;
-  __device__ __forceinline__ float operator()(size_t e, int, int) const {
-    return v[e];
+// Runs set() at a kernel instantiation's first launch on each device and
+// not again: the dynamic shared-memory attribute holds for the kernel on
+// that device until the process ends. One static of this type in each
+// launcher instantiation.
+struct OncePerDevice {
+  std::atomic<unsigned> done{0};   // bit d: set on device d
+  template <typename F>
+  cudaError_t operator()(F set) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned bit = dev < 32 ? 1u << dev : 0u;
+    if (bit && (done.load(std::memory_order_acquire) & bit))
+      return cudaSuccess;
+    err = set();
+    if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+    return err;
   }
 };
 
+template <int RPT>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (TILE * TILE + 2 * RPT * TILE);
+}
+
+// ---------------------------------------------------------------------------
+// sparse_matmul: split K, ordered sum of the partials
+// ---------------------------------------------------------------------------
+
+// One (n-tile, row block, split): block z sums the k-tiles [kt0, kt1) of
+// its n-tile for R rows of x. Thread t owns column c = t % 128 and half
+// h = t / 128 of each k-tile's 128 rows of S, for all R rows of x: one
+// f32 fmaf chain per (row, column, half) over the k-tiles in order, the
+// two halves added (h = 0 first) at the end. With gridDim.z > 1 the block
+// writes that sum to partial[z], and the last block of the (n-tile, row
+// block) adds partial[0..splits) in order into y.
+template <typename T, int R>
+__global__ void __launch_bounds__(THREADS)
+sparse_split_kernel(const T* __restrict__ x, const float* __restrict__ v_t,
+                    const int* __restrict__ rows_t,
+                    const int* __restrict__ cols_t, T* __restrict__ y,
+                    float* __restrict__ partial, int* __restrict__ counter,
+                    int M, int K, int N, int nkt, int nnt, int cap) {
+  constexpr int XR = R * TILE / THREADS;  // x values a thread stages
+  constexpr int HALF = TILE / 2;
+  extern __shared__ float smem[];
+  float* St = smem;                       // [TILE][TILE] k-tile of S
+  float* xs = St + TILE * TILE;           // [R][TILE] rows of x, zero-padded
+  __shared__ int is_last;
+
+  const int nt = blockIdx.x;
+  const int n0 = nt * TILE;
+  const int m0 = blockIdx.y * R;
+  const int splits = gridDim.z, z = blockIdx.z;
+  const int kt0 = (int)((long long)z * nkt / splits);
+  const int kt1 = (int)((long long)(z + 1) * nkt / splits);
+  const int tid = threadIdx.x;
+  const int nrows = min(R, M - m0);
+  const int c = tid % TILE, h = tid / TILE;
+
+  // a k-tile's operands, in registers: its first PREF * THREADS slots (the
+  // cell each one lands on, -1 past cap, and its value) and x's rows
+  int cell[PREF];
+  float val[PREF], xr[XR];
+  auto fetch = [&](int kt) {
+    const size_t tb = ((size_t)kt * nnt + nt) * (size_t)cap;
+#pragma unroll
+    for (int i = 0; i < PREF; ++i) {
+      const int e = tid + i * THREADS;
+      cell[i] = -1;
+      val[i] = 0.f;
+      if (e < cap) {
+        cell[i] = rows_t[tb + e] * TILE + cols_t[tb + e];
+        val[i] = v_t[tb + e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < XR; ++i) {
+      const int e = tid + i * THREADS, m = e / TILE;
+      const int k = kt * TILE + e % TILE;
+      xr[i] = m < nrows && k < K ? to_f(x[(size_t)(m0 + m) * K + k]) : 0.f;
+    }
+  };
+  if (kt0 < kt1) fetch(kt0);   // in flight while the tile is zeroed
+
+  float4* St4 = reinterpret_cast<float4*>(St);
+  for (int e = tid; e < TILE * TILE / 4; e += THREADS)
+    St4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float o[R];
+#pragma unroll
+  for (int m = 0; m < R; ++m) o[m] = 0.f;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+#pragma unroll
+    for (int i = 0; i < XR; ++i) xs[tid + i * THREADS] = xr[i];
+    __syncthreads();            // the tile is zero, x's rows are staged
+
+    const size_t tb = ((size_t)kt * nnt + nt) * (size_t)cap;
+    int mine[PREF];
+#pragma unroll
+    for (int i = 0; i < PREF; ++i) {
+      mine[i] = cell[i];
+      if (val[i] != 0.f) atomicAdd(&St[cell[i]], val[i]);
+    }
+    for (int e = PREF * THREADS + tid; e < cap; e += THREADS) {
+      const float v = v_t[tb + e];
+      if (v != 0.f)
+        atomicAdd(&St[rows_t[tb + e] * TILE + cols_t[tb + e]], v);
+    }
+    if (kt + 1 < kt1) fetch(kt + 1);   // in flight during the contraction
+    __syncthreads();
+
+    // o[m] += x[m, k] * S[k, c] for this half's 64 k in order, x read as
+    // float4 broadcasts (every lane of a warp reads the same address)
+    const float* Sh = St + h * HALF * TILE + c;
+    const float* xh = xs + h * HALF;
+    for (int k4 = 0; k4 < HALF; k4 += 4) {
+      const float w0 = Sh[(k4 + 0) * TILE], w1 = Sh[(k4 + 1) * TILE];
+      const float w2 = Sh[(k4 + 2) * TILE], w3 = Sh[(k4 + 3) * TILE];
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        const float4 xv = *reinterpret_cast<const float4*>(xh + m * TILE + k4);
+        o[m] = fmaf(xv.x, w0, o[m]);
+        o[m] = fmaf(xv.y, w1, o[m]);
+        o[m] = fmaf(xv.z, w2, o[m]);
+        o[m] = fmaf(xv.w, w3, o[m]);
+      }
+    }
+    __syncthreads();            // every thread is done reading the tile
+
+#pragma unroll
+    for (int i = 0; i < PREF; ++i)
+      if (mine[i] >= 0) St[mine[i]] = 0.f;
+    for (int e = PREF * THREADS + tid; e < cap; e += THREADS)
+      St[rows_t[tb + e] * TILE + cols_t[tb + e]] = 0.f;
+    // the next iteration's first barrier orders these stores before its
+    // scatter
+  }
+
+  // the second half's sums join the first's through shared memory
+  float* red = xs;              // [R][TILE]; x is no longer needed
+  __syncthreads();
+  if (h == 1) {
+#pragma unroll
+    for (int m = 0; m < R; ++m) red[m * TILE + c] = o[m];
+  }
+  __syncthreads();
+  const bool col_ok = h == 0 && n0 + c < N;
+  if (col_ok) {
+#pragma unroll
+    for (int m = 0; m < R; ++m) o[m] += red[m * TILE + c];
+  }
+
+  if (splits == 1) {
+    if (col_ok) {
+#pragma unroll
+      for (int m = 0; m < R; ++m)
+        if (m < nrows) y[(size_t)(m0 + m) * N + n0 + c] = from_f<T>(o[m]);
+    }
+    return;
+  }
+
+  if (col_ok) {
+    float* pz = partial + (size_t)z * M * N;
+#pragma unroll
+    for (int m = 0; m < R; ++m)
+      if (m < nrows) pz[(size_t)(m0 + m) * N + n0 + c] = o[m];
+  }
+  __threadfence();              // the partial is visible before the count
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = counter + blockIdx.y * nnt + nt;
+    is_last = atomicAdd(cnt, 1) == splits - 1;
+    if (is_last) *cnt = 0;      // every split has counted: reset for the
+  }                             // next launch
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  if (col_ok) {
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      if (m >= nrows) continue;
+      const size_t at = (size_t)(m0 + m) * N + n0 + c;
+      float s = __ldcg(partial + at);
+      for (int zz = 1; zz < splits; ++zz)
+        s += __ldcg(partial + (size_t)zz * M * N + at);
+      y[at] = from_f<T>(s);
+    }
+  }
+}
+
+template <typename T, int R>
+cudaError_t launch_split(const void* x, const float* v_t, const int* rows_t,
+                         const int* cols_t, void* y, float* partial,
+                         int* counter, int M, int K, int N, int nkt, int nnt,
+                         int cap, int splits, cudaStream_t stream) {
+  static OncePerDevice smem_attr;
+  constexpr size_t smem = sizeof(float) * (TILE * TILE + R * TILE);
+  cudaError_t err = smem_attr([] {
+    return cudaFuncSetAttribute(sparse_split_kernel<T, R>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+  });
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nnt, (M + R - 1) / R, splits);
+  sparse_split_kernel<T, R><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(x), v_t, rows_t, cols_t, static_cast<T*>(y),
+      partial, counter, M, K, N, nkt, nnt, cap);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_split_rows(const void* x, const float* v_t,
+                              const int* rows_t, const int* cols_t, void* y,
+                              float* partial, int* counter, int M, int K,
+                              int N, int nkt, int nnt, int cap,
+                              int rows_per_block, int splits,
+                              cudaStream_t stream) {
+  if (splits < 1 || splits > (nkt > 0 ? nkt : 1) ||
+      (splits > 1 && (partial == nullptr || counter == nullptr)))
+    return cudaErrorInvalidValue;
+  if (rows_per_block == 4)
+    return launch_split<T, 4>(x, v_t, rows_t, cols_t, y, partial, counter,
+                              M, K, N, nkt, nnt, cap, splits, stream);
+  if (rows_per_block == 8)
+    return launch_split<T, 8>(x, v_t, rows_t, cols_t, y, partial, counter,
+                              M, K, N, nkt, nnt, cap, splits, stream);
+  if (rows_per_block == 32)
+    return launch_split<T, 32>(x, v_t, rows_t, cols_t, y, partial, counter,
+                               M, K, N, nkt, nnt, cap, splits, stream);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// quant_sparse_matmul: the first version's body, one block per n-tile
+// ---------------------------------------------------------------------------
+
+// The value of slot e (global slot index) in column c of n-tile nt.
 struct Int8Values {
   const int8_t* __restrict__ q;
   const float* __restrict__ scale;     // (nnt, TILE)
@@ -160,10 +422,13 @@ template <typename T, typename I, typename Values, int RPT>
 cudaError_t launch_rpt(const void* x, Values values, const I* rows_t,
                        const I* cols_t, void* y, int M, int K, int N,
                        int nkt, int nnt, int cap, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (TILE * TILE + 2 * RPT * TILE);
-  cudaError_t err = cudaFuncSetAttribute(
-      sparse_decode_kernel<T, I, Values, RPT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static OncePerDevice smem_attr;
+  constexpr size_t smem = smem_bytes<RPT>();
+  cudaError_t err = smem_attr([] {
+    return cudaFuncSetAttribute(sparse_decode_kernel<T, I, Values, RPT>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+  });
   if (err != cudaSuccess) return err;
   const dim3 grid(nnt, (M + 2 * RPT - 1) / (2 * RPT), 1);
   sparse_decode_kernel<T, I, Values, RPT><<<grid, THREADS, smem, stream>>>(
@@ -187,18 +452,25 @@ cudaError_t launch(const void* x, Values values, const I* rows_t,
 
 // Plain C entry points (bound with ctypes). dtype: 0 = float32, 1 = bf16.
 // Each returns the cudaError_t of its launch (0 = success).
+//
+// sparse_matmul: rows_per_block 4, 8 or 32 and splits (1 .. nkt) from the
+// wrapper's plan; with splits > 1, partial is f32 (splits, M, N) scratch
+// and counter holds nnt * ceil(M / rows_per_block) int32 zeros, which the
+// kernel leaves at zero.
 extern "C" int sparse_matmul_launch(const void* x, const float* v_t,
                                     const int* rows_t, const int* cols_t,
-                                    void* y, int M, int K, int N, int nkt,
-                                    int nnt, int cap, int dtype,
-                                    void* stream) {
+                                    void* y, float* partial, int* counter,
+                                    int M, int K, int N, int nkt, int nnt,
+                                    int cap, int rows_per_block, int splits,
+                                    int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const F32Values values{v_t};
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, values, rows_t, cols_t, y, M, K, N,
-                                      nkt, nnt, cap, s);
-  return (int)launch<float>(x, values, rows_t, cols_t, y, M, K, N, nkt, nnt,
-                            cap, s);
+    return (int)launch_split_rows<__nv_bfloat16>(
+        x, v_t, rows_t, cols_t, y, partial, counter, M, K, N, nkt, nnt, cap,
+        rows_per_block, splits, s);
+  return (int)launch_split_rows<float>(x, v_t, rows_t, cols_t, y, partial,
+                                       counter, M, K, N, nkt, nnt, cap,
+                                       rows_per_block, splits, s);
 }
 
 extern "C" int quant_sparse_matmul_launch(

@@ -10,10 +10,15 @@ kv head, pools ``(n_blocks, block_len, Hkv, hd)`` with block 0 the null
 block. A tensor on the CPU runs the plain version
 (:mod:`repro_torch.kernels.ref`); a CUDA tensor launches the kernel or
 raises, never falls back.
+
+The bf16 prefill runs on the tensor cores, 16 query rows a warp:
+:func:`prefill_plan` picks its warps per block and row blocks from the
+shapes alone.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +30,36 @@ _F = ctypes.c_float
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256       # MAX_D * 32 in the kernel
 MAX_BLOCK_LEN = 128      # MAX_T * 32 in the kernel
+# the bf16 prefill on the tensor cores (csrc's prefill_tc_kernel)
+TC_ROWS_PER_WARP = 16    # the m16 of mma.sync m16n8k16
+TC_MAX_WARPS = 8
+TC_KEYS_PER_STAGE = 64   # keys staged in shared memory at a time
+TC_MAX_HEAD_DIM = 128
+
+
+class PrefillPlan(NamedTuple):
+    """The bf16 prefill's grid for sq * group query rows per (slot, kv
+    head): ``warps`` per block (16 rows each), ``row_blocks`` blocks, and
+    the rows of the last m16 tiles past the end, which the kernel masks
+    and never stores."""
+    warps: int
+    row_blocks: int
+    masked_rows: int
+
+
+def prefill_plan(sq: int, group: int, hd: int) -> PrefillPlan:
+    """All sq * group rows of a (slot, kv head) in one block, one warp per
+    16 of them, up to ``TC_MAX_WARPS``; more rows take more blocks. Raises
+    for a head_dim the MMA path does not take (a multiple of 16, at most
+    ``TC_MAX_HEAD_DIM``): there is no other bf16 path to fall back to."""
+    if hd % 16 or not 0 < hd <= TC_MAX_HEAD_DIM:
+        raise ValueError(f"paged_prefill: bf16 head_dim {hd} must be a "
+                         f"multiple of 16 up to {TC_MAX_HEAD_DIM}")
+    rows = sq * group
+    warps = max(1, min(TC_MAX_WARPS, -(-rows // TC_ROWS_PER_WARP)))
+    per_block = warps * TC_ROWS_PER_WARP
+    row_blocks = max(1, -(-rows // per_block))
+    return PrefillPlan(warps, row_blocks, row_blocks * per_block - rows)
 
 
 def _lib():
@@ -34,7 +69,7 @@ def _lib():
             [_P] * 6 + [_I] * 6 + [_F, _F, _I, _I, _P]
         lib.paged_attention_launch.restype = _I
         lib.paged_prefill_launch.argtypes = \
-            [_P] * 6 + [_I] * 7 + [_F, _F, _I, _I, _P]
+            [_P] * 6 + [_I] * 7 + [_F, _F, _I, _I, _I, _I, _P]
         lib.paged_prefill_launch.restype = _I
     return lib
 
@@ -106,7 +141,9 @@ def paged_prefill(q, k_pool, v_pool, block_table, offsets, *,
     """Chunked suffix prefill. q (n_slots, sq, Hkv, group, hd), query i of
     slot s at absolute position offsets[s] + i, the chunk's own K/V
     already scattered into the pools. Returns (n_slots, sq, Hkv, group,
-    hd) in q.dtype; rows with nothing to attend give exact zeros."""
+    hd) in q.dtype; rows with nothing to attend give exact zeros. bf16
+    runs on the tensor cores and takes a head_dim that is a multiple of
+    16 up to 128 (:func:`prefill_plan`); f32 takes any up to 256."""
     if q.device.type == "cpu":
         return ref.paged_prefill_ref(q, k_pool, v_pool, block_table,
                                      offsets, scale=scale, softcap=softcap,
@@ -116,6 +153,14 @@ def paged_prefill(q, k_pool, v_pool, block_table, offsets, *,
     n_slots, sq, n_kv, group, hd = q.shape
     _check("paged_prefill", q, k_pool, v_pool, block_table, offsets,
            n_slots, n_kv, hd)
+    warps = row_blocks = 0
+    if q.dtype == torch.bfloat16:
+        warps, row_blocks, _ = prefill_plan(sq, group, hd)
+        # 16-byte cp.async of K/V rows, 4-byte loads and stores of q/out
+        if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16 or \
+                q.data_ptr() % 4:
+            raise ValueError("paged_prefill: bf16 pools must start on "
+                             "16-byte bounds and q on 4-byte bounds")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -127,7 +172,7 @@ def paged_prefill(q, k_pool, v_pool, block_table, offsets, *,
             block_table.data_ptr(), offsets.data_ptr(), out.data_ptr(),
             n_slots, sq, n_kv, group, hd, k_pool.shape[1],
             block_table.shape[1], float(scale), float(softcap), int(window),
-            _DTYPES[q.dtype], stream)
+            warps, row_blocks, _DTYPES[q.dtype], stream)
     build.check(lib, err, "paged_prefill")
     paged_prefill.launches += 1
     return out

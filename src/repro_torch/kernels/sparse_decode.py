@@ -10,10 +10,15 @@ how the design meets that). A tensor on the CPU runs the plain version
 :func:`~repro_torch.kernels.ref.quant_sparse_matmul_ref`); a CUDA tensor
 launches the kernel or raises, never falls back. Each wrapper counts its
 launches in ``.launches``.
+
+``sparse_matmul`` splits the k-tiles of each n-tile across blocks:
+:func:`plan` picks the split count and the scratch it needs from the
+shapes and the card's SM count alone, and :func:`launch` runs a plan.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -23,16 +28,88 @@ from repro_torch.kernels import build, ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the H100 SXM's SMs; the wrapper passes the card's own count
+SMS = 132
+# blocks the split aims to keep in flight on each SM (a block takes 66 to
+# 80 KB of shared memory, so two or three fit)
+BLOCKS_PER_SM = 2
+
+
+class Plan(NamedTuple):
+    """A ``sparse_matmul`` call's grid and scratch: blocks of
+    ``rows_per_block`` rows of x (4 up to 4 rows, 8 up to 8, else 32),
+    ``row_blocks`` of them per n-tile, ``splits`` blocks sharing each
+    n-tile's k-tiles; with more than one split, the f32 partials (splits,
+    M, N) and one int32 counter per (row block, n-tile)."""
+    rows_per_block: int
+    row_blocks: int
+    n_tiles: int
+    splits: int
+    partial: Optional[Tuple[int, int, int]]
+    counters: int
+
+    @property
+    def blocks(self) -> int:
+        return self.n_tiles * self.row_blocks * self.splits
+
+    @property
+    def partial_bytes(self) -> int:
+        return 4 * self.partial[0] * self.partial[1] * self.partial[2] \
+            if self.partial else 0
+
+
+def k_tiles(plan: Plan, nkt: int, split: int) -> range:
+    """The k-tiles split ``split`` of a plan sums (the kernel's own
+    formula): every k-tile of an n-tile falls in exactly one split."""
+    return range(split * nkt // plan.splits,
+                 (split + 1) * nkt // plan.splits)
+
+
+def plan(m: int, k: int, n: int, sms: int = SMS,
+         splits: Optional[int] = None) -> Plan:
+    """The grid for x (m, k) @ S (k, n): the fewest splits of the
+    ceil(k/128) k-tiles that give ``BLOCKS_PER_SM`` blocks on each of
+    ``sms`` SMs, at most one split per k-tile, and one where the row
+    blocks and n-tiles already give that many. ``splits`` forces a
+    count (timing, the card tests)."""
+    nkt, nnt = -(-k // TILE), -(-n // TILE)
+    rows = 4 if m <= 4 else 8 if m <= 8 else 32
+    row_blocks = -(-m // rows)
+    if splits is None:
+        want = -(-BLOCKS_PER_SM * sms // max(1, nnt * row_blocks))
+        splits = max(1, min(nkt, want))
+    elif not 1 <= splits <= max(1, nkt):
+        raise ValueError(f"sparse_matmul: splits {splits} not in 1.."
+                         f"{max(1, nkt)}")
+    many = splits > 1
+    return Plan(rows, row_blocks, nnt, splits,
+                (splits, m, n) if many else None,
+                nnt * row_blocks if many else 0)
 
 
 def _lib():
     lib = build.library("sparse_decode")
-    for fn, n_ptr in ((lib.sparse_matmul_launch, 5),
-                      (lib.quant_sparse_matmul_launch, 6)):
-        if fn.argtypes is None:
-            fn.argtypes = [_P] * n_ptr + [_I] * 7 + [_P]
-            fn.restype = _I
+    if lib.sparse_matmul_launch.argtypes is None:
+        lib.sparse_matmul_launch.argtypes = [_P] * 7 + [_I] * 9 + [_P]
+        lib.sparse_matmul_launch.restype = _I
+        lib.quant_sparse_matmul_launch.argtypes = [_P] * 6 + [_I] * 7 + [_P]
+        lib.quant_sparse_matmul_launch.restype = _I
     return lib
+
+
+# int32 counters per (device, stream): zeroed when allocated, and every
+# launch leaves them at zero, so launches in one stream's order can share
+# them
+_counters = {}
+
+
+def _counter_scratch(device, stream: int, n: int):
+    key = (device, stream)
+    c = _counters.get(key)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = c
+    return c
 
 
 def _check(what, x, n, tiles):
@@ -59,9 +136,10 @@ def _check(what, x, n, tiles):
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
-def _launch(lib, fn, what, x, n, ptrs, cap):
+def _launch(lib, fn, what, x, n, ptrs, cap, after_y=(), ints=()):
     """Launch ``fn`` on x (M, K) into a new (M, n) output; raise if the
-    launch returned a CUDA error."""
+    launch returned a CUDA error. ``ptrs`` go before y's pointer,
+    ``after_y`` after it, ``ints`` after the shapes."""
     m, k = x.shape
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
@@ -69,8 +147,8 @@ def _launch(lib, fn, what, x, n, ptrs, cap):
     nkt, nnt = -(-k // TILE), -(-n // TILE)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), *ptrs, y.data_ptr(), m, k, n, nkt, nnt, cap,
-                 _DTYPES[x.dtype], stream)
+        err = fn(x.data_ptr(), *ptrs, y.data_ptr(), *after_y, m, k, n, nkt,
+                 nnt, cap, *ints, _DTYPES[x.dtype], stream)
     build.check(lib, err, what)
     return y
 
@@ -78,19 +156,52 @@ def _launch(lib, fn, what, x, n, ptrs, cap):
 def sparse_matmul(x, v_t, rows_t, cols_t, n: int):
     """y = x @ S in x.dtype for x (M, K) and S (K, n) in tile-CSR form: v_t
     f32, rows_t/cols_t int32, each (ceil(K/128), ceil(n/128), cap). K and n
-    need not be multiples of 128. f32 accumulation, one final rounding."""
+    need not be multiples of 128. f32 accumulation (one chain per split of
+    K, the splits added in order), one final rounding."""
     if x.device.type == "cpu":
         return ref.sparse_matmul_ref(x, v_t, rows_t, cols_t, n)
+    _check_sparse(x, v_t, rows_t, cols_t, n)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return _run(plan(x.shape[0], x.shape[1], n, sms), x, v_t, rows_t,
+                cols_t, n)
+
+
+def launch(p: Plan, x, v_t, rows_t, cols_t, n: int):
+    """The kernel on plan ``p`` for CUDA operands that
+    :func:`sparse_matmul` accepts; it counts one launch.
+    :func:`sparse_matmul` runs the plan of the shapes; a caller that times
+    or tests a split count passes ``plan(..., splits=s)``."""
+    _check_sparse(x, v_t, rows_t, cols_t, n)
+    m, k = x.shape
+    if p != plan(m, k, n, splits=p.splits):
+        raise ValueError(f"sparse_matmul: plan {p} is not one for "
+                         f"({m}, {k}) @ ({k}, {n})")
+    return _run(p, x, v_t, rows_t, cols_t, n)
+
+
+def _check_sparse(x, v_t, rows_t, cols_t, n):
     if x.device.type != "cuda":
         raise ValueError(f"sparse_matmul: unsupported device {x.device}")
     _check("sparse_matmul", x, n, (
         ("v_t", v_t, torch.float32, None),
         ("rows_t", rows_t, torch.int32, None),
         ("cols_t", cols_t, torch.int32, None)))
+
+
+def _run(p: Plan, x, v_t, rows_t, cols_t, n: int):
+    partial = counter = None          # held until the launch is queued
+    if p.partial:
+        partial = torch.empty(p.partial, dtype=torch.float32,
+                              device=x.device)
+        counter = _counter_scratch(
+            x.device, torch.cuda.current_stream(x.device).cuda_stream,
+            p.counters)
+    ptr = lambda t: None if t is None else t.data_ptr()
     lib = _lib()
     y = _launch(lib, lib.sparse_matmul_launch, "sparse_matmul", x, n,
                 (v_t.data_ptr(), rows_t.data_ptr(), cols_t.data_ptr()),
-                rows_t.shape[-1])
+                rows_t.shape[-1], (ptr(partial), ptr(counter)),
+                (p.rows_per_block, p.splits))
     if y.numel():
         sparse_matmul.launches += 1
     return y

@@ -234,26 +234,50 @@ def test_paged_attention_kernel_matches_plain(cuda, case, dtype):
     _close(got, ref.paged_attention_ref(q, kp, vp, table, pos, **kw), dtype)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", [
-    # (block_len, n_kv, group, hd, sq, offsets, lengths, softcap, window)
-    (8, 2, 2, 16, 8, [0, 8, 16, 0], [8, 5, 3, 0], 0.0, 0),
-    (16, 32, 1, 64, 8, [0, 16, 0, 16], [8, 5, 3, 0], 0.0, 0),
-    (16, 32, 1, 64, 32, [0, 16, 0, 16], [24, 8, 3, 0], 0.0, 0),
-    (16, 8, 4, 64, 32, [16, 0], [20, 32], 30.0, 12),
-    (4, 1, 4, 32, 6, [4, 0, 12], [6, 6, 2], 25.0, 0)])
-def test_paged_prefill_kernel_matches_plain(cuda, case, dtype):
+def _prefill_case(case, dtype, dev, seed=6):
+    """q, pools, table, offsets and the kwargs of one prefill case; slots
+    of length 0 get no pages (idle)."""
     block_len, n_kv, group, hd, sq, offsets, lengths, cap, win = case
-    rng = np.random.default_rng(6)
+    rng = np.random.default_rng(seed)
     n_slots = len(offsets)
     last = [o + l - 1 if l > 0 else -1 for o, l in zip(offsets, lengths)]
     bps = (max(offsets) + sq) // block_len + 1
     kp, vp, table = _pools(rng, n_slots, bps, block_len, n_kv, hd, last,
-                           dtype, cuda)
-    offs = torch.tensor(offsets, dtype=torch.int32, device=cuda)
-    q = _rand(rng, (n_slots, sq, n_kv, group, hd), dtype, cuda)
-    kw = dict(scale=hd ** -0.5, softcap=cap, window=win)
+                           dtype, dev)
+    offs = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    q = _rand(rng, (n_slots, sq, n_kv, group, hd), dtype, dev)
+    return q, kp, vp, table, offs, dict(scale=hd ** -0.5, softcap=cap,
+                                        window=win)
+
+
+# (block_len, n_kv, group, hd, sq, offsets, lengths, softcap, window)
+PREFILL_CASES = [
+    (8, 2, 2, 16, 8, [0, 8, 16, 0], [8, 5, 3, 0], 0.0, 0),
+    (16, 32, 1, 64, 8, [0, 16, 0, 16], [8, 5, 3, 0], 0.0, 0),
+    (16, 32, 1, 64, 32, [0, 16, 0, 16], [24, 8, 3, 0], 0.0, 0),
+    (16, 8, 4, 64, 32, [16, 0], [20, 32], 30.0, 12),
+    (4, 1, 4, 32, 6, [4, 0, 12], [6, 6, 2], 25.0, 0),
+    # llama_1b's engine: 4 slots (the last idle), 32 heads, hd 64, at each
+    # suffix bucket; GQA group 4, softcap, window as chip_smoke.py's cases
+    (16, 32, 1, 64, 8, [0, 16, 0, 0], [8, 8, 8, 0], 0.0, 0),
+    (16, 32, 1, 64, 16, [0, 16, 0, 0], [16, 16, 16, 0], 0.0, 0),
+    (16, 32, 1, 64, 32, [0, 16, 0, 0], [32, 32, 32, 0], 0.0, 0),
+    (16, 8, 4, 64, 32, [0, 16, 0, 0], [32, 32, 32, 0], 0.0, 0),
+    (16, 32, 1, 64, 16, [0, 16, 0, 0], [16, 16, 16, 0], 50.0, 0),
+    (16, 8, 4, 64, 16, [0, 16, 0, 0], [16, 16, 16, 0], 0.0, 24),
+    # several 64-key stages, a window that starts mid-page, and more rows
+    # than one block holds (64 x 4 = 256: two row blocks)
+    (16, 4, 2, 64, 16, [120, 200, 0], [16, 10, 16], 0.0, 0),
+    (16, 4, 2, 128, 16, [150, 37], [16, 16], 0.0, 40),
+    (16, 2, 4, 64, 64, [70, 0], [64, 50], 0.0, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", PREFILL_CASES)
+def test_paged_prefill_kernel_matches_plain(cuda, case, dtype):
+    q, kp, vp, table, offs, kw = _prefill_case(case, dtype, cuda)
+    lengths = case[6]
     before = pa_kernel.paged_prefill.launches
     got = pa_kernel.paged_prefill(q, kp, vp, table, offs, **kw)
     torch.cuda.synchronize()
@@ -263,6 +287,34 @@ def test_paged_prefill_kernel_matches_plain(cuda, case, dtype):
         if l == 0:
             assert (got[s] == 0).all()
     _close(got, ref.paged_prefill_ref(q, kp, vp, table, offs, **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PREFILL_CASES[6:9] + PREFILL_CASES[-3:])
+def test_paged_prefill_bf16_rerun_gives_same_bits(cuda, case):
+    q, kp, vp, table, offs, kw = _prefill_case(case, torch.bfloat16, cuda)
+    got = pa_kernel.paged_prefill(q, kp, vp, table, offs, **kw)
+    for _ in range(3):
+        assert torch.equal(got, pa_kernel.paged_prefill(q, kp, vp, table,
+                                                        offs, **kw))
+
+
+@pytest.mark.gpu
+def test_paged_prefill_bf16_null_pages_never_leak(cuda):
+    """Null entries inside a slot's live range (NaN pages behind them, as
+    in the null block) are masked: the output stays finite and equal to
+    the plain version's, and a slot whose pages are all null is zero."""
+    case = (16, 8, 4, 64, 32, [40, 16, 0], [32, 32, 32], 0.0, 0)
+    q, kp, vp, table, offs, kw = _prefill_case(case, torch.bfloat16, cuda)
+    table[0, 1] = 0                 # a hole before the chunk
+    table[1, 2] = 0                 # a hole inside the chunk
+    table[2] = 0                    # nothing at all
+    got = pa_kernel.paged_prefill(q, kp, vp, table, offs, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert (got[2] == 0).all()
+    _close(got, ref.paged_prefill_ref(q, kp, vp, table, offs, **kw),
+           torch.bfloat16)
 
 
 def _adam8bit_state(rng, n, dtype, dev):
@@ -362,14 +414,17 @@ def _decode_args(rng, m, k, n, delta, dtype, dev):
                                         "qscale")])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", [
-    # (M, K, N, delta): ragged dims, several row blocks, and llama_1b's
-    # decode (M = 4 slots) and prefill (4 slots x bucket 8, 16, 32) rows
+# (M, K, N, delta): ragged dims, several row blocks, and llama_1b's decode
+# (M = 4 slots) and prefill (4 slots x bucket 8, 16, 32) rows
+SPARSE_CASES = [
     (5, 200, 300, 0.05), (1, 136, 520, 0.03), (130, 256, 136, 0.05),
     (4, 2048, 5461, 0.03), (32, 2048, 5461, 0.03), (64, 5461, 2048, 0.03),
-    (128, 2048, 2048, 0.03)])
+    (128, 2048, 2048, 0.03)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", SPARSE_CASES)
 def test_sparse_decode_kernels_match_plain(cuda, case, dtype):
     m, k, n, delta = case
     x, sp, qp = _decode_args(np.random.default_rng(k + n), m, k, n, delta,
@@ -384,6 +439,43 @@ def test_sparse_decode_kernels_match_plain(cuda, case, dtype):
         assert fn.launches == before + 1
         assert got.dtype == dtype and got.shape == (m, n)
         _close(got, plain(x, *args, n), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", ["one", "planned"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", SPARSE_CASES)
+def test_sparse_matmul_kernel_matches_plain_at_each_split(cuda, case, dtype,
+                                                          split):
+    m, k, n, delta = case
+    x, sp, _ = _decode_args(np.random.default_rng(k + n), m, k, n, delta,
+                            dtype, cuda)
+    p = sd_kernel.plan(m, k, n, splits=1 if split == "one" else None)
+    before = sd_kernel.sparse_matmul.launches
+    got = sd_kernel.launch(p, x, *sp, n)
+    torch.cuda.synchronize()
+    assert sd_kernel.sparse_matmul.launches == before + 1
+    _close(got, ref.sparse_matmul_ref(x, *sp, n), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [(4, 2048, 5461, 0.03),
+                                  (32, 5461, 2048, 0.03),
+                                  (130, 256, 136, 0.05)])
+def test_sparse_matmul_rerun_gives_same_bits(cuda, case, dtype):
+    """The split sum adds the partials in split order: reruns give the
+    same bits, and the counters are left at zero for the next launch."""
+    m, k, n, delta = case
+    x, sp, _ = _decode_args(np.random.default_rng(k + n), m, k, n, delta,
+                            dtype, cuda)
+    assert sd_kernel.plan(m, k, n).splits > 1
+    got = sd_kernel.sparse_matmul(x, *sp, n)
+    for _ in range(3):
+        assert torch.equal(got, sd_kernel.sparse_matmul(x, *sp, n))
+    torch.cuda.synchronize()
+    assert all(int(c.abs().sum()) == 0
+               for c in sd_kernel._counters.values())
 
 
 @pytest.mark.gpu
@@ -431,6 +523,13 @@ def test_wrappers_refuse_bad_inputs(cuda):
     tbl = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         pa_kernel.paged_attention(q, pool, pool, tbl, tbl[:, 0], scale=1.0)
+    # the bf16 prefill takes a head_dim that is a multiple of 16 up to 128
+    for hd in (24, 256):
+        qp = torch.zeros((2, 4, 1, 1, hd), dtype=torch.bfloat16,
+                         device=cuda)
+        pp = torch.zeros((3, 16, 1, hd), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            pa_kernel.paged_prefill(qp, pp, pp, tbl, tbl[:, 0], scale=1.0)
     # adam8bit: a wrong code dtype, mismatched block counts, a misaligned p
     p = torch.zeros((2, 256), device=cuda)
     codes = torch.zeros((2, 256), dtype=torch.int8, device=cuda)
@@ -459,3 +558,6 @@ def test_wrappers_refuse_bad_inputs(cuda):
         sd_kernel.quant_sparse_matmul(x, *qp[:3], qp[3][:1], 256)
     with pytest.raises(ValueError, match="rows_q"):
         sd_kernel.quant_sparse_matmul(x, qp[0], qp[1].int(), *qp[2:], 256)
+    # sparse_matmul's launch: a plan for other shapes
+    with pytest.raises(ValueError, match="plan"):
+        sd_kernel.launch(sd_kernel.plan(8, 256, 256), x, *sp, 256)

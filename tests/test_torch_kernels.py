@@ -414,6 +414,31 @@ def test_wrappers_refuse_other_devices():
         pa_kernel.paged_prefill(q[None], q, q, q, q, scale=1.0)
 
 
+@pytest.mark.parametrize("sq, group, hd, want", [
+    # llama_1b's suffix buckets: one warp per 16 rows; at sq 8 the m16
+    # tile's second half is masked
+    (8, 1, 64, (1, 1, 8)), (16, 1, 64, (1, 1, 0)), (32, 1, 64, (2, 1, 0)),
+    # a GQA group shares its K/V stages: all 128 rows in one block
+    (32, 4, 64, (8, 1, 0)), (6, 4, 32, (2, 1, 8)), (1, 1, 16, (1, 1, 15)),
+    # more rows than 8 warps hold take more blocks
+    (64, 4, 128, (8, 2, 0)), (33, 4, 64, (8, 2, 124))])
+def test_paged_prefill_plan(sq, group, hd, want):
+    p = pa_kernel.prefill_plan(sq, group, hd)
+    assert tuple(p) == want
+    rows = sq * group
+    assert p.warps * pa_kernel.TC_ROWS_PER_WARP * p.row_blocks == \
+        rows + p.masked_rows
+    assert p.masked_rows < pa_kernel.TC_ROWS_PER_WARP * p.warps
+
+
+@pytest.mark.parametrize("hd", [8, 24, 100, 144, 256])
+def test_paged_prefill_plan_refuses_head_dims_off_the_mma_path(hd):
+    """bf16 prefill has only the tensor-core kernel: a head_dim that is not
+    a multiple of 16 up to 128 raises instead of falling back."""
+    with pytest.raises(ValueError, match="head_dim"):
+        pa_kernel.prefill_plan(8, 1, hd)
+
+
 def test_sddmm_wrapper_refuses_other_devices():
     meta = torch.empty((2, 128), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

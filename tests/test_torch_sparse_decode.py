@@ -259,6 +259,92 @@ def test_wrappers_refuse_other_devices():
 
 
 # ---------------------------------------------------------------------------
+# sparse_matmul's split of K (the kernel's grid, from the shapes alone)
+# ---------------------------------------------------------------------------
+
+# llama_1b's three projection shapes (d_model 2048, d_ff 5461)
+LLAMA_1B_SHAPES = [(2048, 2048), (2048, 5461), (5461, 2048)]
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, 32, 64, 128, 130, 2048])
+@pytest.mark.parametrize("k, n", LLAMA_1B_SHAPES + [(200, 300), (128, 128)])
+def test_sparse_matmul_plan_covers_each_k_tile_once(m, k, n):
+    """The splits of an n-tile partition its k-tiles: each one is summed
+    by exactly one split, and no split is empty."""
+    p = sd_kernel.plan(m, k, n)
+    nkt = -(-k // 128)
+    spans = [sd_kernel.k_tiles(p, nkt, z) for z in range(p.splits)]
+    assert [kt for span in spans for kt in span] == list(range(nkt))
+    assert all(len(span) >= 1 for span in spans)
+    for splits in range(1, nkt + 1):
+        forced = sd_kernel.plan(m, k, n, splits=splits)
+        spans = [sd_kernel.k_tiles(forced, nkt, z) for z in range(splits)]
+        assert sorted(kt for span in spans for kt in span) == \
+            list(range(nkt))
+
+
+@pytest.mark.parametrize("m", [4, 32, 64, 128])
+@pytest.mark.parametrize("k, n", LLAMA_1B_SHAPES)
+def test_sparse_matmul_plan_fills_the_card_at_engine_rows(m, k, n):
+    """At every row count the engine gives the kernel, the grid reaches
+    two blocks per SM of the H100 (132 SMs) or one split per k-tile, with
+    the fewest splits that do; the f32 partials are splits x M x N x 4
+    bytes and there is one counter per (row block, n-tile)."""
+    p = sd_kernel.plan(m, k, n)
+    nkt, nnt = -(-k // 128), -(-n // 128)
+    target = sd_kernel.BLOCKS_PER_SM * sd_kernel.SMS
+    assert p.blocks >= target or p.splits == nkt
+    assert p.splits == 1 or p.blocks - nnt * p.row_blocks < target
+    assert p.rows_per_block == (4 if m <= 4 else 32)
+    assert p.row_blocks == -(-m // p.rows_per_block)
+    assert p.splits > 1
+    assert p.partial == (p.splits, m, n)
+    assert p.partial_bytes == p.splits * m * n * 4
+    assert p.counters == nnt * p.row_blocks
+
+
+def test_sparse_matmul_plan_at_llama_1b_decode():
+    """The decode batch of 4 rows at 2048 -> 5461: 7 splits of the 16
+    k-tiles over 43 n-tiles (301 blocks, against 43 unsplit), 0.61 MB of
+    partials; at 128 rows the row blocks already give 172 blocks, so 2
+    splits; and on a card with twice the SMs, twice the splits."""
+    p = sd_kernel.plan(4, 2048, 5461)
+    assert (p.splits, p.blocks, p.partial_bytes) == (7, 301, 611_632)
+    assert sd_kernel.plan(128, 2048, 5461).splits == 2
+    assert sd_kernel.plan(4, 2048, 5461, sms=264).splits == 13
+    assert sd_kernel.plan(4, 2048, 2048).splits == 16         # = nkt
+
+
+@pytest.mark.parametrize("m, k, n", [(2048, 2048, 5461), (2048, 5461, 2048),
+                                     (1024, 2048, 2048), (4, 128, 128)])
+def test_sparse_matmul_plan_one_split_when_the_grid_is_full(m, k, n):
+    """Where the row blocks and n-tiles already fill the card (or K is a
+    single k-tile) there is one split and no scratch: each block writes y
+    from its own chain, as the unsplit kernel did."""
+    p = sd_kernel.plan(m, k, n)
+    assert (p.splits, p.partial, p.partial_bytes, p.counters) == \
+        (1, None, 0, 0)
+
+
+def test_sparse_matmul_plan_refuses_bad_splits():
+    with pytest.raises(ValueError, match="splits"):
+        sd_kernel.plan(4, 2048, 5461, splits=0)
+    with pytest.raises(ValueError, match="splits"):
+        sd_kernel.plan(4, 2048, 5461, splits=17)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_sparse_matmul_launch_refuses_non_cuda_tensors(device):
+    """launch(plan, ...) launches the kernel or raises: it never runs the
+    plain version and never hands host memory to the kernel."""
+    x = torch.zeros((4, 256), device=device)
+    consts = [torch.zeros((2, 2, 8), dtype=dt, device=device)
+              for dt in (torch.float32, torch.int32, torch.int32)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        sd_kernel.launch(sd_kernel.plan(4, 256, 256), x, *consts, 256)
+
+
+# ---------------------------------------------------------------------------
 # the SLTrain linear in sparse / quant mode
 # ---------------------------------------------------------------------------
 
