@@ -9,8 +9,12 @@ holds each one against its plain PyTorch version at the real shapes of
 the ported paths (with timings; ``adam8bit`` bit for bit at every leaf
 size the per-layer step updates; ``sl_matmul`` in bfloat16 also against
 its own rerun, bit for bit, with both of its variants timed at the
-engine's row counts; ``sparse_matmul`` and the bfloat16 ``paged_prefill``
-against their own reruns too, with their launch plans printed). Then it
+engine's row counts; ``sddmm`` in bfloat16 against its own rerun too,
+timed beside the bf16 GEMM of xᵀ·dy with f32 output and beside its padded
+operand copies; ``sparse_matmul`` and ``quant_sparse_matmul`` at the
+plan's split count and at 1, 2 and the most splits, each against its own
+rerun; the bfloat16 ``paged_prefill`` against its rerun, with the launch
+plans printed). Then it
 drives the paths on the
 paper's ``llama_1b`` config at full width and depth with random weights
 from a seed:
@@ -110,9 +114,9 @@ EXEC_PATH = {"fused": "serve", "sparse": "serve_sparse",
 # requantize 8 (the block maxima, divisions, roundings, the shift)
 ADAM8BIT_OPS = 28
 # sddmm against its plain version (xᵀ·dy by cuBLAS, then the gather): the
-# kernel sums each slot over tokens in order; a GEMM may split the token
-# sum, and then the absolute error grows with sqrt(M) times the partial
-# sums' ulp
+# kernels sum each slot over tokens in another order than the GEMM (f32:
+# one chain in token order; bf16: the tensor cores' 16-token steps), and
+# the absolute error grows with sqrt(M) times the partial sums' ulp
 SDDMM_ATOL, SDDMM_RTOL = 1e-3, 1e-4
 # f32 train parity, fused vs dense: step 1 runs from identical parameters,
 # so only the order of f32 sums differs (1e-5 relative). From step 2 on,
@@ -351,10 +355,12 @@ def sparse_decode_case(gen, device, d_in, d_out, m, dtype, delta, seed):
 def check_sparse_decode(timer, gen, device, cfg, m_values):
     """sparse_matmul and quant_sparse_matmul against their plain versions
     at every (M, K, N) the llama_1b engine gives them (M: the decode batch
-    and each prefill bucket times the slots), timed beside the plain
-    version and beside torch.matmul on the pre-densified S (in x's dtype;
-    dequantized for the int8 layout), which the port never calls. The
-    bound: each input read and y written once over the memory rate, or
+    and each prefill bucket times the slots), at the plan's split count
+    and forced to 1, 2 and the most (one per k-tile) splits, each also
+    against its own rerun, bit for bit; timed at the plan's beside the
+    plain version and beside torch.matmul on the pre-densified S (in x's
+    dtype; dequantized for the int8 layout), which the port never calls.
+    The bound: each input read and y written once over the memory rate, or
     2·M·nnz operations, the larger."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import sparse_decode as spk
@@ -369,25 +375,33 @@ def check_sparse_decode(timer, gen, device, cfg, m_values):
                 label = f"{m}x{d_in}->{d_out} {dname(dtype)}"
                 p = spk.plan(m, d_in, d_out, torch.cuda.get_device_properties(
                     device).multi_processor_count)
-                say(f"sparse_matmul {label}: {p.splits} splits of "
-                    f"{-(-d_in // 128)} k-tiles, {p.blocks} blocks of "
+                nkt = -(-d_in // 128)
+                forced = sorted({1, min(2, nkt), p.splits, nkt})
+                say(f"sparse_matmul, quant_sparse_matmul {label}: {p.splits} "
+                    f"splits of {nkt} k-tiles, {p.blocks} blocks of "
                     f"{p.rows_per_block} rows, f32 partials "
-                    f"{p.partial_bytes / 1e6:.3f} MB")
-                for name, fn, plain, args, dense in (
-                        ("sparse_matmul", spk.sparse_matmul,
+                    f"{p.partial_bytes / 1e6:.3f} MB; checked at splits "
+                    f"{forced}")
+                for name, fn, launch, plain, args, dense in (
+                        ("sparse_matmul", spk.sparse_matmul, spk.launch,
                          ref.sparse_matmul_ref, sp, ref._tile_dense(*sp)),
                         ("quant_sparse_matmul", spk.quant_sparse_matmul,
-                         ref.quant_sparse_matmul_ref, qp,
+                         spk.quant_launch, ref.quant_sparse_matmul_ref, qp,
                          ref._tile_dense(*qp[:3]) * qp[3].reshape(1, -1))):
                     got = fn(x, *args, d_out)
                     want = plain(x, *args, d_out)
                     torch.cuda.synchronize()
                     err = compare(f"{name} {label}", got, want, dtype)
                     # the split sum adds the partials in a fixed order
-                    if name == "sparse_matmul" and not torch.equal(
-                            got, fn(x, *args, d_out)):
-                        fail(f"{name} {label}: a rerun on the same inputs "
-                             f"gave other bits")
+                    for splits in forced:
+                        fp = spk.plan(m, d_in, d_out, splits=splits)
+                        a = launch(fp, x, *args, d_out)
+                        err = max(err, compare(
+                            f"{name} {label} at {splits} splits", a, want,
+                            dtype))
+                        if not torch.equal(a, launch(fp, x, *args, d_out)):
+                            fail(f"{name} {label} at {splits} splits: a "
+                                 f"rerun on the same inputs gave other bits")
                     S = dense[:d_in, :d_out].to(dtype).contiguous()
                     t_k = timer.ms(lambda: fn(x, *args, d_out))
                     t_p = timer.ms(lambda: plain(x, *args, d_out))
@@ -408,10 +422,34 @@ def check_sparse_decode(timer, gen, device, cfg, m_values):
     return rows
 
 
+def sddmm_library_call(x, dy, gr, gc):
+    """The yardstick for sddmm: one PyTorch call of G = xᵀ·dy on x's own
+    dtype, then the gather at the slots. In bf16 the tensor cores' GEMM
+    with f32 output (``torch.mm(..., out_dtype=f32)``) where the card's
+    torch has it, else the bf16 GEMM widened to f32 (rounded through
+    bf16, so not the same function); f32 the f32 GEMM. Returns (fn, its
+    name)."""
+    if x.dtype == torch.float32:
+        return (lambda: torch.matmul(x.T, dy)[gr, gc]), "torch.matmul f32"
+    try:
+        torch.mm(x[:1].T, dy[:1], out_dtype=torch.float32)
+        return ((lambda: torch.mm(x.T, dy, out_dtype=torch.float32)[gr, gc]),
+                "torch.mm bf16, out_dtype f32")
+    except (TypeError, RuntimeError, NotImplementedError):
+        return ((lambda: torch.matmul(x.T, dy).float()[gr, gc]),
+                "torch.matmul bf16 (bf16-rounded), then float")
+
+
 def time_sddmm(timer, label, x, dy, rt, ct, dtype):
-    """One sddmm case against its plain version, timed beside it and
-    beside torch.matmul(xᵀ, dy) in f32 plus the gather; its bound counts
-    2·M·(nkt·nnt·cap) operations (one multiply-add per slot and token)."""
+    """One sddmm case against its plain version (in bf16 also against its
+    own rerun, bit for bit), timed beside it, beside one library call of
+    xᵀ·dy plus the gather (and, in bf16, beside the f32 GEMM of the
+    upcast operands), and beside the padded operand copies where the plan
+    makes them. Its bound counts 2·M·(nkt·nnt·cap) operations (one
+    multiply-add per slot and token); the bf16 design's own floor is the
+    dense G tiles, 2·M·(nkt·128)·(nnt·128), at the bf16 peak (the f32
+    kernel samples, so its floor is the bound)."""
+    from repro_torch.core.support import TILE
     from repro_torch.kernels import ref
     from repro_torch.kernels import sddmm as sdk
     got = sdk.sddmm(x, dy, rt, ct)
@@ -425,21 +463,46 @@ def time_sddmm(timer, label, x, dy, rt, ct, dtype):
              f"abs err {err.max().item():.3e}, tolerance atol {atol} rtol "
              f"{rtol}")
     err = float(err.max().item())
+    if dtype == torch.bfloat16 and not torch.equal(got,
+                                                   sdk.sddmm(x, dy, rt, ct)):
+        fail(f"sddmm {label}: a rerun on the same inputs gave other bits")
+    (m, k), n = x.shape, dy.shape[1]
     nkt, nnt, cap = rt.shape
+    plan = sdk.plan(m, k, n, dtype)
     gr, gc = ref._tile_coords(rt, ct)
-    xf, dyf = x.float(), dy.float()
+    lib_fn, lib_name = sddmm_library_call(x, dy, gr, gc)
     t_k = timer.ms(lambda: sdk.sddmm(x, dy, rt, ct))
     t_p = timer.ms(lambda: ref.sddmm_ref(x, dy, rt, ct))
-    t_l = timer.ms(lambda: torch.matmul(xf.T, dyf)[gr, gc])
-    ops_ = 2.0 * x.shape[0] * nkt * nnt * cap
+    t_l = timer.ms(lib_fn)
+    ops_ = 2.0 * m * nkt * nnt * cap
     b, by = bound_ms(nbytes(x, dy, rt, ct, got), ops_, dtype)
-    say(f"kernel sddmm {label}: max_abs_err {err:.3e} (atol {atol} rtol "
-        f"{rtol}) | kernel {t_k:.4f} ms, plain {t_p:.4f} ms, torch.matmul "
-        f"f32 + gather {t_l:.4f} ms, bound {b:.4f} ms ({by}, "
-        f"{ops_ / 1e9:.2f} GFLOP)")
-    return dict(name="sddmm", shape=label, max_abs_err=err, tol=atol,
-                ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b,
-                bound_by=by)
+    row = dict(name="sddmm", shape=label, max_abs_err=err, tol=atol,
+               ms=t_k, plain_ms=t_p, library_ms=t_l, library_call=lib_name,
+               bound_ms=b, bound_by=by, variant=plan.variant)
+    extra = floor = ""
+    if dtype == torch.bfloat16:
+        dense_ops = 2.0 * m * nkt * TILE * nnt * TILE
+        row["design_floor_ms"] = dense_ops / PEAK_OPS[dtype] * 1e3
+        floor = (f", design floor {row['design_floor_ms']:.4f} ms (dense G "
+                 f"tiles, {dense_ops / 1e9:.2f} GFLOP)")
+        xf, dyf = x.float(), dy.float()
+        row["library_f32_ms"] = timer.ms(lambda: torch.matmul(xf.T, dyf)[
+            gr, gc])
+        extra += (f", torch.matmul f32 of the upcast operands + gather "
+                  f"{row['library_f32_ms']:.4f} ms")
+        del xf, dyf
+    pads = [nm for nm, shape in (("x", plan.x_pad), ("dy", plan.dy_pad))
+            if shape]
+    pad = ""
+    if pads:
+        row["pad_ms"] = timer.ms(lambda: sdk.pad_operands(plan, x, dy))
+        pad = (f", of which padded copies of {'/'.join(pads)} "
+               f"{row['pad_ms']:.4f} ms")
+    say(f"kernel sddmm {label} ({plan.variant}): max_abs_err {err:.3e} "
+        f"(atol {atol} rtol {rtol}) | kernel {t_k:.4f} ms{pad}, plain "
+        f"{t_p:.4f} ms, {lib_name} + gather {t_l:.4f} ms{extra}, bound "
+        f"{b:.4f} ms ({by}, {ops_ / 1e9:.2f} GFLOP){floor}")
+    return row
 
 
 def check_train_kernels(timer, gen, device, cfg, m):
@@ -1684,7 +1747,9 @@ def kernels_line(rows, by_path, representative):
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"], "shape": shape,
             "cases": len(mine),
-            **{k: rep[k] for k in ("variant", "pad_ms") if k in rep}})
+            **{k: rep[k] for k in ("variant", "pad_ms", "design_floor_ms",
+                                   "library_call", "library_f32_ms")
+               if k in rep}})
     return {"kernels": out}
 
 

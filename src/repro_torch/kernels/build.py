@@ -6,8 +6,9 @@ own with ``nvcc`` for ``sm_90a`` into a shared library under
 Nothing is built at import time: a kernel's wrapper calls
 :func:`library` when it first launches, and :func:`build` compiles any
 number of sources at once, one ``nvcc`` process each, all started
-together. A library's file name carries a digest of its source and
-flags, so an edited source is rebuilt and a stale build is never loaded.
+together. A library's file name carries a digest of its source, the
+shared headers beside it (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale build is never loaded.
 The compiler's report (``-Xptxas -v``: registers, shared memory, spills)
 is kept beside each library as ``<name>-<digest>.log``.
 """
@@ -54,6 +55,8 @@ def nvcc_path() -> str:
 
 def _digest(name: str) -> str:
     h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

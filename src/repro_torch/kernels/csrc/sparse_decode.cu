@@ -32,25 +32,27 @@
 // block's chain of k-tiles: each k-tile is a dependent HBM load of its
 // slots, a scatter, a contraction and a clean-up, each behind a barrier.
 //
-// Both kernels scatter each k-tile of S into a 128x128 f32 tile in shared
-// memory (64 KB) and contract it with the staged rows of x. Real entries
+// The kernel scatters each k-tile of S into a 128x128 f32 tile in shared
+// memory (64 KB) and contracts it with the staged rows of x. Real entries
 // are unique; padding slots all land on (0, 0), possibly on a real entry,
 // so the scatter uses shared atomicAdd, and adding 0 changes nothing.
 // After the contraction each thread writes 0 back at its slots, so the
 // tile is all zero again without clearing all 16K cells per k-tile. K and
 // N need not be multiples of 128 (llama_1b d_ff = 5461): x's loads are
 // bounds-checked and y's stores masked, so nothing is padded or copied. Up
-// to 8 rows one block covers all of x; above that blocks of 32 rows cover
-// the prefill's 32, 64, 128 rows; sparse_matmul also has blocks of 4 rows
-// for up to 4, the engine's decode batch.
+// to 4 rows (the engine's decode batch) or 8 rows one block covers all of
+// x; above that blocks of 32 rows cover the prefill's 32, 64, 128 rows.
 //
-// sparse_matmul (sparse_split_kernel) fills the card by splitting K: the
-// grid is (n-tiles, row blocks, splits), and block z walks the k-tiles
-// [z * nkt / splits, (z + 1) * nkt / splits) of its n-tile. The wrapper's
-// plan (kernels/sparse_decode.py::plan) picks the fewest splits that put
-// about two blocks on every SM, at most one per k-tile: 301 blocks of 2-3
-// k-tiles at decode 2048 -> 5461 instead of 43 blocks of 16; one split
-// where the row blocks already fill the grid. Inside a block:
+// Both kernels run sparse_split_kernel, one template over the source of
+// the values and the index type (F32Values with int32 indices for
+// sparse_matmul, Int8Values with int16 indices for quant_sparse_matmul).
+// It fills the card by splitting K: the grid is (n-tiles, row blocks,
+// splits), and block z walks the k-tiles [z * nkt / splits, (z + 1) * nkt
+// / splits) of its n-tile. The wrapper's plan (kernels/sparse_decode.py::
+// plan) picks the fewest splits that put about two blocks on every SM, at
+// most one per k-tile: 301 blocks of 2-3 k-tiles at decode 2048 -> 5461
+// instead of 43 blocks of 16; one split where the row blocks already fill
+// the grid. Inside a block:
 // * a block fetches its next k-tile's slots and x's rows into registers
 //   while it contracts the current one, so only the first k-tile waits on
 //   HBM, and skips the padding slots' zero values in the scatter (~200 of
@@ -70,10 +72,6 @@
 // launch. No float atomics touch device memory, so a rerun gives the same
 // bits; only the order of the k sum differs from the reference's. With
 // one split the block writes y from its sum directly.
-//
-// quant_sparse_matmul (sparse_decode_kernel, Int8Values) keeps the first
-// version's body: one block per (n-tile, row block) walks all k-tiles in
-// order, one fmaf chain per output.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -120,13 +118,31 @@ struct OncePerDevice {
   }
 };
 
-template <int RPT>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (TILE * TILE + 2 * RPT * TILE);
-}
+// ---------------------------------------------------------------------------
+// the values of S: slot e (global slot index) in column c of n-tile nt
+// ---------------------------------------------------------------------------
+
+// sparse_matmul: f32 values as they are
+struct F32Values {
+  const float* __restrict__ v;
+  __device__ __forceinline__ float operator()(size_t e, int, int) const {
+    return v[e];
+  }
+};
+
+// quant_sparse_matmul: the int8 code times its column's scale, one f32
+// multiply
+struct Int8Values {
+  const int8_t* __restrict__ q;
+  const float* __restrict__ scale;     // (nnt, TILE)
+  __device__ __forceinline__ float operator()(size_t e, int nt,
+                                              int c) const {
+    return __fmul_rn(static_cast<float>(q[e]), scale[nt * TILE + c]);
+  }
+};
 
 // ---------------------------------------------------------------------------
-// sparse_matmul: split K, ordered sum of the partials
+// split K, ordered sum of the partials
 // ---------------------------------------------------------------------------
 
 // One (n-tile, row block, split): block z sums the k-tiles [kt0, kt1) of
@@ -136,11 +152,11 @@ constexpr size_t smem_bytes() {
 // two halves added (h = 0 first) at the end. With gridDim.z > 1 the block
 // writes that sum to partial[z], and the last block of the (n-tile, row
 // block) adds partial[0..splits) in order into y.
-template <typename T, int R>
+template <typename T, typename I, typename Values, int R>
 __global__ void __launch_bounds__(THREADS)
-sparse_split_kernel(const T* __restrict__ x, const float* __restrict__ v_t,
-                    const int* __restrict__ rows_t,
-                    const int* __restrict__ cols_t, T* __restrict__ y,
+sparse_split_kernel(const T* __restrict__ x, Values values,
+                    const I* __restrict__ rows_t,
+                    const I* __restrict__ cols_t, T* __restrict__ y,
                     float* __restrict__ partial, int* __restrict__ counter,
                     int M, int K, int N, int nkt, int nnt, int cap) {
   constexpr int XR = R * TILE / THREADS;  // x values a thread stages
@@ -172,8 +188,9 @@ sparse_split_kernel(const T* __restrict__ x, const float* __restrict__ v_t,
       cell[i] = -1;
       val[i] = 0.f;
       if (e < cap) {
-        cell[i] = rows_t[tb + e] * TILE + cols_t[tb + e];
-        val[i] = v_t[tb + e];
+        const int cc = cols_t[tb + e];
+        cell[i] = (int)rows_t[tb + e] * TILE + cc;
+        val[i] = values(tb + e, nt, cc);
       }
     }
 #pragma unroll
@@ -206,9 +223,9 @@ sparse_split_kernel(const T* __restrict__ x, const float* __restrict__ v_t,
       if (val[i] != 0.f) atomicAdd(&St[cell[i]], val[i]);
     }
     for (int e = PREF * THREADS + tid; e < cap; e += THREADS) {
-      const float v = v_t[tb + e];
-      if (v != 0.f)
-        atomicAdd(&St[rows_t[tb + e] * TILE + cols_t[tb + e]], v);
+      const int cc = cols_t[tb + e];
+      const float v = values(tb + e, nt, cc);
+      if (v != 0.f) atomicAdd(&St[(int)rows_t[tb + e] * TILE + cc], v);
     }
     if (kt + 1 < kt1) fetch(kt + 1);   // in flight during the contraction
     __syncthreads();
@@ -235,7 +252,7 @@ sparse_split_kernel(const T* __restrict__ x, const float* __restrict__ v_t,
     for (int i = 0; i < PREF; ++i)
       if (mine[i] >= 0) St[mine[i]] = 0.f;
     for (int e = PREF * THREADS + tid; e < cap; e += THREADS)
-      St[rows_t[tb + e] * TILE + cols_t[tb + e]] = 0.f;
+      St[(int)rows_t[tb + e] * TILE + cols_t[tb + e]] = 0.f;
     // the next iteration's first barrier orders these stores before its
     // scatter
   }
@@ -292,160 +309,65 @@ sparse_split_kernel(const T* __restrict__ x, const float* __restrict__ v_t,
   }
 }
 
-template <typename T, int R>
-cudaError_t launch_split(const void* x, const float* v_t, const int* rows_t,
-                         const int* cols_t, void* y, float* partial,
+template <typename T, typename I, typename Values, int R>
+cudaError_t launch_split(const void* x, Values values, const I* rows_t,
+                         const I* cols_t, void* y, float* partial,
                          int* counter, int M, int K, int N, int nkt, int nnt,
                          int cap, int splits, cudaStream_t stream) {
   static OncePerDevice smem_attr;
   constexpr size_t smem = sizeof(float) * (TILE * TILE + R * TILE);
   cudaError_t err = smem_attr([] {
-    return cudaFuncSetAttribute(sparse_split_kernel<T, R>,
+    return cudaFuncSetAttribute(sparse_split_kernel<T, I, Values, R>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)smem);
   });
   if (err != cudaSuccess) return err;
   const dim3 grid(nnt, (M + R - 1) / R, splits);
-  sparse_split_kernel<T, R><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), v_t, rows_t, cols_t, static_cast<T*>(y),
+  sparse_split_kernel<T, I, Values, R><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(x), values, rows_t, cols_t, static_cast<T*>(y),
       partial, counter, M, K, N, nkt, nnt, cap);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_split_rows(const void* x, const float* v_t,
-                              const int* rows_t, const int* cols_t, void* y,
-                              float* partial, int* counter, int M, int K,
-                              int N, int nkt, int nnt, int cap,
-                              int rows_per_block, int splits,
-                              cudaStream_t stream) {
+template <typename T, typename I, typename Values>
+cudaError_t launch_split_rows(const void* x, Values values, const I* rows_t,
+                              const I* cols_t, void* y, float* partial,
+                              int* counter, int M, int K, int N, int nkt,
+                              int nnt, int cap, int rows_per_block,
+                              int splits, cudaStream_t stream) {
   if (splits < 1 || splits > (nkt > 0 ? nkt : 1) ||
       (splits > 1 && (partial == nullptr || counter == nullptr)))
     return cudaErrorInvalidValue;
   if (rows_per_block == 4)
-    return launch_split<T, 4>(x, v_t, rows_t, cols_t, y, partial, counter,
-                              M, K, N, nkt, nnt, cap, splits, stream);
+    return launch_split<T, I, Values, 4>(x, values, rows_t, cols_t, y,
+                                         partial, counter, M, K, N, nkt,
+                                         nnt, cap, splits, stream);
   if (rows_per_block == 8)
-    return launch_split<T, 8>(x, v_t, rows_t, cols_t, y, partial, counter,
-                              M, K, N, nkt, nnt, cap, splits, stream);
+    return launch_split<T, I, Values, 8>(x, values, rows_t, cols_t, y,
+                                         partial, counter, M, K, N, nkt,
+                                         nnt, cap, splits, stream);
   if (rows_per_block == 32)
-    return launch_split<T, 32>(x, v_t, rows_t, cols_t, y, partial, counter,
-                               M, K, N, nkt, nnt, cap, splits, stream);
+    return launch_split<T, I, Values, 32>(x, values, rows_t, cols_t, y,
+                                          partial, counter, M, K, N, nkt,
+                                          nnt, cap, splits, stream);
   return cudaErrorInvalidValue;
 }
 
-// ---------------------------------------------------------------------------
-// quant_sparse_matmul: the first version's body, one block per n-tile
-// ---------------------------------------------------------------------------
-
-// The value of slot e (global slot index) in column c of n-tile nt.
-struct Int8Values {
-  const int8_t* __restrict__ q;
-  const float* __restrict__ scale;     // (nnt, TILE)
-  __device__ __forceinline__ float operator()(size_t e, int nt,
-                                              int c) const {
-    return __fmul_rn(static_cast<float>(q[e]), scale[nt * TILE + c]);
-  }
-};
-
-// One (n-tile, row block of x): y[m0 + m, n0 + c] = sum over k of
-// x[m0 + m, k] * S[k, n0 + c]. RPT = rows of x per thread; a block covers
-// 2 * RPT rows, thread t owns column t % 128 and rows t / 128 + 2i.
-template <typename T, typename I, typename Values, int RPT>
-__global__ void __launch_bounds__(THREADS)
-sparse_decode_kernel(const T* __restrict__ x, Values values,
-                     const I* __restrict__ rows_t,
-                     const I* __restrict__ cols_t, T* __restrict__ y, int M,
-                     int K, int N, int nkt, int nnt, int cap) {
-  extern __shared__ float smem[];
-  float* St = smem;                       // [TILE][TILE] k-tile of S
-  float* xs = St + TILE * TILE;           // [2 * RPT][TILE] rows of x
-
-  const int nt = blockIdx.x;
-  const int n0 = nt * TILE;
-  const int m0 = blockIdx.y * (2 * RPT);
-  const int tid = threadIdx.x;
-  const int nrows = min(2 * RPT, M - m0);
-  const int c = tid % TILE, rg = tid / TILE;
-
-  float4* St4 = reinterpret_cast<float4*>(St);
-  for (int e = tid; e < TILE * TILE / 4; e += THREADS)
-    St4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  float o[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) o[i] = 0.f;
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * TILE;
-    for (int e = tid; e < nrows * TILE; e += THREADS) {
-      const int m = e / TILE, kk = e % TILE;
-      xs[m * TILE + kk] =
-          (k0 + kk < K) ? to_f(x[(size_t)(m0 + m) * K + k0 + kk]) : 0.f;
-    }
-    __syncthreads();            // the tile is zero, x's rows are staged
-
-    const size_t tbase = ((size_t)kt * nnt + nt) * (size_t)cap;
-    for (int e = tid; e < cap; e += THREADS) {
-      const int cc = cols_t[tbase + e];
-      atomicAdd(&St[(int)rows_t[tbase + e] * TILE + cc],
-                values(tbase + e, nt, cc));
-    }
-    __syncthreads();
-
-    for (int kk = 0; kk < TILE; ++kk) {
-      const float w = St[kk * TILE + c];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int m = rg + 2 * i;
-        if (m < nrows) o[i] = fmaf(xs[m * TILE + kk], w, o[i]);
-      }
-    }
-    __syncthreads();            // every thread is done reading the tile
-
-    for (int e = tid; e < cap; e += THREADS)
-      St[(int)rows_t[tbase + e] * TILE + cols_t[tbase + e]] = 0.f;
-    // the next iteration's first barrier orders these stores before its
-    // scatter
-  }
-
-  if (n0 + c < N) {
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int m = rg + 2 * i;
-      if (m < nrows) y[(size_t)(m0 + m) * N + n0 + c] = from_f<T>(o[i]);
-    }
-  }
-}
-
-template <typename T, typename I, typename Values, int RPT>
-cudaError_t launch_rpt(const void* x, Values values, const I* rows_t,
-                       const I* cols_t, void* y, int M, int K, int N,
-                       int nkt, int nnt, int cap, cudaStream_t stream) {
-  static OncePerDevice smem_attr;
-  constexpr size_t smem = smem_bytes<RPT>();
-  cudaError_t err = smem_attr([] {
-    return cudaFuncSetAttribute(sparse_decode_kernel<T, I, Values, RPT>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem);
-  });
-  if (err != cudaSuccess) return err;
-  const dim3 grid(nnt, (M + 2 * RPT - 1) / (2 * RPT), 1);
-  sparse_decode_kernel<T, I, Values, RPT><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), values, rows_t, cols_t, static_cast<T*>(y),
-      M, K, N, nkt, nnt, cap);
-  return cudaGetLastError();
-}
-
-template <typename T, typename I, typename Values>
-cudaError_t launch(const void* x, Values values, const I* rows_t,
-                   const I* cols_t, void* y, int M, int K, int N, int nkt,
-                   int nnt, int cap, cudaStream_t stream) {
-  if (M <= 8)
-    return launch_rpt<T, I, Values, 4>(x, values, rows_t, cols_t, y, M, K,
-                                       N, nkt, nnt, cap, stream);
-  return launch_rpt<T, I, Values, 16>(x, values, rows_t, cols_t, y, M, K, N,
-                                      nkt, nnt, cap, stream);
+// dtype: 0 = float32, 1 = bf16
+template <typename I, typename Values>
+cudaError_t launch_dtype(int dtype, const void* x, Values values,
+                         const I* rows_t, const I* cols_t, void* y,
+                         float* partial, int* counter, int M, int K, int N,
+                         int nkt, int nnt, int cap, int rows_per_block,
+                         int splits, cudaStream_t stream) {
+  if (dtype == 1)
+    return launch_split_rows<__nv_bfloat16>(x, values, rows_t, cols_t, y,
+                                            partial, counter, M, K, N, nkt,
+                                            nnt, cap, rows_per_block, splits,
+                                            stream);
+  return launch_split_rows<float>(x, values, rows_t, cols_t, y, partial,
+                                  counter, M, K, N, nkt, nnt, cap,
+                                  rows_per_block, splits, stream);
 }
 
 }  // namespace
@@ -453,37 +375,31 @@ cudaError_t launch(const void* x, Values values, const I* rows_t,
 // Plain C entry points (bound with ctypes). dtype: 0 = float32, 1 = bf16.
 // Each returns the cudaError_t of its launch (0 = success).
 //
-// sparse_matmul: rows_per_block 4, 8 or 32 and splits (1 .. nkt) from the
-// wrapper's plan; with splits > 1, partial is f32 (splits, M, N) scratch
-// and counter holds nnt * ceil(M / rows_per_block) int32 zeros, which the
-// kernel leaves at zero.
+// rows_per_block 4, 8 or 32 and splits (1 .. nkt) come from the wrapper's
+// plan; with splits > 1, partial is f32 (splits, M, N) scratch and counter
+// holds nnt * ceil(M / rows_per_block) int32 zeros, which the kernel
+// leaves at zero.
 extern "C" int sparse_matmul_launch(const void* x, const float* v_t,
                                     const int* rows_t, const int* cols_t,
                                     void* y, float* partial, int* counter,
                                     int M, int K, int N, int nkt, int nnt,
                                     int cap, int rows_per_block, int splits,
                                     int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)launch_split_rows<__nv_bfloat16>(
-        x, v_t, rows_t, cols_t, y, partial, counter, M, K, N, nkt, nnt, cap,
-        rows_per_block, splits, s);
-  return (int)launch_split_rows<float>(x, v_t, rows_t, cols_t, y, partial,
-                                       counter, M, K, N, nkt, nnt, cap,
-                                       rows_per_block, splits, s);
+  return (int)launch_dtype(dtype, x, F32Values{v_t}, rows_t, cols_t, y,
+                           partial, counter, M, K, N, nkt, nnt, cap,
+                           rows_per_block, splits,
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int quant_sparse_matmul_launch(
     const void* x, const int8_t* qv_t, const int16_t* rows_q,
-    const int16_t* cols_q, const float* qscale, void* y, int M, int K, int N,
-    int nkt, int nnt, int cap, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Int8Values values{qv_t, qscale};
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, values, rows_q, cols_q, y, M, K, N,
-                                      nkt, nnt, cap, s);
-  return (int)launch<float>(x, values, rows_q, cols_q, y, M, K, N, nkt, nnt,
-                            cap, s);
+    const int16_t* cols_q, const float* qscale, void* y, float* partial,
+    int* counter, int M, int K, int N, int nkt, int nnt, int cap,
+    int rows_per_block, int splits, int dtype, void* stream) {
+  return (int)launch_dtype(dtype, x, Int8Values{qv_t, qscale}, rows_q,
+                           cols_q, y, partial, counter, M, K, N, nkt, nnt,
+                           cap, rows_per_block, splits,
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* kernel_error_string(int err) {

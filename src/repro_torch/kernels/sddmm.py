@@ -2,30 +2,58 @@
 support, the dV half of the fused linear's backward.
 
 Replaces the Pallas TPU kernel ``repro/kernels/sddmm.py::sddmm`` with the
-CUDA kernel in ``csrc/sddmm.cu`` (its header says what bounds it on the
-H100 and how the design meets that). A tensor on the CPU runs the plain
-version (:func:`repro_torch.kernels.ref.sddmm_ref`); a CUDA tensor
-launches the kernel or raises, never falls back.
+CUDA kernels in ``csrc/sddmm.cu`` (its header says what bounds them on the
+H100 and how the design meets that): bf16 forms whole G tiles on the
+tensor cores and gathers the slots, f32 samples the slots on the CUDA
+cores. A tensor on the CPU runs the plain version
+(:func:`repro_torch.kernels.ref.sddmm_ref`); a CUDA tensor launches the
+kernel or raises, never falls back.
+
+:func:`plan` says, from the shapes alone, which bf16 operand the wrapper
+copies with padded rows first (a width that is not a multiple of 8:
+llama_1b's d_ff = 5461), as ``sl_matmul`` does.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core.support import TILE
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import sl_matmul as sl_kernel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+class Plan(NamedTuple):
+    """A call's kernel (``"f32"``: sampled on the CUDA cores;
+    ``"tensor_core"``: whole bf16 G tiles) and the shapes of the bf16
+    copies of x (M, K) and dy (M, N) padded with zeros to a multiple of 8
+    columns; None where the operand is read as it is."""
+    variant: str
+    x_pad: Optional[Tuple[int, int]]
+    dy_pad: Optional[Tuple[int, int]]
+
+
+def plan(m: int, k: int, n: int, dtype) -> Plan:
+    """The kernel and padded copies for x (m, k) and dy (m, n) in
+    ``dtype``. The bf16 kernel loads both operands 16 bytes at a time, so
+    one whose rows are not a multiple of 8 elements is copied first; the
+    wrapper also copies one whose base is not 16-byte aligned."""
+    if dtype == torch.float32:
+        return Plan("f32", None, None)
+    return Plan("tensor_core", sl_kernel.pad8(m, k), sl_kernel.pad8(m, n))
+
+
 def _lib():
     lib = build.library("sddmm")
     fn = lib.sddmm_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 7 + [_P]
+        fn.argtypes = [_P] * 5 + [_I] * 9 + [_P]
         fn.restype = _I
     return lib
 
@@ -54,6 +82,14 @@ def _check(x, dy, rows_t, cols_t):
             raise ValueError(f"sddmm: {name} must be contiguous")
 
 
+def pad_operands(p: Plan, x, dy):
+    """x and dy as the bf16 kernel of plan ``p`` reads them: each one that
+    ``p`` pads (or whose base is not 16-byte aligned) copied with
+    zero-padded rows by ``sl_pad_rows`` on the current stream, the other
+    as it is."""
+    return sl_kernel.pad_rows(x, p.x_pad), sl_kernel.pad_rows(dy, p.dy_pad)
+
+
 def sddmm(x, dy, rows_t, cols_t):
     """dv_t (ceil(K/128), ceil(N/128), cap) f32 for x (M, K) and dy (M, N)
     of one dtype: G = xᵀ·dy at every slot of the tile-CSR support
@@ -71,13 +107,17 @@ def sddmm(x, dy, rows_t, cols_t):
     if m == 0:
         return torch.zeros((nkt, nnt, cap), dtype=torch.float32,
                            device=x.device)
+    p = plan(m, k, n, x.dtype)
+    if p.variant != "f32":
+        x, dy = pad_operands(p, x, dy)
     out = torch.empty((nkt, nnt, cap), dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.sddmm_launch(x.data_ptr(), dy.data_ptr(), rows_t.data_ptr(),
                                cols_t.data_ptr(), out.data_ptr(), m, k, n,
-                               nkt, nnt, cap, _DTYPES[x.dtype], stream)
+                               nkt, nnt, cap, x.shape[1], dy.shape[1],
+                               _DTYPES[x.dtype], stream)
     build.check(lib, err, "sddmm")
     sddmm.launches += 1
     return out

@@ -45,7 +45,9 @@ class Plan(NamedTuple):
     a_pad: Optional[Tuple[int, int]]
 
 
-def _pad8(rows: int, cols: int):
+def pad8(rows: int, cols: int):
+    """(rows, cols rounded up to a multiple of 8), or None where cols
+    already is one: the shape of an operand's padded bf16 copy."""
     c8 = -(-cols // 8) * 8
     return (rows, c8) if c8 != cols else None
 
@@ -60,7 +62,7 @@ def plan(m: int, k: int, n: int, r: int, dtype,
     nkt, nnt = -(-k // TILE), -(-n // TILE)
     if dtype == torch.float32:
         return Plan("f32", (nkt, m, n), None, None, None, None)
-    pads = (_pad8(m, k), _pad8(k, r), _pad8(r, n))
+    pads = (pad8(m, k), pad8(k, r), pad8(r, n))
     if m <= min(small_m_max, SMALL_M_MAX):
         return Plan("single_pass", (nkt, m, n), None, *pads)
     return Plan("two_stage", None, (nnt * TILE, nkt * TILE), *pads)
@@ -129,16 +131,25 @@ def _cuda_only(x):
         raise ValueError(f"sl_matmul: unsupported device {x.device}")
 
 
+def pad_rows(t, shape):
+    """The bf16 CUDA tensor ``t`` as a kernel that loads 16 bytes at a
+    time reads it: ``t`` itself where ``shape`` is None and its base is
+    16-byte aligned, else a copy of ``shape`` (or of t's own shape) with
+    zero-padded rows, made by the library's pad kernel on the current
+    stream."""
+    _cuda_only(t)
+    lib = _lib()
+    with torch.cuda.device(t.device):
+        return _padded(lib, torch.cuda.current_stream(t.device).cuda_stream,
+                       t, shape)
+
+
 def pad_operands(p: Plan, x, B, A):
     """x, B and A as the bf16 variants of plan ``p`` read them: each one
     that ``p`` pads (or whose base is not 16-byte aligned) copied with
     zero-padded rows on the current stream, the others as they are."""
-    _cuda_only(x)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        return tuple(_padded(lib, stream, t, shape) for t, shape in
-                     ((x, p.x_pad), (B, p.b_pad), (A, p.a_pad)))
+    return tuple(pad_rows(t, shape) for t, shape in
+                 ((x, p.x_pad), (B, p.b_pad), (A, p.a_pad)))
 
 
 def sl_matmul(x, B, A, v_t, rows_t, cols_t, scale: float):

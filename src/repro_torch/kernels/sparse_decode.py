@@ -11,9 +11,10 @@ how the design meets that). A tensor on the CPU runs the plain version
 launches the kernel or raises, never falls back. Each wrapper counts its
 launches in ``.launches``.
 
-``sparse_matmul`` splits the k-tiles of each n-tile across blocks:
-:func:`plan` picks the split count and the scratch it needs from the
-shapes and the card's SM count alone, and :func:`launch` runs a plan.
+Both kernels split the k-tiles of each n-tile across blocks: :func:`plan`
+picks the split count and the scratch it needs from the shapes and the
+card's SM count alone, and :func:`launch` (``sparse_matmul``) and
+:func:`quant_launch` (``quant_sparse_matmul``) run a plan.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ BLOCKS_PER_SM = 2
 
 
 class Plan(NamedTuple):
-    """A ``sparse_matmul`` call's grid and scratch: blocks of
+    """A ``sparse_matmul`` or ``quant_sparse_matmul`` call's grid and
+    scratch: blocks of
     ``rows_per_block`` rows of x (4 up to 4 rows, 8 up to 8, else 32),
     ``row_blocks`` of them per n-tile, ``splits`` blocks sharing each
     n-tile's k-tiles; with more than one split, the f32 partials (splits,
@@ -79,7 +81,7 @@ def plan(m: int, k: int, n: int, sms: int = SMS,
         want = -(-BLOCKS_PER_SM * sms // max(1, nnt * row_blocks))
         splits = max(1, min(nkt, want))
     elif not 1 <= splits <= max(1, nkt):
-        raise ValueError(f"sparse_matmul: splits {splits} not in 1.."
+        raise ValueError(f"sparse decode: splits {splits} not in 1.."
                          f"{max(1, nkt)}")
     many = splits > 1
     return Plan(rows, row_blocks, nnt, splits,
@@ -92,7 +94,7 @@ def _lib():
     if lib.sparse_matmul_launch.argtypes is None:
         lib.sparse_matmul_launch.argtypes = [_P] * 7 + [_I] * 9 + [_P]
         lib.sparse_matmul_launch.restype = _I
-        lib.quant_sparse_matmul_launch.argtypes = [_P] * 6 + [_I] * 7 + [_P]
+        lib.quant_sparse_matmul_launch.argtypes = [_P] * 8 + [_I] * 9 + [_P]
         lib.quant_sparse_matmul_launch.restype = _I
     return lib
 
@@ -136,21 +138,8 @@ def _check(what, x, n, tiles):
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
-def _launch(lib, fn, what, x, n, ptrs, cap, after_y=(), ints=()):
-    """Launch ``fn`` on x (M, K) into a new (M, n) output; raise if the
-    launch returned a CUDA error. ``ptrs`` go before y's pointer,
-    ``after_y`` after it, ``ints`` after the shapes."""
-    m, k = x.shape
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if m == 0 or n == 0:
-        return y
-    nkt, nnt = -(-k // TILE), -(-n // TILE)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), *ptrs, y.data_ptr(), *after_y, m, k, n, nkt,
-                 nnt, cap, *ints, _DTYPES[x.dtype], stream)
-    build.check(lib, err, what)
-    return y
+def _sms(x) -> int:
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
 def sparse_matmul(x, v_t, rows_t, cols_t, n: int):
@@ -161,22 +150,18 @@ def sparse_matmul(x, v_t, rows_t, cols_t, n: int):
     if x.device.type == "cpu":
         return ref.sparse_matmul_ref(x, v_t, rows_t, cols_t, n)
     _check_sparse(x, v_t, rows_t, cols_t, n)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return _run(plan(x.shape[0], x.shape[1], n, sms), x, v_t, rows_t,
-                cols_t, n)
+    return _run(plan(x.shape[0], x.shape[1], n, _sms(x)), sparse_matmul, x,
+                (v_t, rows_t, cols_t), n)
 
 
 def launch(p: Plan, x, v_t, rows_t, cols_t, n: int):
-    """The kernel on plan ``p`` for CUDA operands that
+    """The ``sparse_matmul`` kernel on plan ``p`` for CUDA operands that
     :func:`sparse_matmul` accepts; it counts one launch.
     :func:`sparse_matmul` runs the plan of the shapes; a caller that times
     or tests a split count passes ``plan(..., splits=s)``."""
     _check_sparse(x, v_t, rows_t, cols_t, n)
-    m, k = x.shape
-    if p != plan(m, k, n, splits=p.splits):
-        raise ValueError(f"sparse_matmul: plan {p} is not one for "
-                         f"({m}, {k}) @ ({k}, {n})")
-    return _run(p, x, v_t, rows_t, cols_t, n)
+    _check_plan("sparse_matmul", p, x, n)
+    return _run(p, sparse_matmul, x, (v_t, rows_t, cols_t), n)
 
 
 def _check_sparse(x, v_t, rows_t, cols_t, n):
@@ -188,34 +173,32 @@ def _check_sparse(x, v_t, rows_t, cols_t, n):
         ("cols_t", cols_t, torch.int32, None)))
 
 
-def _run(p: Plan, x, v_t, rows_t, cols_t, n: int):
-    partial = counter = None          # held until the launch is queued
-    if p.partial:
-        partial = torch.empty(p.partial, dtype=torch.float32,
-                              device=x.device)
-        counter = _counter_scratch(
-            x.device, torch.cuda.current_stream(x.device).cuda_stream,
-            p.counters)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    lib = _lib()
-    y = _launch(lib, lib.sparse_matmul_launch, "sparse_matmul", x, n,
-                (v_t.data_ptr(), rows_t.data_ptr(), cols_t.data_ptr()),
-                rows_t.shape[-1], (ptr(partial), ptr(counter)),
-                (p.rows_per_block, p.splits))
-    if y.numel():
-        sparse_matmul.launches += 1
-    return y
-
-
 def quant_sparse_matmul(x, qv_t, rows_q, cols_q, qscale, n: int):
     """y = x @ dequant(S) in x.dtype for the int8 tile-CSR layout
     (repro_torch.quant.layout): qv_t int8 codes, rows_q/cols_q int16
     tile-local indices, each (ceil(K/128), ceil(n/128), cap), and qscale
-    f32 (ceil(n/128), 128) per-output-channel scales. f32 accumulation,
-    one final rounding."""
+    f32 (ceil(n/128), 128) per-output-channel scales. Each value is its
+    code times its column's scale in f32; f32 accumulation (one chain per
+    split of K, the splits added in order), one final rounding."""
     if x.device.type == "cpu":
         return ref.quant_sparse_matmul_ref(x, qv_t, rows_q, cols_q, qscale,
                                            n)
+    _check_quant(x, qv_t, rows_q, cols_q, qscale, n)
+    return _run(plan(x.shape[0], x.shape[1], n, _sms(x)),
+                quant_sparse_matmul, x, (qv_t, rows_q, cols_q, qscale), n)
+
+
+def quant_launch(p: Plan, x, qv_t, rows_q, cols_q, qscale, n: int):
+    """The ``quant_sparse_matmul`` kernel on plan ``p`` for CUDA operands
+    that :func:`quant_sparse_matmul` accepts; it counts one launch. A
+    caller that times or tests a split count passes ``plan(...,
+    splits=s)``."""
+    _check_quant(x, qv_t, rows_q, cols_q, qscale, n)
+    _check_plan("quant_sparse_matmul", p, x, n)
+    return _run(p, quant_sparse_matmul, x, (qv_t, rows_q, cols_q, qscale), n)
+
+
+def _check_quant(x, qv_t, rows_q, cols_q, qscale, n):
     if x.device.type != "cuda":
         raise ValueError(f"quant_sparse_matmul: unsupported device "
                          f"{x.device}")
@@ -224,12 +207,42 @@ def quant_sparse_matmul(x, qv_t, rows_q, cols_q, qscale, n: int):
         ("rows_q", rows_q, torch.int16, None),
         ("cols_q", cols_q, torch.int16, None),
         ("qscale", qscale, torch.float32, (-(-n // TILE), TILE))))
+
+
+def _check_plan(what, p: Plan, x, n: int):
+    m, k = x.shape
+    if p != plan(m, k, n, splits=p.splits):
+        raise ValueError(f"{what}: plan {p} is not one for ({m}, {k}) @ "
+                         f"({k}, {n})")
+
+
+def _run(p: Plan, wrapper, x, consts, n: int):
+    """Launch the kernel of ``wrapper`` (``sparse_matmul`` or
+    ``quant_sparse_matmul``) on plan ``p`` for x (M, K) and S's arrays
+    ``consts`` into a new (M, n) output, with the plan's partials and
+    counters as scratch; raise if the launch returned a CUDA error, else
+    count it."""
+    what = wrapper.__name__
+    m, k = x.shape
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0 or n == 0:
+        return y
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    partial = counter = None          # held until the launch is queued
+    if p.partial:
+        partial = torch.empty(p.partial, dtype=torch.float32,
+                              device=x.device)
+        counter = _counter_scratch(x.device, stream, p.counters)
+    ptr = lambda t: None if t is None else t.data_ptr()
     lib = _lib()
-    y = _launch(lib, lib.quant_sparse_matmul_launch, "quant_sparse_matmul",
-                x, n, (qv_t.data_ptr(), rows_q.data_ptr(), cols_q.data_ptr(),
-                       qscale.data_ptr()), rows_q.shape[-1])
-    if y.numel():
-        quant_sparse_matmul.launches += 1
+    with torch.cuda.device(x.device):
+        err = getattr(lib, f"{what}_launch")(
+            x.data_ptr(), *(t.data_ptr() for t in consts), y.data_ptr(),
+            ptr(partial), ptr(counter), m, k, n, -(-k // TILE),
+            -(-n // TILE), consts[1].shape[-1], p.rows_per_block, p.splits,
+            _DTYPES[x.dtype], stream)
+    build.check(lib, err, what)
+    wrapper.launches += 1
     return y
 
 

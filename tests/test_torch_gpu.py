@@ -129,22 +129,32 @@ def test_sl_matmul_bf16_variants_match_plain(cuda, m):
         _close(sl_kernel.launch(p, *args), want, torch.bfloat16)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", [
-    # (M, K, N, delta): ragged K/N, M below, at and past a 32-row chunk,
-    # llama_1b training shapes
-    (5, 200, 300, 0.05), (33, 136, 520, 0.03), (300, 256, 136, 0.05),
-    (2048, 2048, 5461, 0.03), (2048, 5461, 2048, 0.03)])
-def test_sddmm_kernel_matches_plain(cuda, case, dtype):
-    m, k, n, delta = case
+def _sddmm_args(m, k, n, delta, dtype, dev):
     rng = np.random.default_rng(m + n)
     rows, cols = support.sample_support(k * 3 + n, k, n, delta)
     tiles = ops.prepare_tile_consts(rows, cols, k, n,
                                     pad=support.tile_cap(k, n, delta))
-    rt, ct = tiles["rows_t"].to(cuda), tiles["cols_t"].to(cuda)
-    x = _rand(rng, (m, k), dtype, cuda)
-    dy = _rand(rng, (m, n), dtype, cuda)
+    return (_rand(rng, (m, k), dtype, dev), _rand(rng, (m, n), dtype, dev),
+            tiles["rows_t"].to(dev), tiles["cols_t"].to(dev))
+
+
+# llama_1b's training shapes: M = 8 x 256 tokens, the three projections
+SDDMM_TRAIN_CASES = [(2048, 2048, 5461, 0.03), (2048, 5461, 2048, 0.03),
+                     (2048, 2048, 2048, 0.03)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [
+    # (M, K, N, delta): ragged K/N, M below, at and past a 32-row chunk;
+    # M no multiple of the bf16 kernel's 64-token chunk with K and N no
+    # multiple of 8 (both operands padded) or of 128; llama_1b training
+    # shapes
+    (5, 200, 300, 0.05), (33, 136, 520, 0.03), (300, 256, 136, 0.05),
+    (97, 333, 261, 0.05), (65, 1000, 136, 0.05)] + SDDMM_TRAIN_CASES)
+def test_sddmm_kernel_matches_plain(cuda, case, dtype):
+    m, k, n, delta = case
+    x, dy, rt, ct = _sddmm_args(m, k, n, delta, dtype, cuda)
     before = sddmm_kernel.sddmm.launches
     got = sddmm_kernel.sddmm(x, dy, rt, ct)
     torch.cuda.synchronize()
@@ -154,6 +164,21 @@ def test_sddmm_kernel_matches_plain(cuda, case, dtype):
     # like sqrt(M) ulp of the partial sums' size
     torch.testing.assert_close(got.cpu(), ref.sddmm_ref(x, dy, rt, ct).cpu(),
                                atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SDDMM_TRAIN_CASES + [(97, 333, 261, 0.05)])
+def test_sddmm_bf16_rerun_gives_same_bits(cuda, case):
+    """The tensor-core kernel sums each G tile in one block in a fixed
+    order, with no atomics: reruns give the same bits, and the padded
+    copies leave the inputs as they were."""
+    x, dy, rt, ct = _sddmm_args(*case, torch.bfloat16, cuda)
+    x0, dy0 = x.clone(), dy.clone()
+    got = sddmm_kernel.sddmm(x, dy, rt, ct)
+    for _ in range(2):
+        assert torch.equal(got, sddmm_kernel.sddmm(x, dy, rt, ct))
+    torch.cuda.synchronize()
+    assert torch.equal(x, x0) and torch.equal(dy, dy0)
 
 
 @pytest.mark.gpu
@@ -458,6 +483,54 @@ def test_sparse_matmul_kernel_matches_plain_at_each_split(cuda, case, dtype,
     _close(got, ref.sparse_matmul_ref(x, *sp, n), dtype)
 
 
+def _forced_splits(m, k, n):
+    """1, 2, the plan's and the most (one per k-tile), without repeats."""
+    nkt = -(-k // 128)
+    return sorted({1, min(2, nkt), sd_kernel.plan(m, k, n).splits, nkt})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", SPARSE_CASES)
+def test_quant_sparse_matmul_kernel_matches_plain_at_each_split(cuda, case,
+                                                                dtype):
+    """Each split count gives the plain version's result within TOL and
+    the same bits on a rerun; the dequantized values keep their bits, so
+    only the order of the k sum changes."""
+    m, k, n, delta = case
+    x, _, qp = _decode_args(np.random.default_rng(k + n), m, k, n, delta,
+                            dtype, cuda)
+    want = ref.quant_sparse_matmul_ref(x, *qp, n)
+    for splits in _forced_splits(m, k, n):
+        p = sd_kernel.plan(m, k, n, splits=splits)
+        before = sd_kernel.quant_sparse_matmul.launches
+        got = sd_kernel.quant_launch(p, x, *qp, n)
+        torch.cuda.synchronize()
+        assert sd_kernel.quant_sparse_matmul.launches == before + 1
+        _close(got, want, dtype)
+        assert torch.equal(got, sd_kernel.quant_launch(p, x, *qp, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [(4, 2048, 5461, 0.03),
+                                  (32, 5461, 2048, 0.03),
+                                  (130, 256, 136, 0.05)])
+def test_quant_sparse_matmul_rerun_gives_same_bits(cuda, case, dtype):
+    """As for sparse_matmul: the split sum adds the partials in split
+    order, and the counters are left at zero."""
+    m, k, n, delta = case
+    x, _, qp = _decode_args(np.random.default_rng(k + n), m, k, n, delta,
+                            dtype, cuda)
+    assert sd_kernel.plan(m, k, n).splits > 1
+    got = sd_kernel.quant_sparse_matmul(x, *qp, n)
+    for _ in range(3):
+        assert torch.equal(got, sd_kernel.quant_sparse_matmul(x, *qp, n))
+    torch.cuda.synchronize()
+    assert all(int(c.abs().sum()) == 0
+               for c in sd_kernel._counters.values())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", [(4, 2048, 5461, 0.03),
@@ -558,6 +631,15 @@ def test_wrappers_refuse_bad_inputs(cuda):
         sd_kernel.quant_sparse_matmul(x, *qp[:3], qp[3][:1], 256)
     with pytest.raises(ValueError, match="rows_q"):
         sd_kernel.quant_sparse_matmul(x, qp[0], qp[1].int(), *qp[2:], 256)
-    # sparse_matmul's launch: a plan for other shapes
+    # the sparse-decode launches: a plan for other shapes
     with pytest.raises(ValueError, match="plan"):
         sd_kernel.launch(sd_kernel.plan(8, 256, 256), x, *sp, 256)
+    with pytest.raises(ValueError, match="plan"):
+        sd_kernel.quant_launch(sd_kernel.plan(8, 256, 256), x, *qp, 256)
+    # sddmm: mismatched dtypes, a non-contiguous dy
+    xs = torch.zeros((64, 256), dtype=torch.bfloat16, device=cuda)
+    st = torch.zeros((2, 2, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        sddmm_kernel.sddmm(xs, xs.float(), st, st)
+    with pytest.raises(ValueError, match="contiguous"):
+        sddmm_kernel.sddmm(xs, xs.t().contiguous().t(), st, st)

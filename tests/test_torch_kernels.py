@@ -192,10 +192,14 @@ def test_sl_matmul_sums_colliding_padding_slots():
 # ---------------------------------------------------------------------------
 
 SDDMM_CASES = [
-    # (M, K, N, delta) — ragged K/N, one token block and several
+    # (M, K, N, delta) — ragged K/N, one token block and several; M no
+    # multiple of the bf16 kernel's 64-token chunk with K and N no
+    # multiple of 8 (both operands padded on the card) or of 128
     (7, 200, 300, 0.05),
     (300, 136, 520, 0.03),
     (130, 256, 136, 0.05),
+    (97, 333, 261, 0.05),
+    (65, 1000, 136, 0.05),
 ]
 
 
@@ -437,6 +441,20 @@ def test_paged_prefill_plan_refuses_head_dims_off_the_mma_path(hd):
     a multiple of 16 up to 128 raises instead of falling back."""
     with pytest.raises(ValueError, match="head_dim"):
         pa_kernel.prefill_plan(8, 1, hd)
+
+
+@pytest.mark.parametrize("m, k, n, dtype, want", [
+    # f32 samples on the CUDA cores and reads both operands as they are
+    (2048, 2048, 5461, torch.float32, ("f32", None, None)),
+    # bf16: an operand whose rows are no multiple of 8 elements is padded
+    # (llama_1b's d_ff = 5461: dy of gate/up, x of down)
+    (2048, 2048, 5461, torch.bfloat16, ("tensor_core", None, (2048, 5464))),
+    (2048, 5461, 2048, torch.bfloat16, ("tensor_core", (2048, 5464), None)),
+    (2048, 2048, 2048, torch.bfloat16, ("tensor_core", None, None)),
+    (97, 333, 261, torch.bfloat16, ("tensor_core", (97, 336), (97, 264))),
+    (65, 1000, 136, torch.bfloat16, ("tensor_core", None, None))])
+def test_sddmm_plan(m, k, n, dtype, want):
+    assert tuple(sddmm_kernel.plan(m, k, n, dtype)) == want
 
 
 def test_sddmm_wrapper_refuses_other_devices():

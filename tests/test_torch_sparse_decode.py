@@ -333,6 +333,38 @@ def test_sparse_matmul_plan_refuses_bad_splits():
         sd_kernel.plan(4, 2048, 5461, splits=17)
 
 
+@pytest.mark.parametrize("m", [4, 32, 64, 128])
+@pytest.mark.parametrize("k, n", LLAMA_1B_SHAPES)
+def test_quant_sparse_matmul_runs_sparse_matmuls_plan(m, k, n, monkeypatch):
+    """Both wrappers hand the split kernel the same plan at every engine
+    shape: the plan of the shapes and the card's SM count."""
+    seen = []
+    monkeypatch.setattr(sd_kernel, "_sms", lambda x: sd_kernel.SMS)
+    monkeypatch.setattr(sd_kernel, "_check_sparse", lambda *a: None)
+    monkeypatch.setattr(sd_kernel, "_check_quant", lambda *a: None)
+    monkeypatch.setattr(sd_kernel, "_run",
+                        lambda p, wrapper, *a: seen.append((p, wrapper)))
+    x = torch.empty((m, k), device="meta")
+    sd_kernel.sparse_matmul(x, None, None, None, n)
+    sd_kernel.quant_sparse_matmul(x, None, None, None, None, n)
+    assert seen == [(sd_kernel.plan(m, k, n), sd_kernel.sparse_matmul),
+                    (sd_kernel.plan(m, k, n),
+                     sd_kernel.quant_sparse_matmul)]
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_quant_launch_refuses_non_cuda_tensors(device):
+    """quant_launch(plan, ...) launches the kernel or raises, as launch
+    does: it never runs the plain version."""
+    x = torch.zeros((4, 256), device=device)
+    consts = [torch.zeros((2, 2, 8), dtype=dt, device=device)
+              for dt in (torch.int8, torch.int16, torch.int16)]
+    qscale = torch.zeros((2, 128), device=device)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sd_kernel.quant_launch(sd_kernel.plan(4, 256, 256), x, *consts,
+                               qscale, 256)
+
+
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_sparse_matmul_launch_refuses_non_cuda_tensors(device):
     """launch(plan, ...) launches the kernel or raises: it never runs the
