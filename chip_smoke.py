@@ -425,19 +425,11 @@ def check_sparse_decode(timer, gen, device, cfg, m_values):
 def sddmm_library_call(x, dy, gr, gc):
     """The yardstick for sddmm: one PyTorch call of G = xᵀ·dy on x's own
     dtype, then the gather at the slots. In bf16 the tensor cores' GEMM
-    with f32 output (``torch.mm(..., out_dtype=f32)``) where the card's
-    torch has it, else the bf16 GEMM widened to f32 (rounded through
-    bf16, so not the same function); f32 the f32 GEMM. Returns (fn, its
-    name)."""
+    with f32 output (``torch.mm(..., out_dtype=f32)``), the function the
+    kernel computes; in f32 the f32 GEMM."""
     if x.dtype == torch.float32:
-        return (lambda: torch.matmul(x.T, dy)[gr, gc]), "torch.matmul f32"
-    try:
-        torch.mm(x[:1].T, dy[:1], out_dtype=torch.float32)
-        return ((lambda: torch.mm(x.T, dy, out_dtype=torch.float32)[gr, gc]),
-                "torch.mm bf16, out_dtype f32")
-    except (TypeError, RuntimeError, NotImplementedError):
-        return ((lambda: torch.matmul(x.T, dy).float()[gr, gc]),
-                "torch.matmul bf16 (bf16-rounded), then float")
+        return lambda: torch.matmul(x.T, dy)[gr, gc]
+    return lambda: torch.mm(x.T, dy, out_dtype=torch.float32)[gr, gc]
 
 
 def time_sddmm(timer, label, x, dy, rt, ct, dtype):
@@ -470,20 +462,22 @@ def time_sddmm(timer, label, x, dy, rt, ct, dtype):
     nkt, nnt, cap = rt.shape
     plan = sdk.plan(m, k, n, dtype)
     gr, gc = ref._tile_coords(rt, ct)
-    lib_fn, lib_name = sddmm_library_call(x, dy, gr, gc)
+    lib_fn = sddmm_library_call(x, dy, gr, gc)
+    lib_name = ("torch.matmul f32" if dtype == torch.float32 else
+                "torch.mm bf16, out_dtype f32")
     t_k = timer.ms(lambda: sdk.sddmm(x, dy, rt, ct))
     t_p = timer.ms(lambda: ref.sddmm_ref(x, dy, rt, ct))
     t_l = timer.ms(lib_fn)
     ops_ = 2.0 * m * nkt * nnt * cap
     b, by = bound_ms(nbytes(x, dy, rt, ct, got), ops_, dtype)
     row = dict(name="sddmm", shape=label, max_abs_err=err, tol=atol,
-               ms=t_k, plain_ms=t_p, library_ms=t_l, library_call=lib_name,
+               ms=t_k, plain_ms=t_p, library_ms=t_l,
                bound_ms=b, bound_by=by, variant=plan.variant)
     extra = floor = ""
     if dtype == torch.bfloat16:
         dense_ops = 2.0 * m * nkt * TILE * nnt * TILE
-        row["design_floor_ms"] = dense_ops / PEAK_OPS[dtype] * 1e3
-        floor = (f", design floor {row['design_floor_ms']:.4f} ms (dense G "
+        floor_ms = dense_ops / PEAK_OPS[dtype] * 1e3
+        floor = (f", design floor {floor_ms:.4f} ms (dense G "
                  f"tiles, {dense_ops / 1e9:.2f} GFLOP)")
         xf, dyf = x.float(), dy.float()
         row["library_f32_ms"] = timer.ms(lambda: torch.matmul(xf.T, dyf)[
@@ -1747,8 +1741,7 @@ def kernels_line(rows, by_path, representative):
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"], "shape": shape,
             "cases": len(mine),
-            **{k: rep[k] for k in ("variant", "pad_ms", "design_floor_ms",
-                                   "library_call", "library_f32_ms")
+            **{k: rep[k] for k in ("variant", "pad_ms", "library_f32_ms")
                if k in rep}})
     return {"kernels": out}
 

@@ -81,7 +81,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
+#include "once_per_device.cuh"
 
 namespace {
 
@@ -534,26 +534,6 @@ size_t smem_bytes(int hd, int block_len) {
   return sizeof(float) * ((size_t)ROWS * hd + (size_t)block_len * (hd + 1) +
                           (size_t)block_len * hd + (size_t)WARPS * block_len);
 }
-
-// Runs set() at a kernel instantiation's first launch on each device and
-// not again: the dynamic shared-memory attribute holds for the kernel on
-// that device until the process ends. One static of this type in each
-// launcher instantiation.
-struct OncePerDevice {
-  std::atomic<unsigned> done{0};   // bit d: set on device d
-  template <typename F>
-  cudaError_t operator()(F set) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    const unsigned bit = dev < 32 ? 1u << dev : 0u;
-    if (bit && (done.load(std::memory_order_acquire) & bit))
-      return cudaSuccess;
-    err = set();
-    if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-    return err;
-  }
-};
 
 // attend's shared memory depends on hd and block_len: its kernels are
 // allowed the card's whole opt-in maximum once; the wrapper refuses

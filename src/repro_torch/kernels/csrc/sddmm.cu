@@ -65,6 +65,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "once_per_device.cuh"
 
 using namespace hopper;
 
@@ -259,8 +260,12 @@ cudaError_t launch_tc(const bf16* x, const bf16* dy, const int* rows_t,
       (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(dy) & 15) != 0)
     return cudaErrorMisalignedAddress;
-  cudaError_t err = cudaFuncSetAttribute(
-      sddmm_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+  static OncePerDevice smem_attr;
+  cudaError_t err = smem_attr([] {
+    return cudaFuncSetAttribute(
+        sddmm_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TC_SMEM);
+  });
   if (err != cudaSuccess) return err;
   sddmm_tc_kernel<<<dim3(nnt, nkt), THREADS, TC_SMEM, stream>>>(
       x, dy, rows_t, cols_t, out, M, ldx, ldd, cap);

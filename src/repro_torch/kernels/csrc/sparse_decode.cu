@@ -76,7 +76,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
+#include "once_per_device.cuh"
 
 namespace {
 
@@ -97,26 +97,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float v) {
   return __float2bfloat16(v);
 }
-
-// Runs set() at a kernel instantiation's first launch on each device and
-// not again: the dynamic shared-memory attribute holds for the kernel on
-// that device until the process ends. One static of this type in each
-// launcher instantiation.
-struct OncePerDevice {
-  std::atomic<unsigned> done{0};   // bit d: set on device d
-  template <typename F>
-  cudaError_t operator()(F set) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    const unsigned bit = dev < 32 ? 1u << dev : 0u;
-    if (bit && (done.load(std::memory_order_acquire) & bit))
-      return cudaSuccess;
-    err = set();
-    if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-    return err;
-  }
-};
 
 // ---------------------------------------------------------------------------
 // the values of S: slot e (global slot index) in column c of n-tile nt

@@ -114,11 +114,9 @@ def _check(x, B, A, v_t, rows_t, cols_t):
 
 
 def _padded(lib, stream, t, shape):
-    """``t`` itself where its rows start on 16-byte bounds, else a copy
-    of ``shape`` (the rows padded with zeros to a multiple of 8) made by
-    the kernel library's pad kernel."""
-    if shape is None and t.data_ptr() % 16 == 0:
-        return t
+    """A copy of ``t`` of ``shape`` (or of t's own shape), the rows
+    padded with zeros to a multiple of 8, made by the kernel library's pad
+    kernel."""
     rows, ld = shape or t.shape
     out = torch.empty((rows, ld), dtype=t.dtype, device=t.device)
     build.check(lib, lib.sl_pad_rows(t.data_ptr(), out.data_ptr(), rows,
@@ -138,6 +136,8 @@ def pad_rows(t, shape):
     zero-padded rows, made by the library's pad kernel on the current
     stream."""
     _cuda_only(t)
+    if shape is None and t.data_ptr() % 16 == 0:
+        return t
     lib = _lib()
     with torch.cuda.device(t.device):
         return _padded(lib, torch.cuda.current_stream(t.device).cuda_stream,
