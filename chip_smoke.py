@@ -6,8 +6,12 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds every hand-written kernel from the sources in the checkout and
 holds each one against its plain PyTorch version at the real shapes of
-the ported paths (with timings; ``adam8bit`` bit for bit at every leaf
-size the per-layer step updates; ``sl_matmul`` in bfloat16 also against
+the ported paths (with timings; ``adam8bit`` bit for bit at every segment
+size the per-layer step updates, and as one grouped launch over a whole
+layer's slices, timed beside one launch a slice; the bfloat16 decode of
+``paged_attention`` against its own rerun, bit for bit, at the engine's
+shapes and at a 1024-key context, with its launch plan printed;
+``sl_matmul`` in bfloat16 also against
 its own rerun, bit for bit, with both of its variants timed at the
 engine's row counts; ``sddmm`` in bfloat16 against its own rerun too,
 timed beside the bf16 GEMM of xᵀ·dy with f32 output and beside its padded
@@ -37,9 +41,11 @@ from a seed:
   read around the run and its checkpoint written; a device-only profile
   of one more step;
 * the memory path: the ``Trainer`` in bfloat16 with per-layer updates and
-  8-bit AdamW (``adam8bit``) for 6 steps, timed, with launch counts,
-  per-layer update times and its peak device memory, which must stay
-  below the global AdamW run's; and, on ``llama_60m``, runs killed at
+  8-bit AdamW (``adam8bit``, one launch a group of the sweep) for 6
+  steps, timed, with launch counts, per-layer update times and its peak
+  device memory, which must stay below the global AdamW run's, and a
+  device-only profile of one more step with ``adam8bit``'s device time;
+  and, on ``llama_60m``, runs killed at
   step 4 and relaunched from their checkpoint (global AdamW, and
   per-layer 8-bit AdamW) that must end bit-identical to uninterrupted
   ones, optimizer state and 8-bit codes included.
@@ -110,9 +116,12 @@ PATH_KERNELS = {
 EXEC_PATH = {"fused": "serve", "sparse": "serve_sparse",
              "quant": "serve_quant"}
 # f32 operations per element of one 8-bit Adam step, counted from
-# csrc/adam8bit.cu: dequantize 4, the moments 7, the update 9, the
-# requantize 8 (the block maxima, divisions, roundings, the shift)
-ADAM8BIT_OPS = 28
+# csrc/adam8bit.cu: the clip 1, dequantize 4, the moments 7, the update
+# 9, the requantize 8 (the block maxima, divisions, roundings, the shift)
+ADAM8BIT_OPS = 29
+# the clip scale the adam8bit checks multiply each gradient by in the
+# kernel (any value below 1 that rounds: the step's clip scale)
+CLIP = 0.37
 # sddmm against its plain version (xᵀ·dy by cuBLAS, then the gather): the
 # kernels sum each slot over tokens in another order than the GEMM (f32:
 # one chain in token order; bf16: the tensor cores' 16-token steps), and
@@ -535,107 +544,176 @@ def linear_shapes(cfg):
             "gate": (d, f), "up": (d, f), "down": (f, d)}
 
 
-def adam8bit_sizes(cfg):
-    """{label: elements} of every update the per-layer step gives the
-    adam8bit kernel on ``cfg`` (an SLTrain llama config): a layer's slice
-    of each stacked leaf whose slices are whole 256-blocks, the whole
-    stacked leaf of each other one (the deferred leaves), and the
-    embedding and LM head whole."""
+def layer_slices(cfg):
+    """({leaf: elements} of one layer's slices that the per-layer step
+    updates in the layer's group, {leaf: elements} of the whole stacked
+    leaves it defers, whose slices are no whole number of 256-blocks) on
+    ``cfg`` (an SLTrain llama config)."""
     from repro_torch.core import support
-    d, n_layers, pc = cfg.d_model, cfg.n_layers, cfg.param
-    linears = linear_shapes(cfg)
+    d, pc = cfg.d_model, cfg.param
     per_layer = {"ln_attn": d, "ln_mlp": d}
-    for name, (a, b) in linears.items():
+    for name, (a, b) in linear_shapes(cfg).items():
         r = max(4, min(pc.rank, min(a, b) // 2))
         per_layer[f"{name}.A"] = r * b
         per_layer[f"{name}.B"] = a * r
         per_layer[f"{name}.v"] = support.nnz_for(a, b, pc.delta,
                                                  pc.support_kind)
+    sliced = {k: n for k, n in per_layer.items() if n % 256 == 0}
+    deferred = {k: cfg.n_layers * n for k, n in per_layer.items()
+                if n % 256}
+    return sliced, deferred
+
+
+def adam8bit_sizes(cfg):
+    """{label: (elements, deferred)} of every segment the per-layer step
+    gives the adam8bit kernel on ``cfg``: a layer's slice of each stacked
+    leaf whose slices are whole 256-blocks, the whole stacked leaf of
+    each other one (the deferred leaves, whose gradient is an f32
+    accumulator), and the final norm, the embedding and LM head whole."""
+    sliced, deferred = layer_slices(cfg)
     names = {}
-    for name, n in per_layer.items():
-        if n % 256:
-            names.setdefault(n_layers * n, []).append(f"{name} deferred")
-        else:
-            names.setdefault(n, []).append(f"{name} slice")
-    names.setdefault(d, []).append("ln_f")
+    for name, n in sliced.items():
+        names.setdefault((n, False), []).append(f"{name} slice")
+    for name, n in deferred.items():
+        names.setdefault((n, True), []).append(f"{name} deferred")
+    names.setdefault((cfg.d_model, False), []).append("ln_f")
     for name in ["embed"] + ([] if cfg.tie_embeddings else ["lm_head"]):
-        names.setdefault(cfg.padded_vocab * d, []).append(name)
-    return {", ".join(v): n for n, v in names.items()}
+        names.setdefault((cfg.padded_vocab * cfg.d_model, False),
+                         []).append(name)
+    return {", ".join(v): k for k, v in names.items()}
 
 
-def adam8bit_case(gen, device, n, dtype):
-    """p (zero-padded to 256-blocks) in ``dtype``, an f32 gradient (zero in
-    the padding) and moments quantized from random values."""
+def adam8bit_case(gen, device, n, dtype, g_dtype, decay):
+    """A segment of n elements: p in ``dtype``, a gradient in ``g_dtype``
+    and moments quantized from random values."""
+    from repro_torch.kernels import adam8bit as adk
     from repro_torch.optim import quant
-    nq = -(-n // 256)
-
-    def padded(t):
-        out = torch.zeros(nq * 256, device=device)
-        out[:n] = t
-        return out.reshape(nq, 256)
-    p = padded(torch.randn(n, generator=gen, device=device)).to(dtype)
-    g = padded(torch.randn(n, generator=gen, device=device) * 1e-2)
+    p = torch.randn(n, generator=gen, device=device).to(dtype)
+    g = (torch.randn(n, generator=gen, device=device) * 1e-2).to(g_dtype)
     m = torch.randn(n, generator=gen, device=device) * 1e-3
     v = torch.randn(n, generator=gen, device=device).abs() * 1e-5
     mc, ms, _ = quant.quantize_blockwise(m, 256, True)
     vc, vs, _ = quant.quantize_blockwise(v, 256, False)
-    return [p, g, mc, ms, vc, vs]
+    return adk.Segment(p, g, mc, ms, vc, vs, decay)
+
+
+def adam8bit_scalars(device, step, wd=0.1):
+    from repro_torch.kernels import ops
+    return ops.adam8bit_scalars(lr=1e-3, b1=0.9, b2=0.999,
+                                bc1=1 - 0.9 ** step, bc2=1 - 0.999 ** step,
+                                eps=1e-8, wd=wd, device=device)
+
+
+def adam8bit_steps(label, segs, clip, device, steps):
+    """``steps`` chained steps of the grouped kernel on ``segs`` (one
+    launch a step, in place) against the plain version of each segment
+    from the same start: every parameter, code and scale must be equal
+    bit for bit."""
+    from repro_torch.kernels import adam8bit as adk
+    from repro_torch.kernels import ref
+    plain = [[t.clone() for t in s[:6]] for s in segs]
+    for step in range(1, steps + 1):
+        scalars = adam8bit_scalars(device, step)
+        adk.adam8bit_group(segs, scalars, clip)
+        for s, pl in zip(segs, plain):
+            want = ref.adam8bit_segment_ref(*pl, scalars, clip,
+                                            decay=s.decay)
+            pl[0] = want[0]
+            pl[2:] = list(want[1:])
+        torch.cuda.synchronize()
+        for i, (s, pl) in enumerate(zip(segs, plain)):
+            for what, a, b in zip(("p", "m_codes", "m_scales", "v_codes",
+                                   "v_scales"), (s.p,) + tuple(s[2:6]),
+                                  [pl[0]] + pl[2:]):
+                if not torch.equal(a, b):
+                    err = (a.float() - b.float()).abs().max()
+                    fail(f"adam8bit {label} segment {i} step {step}: {what} "
+                         f"differs from the plain version (max abs err "
+                         f"{err.item():.3e}; bitwise expected)")
+    return scalars, plain
+
+
+def adam8bit_bytes(segs):
+    """What a step must move: p, g, codes and scales read once, p, codes
+    and scales written once."""
+    return sum(nbytes(*s[:6]) + nbytes(s.p, *s[2:6]) for s in segs)
 
 
 def check_adam8bit(timer, gen, device, cfg, steps=3):
-    """The adam8bit kernel against its plain version at every leaf size
-    the llama_1b per-layer step updates, in bf16 and f32 params, with
-    weight decay 0 and 0.1: ``steps`` chained steps, each from the
-    previous step's outputs of the same version, and every parameter,
-    code and scale must be equal bit for bit (the kernel runs the plain
-    version's IEEE operations). Timed in place, as the per-layer sweep
-    calls it; the bound counts p, g, both codes and scales read once and
-    p, codes and scales written once."""
+    """The adam8bit kernel against its plain version at every segment
+    the llama_1b per-layer step gives it, in bf16 and f32 params, the
+    gradient in the trainer's dtype (p's; f32 for a deferred leaf's
+    accumulator) under a clip scale of 0.37, with weight decay 0 and 0.1:
+    ``steps`` chained steps, and every parameter, code and scale must be
+    equal bit for bit (the kernel runs the plain version's IEEE
+    operations). Each size is timed as one launch of one segment, in
+    place, as the sweep runs it; the bound counts p, g, both codes and
+    scales read once and p, codes and scales written once. Then one
+    grouped launch over a whole layer's slices, the same check, timed
+    beside the per-leaf dispatch (one launch a slice)."""
     from repro_torch.kernels import adam8bit as adk
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
+    clip = torch.tensor(CLIP, device=device)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for label, n in adam8bit_sizes(cfg).items():
-            for wd in (0.0, 0.1):
-                kern = adam8bit_case(gen, device, n, dtype)
-                plain = [t.clone() for t in kern]
-                for step in range(1, steps + 1):
-                    scalars = ops.adam8bit_scalars(
-                        lr=1e-3, b1=0.9, b2=0.999, bc1=1 - 0.9 ** step,
-                        bc2=1 - 0.999 ** step, eps=1e-8, wd=wd,
-                        device=device)
-                    got = adk.adam8bit_update(*kern, scalars, n,
-                                              inplace=True)
-                    want = ref.adam8bit_ref(*plain, scalars, n)
-                    torch.cuda.synchronize()
-                    for what, a, b in zip(("p", "m_codes", "m_scales",
-                                           "v_codes", "v_scales"), got,
-                                          want):
-                        if not torch.equal(a, b):
-                            err = (a.float() - b.float()).abs().max()
-                            fail(f"adam8bit {label} {dname(dtype)} wd {wd} "
-                                 f"step {step}: {what} differs from the "
-                                 f"plain version (max abs err "
-                                 f"{err.item():.3e}; bitwise expected)")
-                    plain = [want[0], plain[1]] + list(want[1:])
-                t_k = timer.ms(lambda: adk.adam8bit_update(
-                    *kern, scalars, n, inplace=True))
-                t_p = timer.ms(lambda: ref.adam8bit_ref(*plain, scalars, n))
-                p, g, mc, ms, vc, vs = kern
-                moved = nbytes(p, g, mc, ms, vc, vs, scalars) + \
-                    nbytes(p, mc, ms, vc, vs)
+        for label, (n, deferred) in adam8bit_sizes(cfg).items():
+            g_dtype = torch.float32 if deferred else dtype
+            for decay in (False, True):
+                seg = adam8bit_case(gen, device, n, dtype, g_dtype, decay)
+                scalars, plain = adam8bit_steps(label, [seg], clip, device,
+                                                steps)
+                t_k = timer.ms(lambda: adk.adam8bit_group([seg], scalars,
+                                                          clip))
+                t_p = timer.ms(lambda: ref.adam8bit_segment_ref(
+                    *plain[0], scalars, clip, decay=decay))
+                moved = adam8bit_bytes([seg]) + nbytes(scalars, clip)
                 b, by = bound_ms(moved, ADAM8BIT_OPS * n, torch.float32)
-                shape = f"{label} n={n} {dname(dtype)} wd {wd}"
+                shape = (f"{label} n={n} {dname(dtype)} g {dname(g_dtype)} "
+                         f"wd {0.1 if decay else 0.0}")
                 rows.append(dict(name="adam8bit", shape=shape, n=n,
-                                 dtype=dtype, max_abs_err=0.0, tol=0.0,
-                                 ms=t_k, plain_ms=t_p, library_ms=None,
-                                 bound_ms=b, bound_by=by))
+                                 dtype=dtype, g_dtype=g_dtype,
+                                 max_abs_err=0.0, tol=0.0, ms=t_k,
+                                 plain_ms=t_p, library_ms=None, bound_ms=b,
+                                 bound_by=by))
                 say(f"kernel adam8bit {shape}: {steps} steps bit-identical "
                     f"to the plain version (p, codes, scales) | kernel "
                     f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b:.4f} ms "
                     f"({by}, {moved / 1e6:.1f} MB)")
-                del kern, plain
+                del seg, plain
+    rows.append(check_adam8bit_layer(timer, gen, device, cfg, clip, steps))
     return rows
+
+
+def check_adam8bit_layer(timer, gen, device, cfg, clip, steps):
+    """One grouped launch over a whole llama_1b layer's slices (bf16 p and
+    g, weight decay on the matrices and off the norms), held bit for bit
+    against the plain version over ``steps`` chained steps, and timed
+    beside the per-leaf dispatch of the same slices (one launch each, as
+    the sweep made them before) and the plain version."""
+    from repro_torch.kernels import adam8bit as adk
+    from repro_torch.kernels import ref
+    sliced, _ = layer_slices(cfg)
+    segs = [adam8bit_case(gen, device, n, torch.bfloat16, torch.bfloat16,
+                          not name.startswith("ln"))
+            for name, n in sliced.items()]
+    label = f"layer group ({len(segs)} slices) bfloat16"
+    scalars, plain = adam8bit_steps(label, segs, clip, device, steps)
+    t_k = timer.ms(lambda: adk.adam8bit_group(segs, scalars, clip))
+    t_leaf = timer.ms(lambda: [adk.adam8bit_group([s], scalars, clip)
+                               for s in segs])
+    t_p = timer.ms(lambda: [ref.adam8bit_segment_ref(
+        *pl, scalars, clip, decay=s.decay) for s, pl in zip(segs, plain)])
+    n = sum(s.p.numel() for s in segs)
+    moved = adam8bit_bytes(segs) + nbytes(scalars, clip)
+    b, by = bound_ms(moved, ADAM8BIT_OPS * n, torch.float32)
+    say(f"kernel adam8bit {label}, n={n}: {steps} steps bit-identical to "
+        f"the plain version, one launch a step | kernel {t_k:.4f} ms, "
+        f"per-leaf launches {t_leaf:.4f} ms ({len(segs)} launches), plain "
+        f"{t_p:.4f} ms, bound {b:.4f} ms ({by}, {moved / 1e6:.1f} MB)")
+    return dict(name="adam8bit", shape=label, n=None, dtype=torch.bfloat16,
+                max_abs_err=0.0, tol=0.0, ms=t_k, plain_ms=t_p,
+                library_ms=None, bound_ms=b, bound_by=by,
+                per_leaf_ms=t_leaf)
 
 
 def attn_case(gen, device, dtype, *, n_slots, n_kv, group, hd, block_len,
@@ -701,13 +779,69 @@ ATTN_CASES = (
     ("softcap 50", 32, 1, 50.0, 0),
     ("window 24", 8, 4, 0.0, 24),
 )
+# the bf16 decode at a long context: 4 slots, 64 blocks of 16 keys each,
+# positions up to 1023; (label, n_kv, group)
+LONG_BPS = 64
+LONG_POSITIONS = (1023, 1000, 777, 512)
+LONG_CASES = (("32 heads", 32, 1), ("GQA group 4", 8, 4))
+
+
+def decode_row(timer, label, q, kp, vp, tbl, pos, kw):
+    """One decode case: the kernel against its plain version (and, in
+    bf16, against itself on a rerun, bit for bit, with its plan printed),
+    timed beside the plain version, SDPA on the gathered view and its
+    bound (the live K/V pages and q, the table, the positions and the
+    output, each once)."""
+    from repro_torch.kernels import paged_attention as pak
+    from repro_torch.kernels import ref
+    dtype = q.dtype
+    n_slots, n_kv, group, hd = q.shape
+    got = pak.paged_attention(q, kp, vp, tbl, pos, **kw)
+    want = ref.paged_attention_ref(q, kp, vp, tbl, pos, **kw)
+    torch.cuda.synchronize()
+    what = f"paged_attention {label} {dname(dtype)}"
+    err = compare(what, got, want, dtype)
+    extra = ""
+    if dtype == torch.bfloat16:
+        if not torch.equal(got, pak.paged_attention(q, kp, vp, tbl, pos,
+                                                    **kw)):
+            fail(f"{what}: a rerun on the same inputs gave other bits")
+        keys = tbl.shape[1] * kp.shape[1]
+        plan = pak.decode_plan(n_slots, n_kv, group, hd, keys,
+                               torch.cuda.get_device_properties(
+                                   q.device).multi_processor_count)
+        extra = (f" | plan: {plan.warps} warps a block, {plan.rows} rows "
+                 f"of the group, {plan.splits} splits, "
+                 f"{n_slots * n_kv * plan.row_blocks * plan.splits} blocks; "
+                 "a rerun bit-identical")
+    kv_b, keys_live = live_kv_bytes(kp, tbl, pos)
+    ops_ = 4.0 * n_kv * group * keys_live * hd
+    b, by = bound_ms(nbytes(q, tbl, pos, got) + kv_b, ops_, dtype)
+    t_k = timer.ms(lambda: pak.paged_attention(q, kp, vp, tbl, pos, **kw))
+    t_p = timer.ms(lambda: ref.paged_attention_ref(q, kp, vp, tbl, pos,
+                                                   **kw))
+    qd = q.reshape(n_slots, 1, n_kv * group, hd)
+    t_l = timer.ms(sdpa_on_view(qd, kp, vp, tbl, pos[:, None],
+                                kw["scale"]))
+    row = dict(name="paged_attention", shape=f"{label} {dname(dtype)}",
+               max_abs_err=err, tol=TOL[dtype], ms=t_k, plain_ms=t_p,
+               library_ms=t_l, bound_ms=b, bound_by=by)
+    if dtype == torch.bfloat16 and plan.splits > 1:
+        one = plan._replace(splits=1)
+        row["one_split_ms"] = timer.ms(lambda: pak.decode_launch(
+            one, q, kp, vp, tbl, pos, **kw))
+        extra += f"; one split {row['one_split_ms']:.4f} ms"
+    say(f"kernel {what}: max_abs_err {err:.3e} (tol {TOL[dtype]}) | kernel "
+        f"{t_k:.4f} ms, plain {t_p:.4f} ms, SDPA on gathered view "
+        f"{t_l:.4f} ms, bound {b:.4f} ms ({by}, {kv_b / 1e6:.2f} MB of live "
+        f"K/V){extra}")
+    return row
 
 
 def check_attention(timer, gen, device, cfg, n_slots, block_len, bps,
                     sqs):
-    """Decode, and chunked prefill at every suffix bucket in ``sqs``."""
-    from repro_torch.kernels import paged_attention as pak
-    from repro_torch.kernels import ref
+    """Decode at the engine's shapes and at a long context, and chunked
+    prefill at every suffix bucket in ``sqs``."""
     hd = cfg.resolved_head_dim
     scale = hd ** -0.5
     rows = []
@@ -717,41 +851,30 @@ def check_attention(timer, gen, device, cfg, n_slots, block_len, bps,
     for dtype in (torch.bfloat16, torch.float32):
         for label, n_kv, group, cap, win in ATTN_CASES:
             kw = dict(scale=scale, softcap=cap, window=win)
-            # decode
             kp, vp, tbl, pos = attn_case(
                 gen, device, dtype, n_slots=n_slots, n_kv=n_kv, group=group,
                 hd=hd, block_len=block_len, bps=bps, positions=positions)
             q = torch.randn((n_slots, n_kv, group, hd), generator=gen,
                             device=device).to(dtype)
-            got = pak.paged_attention(q, kp, vp, tbl, pos, **kw)
-            want = ref.paged_attention_ref(q, kp, vp, tbl, pos, **kw)
-            torch.cuda.synchronize()
-            err = compare(f"paged_attention {label} {dtype}", got, want,
-                          dtype)
-            kv_b, keys = live_kv_bytes(kp, tbl, pos)
-            rows_q = n_slots * n_kv * group
-            ops_ = 4.0 * rows_q / n_slots * keys * hd
-            b, by = bound_ms(nbytes(q, tbl, pos, got) + kv_b, ops_, dtype)
-            t_k = timer.ms(lambda: pak.paged_attention(q, kp, vp, tbl, pos,
-                                                       **kw))
-            t_p = timer.ms(lambda: ref.paged_attention_ref(
-                q, kp, vp, tbl, pos, **kw))
-            qd = q.reshape(n_slots, 1, n_kv * group, hd)
-            t_l = timer.ms(sdpa_on_view(qd, kp, vp, tbl, pos[:, None],
-                                        scale))
-            rows.append(dict(name="paged_attention", shape=f"{label} "
-                             f"{str(dtype).split('.')[-1]}",
-                             max_abs_err=err, tol=TOL[dtype], ms=t_k,
-                             plain_ms=t_p, library_ms=t_l, bound_ms=b,
-                             bound_by=by))
-            say(f"kernel paged_attention {label} {dtype}: max_abs_err "
-                f"{err:.3e} (tol {TOL[dtype]}) | kernel {t_k:.4f} ms, plain "
-                f"{t_p:.4f} ms, SDPA on gathered view {t_l:.4f} ms, bound "
-                f"{b:.4f} ms ({by})")
+            rows.append(decode_row(timer, label, q, kp, vp, tbl, pos, kw))
             for sq in sqs:
                 rows.append(check_prefill(timer, gen, device, dtype, label,
                                           n_kv, group, hd, block_len, bps,
                                           sq, offsets, positions, kw))
+    # its own generator: the later phases draw the same B as before
+    long_gen = torch.Generator(device=device)
+    long_gen.manual_seed(3)
+    for label, n_kv, group in LONG_CASES:
+        kp, vp, tbl, pos = attn_case(
+            long_gen, device, torch.bfloat16, n_slots=len(LONG_POSITIONS),
+            n_kv=n_kv, group=group, hd=hd, block_len=block_len, bps=LONG_BPS,
+            positions=LONG_POSITIONS)
+        q = torch.randn((len(LONG_POSITIONS), n_kv, group, hd),
+                        generator=long_gen, device=device).to(torch.bfloat16)
+        rows.append(decode_row(
+            timer, f"{label}, {LONG_BPS * block_len}-key context", q, kp, vp,
+            tbl, pos, dict(scale=scale)))
+        del kp, vp
     return rows
 
 
@@ -1273,9 +1396,10 @@ def device_busy(prof, n_top: int = 6):
 
 class ShapeRecorder:
     """Records the (M, K, N) of every sl_matmul and sddmm call the fused
-    linear makes, and the (elements, dtype) of every 8-bit Adam update,
-    while it is active, by wrapping the ``kernels.ops`` functions they
-    call (the kernel wrappers, and their launch counts, are untouched)."""
+    linear makes, and the (elements, p dtype, g dtype) of every segment of
+    an 8-bit Adam update, while it is active, by wrapping the
+    ``kernels.ops`` functions they call (the kernel wrappers, and their
+    launch counts, are untouched)."""
 
     def __init__(self):
         self.shapes = {"sl_matmul": set(), "sddmm": set()}
@@ -1283,13 +1407,14 @@ class ShapeRecorder:
 
     def __enter__(self):
         from repro_torch.kernels import ops
-        self._orig = (ops.sl_matmul, ops.sddmm, ops.adam8bit_update)
+        self._orig = (ops.sl_matmul, ops.sddmm, ops.adam8bit_group_update)
         sl, sd, ad = self._orig
 
-        def ad_rec(p, *a, **k):
-            self.adam8bit.add((p.numel(), p.dtype))
-            return ad(p, *a, **k)
-        ops.adam8bit_update = ad_rec
+        def ad_rec(items, **k):
+            self.adam8bit.update((p.numel(), p.dtype, g.dtype)
+                                 for p, g, *_ in items)
+            return ad(items, **k)
+        ops.adam8bit_group_update = ad_rec
 
         def sl_rec(x, B, A, *a, **k):
             self.shapes["sl_matmul"].add((x.numel() // x.shape[-1],
@@ -1305,7 +1430,7 @@ class ShapeRecorder:
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
-        ops.sl_matmul, ops.sddmm, ops.adam8bit_update = self._orig
+        ops.sl_matmul, ops.sddmm, ops.adam8bit_group_update = self._orig
 
 
 def train_config(cfg, *, steps, batch, seq, ckpt_dir, ckpt_every=0, lr=3e-3,
@@ -1332,20 +1457,37 @@ def train_fn(cfg, api, optimizer, update_mode):
 
 
 def adam8bit_launches_per_step(optimizer, params, opt_state):
-    """adam8bit launches one per-layer step makes: one per head leaf and
-    the embedding, one per layer for each stacked leaf whose state slices
-    along the layer axis, one for each deferred leaf."""
+    """adam8bit launches one per-layer step makes: one for each group of
+    the sweep (the head leaves, each layer's slices, the deferred leaves,
+    the embedding) and each pair of p and g dtypes in it, plus one for
+    every further MAX_SEGMENTS segments of a pair. A gradient has its
+    parameter's dtype, except the f32 accumulator of a deferred leaf and
+    of a tied embedding (which sums two cotangents in f32)."""
+    from collections import Counter
+    from repro_torch.kernels.adam8bit import MAX_SEGMENTS
     from repro_torch.models.common import tree_leaves
-    n = 0
+    f32 = torch.float32
+    tied = "lm_head" not in params
+    head, layer, deferred, embed = Counter(), Counter(), Counter(), Counter()
+    n_layers = 0
     for path, leaf in tree_leaves(params):
         parts = tuple(path.split("/"))
-        if parts[0] != "layers":
-            n += 1
-            continue
-        st = optimizer.stack_state(optimizer.leaf_state(opt_state, parts),
-                                   leaf, leaf.shape[0])
-        n += leaf.shape[0] if st is not None else 1
-    return n
+        dt = leaf.dtype
+        if parts[0] == "embed":
+            embed[(dt, f32 if tied else dt)] += 1
+        elif parts[0] != "layers":
+            head[(dt, dt)] += 1
+        else:
+            n_layers = leaf.shape[0]
+            st = optimizer.stack_state(optimizer.leaf_state(opt_state, parts),
+                                       leaf, n_layers)
+            if st is None:
+                deferred[(dt, f32)] += 1
+            else:
+                layer[(dt, dt)] += 1
+    launches = lambda c: sum(-(-k // MAX_SEGMENTS) for k in c.values())
+    return launches(head) + n_layers * launches(layer) + \
+        launches(deferred) + launches(embed)
 
 
 def param_rel_diff(a, b):
@@ -1501,9 +1643,11 @@ def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=6):
     return tr, state, launches, rec.shapes, med, peak
 
 
-def phase_train_profile(tr, state, device, med_s, label="train step"):
+def phase_train_profile(tr, state, device, med_s, label="train step",
+                        kernels=()):
     """Phase 8: a device-only profile of one more bf16 train step of
-    ``tr``: time by kernel and the idle share within that step."""
+    ``tr``: time by kernel and the idle share within that step, and the
+    device time and launches of each kernel named in ``kernels``."""
     from torch.profiler import ProfilerActivity, profile
     batch = {k: torch.from_numpy(v).to(device)
              for k, v in tr.data.next_batch().items()}
@@ -1527,6 +1671,20 @@ def phase_train_profile(tr, state, device, med_s, label="train step"):
         f"{100 * busy_us / 1e6 / wall:.1f}% (idle "
         f"{100 - 100 * busy_us / 1e6 / wall:.1f}%, same step); device time "
         "by kernel: " + "; ".join(f"{n[:48]} {pct:.1f}%" for n, pct in top))
+    for key in kernels:
+        ms, n = kernel_device_ms(prof, key)
+        say(f"profile bf16 {label}: {key} device time {ms:.3f} ms in {n} "
+            f"launches ({100 * ms / (busy_us / 1e3):.1f}% of busy)")
+
+
+def kernel_device_ms(prof, key):
+    """(device ms, launches) of the profiled kernels whose name holds
+    ``key``."""
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and
+              key in e.name]
+    return (sum(e.time_range.end - e.time_range.start for e in events) / 1e3,
+            len(events))
 
 
 def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak,
@@ -1628,16 +1786,19 @@ def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak,
 
 
 def check_adam8bit_coverage(seen, rows):
-    """Every (elements, dtype) the per-layer step gave the adam8bit kernel
-    was held against the plain version in the kernel phase."""
-    checked = {(r["n"], r["dtype"]) for r in rows if r["name"] == "adam8bit"}
+    """Every (elements, p dtype, g dtype) the per-layer step gave the
+    adam8bit kernel was held against the plain version in the kernel
+    phase."""
+    checked = {(r["n"], r["dtype"], r["g_dtype"]) for r in rows
+               if r["name"] == "adam8bit" and r["n"] is not None}
     if not seen or not seen <= checked:
-        fail(f"the per-layer step ran adam8bit at (elements, dtype) "
-             f"{sorted(seen, key=str)}; checked only "
+        fail(f"the per-layer step ran adam8bit at (elements, p dtype, g "
+             f"dtype) {sorted(seen, key=str)}; checked only "
              f"{sorted(checked, key=str)}")
     say(f"coverage: the per-layer step ran adam8bit at "
-        f"{sorted(n for n, _ in seen)} elements "
-        f"({sorted({dname(d) for _, d in seen})}), all checked above")
+        f"{sorted(n for n, _, _ in seen)} elements (p, g dtypes "
+        f"{sorted({(dname(p), dname(g)) for _, p, g in seen})}), all "
+        "checked above")
 
 
 def phase_kill_resume(device, optimizer="adamw", update_mode="global"):
@@ -1874,15 +2035,17 @@ def main() -> int:
         cfg16, device, smi, batch=batch, seq=seq, global_peak=global_peak)
     check_adam8bit_coverage(seen, ad_rows)
     phase_train_profile(tr, state, device, med,
-                        label="per-layer 8-bit train step")
+                        label="per-layer 8-bit train step",
+                        kernels=("adam8bit",))
     del tr, state
     torch.cuda.empty_cache()
     phase_kill_resume(device)
     phase_kill_resume(device, optimizer="adam8bit", update_mode="per_layer")
 
     m = batch * seq
-    embed = [r["shape"] for r in ad_rows if r["n"] == max(
-        x["n"] for x in ad_rows) and r["dtype"] == torch.bfloat16
+    leaf_rows = [r for r in ad_rows if r["n"] is not None]
+    embed = [r["shape"] for r in leaf_rows if r["n"] == max(
+        x["n"] for x in leaf_rows) and r["dtype"] == torch.bfloat16
         and r["shape"].endswith("wd 0.1")][0]
     decode = f"{n_slots}x{cfg.d_model}->{cfg.d_ff} bfloat16"
     line = kernels_line(sl_rows + at_rows + tr_rows + ad_rows + sp_rows,

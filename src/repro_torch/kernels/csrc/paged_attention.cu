@@ -14,7 +14,8 @@
 // (n_slots, sq, Hkv, group, hd) with query i at offsets[s] + i. Query
 // rows of a (slot, kv head) are flattened group-major, so row rr sits at
 // position off + rr / group; decode is the case sq = 1 of the same
-// indexing, so decode and the f32 prefill share one body (attend).
+// indexing, so the f32 decode and the f32 prefill share one body
+// (attend).
 //
 // Numerics follow the TPU kernels: q * scale in f32, optional tanh
 // softcap, online softmax in f32 with running max m (starting at -1e30),
@@ -27,24 +28,61 @@
 // are zeroed on load, because 0 * NaN is NaN and unallocated pages hold
 // garbage.
 //
-// What bounds them on the H100: bytes. Each (slot, kv head) reads its live
-// K/V blocks once (2 * live_tokens * hd * dtype bytes) and does about
-// 4 * rows * live_tokens * hd operations, far below the card's
-// operations-per-byte balance point. At the engine's shapes (4 slots, a
-// few dozen live keys) that is well under a microsecond of HBM time, so
-// what a launch really waits on is its chain of dependent steps: the
-// table entry, then the page, then the math on it.
+// What bounds them on the H100: at the engine's shapes, latency. Each
+// (slot, kv head) reads its live K/V blocks once (2 * live_tokens * hd *
+// dtype bytes) and does about 4 * rows * live_tokens * hd operations, far
+// below the card's operations-per-byte balance point. At the engine's
+// shapes (4 slots, a few dozen live keys) that is well under a microsecond
+// of HBM time, so what a launch really waits on is its chain of dependent
+// loads: the position, the table entry, then the page, then the math on
+// it, then the merge. At long contexts (a thousand keys a slot) the bytes
+// bound it, and then only if enough blocks are in flight to keep HBM busy:
+// 4 slots x 32 kv heads is 128 blocks, 4 x 8 at GQA group 4 only 32, for
+// 132 SMs.
 //
-// Both kernels read only live blocks: a block stops at the last key any
-// of its rows can see (later keys are fully masked and change nothing)
-// and skips keys wholly before every row's window. One thread block owns
-// one (slot, kv head) and a run of its query rows, so a kv head's K/V is
+// All kernels read only live keys: a block stops at the last key any of
+// its rows can see (later keys are fully masked and change nothing) and
+// skips keys wholly before every row's window. One thread block owns one
+// (slot, kv head) and a run of its query rows, so a kv head's K/V is
 // staged in shared memory once for its whole GQA group.
 //
-// attend (decode in f32 and bf16, prefill in f32; the first version): 16
-// query rows a block, each of the 4 warps owns 4 rows one after another;
-// lanes split the keys of a block for the scores and the head dimension
-// for the accumulator, all on the CUDA cores in f32.
+// attend (decode and prefill in f32; the first version, kept as the
+// correctness path): 16 query rows a block, each of the 4 warps owns 4
+// rows one after another; lanes split the keys of a block for the scores
+// and the head dimension for the accumulator, all on the CUDA cores in
+// f32.
+//
+// decode_bf16_kernel (decode in bf16; flash-decoding):
+// * the live keys of a (slot, kv head) are split across the block's warps
+//   (up to 4), 32 keys a warp at a time, and, where the card would sit
+//   idle (far fewer (slot, kv head) blocks than 2 an SM and a long
+//   context), across `splits` blocks too; the wrapper's decode_plan picks
+//   warps and splits from the shapes alone. Each warp keeps its own
+//   running max, sum and accumulator; the warps' partials are merged in
+//   warp order through shared memory, and with several splits each block
+//   writes its merged partial (acc, m, l) to f32 scratch and the last
+//   block of the (slot, kv head) to finish -- found through an int32
+//   counter, after __threadfence, as in sparse_decode.cu -- merges them
+//   in split order. No float atomics: a rerun gives the same bits;
+// * a warp stages its 32 keys' K and V rows with 16-byte cp.async through
+//   the block table into padded shared rows (hd + 8), double-buffered:
+//   the next chunk's pages are in flight while this one is scored. Lane i
+//   looks up key i's table entry once and hands it to the lanes copying
+//   its row (a shuffle). A key past the slot's position, outside the
+//   window, or on a null page is zero-filled, not read, so the NaN null
+//   block and stale pages never reach an operand;
+// * all G query rows of the group the block takes (1, 2, 4 or 8) use
+//   every staged key: lane i scores key i against each row (q scaled in
+//   f32, broadcast from shared memory; K as 16-byte bf16 loads, f32
+//   products and sums), and for P V each lane owns pairs of head dims
+//   (bf16x2 loads, conflict-free) and takes each key's p from its lane by
+//   a shuffle. On the CUDA cores, not mma.sync: a decode has 1 to 8 rows a
+//   kv head, so an m16 tile would be at least half padding, the products
+//   are not what bounds it, and p stays an exact f32 operand without the
+//   prefill's high/low bf16 split.
+// Numerics: as attend's, in another order of the f32 sums (a warp's keys
+// one after another, then warps and splits in order), so the output is
+// within rounding of the reference and equal bit for bit on a rerun.
 //
 // prefill_tc_kernel (prefill in bf16) runs both products on the tensor
 // cores, mma.sync m16n8k16 (bf16 in, f32 accumulate):
@@ -94,16 +132,9 @@ constexpr int MAX_D = 8;                // head dims per lane: hd <= 256
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -530,45 +561,351 @@ prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 decode: keys split across warps and blocks
+// ---------------------------------------------------------------------------
+
+constexpr int DK = 32;                  // keys a warp stages, one a lane
+constexpr int DEC_MAX_WARPS = 4;
+constexpr unsigned FULL = 0xffffffffu;
+
+// the bf16 decode's dynamic shared memory: q's rows in f32, then per warp
+// two buffers of K and V, DK padded rows each
+size_t decode_smem_bytes(int warps, int rows, int hd) {
+  return sizeof(float) * (size_t)rows * hd +
+         (size_t)warps * 2 * 2 * DK * (hd + 8) * sizeof(bf16);
+}
+
+// grid (n_slots, n_kv * row_blocks, splits), 32 * warps threads. Block
+// (s, y, z) owns query rows [g0, g0 + G) of kv head h = y / row_blocks
+// (rows past the group are computed on zeros and never stored) and the
+// z-th of `splits` contiguous runs of slot s's live keys; warp w takes
+// the run's 32-key chunks w, w + warps, ... hd = 8 * CH <= 64 * U.
+template <int G, int U>
+__global__ void __launch_bounds__(DEC_MAX_WARPS * 32)
+decode_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
+                   const bf16* __restrict__ vp,
+                   const int* __restrict__ table,
+                   const int* __restrict__ positions, bf16* __restrict__ out,
+                   float* __restrict__ part_acc, float* __restrict__ part_ml,
+                   int* __restrict__ counter, int n_kv, int group, int hd,
+                   int block_len, int bps, float scale, float softcap,
+                   int window, int row_blocks) {
+  const int LDS = hd + 8, CH = hd / 8, HP = hd / 2;
+  extern __shared__ __align__(16) uint8_t dec_smem[];
+  float* qs = reinterpret_cast<float*>(dec_smem);          // [G][hd]
+  // [warps][2 buffers][K, V][DK][LDS]
+  bf16* stage = reinterpret_cast<bf16*>(qs + G * hd);
+  __shared__ int is_last;
+
+  const int s = blockIdx.x, n_slots = gridDim.x;
+  const int h = blockIdx.y / row_blocks;
+  const int g0 = (blockIdx.y % row_blocks) * G;
+  const int ng = min(G, group - g0);
+  const int splits = gridDim.z, z = blockIdx.z;
+  const int warps = blockDim.x >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // the slot's live keys [klo, khi]: up to its position, inside the
+  // window; this block's run of them is [k0, k1)
+  const int pos = positions[s];
+  const int khi = min(bps * block_len - 1, pos);
+  const int klo = window > 0 ? max(0, pos - window + 1) : 0;
+  const int live = max(0, khi - klo + 1);
+  const int k0 = klo + (int)((long long)z * live / splits);
+  const int k1 = klo + (int)((long long)(z + 1) * live / splits);
+  const int n_chunks = (k1 - k0 + DK - 1) / DK;
+  const int mine = warp < n_chunks ? (n_chunks - 1 - warp) / warps + 1 : 0;
+  const size_t row0 = ((size_t)s * n_kv + h) * group + g0;
+
+  for (int e = tid; e < G * hd; e += blockDim.x) {
+    const int g = e / hd;
+    qs[e] = g < ng ? __bfloat162float(q[(row0 + g) * hd + e % hd]) * scale
+                   : 0.f;
+  }
+
+  // Stage chunk c of the run into buffer b: lane i looks up key i's page,
+  // then every lane copies 16-byte pieces of the chunk's K and V rows.
+  // A key past the run or on a null page is zero-filled, not read.
+  // Returns whether this lane's key is one to attend.
+  bf16* wbuf = stage + (size_t)warp * 2 * 2 * DK * LDS;
+  auto load = [&](int c, int b) -> bool {
+    const int kb = k0 + c * DK, kpos = kb + lane;
+    const int phys =
+        kpos < k1 ? table[(size_t)s * bps + kpos / block_len] : 0;
+    bf16* kd = wbuf + b * 2 * DK * LDS;
+    bf16* vd = kd + DK * LDS;
+    for (int i = 0; i < CH; ++i) {
+      const int e = lane + 32 * i, key = e / CH, ch = e - key * CH;
+      const int ph = __shfl_sync(FULL, phys, key);
+      const int kk = kb + key;
+      const size_t src =
+          (((size_t)ph * block_len + kk % block_len) * n_kv + h) * hd + 8 * ch;
+      cp_async16(kd + key * LDS + 8 * ch, ph ? kp + src : kp, ph ? 16 : 0);
+      cp_async16(vd + key * LDS + 8 * ch, ph ? vp + src : vp, ph ? 16 : 0);
+    }
+    cp_async_commit();
+    return phys != 0;
+  };
+
+  float m[G], l[G], acc[G][U][2];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc[g][u][0] = acc[g][u][1] = 0.f;
+  }
+  bool ok = false, ok_next = false;
+  if (mine > 0) ok = load(warp, 0);
+  __syncthreads();                        // q's rows are staged
+
+  for (int i = 0; i < mine; ++i) {
+    const int b = i & 1;
+    if (i + 1 < mine) {
+      ok_next = load(warp + (i + 1) * warps, b ^ 1);
+      cp_async_wait<1>();                 // this chunk's copies have landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();                         // ... every lane's
+    const bf16* kd = wbuf + b * 2 * DK * LDS;
+    const bf16* vd = kd + DK * LDS;
+    const int nk = min(DK, k1 - (k0 + (warp + i * warps) * DK));
+
+    // scores of this lane's key for the block's rows: q (f32, scaled)
+    // broadcast from shared memory, K as 16-byte bf16 loads
+    float sc[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) sc[g] = 0.f;
+    const bf16* krow = kd + lane * LDS;
+    for (int c = 0; c < CH; ++c) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(krow + 8 * c);
+      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      float kf[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(k2[j]);
+        kf[2 * j] = f.x;
+        kf[2 * j + 1] = f.y;
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 a = *reinterpret_cast<const float4*>(qs + g * hd + 8 * c);
+        const float4 a2 =
+            *reinterpret_cast<const float4*>(qs + g * hd + 8 * c + 4);
+        float d = sc[g];
+        d = fmaf(a.x, kf[0], d);
+        d = fmaf(a.y, kf[1], d);
+        d = fmaf(a.z, kf[2], d);
+        d = fmaf(a.w, kf[3], d);
+        d = fmaf(a2.x, kf[4], d);
+        d = fmaf(a2.y, kf[5], d);
+        d = fmaf(a2.z, kf[6], d);
+        d = fmaf(a2.w, kf[7], d);
+        sc[g] = d;
+      }
+    }
+    // softcap, mask, online softmax; sc becomes p
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float v = sc[g];
+      if (softcap > 0.f) v = tanhf(v / softcap) * softcap;
+      v = ok ? v : NEG_INF;
+      const float m_new = fmaxf(m[g], warp_max(v));
+      const float alpha = expf(m[g] - m_new);
+      const float p = ok ? expf(v - m_new) : 0.f;
+      l[g] = alpha * l[g] + warp_sum(p);
+      m[g] = m_new;
+      sc[g] = p;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        acc[g][u][0] *= alpha;
+        acc[g][u][1] *= alpha;
+      }
+    }
+    // acc += p V: this lane's pairs of dims, each key's p from its lane
+    for (int key = 0; key < nk; ++key) {
+      float pk[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) pk[g] = __shfl_sync(FULL, sc[g], key);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = lane + 32 * u;
+        if (j < HP) {
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(vd + key * LDS +
+                                                       2 * j));
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            acc[g][u][0] = fmaf(pk[g], f.x, acc[g][u][0]);
+            acc[g][u][1] = fmaf(pk[g], f.y, acc[g][u][1]);
+          }
+        }
+      }
+    }
+    ok = ok_next;
+    __syncwarp();                         // buffer b is free again
+  }
+
+  // merge the warps' partials in warp order, through the staging memory
+  __syncthreads();
+  const int MS = hd + 2;                  // acc[hd], m, l per row
+  float* mg = reinterpret_cast<float*>(stage);   // [warps][G][MS]
+  float* my = mg + (size_t)warp * G * MS;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = lane + 32 * u;
+      if (j < HP) {
+        my[g * MS + 2 * j] = acc[g][u][0];
+        my[g * MS + 2 * j + 1] = acc[g][u][1];
+      }
+    }
+    if (lane == 0) {
+      my[g * MS + hd] = m[g];
+      my[g * MS + hd + 1] = l[g];
+    }
+  }
+  __syncthreads();
+  const size_t rows = (size_t)n_slots * n_kv * group;
+  for (int e = tid; e < ng * hd; e += blockDim.x) {
+    const int g = e / hd, d = e - g * hd;
+    float M = NEG_INF;
+    for (int w = 0; w < warps; ++w) M = fmaxf(M, mg[(w * G + g) * MS + hd]);
+    float L = 0.f, A = 0.f;
+    for (int w = 0; w < warps; ++w) {
+      const float* r = mg + (w * G + g) * MS;
+      const float f = expf(r[hd] - M);
+      L += f * r[hd + 1];
+      A += f * r[d];
+    }
+    if (splits == 1) {
+      out[(row0 + g) * hd + d] = __float2bfloat16(L > 0.f ? A / L : 0.f);
+    } else {
+      const size_t pr = (size_t)z * rows + row0 + g;
+      part_acc[pr * hd + d] = A;
+      if (d == 0) {
+        part_ml[2 * pr] = M;
+        part_ml[2 * pr + 1] = L;
+      }
+    }
+  }
+  if (splits == 1) return;
+
+  // the last block of the (slot, kv head, row block) to finish merges the
+  // splits' partials in split order
+  __threadfence();                        // the partials are visible first
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = counter + (size_t)s * gridDim.y + blockIdx.y;
+    is_last = atomicAdd(cnt, 1) == splits - 1;
+    if (is_last) *cnt = 0;                // reset for the next launch
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int e = tid; e < ng * hd; e += blockDim.x) {
+    const int g = e / hd, d = e - g * hd;
+    const size_t r = row0 + g;
+    float M = NEG_INF;
+    for (int zz = 0; zz < splits; ++zz)
+      M = fmaxf(M, __ldcg(part_ml + 2 * (zz * rows + r)));
+    float L = 0.f, A = 0.f;
+    for (int zz = 0; zz < splits; ++zz) {
+      const size_t pr = zz * rows + r;
+      const float f = expf(__ldcg(part_ml + 2 * pr) - M);
+      L += f * __ldcg(part_ml + 2 * pr + 1);
+      A += f * __ldcg(part_acc + pr * hd + d);
+    }
+    out[r * hd + d] = __float2bfloat16(L > 0.f ? A / L : 0.f);
+  }
+}
+
 size_t smem_bytes(int hd, int block_len) {
   return sizeof(float) * ((size_t)ROWS * hd + (size_t)block_len * (hd + 1) +
                           (size_t)block_len * hd + (size_t)WARPS * block_len);
 }
 
-// attend's shared memory depends on hd and block_len: its kernels are
-// allowed the card's whole opt-in maximum once; the wrapper refuses
-// shapes above it (paged_attention_smem_bytes).
+// attend's and the bf16 decode's shared memory depend on the shapes:
+// their kernels are allowed the card's whole opt-in maximum once, less
+// what the kernel holds statically; the wrappers refuse shapes above it.
 template <typename K>
 cudaError_t allow_max_smem(OncePerDevice& once, K kernel) {
   return once([kernel] {
     int dev = 0, most = 0;
+    cudaFuncAttributes attr;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(
           &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return err;
     return cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        most - (int)attr.sharedSizeBytes);
   });
 }
 
-// attend's kernels: decode in T, and the f32 prefill.
-template <typename T>
-cudaError_t launch_decode(const void* q, const void* kp, const void* vp,
-                          const int* table, const int* pos, void* out,
-                          int n_slots, int n_kv, int group, int hd,
-                          int block_len, int bps, float scale, float softcap,
-                          int window, cudaStream_t stream) {
+// attend's kernels: the f32 decode and the f32 prefill.
+cudaError_t launch_decode_f32(const void* q, const void* kp, const void* vp,
+                              const int* table, const int* pos, void* out,
+                              int n_slots, int n_kv, int group, int hd,
+                              int block_len, int bps, float scale,
+                              float softcap, int window,
+                              cudaStream_t stream) {
   static OncePerDevice smem_attr;
-  cudaError_t err = allow_max_smem(smem_attr, paged_decode_kernel<T>);
+  cudaError_t err = allow_max_smem(smem_attr, paged_decode_kernel<float>);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_slots, n_kv, (group + ROWS - 1) / ROWS);
-  paged_decode_kernel<T><<<grid, THREADS, smem_bytes(hd, block_len),
-                           stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), table, pos, static_cast<T*>(out), n_kv,
-      group, hd, block_len, bps, scale, softcap, window);
+  paged_decode_kernel<float><<<grid, THREADS, smem_bytes(hd, block_len),
+                               stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kp),
+      static_cast<const float*>(vp), table, pos, static_cast<float*>(out),
+      n_kv, group, hd, block_len, bps, scale, softcap, window);
   return cudaGetLastError();
+}
+
+template <int G, int U>
+cudaError_t launch_decode_bf16(const void* q, const void* kp, const void* vp,
+                               const int* table, const int* pos, void* out,
+                               float* part_acc, float* part_ml, int* counter,
+                               int n_slots, int n_kv, int group, int hd,
+                               int block_len, int bps, float scale,
+                               float softcap, int window, int warps,
+                               int row_blocks, int splits,
+                               cudaStream_t stream) {
+  static OncePerDevice smem_attr;
+  cudaError_t err = allow_max_smem(smem_attr, decode_bf16_kernel<G, U>);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_slots, n_kv * row_blocks, splits);
+  decode_bf16_kernel<G, U><<<grid, 32 * warps,
+                             decode_smem_bytes(warps, G, hd), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
+      static_cast<const bf16*>(vp), table, pos, static_cast<bf16*>(out),
+      part_acc, part_ml, counter, n_kv, group, hd, block_len, bps, scale,
+      softcap, window, row_blocks);
+  return cudaGetLastError();
+}
+
+template <int G>
+cudaError_t launch_decode_rows(const void* q, const void* kp, const void* vp,
+                               const int* table, const int* pos, void* out,
+                               float* part_acc, float* part_ml, int* counter,
+                               int n_slots, int n_kv, int group, int hd,
+                               int block_len, int bps, float scale,
+                               float softcap, int window, int warps,
+                               int row_blocks, int splits,
+                               cudaStream_t stream) {
+#define DEC_ARGS                                                          \
+  q, kp, vp, table, pos, out, part_acc, part_ml, counter, n_slots, n_kv,  \
+      group, hd, block_len, bps, scale, softcap, window, warps,            \
+      row_blocks, splits, stream
+  if (hd <= 64) return launch_decode_bf16<G, 1>(DEC_ARGS);
+  if (hd <= 128) return launch_decode_bf16<G, 2>(DEC_ARGS);
+  return launch_decode_bf16<G, 4>(DEC_ARGS);
+#undef DEC_ARGS
 }
 
 cudaError_t launch_prefill_f32(const void* q, const void* kp, const void* vp,
@@ -617,22 +954,43 @@ cudaError_t launch_tc(const void* q, const void* kp, const void* vp,
 
 // Plain C entry points (bound with ctypes). dtype: 0 = float32, 1 = bf16.
 // Return the cudaError_t of the launch (0 = success).
-extern "C" int paged_attention_launch(const void* q, const void* k_pool,
-                                      const void* v_pool, const int* table,
-                                      const int* positions, void* out,
-                                      int n_slots, int n_kv, int group,
-                                      int hd, int block_len, int bps,
-                                      float scale, float softcap, int window,
-                                      int dtype, void* stream) {
+//
+// Decode: f32 runs attend (the plan's arguments are ignored); bf16 runs
+// decode_bf16_kernel on the wrapper's decode_plan: warps (1 .. 4), rows
+// of the group a block takes (1, 2, 4 or 8) and row_blocks covering the
+// group, splits (>= 1) of each slot's keys; hd a multiple of 8 up to 256.
+// With splits > 1, part_acc is f32 (splits, n_slots * n_kv * group, hd)
+// scratch, part_ml f32 (splits, n_slots * n_kv * group, 2), and counter
+// holds n_slots * n_kv * row_blocks int32 zeros, which the kernel leaves
+// at zero.
+extern "C" int paged_attention_launch(
+    const void* q, const void* k_pool, const void* v_pool, const int* table,
+    const int* positions, void* out, float* part_acc, float* part_ml,
+    int* counter, int n_slots, int n_kv, int group, int hd, int block_len,
+    int bps, float scale, float softcap, int window, int warps, int rows,
+    int row_blocks, int splits, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)launch_decode<__nv_bfloat16>(q, k_pool, v_pool, table,
-                                             positions, out, n_slots, n_kv,
-                                             group, hd, block_len, bps, scale,
-                                             softcap, window, s);
-  return (int)launch_decode<float>(q, k_pool, v_pool, table, positions, out,
-                                   n_slots, n_kv, group, hd, block_len, bps,
-                                   scale, softcap, window, s);
+  if (dtype != 1)
+    return (int)launch_decode_f32(q, k_pool, v_pool, table, positions, out,
+                                  n_slots, n_kv, group, hd, block_len, bps,
+                                  scale, softcap, window, s);
+  if (warps < 1 || warps > DEC_MAX_WARPS || hd % 8 || hd < 8 || hd > 256 ||
+      row_blocks * rows < group || splits < 1 ||
+      (splits > 1 && (!part_acc || !part_ml || !counter)))
+    return (int)cudaErrorInvalidValue;
+  switch (rows) {
+#define ROWS_CASE(G)                                                       \
+  case G:                                                                  \
+    return (int)launch_decode_rows<G>(q, k_pool, v_pool, table, positions, \
+                                      out, part_acc, part_ml, counter,     \
+                                      n_slots, n_kv, group, hd, block_len, \
+                                      bps, scale, softcap, window, warps,  \
+                                      row_blocks, splits, s);
+    ROWS_CASE(1) ROWS_CASE(2) ROWS_CASE(4) ROWS_CASE(8)
+#undef ROWS_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Prefill: f32 runs attend; bf16 runs the tensor-core kernel, for hd a

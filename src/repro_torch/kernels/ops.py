@@ -2,7 +2,8 @@
 tile-CSR support preparation, the flat-``v`` tile gather, the SLTrain
 linear of ``exec_mode="fused"`` (a ``torch.autograd.Function`` whose
 forward and dx run ``sl_matmul`` and whose dV runs ``sddmm``), the 8-bit
-Adam step on a leaf of any shape, the paged-attention calls with the
+Adam step on a list of leaves in one launch and on one leaf of any
+shape, the paged-attention calls with the
 GQA regroup, and the factored decode of ``exec_mode="sparse"`` and
 ``"quant"`` (the low-rank term as f32 matmuls, the sparse term through
 the ``sparse_matmul`` or ``quant_sparse_matmul`` kernel).
@@ -204,7 +205,7 @@ def sl_linear(x, B, A, v, rows_t, cols_t, perm, scale: float, *,
 
 
 # ---------------------------------------------------------------------------
-# 8-bit Adam (a parameter leaf of any shape)
+# 8-bit Adam (leaves and layer slices of any shape)
 # ---------------------------------------------------------------------------
 
 def adam8bit_scalars(*, lr, b1, b2, bc1, bc2, eps, wd, omb1=None, omb2=None,
@@ -228,21 +229,37 @@ def adam8bit_scalars(*, lr, b1, b2, bc1, bc2, eps, wd, omb1=None, omb2=None,
                         for x in vals])
 
 
+def adam8bit_group_update(items, *, scalars, clip=None):
+    """One fused 8-bit Adam step on several leaves or layer slices at
+    once, written in place: ``items`` are (p, g, m_codes, m_scales,
+    v_codes, v_scales, decay) with p contiguous (any shape, f32 or bf16),
+    g of p's size (f32 or bf16, read as it is), the moments' codes and
+    scales of ceil(p.numel() / 256) blocks, and ``decay`` whether
+    ``scalars[8]``'s weight decay applies. ``clip`` (an f32 device scalar
+    or None) multiplies every gradient first. On the card: one launch of
+    the ``adam8bit`` kernel for the whole list (up to its segment limit);
+    a ragged tail is read in place, nothing is padded or copied."""
+    adam8bit_kernel.adam8bit_group(
+        [adam8bit_kernel.Segment(p, g.contiguous(), *rest)
+         for p, g, *rest in items], scalars, clip)
+
+
 def adam8bit_update(p, g, m_codes, m_scales, v_codes, v_scales, *,
                     lr=None, b1=None, b2=None, bc1=None, bc2=None, eps=None,
                     wd=None, q: int = 256, omb1=None, omb2=None,
                     scalars=None, inplace: bool = False):
     """One fused 8-bit Adam step on a leaf of any shape: p (any shape, f32
-    or bf16) and its gradient g (the same shape, or already f32), the
-    moments' codes (n_q, q) int8 and scales (n_q,) f32. The step's scalars
-    come one by one, as the reference takes them, or prebuilt by
-    :func:`adam8bit_scalars` as ``scalars``. The leaf is padded to whole
-    q-blocks; the kernel masks the lanes past its element count.
+    or bf16) and its gradient g (the same size, f32 or bf16), the moments'
+    codes (n_q, q) int8 and scales (n_q,) f32. The step's scalars come
+    one by one, as the reference takes them, or prebuilt by
+    :func:`adam8bit_scalars` as ``scalars``. The one-segment case of
+    :func:`adam8bit_group_update` (no clip, weight decay from the
+    scalars).
 
     Returns (new_p (p's shape), m_codes, m_scales, v_codes, v_scales).
     With ``inplace`` the new values are written into p and the given
-    codes and scales (p, a contiguous leaf or layer slice, and its state
-    keep their storage), and those are returned."""
+    codes and scales (which keep their storage), and those are
+    returned."""
     if q != adam8bit_kernel.Q:
         raise ValueError(f"adam8bit: q_block {q}; the kernel takes "
                          f"{adam8bit_kernel.Q}-element blocks")
@@ -250,29 +267,16 @@ def adam8bit_update(p, g, m_codes, m_scales, v_codes, v_scales, *,
         scalars = adam8bit_scalars(lr=lr, b1=b1, b2=b2, bc1=bc1, bc2=bc2,
                                    eps=eps, wd=wd, omb1=omb1, omb2=omb2,
                                    device=p.device)
-    shape = p.shape
-    n = p.numel()
-    pad = (-n) % q
-
-    def blk(a, dtype):
-        f = a.reshape(-1).to(dtype)
-        if pad:
-            f = torch.nn.functional.pad(f, (0, pad))
-        return f.reshape(-1, q)
-
-    pb = p.reshape(-1, q) if not pad and p.is_contiguous() \
-        else blk(p, p.dtype)
-    gb = blk(g.contiguous(), torch.float32)
-    new_p, mc, ms, vc, vs = adam8bit_kernel.adam8bit_update(
-        pb, gb, m_codes.reshape(-1, q), m_scales.reshape(-1),
-        v_codes.reshape(-1, q), v_scales.reshape(-1), scalars, n,
-        inplace=inplace)
-    new_p = new_p.reshape(-1)[:n].reshape(shape)
+    state = (m_codes, m_scales, v_codes, v_scales)
     if inplace:
-        if pad or not p.is_contiguous():
-            p.copy_(new_p)
-        return p, m_codes, m_scales, v_codes, v_scales
-    return new_p, mc, ms, vc, vs
+        pw = p.contiguous()
+    else:
+        state = tuple(t.clone() for t in state)
+        pw = p.clone(memory_format=torch.contiguous_format)
+    adam8bit_group_update([(pw, g, *state, True)], scalars=scalars)
+    if inplace and pw is not p:
+        p.copy_(pw)
+    return (p if inplace else pw, *state)
 
 
 # ---------------------------------------------------------------------------

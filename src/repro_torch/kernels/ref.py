@@ -164,6 +164,37 @@ def adam8bit_ref(p, g, m_codes, m_scales, v_codes, v_scales, scalars,
     return new_p, mc.to(torch.int8), ms, vc.to(torch.int8), vs
 
 
+def adam8bit_segment_ref(p, g, m_codes, m_scales, v_codes, v_scales,
+                         scalars, clip=None, *, decay: bool = True):
+    """One segment of the grouped ``adam8bit`` launch: p (n elements, any
+    shape, f32 or bf16) and g (n elements, f32 or bf16), padded with zeros
+    to (n_q, Q) blocks; g is multiplied by ``clip`` in f32 first (the
+    optimizer's ``g.float() * scale``), and weight decay ``scalars[8]``
+    applies only with ``decay``. Returns (new_p in p's shape, then the
+    codes and scales in their given shapes)."""
+    n = p.numel()
+    q = m_codes.numel() // m_scales.numel()
+    pad = (-n) % q
+
+    def blocks(a, dtype):
+        return torch.nn.functional.pad(a.reshape(-1).to(dtype),
+                                       (0, pad)).reshape(-1, q)
+
+    gf = g.float()
+    if clip is not None:
+        gf = gf * clip
+    if not decay:
+        scalars = scalars.clone()
+        scalars[8] = 0.0
+    new_p, mc, ms, vc, vs = adam8bit_ref(
+        blocks(p, p.dtype), blocks(gf, torch.float32),
+        m_codes.reshape(-1, q), m_scales.reshape(-1),
+        v_codes.reshape(-1, q), v_scales.reshape(-1), scalars, n)
+    return (new_p.reshape(-1)[:n].reshape(p.shape),
+            mc.reshape(m_codes.shape), ms.reshape(m_scales.shape),
+            vc.reshape(v_codes.shape), vs.reshape(v_scales.shape))
+
+
 def paged_attention_ref(q, k_pool, v_pool, block_table, positions, *,
                         scale: float, softcap: float = 0.0, window: int = 0):
     """Decode attention over the paged pools, dense and in f32.

@@ -100,12 +100,15 @@ def _lib():
 
 
 # int32 counters per (device, stream): zeroed when allocated, and every
-# launch leaves them at zero, so launches in one stream's order can share
-# them
+# launch (this module's kernels and the split bf16 decode's) leaves them
+# at zero, so launches in one stream's order can share them
 _counters = {}
 
 
-def _counter_scratch(device, stream: int, n: int):
+def counter_scratch(device, stream: int, n: int):
+    """At least ``n`` int32 zeros on ``device`` for kernels that count
+    finished blocks and leave the counters at zero, shared by the
+    launches on ``stream``."""
     key = (device, stream)
     c = _counters.get(key)
     if c is None or c.numel() < n:
@@ -232,7 +235,7 @@ def _run(p: Plan, wrapper, x, consts, n: int):
     if p.partial:
         partial = torch.empty(p.partial, dtype=torch.float32,
                               device=x.device)
-        counter = _counter_scratch(x.device, stream, p.counters)
+        counter = counter_scratch(x.device, stream, p.counters)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _lib()
     with torch.cuda.device(x.device):

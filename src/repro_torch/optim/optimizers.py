@@ -36,9 +36,12 @@ runs through the same ``prepare``/``update_slice`` path, so per-layer and
 global modes agree leaf for leaf by construction.
 
 ``update_slice_fused`` is 8-bit AdamW's kernel dispatch (the ``adam8bit``
-kernel, one fused pass). Its one caller is the per-layer sweep, and it
-writes the new values into the parameter and state tensors it is given
-(and returns them), which keeps the sweep's memory at one layer. ``galore_adamw`` is not
+kernel, one fused pass) for one leaf or slice, and ``update_group_fused``
+for a list of them in one launch (the per-layer sweep sends a layer's
+slices, the head leaves, the deferred leaves and the embedding, each
+group at once). Both write the new values into the parameter and state
+tensors they are given, which keeps the sweep's memory at one layer.
+``galore_adamw`` is not
 ported yet (ROADMAP queue A item 5) and raises.
 """
 from __future__ import annotations
@@ -63,6 +66,7 @@ class Optimizer:
     prepare: Callable = None        # (state, gnorm) -> (ctx, stats)
     update_slice: Callable = None   # (ctx, p, g, ls, full_ndim=None)
     update_slice_fused: Optional[Callable] = None  # kernel dispatch
+    update_group_fused: Optional[Callable] = None  # ... over a list
     leaf_state: Callable = None     # (state, path) -> ls
     with_leaf_state: Callable = None  # (state, path, ls) -> state
     stack_state: Callable = None    # (ls, p_leaf, n) -> ls | None
@@ -237,27 +241,35 @@ def adam8bit(oc: OptimizerConfig) -> Optimizer:
         return new_p, {"mu": {"codes": mc, "scales": ms},
                        "nu": {"codes": vc, "scales": vs}}
 
-    def update_slice_fused(ctx, p, g, ls, full_ndim=None):
-        """The ``adam8bit`` kernel: one fused pass, the f32 moments only
-        in registers. The new parameter, codes and scales are written into
-        ``p`` and ``ls``'s tensors (a contiguous leaf or layer slice and
-        its state views), which are returned. The kernel's (10,) scalars
-        are built once per step and weight decay, on the step's ``ctx``."""
+    def update_group_fused(ctx, items):
+        """The ``adam8bit`` kernel over several leaves or layer slices in
+        one launch: ``items`` are (p, g, ls, full_ndim), p contiguous.
+        Each gradient is read in its own dtype and multiplied by the
+        step's clip scale inside the kernel (the bits of ``g.float() *
+        ctx["scale"]``); the new parameters, codes and scales are written
+        into each p and ``ls``'s tensors. The kernel's (10,) scalars are
+        built once per step and device, on the step's ``ctx``."""
         from repro_torch.kernels import ops
-        g = g.float() * ctx["scale"]
-        wd = oc.weight_decay if _decays(oc, p, full_ndim) else 0.0
+        if not items:
+            return
+        device = items[0][0].device
         cache = ctx.setdefault("adam8bit_scalars", {})
-        key = (wd, p.device)
-        if key not in cache:
-            cache[key] = ops.adam8bit_scalars(
+        if device not in cache:
+            cache[device] = ops.adam8bit_scalars(
                 lr=ctx["lr"], b1=b1, b2=b2, bc1=ctx["bc1"], bc2=ctx["bc2"],
-                eps=oc.eps, wd=wd, device=p.device)
-        new_p, mc, ms, vc, vs = ops.adam8bit_update(
-            p, g, ls["mu"]["codes"], ls["mu"]["scales"],
-            ls["nu"]["codes"], ls["nu"]["scales"], q=block,
-            scalars=cache[key], inplace=True)
-        return new_p, {"mu": {"codes": mc, "scales": ms},
-                       "nu": {"codes": vc, "scales": vs}}
+                eps=oc.eps, wd=oc.weight_decay, device=device)
+        ops.adam8bit_group_update(
+            [(p, g, ls["mu"]["codes"], ls["mu"]["scales"],
+              ls["nu"]["codes"], ls["nu"]["scales"],
+              _decays(oc, p, full_ndim)) for p, g, ls, full_ndim in items],
+            scalars=cache[device], clip=ctx["scale"])
+
+    def update_slice_fused(ctx, p, g, ls, full_ndim=None):
+        """One leaf or layer slice through the ``adam8bit`` kernel (the
+        one-item case of ``update_group_fused``); p and ``ls``'s tensors
+        are updated in place and returned."""
+        update_group_fused(ctx, [(p, g, ls, full_ndim)])
+        return p, ls
 
     def update(grads, state, params):
         with torch.no_grad():
@@ -296,6 +308,7 @@ def adam8bit(oc: OptimizerConfig) -> Optimizer:
 
     return Optimizer(init, update, prepare=prepare, update_slice=update_slice,
                      update_slice_fused=update_slice_fused,
+                     update_group_fused=update_group_fused,
                      leaf_state=leaf_state, with_leaf_state=with_leaf_state,
                      stack_state=stack_state, unstack_state=unstack_state,
                      finish=finish)

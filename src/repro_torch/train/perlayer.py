@@ -16,8 +16,10 @@ term of the size of the trainable parameters. This step removes it:
   3. **Update sweep** (top to bottom again): re-run each layer's backward
      and apply that layer's optimizer update at once, through the
      per-layer slice API (``Optimizer.update_slice``; under ``fused_opt``
-     the 8-bit optimizer's ``update_slice_fused``, the ``adam8bit``
-     kernel), before the next layer's gradients exist.
+     the 8-bit optimizer's ``update_group_fused``, one launch of the
+     ``adam8bit`` kernel for all of the layer's slices), before the next
+     layer's gradients exist. The head leaves, the deferred leaves (below)
+     and the embedding are each one such group too.
 
 The update order is head → layers (top to bottom) → embedding. No
 layer's update feeds another's gradient within the step, so for the Adam
@@ -119,9 +121,11 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
     metrics) with per-layer in-sweep updates. The params and the state's
     leaves are updated in place and returned.
 
-    ``fused_opt`` routes the updates through
-    ``optimizer.update_slice_fused`` (the ``adam8bit`` kernel) when the
-    optimizer has one; it defaults to ``cfg.param.exec_mode == "fused"``.
+    ``fused_opt`` routes the updates through the optimizer's kernel
+    dispatch when it has one (the ``adam8bit`` kernel): a group at a time
+    through ``update_group_fused``, else leaf by leaf through
+    ``update_slice_fused``; it defaults to ``cfg.param.exec_mode ==
+    "fused"``.
     ``layer_timing`` (a registry, or None = off) records per-layer update
     times into ``train.perlayer.layer_update_ms``. ``grad_specs`` (fsdp)
     is not ported (ROADMAP queue A item 10) and raises."""
@@ -144,8 +148,10 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
     if fused_opt is None:
         fused_opt = cfg.param.exec_mode == "fused"
     upd = optimizer.update_slice
+    group_upd = None
     if fused_opt and optimizer.update_slice_fused is not None:
         upd = optimizer.update_slice_fused
+        group_upd = optimizer.update_group_fused
     tied = cfg.tie_embeddings
     n_mb = grad_accum
     layer_fn = remat_wrap(lambda p, c, x: plapi.period(cfg, p, c, x)[0],
@@ -164,6 +170,15 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
         new_p, new_ls = upd(ctx, p, g, ls, full_ndim=full_ndim)
         _write(p, new_p)
         tree_map(_write, ls, new_ls)
+
+    def update_group(ctx, items):
+        """A group of (p, g, ls, full_ndim) updates: one kernel launch
+        under ``group_upd``, else leaf by leaf."""
+        if group_upd is not None:
+            group_upd(ctx, items)
+            return
+        for p, g, ls, nd in items:
+            update_leaf(ctx, ls, p, g, full_ndim=nd)
 
     def layer_grads(p_l, c_l, x_l, dh):
         """One layer's param grads (sorted-leaf order; the f32 mean over
@@ -312,9 +327,8 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
         stamp()
         ln_f0 = params["ln_f"].clone() if tied else None
         d_head, dhs, _ = head_grads()
-        for key, g in zip(head_keys, d_head):
-            update_leaf(ctx, optimizer.leaf_state(state, (key,)),
-                        params[key], g)
+        update_group(ctx, [(params[key], g, optimizer.leaf_state(
+            state, (key,)), None) for key, g in zip(head_keys, d_head)])
         del d_head
 
         stacked, deferred = {}, {}
@@ -329,23 +343,26 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
                 stacked[path] = st
         for i in reversed(range(n_layers)):
             gp, dhs = layer_grads(p_layers[i], c_layers[i], xs[i], dhs)
+            items = []
             for path, leaf, g in zip(paths, leaves, gp):
                 if path in deferred:
                     deferred[path][i] = g
                     continue
                 ls_i = tree_map(lambda t: t[i], stacked[path])
-                update_leaf(ctx, ls_i, leaf[i], g, full_ndim=leaf.dim())
-            del gp
+                items.append((leaf[i], g, ls_i, leaf.dim()))
+            update_group(ctx, items)
+            del gp, items
             stamp()
-        for path, leaf in zip(paths, leaves):
-            if path in deferred:
-                full = ("layers",) + tuple(path.split("/"))
-                update_leaf(ctx, optimizer.leaf_state(state, full), leaf,
-                            deferred.pop(path))
+        update_group(ctx, [
+            (leaf, deferred[path],
+             optimizer.leaf_state(state, ("layers",) + tuple(path.split("/"))),
+             None)
+            for path, leaf in zip(paths, leaves) if path in deferred])
+        deferred.clear()
 
         d_embed = embed_total(dhs, ln_f0)
-        update_leaf(ctx, optimizer.leaf_state(state, ("embed",)),
-                    params["embed"], d_embed)
+        update_group(ctx, [(params["embed"], d_embed,
+                            optimizer.leaf_state(state, ("embed",)), None)])
         del d_embed
         state = optimizer.finish(state, ctx)
 

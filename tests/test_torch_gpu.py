@@ -236,7 +236,9 @@ def _pools(rng, n_slots, bps, block_len, n_kv, hd, last_pos, dtype, dev):
     (16, 32, 1, 64, [40, 49, 58, -1], 0.0, 0),
     (16, 8, 4, 64, [40, 3, 77], 50.0, 0),
     (4, 2, 4, 16, [13, 2, 9], 0.0, 6),
-    (64, 1, 8, 256, [300, 17], 20.0, 100)])
+    (64, 1, 8, 256, [300, 17], 20.0, 100),
+    # a 1023-key context (the bf16 decode splits it across blocks)
+    (16, 32, 1, 64, [1023, 517, 1000, -1], 0.0, 0)])
 def test_paged_attention_kernel_matches_plain(cuda, case, dtype):
     block_len, n_kv, group, hd, positions, cap, win = case
     rng = np.random.default_rng(5)
@@ -257,6 +259,93 @@ def test_paged_attention_kernel_matches_plain(cuda, case, dtype):
         if p < 0:
             assert (got[s] == 0).all()
     _close(got, ref.paged_attention_ref(q, kp, vp, table, pos, **kw), dtype)
+
+
+# the bf16 decode's cases: those above, llama_1b's engine at GQA group 4,
+# and 1023-key contexts at 32 heads and at GQA group 4
+DECODE_CASES = [
+    (8, 2, 2, 16, [19, 7, 5, -1], 0.0, 0),
+    (16, 32, 1, 64, [40, 49, 58, -1], 0.0, 0),
+    (16, 8, 4, 64, [40, 3, 77], 50.0, 0),
+    (4, 2, 4, 16, [13, 2, 9], 0.0, 6),
+    (64, 1, 8, 256, [300, 17], 20.0, 100),
+    (16, 8, 4, 64, [40, 49, 58, -1], 0.0, 24),
+    (16, 32, 1, 64, [1023, 517, 1000, -1], 0.0, 0),
+    (16, 8, 4, 64, [1023, 517, 1000, -1], 30.0, 0)]
+
+
+def _decode_case(case, dev, seed=5):
+    block_len, n_kv, group, hd, positions, cap, win = case
+    rng = np.random.default_rng(seed)
+    n_slots = len(positions)
+    bps = max(positions) // block_len + 2
+    kp, vp, table = _pools(rng, n_slots, bps, block_len, n_kv, hd,
+                           positions, torch.bfloat16, dev)
+    pos = torch.tensor([max(p, 0) for p in positions], dtype=torch.int32,
+                       device=dev)
+    q = _rand(rng, (n_slots, n_kv, group, hd), torch.bfloat16, dev)
+    return q, kp, vp, table, pos, dict(scale=hd ** -0.5, softcap=cap,
+                                       window=win)
+
+
+def _decode_plans(q, kp, table):
+    """The plan of the shapes, and the same with 1, 2 and the most splits
+    (those the keys allow)."""
+    n_slots, n_kv, group, hd = q.shape
+    keys = table.shape[1] * kp.shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = pa_kernel.decode_plan(n_slots, n_kv, group, hd, keys, sms)
+    most = pa_kernel.decode_most_splits(keys)
+    return [plan] + [plan._replace(splits=s) for s in sorted({1, 2, most})
+                     if s <= most and s != plan.splits]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_paged_attention_bf16_decode_at_each_split(cuda, case):
+    """The bf16 decode at the plan's split count and at 1, 2 and the most
+    splits: within the bf16 tolerance of the plain version, idle slots
+    exactly zero, and a rerun gives the same bits."""
+    q, kp, vp, table, pos, kw = _decode_case(case, cuda)
+    want = ref.paged_attention_ref(q, kp, vp, table, pos, **kw)
+    for plan in _decode_plans(q, kp, table):
+        before = pa_kernel.paged_attention.launches
+        got = pa_kernel.decode_launch(plan, q, kp, vp, table, pos, **kw)
+        torch.cuda.synchronize()
+        assert pa_kernel.paged_attention.launches == before + 1
+        assert torch.isfinite(got.float()).all(), plan
+        for s, p in enumerate(case[4]):
+            if p < 0:
+                assert (got[s] == 0).all(), plan
+        _close(got, want, torch.bfloat16)
+        for _ in range(2):
+            assert torch.equal(got, pa_kernel.decode_launch(
+                plan, q, kp, vp, table, pos, **kw)), plan
+
+
+@pytest.mark.gpu
+def test_paged_attention_bf16_decode_null_pages_never_leak(cuda):
+    """Null entries inside a slot's live range (NaN pages behind them, as
+    in the null block), inside and outside a window, at every split
+    count: the output stays finite and equal to the plain version's, and
+    a slot whose pages are all null is zero."""
+    for win in (0, 300):
+        case = (16, 8, 4, 64, [1023, 517, 1000, 600], 0.0, win)
+        q, kp, vp, table, pos, kw = _decode_case(case, cuda)
+        table[0, 3] = 0                 # holes early in the context
+        table[0, 40] = 0
+        table[1, 32] = 0                # the page of the slot's position
+        table[2] = 0                    # nothing at all
+        kp[table[3, 20]] = float("nan")     # a stale page, then freed
+        vp[table[3, 20]] = float("nan")
+        table[3, 20] = 0
+        want = ref.paged_attention_ref(q, kp, vp, table, pos, **kw)
+        for plan in _decode_plans(q, kp, table):
+            got = pa_kernel.decode_launch(plan, q, kp, vp, table, pos, **kw)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got.float()).all(), plan
+            assert (got[2] == 0).all(), plan
+            _close(got, want, torch.bfloat16)
 
 
 def _prefill_case(case, dtype, dev, seed=6):
@@ -418,6 +507,142 @@ def test_adam8bit_leaf_update_on_card_matches_cpu(cuda):
     for dtype in DTYPES:
         for a, b in zip(res[("cuda", dtype)], res[("cpu", dtype)]):
             assert torch.equal(a, b)
+
+
+def _llama_1b_layer_sizes():
+    """{leaf: elements} of one layer's slices of llama_1b (d_model 2048,
+    d_ff 5461, rank 512, δ 0.03, row-balanced), as the per-layer step
+    groups them; mlp/down/v (333,121 a layer) is no whole number of
+    256-blocks, so the step updates its 24 layers as one deferred leaf."""
+    d, f, r = 2048, 5461, 512
+    sizes = {"ln_attn": d, "ln_mlp": d}
+    for name, (a, b) in {"wq": (d, d), "wk": (d, d), "wv": (d, d),
+                         "wo": (d, d), "gate": (d, f), "up": (d, f),
+                         "down": (f, d)}.items():
+        sizes[f"{name}/A"] = r * b
+        sizes[f"{name}/B"] = a * r
+        sizes[f"{name}/v"] = support.nnz_for(a, b, 0.03)
+    sizes["down/v"] *= 24
+    return sizes
+
+
+def _segments(rng, sizes, p_dtype, dev):
+    """A segment per size: p in ``p_dtype``, g in p's dtype except the
+    deferred leaf's f32 accumulator, moments quantized from random
+    values, weight decay on all but the norms."""
+    from repro_torch.optim import quant
+    segs = []
+    for name, n in sizes.items():
+        p = _rand(rng, (n,), p_dtype, dev)
+        g_dtype = torch.float32 if n % 256 else p_dtype
+        g = _rand(rng, (n,), g_dtype, dev, 1e-2)
+        mc, ms, _ = quant.quantize_blockwise(
+            _rand(rng, (n,), torch.float32, dev, 1e-3), 256, True)
+        vc, vs, _ = quant.quantize_blockwise(
+            _rand(rng, (n,), torch.float32, dev, 1e-2) ** 2, 256, False)
+        segs.append(adam8bit_kernel.Segment(p, g, mc, ms, vc, vs,
+                                            not name.startswith("ln")))
+    return segs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_adam8bit_group_launch_matches_per_leaf_and_plain(cuda, dtype):
+    """One grouped call over a whole llama_1b layer's segments (22 slices
+    and the ragged deferred leaf; bf16 or f32 parameters, their gradients
+    in the trainer's dtypes, clip scale 0.37), one launch per pair of p
+    and g dtypes, is bit for bit the per-leaf kernel on each segment's
+    padded f32 blocks and the plain version, segment by segment, over
+    three chained steps."""
+    rng = np.random.default_rng(11)
+    segs = _segments(rng, _llama_1b_layer_sizes(), dtype, cuda)
+    leaf = [[t.clone() for t in s[:6]] for s in segs]
+    plain = [[t.clone() for t in s[:6]] for s in segs]
+    clip = torch.tensor(0.37, device=cuda)
+    for step in range(1, 4):
+        scalars = ops.adam8bit_scalars(
+            lr=1e-3, b1=0.9, b2=0.999, bc1=1 - 0.9 ** step,
+            bc2=1 - 0.999 ** step, eps=1e-8, wd=0.1, device=cuda)
+        before = adam8bit_kernel.adam8bit_update.launches
+        adam8bit_kernel.adam8bit_group(segs, scalars, clip)
+        assert adam8bit_kernel.adam8bit_update.launches == before + len(
+            {(s.p.dtype, s.g.dtype) for s in segs})
+        for s, lf, pl in zip(segs, leaf, plain):
+            n = s.p.numel()
+            nq = -(-n // 256)
+            pb = torch.zeros(nq * 256, dtype=dtype, device=cuda)
+            pb[:n] = lf[0]
+            gb = torch.zeros(nq * 256, device=cuda)
+            gb[:n] = lf[1].float() * clip
+            sc = scalars if s.decay else torch.cat(
+                [scalars[:8], torch.zeros(2, device=cuda)])
+            out = adam8bit_kernel.adam8bit_update(
+                pb.reshape(nq, 256), gb.reshape(nq, 256), *lf[2:], sc, n)
+            lf[0] = out[0].reshape(-1)[:n]
+            lf[2:] = out[1:]
+            want = ref.adam8bit_segment_ref(*pl, scalars, clip,
+                                            decay=s.decay)
+            pl[0] = want[0]
+            pl[2:] = list(want[1:])
+        torch.cuda.synchronize()
+        for i, (s, lf, pl) in enumerate(zip(segs, leaf, plain)):
+            for name, a, b, c in zip(("p", "m_codes", "m_scales",
+                                      "v_codes", "v_scales"),
+                                     [s.p] + list(s[2:6]), [lf[0]] + lf[2:],
+                                     [pl[0]] + pl[2:]):
+                assert torch.equal(a, b), f"step {step} segment {i} {name}"
+                assert torch.equal(a, c), f"step {step} segment {i} {name}"
+
+
+@pytest.mark.gpu
+def test_perlayer_grouped_dispatch_on_card_matches_per_leaf(cuda):
+    """Three per-layer 8-bit steps on the card (llama_60m smoke, bf16,
+    fused): one ``adam8bit`` launch a group against one a leaf, equal bit
+    for bit (losses, params, 8-bit state), with the launch counts of each
+    dispatch."""
+    import dataclasses
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.data.pipeline import SyntheticC4
+    from repro_torch.models import registry
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import optimizers
+    from repro_torch.train import perlayer
+    cfg = registry.get_smoke_config("llama_60m")
+    cfg = dataclasses.replace(cfg, dtype="bfloat16", param=dataclasses.replace(
+        cfg.param, exec_mode="fused"))
+    api = registry.get_api(cfg)
+    params, consts = api.init(cfg, seed=0, device=cuda)
+    consts = ops.add_transposed_tiles(consts)
+    opt = optimizers.make(OptimizerConfig(
+        name="adam8bit", lr=1e-3, warmup_steps=1, total_steps=3,
+        weight_decay=0.1))
+    data = SyntheticC4(cfg.vocab_size, 32, 4, seed=0)
+    batches = [{"tokens": torch.from_numpy(data.next_batch()["tokens"]).to(
+        cuda)} for _ in range(3)]
+    runs = []
+    for o in (opt, dataclasses.replace(opt, update_group_fused=None)):
+        p = tree_map(torch.clone, params)
+        st = o.init(p)
+        fn = perlayer.make_perlayer_train_step(cfg, api, o)
+        before = adam8bit_kernel.adam8bit_update.launches
+        losses = []
+        for b in batches:
+            p, st, m = fn(p, st, consts, b)
+            losses.append(float(m["loss"]))
+        runs.append((losses, p, st,
+                     adam8bit_kernel.adam8bit_update.launches - before))
+    (gl, gp, gs, gn), (ll, lp, ls, ln) = runs
+    assert gl == ll and all(np.isfinite(gl))
+    for (path, a), (_, b) in zip([*tree_leaves(gp), *tree_leaves(gs)],
+                                 [*tree_leaves(lp), *tree_leaves(ls)]):
+        assert torch.equal(a, b), path
+    sliced = [opt.stack_state(opt.leaf_state(gs, ("layers",) + tuple(
+        path.split("/"))), leaf, cfg.n_layers) is not None
+        for path, leaf in tree_leaves(gp["layers"])]
+    n_other = len(list(tree_leaves(gp))) - len(sliced)
+    assert gn == 3 * (1 + cfg.n_layers + int(not all(sliced)) + 1)
+    assert ln == 3 * (n_other + sum(cfg.n_layers if s else 1
+                                    for s in sliced))
 
 
 def _decode_args(rng, m, k, n, delta, dtype, dev):

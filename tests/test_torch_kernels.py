@@ -461,3 +461,52 @@ def test_sddmm_wrapper_refuses_other_devices():
     meta = torch.empty((2, 128), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         sddmm_kernel.sddmm(meta, meta, meta, meta)
+
+
+@pytest.mark.parametrize("args, want", [
+    # llama_1b's decode: MHA 32 heads and GQA 8 kv heads x group 4, hd 64;
+    # the engine's 128-key table, a 59-key and a 1023-key context. Short
+    # contexts stay in one split (32 keys a warp); long ones split until
+    # about 2 blocks an SM (132 SMs) or one 32-key chunk a warp
+    ((4, 32, 1, 64, 128), (4, 1, 1, 1)),
+    ((4, 32, 1, 64, 59), (2, 1, 1, 1)),
+    ((4, 8, 4, 64, 59), (2, 4, 1, 1)),
+    ((4, 32, 1, 64, 1023), (4, 1, 1, 3)),
+    ((4, 8, 4, 64, 1023), (4, 4, 1, 8)),
+    # a group past 8 rows takes more blocks; hd 256 fits 3 warps' buffers
+    ((1, 2, 12, 64, 256), (4, 8, 2, 2)),
+    ((2, 1, 8, 256, 384), (3, 8, 1, 4))])
+def test_paged_attention_decode_plan(args, want):
+    p = pa_kernel.decode_plan(*args)
+    assert tuple(p) == want
+    n_slots, n_kv, group, hd, keys = args
+    assert p.rows * p.row_blocks >= group
+    assert pa_kernel.decode_smem_bytes(p.warps, p.rows, hd) <= \
+        pa_kernel.DECODE_SMEM_MAX
+    most = pa_kernel.decode_most_splits(keys)
+    assert p.splits <= most == -(-keys // pa_kernel.DECODE_KEYS_PER_WARP)
+    for s in (1, most):
+        assert pa_kernel.decode_plan(*args, splits=s) == p._replace(
+            splits=s)
+
+
+@pytest.mark.parametrize("args", [
+    dict(hd=12), dict(hd=264), dict(hd=0), dict(keys=0), dict(group=0),
+    dict(splits=0), dict(keys=1023, splits=33), dict(keys=59, splits=3)])
+def test_paged_attention_decode_plan_refusals(args):
+    """The bf16 decode has one kernel: a head_dim off its 16-byte rows, an
+    empty decode or a forced split count outside 1 .. one per 32 keys
+    raises instead of falling back."""
+    kw = dict(n_slots=4, n_kv=32, group=1, hd=64, keys=128)
+    kw.update(args)
+    with pytest.raises(ValueError):
+        pa_kernel.decode_plan(**kw)
+
+
+def test_decode_launch_refuses_cpu_tensors():
+    q = torch.zeros((1, 1, 1, 64), dtype=torch.bfloat16)
+    pool = torch.zeros((2, 16, 1, 64), dtype=torch.bfloat16)
+    tbl = torch.zeros((1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pa_kernel.decode_launch(pa_kernel.decode_plan(1, 1, 1, 64, 16), q,
+                                pool, pool, tbl, tbl[:, 0], scale=1.0)

@@ -327,3 +327,75 @@ def test_paper_f_reduction_reproduces_73_percent():
     assert round(100 * r32["reduction"], 1) == 73.6
     assert round(100 * r64["reduction"], 1) == 71.2
     assert r32["resident_ratio"] < 0.05
+
+
+# ---------------------------------------------------------------------------
+# The grouped 8-bit update (one launch over several segments)
+# ---------------------------------------------------------------------------
+
+# (elements, p dtype, g dtype, decay): whole blocks and ragged tails, f32
+# and bf16 parameters, bf16 gradients (the bf16 trainer's) and f32 ones
+# (a deferred leaf's accumulator), weight decay on and off
+GROUP_SEGMENTS = [(512, torch.float32, torch.float32, True),
+                  (300, torch.bfloat16, torch.bfloat16, False),
+                  (64 * 256 + 3, torch.float32, torch.bfloat16, True),
+                  (256, torch.bfloat16, torch.float32, True),
+                  (5, torch.bfloat16, torch.bfloat16, True)]
+
+
+def _segment_state(n, p_dtype, g_dtype, seed):
+    rng = np.random.default_rng(seed)
+    p, g, mc, ms, vc, vs = _adam8bit_inputs(n, seed)
+    g = (rng.standard_normal(n) * 5).astype(np.float32)
+    t = lambda a, dt=None: torch.from_numpy(np.array(a)).to(dt) \
+        if dt else torch.from_numpy(np.array(a))
+    return [t(p, p_dtype), t(g, g_dtype), t(mc), t(ms), t(vc), t(vs)]
+
+
+@pytest.mark.parametrize("clip", [1.0, 0.37])
+def test_adam8bit_group_matches_per_leaf_updates(clip):
+    """The grouped update's plain path over mixed segments, in place, is
+    bit for bit the per-leaf ``ops.adam8bit_update`` of each segment with
+    its gradient clipped first (``g.float() * clip``) and the weight decay
+    of the scalars where the segment decays, 0 where it does not."""
+    scalars = ops.adam8bit_scalars(wd=0.1, device="cpu", **STEP)
+    clip_t = torch.tensor(clip, dtype=torch.float32)
+    segs = [_segment_state(n, pd, gd, seed=i)
+            for i, (n, pd, gd, _) in enumerate(GROUP_SEGMENTS)]
+    want = []
+    for (n, pd, gd, decay), s in zip(GROUP_SEGMENTS, segs):
+        kw = dict(STEP, wd=0.1 if decay else 0.0)
+        want.append(ops.adam8bit_update(s[0], s[1].float() * clip_t,
+                                        *s[2:], **kw))
+    ptrs = [[t.data_ptr() for t in s] for s in segs]
+    ops.adam8bit_group_update(
+        [(*s, decay) for s, (*_, decay) in zip(segs, GROUP_SEGMENTS)],
+        scalars=scalars, clip=clip_t)
+    for s, w, pt in zip(segs, want, ptrs):
+        assert [t.data_ptr() for t in s] == pt          # in place
+        for a, b in zip([s[0]] + s[2:], w):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_adam8bit_group_decay_and_clip_take_effect():
+    """The segment's decay flag and the clip scale both change the result
+    (so the test above compares something)."""
+    scalars = ops.adam8bit_scalars(wd=0.1, device="cpu", **STEP)
+    base = _segment_state(512, torch.float32, torch.float32, seed=9)
+    outs = []
+    for decay, clip in ((True, None), (False, None), (True, 0.5)):
+        s = [t.clone() for t in base]
+        ops.adam8bit_group_update(
+            [(*s, decay)], scalars=scalars,
+            clip=None if clip is None else torch.tensor(clip))
+        outs.append(s[0])
+    assert not torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[0], outs[2])
+
+
+def test_adam8bit_group_refuses_other_devices():
+    meta = torch.empty(256, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        adam8bit_kernel.adam8bit_group(
+            [adam8bit_kernel.Segment(meta, meta, meta, meta[:1], meta,
+                                     meta[:1], True)], meta[:10])

@@ -325,3 +325,54 @@ def test_perlayer_unported_options_raise():
     with pytest.raises(ValueError, match="slice API"):
         perlayer.make_perlayer_train_step(
             cfg, api, dataclasses.replace(opt, stack_state=None))
+
+
+def test_perlayer_grouped_dispatch_matches_per_leaf():
+    """The fused 8-bit per-layer step sends each group (the head leaves, a
+    layer's slices, the deferred leaves, the embedding) through one
+    ``update_group_fused`` call: its trajectory equals the per-leaf
+    dispatch (``update_slice_fused`` leaf by leaf) bit for bit, losses,
+    params and 8-bit state, and stays within the reference run's
+    tolerances (``test_perlayer_matches_reference``)."""
+    jcfg, cfg = _cfgs("fused")
+    _, (tp, tc) = _port_init(jcfg)
+    api = registry.get_api(cfg)
+    opt = optimizers.make(OptimizerConfig(**_okw("adam8bit")))
+    per_leaf = dataclasses.replace(opt, update_group_fused=None)
+    calls = []
+    group = ops.adam8bit_group_update
+
+    def count(items, **kw):
+        calls[-1] += 1
+        return group(items, **kw)
+    runs = []
+    try:
+        ops.adam8bit_group_update = count
+        for o in (opt, per_leaf):
+            calls.append(0)
+            runs.append(_run_port(cfg, tp, tc,
+                                  perlayer.make_perlayer_train_step(
+                                      cfg, api, o), o,
+                                  _batches(cfg.vocab_size)))
+    finally:
+        ops.adam8bit_group_update = group
+    (gl, gp, gs), (ll, lp, ls) = runs
+    np.testing.assert_array_equal(gl, ll)
+    for (path, a), (_, b) in zip(tree_leaves(gp) + tree_leaves(gs),
+                                 tree_leaves(lp) + tree_leaves(ls)):
+        assert torch.equal(a, b), path
+    # one call a group: head (ln_f, lm_head), each layer, the deferred
+    # leaves (whose 8-bit blocks straddle layers) and the embedding
+    sliced = [opt.stack_state(opt.leaf_state(gs, ("layers",) + tuple(
+        path.split("/"))), leaf, cfg.n_layers) is not None
+        for path, leaf in tree_leaves(gp["layers"])]
+    assert calls[0] == STEPS * (1 + cfg.n_layers + int(not all(sliced)) + 1)
+    n_other = len(tree_leaves(gp)) - len(sliced)
+    assert calls[1] == STEPS * (n_other + sum(
+        cfg.n_layers if s else 1 for s in sliced))
+    want, jp, _ = _reference_run("adam8bit-fused")
+    np.testing.assert_allclose(gl[:, 0], want[:, 0], rtol=0, atol=2e-5)
+    np.testing.assert_allclose(gl[:, 1], want[:, 1], rtol=1e-5, atol=0)
+    for (path, a), b in zip(tree_leaves(gp), jax.tree.leaves(jp)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-4, err_msg=path)
