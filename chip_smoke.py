@@ -18,10 +18,10 @@ timed beside the bf16 GEMM of xᵀ·dy with f32 output and beside its padded
 operand copies; ``sparse_matmul`` and ``quant_sparse_matmul`` at the
 plan's split count and at 1, 2 and the most splits, each against its own
 rerun; the bfloat16 ``paged_prefill`` against its rerun, with the launch
-plans printed). Then it
-drives the paths on the
-paper's ``llama_1b`` config at full width and depth with random weights
-from a seed:
+plans printed; ``sparse_matmul`` also at the sparse-mode training
+calls, M = 2048 tokens, forward and dx with f32 output, each against its
+rerun). Then it drives the paths on the paper's ``llama_1b`` config at
+full width and depth with random weights from a seed:
 
 * serving: the paged engine in float32 along paths that must give the
   same greedy tokens: fused ``sl_matmul`` + paged kernels, and
@@ -34,12 +34,14 @@ from a seed:
   run, then profiled;
 * training: 3 float32 train steps from one init and one data stream in
   pairs that must agree: exec_mode "fused" (``sl_matmul`` forward and dx,
-  ``sddmm`` dV) against "dense" (densify + the eq.-(2) backward),
-  per-layer updates against the global step (AdamW), and per-layer 8-bit
-  AdamW through the ``adam8bit`` kernel against global 8-bit AdamW; then
-  the ``Trainer`` in bfloat16 for 6 steps, timed, with the launch counts
-  read around the run and its checkpoint written; a device-only profile
-  of one more step;
+  ``sddmm`` dV) against "dense" (densify + the eq.-(2) backward), "sparse"
+  (``sparse_matmul`` forward and dx over Wᵀ's tiles, ``sddmm`` dV)
+  against "dense", per-layer updates against the global step (AdamW),
+  and per-layer 8-bit AdamW through the ``adam8bit`` kernel against
+  global 8-bit AdamW; then the ``Trainer`` in bfloat16 for 6 steps in
+  exec_mode fused and in sparse, timed, with the launch counts read
+  around each run and its checkpoint written; a device-only profile of
+  one more step of each;
 * the memory path: the ``Trainer`` in bfloat16 with per-layer updates and
   8-bit AdamW (``adam8bit``, one launch a group of the sweep) for 6
   steps, timed, with launch counts, per-layer update times and its peak
@@ -48,7 +50,18 @@ from a seed:
   and, on ``llama_60m``, runs killed at
   step 4 and relaunched from their checkpoint (global AdamW, and
   per-layer 8-bit AdamW) that must end bit-identical to uninterrupted
-  ones, optimizer state and 8-bit codes included.
+  ones, optimizer state and 8-bit codes included;
+* train, checkpoint, calibrate, serve (``analysis/quant_recipe.py``):
+  the bf16 fused ``Trainer`` for 60 steps writes a checkpoint under
+  build/, the calibrate CLI's path turns it into a quant artifact on the
+  card, the serve launcher's ``--ckpt-dir`` and ``--quant-ckpt`` paths
+  load a sparse and a quant engine, and the recipe's rows (greedy match,
+  |Δlogit|, ppl, modeled decode bytes) must pass the reference's gates;
+  the same checkpoint served in exec_mode quant without int8 consts under
+  ``quant_fallback`` must warn, count the fallback, launch
+  ``sparse_matmul`` and never ``quant_sparse_matmul``, and give the
+  sparse engine's tokens; then the recipe at its default size
+  (``llama_60m`` smoke, 60 steps) with the same gates.
 
 Any failure exits non-zero. Without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -112,7 +125,15 @@ PATH_KERNELS = {
     "serve_sparse": ("sparse_matmul", "paged_attention", "paged_prefill"),
     "serve_quant": ("quant_sparse_matmul", "paged_attention",
                     "paged_prefill"),
+    "train_sparse": ("sparse_matmul", "sddmm"),
+    # engines without prefix sharing prefill with the model's own
+    # attention: paged_prefill serves only a suffix after shared pages
+    "serve_quant_fallback": ("sparse_matmul", "paged_attention"),
 }
+# the quant recipe (train fused, calibrate, serve sparse and quant)
+PATH_KERNELS["recipe_llama_1b"] = PATH_KERNELS["recipe_llama_60m"] = (
+    "sl_matmul", "sddmm", "sparse_matmul", "quant_sparse_matmul",
+    "paged_attention")
 EXEC_PATH = {"fused": "serve", "sparse": "serve_sparse",
              "quant": "serve_quant"}
 # f32 operations per element of one 8-bit Adam step, counted from
@@ -215,6 +236,23 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def support_bytes(nnz: int, *slots) -> int:
+    """Bytes of a sparse support's real entries in tile-CSR arrays (its
+    values, indices or per-entry output): nnz elements of each. The
+    padding slots are layout, not work the function needs."""
+    return nnz * sum(t.element_size() for t in slots)
+
+
+def matmul_call(x, S, out_dtype=None):
+    """The library yardstick for x·S on a pre-densified S, and its name:
+    ``torch.matmul`` in x's dtype, or ``torch.mm`` with an f32 output
+    for a bf16 x."""
+    if out_dtype in (None, x.dtype):
+        return (lambda: torch.matmul(x, S)), "torch.matmul"
+    return ((lambda: torch.mm(x, S, out_dtype=out_dtype)),
+            "torch.mm, out_dtype f32,")
+
+
 def compare(name, got, want, dtype):
     err = (got.float() - want.float()).abs()
     tol = TOL[dtype]
@@ -286,7 +324,8 @@ def time_sl_matmul(timer, label, args, dtype):
     nnz = int((v_t != 0).sum())
     dense_ops = 2.0 * d_in * d_out * r + 2.0 * m * d_in * d_out
     ops_ = min(dense_ops, 2.0 * m * r * (d_in + d_out) + 2.0 * m * nnz)
-    b, by = bound_ms(nbytes(x, B, A, v_t, rt, ct, got), ops_, dtype)
+    b, by = bound_ms(nbytes(x, B, A, got) + support_bytes(nnz, v_t, rt, ct),
+                     ops_, dtype)
     # the design's own floor: it densifies W and multiplies, at the peak
     floor = dense_ops / PEAK_OPS[dtype] * 1e3
     row = dict(name="sl_matmul", shape=label, max_abs_err=err,
@@ -364,13 +403,17 @@ def sparse_decode_case(gen, device, d_in, d_out, m, dtype, delta, seed):
 def check_sparse_decode(timer, gen, device, cfg, m_values):
     """sparse_matmul and quant_sparse_matmul against their plain versions
     at every (M, K, N) the llama_1b engine gives them (M: the decode batch
-    and each prefill bucket times the slots), at the plan's split count
-    and forced to 1, 2 and the most (one per k-tile) splits, each also
-    against its own rerun, bit for bit; timed at the plan's beside the
-    plain version and beside torch.matmul on the pre-densified S (in x's
-    dtype; dequantized for the int8 layout), which the port never calls.
-    The bound: each input read and y written once over the memory rate, or
-    2·M·nnz operations, the larger."""
+    and each prefill bucket times the slots) and with the output the
+    engine asks for (sparse_matmul's y in f32, which the sparse linear
+    adds to its f32 low-rank term before its one rounding;
+    quant_sparse_matmul's in x's dtype), at the plan's split count and
+    forced to 1, 2 and the most (one per k-tile) splits, each also
+    against its own rerun, bit for bit, within the tolerance of y's
+    dtype; timed at the plan's beside the plain version and beside one
+    library call on the pre-densified S (dequantized for the int8 layout;
+    ``matmul_call``), which the port never calls. The bound: x, the
+    support's entries (values and indices), the scales and y moved once
+    over the memory rate, or 2·M·nnz operations, the larger."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import sparse_decode as spk
     d, f = cfg.d_model, cfg.d_ff
@@ -382,6 +425,7 @@ def check_sparse_decode(timer, gen, device, cfg, m_values):
                     gen, device, d_in, d_out, m, dtype, cfg.param.delta,
                     seed=d_in * 7 + d_out)
                 label = f"{m}x{d_in}->{d_out} {dname(dtype)}"
+                f32_out = " f32 out" if dtype != torch.float32 else ""
                 p = spk.plan(m, d_in, d_out, torch.cuda.get_device_properties(
                     device).multi_processor_count)
                 nkt = -(-d_in // 128)
@@ -391,40 +435,47 @@ def check_sparse_decode(timer, gen, device, cfg, m_values):
                     f"{p.rows_per_block} rows, f32 partials "
                     f"{p.partial_bytes / 1e6:.3f} MB; checked at splits "
                     f"{forced}")
-                for name, fn, launch, plain, args, dense in (
+                # the sparse path's f32 y as its trailing out_dtype argument
+                for name, fn, launch, plain, args, out, dense in (
                         ("sparse_matmul", spk.sparse_matmul, spk.launch,
-                         ref.sparse_matmul_ref, sp, ref._tile_dense(*sp)),
+                         ref.sparse_matmul_ref, sp, [torch.float32],
+                         ref._tile_dense(*sp)),
                         ("quant_sparse_matmul", spk.quant_sparse_matmul,
                          spk.quant_launch, ref.quant_sparse_matmul_ref, qp,
-                         ref._tile_dense(*qp[:3]) * qp[3].reshape(1, -1))):
-                    got = fn(x, *args, d_out)
-                    want = plain(x, *args, d_out)
+                         [], ref._tile_dense(*qp[:3]) * qp[3].reshape(1, -1))):
+                    lbl = label + (f32_out if out else "")
+                    got = fn(x, *args, d_out, *out)
+                    want = plain(x, *args, d_out, *out)
                     torch.cuda.synchronize()
-                    err = compare(f"{name} {label}", got, want, dtype)
+                    tol = TOL[got.dtype]
+                    err = compare(f"{name} {lbl}", got, want, got.dtype)
                     # the split sum adds the partials in a fixed order
                     for splits in forced:
                         fp = spk.plan(m, d_in, d_out, splits=splits)
-                        a = launch(fp, x, *args, d_out)
+                        a = launch(fp, x, *args, d_out, *out)
                         err = max(err, compare(
-                            f"{name} {label} at {splits} splits", a, want,
-                            dtype))
-                        if not torch.equal(a, launch(fp, x, *args, d_out)):
-                            fail(f"{name} {label} at {splits} splits: a "
+                            f"{name} {lbl} at {splits} splits", a, want,
+                            got.dtype))
+                        if not torch.equal(a, launch(fp, x, *args, d_out,
+                                                     *out)):
+                            fail(f"{name} {lbl} at {splits} splits: a "
                                  f"rerun on the same inputs gave other bits")
                     S = dense[:d_in, :d_out].to(dtype).contiguous()
-                    t_k = timer.ms(lambda: fn(x, *args, d_out))
-                    t_p = timer.ms(lambda: plain(x, *args, d_out))
-                    t_l = timer.ms(lambda: torch.matmul(x, S))
+                    lib, lib_name = matmul_call(x, S, *out)
+                    t_k = timer.ms(lambda: fn(x, *args, d_out, *out))
+                    t_p = timer.ms(lambda: plain(x, *args, d_out, *out))
+                    t_l = timer.ms(lib)
                     ops_ = 2.0 * m * nnz
-                    moved = nbytes(x, *args, got)
+                    moved = (nbytes(x, got, *args[3:])
+                             + support_bytes(nnz, *args[:3]))
                     b, by = bound_ms(moved, ops_, dtype)
-                    rows.append(dict(name=name, shape=label,
-                                     max_abs_err=err, tol=TOL[dtype],
+                    rows.append(dict(name=name, shape=lbl,
+                                     max_abs_err=err, tol=tol,
                                      ms=t_k, plain_ms=t_p, library_ms=t_l,
                                      bound_ms=b, bound_by=by))
-                    say(f"kernel {name} {label}: max_abs_err {err:.3e} "
-                        f"(tol {TOL[dtype]}) | kernel {t_k:.4f} ms, plain "
-                        f"{t_p:.4f} ms, torch.matmul on dense S {t_l:.4f} "
+                    say(f"kernel {name} {lbl}: max_abs_err {err:.3e} "
+                        f"(tol {tol}) | kernel {t_k:.4f} ms, plain "
+                        f"{t_p:.4f} ms, {lib_name} on dense S {t_l:.4f} "
                         f"ms, bound {b:.4f} ms ({by}, {moved / 1e6:.2f} "
                         f"MB)")
                     del S
@@ -441,13 +492,14 @@ def sddmm_library_call(x, dy, gr, gc):
     return lambda: torch.mm(x.T, dy, out_dtype=torch.float32)[gr, gc]
 
 
-def time_sddmm(timer, label, x, dy, rt, ct, dtype):
+def time_sddmm(timer, label, x, dy, rt, ct, dtype, nnz):
     """One sddmm case against its plain version (in bf16 also against its
     own rerun, bit for bit), timed beside it, beside one library call of
     xᵀ·dy plus the gather (and, in bf16, beside the f32 GEMM of the
     upcast operands), and beside the padded operand copies where the plan
-    makes them. Its bound counts 2·M·(nkt·nnt·cap) operations (one
-    multiply-add per slot and token); the bf16 design's own floor is the
+    makes them. Its bound counts 2·M·nnz operations (one multiply-add per
+    support entry and token) and x, dy, the entries' indices and their f32
+    dv once each; the bf16 design's own floor is the
     dense G tiles, 2·M·(nkt·128)·(nnt·128), at the bf16 peak (the f32
     kernel samples, so its floor is the bound)."""
     from repro_torch.core.support import TILE
@@ -468,7 +520,7 @@ def time_sddmm(timer, label, x, dy, rt, ct, dtype):
                                                    sdk.sddmm(x, dy, rt, ct)):
         fail(f"sddmm {label}: a rerun on the same inputs gave other bits")
     (m, k), n = x.shape, dy.shape[1]
-    nkt, nnt, cap = rt.shape
+    nkt, nnt, _ = rt.shape
     plan = sdk.plan(m, k, n, dtype)
     gr, gc = ref._tile_coords(rt, ct)
     lib_fn = sddmm_library_call(x, dy, gr, gc)
@@ -477,8 +529,9 @@ def time_sddmm(timer, label, x, dy, rt, ct, dtype):
     t_k = timer.ms(lambda: sdk.sddmm(x, dy, rt, ct))
     t_p = timer.ms(lambda: ref.sddmm_ref(x, dy, rt, ct))
     t_l = timer.ms(lib_fn)
-    ops_ = 2.0 * m * nkt * nnt * cap
-    b, by = bound_ms(nbytes(x, dy, rt, ct, got), ops_, dtype)
+    ops_ = 2.0 * m * nnz
+    b, by = bound_ms(nbytes(x, dy) + support_bytes(nnz, rt, ct, got), ops_,
+                     dtype)
     row = dict(name="sddmm", shape=label, max_abs_err=err, tol=atol,
                ms=t_k, plain_ms=t_p, library_ms=t_l,
                bound_ms=b, bound_by=by, variant=plan.variant)
@@ -532,7 +585,84 @@ def check_train_kernels(timer, gen, device, cfg, m):
                  ops.transpose_tiles(rt), scale), dtype))
             rows.append(time_sddmm(
                 timer, f"{m}x({d_in},{d_out}) {dname(dtype)}", x, dy, rt,
-                ct, dtype))
+                ct, dtype, int((v_t != 0).sum())))
+    return rows
+
+
+def sparse_train_case(gen, device, d_in, d_out, m, dtype, delta, seed):
+    """One linear of the sparse-mode training path at real width: the
+    forward call (x (m, d_in), S's f32 tile-CSR, d_out) and the dx call
+    (dy (m, d_out), Wᵀ's tiles, d_in), and the support's entry count."""
+    from repro_torch.core import support
+    from repro_torch.kernels import ops
+    rows, cols = support.sample_support(seed, d_in, d_out, delta)
+    tiles = ops.add_transposed_tiles(ops.prepare_tile_consts(
+        rows, cols, d_in, d_out, pad=support.tile_cap(d_in, d_out, delta)))
+    tiles = {k: t.to(device) for k, t in tiles.items()}
+    v = (torch.rand(rows.shape[0], generator=gen, device=device) * 2 - 1) \
+        * d_in ** -0.5
+    v_t = ops._gather_tiles(v, tiles["perm"])
+    x = torch.randn((m, d_in), generator=gen, device=device).to(dtype)
+    dy = torch.randn((m, d_out), generator=gen, device=device).to(dtype)
+    return ((x, [v_t, tiles["rows_t"], tiles["cols_t"]], d_out),
+            (dy, [ops.transpose_tiles(v_t), tiles["rows_tT"],
+                  tiles["cols_tT"]], d_in), rows.shape[0])
+
+
+def check_sparse_train_kernels(timer, gen, device, cfg, m):
+    """sparse_matmul at the sparse-mode training path's calls, M = batch x
+    seq tokens, at the three projection shapes: the forward x·S and dx's
+    dy·Sᵀ over Wᵀ's tiles, both with the f32 output that the sparse
+    linear adds to its f32 low-rank term before its one rounding; each
+    against the plain
+    version, against its own rerun bit for bit, timed beside it and beside
+    one library call on the pre-densified S (``matmul_call``), within the
+    tolerance of y's dtype. Bound: x, the support's entries (f32 value and
+    two int32 indices) and y moved once, or 2·M·nnz operations, the
+    larger."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_decode as spk
+    d, f = cfg.d_model, cfg.d_ff
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for (d_in, d_out) in ((d, d), (d, f), (f, d)):
+            fwd, dx, nnz = sparse_train_case(
+                gen, device, d_in, d_out, m, dtype, cfg.param.delta,
+                seed=d_in * 7 + d_out)
+            out = torch.float32
+            for what, (x, sp, n) in (("", fwd), ("dx ", dx)):
+                k = x.shape[1]
+                label = (f"{what}{m}x{k}->{n} {dname(dtype)}"
+                         + (" f32 out" if dtype != out else ""))
+                got = spk.sparse_matmul(x, *sp, n, out)
+                want = ref.sparse_matmul_ref(x, *sp, n, out)
+                torch.cuda.synchronize()
+                tol = TOL[got.dtype]
+                err = compare(f"sparse_matmul {label}", got, want, got.dtype)
+                if not torch.equal(got, spk.sparse_matmul(x, *sp, n, out)):
+                    fail(f"sparse_matmul {label}: a rerun on the same inputs "
+                         "gave other bits")
+                S = ref._tile_dense(*sp)[:k, :n].to(dtype).contiguous()
+                lib, lib_name = matmul_call(x, S, out)
+                t_k = timer.ms(lambda: spk.sparse_matmul(x, *sp, n, out))
+                t_p = timer.ms(lambda: ref.sparse_matmul_ref(x, *sp, n, out))
+                t_l = timer.ms(lib)
+                ops_ = 2.0 * m * nnz
+                moved = nbytes(x, got) + support_bytes(nnz, *sp)
+                b, by = bound_ms(moved, ops_, dtype)
+                p = spk.plan(m, k, n, torch.cuda.get_device_properties(
+                    device).multi_processor_count)
+                rows.append(dict(name="sparse_matmul", shape=label,
+                                 max_abs_err=err, tol=tol, ms=t_k,
+                                 plain_ms=t_p, library_ms=t_l, bound_ms=b,
+                                 bound_by=by))
+                say(f"kernel sparse_matmul {label} (training; {p.splits} "
+                    f"split, {p.blocks} blocks of {p.rows_per_block} rows): "
+                    f"max_abs_err {err:.3e} (tol {tol}), a rerun bit "
+                    f"for bit | kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+                    f"{lib_name} on dense S {t_l:.4f} ms, bound {b:.4f} ms "
+                    f"({by}, {moved / 1e6:.2f} MB, {ops_ / 1e9:.2f} GFLOP)")
+                del S
     return rows
 
 
@@ -1395,20 +1525,24 @@ def device_busy(prof, n_top: int = 6):
 # ---------------------------------------------------------------------------
 
 class ShapeRecorder:
-    """Records the (M, K, N) of every sl_matmul and sddmm call the fused
-    linear makes, and the (elements, p dtype, g dtype) of every segment of
-    an 8-bit Adam update, while it is active, by wrapping the
-    ``kernels.ops`` functions they call (the kernel wrappers, and their
-    launch counts, are untouched)."""
+    """Records the (M, K, N) of every sl_matmul, sddmm and sparse_matmul
+    call the trainable linears make, and the (elements, p dtype, g dtype)
+    of every segment of an 8-bit Adam update, while it is active, by
+    wrapping the ``kernels.ops`` functions they call and the sparse
+    kernels' ``plan`` (the kernel wrappers, and their launch counts, are
+    untouched)."""
 
     def __init__(self):
-        self.shapes = {"sl_matmul": set(), "sddmm": set()}
+        self.shapes = {"sl_matmul": set(), "sddmm": set(),
+                       "sparse_matmul": set()}
         self.adam8bit = set()
 
     def __enter__(self):
         from repro_torch.kernels import ops
-        self._orig = (ops.sl_matmul, ops.sddmm, ops.adam8bit_group_update)
-        sl, sd, ad = self._orig
+        from repro_torch.kernels import sparse_decode as spk
+        self._orig = (ops.sl_matmul, ops.sddmm, ops.adam8bit_group_update,
+                      spk.plan)
+        sl, sd, ad, plan = self._orig
 
         def ad_rec(items, **k):
             self.adam8bit.update((p.numel(), p.dtype, g.dtype)
@@ -1425,12 +1559,18 @@ class ShapeRecorder:
             self.shapes["sddmm"].add((x.numel() // x.shape[-1], x.shape[-1],
                                       dy.shape[-1]))
             return sd(x, dy, *a, **k)
-        ops.sl_matmul, ops.sddmm = sl_rec, sd_rec
+
+        def plan_rec(m, k, n, *a, **kw):
+            self.shapes["sparse_matmul"].add((m, k, n))
+            return plan(m, k, n, *a, **kw)
+        ops.sl_matmul, ops.sddmm, spk.plan = sl_rec, sd_rec, plan_rec
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
-        ops.sl_matmul, ops.sddmm, ops.adam8bit_group_update = self._orig
+        from repro_torch.kernels import sparse_decode as spk
+        (ops.sl_matmul, ops.sddmm, ops.adam8bit_group_update,
+         spk.plan) = self._orig
 
 
 def train_config(cfg, *, steps, batch, seq, ckpt_dir, ckpt_every=0, lr=3e-3,
@@ -1505,7 +1645,9 @@ def phase_train_parity(cfg, device, gen, *, batch, seq, steps=3):
     """Phase 6: f32 training from one init and one SyntheticC4 stream,
     through the train steps the Trainer runs, in pairs that must agree:
     exec_mode fused (sl_matmul forward and dx, sddmm dV) against dense
-    (densify + eq.-(2) backward); per-layer updates against the global
+    (densify + eq.-(2) backward); exec_mode sparse (sparse_matmul forward
+    and dx over Wᵀ's tiles, sddmm dV) against dense; per-layer updates
+    against the global
     step (AdamW, fused); and per-layer 8-bit AdamW through the adam8bit
     kernel against global 8-bit AdamW (its plain update). B is drawn at
     random, as for serving, so that step 1 covers the low-rank half of
@@ -1527,12 +1669,13 @@ def phase_train_parity(cfg, device, gen, *, batch, seq, steps=3):
     data = SyntheticC4(cfg.vocab_size, seq, batch, seed=tc.seed)
     batches = [{"tokens": torch.from_numpy(data.next_batch()["tokens"]).to(
         device)} for _ in range(steps)]
-    dense = dataclasses.replace(cfg, param=dataclasses.replace(
-        cfg.param, exec_mode="dense"))
+    dense, sparse = (dataclasses.replace(cfg, param=dataclasses.replace(
+        cfg.param, exec_mode=mode)) for mode in ("dense", "sparse"))
     # name: (config, optimizer, update mode, kernels it must launch)
     runs = {
         "fused": (cfg, "adamw", "global", ("sl_matmul", "sddmm")),
         "dense": (dense, "adamw", "global", ()),
+        "sparse": (sparse, "adamw", "global", ("sparse_matmul", "sddmm")),
         "per_layer adamw": (cfg, "adamw", "per_layer",
                             ("sl_matmul", "sddmm")),
         "global adam8bit": (cfg, "adam8bit", "global",
@@ -1540,7 +1683,8 @@ def phase_train_parity(cfg, device, gen, *, batch, seq, steps=3):
         "per_layer adam8bit": (cfg, "adam8bit", "per_layer",
                                ("sl_matmul", "sddmm", "adam8bit")),
     }
-    pairs = (("fused", "dense"), ("per_layer adamw", "fused"),
+    pairs = (("fused", "dense"), ("sparse", "dense"),
+             ("per_layer adamw", "fused"),
              ("per_layer adam8bit", "global adam8bit"))
     out, first = {}, {}
     for name, (c, opt_name, mode, kernels) in runs.items():
@@ -1564,7 +1708,8 @@ def phase_train_parity(cfg, device, gen, *, batch, seq, steps=3):
         wall = time.perf_counter() - t0
         out[name] = rows
         launches = launch_counts()
-        bad = [k for k in ("sl_matmul", "sddmm")
+        bad = [k for k in ("sl_matmul", "sddmm", "sparse_matmul",
+                           "quant_sparse_matmul")
                if bool(launches[k]) != (k in kernels)]
         if bad or launches["adam8bit"] != want_adam:
             fail(f"f32 {name} training launched {launches} (expected "
@@ -1595,12 +1740,14 @@ def phase_train_parity(cfg, device, gen, *, batch, seq, steps=3):
 
 
 def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=6):
-    """Phase 7: the Trainer in bf16 (fused), as the launcher runs it: one
-    warm-up step plus five timed, its final checkpoint written. Launch
-    counts and the shapes the kernels saw are read around the run."""
+    """Phase 7: the Trainer in bf16 in ``cfg``'s exec mode (fused, or
+    sparse), as the launcher runs it: one warm-up step plus five timed,
+    its final checkpoint written. Launch counts and the shapes the
+    kernels saw are read around the run."""
     from repro_torch.analysis import roofline
     from repro_torch.train.trainer import Trainer
-    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    mode = cfg.param.exec_mode
+    ckpt_dir = os.path.join(ROOT, "build", f"chip_smoke_ckpt_{mode}")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     tc = train_config(cfg, steps=steps, batch=batch, seq=seq,
                       ckpt_dir=ckpt_dir)
@@ -1620,23 +1767,25 @@ def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=6):
     losses = [h["loss"] for h in hist]
     if len(hist) != steps or not all(np.isfinite(losses)) or any(
             h["nonfinite"] for h in hist):
-        fail(f"bf16 training: losses {losses}")
+        fail(f"bf16 {mode} training: losses {losses}")
     n_lin = 7 * cfg.n_layers
+    # forward + dx of each linear on its kernel, dV on sddmm
+    linear = {"fused": "sl_matmul", "sparse": "sparse_matmul"}[mode]
     want = {k: 0 for k in launches}
-    want.update(sl_matmul=2 * n_lin * steps, sddmm=n_lin * steps)
+    want.update({linear: 2 * n_lin * steps, "sddmm": n_lin * steps})
     if launches != want:
-        fail(f"bf16 training launched {launches}, expected {want} "
+        fail(f"bf16 {mode} training launched {launches}, expected {want} "
              f"({n_lin} linears x {steps} steps: forward + dx, dV)")
     med = statistics.median(dts[1:])
     tokens = batch * seq
     mfu = roofline.train_mfu(cfg, tokens, med)
-    say(f"train bf16 llama_1b (Trainer, fused): {steps} steps, losses "
+    say(f"train bf16 llama_1b (Trainer, {mode}): {steps} steps, losses "
         f"{[round(x, 4) for x in losses]} | step ms (dispatch + sync) "
         f"{[round(d * 1e3, 1) for d in dts]}, median of steps 2-{steps} "
         f"{med * 1e3:.1f} ms = {tokens / med:.0f} tokens/s, MFU "
         f"{100 * mfu:.3f}% of {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s "
-        f"(data sheet) | launches per step: sl_matmul "
-        f"{launches['sl_matmul'] // steps}, sddmm {launches['sddmm'] // steps}"
+        f"(data sheet) | launches per step: {linear} "
+        f"{launches[linear] // steps}, sddmm {launches['sddmm'] // steps}"
         f" | max_memory_allocated {peak / 2**30:.2f} GiB | run wall "
         f"{wall:.1f} s incl. checkpoint of step {steps} | {smi}")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -1785,6 +1934,190 @@ def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak,
     return tr, state, launches, rec.adam8bit, med
 
 
+def recipe_line(label, rows, extra=""):
+    """Print the quant recipe's two rows, unrounded, and fail if a gate of
+    the reference's does not hold."""
+    from repro_torch.analysis import quant_recipe
+    for r in rows:
+        say(f"recipe {label}: " + ", ".join(
+            f"{k}={v}" for k, v in r.items() if k != "bench"))
+    say(f"recipe {label}: {extra}")
+    bad = quant_recipe.gate_failures(rows)
+    if bad:
+        fail(f"recipe {label}: " + "; ".join(bad))
+    say(f"recipe {label}: gates passed (match rate >= "
+        f"{quant_recipe.MIN_MATCH_RATE} or mean |dlogit| <= "
+        f"{quant_recipe.MAX_MEAN_ABS_DLOGIT}; bytes reduction >= "
+        f"{quant_recipe.MIN_BYTES_REDUCTION})")
+
+
+def phase_recipe_llama_1b(cfg, device, smi, *, batch, seq, steps=60):
+    """The quant recipe of ``analysis/quant_recipe.py`` at llama_1b full
+    width, through the launchers' code paths: the bf16 fused Trainer for
+    ``steps`` steps at batch x seq (AdamW, lr 3e-3, the launcher's warmup)
+    writes its checkpoint under build/; the calibrate CLI's path
+    (``calibrate.calibrate_checkpoint``) turns it into a quant artifact on
+    the card, timed; the serve launcher's ``--ckpt-dir`` path
+    (``serve.load_model``) restores it into a sparse engine's init and its
+    ``--quant-ckpt`` path loads the artifact for a quant engine; then the
+    recipe's rows and the reference's gates. Returns the launch counts of
+    the whole recipe and the checkpoint's directory."""
+    from repro_torch.analysis import quant_recipe
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.quant import calibrate
+    from repro_torch.train.trainer import Trainer
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_recipe_ckpt")
+    art = os.path.join(ROOT, "build", "chip_smoke_recipe_quant")
+    for d in (ckpt_dir, art):
+        shutil.rmtree(d, ignore_errors=True)
+    reset_launch_counts()
+    tc = train_config(cfg, steps=steps, batch=batch, seq=seq,
+                      ckpt_dir=ckpt_dir)
+    tr = Trainer(tc, device=device, log_fn=lambda *a: None)
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    losses = [h["loss"] for h in tr.metrics_history]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        fail(f"recipe training: losses {losses}")
+    med = statistics.median(h["dt"] for h in tr.metrics_history[1:])
+    del tr
+    torch.cuda.empty_cache()
+    say(f"recipe llama_1b: trained {steps} bf16 steps (Trainer, fused, "
+        f"batch {batch} x seq {seq}) in {t_train:.1f} s incl. the checkpoint"
+        f" of step {steps}; median step {med * 1e3:.1f} ms; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} | {smi}")
+    base = dataclasses.replace(cfg, param=dataclasses.replace(
+        cfg.param, exec_mode="dense"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, qstats, _ = calibrate.calibrate_checkpoint(base, ckpt_dir, art,
+                                                     device=device)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    say(f"recipe llama_1b: calibrate CLI path (restore, calibrate on the "
+        f"card, write the artifact under build/) {t_cal:.1f} s, "
+        f"{qstats['n_matrices']} matrices, {qstats['nnz']} int8 codes, "
+        f"max |W - Wq| {qstats['max_abs_err']:.4e}")
+    sp_cfg = quant_recipe.with_exec_mode(cfg, "sparse")
+    params, consts = serve_launcher.load_model(sp_cfg, device=device,
+                                               ckpt_dir=ckpt_dir)
+    qparams, qconsts = serve_launcher.load_model(
+        quant_recipe.with_exec_mode(cfg, "quant"), device=device,
+        quant_ckpt=art)
+    t0 = time.perf_counter()
+    rows = quant_recipe.quant_rows(sp_cfg, params, consts, qparams, qconsts,
+                                   qstats, device=device, train_steps=steps)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    recipe_line("llama_1b", rows, f"rows in {time.perf_counter() - t0:.1f} "
+                f"s, launches over the whole recipe {launches}")
+    missing = [k for k in PATH_KERNELS["recipe_llama_1b"] if not launches[k]]
+    if missing:
+        fail(f"recipe llama_1b never launched {missing}: {launches}")
+    shutil.rmtree(art, ignore_errors=True)
+    return launches, ckpt_dir
+
+
+def phase_recipe_default(device, steps=60):
+    """The recipe again at its default size (llama_60m smoke, 60 steps of
+    the train step, exec_mode fused) through the three steps of
+    ``quant_recipe.run`` (what ``python -m
+    repro_torch.analysis.quant_recipe`` runs); its rows stand beside the
+    reference's BENCH_quant.json (the reference's numbers, on a CPU).
+    Then a witness, not gated: the same card-trained params and
+    calibration through ``quant_rows`` on the CPU, where every kernel
+    wrapper runs its plain version. Rows equal to the card's put a miss
+    on the trained model, not on the kernels. Returns the card run's
+    launch counts."""
+    from repro_torch.analysis import quant_recipe
+    from repro_torch.models import registry
+    from repro_torch.models.common import tree_map
+    from repro_torch.quant import calibrate
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg = quant_recipe.with_exec_mode(registry.get_smoke_config("llama_60m"),
+                                      "fused")
+    params, consts = quant_recipe.train(cfg, steps, device=device)
+    qp, qc, qstats = calibrate.calibrate_model(cfg, params, consts)
+    rows = quant_recipe.quant_rows(cfg, params, consts, qp, qc, qstats,
+                                   device=device, train_steps=steps)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    recipe_line("llama_60m smoke", rows, f"{time.perf_counter() - t0:.1f} "
+                f"s in all, launches {launches}")
+    missing = [k for k in PATH_KERNELS["recipe_llama_60m"]
+               if not launches[k]]
+    if missing:
+        fail(f"recipe llama_60m never launched {missing}: {launches}")
+    host = [tree_map(lambda t: t.cpu(), t) for t in (params, consts, qp, qc)]
+    t0 = time.perf_counter()
+    cpu = quant_recipe.quant_rows(cfg, *host, qstats,
+                                  device=torch.device("cpu"),
+                                  train_steps=steps)[0]
+    keys = ("matched_tokens", "mean_abs_dlogit", "max_abs_dlogit",
+            "ppl_bf16", "ppl_int8")
+    say("recipe llama_60m smoke, the card-trained model on the CPU (plain "
+        "versions): " + ", ".join(f"{k}={cpu[k]}" for k in keys)
+        + " | on the card: " + ", ".join(f"{k}={rows[0][k]}" for k in keys)
+        + f" | {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_quant_fallback(cfg, device, ckpt_dir, new_tokens=16):
+    """``quant_fallback`` on the recipe's trained checkpoint: the serve
+    launcher's ``--ckpt-dir`` path under exec_mode quant (an init with the
+    tile consts and no int8 codes), served with ``quant_fallback=True``,
+    must warn, count ``serve.quant_fallback`` once, never launch
+    quant_sparse_matmul, launch sparse_matmul, and give the sparse
+    engine's tokens bit for bit on the recipe's prompts. Returns the
+    fallback run's launch counts."""
+    import warnings
+
+    from repro_torch.analysis import quant_recipe
+    from repro_torch.launch import serve as serve_launcher
+    prompts = quant_recipe.prompts(cfg.vocab_size)
+    out = {}
+    for mode in ("sparse", "quant"):
+        c = quant_recipe.with_exec_mode(cfg, mode)
+        params, consts = serve_launcher.load_model(c, device=device,
+                                                   ckpt_dir=ckpt_dir)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            toks, eng = quant_recipe.serve_tokens(
+                c, params, consts, prompts, exec_mode=mode,
+                new_tokens=new_tokens, device=device, quant_fallback=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        warned = [str(w.message) for w in caught
+                  if "degraded" in str(w.message)]
+        count = eng.obs.snapshot()["serve.quant_fallback"]["value"]
+        if (mode == "quant") != (eng.quant_fell_back and bool(warned)
+                                 and count == 1):
+            fail(f"quant_fallback {mode}: fell back {eng.quant_fell_back}, "
+                 f"warnings {warned}, serve.quant_fallback {count}")
+        out[mode] = (toks, launch_counts(), wall, eng.cfg.param.exec_mode,
+                     warned)
+        del eng, params, consts
+    (sp_tok, _, sp_wall, _, _), (fb_tok, launches, fb_wall, fb_mode,
+                                 warned) = out["sparse"], out["quant"]
+    if launches["quant_sparse_matmul"] or not all(
+            launches[k] for k in PATH_KERNELS["serve_quant_fallback"]):
+        fail(f"quant_fallback launched {launches}")
+    if fb_tok != sp_tok:
+        fail("quant_fallback: tokens differ from the sparse engine's")
+    total = sum(len(t) for t in fb_tok)
+    say(f"quant_fallback llama_1b (trained checkpoint, exec_mode quant "
+        f"without int8 consts): warned {warned[0]!r}, serve.quant_fallback "
+        f"1, served as exec_mode {fb_mode}; tokens == the sparse engine's on "
+        f"{total}/{total} | fallback {fb_wall:.2f} s, sparse {sp_wall:.2f} "
+        f"s, fallback launches {launches}")
+    return launches
+
+
 def check_adam8bit_coverage(seen, rows):
     """Every (elements, p dtype, g dtype) the per-layer step gave the
     adam8bit kernel was held against the plain version in the kernel
@@ -1864,26 +2197,28 @@ def phase_kill_resume(device, optimizer="adamw", update_mode="global"):
         "runs)")
 
 
-def check_train_coverage(shapes, m, cfg):
-    """Every (M, K, N) the trainer gave sl_matmul and sddmm was checked in
-    the kernel phase (forward, dx and sddmm at the three projection
-    shapes)."""
+def check_train_coverage(shapes, m, cfg, kernels=("sl_matmul", "sddmm")):
+    """Every (M, K, N) the trainer gave ``kernels`` was checked in the
+    kernel phases (the forward and dx calls and sddmm at the three
+    projection shapes)."""
     d, f = cfg.d_model, cfg.d_ff
     checked = {(m, a, b) for a, b in ((d, d), (d, f), (f, d))}
-    for k, seen in shapes.items():
+    for k in kernels:
+        seen = shapes[k]
         if not seen or not seen <= checked:
             fail(f"the trainer ran {k} at (M, K, N) in {sorted(seen)}; "
                  f"checked only {sorted(checked)}")
-    say(f"coverage: the trainer ran sl_matmul at {sorted(shapes['sl_matmul'])}"
-        f" and sddmm at {sorted(shapes['sddmm'])} (M, K, N), all checked "
-        "above")
+    say("coverage: the trainer ran " + " and ".join(
+        f"{k} at {sorted(shapes[k])}" for k in kernels)
+        + " (M, K, N), all checked above")
 
 
 def kernels_line(rows, by_path, representative):
     """One entry per kernel: the representative case's times and bound,
     the largest error over all of the kernel's cases; launches summed
-    over the main paths' runs (serving fused, sparse and quant, training,
-    per-layer training), each path's count beside them."""
+    over the main paths' runs (serving fused, sparse and quant; training
+    fused, sparse and per-layer; the quant recipe at llama_1b and at its
+    default size; the quant fallback), each path's count beside them."""
     out = []
     src = {"sl_matmul": SL_SOURCE, "paged_attention": PA_SOURCE,
            "paged_prefill": PA_SOURCE, "sddmm": SD_SOURCE,
@@ -2008,6 +2343,11 @@ def main() -> int:
     sp_rows = check_sparse_decode(timer, sp_gen, device, cfg, m_values)
     tr_rows = check_train_kernels(timer, gen, device, cfg, batch * seq)
     # its own generator: the later phases draw the same B as before
+    st_gen = torch.Generator(device=device)
+    st_gen.manual_seed(3)
+    st_rows = check_sparse_train_kernels(timer, st_gen, device, cfg,
+                                         batch * seq)
+    # its own generator: the later phases draw the same B as before
     ad_gen = torch.Generator(device=device)
     ad_gen.manual_seed(1)
     ad_rows = check_adam8bit(timer, ad_gen, device, cfg)
@@ -2031,6 +2371,17 @@ def main() -> int:
     phase_train_profile(tr, state, device, med)
     del tr, state
     torch.cuda.empty_cache()
+    cfg16s = dataclasses.replace(cfg, param=dataclasses.replace(
+        cfg.param, exec_mode="sparse"))
+    tr, state, by_path["train_sparse"], shapes, med, _ = phase_train_bf16(
+        cfg16s, device, smi, batch=batch, seq=seq)
+    check_train_coverage(shapes, batch * seq, cfg,
+                         kernels=("sparse_matmul", "sddmm"))
+    phase_train_profile(tr, state, device, med,
+                        label="sparse-mode train step",
+                        kernels=("sparse_split_kernel", "sddmm"))
+    del tr, state
+    torch.cuda.empty_cache()
     tr, state, by_path["train_per_layer"], seen, med = phase_perlayer_bf16(
         cfg16, device, smi, batch=batch, seq=seq, global_peak=global_peak)
     check_adam8bit_coverage(seen, ad_rows)
@@ -2041,6 +2392,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_kill_resume(device)
     phase_kill_resume(device, optimizer="adam8bit", update_mode="per_layer")
+    by_path["recipe_llama_1b"], recipe_ckpt = phase_recipe_llama_1b(
+        cfg16, device, smi, batch=batch, seq=seq)
+    torch.cuda.empty_cache()
+    by_path["serve_quant_fallback"] = phase_quant_fallback(cfg16, device,
+                                                           recipe_ckpt)
+    shutil.rmtree(recipe_ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    by_path["recipe_llama_60m"] = phase_recipe_default(device)
 
     m = batch * seq
     leaf_rows = [r for r in ad_rows if r["n"] is not None]
@@ -2048,14 +2407,15 @@ def main() -> int:
         x["n"] for x in leaf_rows) and r["dtype"] == torch.bfloat16
         and r["shape"].endswith("wd 0.1")][0]
     decode = f"{n_slots}x{cfg.d_model}->{cfg.d_ff} bfloat16"
-    line = kernels_line(sl_rows + at_rows + tr_rows + ad_rows + sp_rows,
+    line = kernels_line(sl_rows + at_rows + tr_rows + ad_rows + sp_rows
+                        + st_rows,
                         by_path, {
         "sl_matmul": f"{m}x{cfg.d_model}->{cfg.d_ff} bfloat16",
         "paged_attention": "32 heads bfloat16",
         "paged_prefill": f"sq={buckets[-1]} 32 heads bfloat16",
         "sddmm": f"{m}x({cfg.d_model},{cfg.d_ff}) bfloat16",
         "adam8bit": embed,
-        "sparse_matmul": decode,
+        "sparse_matmul": decode + " f32 out",
         "quant_sparse_matmul": decode})
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""Times the bf16 ``llama_1b`` train step of several checkouts of this
-repo, one after another on one card, so that two versions of the port
-are compared on the same machine.
+"""Times the bf16 ``llama_1b`` train step, and the fused serving engine,
+of several checkouts of this repo, one after another on one card, so
+that two versions of the port are compared on the same machine.
 
     python src/repro_torch/analysis/train_step_ab.py OLD NEW NEW OLD
 
@@ -15,8 +15,13 @@ inside the ``sddmm`` and ``sl_matmul`` wrappers (perf_counter around each
 call; the launches are asynchronous, so this is the wrapper's own work),
 and one more step under ``torch.profiler`` (CPU and CUDA): its wall, the
 device's busy time (union of kernel intervals) and the host ops with the
-most self CPU time. It uses only what every checkout since the port's
-training slice has: ``Trainer``, ``TrainConfig``, ``build.build``.
+most self CPU time. Then it serves 8 prompts (2–11 tokens from
+``default_rng(0)``, 16 new tokens) through a fresh bf16 exec_mode fused
+paged engine (4 slots, max_len 128, block_len 16, prefix sharing) on the
+same seed-0 weights, ``SERVE_RUNS`` times, and reports each run's
+tokens/s (host clock around the run, ending in a sync). It uses only
+what every checkout since the port's training slice has: ``Trainer``,
+``TrainConfig``, ``build.build``, ``ServeEngine``.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import time
 
 STEPS = 6
 BATCH, SEQ = 8, 256
+SERVE_RUNS = 3
 
 
 def _wrap(module, name, acc):
@@ -138,7 +144,39 @@ def child(root: str) -> dict:
         del tr, state, batch, prof
         shutil.rmtree(ckpt, ignore_errors=True)
         torch.cuda.empty_cache()
+    out["serve fused"] = serve_runs(cfg, device)
     return out
+
+
+def serve_runs(cfg, device) -> dict:
+    """Tokens/s of ``SERVE_RUNS`` runs of a fresh fused engine over the
+    same prompts and weights."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServeEngine
+    params, consts = registry.get_api(cfg).init(cfg, seed=0, device=device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab_size,
+                            size=int(rng.integers(2, 12))).tolist()
+               for _ in range(8)]
+    rates = []
+    for _ in range(SERVE_RUNS):
+        eng = ServeEngine(cfg, params, consts, n_slots=4, max_len=128,
+                          paged=True, block_len=16, exec_mode="fused",
+                          prefix_sharing=True, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rates.append(sum(len(r.out) for r in reqs) / wall)
+        del eng
+    return {"tokens_per_s": rates, "median": statistics.median(rates)}
 
 
 def main(argv) -> int:
@@ -179,6 +217,10 @@ def main(argv) -> int:
                   f"{r['sl_matmul_host_ms_per_step']:.2f} ms "
                   f"({r['sl_matmul_calls_per_step']} calls, median "
                   f"{r['sl_matmul_host_us_median']:.1f} us) | {smi}")
+        r = res["serve fused"]
+        print(f"{res['root']} | serve fused bf16: tokens/s "
+              f"{[round(x, 1) for x in r['tokens_per_s']]}, median "
+              f"{r['median']:.1f} | {smi}")
     return 0
 
 

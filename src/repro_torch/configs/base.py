@@ -31,8 +31,9 @@ class ParamConfig:
       "fused"  — the hand-written ``sl_matmul`` kernel densifies W one
                  128×128 tile at a time on chip; W never reaches device
                  memory. Init emits int32 tile consts (core/sltrain.py).
-      "sparse" — factored decode: (x·B)·A in f32 plus x·S from the
-                 ``sparse_matmul`` kernel; forward-only (serving).
+      "sparse" — factored: (x·B)·A in f32 plus x·S from the
+                 ``sparse_matmul`` kernel; trains too (dx over Wᵀ's tiles
+                 through ``sparse_matmul``, dV through ``sddmm``).
       "quant"  — int8 decode of a calibrated quant artifact through the
                  ``quant_sparse_matmul`` kernel; forward-only (serving).
     """

@@ -19,17 +19,19 @@ Execution modes ported here:
   deterministic ``support.tile_cap`` capacity; the trainer adds Wᵀ's
   {rows_tT, cols_tT} for dx once (``kernels.ops.add_transposed_tiles``).
 
-* ``sparse`` — the factored decode: (x·B)·A·scale in f32 plus x·S from
+* ``sparse`` — the factored path: (x·B)·A·scale in f32 plus x·S from
   the hand-written ``sparse_matmul`` kernel over the same tile consts as
   ``fused`` (``init_params(..., exec_mode="sparse")`` emits them too); W
-  is never formed (``kernels/ops.sl_decode``). The reference's sparse
-  mode runs the same math as an XLA scatter (``_sl_matmul_sparse``).
+  is never formed (``kernels/ops.sl_decode``); the kernel's term stays
+  f32 and the sum is rounded once. The reference's sparse mode runs the
+  same math as an XLA scatter (``_sl_matmul_sparse``) and trains through
+  its autodiff; here a call that needs a gradient goes through
+  ``kernels/ops.sl_sparse_linear``, whose dx runs
+  ``sparse_matmul`` over Wᵀ's tiles and whose dV runs ``sddmm``.
 * ``quant`` — the int8 decode of a calibrated quant artifact
   (``repro_torch.quant``): the same low-rank term plus x·dequant(S) from
   the ``quant_sparse_matmul`` kernel (``kernels/ops.sl_quant_decode``).
-
-``sparse`` and ``quant`` are forward-only: a call that needs a gradient
-raises ``NotImplementedError`` (ROADMAP queue A item 7b).
+  Forward-only, as in the reference: int8 codes are not trainable.
 """
 from __future__ import annotations
 
@@ -85,7 +87,7 @@ def init_params(gen: torch.Generator, d_in: int, d_out: int, rank: int,
     rows, cols = support_lib.sample_support(seed, d_in, d_out, delta,
                                             support_kind)
     tiles = None
-    if exec_mode in ("fused", "sparse"):
+    if exec_mode in ("fused", "sparse", "quant"):
         rows, cols, tiles = prepare_fused_consts(
             rows, cols, d_in, d_out, delta, support_kind, seed)
     if support_kind == "row_balanced":
@@ -214,8 +216,8 @@ class _DenseCOO(torch.autograd.Function):
 def sl_matmul(x, params, consts, scale: float, exec_mode: str = "dense"):
     """Apply one SLTrain linear, differentiable in x and the params.
     params = {B, A, v}; consts = {cols[, rows][, rows_t, cols_t, perm,
-    rows_tT, cols_tT][, qv_t, rows_q, cols_q, qscale]}. Modes "sparse" and
-    "quant" are forward-only."""
+    rows_tT, cols_tT][, qv_t, rows_q, cols_q, qscale]}. Mode "quant" is
+    forward-only."""
     if exec_mode in ("sparse", "quant"):
         return _decode(x, params, consts, scale, exec_mode)
     if exec_mode == "fused":
@@ -239,14 +241,16 @@ def sl_matmul(x, params, consts, scale: float, exec_mode: str = "dense"):
 
 
 def _decode(x, params, consts, scale: float, exec_mode: str):
-    """The forward-only factored decode of exec_mode "sparse" / "quant"."""
+    """The factored path of exec_mode "sparse" (trainable) / "quant"
+    (forward-only)."""
     from repro_torch.kernels import ops
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *params.values())):
-        raise NotImplementedError(
-            f"exec_mode={exec_mode!r} is forward-only: its gradient (training "
-            "in this mode) is not ported yet (ROADMAP queue A item 7b)")
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *params.values()))
     if exec_mode == "quant":
+        if needs_grad:
+            raise ValueError(
+                "exec_mode='quant' is serve-only: int8 codes are not "
+                "trainable — train with dense, fused or sparse")
         if "qv_t" not in consts:
             raise ValueError(
                 "exec_mode='quant' needs quantized consts {qv_t, rows_q, "
@@ -259,6 +263,12 @@ def _decode(x, params, consts, scale: float, exec_mode: str):
         raise ValueError(
             "exec_mode='sparse' needs tile consts {rows_t, cols_t, perm} — "
             "init the layer with exec_mode='sparse' or 'fused'")
+    if needs_grad:
+        return ops.sl_sparse_linear(x, params["B"], params["A"], params["v"],
+                                    consts["rows_t"], consts["cols_t"],
+                                    consts["perm"], scale,
+                                    rows_tT=consts.get("rows_tT"),
+                                    cols_tT=consts.get("cols_tT"))
     return ops.sl_decode(x, params["B"], params["A"],
                          ops._gather_tiles(params["v"], consts["perm"]),
                          consts["rows_t"], consts["cols_t"], scale)

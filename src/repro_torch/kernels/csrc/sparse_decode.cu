@@ -9,7 +9,10 @@
 // sparse_matmul (pallas_call at sparse_decode.py:66, body _kernel at :33)
 // and ::quant_sparse_matmul (pallas_call at :125, body _qkernel at :80).
 //
-// Shapes: x (M, K) in T (bf16 or f32), y (M, N) in T. S in tile-CSR form,
+// Shapes: x (M, K) in T (bf16 or f32), y (M, N) in O: T, or f32 for a bf16
+// x where the caller adds y to other f32 terms before its one rounding
+// (exec_mode sparse's linear, forward and dx, kernels/ops.py);
+// quant_sparse_matmul's y is in T. S in tile-CSR form,
 // each array (nkt, nnt, cap) with nkt = ceil(K/128), nnt = ceil(N/128):
 // sparse_matmul reads v_t f32 and rows_t / cols_t int32; quant_sparse_
 // matmul reads qv_t int8, rows_q / cols_q int16 and qscale f32 (nnt, 128).
@@ -17,11 +20,16 @@
 // with a value (or code) of 0.
 //
 // Rounding points, as in the TPU kernels: every product and sum is f32 and
-// y is rounded to T once. A dequantized value is code * qscale[column], one
-// f32 multiply: the TPU kernel builds the tile of codes (each cell holds
-// one code, plus exact zeros from padding) and multiplies its columns by
-// the scale row, which gives the same bits as multiplying each code by its
-// column's scale as it is scattered.
+// y is rounded to O once (not at all for an f32 O). A dequantized value
+// is code * qscale[column], one f32 multiply: the TPU kernel builds the
+// tile of codes (each cell holds one code, plus exact zeros from padding)
+// and multiplies its columns by the scale row, which gives the same bits
+// as multiplying each code by its column's scale as it is scattered.
+//
+// In training (exec_mode sparse) sparse_matmul also runs at M = batch x
+// seq tokens: x S for the forward and dy S^T for dx, over W^T's tiles
+// (kernels/ops.py add_transposed_tiles). The design is the decode's; at
+// 2048 rows it makes 64 row blocks of 32 per n-tile and one split.
 //
 // What bounds them on the H100: at decode (M = a few slots) the work is
 // 2 * M * nnz operations on 12 bytes (f32 value, two int32 indices) or 5
@@ -132,11 +140,11 @@ struct Int8Values {
 // two halves added (h = 0 first) at the end. With gridDim.z > 1 the block
 // writes that sum to partial[z], and the last block of the (n-tile, row
 // block) adds partial[0..splits) in order into y.
-template <typename T, typename I, typename Values, int R>
+template <typename T, typename O, typename I, typename Values, int R>
 __global__ void __launch_bounds__(THREADS)
 sparse_split_kernel(const T* __restrict__ x, Values values,
                     const I* __restrict__ rows_t,
-                    const I* __restrict__ cols_t, T* __restrict__ y,
+                    const I* __restrict__ cols_t, O* __restrict__ y,
                     float* __restrict__ partial, int* __restrict__ counter,
                     int M, int K, int N, int nkt, int nnt, int cap) {
   constexpr int XR = R * TILE / THREADS;  // x values a thread stages
@@ -255,7 +263,7 @@ sparse_split_kernel(const T* __restrict__ x, Values values,
     if (col_ok) {
 #pragma unroll
       for (int m = 0; m < R; ++m)
-        if (m < nrows) y[(size_t)(m0 + m) * N + n0 + c] = from_f<T>(o[m]);
+        if (m < nrows) y[(size_t)(m0 + m) * N + n0 + c] = from_f<O>(o[m]);
     }
     return;
   }
@@ -284,12 +292,12 @@ sparse_split_kernel(const T* __restrict__ x, Values values,
       float s = __ldcg(partial + at);
       for (int zz = 1; zz < splits; ++zz)
         s += __ldcg(partial + (size_t)zz * M * N + at);
-      y[at] = from_f<T>(s);
+      y[at] = from_f<O>(s);
     }
   }
 }
 
-template <typename T, typename I, typename Values, int R>
+template <typename T, typename O, typename I, typename Values, int R>
 cudaError_t launch_split(const void* x, Values values, const I* rows_t,
                          const I* cols_t, void* y, float* partial,
                          int* counter, int M, int K, int N, int nkt, int nnt,
@@ -297,19 +305,19 @@ cudaError_t launch_split(const void* x, Values values, const I* rows_t,
   static OncePerDevice smem_attr;
   constexpr size_t smem = sizeof(float) * (TILE * TILE + R * TILE);
   cudaError_t err = smem_attr([] {
-    return cudaFuncSetAttribute(sparse_split_kernel<T, I, Values, R>,
+    return cudaFuncSetAttribute(sparse_split_kernel<T, O, I, Values, R>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)smem);
   });
   if (err != cudaSuccess) return err;
   const dim3 grid(nnt, (M + R - 1) / R, splits);
-  sparse_split_kernel<T, I, Values, R><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), values, rows_t, cols_t, static_cast<T*>(y),
+  sparse_split_kernel<T, O, I, Values, R><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(x), values, rows_t, cols_t, static_cast<O*>(y),
       partial, counter, M, K, N, nkt, nnt, cap);
   return cudaGetLastError();
 }
 
-template <typename T, typename I, typename Values>
+template <typename T, typename O, typename I, typename Values>
 cudaError_t launch_split_rows(const void* x, Values values, const I* rows_t,
                               const I* cols_t, void* y, float* partial,
                               int* counter, int M, int K, int N, int nkt,
@@ -319,21 +327,21 @@ cudaError_t launch_split_rows(const void* x, Values values, const I* rows_t,
       (splits > 1 && (partial == nullptr || counter == nullptr)))
     return cudaErrorInvalidValue;
   if (rows_per_block == 4)
-    return launch_split<T, I, Values, 4>(x, values, rows_t, cols_t, y,
+    return launch_split<T, O, I, Values, 4>(x, values, rows_t, cols_t, y,
                                          partial, counter, M, K, N, nkt,
                                          nnt, cap, splits, stream);
   if (rows_per_block == 8)
-    return launch_split<T, I, Values, 8>(x, values, rows_t, cols_t, y,
+    return launch_split<T, O, I, Values, 8>(x, values, rows_t, cols_t, y,
                                          partial, counter, M, K, N, nkt,
                                          nnt, cap, splits, stream);
   if (rows_per_block == 32)
-    return launch_split<T, I, Values, 32>(x, values, rows_t, cols_t, y,
+    return launch_split<T, O, I, Values, 32>(x, values, rows_t, cols_t, y,
                                           partial, counter, M, K, N, nkt,
                                           nnt, cap, splits, stream);
   return cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = bf16
+// dtype: 0 = float32, 1 = bf16; y in x's type
 template <typename I, typename Values>
 cudaError_t launch_dtype(int dtype, const void* x, Values values,
                          const I* rows_t, const I* cols_t, void* y,
@@ -341,19 +349,20 @@ cudaError_t launch_dtype(int dtype, const void* x, Values values,
                          int nkt, int nnt, int cap, int rows_per_block,
                          int splits, cudaStream_t stream) {
   if (dtype == 1)
-    return launch_split_rows<__nv_bfloat16>(x, values, rows_t, cols_t, y,
-                                            partial, counter, M, K, N, nkt,
-                                            nnt, cap, rows_per_block, splits,
-                                            stream);
-  return launch_split_rows<float>(x, values, rows_t, cols_t, y, partial,
-                                  counter, M, K, N, nkt, nnt, cap,
-                                  rows_per_block, splits, stream);
+    return launch_split_rows<__nv_bfloat16, __nv_bfloat16>(
+        x, values, rows_t, cols_t, y, partial, counter, M, K, N, nkt, nnt,
+        cap, rows_per_block, splits, stream);
+  return launch_split_rows<float, float>(x, values, rows_t, cols_t, y,
+                                         partial, counter, M, K, N, nkt, nnt,
+                                         cap, rows_per_block, splits, stream);
 }
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes). dtype: 0 = float32, 1 = bf16.
-// Each returns the cudaError_t of its launch (0 = success).
+// Plain C entry points (bound with ctypes). dtype (x): 0 = float32, 1 =
+// bf16. sparse_matmul's out_dtype (y) is dtype, or 0 for a bf16 x (an f32
+// y); quant_sparse_matmul's y is in x's type. Each returns the cudaError_t
+// of its launch (0 = success).
 //
 // rows_per_block 4, 8 or 32 and splits (1 .. nkt) come from the wrapper's
 // plan; with splits > 1, partial is f32 (splits, M, N) scratch and counter
@@ -364,11 +373,16 @@ extern "C" int sparse_matmul_launch(const void* x, const float* v_t,
                                     void* y, float* partial, int* counter,
                                     int M, int K, int N, int nkt, int nnt,
                                     int cap, int rows_per_block, int splits,
-                                    int dtype, void* stream) {
+                                    int dtype, int out_dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && out_dtype == 0)
+    return (int)launch_split_rows<__nv_bfloat16, float>(
+        x, F32Values{v_t}, rows_t, cols_t, y, partial, counter, M, K, N,
+        nkt, nnt, cap, rows_per_block, splits, s);
+  if (out_dtype != dtype) return (int)cudaErrorInvalidValue;
   return (int)launch_dtype(dtype, x, F32Values{v_t}, rows_t, cols_t, y,
                            partial, counter, M, K, N, nkt, nnt, cap,
-                           rows_per_block, splits,
-                           static_cast<cudaStream_t>(stream));
+                           rows_per_block, splits, s);
 }
 
 extern "C" int quant_sparse_matmul_launch(

@@ -4,9 +4,11 @@ linear of ``exec_mode="fused"`` (a ``torch.autograd.Function`` whose
 forward and dx run ``sl_matmul`` and whose dV runs ``sddmm``), the 8-bit
 Adam step on a list of leaves in one launch and on one leaf of any
 shape, the paged-attention calls with the
-GQA regroup, and the factored decode of ``exec_mode="sparse"`` and
+GQA regroup, the factored decode of ``exec_mode="sparse"`` and
 ``"quant"`` (the low-rank term as f32 matmuls, the sparse term through
-the ``sparse_matmul`` or ``quant_sparse_matmul`` kernel).
+the ``sparse_matmul`` or ``quant_sparse_matmul`` kernel), and the
+trainable sparse linear (a ``torch.autograd.Function`` whose forward and
+dx run ``sparse_matmul`` and whose dV runs ``sddmm``).
 
 Dispatch follows the tensors: on the CPU each kernel wrapper runs its
 plain PyTorch version, on a CUDA tensor it launches the kernel or raises.
@@ -132,28 +134,35 @@ def sddmm(x, dy, rows_t, cols_t):
                               rows_t, cols_t)
 
 
-def _fused_grads(x, B, A, v_t, rows_t, cols_t, rows_tT, cols_tT,
-                 scale: float, dy):
-    """Backward of the fused linear: (dx, dB, dA, dv_t f32), the local path
-    of the reference's ``_fused_grads``.
-
-    The plain products (x·B, dy·Aᵀ, dA, dB) take f32 operands and give f32
-    results, as the reference's ``preferred_element_type=f32`` does: a bf16
-    product returning bf16 would round the token contraction through bf16.
-    (PyTorch's f32 matmul keeps full f32 on the card unless TF32 is turned
-    on, which the port never does.) dV is the ``sddmm`` kernel's f32
-    output; dx is ``sl_matmul`` on the transposed factors and Wᵀ's tile
-    consts, with v_t's tile axes swapped."""
-    k = x.shape[-1]
-    n = dy.shape[-1]
-    dy = dy.to(x.dtype)
-    xf = x.reshape(-1, k)
-    dyf = dy.reshape(-1, n)
+def _lowrank_grads(xf, dyf, B, A, scale: float):
+    """(dB, dA, dy·Aᵀ in f32) of the low-rank term for x (M, K), dy (M,
+    N). The products take f32 operands and give f32 results, as the
+    reference's ``preferred_element_type=f32`` does: a bf16 product
+    returning bf16 would round the token contraction through bf16."""
     f32 = torch.float32
     xB = xf.to(f32) @ B.to(f32)                                  # (M, r)
     dA = (scale * (xB.T @ dyf.to(f32))).to(A.dtype)
     dyA = dyf.to(f32) @ A.to(f32).T                              # (M, r)
     dB = (scale * (xf.to(f32).T @ dyA)).to(B.dtype)
+    return dB, dA, dyA
+
+
+def _fused_grads(x, B, A, v_t, rows_t, cols_t, rows_tT, cols_tT,
+                 scale: float, dy):
+    """Backward of the fused linear: (dx, dB, dA, dv_t f32), the local path
+    of the reference's ``_fused_grads``.
+
+    dB and dA come from :func:`_lowrank_grads` in f32. (PyTorch's f32
+    matmul keeps full f32 on the card unless TF32 is turned on, which the
+    port never does.) dV is the ``sddmm`` kernel's f32 output; dx is
+    ``sl_matmul`` on the transposed factors and Wᵀ's tile consts, with
+    v_t's tile axes swapped."""
+    k = x.shape[-1]
+    n = dy.shape[-1]
+    dy = dy.to(x.dtype)
+    xf = x.reshape(-1, k)
+    dyf = dy.reshape(-1, n)
+    dB, dA, _ = _lowrank_grads(xf, dyf, B, A, scale)
     dv_t = sddmm(xf, dyf, rows_t, cols_t)
     dx = sl_matmul(dyf, A.T.contiguous(), B.T.contiguous(),
                    transpose_tiles(v_t), rows_tT, cols_tT, scale)
@@ -179,11 +188,7 @@ class _SLLinear(torch.autograd.Function):
     def backward(ctx, dy):
         x, B, A, v, v_t, rows_t, cols_t, perm, rows_tT, cols_tT = \
             ctx.saved_tensors
-        if rows_tT is None:
-            raise ValueError(
-                "sl_linear backward needs Wᵀ's tile consts (rows_tT, "
-                "cols_tT): build them once per layer with "
-                "kernels.ops.add_transposed_tiles")
+        _need_transposed_tiles(rows_tT, "sl_linear")
         dx, dB, dA, dv_t = _fused_grads(x, B, A, v_t, rows_t, cols_t,
                                         rows_tT, cols_tT, ctx.scale, dy)
         dv = _scatter_tiles(dv_t, perm, v.numel())
@@ -336,15 +341,17 @@ def _lowrank_f32(xf, B, A, scale: float):
 def sl_decode(x, B, A, v_t, rows_t, cols_t, scale: float):
     """SLTrain linear without densifying W, ``exec_mode="sparse"``:
     (x·B)·A·scale in f32 plus x·S from the ``sparse_matmul`` kernel (S as
-    f32 tile-CSR), summed in f32 and rounded to x.dtype. As in the
-    reference, the kernel's term comes back in x.dtype and is added in
-    f32. x (..., K) of any leading shape; K and N need no padding."""
+    f32 tile-CSR) with an f32 output, summed in f32 and rounded once to
+    x.dtype, as the reference's sparse mode (``_sl_matmul_sparse``) does.
+    (The reference's Pallas wrapper ``ops.sl_decode``, which no model path
+    of the reference calls, rounds the kernel's term to x.dtype first.)
+    x (..., K) of any leading shape; K and N need no padding."""
     lead = x.shape[:-1]
     k = x.shape[-1]
     n = A.shape[-1]
     xf = x.reshape(-1, k).contiguous()
-    y_sp = sd_kernel.sparse_matmul(xf, v_t, rows_t, cols_t, n)
-    y = _lowrank_f32(xf, B, A, scale) + y_sp.to(torch.float32)
+    y_sp = sd_kernel.sparse_matmul(xf, v_t, rows_t, cols_t, n, torch.float32)
+    y = _lowrank_f32(xf, B, A, scale) + y_sp
     return y.to(x.dtype).reshape(*lead, n)
 
 
@@ -361,3 +368,66 @@ def sl_quant_decode(x, B, A, qv_t, rows_q, cols_q, qscale, scale: float):
     y_sp = sd_kernel.quant_sparse_matmul(xf, qv_t, rows_q, cols_q, qscale, n)
     y = _lowrank_f32(xf, B, A, scale) + y_sp.to(torch.float32)
     return y.to(x.dtype).reshape(*lead, n)
+
+
+# ---------------------------------------------------------------------------
+# The trainable sparse linear: sparse_matmul forward and dx, sddmm dV
+# ---------------------------------------------------------------------------
+
+def _need_transposed_tiles(rows_tT, what: str) -> None:
+    if rows_tT is None:
+        raise ValueError(
+            f"{what} backward needs Wᵀ's tile consts (rows_tT, cols_tT): "
+            "build them once per layer with "
+            "kernels.ops.add_transposed_tiles")
+
+
+class _SLSparse(torch.autograd.Function):
+    """y = (x·B)·A·scale + x·S of ``exec_mode="sparse"`` (:func:`sl_decode`),
+    differentiable in x, B, A and the flat ``v``: the function and (by
+    the reference's autodiff) the gradient of ``_sl_matmul_sparse``,
+    which accumulates in f32 end to end and rounds once. dB and dA as the
+    fused linear's (:func:`_lowrank_grads`); dV from the ``sddmm`` kernel at the
+    tile consts, put back through ``perm``; dx = scale·(dy·Aᵀ)·Bᵀ in f32
+    plus dy·Sᵀ from the ``sparse_matmul`` kernel over Wᵀ's tiles, returned
+    in f32 so that the sum is rounded to x.dtype once. Residuals are x,
+    the factors and the f32 tile values; W is never formed."""
+
+    @staticmethod
+    def forward(ctx, x, B, A, v, rows_t, cols_t, perm, rows_tT, cols_tT,
+                scale):
+        v_t = _gather_tiles(v, perm)
+        ctx.save_for_backward(x, B, A, v, v_t, rows_t, cols_t, perm,
+                              rows_tT, cols_tT)
+        ctx.scale = scale
+        return sl_decode(x, B, A, v_t, rows_t, cols_t, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, B, A, v, v_t, rows_t, cols_t, perm, rows_tT, cols_tT = \
+            ctx.saved_tensors
+        _need_transposed_tiles(rows_tT, "the sparse linear's")
+        scale = ctx.scale
+        k = x.shape[-1]
+        dyf = dy.reshape(-1, dy.shape[-1]).to(x.dtype).contiguous()
+        xf = x.reshape(-1, k)
+        dB, dA, dyA = _lowrank_grads(xf, dyf, B, A, scale)
+        dv_t = sddmm(xf, dyf, rows_t, cols_t)
+        dx_sp = sd_kernel.sparse_matmul(dyf, transpose_tiles(v_t), rows_tT,
+                                        cols_tT, k, torch.float32)
+        dx = scale * (dyA @ B.to(torch.float32).T) + dx_sp
+        dv = _scatter_tiles(dv_t, perm, v.numel())
+        return (dx.to(x.dtype).reshape(x.shape), dB, dA,
+                dv.reshape(v.shape).to(v.dtype), None, None, None, None,
+                None, None)
+
+
+def sl_sparse_linear(x, B, A, v, rows_t, cols_t, perm, scale: float, *,
+                     rows_tT=None, cols_tT=None):
+    """The trainable ``exec_mode="sparse"`` linear: y = (x·B)·A·scale + x·S
+    with the flat ``v`` gathered into tile order through ``perm``,
+    differentiable in x, B, A and v. ``rows_tT``/``cols_tT`` are Wᵀ's tile
+    consts for dx (:func:`add_transposed_tiles`); the backward raises
+    without them."""
+    return _SLSparse.apply(x, B, A, v, rows_t, cols_t, perm, rows_tT,
+                           cols_tT, scale)

@@ -81,12 +81,13 @@ def _tile_dense(vals_t, rows_t, cols_t):
     return S
 
 
-def sparse_matmul_ref(x, v_t, rows_t, cols_t, n: int):
+def sparse_matmul_ref(x, v_t, rows_t, cols_t, n: int, out_dtype=None):
     """y = x @ S for x (M, K) and S (K, n) as f32 tile-CSR (K/128, n/128,
-    cap) arrays: f32 products and sums, one rounding to x.dtype."""
+    cap) arrays: f32 products and sums, one rounding to ``out_dtype``
+    (x.dtype by default)."""
     k = x.shape[-1]
     S = _tile_dense(v_t, rows_t, cols_t)
-    return (x.float() @ S[:k, :n]).to(x.dtype)
+    return (x.float() @ S[:k, :n]).to(out_dtype or x.dtype)
 
 
 def quant_sparse_matmul_ref(x, qv_t, rows_q, cols_q, qscale, n: int):

@@ -92,7 +92,7 @@ def plan(m: int, k: int, n: int, sms: int = SMS,
 def _lib():
     lib = build.library("sparse_decode")
     if lib.sparse_matmul_launch.argtypes is None:
-        lib.sparse_matmul_launch.argtypes = [_P] * 7 + [_I] * 9 + [_P]
+        lib.sparse_matmul_launch.argtypes = [_P] * 7 + [_I] * 10 + [_P]
         lib.sparse_matmul_launch.restype = _I
         lib.quant_sparse_matmul_launch.argtypes = [_P] * 8 + [_I] * 9 + [_P]
         lib.quant_sparse_matmul_launch.restype = _I
@@ -145,35 +145,43 @@ def _sms(x) -> int:
     return torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
-def sparse_matmul(x, v_t, rows_t, cols_t, n: int):
-    """y = x @ S in x.dtype for x (M, K) and S (K, n) in tile-CSR form: v_t
-    f32, rows_t/cols_t int32, each (ceil(K/128), ceil(n/128), cap). K and n
+def sparse_matmul(x, v_t, rows_t, cols_t, n: int, out_dtype=None):
+    """y = x @ S for x (M, K) and S (K, n) in tile-CSR form: v_t f32,
+    rows_t/cols_t int32, each (ceil(K/128), ceil(n/128), cap). K and n
     need not be multiples of 128. f32 accumulation (one chain per split of
-    K, the splits added in order), one final rounding."""
+    K, the splits added in order), one final rounding to ``out_dtype``:
+    x.dtype by default, or f32 (no rounding) for a caller that adds y to
+    other f32 terms first."""
     if x.device.type == "cpu":
-        return ref.sparse_matmul_ref(x, v_t, rows_t, cols_t, n)
-    _check_sparse(x, v_t, rows_t, cols_t, n)
+        return ref.sparse_matmul_ref(x, v_t, rows_t, cols_t, n, out_dtype)
+    out_dtype = _check_sparse(x, v_t, rows_t, cols_t, n, out_dtype)
     return _run(plan(x.shape[0], x.shape[1], n, _sms(x)), sparse_matmul, x,
-                (v_t, rows_t, cols_t), n)
+                (v_t, rows_t, cols_t), n, out_dtype)
 
 
-def launch(p: Plan, x, v_t, rows_t, cols_t, n: int):
+def launch(p: Plan, x, v_t, rows_t, cols_t, n: int, out_dtype=None):
     """The ``sparse_matmul`` kernel on plan ``p`` for CUDA operands that
     :func:`sparse_matmul` accepts; it counts one launch.
     :func:`sparse_matmul` runs the plan of the shapes; a caller that times
     or tests a split count passes ``plan(..., splits=s)``."""
-    _check_sparse(x, v_t, rows_t, cols_t, n)
+    out_dtype = _check_sparse(x, v_t, rows_t, cols_t, n, out_dtype)
     _check_plan("sparse_matmul", p, x, n)
-    return _run(p, sparse_matmul, x, (v_t, rows_t, cols_t), n)
+    return _run(p, sparse_matmul, x, (v_t, rows_t, cols_t), n, out_dtype)
 
 
-def _check_sparse(x, v_t, rows_t, cols_t, n):
+def _check_sparse(x, v_t, rows_t, cols_t, n, out_dtype):
+    """Raise on what the kernel does not take; returns y's dtype."""
     if x.device.type != "cuda":
         raise ValueError(f"sparse_matmul: unsupported device {x.device}")
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"sparse_matmul: y in {out_dtype} for x in "
+                        f"{x.dtype}; y is x's dtype or float32")
     _check("sparse_matmul", x, n, (
         ("v_t", v_t, torch.float32, None),
         ("rows_t", rows_t, torch.int32, None),
         ("cols_t", cols_t, torch.int32, None)))
+    return out_dtype
 
 
 def quant_sparse_matmul(x, qv_t, rows_q, cols_q, qscale, n: int):
@@ -219,15 +227,20 @@ def _check_plan(what, p: Plan, x, n: int):
                          f"({k}, {n})")
 
 
-def _run(p: Plan, wrapper, x, consts, n: int):
+def _run(p: Plan, wrapper, x, consts, n: int, out_dtype=None):
     """Launch the kernel of ``wrapper`` (``sparse_matmul`` or
     ``quant_sparse_matmul``) on plan ``p`` for x (M, K) and S's arrays
     ``consts`` into a new (M, n) output, with the plan's partials and
     counters as scratch; raise if the launch returned a CUDA error, else
-    count it."""
+    count it. ``out_dtype`` (``sparse_matmul`` only) is y's dtype; without
+    it y is in x.dtype."""
     what = wrapper.__name__
     m, k = x.shape
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    # the C entry's dtype codes: x's, then sparse_matmul's y's
+    codes = [_DTYPES[x.dtype]]
+    if out_dtype is not None:
+        codes.append(_DTYPES[out_dtype])
+    y = torch.empty((m, n), dtype=out_dtype or x.dtype, device=x.device)
     if m == 0 or n == 0:
         return y
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -243,7 +256,7 @@ def _run(p: Plan, wrapper, x, consts, n: int):
             x.data_ptr(), *(t.data_ptr() for t in consts), y.data_ptr(),
             ptr(partial), ptr(counter), m, k, n, -(-k // TILE),
             -(-n // TILE), consts[1].shape[-1], p.rows_per_block, p.splits,
-            _DTYPES[x.dtype], stream)
+            *codes, stream)
     build.check(lib, err, what)
     wrapper.launches += 1
     return y

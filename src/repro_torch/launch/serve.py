@@ -1,21 +1,29 @@
 """Serving launcher of the port: init a paper config with seeded random
-weights and serve batched requests through the paged engine.
+weights, or restore a training checkpoint, and serve batched requests
+through the paged engine.
 
 Usage (from the repository root, ``PYTHONPATH=src``):
   python -m repro_torch.launch.serve --arch llama_1b --paged --stream \
       --prefix-sharing --exec-mode fused
   python -m repro_torch.launch.serve --arch llama_1b --paged --sparse-decode
   python -m repro_torch.launch.serve --arch llama_60m --smoke --paged \
+      --ckpt-dir /path/to/train/ckpt --exec-mode sparse
+  python -m repro_torch.launch.serve --arch llama_60m --smoke --paged \
       --quant-ckpt /path/to/artifact          # exec_mode quant
+  python -m repro_torch.launch.serve --arch llama_60m --smoke --paged \
+      --ckpt-dir /path/to/train/ckpt --exec-mode quant --quant-fallback
   python -m repro_torch.launch.serve --arch llama_60m --smoke --paged \
       --device cpu
 
 ``--exec-mode`` (and ``--sparse-decode``) is applied to the config before
-init, so ``fused`` and ``sparse`` get the tile consts their kernels read.
-``--quant-ckpt`` serves a quant artifact (``python -m
-repro_torch.quant.calibrate``) instead of a seeded init. The reference's
-``--ckpt-dir``, ``--quant-fallback``, mesh and chaos flags are not ported
-yet.
+init, so ``fused``, ``sparse`` and ``quant`` get the tile consts their
+kernels (or the quant fallback) read. ``--ckpt-dir`` then restores the
+params from a training checkpoint of either package (``launch.train``),
+whatever exec mode it was trained in. ``--quant-ckpt`` serves a quant
+artifact (``python -m repro_torch.quant.calibrate``), which carries its
+own params and consts. ``--quant-fallback`` lets an exec_mode quant engine
+whose consts lack the int8 codes serve through the sparse path instead,
+with a warning. The reference's mesh and chaos flags are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,6 +36,29 @@ import numpy as np
 from repro_torch.models import registry
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.engine import ServeEngine
+
+
+def load_model(cfg, *, device, ckpt_dir=None, quant_ckpt=None):
+    """(params, consts) to serve with ``cfg`` (its exec mode already set):
+    a quant artifact's trees, or a seeded init of ``cfg`` whose params are
+    then restored from the training checkpoint under ``ckpt_dir`` (either
+    package's; its config may differ from ``cfg`` in the exec mode)."""
+    if quant_ckpt:
+        # the artifact carries both trees (error-folded B/A and the int8
+        # tile-CSR consts): no init is needed
+        from repro_torch.ckpt.checkpoint import load_quant_artifact
+        params, consts, qman = load_quant_artifact(quant_ckpt, device=device)
+        print(f"quant artifact: {quant_ckpt} "
+              f"({qman['extra'].get('n_matrices', '?')} matrices)")
+        return params, consts
+    params, consts = registry.get_api(cfg).init(cfg, 0, device=device)
+    if ckpt_dir:
+        from repro_torch.ckpt.checkpoint import CheckpointManager
+        tree, man = CheckpointManager(ckpt_dir).restore(
+            {"params": params}, allow_config_change=True)
+        params = tree["params"]
+        print(f"checkpoint: {ckpt_dir} (step {man['step']})")
+    return params, consts
 
 
 def main(argv=None):
@@ -54,6 +85,15 @@ def main(argv=None):
                     help="serve a calibrated int8 quant artifact (python -m "
                          "repro_torch.quant.calibrate) instead of a seeded "
                          "init; defaults --exec-mode to 'quant'")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of a training checkpoint "
+                         "(launch.train of either package) instead of a "
+                         "seeded init")
+    ap.add_argument("--quant-fallback", action="store_true",
+                    help="with --exec-mode quant: serve through the sparse "
+                         "path (warn and count serve.quant_fallback) when "
+                         "the consts lack the int8 codes, instead of "
+                         "refusing to start")
     ap.add_argument("--paged", action="store_true",
                     help="block-paged KV cache (the only cache the port has)")
     ap.add_argument("--block-len", type=int, default=16,
@@ -85,6 +125,9 @@ def main(argv=None):
 
     if args.sparse_decode and args.exec_mode is not None:
         ap.error("pass either --sparse-decode or --exec-mode, not both")
+    if args.ckpt_dir and args.quant_ckpt:
+        ap.error("pass either --ckpt-dir or --quant-ckpt, not both: the "
+                 "artifact carries its own params")
     cfg = (registry.get_smoke_config(args.arch) if args.smoke
            else registry.get_config(args.arch))
     exec_mode = "sparse" if args.sparse_decode else args.exec_mode
@@ -95,17 +138,9 @@ def main(argv=None):
     if exec_mode is not None:
         cfg = dataclasses.replace(
             cfg, param=dataclasses.replace(cfg.param, exec_mode=exec_mode))
-    if args.quant_ckpt:
-        # the artifact carries both trees (error-folded B/A and the int8
-        # tile-CSR consts): no init is needed
-        from repro_torch.ckpt.checkpoint import load_quant_artifact
-        params, consts, qman = load_quant_artifact(args.quant_ckpt,
-                                                   device=args.device)
-        print(f"quant artifact: {args.quant_ckpt} "
-              f"({qman['extra'].get('n_matrices', '?')} matrices)")
-    else:
-        params, consts = registry.get_api(cfg).init(cfg, 0,
-                                                    device=args.device)
+    params, consts = load_model(cfg, device=args.device,
+                                ckpt_dir=args.ckpt_dir,
+                                quant_ckpt=args.quant_ckpt)
     trace = obs_trace.Trace(enabled=bool(args.trace_out))
     eng = ServeEngine(cfg, params, consts, n_slots=args.slots,
                       max_len=args.max_len, paged=True,
@@ -114,7 +149,8 @@ def main(argv=None):
                       prefix_sharing=args.prefix_sharing, trace=trace,
                       max_queue=args.max_queue,
                       deadline_ticks=args.deadline_ticks,
-                      deadline_ms=args.deadline_ms, device=args.device)
+                      deadline_ms=args.deadline_ms,
+                      quant_fallback=args.quant_fallback, device=args.device)
     rng = np.random.default_rng(0)
     prompts = []
     shared = rng.integers(3, cfg.vocab_size, size=16).tolist()
@@ -161,6 +197,9 @@ def main(argv=None):
           f"({total_toks/dt:.1f} tok/s, {stats['decode_steps']} decode steps,"
           f" {eng.dispatches['prefill']} prefill dispatches, {mode},"
           f" exec_mode={eng.cfg.param.exec_mode}, device={eng.device})")
+    if eng.quant_fell_back:
+        print("  quant fallback: the consts lack the int8 codes; served "
+              "through the sparse path (serve.quant_fallback = 1)")
     if args.prefix_sharing:
         pt = eng.prefill_traffic
         print(f"  prefix sharing: {pt['tokens_shared']}/{pt['tokens_total']} "

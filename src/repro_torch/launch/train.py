@@ -8,10 +8,14 @@ Usage:
       --device cpu --ckpt-dir $(mktemp -d)
   python -m repro_torch.launch.train --arch llama_1b --optimizer adam8bit \\
       --update-mode per_layer --exec-mode fused --layer-timing --steps 20
+  python -m repro_torch.launch.train --arch llama_1b --exec-mode sparse \\
+      --steps 20
 
 The flags are the reference's. ``--exec-mode`` is applied to the config
-before init, so ``fused`` gets its tile consts. Options the port does not
-run yet raise ``NotImplementedError`` naming their ROADMAP item.
+before init, so ``fused`` and ``sparse`` get their tile consts (``sparse``
+trains through the ``sparse_matmul`` and ``sddmm`` kernels). Options the
+port does not run yet raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -80,8 +84,8 @@ def main(argv=None):
     ap.add_argument("--exec-mode", default=None,
                     choices=[None, "dense", "sparse", "fused"],
                     help="sltrain execution mode: dense densify, sparse "
-                         "factored gather (decode), fused tile kernels "
-                         "(training)")
+                         "factored (sparse_matmul forward and dx), fused "
+                         "tile kernels (sl_matmul)")
     ap.add_argument("--optimizer", default="adamw",
                     choices=["adamw", "adam8bit", "galore_adamw"])
     ap.add_argument("--delta", type=float, default=None)

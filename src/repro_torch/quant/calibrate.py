@@ -212,11 +212,30 @@ def calibrate_model(cfg, params, consts, **kw):
                           support_kind=pc.support_kind, **kw)
 
 
+def calibrate_checkpoint(cfg, ckpt_dir: str, out: str, *, device,
+                         clip_percentile: Optional[float] = None,
+                         fold_error: bool = True):
+    """The CLI's path: restore the params of the training checkpoint under
+    ``ckpt_dir`` (either package's) into a seeded init of ``cfg``,
+    calibrate them and write the quant artifact to ``out``. Returns
+    (params, consts, stats, artifact path)."""
+    from repro_torch.ckpt import checkpoint as ckpt_lib
+    from repro_torch.models import registry
+    params, consts = registry.get_api(cfg).init(cfg, 0, device=device)
+    cm = ckpt_lib.CheckpointManager(ckpt_dir)
+    tree, _ = cm.restore({"params": params}, allow_config_change=True)
+    qp, qc, stats = calibrate_model(cfg, tree["params"], consts,
+                                    clip_percentile=clip_percentile,
+                                    fold_error=fold_error)
+    path = ckpt_lib.save_quant_artifact(out, qp, qc, config_hash=cfg.hash(),
+                                        extra=stats)
+    return qp, qc, stats, path
+
+
 def main(argv=None):
     import argparse
     import dataclasses
 
-    from repro_torch.ckpt import checkpoint as ckpt_lib
     from repro_torch.models import registry
 
     ap = argparse.ArgumentParser(
@@ -244,15 +263,9 @@ def main(argv=None):
     if cfg.param.mode != "sltrain":
         cfg = dataclasses.replace(
             cfg, param=dataclasses.replace(cfg.param, mode="sltrain"))
-    api = registry.get_api(cfg)
-    params, consts = api.init(cfg, 0, device=args.device)
-    cm = ckpt_lib.CheckpointManager(args.ckpt_dir)
-    tree, _ = cm.restore({"params": params}, allow_config_change=True)
-    qp, qc, stats = calibrate_model(
-        cfg, tree["params"], consts,
+    _, _, stats, path = calibrate_checkpoint(
+        cfg, args.ckpt_dir, args.out, device=args.device,
         clip_percentile=args.clip_percentile, fold_error=not args.no_fold)
-    path = ckpt_lib.save_quant_artifact(args.out, qp, qc,
-                                        config_hash=cfg.hash(), extra=stats)
     print(f"quant artifact: {stats['n_matrices']} matrices, "
           f"{stats['nnz']} int8 codes, max |W - Wq| = "
           f"{stats['max_abs_err']:.3e} -> {path}")

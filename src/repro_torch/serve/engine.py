@@ -20,6 +20,11 @@ Every linear runs as ``exec_mode`` says: ``"fused"`` through the
 ``sparse_decode=True``) as the factored decode through the
 ``sparse_matmul`` kernel, ``"quant"`` through the ``quant_sparse_matmul``
 kernel on the consts of a calibrated quant artifact (repro_torch.quant).
+With ``quant_fallback=True`` a quant engine whose consts lack the int8
+codes but hold the sparse path's tile consts serves in exec_mode
+``"sparse"`` instead, through ``sparse_matmul``: it warns, sets
+``quant_fell_back`` and counts ``serve.quant_fallback``, as the
+reference does.
 
 Observability: the counters, TTFT histograms and trace spans of the
 reference engine, on the port's copy of ``repro.obs``. Resilience: every
@@ -29,9 +34,8 @@ deadlines) or ``failed`` (a run loop's step budget ran out; calling it
 again resumes).
 
 Not ported yet, and refused when asked for: the contiguous ``paged=False``
-cache, a device ``mesh``, ``quant_fallback`` (serving an int8 request
-through the bf16 sparse path instead) and the ``tick_hook``
-fault-injection hook (ROADMAP queue A items 6-10 and 7b).
+cache, a device ``mesh`` and the ``tick_hook`` fault-injection hook
+(ROADMAP queue A items 6, 8 and 10).
 """
 from __future__ import annotations
 
@@ -88,6 +92,11 @@ def _not_ported(what: str, item) -> NotImplementedError:
                                f"item {item})")
 
 
+# the consts the sparse path reads (besides params' v): what a quant
+# engine's fallback checks for
+_SPARSE_CONSTS = {"rows_t", "cols_t", "perm"}
+
+
 def _all_keys(tree) -> set:
     if isinstance(tree, dict):
         return set(tree).union(*(_all_keys(v) for v in tree.values()))
@@ -112,8 +121,6 @@ class ServeEngine:
             raise _not_ported("the contiguous KV cache (paged=False)", 6)
         if mesh is not None:
             raise _not_ported("serving on a device mesh", 10)
-        if quant_fallback:
-            raise _not_ported("quant_fallback", "7b")
         if tick_hook is not None:
             raise _not_ported("the tick_hook fault-injection hook", 8)
         if exec_mode is not None:
@@ -136,13 +143,29 @@ class ServeEngine:
         # fail at construction, not at the first dispatch, when the consts
         # lack what the decode kernels read
         mode = cfg.param.exec_mode if cfg.param.mode == "sltrain" else None
+        quant_fell_back = False
         if mode == "quant" and "qv_t" not in _all_keys(consts):
-            raise ValueError(
-                "exec_mode='quant' needs calibrated consts (qv_t/rows_q/"
-                "cols_q/qscale) — load a quant artifact (python -m "
-                "repro_torch.quant.calibrate, then "
-                "ckpt.checkpoint.load_quant_artifact) and pass its "
-                "params/consts")
+            # quant_fallback: serve through the sparse path instead, but
+            # only when the leaves that path reads are there — a blind
+            # downgrade would move the failure to the first dispatch
+            if quant_fallback and _SPARSE_CONSTS <= _all_keys(consts) and \
+                    "v" in _all_keys(params):
+                warnings.warn(
+                    "quant artifact validation failed (consts lack qv_t): "
+                    "serving degraded to exec_mode='sparse' (the "
+                    "sparse_matmul kernel in place of quant_sparse_matmul)")
+                mode = "sparse"
+                cfg = dataclasses.replace(
+                    cfg, param=dataclasses.replace(cfg.param,
+                                                   exec_mode=mode))
+                quant_fell_back = True
+            else:
+                raise ValueError(
+                    "exec_mode='quant' needs calibrated consts (qv_t/rows_q/"
+                    "cols_q/qscale) — load a quant artifact (python -m "
+                    "repro_torch.quant.calibrate, then "
+                    "ckpt.checkpoint.load_quant_artifact) and pass its "
+                    "params/consts")
         if mode == "sparse" and "perm" not in _all_keys(consts):
             raise ValueError(
                 "exec_mode='sparse' needs the tile consts {rows_t, cols_t, "
@@ -217,6 +240,12 @@ class ServeEngine:
         self._c_deadline = self.obs.counter(
             "serve.deadline_exceeded",
             help="requests cancelled past their tick/wall deadline")
+        self._c_qfall = self.obs.counter(
+            "serve.quant_fallback",
+            help="quant engines degraded to sparse at construction")
+        if quant_fell_back:
+            self._c_qfall.inc()
+        self.quant_fell_back = quant_fell_back
 
     # -- counter views + measurement reset ------------------------------------
     @property

@@ -125,7 +125,8 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
     dispatch when it has one (the ``adam8bit`` kernel): a group at a time
     through ``update_group_fused``, else leaf by leaf through
     ``update_slice_fused``; it defaults to ``cfg.param.exec_mode ==
-    "fused"``.
+    "fused"``, so exec_mode "sparse" takes the plain optimizer slice, as
+    the reference's sweep does.
     ``layer_timing`` (a registry, or None = off) records per-layer update
     times into ``train.perlayer.layer_update_ms``. ``grad_specs`` (fsdp)
     is not ported (ROADMAP queue A item 10) and raises."""

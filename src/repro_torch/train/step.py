@@ -80,18 +80,12 @@ def _value_and_grad(loss_fn, params, consts, batch):
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Refuse the SLTrain exec modes no train step runs: "quant" (as the
-    reference does) and "sparse" (not ported)."""
-    if cfg.param.mode != "sltrain":
-        return
-    if cfg.param.exec_mode == "quant":
+    """Refuse the SLTrain exec mode no train step runs: "quant", as the
+    reference does."""
+    if cfg.param.mode == "sltrain" and cfg.param.exec_mode == "quant":
         raise ValueError(
             "exec_mode='quant' is serve-only (int8 codes are not trainable) "
-            "— train with dense or fused")
-    if cfg.param.exec_mode == "sparse":
-        raise NotImplementedError(
-            "training in exec_mode='sparse' is not ported yet (ROADMAP queue "
-            "A item 7b) — train with dense or fused")
+            "— train with dense, fused or sparse")
 
 
 def make_train_step(cfg: ModelConfig, api: ModelApi, optimizer: Optimizer,

@@ -197,8 +197,8 @@ class Trainer:
     # -- state ----------------------------------------------------------------
     def init_state(self) -> TrainerState:
         """Params and consts from the model's init (the consts gain Wᵀ's
-        tile consts for the fused backward, built once here) and a fresh
-        optimizer state."""
+        tile consts for the fused and sparse backwards, built once here)
+        and a fresh optimizer state."""
         params, consts = self.api.init(self.cfg, seed=self.tc.seed,
                                        device=self.device)
         opt_state = self.optimizer.init(params)

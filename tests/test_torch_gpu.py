@@ -776,6 +776,113 @@ def test_sparse_matmul_rerun_gives_same_bits(cuda, case, dtype):
                for c in sd_kernel._counters.values())
 
 
+# the sparse-mode training shapes of llama_1b (M = 8 x 256 tokens): the
+# forward x·S and the dx call dy·Sᵀ over Wᵀ's tiles
+SPARSE_TRAIN_CASES = [(2048, 2048, 5461, 0.03), (2048, 5461, 2048, 0.03)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out", ["x dtype", "f32"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", SPARSE_TRAIN_CASES)
+def test_sparse_matmul_training_rows_match_plain(cuda, case, dtype, out):
+    """At training rows, in x's dtype and with the f32 output that the
+    sparse linear adds to its f32 low-rank term before its one rounding,
+    within the tolerance of y's dtype (an f32 y rounded through bf16
+    would miss it); a rerun gives the same bits."""
+    m, k, n, delta = case
+    x, sp, _ = _decode_args(np.random.default_rng(k + n), m, k, n, delta,
+                            dtype, cuda)
+    out_dtype = torch.float32 if out == "f32" else None
+    got = sd_kernel.sparse_matmul(x, *sp, n, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == (out_dtype or dtype)
+    _close(got, ref.sparse_matmul_ref(x, *sp, n, out_dtype), got.dtype)
+    assert torch.equal(got, sd_kernel.sparse_matmul(x, *sp, n, out_dtype))
+
+
+def _sparse_linear_grads(dev, host, tiles, dy, scale=0.5):
+    """y and (dx, dB, dA, dv) of the trainable sparse linear on ``dev``."""
+    leaves = [t.to(dev).requires_grad_(True) for t in host]
+    t = {name: c.to(dev) for name, c in tiles.items()}
+    y = ops.sl_sparse_linear(*leaves, t["rows_t"], t["cols_t"], t["perm"],
+                             scale, rows_tT=t["rows_tT"],
+                             cols_tT=t["cols_tT"])
+    return [y] + list(torch.autograd.grad(y, leaves, dy.to(dev)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [(300, 200, 520, 16, 0.05),
+                                  (2048, 2048, 5461, 512, 0.03)])
+def test_sparse_linear_backward_on_card_matches_cpu(cuda, case, dtype):
+    """The sparse linear's forward and backward on the card (sparse_matmul
+    forward, sparse_matmul over Wᵀ's tiles for dx, sddmm for dV) against
+    the same call on the CPU, where every kernel wrapper runs its plain
+    version; each kernel launches once a call, and a rerun on the card
+    gives the same bits."""
+    m, k, n, r, delta = case
+    rng = np.random.default_rng(2)
+    rows, cols = support.sample_support(5, k, n, delta)
+    tiles = ops.add_transposed_tiles(ops.prepare_tile_consts(
+        rows, cols, k, n, pad=support.tile_cap(k, n, delta)))
+    host = [_rand(rng, shape, dtype, "cpu", lim) for shape, lim in (
+        ((m, k), None), ((k, r), 1.0), ((r, n), (6.0 / k) ** 0.5),
+        ((k, rows.shape[0] // k), k ** -0.5))]
+    dy = _rand(rng, (m, n), dtype, "cpu")
+    want = _sparse_linear_grads("cpu", host, tiles, dy)
+    sp0, sd0 = sd_kernel.sparse_matmul.launches, sddmm_kernel.sddmm.launches
+    got = _sparse_linear_grads(cuda, host, tiles, dy)
+    torch.cuda.synchronize()
+    assert sd_kernel.sparse_matmul.launches == sp0 + 2
+    assert sddmm_kernel.sddmm.launches == sd0 + 1
+    for name, g, w in zip(("y", "dx", "dB", "dA", "dv"), got, want):
+        assert g.dtype == w.dtype, name
+        scale = max(1.0, float(w.detach().float().abs().max()))
+        torch.testing.assert_close(g.detach().float().cpu(),
+                                   w.detach().float(),
+                                   atol=TOL[dtype] * scale, rtol=TOL[dtype])
+    for name, g, g2 in zip(("y", "dx", "dB", "dA", "dv"), got,
+                           _sparse_linear_grads(cuda, host, tiles, dy)):
+        assert torch.equal(g, g2), name
+
+
+@pytest.mark.gpu
+def test_quant_fallback_engine_launches_sparse_matmul_only(cuda):
+    """A quant engine without int8 consts, with ``quant_fallback``, serves
+    through sparse_matmul and never launches quant_sparse_matmul; its
+    tokens equal a sparse engine's."""
+    import dataclasses
+    import warnings
+
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServeEngine
+    cfg = registry.get_smoke_config("llama_60m")
+    cfg = dataclasses.replace(cfg, param=dataclasses.replace(
+        cfg.param, exec_mode="quant"))
+    params, consts = registry.get_api(cfg).init(cfg, 0, device=cuda)
+    kw = dict(n_slots=2, max_len=32, paged=True, block_len=8, device=cuda)
+    prompts = [[5, 9, 11], [7, 3, 200, 31, 8]]
+    outs = {}
+    for mode in ("quant", "sparse"):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng = ServeEngine(cfg, params, consts, exec_mode=mode,
+                              quant_fallback=True, **kw)
+        assert eng.quant_fell_back == (mode == "quant")
+        assert any("degraded" in str(w.message) for w in caught) == \
+            (mode == "quant")
+        q0 = sd_kernel.quant_sparse_matmul.launches
+        s0 = sd_kernel.sparse_matmul.launches
+        reqs = [eng.submit(p, max_new_tokens=4) for p in prompts]
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        assert sd_kernel.quant_sparse_matmul.launches == q0
+        assert sd_kernel.sparse_matmul.launches > s0
+        outs[mode] = [r.out for r in reqs]
+    assert outs["quant"] == outs["sparse"]
+
+
 @pytest.mark.gpu
 def test_sparse_decode_kernels_sum_colliding_padding_slots(cuda):
     """Padding slots share local (0, 0) with a real entry; the kernels add

@@ -75,7 +75,6 @@ def test_unported_options_raise():
     params, consts = lm.init_lm(cfg, device="cpu")
     kw = dict(max_len=32, device="cpu")
     for bad in (dict(paged=False), dict(paged=True, mesh=object()),
-                dict(paged=True, quant_fallback=True),
                 dict(paged=True, tick_hook=lambda e: None)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServeEngine(cfg, params, consts, **kw, **bad)
@@ -112,7 +111,7 @@ def test_train_entry_points_need_a_card_unless_cpu(no_card, tmp_path):
     ["--optimizer", "galore_adamw"], ["--fsdp", "--use-mesh"],
     ["--use-mesh"], ["--multipod"], ["--chaos", "kill@3"],
     ["--mode", "lowrank"], ["--mode", "relora"],
-    ["--jax-profile-dir", "x"], ["--exec-mode", "sparse"]],
+    ["--jax-profile-dir", "x"]],
     ids=lambda f: " ".join(f))
 def test_train_launcher_unported_options_raise(flags, tmp_path):
     from repro_torch.launch import train
@@ -126,11 +125,14 @@ def test_train_launcher_unported_options_raise(flags, tmp_path):
     ["--remat", "full"], ["--remat", "dots_saveable"],
     ["--update-mode", "per_layer", "--layer-timing"],
     ["--optimizer", "adam8bit", "--update-mode", "per_layer",
-     "--exec-mode", "fused", "--layer-timing"]],
+     "--exec-mode", "fused", "--layer-timing"],
+    ["--exec-mode", "sparse"],
+    ["--exec-mode", "sparse", "--update-mode", "per_layer"]],
     ids=lambda f: " ".join(f))
 def test_train_launcher_memory_path_options_run(flags, tmp_path):
     """The memory path's flags (8-bit Adam, per-layer updates, remat,
-    per-layer timing) run one step on the CPU."""
+    per-layer timing), and training in exec_mode sparse, run one step on
+    the CPU."""
     from repro_torch.launch import train
     tr = train.main(["--smoke", "--steps", "1", "--batch", "2", "--seq",
                      "8", "--device", "cpu", "--ckpt-dir", str(tmp_path),

@@ -20,6 +20,7 @@ inputs:
   ``--sparse-decode``) on the CPU.
 """
 import contextlib
+import dataclasses
 import io
 import json
 
@@ -311,3 +312,172 @@ def test_calibrate_cli_and_quant_launcher_on_cpu(tmp_path):
     with pytest.raises(ValueError, match="needs calibrated consts"):
         serve.main(base + ["--exec-mode", "quant"])
 
+
+
+# ---------------------------------------------------------------------------
+# quant_fallback, --ckpt-dir and the quant recipe (llama_60m smoke)
+# ---------------------------------------------------------------------------
+
+def _smoke(exec_mode=None):
+    from repro_torch.analysis.quant_recipe import with_exec_mode
+    from repro_torch.models import registry
+    j = jregistry.get_smoke_config("llama_60m")
+    t = registry.get_smoke_config("llama_60m")
+    if exec_mode is None:
+        return j, t
+    jmode = "dense" if exec_mode == "quant" else exec_mode
+    return (dataclasses.replace(j, param=dataclasses.replace(
+        j.param, exec_mode=jmode)), with_exec_mode(t, exec_mode))
+
+
+def _serve_tokens(eng, prompts, new_tokens=4):
+    reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    eng.run_until_drained()
+    assert all(r.status == "done" for r in reqs)
+    return [r.out for r in reqs]
+
+
+PROMPTS = [[5, 9, 11], [7, 3, 200, 31, 8], [400, 12]]
+ENGINE = dict(n_slots=2, max_len=32, paged=True, block_len=8)
+
+
+def test_quant_fallback_serves_the_sparse_path_as_the_reference(recwarn):
+    """Without int8 consts a quant engine with ``quant_fallback`` serves
+    through the sparse path: it warns, says so and counts it, and gives
+    the tokens of the port's sparse engine and of the reference's own
+    fallback engine on the same weights. Without the fallback, or without
+    the sparse path's consts, it raises."""
+    from repro.serve.engine import ServeEngine as JaxEngine
+    from repro_torch.serve.engine import ServeEngine
+    jcfg, cfg = _smoke("fused")
+    params, consts = jregistry.get_api(jcfg).init(jcfg, jax.random.PRNGKey(0),
+                                                  seed=0)
+    tp, tc = from_jax_numpy(jax.tree.map(np.asarray, params),
+                            jax.tree.map(np.asarray, consts), device="cpu")
+    with pytest.warns(UserWarning, match="degraded"):
+        jeng = JaxEngine(jcfg, params, consts, exec_mode="quant",
+                         quant_fallback=True, **ENGINE)
+    with pytest.warns(UserWarning, match="degraded"):
+        eng = ServeEngine(cfg, tp, tc, exec_mode="quant",
+                          quant_fallback=True, device="cpu", **ENGINE)
+    assert eng.quant_fell_back and jeng.quant_fell_back
+    assert eng.cfg.param.exec_mode == "sparse"
+    assert eng.obs.snapshot()["serve.quant_fallback"]["value"] == 1
+    sparse = ServeEngine(cfg, tp, tc, exec_mode="sparse", device="cpu",
+                         **ENGINE)
+    assert not sparse.quant_fell_back
+    assert sparse.obs.snapshot()["serve.quant_fallback"]["value"] == 0
+    got = _serve_tokens(eng, PROMPTS)
+    assert got == _serve_tokens(sparse, PROMPTS)
+    assert got == _serve_tokens(jeng, PROMPTS)
+    with pytest.raises(ValueError, match="needs calibrated consts"):
+        ServeEngine(cfg, tp, tc, exec_mode="quant", device="cpu", **ENGINE)
+
+    def drop_tiles(c):
+        return {k: drop_tiles(v) if isinstance(v, dict) else v
+                for k, v in c.items() if k not in ("rows_t", "cols_t",
+                                                   "perm")}
+    with pytest.raises(ValueError, match="needs calibrated consts"):
+        ServeEngine(cfg, tp, drop_tiles(tc), exec_mode="quant",
+                    quant_fallback=True, device="cpu", **ENGINE)
+
+
+def _port_trainer_ckpt(path):
+    from repro_torch.launch import train
+    train.main(["--smoke", "--steps", "2", "--batch", "2", "--seq", "16",
+                "--device", "cpu", "--ckpt-dir", path])
+
+
+def _reference_ckpt(path):
+    """A checkpoint the reference's CheckpointManager writes, of its init
+    with B drawn U(−0.5, 0.5) (so the low-rank half serves)."""
+    jcfg, _ = _smoke()
+    params, _ = jregistry.get_api(jcfg).init(jcfg, jax.random.PRNGKey(3),
+                                             seed=3)
+    rng = np.random.default_rng(5)
+
+    def fill_b(p, leaf):
+        if str(p[-1].key) == "B":
+            return jnp.asarray(rng.uniform(-0.5, 0.5, leaf.shape), leaf.dtype)
+        return leaf
+    params = jax.tree_util.tree_map_with_path(fill_b, params)
+    jckpt.CheckpointManager(path).save(7, {"params": params},
+                                       config_hash=jcfg.hash())
+
+
+@pytest.mark.parametrize("writer", ["port_trainer", "reference"])
+def test_serve_ckpt_dir_gives_the_reference_engines_tokens(tmp_path, writer):
+    """``launch.serve --ckpt-dir`` restores a training checkpoint of
+    either package into the exec mode asked for (sparse here) and serves
+    the reference engine's tokens on the same checkpoint; with exec_mode
+    quant and ``--quant-fallback`` it serves the same tokens through the
+    sparse path."""
+    from repro.serve.engine import ServeEngine as JaxEngine
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServeEngine
+    ck = str(tmp_path / "ckpt")
+    (_port_trainer_ckpt if writer == "port_trainer" else _reference_ckpt)(ck)
+    jcfg, cfg = _smoke("sparse")
+    jp, jc = jregistry.get_api(jcfg).init(jcfg, jax.random.PRNGKey(0), seed=0)
+    tree, _ = jckpt.CheckpointManager(ck).restore(
+        {"params": jp}, allow_config_change=True)
+    want = _serve_tokens(JaxEngine(jcfg, tree["params"], jc,
+                                   sparse_decode=True, **ENGINE), PROMPTS)
+    tp, tc = serve.load_model(cfg, device="cpu", ckpt_dir=ck)
+    eng = ServeEngine(cfg, tp, tc, device="cpu", **ENGINE)
+    assert eng.cfg.param.exec_mode == "sparse"
+    assert _serve_tokens(eng, PROMPTS) == want
+    _, qcfg = _smoke("quant")
+    qp, qc = serve.load_model(qcfg, device="cpu", ckpt_dir=ck)
+    with pytest.warns(UserWarning, match="degraded"):
+        eng = ServeEngine(qcfg, qp, qc, quant_fallback=True, device="cpu",
+                          **ENGINE)
+    assert _serve_tokens(eng, PROMPTS) == want
+
+    base = ["--arch", "llama_60m", "--smoke", "--paged", "--requests", "2",
+            "--slots", "2", "--max-len", "32", "--new-tokens", "3",
+            "--device", "cpu", "--ckpt-dir", ck]
+    out = _run(serve.main, base + ["--exec-mode", "sparse"])
+    assert f"checkpoint: {ck} (step" in out and "exec_mode=sparse" in out
+    with pytest.warns(UserWarning, match="degraded"):
+        out = _run(serve.main, base + ["--exec-mode", "quant",
+                                       "--quant-fallback"])
+    assert "quant fallback" in out and "exec_mode=sparse" in out
+    with pytest.raises(SystemExit):
+        serve.main(base + ["--quant-ckpt", ck])
+
+
+def test_quant_recipe_matches_reference_quant_rows(monkeypatch):
+    """The recipe's rows from the reference-trained params (carried over
+    through numpy) against the reference's ``quant_rows`` at smoke size
+    with a few training steps and a short serving run (3 requests of 4
+    new tokens): the same match rate, ppl within 1e-4 relative (the
+    reference rounds ppl to 3 decimals, 5e-7 relative at these values),
+    the same modeled bytes."""
+    from benchmarks import quant_bench, tables
+    from repro_torch.analysis import quant_recipe
+    from repro_torch.models import registry
+    steps, serve = 3, dict(requests=3, new_tokens=4)
+    trained = []
+
+    def keep(*a, **k):          # the params quant_rows trains
+        trained.append(train(*a, **k))
+        return trained[-1]
+    train = tables._train
+    monkeypatch.setattr(tables, "_train", keep)
+    want = quant_bench.quant_rows(steps=steps, **serve)
+    out, = trained
+    _, cfg = _smoke("fused")
+    _, consts = registry.get_api(cfg).init(cfg, seed=0, device="cpu")
+    params, _ = from_jax_numpy(jax.tree.map(np.asarray, out["params"]), {},
+                               device="cpu")
+    qp, qc, qstats = calibrate.calibrate_model(cfg, params, consts)
+    got = quant_recipe.quant_rows(cfg, params, consts, qp, qc, qstats,
+                                  device="cpu", train_steps=steps, **serve)
+    assert not quant_recipe.gate_failures(got)
+    assert got[0]["matched_tokens"] == want[0]["matched_tokens"]
+    for key in ("ppl_bf16", "ppl_int8"):
+        np.testing.assert_allclose(got[0][key], want[0][key], rtol=1e-4)
+    assert got[0]["quant_matrices"] == want[0]["quant_matrices"]
+    for key in ("sparse_bytes_per_tok_bf16", "sparse_bytes_per_tok_int8"):
+        assert got[1][key] == want[1][key]

@@ -3,13 +3,15 @@
 * the tile-level plain versions of ``sparse_matmul`` and
   ``quant_sparse_matmul`` against the reference's Pallas kernels
   (``repro.kernels.sparse_decode``, interpret mode);
-* ``ops.sl_decode`` and ``ops.sl_quant_decode`` against the reference's
-  ``ops.*`` (Pallas, interpret mode) and against the port's COO oracles
+* ``ops.sl_decode`` and ``ops.sl_quant_decode`` against the reference
+  (``ops.*``, Pallas, interpret mode; in bf16 ``ops.sl_decode`` against
+  the reference's sparse mode ``sl_matmul(..., "sparse")``, which rounds
+  once as it does) and against the port's COO oracles
   ``ref.sl_decode_ref`` / ``ref.sl_quant_decode_ref``, at the shapes of the
   reference's quant kernel test (a single tile, several, ragged K and N,
   d_out < d_in) and at one row;
 * sparse-mode init emits the reference's support and the fused tile
-  consts; sparse and quant are forward-only; training refuses them;
+  consts; quant is forward-only and training refuses it;
 * the model forward (logits) in exec_mode sparse and quant, and the paged
   engine's greedy tokens in both modes, against the reference on the
   reference's tiny GQA config (2 layers, d_model 64, d_ff 160, rank 8,
@@ -22,10 +24,12 @@ reference's ops, the ulp taken at the larger of the output and the
 decode's two f32 addends, (x·B)·A·scale and x·S (the kernel term's
 rounding to bf16 and the final one can tip where the f32 sums differ in
 their last bits, and where the addends cancel such a difference is large
-next to the sum itself). The COO oracles round
-once where the decode, like the reference's, rounds the kernel's term
-before adding the low-rank one, so they are held in f32 only: in bf16
-the two differ by more than an ulp of the sum wherever the terms cancel.
+next to the sum itself). ``ops.sl_decode`` rounds once, as the
+reference's sparse mode and the COO oracle do; the reference's Pallas
+``ops.sl_decode`` rounds the kernel's term before adding the low-rank one,
+so it is held in f32 only: in bf16 the two differ by more than an ulp of
+the sum wherever the terms cancel. The quant decode rounds twice, as the
+reference's, so its COO oracle is held in f32 only.
 """
 import dataclasses
 import functools
@@ -181,8 +185,15 @@ def test_sl_decode_matches_reference_ops_and_oracle(case, dtype):
     x, B, A, rows, cols, v = _linear(m, k, n, r, delta, seed=3 * k + n)
     scale = 16.0 / r
     jv_t, jrt, jct, _ = jops.prepare_tiles(rows, cols, v, k, n)
-    want = jops.sl_decode(_j(x, dtype), _j(B, dtype), _j(A, dtype), jv_t,
-                          jrt, jct, scale, interpret=True)
+    if dtype == "float32":
+        want = jops.sl_decode(_j(x, dtype), _j(B, dtype), _j(A, dtype),
+                              jv_t, jrt, jct, scale, interpret=True)
+    else:
+        want = jsltrain.sl_matmul(
+            _j(x, dtype), {"B": _j(B, dtype), "A": _j(A, dtype),
+                           "v": jnp.asarray(v)},
+            {"rows": jnp.asarray(rows), "cols": jnp.asarray(cols)}, scale,
+            "sparse").astype(jnp.float32)
     tiles = _tiles(rows, cols, k, n, jrt.shape[-1])
     v_t = ops._gather_tiles(torch.from_numpy(v), tiles["perm"])
     xt, Bt, At = _t(x, dtype), _t(B, dtype), _t(A, dtype)
@@ -191,12 +202,12 @@ def test_sl_decode_matches_reference_ops_and_oracle(case, dtype):
     assert got.dtype == TDT[dtype] and got.shape == (m, n)
     S = torch.zeros(k, n)
     S[rows, cols] = torch.from_numpy(v)
-    assert_close(got, want, dtype, _terms(x, B, A, S, scale))
-    if dtype == "float32":
-        oracle = ref.sl_decode_ref(xt, Bt, At, torch.from_numpy(rows),
-                                   torch.from_numpy(cols),
-                                   torch.from_numpy(v), scale)
-        assert_close(got, oracle.numpy(), dtype)
+    terms = _terms(x, B, A, S, scale)
+    assert_close(got, want, dtype, terms)
+    oracle = ref.sl_decode_ref(xt, Bt, At, torch.from_numpy(rows),
+                               torch.from_numpy(cols), torch.from_numpy(v),
+                               scale)
+    assert_close(got, oracle.float().numpy(), dtype, terms)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -394,31 +405,27 @@ def test_sparse_init_emits_reference_support_and_fused_tile_consts():
         np.testing.assert_array_equal(tc[key].numpy(), np.asarray(want))
 
 
-def test_sparse_and_quant_are_forward_only():
+def test_quant_is_forward_only():
+    """Quant stays serve-only, as in the reference (sparse trains:
+    tests/test_torch_sparse_train.py)."""
     d_in, d_out, r, delta = 64, 96, 8, 0.05
     p, c = sltrain.init_params(torch.Generator().manual_seed(0), d_in,
                                d_out, r, delta, dtype=torch.float32, seed=3,
                                exec_mode="sparse", device="cpu")
-    p["B"] = _t(np.random.default_rng(1).uniform(-1, 1, (d_in, r)))
     x = _t(np.random.default_rng(2).standard_normal((2, d_in)))
-    y = sltrain.sl_matmul(x, p, c, 1.0, "sparse")
-    want = sltrain.sl_matmul(x, p, c, 1.0, "dense")
-    torch.testing.assert_close(y, want, atol=1e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 7b"):
-        sltrain.sl_matmul(x.requires_grad_(), p, c, 1.0, "sparse")
     with pytest.raises(ValueError, match="needs quantized consts"):
-        sltrain.sl_matmul(x.detach(), p, c, 1.0, "quant")
+        sltrain.sl_matmul(x, p, c, 1.0, "quant")
+    with pytest.raises(ValueError, match="serve-only"):
+        sltrain.sl_matmul(x.requires_grad_(), p, c, 1.0, "quant")
     cfg = registry.get_smoke_config("llama_60m")
     api = registry.get_api(cfg)
     opt = optimizers.make(OptimizerConfig())
-    for mode, err in (("sparse", NotImplementedError), ("quant", ValueError)):
-        c2 = dataclasses.replace(cfg, param=dataclasses.replace(
-            cfg.param, exec_mode=mode))
-        with pytest.raises(err, match="item 7b" if mode == "sparse"
-                           else "serve-only"):
-            step_lib.make_train_step(c2, api, opt)
-        with pytest.raises(err):
-            perlayer.make_perlayer_train_step(c2, api, opt)
+    c2 = dataclasses.replace(cfg, param=dataclasses.replace(
+        cfg.param, exec_mode="quant"))
+    with pytest.raises(ValueError, match="serve-only"):
+        step_lib.make_train_step(c2, api, opt)
+    with pytest.raises(ValueError, match="serve-only"):
+        perlayer.make_perlayer_train_step(c2, api, opt)
 
 
 # ---------------------------------------------------------------------------
