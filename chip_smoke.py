@@ -42,12 +42,26 @@ full width and depth with random weights from a seed:
   exec_mode fused and in sparse, timed, with the launch counts read
   around each run and its checkpoint written; a device-only profile of
   one more step of each;
+* the paper's baselines, (a): 3 float32 steps of ``llama_1b`` at full
+  width and depth, per-layer updates against the global step, for low
+  rank with AdamW, ReLoRA with AdamW merging after step 2 (the Trainer's
+  merge and seeded redraw in both runs, so step 3 holds the moment reset
+  too) and full rank with GaLore-AdamW refreshing P at step 3; none of
+  them may launch a kernel of the port;
 * the memory path: the ``Trainer`` in bfloat16 with per-layer updates and
   8-bit AdamW (``adam8bit``, one launch a group of the sweep) for 6
   steps, timed, with launch counts, per-layer update times and its peak
   device memory, which must stay below the global AdamW run's, and a
   device-only profile of one more step with ``adam8bit``'s device time;
-  and, on ``llama_60m``, runs killed at
+  then (b), the paper's memory table in bfloat16: full rank, low rank and
+  ReLoRA with global AdamW and full rank with GaLore-AdamW (global and
+  per-layer) through the ``Trainer`` for 3 steps each, beside the two
+  SLTrain runs above, each row with its peak ``max_memory_allocated``
+  (reset after init), the bytes of its params and optimizer state, the
+  port's ``core.memory.training_estimate`` for it, its step time and the
+  card's power limit; per-layer 8-bit SLTrain's peak must stay below full
+  rank's, and the measured reduction is printed beside the paper's
+  estimate; and, on ``llama_60m``, runs killed at
   step 4 and relaunched from their checkpoint (global AdamW, and
   per-layer 8-bit AdamW) that must end bit-identical to uninterrupted
   ones, optimizer state and 8-bit codes included;
@@ -61,7 +75,11 @@ full width and depth with random weights from a seed:
   ``quant_fallback`` must warn, count the fallback, launch
   ``sparse_matmul`` and never ``quant_sparse_matmul``, and give the
   sparse engine's tokens; then the recipe at its default size
-  (``llama_60m`` smoke, 60 steps) with the same gates.
+  (``llama_60m`` smoke, 60 steps) with the same gates;
+* (c) the paper's Table 2 comparison (``analysis/pretrain_comparison.py``):
+  full rank, SLTrain, ReLoRA and low rank at an equal token budget, at the
+  reference example's default size with its two asserts as gates, then
+  at ``llama_60m`` for 200 steps a mode, gated on finite losses.
 
 Any failure exits non-zero. Without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -1574,12 +1592,14 @@ class ShapeRecorder:
 
 
 def train_config(cfg, *, steps, batch, seq, ckpt_dir, ckpt_every=0, lr=3e-3,
-                 optimizer="adamw", update_mode="global"):
-    """The TrainConfig the port's launcher builds for these flags."""
+                 optimizer="adamw", update_mode="global", **optim_kw):
+    """The TrainConfig the port's launcher builds for these flags
+    (``optim_kw``: further OptimizerConfig fields, e.g. GaLore's)."""
     from repro_torch.configs.base import (OptimizerConfig, ShardingConfig,
                                           TrainConfig)
     oc = OptimizerConfig(name=optimizer, lr=lr,
-                         warmup_steps=max(1, steps // 10), total_steps=steps)
+                         warmup_steps=max(1, steps // 10), total_steps=steps,
+                         **optim_kw)
     return TrainConfig(model=cfg, optim=oc,
                        sharding=ShardingConfig(update_mode=update_mode),
                        seed=0, global_batch=batch, seq_len=seq, steps=steps,
@@ -1719,24 +1739,137 @@ def phase_train_parity(cfg, device, gen, *, batch, seq, steps=3):
             f"in {wall:.2f} s, (loss, grad_norm, nonfinite) per step {rows}"
             f" | launches {launches}")
     for a_name, b_name in pairs:
-        for i, (f, d) in enumerate(zip(out[a_name], out[b_name])):
-            tol = TRAIN_TOL_STEP1 if i == 0 else TRAIN_TOL_LATER
-            for what, a, b in (("loss", f[0], d[0]),
-                               ("grad_norm", f[1], d[1])):
-                rel = abs(a - b) / max(abs(b), 1e-12)
-                if not (np.isfinite(a) and rel <= tol) or f[2] or d[2]:
-                    fail(f"f32 train step {i + 1}: {a_name} {what} {a!r} vs "
-                         f"{b_name} {b!r}, relative difference {rel:.3e} > "
-                         f"{tol}")
-        rel = [max(abs(f[k] - d[k]) / abs(d[k]) for k in (0, 1))
-               for f, d in zip(out[a_name], out[b_name])]
         pdiff = (f", worst relative param difference after step 1 "
                  f"{param_rel_diff(first[a_name], first[b_name]):.3e}"
                  if b_name in first else "")
-        say(f"train f32 parity: {a_name} vs {b_name} largest relative "
-            f"difference of loss and grad norm per step "
-            f"{[f'{r:.2e}' for r in rel]} (tol {TRAIN_TOL_STEP1} at step 1, "
-            f"{TRAIN_TOL_LATER} after){pdiff}")
+        check_pair(out, a_name, b_name, pdiff)
+
+
+def check_pair(out, a_name, b_name, extra=""):
+    """Fail unless run ``a_name``'s (loss, grad_norm, nonfinite) rows
+    agree with ``b_name``'s: step 1 to TRAIN_TOL_STEP1 relative, later
+    steps to TRAIN_TOL_LATER, every value finite and no step skipped."""
+    for i, (f, d) in enumerate(zip(out[a_name], out[b_name])):
+        tol = TRAIN_TOL_STEP1 if i == 0 else TRAIN_TOL_LATER
+        for what, a, b in (("loss", f[0], d[0]), ("grad_norm", f[1], d[1])):
+            rel = abs(a - b) / max(abs(b), 1e-12)
+            if not (np.isfinite(a) and rel <= tol) or f[2] or d[2]:
+                fail(f"f32 train step {i + 1}: {a_name} {what} {a!r} vs "
+                     f"{b_name} {b!r}, relative difference {rel:.3e} > "
+                     f"{tol}")
+    rel = [max(abs(f[k] - d[k]) / abs(d[k]) for k in (0, 1))
+           for f, d in zip(out[a_name], out[b_name])]
+    say(f"train f32 parity: {a_name} vs {b_name} largest relative "
+        f"difference of loss and grad norm per step "
+        f"{[f'{r:.2e}' for r in rel]} (tol {TRAIN_TOL_STEP1} at step 1, "
+        f"{TRAIN_TOL_LATER} after){extra}")
+
+
+def phase_baseline_parity(cfg, device, *, batch, seq, steps=3):
+    """Phase 6b: the paper's baselines in f32 at ``cfg``'s full width and
+    depth, per-layer updates against the global step, each pair from one
+    init and one SyntheticC4 stream: low rank with AdamW; ReLoRA with
+    AdamW and relora_period 2, where both runs merge after step 2 with
+    the Trainer's merge and its seeded redraw, so step 3 also holds the
+    reset of B's and A's moments; full rank with GaLore-AdamW and
+    galore_update_proj_gap 2, so step 3 refreshes P. ReLoRA's B is drawn
+    U(-1, 1) (one generator seed for both runs) so that step 1 covers the
+    adaptor. These paths run plain PyTorch (matmuls, cuBLAS; GaLore's SVD
+    on cuSOLVER): no kernel of the port may launch. Each run inits anew
+    from the seed, so only one model's state is on the card at a time."""
+    from repro_torch.data.pipeline import SyntheticC4
+    from repro_torch.models import registry
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import optimizers
+    from repro_torch.train import trainer as trainer_lib
+    data = SyntheticC4(cfg.vocab_size, seq, batch, seed=0)
+    batches = [{"tokens": torch.from_numpy(data.next_batch()["tokens"]).to(
+        device)} for _ in range(steps)]
+    # label: (param.mode, optimizer, ParamConfig fields, optimizer fields)
+    cases = {"lowrank adamw": ("lowrank", "adamw", {}, {}),
+             "relora adamw": ("relora", "adamw", {"relora_period": 2}, {}),
+             "dense galore_adamw": ("dense", "galore_adamw", {},
+                                    {"galore_update_proj_gap": 2})}
+    for label, (mode, opt_name, pkw, okw) in cases.items():
+        c = dataclasses.replace(cfg, param=dataclasses.replace(
+            cfg.param, mode=mode, exec_mode="dense", **pkw))
+        tc = train_config(c, steps=steps, batch=batch, seq=seq, ckpt_dir="",
+                          optimizer=opt_name, **okw)
+        api = registry.get_api(c)
+        opt = optimizers.make(tc.optim)
+        merge = trainer_lib._make_relora_merge(c) if mode == "relora" \
+            else None
+        out, merges = {}, []
+        for update_mode in ("per_layer", "global"):
+            t0 = time.perf_counter()
+            params, consts = api.init(c, seed=tc.seed, device=device)
+            if mode == "relora":
+                b_gen = torch.Generator(device=device)
+                b_gen.manual_seed(4)
+                randomize_b(params, b_gen)
+            st = opt.init(params)
+            projected = [p for p, _ in tree_leaves(st.get("leaves", {}))
+                         if p.endswith("/P")]
+            fn = train_fn(c, api, opt, update_mode)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rows = []
+            for i, b in enumerate(batches):
+                params, st, m = fn(params, st, consts, b)
+                rows.append((float(m["loss"]), float(m["grad_norm"]),
+                             float(m["nonfinite"])))
+                if merge is not None and \
+                        (i + 1) % c.param.relora_period == 0:
+                    params, st = merge(params, st,
+                                       trainer_lib.relora_generator(
+                                           tc.seed, i + 1, device))
+                    merges.append((update_mode, i + 1))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            if any(launches.values()):
+                fail(f"f32 {label} {update_mode} launched {launches}: the "
+                     "baselines run no kernel of the port")
+            n = sum(t.numel() for _, t in tree_leaves(params))
+            out[update_mode] = rows
+            del params, st, consts
+            torch.cuda.empty_cache()
+            say(f"train f32 llama_1b {label} ({update_mode}): "
+                f"{n / 1e6:.1f} M params, init {init_s:.1f} s, {steps} steps "
+                f"in {wall:.2f} s, (loss, grad_norm, nonfinite) per step "
+                f"{rows}")
+        extra = f", merged after step 2 in both runs ({merges})" \
+            if merges else ""
+        if mode == "relora" and merges != [("per_layer", 2), ("global", 2)]:
+            fail(f"f32 {label}: merges {merges}, expected one after step 2 "
+                 "in each run")
+        if opt_name == "galore_adamw":
+            extra = (", P formed at step 1 and refreshed at step 3 (gap "
+                     f"{tc.optim.galore_update_proj_gap}, rank "
+                     f"{tc.optim.galore_rank}), projected leaves "
+                     f"{projected}")
+        check_pair(out, "per_layer", "global", extra)
+
+
+class FirstStep:
+    """A Trainer fault hook that, before step 1, waits for the card,
+    resets the peak of ``max_memory_allocated`` and the launch counts,
+    and starts the wall clock (``t0``). The Trainer inits its own state
+    (``run()`` with no state), so no caller holds the initial params and
+    optimizer state while the steps run, as none does when the launcher
+    trains: a global step's old state is the Trainer's alone."""
+
+    def __init__(self):
+        self.t0 = None
+
+    def __call__(self, step):
+        if step == 0:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            self.t0 = time.perf_counter()
 
 
 def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=6):
@@ -1751,15 +1884,12 @@ def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=6):
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     tc = train_config(cfg, steps=steps, batch=batch, seq=seq,
                       ckpt_dir=ckpt_dir)
-    tr = Trainer(tc, device=device, log_fn=lambda *a: None)
-    state = tr.init_state()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t0 = time.perf_counter()
+    start = FirstStep()
+    tr = Trainer(tc, device=device, log_fn=lambda *a: None,
+                 fault_hook=start)
     with ShapeRecorder() as rec:
-        state = tr.run(state=state)
-    wall = time.perf_counter() - t0
+        state = tr.run()
+    wall = time.perf_counter() - start.t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     hist = tr.metrics_history
@@ -1846,7 +1976,6 @@ def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak,
     ``torch.cuda.max_memory_allocated`` (reset after init) are read around
     the run; the peak must stay below the global AdamW run's."""
     from repro_torch.analysis import roofline
-    from repro_torch.core import memory
     from repro_torch.models.common import tree_leaves
     from repro_torch.train.trainer import Trainer
     ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_ckpt_perlayer")
@@ -1854,21 +1983,17 @@ def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak,
     tc = train_config(cfg, steps=steps, batch=batch, seq=seq,
                       ckpt_dir=ckpt_dir, optimizer="adam8bit",
                       update_mode="per_layer")
+    start = FirstStep()
     tr = Trainer(tc, device=device, log_fn=lambda *a: None,
-                 layer_timing=True)
-    state = tr.init_state()
+                 layer_timing=True, fault_hook=start)
+    with ShapeRecorder() as rec:
+        state = tr.run()
+    wall = time.perf_counter() - start.t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     per_step = adam8bit_launches_per_step(tr.optimizer, state.params,
                                           state.opt_state)
     consts_b = sum(nbytes(t) for _, t in tree_leaves(state.consts))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    with ShapeRecorder() as rec:
-        state = tr.run(state=state)
-    wall = time.perf_counter() - t0
-    launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     hist = tr.metrics_history
     dts = [h["dt"] for h in hist]
     losses = [h["loss"] for h in hist]
@@ -1890,19 +2015,6 @@ def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak,
     med = statistics.median(dts[1:])
     tokens = batch * seq
     mfu = roofline.train_mfu(cfg, tokens, med)
-    pc = cfg.param
-    inv = memory.llama_inventory(
-        n_layers=cfg.n_layers, d_model=cfg.d_model, d_ff=cfg.d_ff,
-        vocab=cfg.padded_vocab, n_heads=cfg.n_heads,
-        tie_embeddings=cfg.tie_embeddings)
-    kw = dict(rank=pc.rank, delta=pc.delta, support_kind=pc.support_kind,
-              index_bytes=4)
-    est = memory.training_estimate(inv, "sltrain", optimizer="adam8bit",
-                                   update_mode="per_layer", fused_opt=True,
-                                   **kw)
-    est_g = memory.training_estimate(inv, "sltrain", optimizer="adamw",
-                                     update_mode="global", moment_bytes=4,
-                                     **kw)
     say(f"train bf16 llama_1b (Trainer, per_layer, adam8bit, fused): {steps} "
         f"steps, losses {[round(x, 4) for x in losses]} | step ms (dispatch "
         f"+ sync) {[round(d * 1e3, 1) for d in dts]}, median of steps "
@@ -1916,22 +2028,206 @@ def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak,
         f"(histogram bucket p50 {lt.percentile(50):.0f}) | run wall "
         f"{wall:.1f} s incl. checkpoint of step {steps} | {smi}")
     say(f"memory bf16 llama_1b: max_memory_allocated per_layer + adam8bit "
-        f"{peak / 2**30:.2f} GiB vs global AdamW {global_peak / 2**30:.2f} "
-        f"GiB (same script run); training_estimate (int32 indices, f32 "
-        f"scales, bf16 params): per_layer + adam8bit {est.total_bytes / 2**30:.2f}"
-        f" GiB (params {est.param_bytes / 2**30:.2f}, grads "
-        f"{est.grad_bytes / 2**30:.2f}, 8-bit state "
-        f"{est.optim_bytes / 2**30:.2f}), global AdamW "
-        f"{est_g.total_bytes / 2**30:.2f} GiB; the estimate leaves out the "
-        f"activations (saved boundaries, the head's logits and loss, one "
-        f"layer's recompute, the kernels' scratch) and counts int32 COO "
-        f"indices where the fused linear keeps tile consts for W and Wᵀ "
-        f"({consts_b / 2**30:.2f} GiB here)")
+        f"{peak / 2**30:.2f} GiB vs SLTrain global AdamW "
+        f"{global_peak / 2**30:.2f} GiB (same script run; the memory table "
+        f"below has the estimates); the fused linear keeps tile consts for W "
+        f"and Wᵀ outside the trees ({consts_b / 2**30:.2f} GiB here)")
     if not peak < global_peak:
         fail(f"per-layer peak {peak / 2**30:.2f} GiB is not below the global "
              f"AdamW peak {global_peak / 2**30:.2f} GiB")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    return tr, state, launches, rec.adam8bit, med
+    return tr, state, launches, rec.adam8bit, med, peak
+
+
+def state_bytes(state) -> int:
+    """Bytes of a TrainerState's params and optimizer state, leaf by leaf
+    (the consts, the fixed supports, are not in either tree)."""
+    from repro_torch.models.common import tree_leaves
+    return sum(nbytes(t) for tree in (state.params, state.opt_state)
+               for _, t in tree_leaves(tree))
+
+
+# The memory table's rows: label -> (param.mode, optimizer, update mode,
+# the estimator's method) for the baselines the table runs itself; the two
+# SLTrain rows come from the phases above.
+MEMORY_ROWS = {
+    "full rank, AdamW, global": ("dense", "adamw", "global", "full"),
+    "low rank, AdamW, global": ("lowrank", "adamw", "global", "lowrank"),
+    "ReLoRA, AdamW, global": ("relora", "adamw", "global", "relora"),
+    "full rank, GaLore-AdamW, global": ("dense", "galore_adamw", "global",
+                                        "full"),
+    "full rank, GaLore-AdamW, per_layer": ("dense", "galore_adamw",
+                                           "per_layer", "full"),
+}
+# why the state bytes differ from the estimator's (paper Table 8
+# conventions) where no gate holds them together
+MEMORY_GAP_CAUSE = {
+    "relora": "W0 is trained, with f32 moments, as in the reference "
+              "(its rl_matmul has no stop-gradient); the estimator gives "
+              "W0 no moments",
+    "galore_adamw": "only lm_head is projected, as in the reference (its "
+                    "is_proj wants 2-D leaves; layer leaves are stacked, "
+                    "3-D), so every other leaf keeps full f32 moments; the "
+                    "estimator projects every adapted matrix, in bf16",
+    "sltrain": "the estimator counts int32 COO indices in its params; "
+               "they are consts here, outside these trees",
+}
+# full rank and low rank: params plus f32 moments as the estimator counts
+# them, less the norm weights it leaves out
+MEMORY_STATE_TOL = 0.005
+
+
+def memory_estimate(cfg, method, optimizer, update_mode, galore_rank=None):
+    """The port's ``core.memory.training_estimate`` for one row, with
+    f32 moments (``moment_bytes=4``, the reference's convention for
+    measured residency) and int32 indices."""
+    from repro_torch.core import memory
+    pc = cfg.param
+    inv = memory.llama_inventory(
+        n_layers=cfg.n_layers, d_model=cfg.d_model, d_ff=cfg.d_ff,
+        vocab=cfg.padded_vocab, n_heads=cfg.n_heads,
+        tie_embeddings=cfg.tie_embeddings)
+    return memory.training_estimate(
+        inv, method, optimizer=optimizer, update_mode=update_mode,
+        rank=pc.rank, delta=pc.delta, support_kind=pc.support_kind,
+        index_bytes=4, moment_bytes=4, galore_rank=galore_rank,
+        fused_opt=optimizer == "adam8bit")
+
+
+def memory_line(label, row, est, cause, smi):
+    """One row of the memory table, unrounded where it counts."""
+    want = est.param_bytes + est.optim_bytes
+    gap = row["state"] / want - 1
+    tokens = row["tokens"]
+    say(f"memory bf16 llama_1b {label}: max_memory_allocated "
+        f"{row['peak']} B = {row['peak'] / 2**30:.3f} GiB | params + "
+        f"optimizer state {row['state']} B = {row['state'] / 2**30:.3f} "
+        f"GiB | training_estimate (f32 moments, int32 indices) params + "
+        f"optimizer {want / 2**30:.3f} GiB, state gap {100 * gap:+.3f}%"
+        + (f" ({cause})" if cause else "")
+        + f", estimate with grads and transients {est.total_bytes / 2**30:.3f}"
+        f" GiB | step ms median {row['med'] * 1e3:.1f} = "
+        f"{tokens / row['med']:.0f} tokens/s | losses "
+        f"{[round(x, 4) for x in row['losses']]} | {smi}")
+    return gap
+
+
+def memory_row(cfg, device, *, mode, optimizer, update_mode, batch, seq,
+               steps=3):
+    """One baseline through the Trainer in bf16 for ``steps`` steps (one
+    warm-up): the peak of ``max_memory_allocated`` after a reset that
+    follows init (``FirstStep``), the bytes of params and optimizer state,
+    the median step time of the later steps, the losses. The Trainer's
+    final checkpoint is not written: the row measures the steps."""
+    from repro_torch.train.trainer import Trainer
+    c = dataclasses.replace(cfg, param=dataclasses.replace(
+        cfg.param, mode=mode, exec_mode="dense"))
+    tc = train_config(c, steps=steps, batch=batch, seq=seq,
+                      ckpt_dir=os.path.join(ROOT, "build",
+                                            "chip_smoke_ckpt_memory"),
+                      optimizer=optimizer, update_mode=update_mode)
+    shutil.rmtree(tc.ckpt_dir, ignore_errors=True)
+    tr = Trainer(tc, device=device, log_fn=lambda *a: None,
+                 fault_hook=FirstStep())
+    tr.save = lambda *a, **k: None
+    state = tr.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = launch_counts()
+    nstate = state_bytes(state)
+    hist = tr.metrics_history
+    losses = [h["loss"] for h in hist]
+    if len(hist) != steps or not all(np.isfinite(losses)) or any(
+            h["nonfinite"] for h in hist):
+        fail(f"bf16 {mode} {optimizer} {update_mode}: losses {losses}")
+    if any(launches.values()):
+        fail(f"bf16 {mode} {optimizer} {update_mode} launched {launches}: "
+             "the baselines run no kernel of the port")
+    row = {"peak": peak, "state": nstate, "losses": losses,
+           "med": statistics.median(h["dt"] for h in hist[1:]),
+           "tokens": batch * seq, "galore_rank": tc.optim.galore_rank}
+    del tr, state
+    shutil.rmtree(tc.ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_memory_table(cfg, device, smi, *, batch, seq, sltrain_rows):
+    """Phase 9b: the paper's memory comparison (Table 8, and its "up to
+    73%" against full-rank AdamW) on the card, in bf16 on one batch shape:
+    each baseline of MEMORY_ROWS through the Trainer for 3 steps, beside
+    the two SLTrain rows the phases above measured (``sltrain_rows``:
+    fused global AdamW and per-layer 8-bit AdamW, 6 steps each). Gates:
+    every loss finite; the per-layer 8-bit SLTrain peak below the full-rank
+    global AdamW peak; full rank's and low rank's params + optimizer state
+    within MEMORY_STATE_TOL of the estimator's. Printed without a gate:
+    the measured reduction beside ``paper_f_reduction("1b")``, and the
+    other rows' state against the estimator with the gap's cause."""
+    from repro_torch.core import memory
+    rows = {}
+    for label, (mode, opt, update_mode, method) in MEMORY_ROWS.items():
+        row = memory_row(cfg, device, mode=mode, optimizer=opt,
+                         update_mode=update_mode, batch=batch, seq=seq)
+        est = memory_estimate(cfg, method, opt, update_mode,
+                              galore_rank=row["galore_rank"])
+        cause = MEMORY_GAP_CAUSE.get(mode) or MEMORY_GAP_CAUSE.get(opt)
+        gap = memory_line(label, row, est, cause, smi)
+        if method in ("full", "lowrank") and opt == "adamw" and \
+                abs(gap) > MEMORY_STATE_TOL:
+            fail(f"memory {label}: params + optimizer state "
+                 f"{row['state']} B is {100 * gap:+.3f}% from the "
+                 f"estimator's, beyond {100 * MEMORY_STATE_TOL}%")
+        rows[label] = row
+    for label, (row, opt, update_mode) in sltrain_rows.items():
+        est = memory_estimate(cfg, "sltrain", opt, update_mode)
+        memory_line(label, row, est, MEMORY_GAP_CAUSE["sltrain"], smi)
+        rows[label] = row
+    full = rows["full rank, AdamW, global"]["peak"]
+    lean = rows["SLTrain, 8-bit AdamW, per_layer (fused)"]["peak"]
+    paper = memory.paper_f_reduction("1b", index_bytes=4)
+    say(f"memory bf16 llama_1b: per-layer 8-bit SLTrain {lean / 2**30:.3f} "
+        f"GiB against full-rank global AdamW {full / 2**30:.3f} GiB: "
+        f"{100 * (1 - lean / full):.2f}% less measured (peaks, activations "
+        f"included), beside paper_f_reduction('1b', index_bytes=4) "
+        f"{100 * paper['reduction']:.1f}% ({paper['full_G']:.2f} -> "
+        f"{paper['lean_G']:.2f} GB; the paper's convention: bf16 moments, "
+        f"no activations) | {smi}")
+    if not lean < full:
+        fail(f"per-layer 8-bit SLTrain peak {lean / 2**30:.3f} GiB is not "
+             f"below the full-rank global AdamW peak {full / 2**30:.3f} GiB")
+
+
+def phase_comparison(device):
+    """Phase 14: ``analysis/pretrain_comparison.py`` on the card: the four
+    parameterizations at an equal token budget, at the reference example's
+    default size (dim 128, 300 steps, batch 8 × seq 128) with its two
+    asserts as gates, then at ``llama_60m`` (the paper config, full width)
+    for 200 steps a mode, gated only on finite losses."""
+    from repro_torch.analysis import pretrain_comparison as cmp
+    root = os.path.join(ROOT, "build")
+    os.makedirs(root, exist_ok=True)
+    for label, kw in (("default size (dim 128)", dict(steps=300)),
+                      ("llama_60m", dict(size="60m", steps=200))):
+        t0 = time.perf_counter()
+        res = cmp.compare(device=device, ckpt_root=root,
+                          log_fn=lambda *a: None, **kw)
+        wall = time.perf_counter() - t0
+        for line in cmp.table(res):
+            say(f"comparison {label}: {line}")
+        bad = [m for m, r in res.items() if not np.isfinite(r["losses"]).all()]
+        if bad:
+            fail(f"comparison {label}: non-finite losses in {bad}")
+        gates = ""
+        if "size" not in kw:
+            failed = cmp.gate_failures(res)
+            if failed:
+                fail(f"comparison {label}: " + "; ".join(failed))
+            gates = ("; gates passed: SLTrain's ppl below low rank's, its "
+                     "params below full rank's")
+        say(f"comparison {label}: {kw['steps']} steps a mode, batch 8 x seq "
+            f"128, final losses " + ", ".join(
+                f"{m} {r['losses'][-1]:.4f}" for m, r in res.items())
+            + f" | {wall:.1f} s{gates}")
 
 
 def recipe_line(label, rows, extra=""):
@@ -2363,11 +2659,19 @@ def main() -> int:
             cfg.param, exec_mode="fused")), device, gen, batch=batch,
         seq=seq)
     torch.cuda.empty_cache()
+    phase_baseline_parity(dataclasses.replace(cfg, dtype="float32"), device,
+                          batch=batch, seq=seq)
+    torch.cuda.empty_cache()
     cfg16 = dataclasses.replace(cfg, param=dataclasses.replace(
         cfg.param, exec_mode="fused"))
     tr, state, by_path["train"], shapes, med, global_peak = \
         phase_train_bf16(cfg16, device, smi, batch=batch, seq=seq)
     check_train_coverage(shapes, batch * seq, cfg)
+    sltrain_rows = {"SLTrain, AdamW, global (fused)": (
+        {"peak": global_peak, "state": state_bytes(state), "med": med,
+         "tokens": batch * seq,
+         "losses": [h["loss"] for h in tr.metrics_history]},
+        "adamw", "global")}
     phase_train_profile(tr, state, device, med)
     del tr, state
     torch.cuda.empty_cache()
@@ -2382,14 +2686,22 @@ def main() -> int:
                         kernels=("sparse_split_kernel", "sddmm"))
     del tr, state
     torch.cuda.empty_cache()
-    tr, state, by_path["train_per_layer"], seen, med = phase_perlayer_bf16(
-        cfg16, device, smi, batch=batch, seq=seq, global_peak=global_peak)
+    tr, state, by_path["train_per_layer"], seen, med, peak = \
+        phase_perlayer_bf16(cfg16, device, smi, batch=batch, seq=seq,
+                            global_peak=global_peak)
     check_adam8bit_coverage(seen, ad_rows)
+    sltrain_rows["SLTrain, 8-bit AdamW, per_layer (fused)"] = (
+        {"peak": peak, "state": state_bytes(state), "med": med,
+         "tokens": batch * seq,
+         "losses": [h["loss"] for h in tr.metrics_history]},
+        "adam8bit", "per_layer")
     phase_train_profile(tr, state, device, med,
                         label="per-layer 8-bit train step",
                         kernels=("adam8bit",))
     del tr, state
     torch.cuda.empty_cache()
+    phase_memory_table(cfg, device, smi, batch=batch, seq=seq,
+                       sltrain_rows=sltrain_rows)
     phase_kill_resume(device)
     phase_kill_resume(device, optimizer="adam8bit", update_mode="per_layer")
     by_path["recipe_llama_1b"], recipe_ckpt = phase_recipe_llama_1b(
@@ -2400,6 +2712,8 @@ def main() -> int:
     shutil.rmtree(recipe_ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
     by_path["recipe_llama_60m"] = phase_recipe_default(device)
+    torch.cuda.empty_cache()
+    phase_comparison(device)
 
     m = batch * seq
     leaf_rows = [r for r in ad_rows if r["n"] is not None]

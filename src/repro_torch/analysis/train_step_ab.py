@@ -10,7 +10,10 @@ process with that checkout's ``src`` first on the path, it builds the
 kernels and runs what ``chip_smoke.py`` runs in phases 7 to 9: six steps
 of the ``Trainer`` with per-layer 8-bit AdamW (``layer_timing`` on) and
 six with global AdamW, at batch 8 × seq 256, exec_mode fused, weights
-from seed 0. It reports the median of steps 2–6, the host time spent
+from seed 0, then six full-rank (``param.mode="dense"``) steps with
+global AdamW. It reports the median of steps 2–6, the peak of
+``max_memory_allocated`` over the steps (reset before step 1 by the
+Trainer's fault hook; the Trainer inits its own state), the host time spent
 inside the ``sddmm`` and ``sl_matmul`` wrappers (perf_counter around each
 call; the launches are asynchronous, so this is the wrapper's own work),
 and one more step under ``torch.profiler`` (CPU and CUDA): its wall, the
@@ -101,27 +104,39 @@ def child(root: str) -> dict:
     _wrap(sdk, "sddmm", host["sddmm"])
     _wrap(slk, "sl_matmul", host["sl_matmul"])
     out = {"root": root}
-    for label, opt, mode in (("per_layer adam8bit", "adam8bit", "per_layer"),
-                             ("global adamw", "adamw", "global")):
+    full = dataclasses.replace(cfg, param=dataclasses.replace(
+        cfg.param, mode="dense", exec_mode="dense"))
+
+    def reset_peak(step):
+        if step == 0:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+    for label, opt, mode, c in (
+            ("per_layer adam8bit", "adam8bit", "per_layer", cfg),
+            ("global adamw", "adamw", "global", cfg),
+            ("full rank global adamw", "adamw", "global", full)):
         ckpt = os.path.join(root, "build", "train_step_ab_ckpt")
+        shutil.rmtree(ckpt, ignore_errors=True)
         oc = OptimizerConfig(name=opt, lr=3e-3, warmup_steps=1,
                              total_steps=STEPS)
-        tc = TrainConfig(model=cfg, optim=oc,
+        tc = TrainConfig(model=c, optim=oc,
                          sharding=ShardingConfig(update_mode=mode), seed=0,
                          global_batch=BATCH, seq_len=SEQ, steps=STEPS,
                          log_every=1, ckpt_every=0, ckpt_dir=ckpt,
                          async_ckpt=False, keep_ckpts=1)
         tr = Trainer(tc, device=device, log_fn=lambda *a: None,
-                     layer_timing=mode == "per_layer")
-        state = tr.init_state()
+                     layer_timing=mode == "per_layer", fault_hook=reset_peak)
         for v in host.values():
             v.clear()
-        state = tr.run(state=state)
+        state = tr.run()
+        torch.cuda.synchronize()
         dts = [h["dt"] * 1e3 for h in tr.metrics_history]
-        row = {"step_ms": dts, "median_ms": statistics.median(dts[1:])}
+        row = {"step_ms": dts, "median_ms": statistics.median(dts[1:]),
+               "peak_bytes": torch.cuda.max_memory_allocated()}
         for k, v in host.items():
             row[f"{k}_calls_per_step"] = len(v) // STEPS
-            row[f"{k}_host_us_median"] = statistics.median(v) * 1e6
+            row[f"{k}_host_us_median"] = statistics.median(v) * 1e6 \
+                if v else 0.0
             row[f"{k}_host_ms_per_step"] = sum(v) * 1e3 / STEPS
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in tr.data.next_batch().items()}
@@ -129,8 +144,8 @@ def child(root: str) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            _, _, m = tr._train_step(state.params, state.opt_state,
-                                     state.consts, batch)
+            new_p, new_s, m = tr._train_step(state.params, state.opt_state,
+                                             state.consts, batch)
             float(m["loss"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -141,7 +156,8 @@ def child(root: str) -> dict:
         row["top_self_cpu_ms"] = [(e.key, e.count, e.self_cpu_time_total / 1e3)
                                   for e in ops[:8]]
         out[label] = row
-        del tr, state, batch, prof
+        # the next run's peak must not see this run's state
+        del tr, state, batch, prof, new_p, new_s, m
         shutil.rmtree(ckpt, ignore_errors=True)
         torch.cuda.empty_cache()
     out["serve fused"] = serve_runs(cfg, device)
@@ -205,10 +221,13 @@ def main(argv) -> int:
         results.append(res)
         print(json.dumps(res), flush=True)
     for res in results:
-        for label in ("per_layer adam8bit", "global adamw"):
+        for label in ("per_layer adam8bit", "global adamw",
+                      "full rank global adamw"):
             r = res[label]
             print(f"{res['root']} | {label}: median {r['median_ms']:.1f} ms "
-                  f"(steps {[round(x, 1) for x in r['step_ms']]}) | profiled "
+                  f"(steps {[round(x, 1) for x in r['step_ms']]}) | peak "
+                  f"max_memory_allocated {r['peak_bytes']} B = "
+                  f"{r['peak_bytes'] / 2**30:.3f} GiB | profiled "
                   f"wall {r['profiled_wall_ms']:.1f} ms, busy "
                   f"{r['profiled_busy_ms']} ms | host in wrappers a step: "
                   f"sddmm {r['sddmm_host_ms_per_step']:.2f} ms "

@@ -65,10 +65,11 @@ def from_jax_numpy(params, consts, device="cuda"):
 
 
 def opt_state_from_jax_numpy(opt_state, device="cuda"):
-    """The reference's optimizer state ({"mu", "nu", "step"} as numpy
-    arrays, nested or flat) as the port's, which keeps the same trees:
-    AdamW's f32 moments mirroring the params, 8-bit AdamW's
-    ``{"codes": int8, "scales": f32}`` per moment and leaf, and an int32
-    scalar step. Every dtype carries over as it is, int8 codes bit for
-    bit."""
+    """The reference's optimizer state (numpy arrays, nested or flat) as
+    the port's, which keeps the same trees: AdamW's ``{"mu", "nu",
+    "step"}`` with f32 moments mirroring the params (ReLoRA's W0
+    included), 8-bit AdamW's ``{"codes": int8, "scales": f32}`` per
+    moment and leaf, GaLore-AdamW's ``{"leaves": {... {"P", "mu", "nu"}
+    or {"mu", "nu"}}, "step"}``, and an int32 scalar step. Every dtype
+    carries over as it is, int8 codes bit for bit."""
     return _convert(opt_state, resolve(device))

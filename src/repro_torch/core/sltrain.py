@@ -40,6 +40,7 @@ import math
 import torch
 
 from repro_torch.core import support as support_lib
+from repro_torch.core.lowrank import uniform
 from repro_torch.device import resolve
 
 # Seed stride of the host-side re-sample when a sampled support exceeds
@@ -102,15 +103,10 @@ def init_params(gen: torch.Generator, d_in: int, d_out: int, rank: int,
         consts.update(tiles)
     consts = {k: t.to(device) for k, t in consts.items()}
 
-    def uniform(shape, lim):
-        u = torch.rand(shape, generator=gen, device=device,
-                       dtype=torch.float32)
-        return ((u * 2.0 - 1.0) * lim).to(dtype)
-
     params = {
         "B": torch.zeros((d_in, rank), dtype=dtype, device=device),
-        "A": uniform((rank, d_out), lim_a),
-        "v": uniform(v_shape, lim_v),
+        "A": uniform(gen, (rank, d_out), lim_a, dtype, device),
+        "v": uniform(gen, v_shape, lim_v, dtype, device),
     }
     return params, consts
 

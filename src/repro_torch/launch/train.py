@@ -10,12 +10,20 @@ Usage:
       --update-mode per_layer --exec-mode fused --layer-timing --steps 20
   python -m repro_torch.launch.train --arch llama_1b --exec-mode sparse \\
       --steps 20
+  python -m repro_torch.launch.train --arch llama_1b --mode dense   # full rank
+  python -m repro_torch.launch.train --arch llama_1b --mode lowrank
+  python -m repro_torch.launch.train --arch llama_1b --mode relora
+  python -m repro_torch.launch.train --arch llama_1b --mode dense \\
+      --optimizer galore_adamw --update-mode per_layer
 
 The flags are the reference's. ``--exec-mode`` is applied to the config
 before init, so ``fused`` and ``sparse`` get their tile consts (``sparse``
-trains through the ``sparse_matmul`` and ``sddmm`` kernels). Options the
-port does not run yet raise ``NotImplementedError`` naming their ROADMAP
-item.
+trains through the ``sparse_matmul`` and ``sddmm`` kernels). The
+paper's baselines train too: ``--mode dense`` (full rank), ``lowrank``,
+``relora`` (merging every ``relora_period`` steps) and ``--optimizer
+galore_adamw`` in either update mode; ReLoRA with ``adam8bit`` is
+refused (the reference's merge crashes on that state). Options the port
+does not run yet raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import sltrain
+from repro_torch.core import lowrank, relora, sltrain
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -80,7 +80,8 @@ class Builder:
 
     def linear(self, name: str, d_in: int, d_out: int):
         """(params, consts) of one linear, parameterized as
-        ``cfg.param.mode`` says: a full-rank ``w`` or SLTrain factors."""
+        ``cfg.param.mode`` says: a full-rank ``w``, low-rank ``B``/``A``,
+        ReLoRA's ``W0``/``B``/``A`` or SLTrain factors."""
         pc = self.cfg.param
         b = self.sub(name)
         consts: dict = {}
@@ -89,24 +90,35 @@ class Builder:
         if pc.mode == "dense":
             params = {"w": b.tensor("w", (d_in, d_out), "normal",
                                     fan_in=d_in)}
+        elif pc.mode == "lowrank":
+            params = lowrank.init_params(self.gen, d_in, d_out, r, b.dtype,
+                                         device=self.device)
+        elif pc.mode == "relora":
+            params = relora.init_params(self.gen, d_in, d_out, r, b.dtype,
+                                        device=self.device)
         elif pc.mode == "sltrain":
             params, consts = sltrain.init_params(
                 self.gen, d_in, d_out, r, pc.delta, b.dtype,
                 pc.support_kind, seed=self.seed ^ _name_hash(b.path),
                 exec_mode=pc.exec_mode, device=self.device)
         else:
-            raise NotImplementedError(
-                f"param.mode={pc.mode!r} is not ported yet (ROADMAP queue A "
-                "item 2: the lowrank and relora parameterizations)")
+            raise ValueError(pc.mode)
         return params, consts
 
 
 def apply_linear(cfg: ModelConfig, params, consts, x):
+    pc = cfg.param
     if "w" in params:
         return x @ params["w"]
     # per-matrix scale alpha/r_eff (r_eff capped at init)
-    scale = cfg.param.alpha / params["B"].shape[-1]
-    return sltrain.sl_matmul(x, params, consts, scale, cfg.param.exec_mode)
+    scale = pc.alpha / params["B"].shape[-1]
+    if pc.mode == "lowrank":
+        return lowrank.lr_matmul(x, params, scale)
+    if pc.mode == "relora":
+        return relora.rl_matmul(x, params, scale)
+    if pc.mode == "sltrain":
+        return sltrain.sl_matmul(x, params, consts, scale, pc.exec_mode)
+    raise ValueError(pc.mode)
 
 
 def stack_layers(builder: Builder, fn, n: int, name: str = "layer"):

@@ -1,5 +1,6 @@
-"""AdamW and blockwise 8-bit AdamW with global-norm clipping and the
-warmup-cosine schedule, ported from ``repro.optim.optimizers``.
+"""AdamW, blockwise 8-bit AdamW and GaLore-AdamW with global-norm
+clipping and the warmup-cosine schedule, ported from
+``repro.optim.optimizers``.
 
 Interface, as the reference's:
 
@@ -13,8 +14,10 @@ bit-exactly when a step is non-finite. The states mirror the reference's
 trees, so checkpoints restore across the two packages: AdamW keeps f32
 moments ``mu``/``nu`` shaped like the params, 8-bit AdamW keeps
 ``{"codes": int8 (n_blocks, q_block), "scales": f32 (n_blocks,)}`` per
-moment and leaf, and both an int32 scalar ``step``. The optimizer never
-sees the fixed SLTrain support (consts live outside the trainable tree).
+moment and leaf, and both an int32 scalar ``step``; GaLore-AdamW keeps
+``{"leaves": {...}, "step"}``, per leaf ``{"P", "mu", "nu"}`` where it
+projects and ``{"mu", "nu"}`` elsewhere. The optimizer never sees the
+fixed SLTrain support (consts live outside the trainable tree).
 
 Per-layer API (``repro_torch.train.perlayer``), as the reference's: the
 one-step scalar math is split out of ``update`` so a layer-wise backward
@@ -28,12 +31,12 @@ exist:
 ``ls`` is one param leaf's state (``leaf_state``/``with_leaf_state``
 address it by tree path); ``stack_state`` reshapes it so a leading
 layer-stack axis of size n can be sliced, returning None when it cannot
-(8-bit blocks that straddle layer boundaries), and the sweep then updates
-that leaf once at the end from its accumulated gradient. Weight decay
-applies to leaves whose full (stacked) leaf has at least 2 dims:
-``full_ndim`` passes that rank for a layer's slice. The global ``update``
-runs through the same ``prepare``/``update_slice`` path, so per-layer and
-global modes agree leaf for leaf by construction.
+(8-bit blocks that straddle layer boundaries, GaLore's projected leaves),
+and the sweep then updates that leaf once at the end from its accumulated
+gradient. Weight decay applies to leaves whose full (stacked) leaf has
+at least 2 dims: ``full_ndim`` passes that rank for a layer's slice. The
+global ``update`` runs through the same ``prepare``/``update_slice``
+path, so per-layer and global modes agree leaf for leaf by construction.
 
 ``update_slice_fused`` is 8-bit AdamW's kernel dispatch (the ``adam8bit``
 kernel, one fused pass) for one leaf or slice, and ``update_group_fused``
@@ -41,8 +44,7 @@ for a list of them in one launch (the per-layer sweep sends a layer's
 slices, the head leaves, the deferred leaves and the embedding, each
 group at once). Both write the new values into the parameter and state
 tensors they are given, which keeps the sweep's memory at one layer.
-``galore_adamw`` is not
-ported yet (ROADMAP queue A item 5) and raises.
+GaLore-AdamW has no kernel dispatch: the sweep runs its ``update_slice``.
 """
 from __future__ import annotations
 
@@ -314,14 +316,127 @@ def adam8bit(oc: OptimizerConfig) -> Optimizer:
                      finish=finish)
 
 
+# ---------------------------------------------------------------------------
+# GaLore-AdamW (paper baseline [59]): low-rank gradient projection
+# ---------------------------------------------------------------------------
+
+def galore_adamw(oc: OptimizerConfig) -> Optimizer:
+    """AdamW whose moments live in the span of P, the top-r singular
+    vectors of the gradient, refreshed every ``galore_update_proj_gap``
+    steps. Projected are, as in the reference, the 2-D leaves with both
+    dims above ``galore_rank`` and no "embed" in their path. Layer leaves
+    are stacked on a leading axis, so on the llama trees only ``lm_head``
+    is 2-D: it alone is projected, as in the reference, and every other
+    leaf keeps full f32 moments.
+
+    P comes from ``torch.linalg.svd`` in f32 of g·gᵀ (of gᵀ·g when
+    d > q), cuSOLVER on the card; its columns' signs are the solver's
+    choice, which P·Pᵀ and the update do not see. Whether this step
+    refreshes P is read on the host once per step in ``prepare`` (one
+    ``.item()`` of the device step counter): the SVD runs only at a
+    refresh."""
+    r = oc.galore_rank
+    b1, b2 = oc.beta1, oc.beta2
+    base_prepare = _prepare_fn(oc)
+
+    def is_proj(path, p):
+        return p.dim() == 2 and min(p.shape) > r and "embed" not in path
+
+    def init(params):
+        def st(path, p):
+            z = lambda *shape: torch.zeros(shape, dtype=torch.float32,
+                                           device=p.device)
+            if is_proj(path, p):
+                d, q = p.shape
+                if d <= q:
+                    return {"P": z(d, r), "mu": z(r, q), "nu": z(r, q)}
+                return {"P": z(q, r), "mu": z(d, r), "nu": z(d, r)}
+            return {"mu": z(*p.shape), "nu": z(*p.shape)}
+
+        def walk(tree, prefix):
+            if isinstance(tree, dict):
+                return {k: walk(v, f"{prefix}/{k}" if prefix else k)
+                        for k, v in tree.items()}
+            return st(prefix, tree)
+        device = tree_leaves(params)[0].device
+        return {"leaves": walk(params, ""),
+                "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def prepare(state, gnorm):
+        ctx, stats = base_prepare(state, gnorm)
+        # the one host read of the step: the SVD runs only at a refresh
+        ctx["refresh"] = (int(ctx["step"].item()) - 1) \
+            % oc.galore_update_proj_gap == 0
+        return ctx, stats
+
+    def update_slice(ctx, p, g, ls, full_ndim=None):
+        g = g.float() * ctx["scale"]
+        if "P" not in ls:
+            m = b1 * ls["mu"] + (1 - b1) * g
+            v = b2 * ls["nu"] + (1 - b2) * g * g
+            u = (m / ctx["bc1"]) / (torch.sqrt(v / ctx["bc2"]) + oc.eps)
+            if _decays(oc, p, full_ndim):
+                u = u + oc.weight_decay * p.float()
+            return (p.float() - ctx["lr"] * u).to(p.dtype), \
+                {"mu": m, "nu": v}
+        d, q = p.shape
+        left = d <= q
+        P = ls["P"]
+        if ctx["refresh"]:
+            # top-r singular vectors of the current gradient
+            if left:
+                P = torch.linalg.svd(g @ g.T)[0][:, :r]
+            else:
+                P = torch.linalg.svd(g.T @ g)[2][:r].T
+        R = P.T @ g if left else g @ P               # projected gradient
+        m = b1 * ls["mu"] + (1 - b1) * R
+        v = b2 * ls["nu"] + (1 - b2) * R * R
+        u_low = (m / ctx["bc1"]) / (torch.sqrt(v / ctx["bc2"]) + oc.eps)
+        u = (P @ u_low if left else u_low @ P.T) * oc.galore_scale
+        if oc.weight_decay > 0:
+            u = u + oc.weight_decay * p.float()
+        return (p.float() - ctx["lr"] * u).to(p.dtype), \
+            {"P": P, "mu": m, "nu": v}
+
+    def update(grads, state, params):
+        with torch.no_grad():
+            ctx, stats = prepare(state, _global_norm(grads))
+            # tree_map walks params: each leaf meets its whole state dict
+            paired = tree_map(lambda p, g, ls: update_slice(ctx, p, g, ls),
+                              params, grads, state["leaves"])
+            new_params = tree_map(lambda t: t[0], paired)
+            leaves = tree_map(lambda t: t[1], paired)
+        return new_params, {"leaves": leaves, "step": ctx["step"]}, stats
+
+    def leaf_state(state, path):
+        return _tree_get(state["leaves"], path)
+
+    def with_leaf_state(state, path, ls):
+        return {**state, "leaves": _tree_set(state["leaves"], path, ls)}
+
+    def stack_state(ls, p_leaf, n):
+        # a projected leaf shares one P and one moment pair across the
+        # whole leaf: it cannot be sliced layer-wise (and stacked leaves
+        # are never projected, see is_proj)
+        return None if "P" in ls else ls
+
+    def unstack_state(ls, p_leaf, n):
+        return ls
+
+    def finish(state, ctx):
+        return {**state, "step": ctx["step"]}
+
+    return Optimizer(init, update, prepare=prepare, update_slice=update_slice,
+                     leaf_state=leaf_state, with_leaf_state=with_leaf_state,
+                     stack_state=stack_state, unstack_state=unstack_state,
+                     finish=finish)
+
+
 def make(oc: OptimizerConfig) -> Optimizer:
     if oc.name == "adamw":
         return adamw(oc)
     if oc.name == "adam8bit":
         return adam8bit(oc)
     if oc.name == "galore_adamw":
-        raise NotImplementedError(
-            "optimizer 'galore_adamw' is not ported yet (ROADMAP queue A "
-            "item 5: the memory path's GaLore baseline); the port trains "
-            "with adamw and adam8bit")
+        return galore_adamw(oc)
     raise ValueError(f"unknown optimizer {oc.name!r}")

@@ -17,7 +17,8 @@ term of the size of the trainable parameters. This step removes it:
      and apply that layer's optimizer update at once, through the
      per-layer slice API (``Optimizer.update_slice``; under ``fused_opt``
      the 8-bit optimizer's ``update_group_fused``, one launch of the
-     ``adam8bit`` kernel for all of the layer's slices), before the next
+     ``adam8bit`` kernel for all of the layer's slices; GaLore-AdamW,
+     which has no kernel, through ``update_slice``), before the next
      layer's gradients exist. The head leaves, the deferred leaves (below)
      and the embedding are each one such group too.
 
@@ -139,7 +140,7 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
         if getattr(optimizer, fn) is None:
             raise ValueError(f"optimizer lacks the per-layer slice API "
                              f"({fn}); update_mode='per_layer' supports "
-                             "adamw and adam8bit")
+                             "adamw, adam8bit and galore_adamw")
     if grad_specs is not None:
         raise NotImplementedError(
             "grad_specs (fsdp gradient placement) is not ported yet "

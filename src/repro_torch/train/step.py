@@ -55,13 +55,17 @@ def nonfinite_gate(loss, grads, new_state, old_state):
     leaf of ``new_state`` (a tuple of trees, e.g. (params, opt_state)) is
     replaced by its ``old_state`` counterpart; when all is finite the new
     leaves come through unchanged (``torch.where`` on a true predicate
-    selects them bit for bit). Returns (gated_state, nonfinite) with
+    selects them bit for bit). The selection is written into the new
+    leaves (``out=``), so the step holds the old and the new state and no
+    third copy, as the reference's one fused select does; the old leaves
+    are never written. Returns (gated_state, nonfinite) with
     ``nonfinite`` a 0/1 f32 metric. No host sync."""
     good = torch.isfinite(loss)
     for g in tree_leaves(grads):
         if g.is_floating_point():
             good = good & torch.isfinite(g).all()
-    gated = tuple(tree_map(lambda n, o: torch.where(good, n, o), new, old)
+    gated = tuple(tree_map(lambda n, o: torch.where(good, n, o, out=n),
+                           new, old)
                   for new, old in zip(new_state, old_state))
     return gated, 1.0 - good.float()
 

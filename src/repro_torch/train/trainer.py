@@ -30,9 +30,14 @@ the device time plus whatever dispatch did not overlap it, as in the
 reference. ``update_mode="per_layer"`` runs the per-layer update sweep
 (``train/perlayer.py``), which updates the params and the optimizer state
 in place; checkpoints copy them to the host synchronously, so a
-background write never sees a later step's values. Not ported yet, and
-raising: a mesh (ROADMAP queue A item 10), chaos injection (item 8),
-ReLoRA and the other parameterizations (item 2), GaLore (item 5).
+background write never sees a later step's values.
+
+``param.mode="relora"`` merges and restarts the factors after each step
+whose number is a multiple of ``relora_period``, as the reference does
+(:func:`_make_relora_merge`). ReLoRA with 8-bit AdamW is refused at
+construction: the reference's merge crashes on that state at the first
+merge (ROADMAP queue C). Not ported yet, and raising: a mesh (ROADMAP
+queue A item 10), chaos injection (item 8).
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ from repro_torch.analysis import roofline
 from repro_torch.ckpt.checkpoint import (CheckpointCorruptError,
                                          CheckpointManager)
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core import relora as relora_lib
 from repro_torch.data.pipeline import SyntheticC4
 from repro_torch.device import resolve
 from repro_torch.kernels.ops import add_transposed_tiles
@@ -58,6 +64,60 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import optimizers
 from repro_torch.train import perlayer
 from repro_torch.train import step as step_lib
+
+
+def _is_relora(t) -> bool:
+    return isinstance(t, dict) and {"W0", "B", "A"} <= set(t)
+
+
+def relora_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of the merge after ``step``, seeded from (seed,
+    step) as the reference folds ``step`` into ``PRNGKey(seed)``. The
+    port cannot reproduce ``jax.random``'s bits: its redrawn A follow the
+    same law from another stream."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(((seed & 0xFFFFFFFF) << 31) ^ step)
+    return gen
+
+
+def _make_relora_merge(cfg):
+    """ReLoRA restart (paper eq. (1), baseline [32]), the reference's
+    ``_make_relora_merge``: at each period end merge B·A into W0, restart
+    the factors, and zero B's and A's AdamW moments (W0's are kept).
+    merge(params, opt_state, gen) -> (params, opt_state), new trees.
+
+    The leaves are walked in sorted key order, the reference's order
+    under ``jax.jit``, each drawing its A from ``gen`` in turn. The merge
+    scale is alpha / r_eff per matrix (r_eff = B.shape[-1]), the forward's
+    convention. Only a state with top-level ``mu``/``nu`` (AdamW) is
+    reset; GaLore's ``{"leaves", "step"}`` passes unchanged, as in the
+    reference."""
+    alpha = cfg.param.alpha
+
+    def merge(params, opt_state, gen):
+        def walk(t):
+            if _is_relora(t):
+                return relora_lib.merge(t, gen, alpha / t["B"].shape[-1])
+            if isinstance(t, dict):
+                return {k: walk(t[k]) for k in sorted(t)}
+            return t
+
+        def reset(m, p):
+            if _is_relora(p):
+                return {**m, "B": torch.zeros_like(m["B"]),
+                        "A": torch.zeros_like(m["A"])}
+            if isinstance(p, dict):
+                return {k: reset(m[k], p[k]) for k in p}
+            return m
+
+        new_opt = dict(opt_state)
+        if "mu" in opt_state:
+            new_opt["mu"] = reset(opt_state["mu"], params)
+            new_opt["nu"] = reset(opt_state["nu"], params)
+        with torch.no_grad():
+            return walk(params), new_opt
+
+    return merge
 
 
 @dataclass
@@ -107,10 +167,16 @@ def _check_supported(tc: TrainConfig, mesh, chaos) -> None:
     if sh.update_mode not in ("global", "per_layer"):
         raise ValueError(f"unknown update_mode {sh.update_mode!r}: "
                          "expected 'global' or 'per_layer'")
-    if pc.mode not in ("dense", "sltrain"):
-        raise NotImplementedError(
-            f"param.mode={pc.mode!r} is not ported yet (ROADMAP queue A "
-            "item 2: the lowrank and relora parameterizations)")
+    if pc.mode not in ("dense", "lowrank", "relora", "sltrain"):
+        raise ValueError(f"unknown param.mode {pc.mode!r}")
+    if pc.mode == "relora" and tc.optim.name == "adam8bit":
+        raise ValueError(
+            "ReLoRA with adam8bit is refused: the reference's merge "
+            "(repro.train.trainer._make_relora_merge) resets the moments "
+            "with jnp.zeros_like on the 8-bit {codes, scales} state and "
+            "crashes at the first merge with \"TypeError: zeros_like "
+            "requires ndarray or scalar arguments\" (ROADMAP queue C); "
+            "train ReLoRA with adamw or galore_adamw")
 
 
 class Trainer:
@@ -179,6 +245,8 @@ class Trainer:
             help="corrupt data batches dropped by host-side validation")
         self._layer_timing = layer_timing
         self._train_step = self._build_train_step()
+        self._relora_merge = _make_relora_merge(self.cfg) \
+            if self.cfg.param.mode == "relora" else None
 
     def _build_train_step(self):
         """The step for the configured update_mode: the global step, or
@@ -322,6 +390,14 @@ class Trainer:
             self._c_tokens.inc(tokens_per_step)
             state = TrainerState(params, opt_state, state.consts,
                                  state.step + 1)
+            if self._relora_merge is not None and \
+                    state.step % self.cfg.param.relora_period == 0:
+                params, opt_state = self._relora_merge(
+                    state.params, state.opt_state,
+                    relora_generator(tc.seed, state.step, self.device))
+                state = TrainerState(params, opt_state, state.consts,
+                                     state.step)
+                self.log(f"[trainer] ReLoRA merge+restart at {state.step}")
             slow = self.watchdog.observe(state.step, dt)
             row.update(step=state.step, dt=dt)
             self.metrics_history.append(row)

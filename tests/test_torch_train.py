@@ -205,8 +205,6 @@ def test_adamw_clipped_step_matches_reference(wd):
         for g, w in zip(tree_leaves(tt), jax.tree.leaves(jt)):
             np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-6,
                                        atol=1e-7, err_msg=name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optimizers.make(OptimizerConfig(name="galore_adamw"))
 
 
 def test_nonfinite_gate_keeps_old_state_bit_exact():
@@ -216,17 +214,21 @@ def test_nonfinite_gate_keeps_old_state_bit_exact():
     old = {"w": torch.from_numpy(rng.standard_normal((3, 4)).astype(
         np.float32)).to(torch.bfloat16)}
     new["w"] = new["w"].to(torch.bfloat16)
+    old0 = old["w"].clone()
     good_g = {"w": torch.ones(3, 4)}
     bad_g = {"w": torch.tensor([[1.0, float("nan"), 0, 0]] * 3)}
+    # the gate writes its selection into the new leaves: a fresh copy each
+    fresh = lambda: {"w": new["w"].clone()}
     (kept,), flag = step_lib.nonfinite_gate(torch.tensor(1.0), bad_g,
-                                            (new,), (old,))
+                                            (fresh(),), (old,))
     assert float(flag) == 1.0 and torch.equal(kept["w"], old["w"])
     (took,), flag = step_lib.nonfinite_gate(torch.tensor(1.0), good_g,
-                                            (new,), (old,))
+                                            (fresh(),), (old,))
     assert float(flag) == 0.0 and torch.equal(took["w"], new["w"])
     (kept,), flag = step_lib.nonfinite_gate(torch.tensor(float("inf")),
-                                            good_g, (new,), (old,))
+                                            good_g, (fresh(),), (old,))
     assert float(flag) == 1.0 and torch.equal(kept["w"], old["w"])
+    assert torch.equal(old["w"], old0)
 
 
 @pytest.mark.parametrize("arch", registry.PAPER_ARCHS)
