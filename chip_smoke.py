@@ -65,7 +65,8 @@ full width and depth with random weights from a seed:
   step 4 and relaunched from their checkpoint (global AdamW, and
   per-layer 8-bit AdamW) that must end bit-identical to uninterrupted
   ones, optimizer state and 8-bit codes included;
-* train, checkpoint, calibrate, serve (``analysis/quant_recipe.py``):
+* train, checkpoint, calibrate, serve (``analysis/quant_recipe.py``), at
+  ``llama_1b``'s width on 6 of its layers (``RECIPE_LAYERS``):
   the bf16 fused ``Trainer`` for 60 steps writes a checkpoint under
   build/, the calibrate CLI's path turns it into a quant artifact on the
   card, the serve launcher's ``--ckpt-dir`` and ``--quant-ckpt`` paths
@@ -79,7 +80,18 @@ full width and depth with random weights from a seed:
 * (c) the paper's Table 2 comparison (``analysis/pretrain_comparison.py``):
   full rank, SLTrain, ReLoRA and low rank at an equal token budget, at the
   reference example's default size with its two asserts as gates, then
-  at ``llama_60m`` for 200 steps a mode, gated on finite losses.
+  at ``llama_60m`` for 100 steps a mode, gated on finite losses;
+* ``llama_7b`` (32 layers, d_model 4096, d_ff 11008, head_dim 128, rank
+  1024, delta 0.05), each phase from one init whose supports are sampled
+  in worker processes: (7a) every kernel against its plain version at
+  the 7B shapes, with the checks above; (7b) the f32 training pairs and
+  the f32 engine's tokens at 7B width on 2 layers; (7c) the per-layer
+  8-bit ``Trainer`` at full depth, 4 steps, then 3 with remat "full",
+  whose peak may not exceed the first's; (7d) full-rank global AdamW at
+  2, 4 and 8 layers, its peak fitted in depth and extrapolated to 32
+  layers (it does not fit on the card), the per-layer 8-bit peak gated
+  below it; (7e) the fused and sparse bf16 engines at full depth, timed
+  and profiled.
 
 Any failure exits non-zero. Without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -90,6 +102,7 @@ last, ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -147,6 +160,11 @@ PATH_KERNELS = {
     # engines without prefix sharing prefill with the model's own
     # attention: paged_prefill serves only a suffix after shared pages
     "serve_quant_fallback": ("sparse_matmul", "paged_attention"),
+    # llama_7b at full width and depth (phases 7c and 7e)
+    "train_per_layer_llama_7b": ("sl_matmul", "sddmm", "adam8bit"),
+    "serve_llama_7b": ("sl_matmul", "paged_attention", "paged_prefill"),
+    "serve_sparse_llama_7b": ("sparse_matmul", "paged_attention",
+                              "paged_prefill"),
 }
 # the quant recipe (train fused, calibrate, serve sparse and quant)
 PATH_KERNELS["recipe_llama_1b"] = PATH_KERNELS["recipe_llama_60m"] = (
@@ -166,6 +184,11 @@ CLIP = 0.37
 # one chain in token order; bf16: the tensor cores' 16-token steps), and
 # the absolute error grows with sqrt(M) times the partial sums' ulp
 SDDMM_ATOL, SDDMM_RTOL = 1e-3, 1e-4
+# the quant recipe (train, checkpoint, calibrate, serve) and the quant
+# fallback at llama_1b's full width on this many of its 24 layers: the
+# run must end within its time limit with the llama_7b phases, and
+# calibration's time grows with depth (~4.4 s a layer)
+RECIPE_LAYERS = 6
 # f32 train parity, fused vs dense: step 1 runs from identical parameters,
 # so only the order of f32 sums differs (1e-5 relative). From step 2 on,
 # Adam divides each gradient by its own magnitude: an element whose
@@ -181,6 +204,31 @@ def say(*parts) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def arch(cfg) -> str:
+    """A config's arch as the launchers name it, with its depth where a
+    phase cut it ("llama_7b at 2 of 32 layers")."""
+    from repro_torch.models import registry
+    name = cfg.name.replace("-", "_")
+    if name not in registry.PAPER_ARCHS:
+        return name
+    full = registry.get_config(name).n_layers
+    return name if cfg.n_layers == full else \
+        f"{name} at {cfg.n_layers} of {full} layers"
+
+
+@functools.lru_cache(maxsize=8)
+def support_tiles(seed, d_in, d_out, delta):
+    """(rows, cols, CPU tile consts) of a row-balanced support at the
+    fused capacity, sampled once per shape (a 4096 x 11008 support takes
+    about a second on the host) and shared by every kernel case of that
+    shape; callers only read them."""
+    from repro_torch.core import support
+    from repro_torch.kernels import ops
+    rows, cols = support.sample_support(seed, d_in, d_out, delta)
+    return rows, cols, ops.prepare_tile_consts(
+        rows, cols, d_in, d_out, pad=support.tile_cap(d_in, d_out, delta))
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +257,20 @@ class Timer:
             pairs.append((s, e))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+class Laps:
+    """Wall time of each phase of the run and of the run so far, printed
+    as the phases end (host clock; the phases end in a sync)."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        say(f"time: {label} {now - self.last:.1f} s (run so far "
+            f"{now - self.start:.1f} s)")
+        self.last = now
 
 
 def kernel_name(mangled: str) -> str:
@@ -289,11 +351,8 @@ def sl_case(gen, device, d_in, d_out, m, dtype, rank, delta, alpha, seed):
     """One SLTrain linear at real width: a sampled support in tile-CSR
     form, non-zero B (the paper init's B = 0 would hide the low-rank
     half), x of m rows."""
-    from repro_torch.core import support
     from repro_torch.kernels import ops
-    rows, cols = support.sample_support(seed, d_in, d_out, delta)
-    cap = support.tile_cap(d_in, d_out, delta)
-    tiles = ops.prepare_tile_consts(rows, cols, d_in, d_out, pad=cap)
+    rows, _, tiles = support_tiles(seed, d_in, d_out, delta)
     r = max(4, min(rank, min(d_in, d_out) // 2))
 
     def u(shape, lim):
@@ -391,17 +450,14 @@ def check_sl_matmul(timer, gen, device, cfg, m_values):
     return rows
 
 
-def sparse_decode_case(gen, device, d_in, d_out, m, dtype, delta, seed):
+def sparse_decode_case(gen, device, d_in, d_out, delta, seed):
     """One linear's sparse term at real width in both decode layouts: the
     f32 tile-CSR of v ~ U(±1/sqrt(d_in)) on a sampled support, and its
-    int8 layout (codes against per-channel absmax scales); x of m rows;
-    the support's entry count."""
-    from repro_torch.core import support
+    int8 layout (codes against per-channel absmax scales); the support's
+    entry count."""
     from repro_torch.kernels import ops
     from repro_torch.quant import layout
-    rows, cols = support.sample_support(seed, d_in, d_out, delta)
-    cap = support.tile_cap(d_in, d_out, delta)
-    tiles = ops.prepare_tile_consts(rows, cols, d_in, d_out, pad=cap)
+    rows, cols, tiles = support_tiles(seed, d_in, d_out, delta)
     v = (torch.rand(rows.shape[0], generator=gen, device=device) * 2 - 1) \
         * d_in ** -0.5
     v_t = ops._gather_tiles(v, tiles["perm"].to(device))
@@ -412,10 +468,9 @@ def sparse_decode_case(gen, device, d_in, d_out, m, dtype, delta, seed):
     q = layout.build_quant_consts(rows, cols,
                                   layout.quantize_values(vh, cols, sc), sc,
                                   d_in, d_out, delta, "row_balanced")
-    x = torch.randn((m, d_in), generator=gen, device=device).to(dtype)
     sp = [v_t] + [tiles[k].to(device) for k in ("rows_t", "cols_t")]
     qp = [q[k].to(device) for k in ("qv_t", "rows_q", "cols_q", "qscale")]
-    return x, sp, qp, rows.shape[0]
+    return sp, qp, rows.shape[0]
 
 
 def check_sparse_decode(timer, gen, device, cfg, m_values):
@@ -436,12 +491,14 @@ def check_sparse_decode(timer, gen, device, cfg, m_values):
     from repro_torch.kernels import sparse_decode as spk
     d, f = cfg.d_model, cfg.d_ff
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for (d_in, d_out) in ((d, d), (d, f), (f, d)):
+    for (d_in, d_out) in ((d, d), (d, f), (f, d)):
+        sp, qp, nnz = sparse_decode_case(gen, device, d_in, d_out,
+                                         cfg.param.delta,
+                                         seed=d_in * 7 + d_out)
+        for dtype in (torch.bfloat16, torch.float32):
             for m in m_values:
-                x, sp, qp, nnz = sparse_decode_case(
-                    gen, device, d_in, d_out, m, dtype, cfg.param.delta,
-                    seed=d_in * 7 + d_out)
+                x = torch.randn((m, d_in), generator=gen,
+                                device=device).to(dtype)
                 label = f"{m}x{d_in}->{d_out} {dname(dtype)}"
                 f32_out = " f32 out" if dtype != torch.float32 else ""
                 p = spk.plan(m, d_in, d_out, torch.cuda.get_device_properties(
@@ -611,12 +668,10 @@ def sparse_train_case(gen, device, d_in, d_out, m, dtype, delta, seed):
     """One linear of the sparse-mode training path at real width: the
     forward call (x (m, d_in), S's f32 tile-CSR, d_out) and the dx call
     (dy (m, d_out), Wᵀ's tiles, d_in), and the support's entry count."""
-    from repro_torch.core import support
     from repro_torch.kernels import ops
-    rows, cols = support.sample_support(seed, d_in, d_out, delta)
-    tiles = ops.add_transposed_tiles(ops.prepare_tile_consts(
-        rows, cols, d_in, d_out, pad=support.tile_cap(d_in, d_out, delta)))
-    tiles = {k: t.to(device) for k, t in tiles.items()}
+    rows, _, tiles = support_tiles(seed, d_in, d_out, delta)
+    tiles = {k: t.to(device)
+             for k, t in ops.add_transposed_tiles(tiles).items()}
     v = (torch.rand(rows.shape[0], generator=gen, device=device) * 2 - 1) \
         * d_in ** -0.5
     v_t = ops._gather_tiles(v, tiles["perm"])
@@ -998,6 +1053,7 @@ def check_attention(timer, gen, device, cfg, n_slots, block_len, bps,
     offsets = [16 * (s % 2) for s in range(n_slots - 1)] + [0]
     for dtype in (torch.bfloat16, torch.float32):
         for label, n_kv, group, cap, win in ATTN_CASES:
+            label = f"{label}, hd {hd}"
             kw = dict(scale=scale, softcap=cap, window=win)
             kp, vp, tbl, pos = attn_case(
                 gen, device, dtype, n_slots=n_slots, n_kv=n_kv, group=group,
@@ -1020,8 +1076,8 @@ def check_attention(timer, gen, device, cfg, n_slots, block_len, bps,
         q = torch.randn((len(LONG_POSITIONS), n_kv, group, hd),
                         generator=long_gen, device=device).to(torch.bfloat16)
         rows.append(decode_row(
-            timer, f"{label}, {LONG_BPS * block_len}-key context", q, kp, vp,
-            tbl, pos, dict(scale=scale)))
+            timer, f"{label}, hd {hd}, {LONG_BPS * block_len}-key context", q,
+            kp, vp, tbl, pos, dict(scale=scale)))
         del kp, vp
     return rows
 
@@ -1243,7 +1299,7 @@ def phase_engine_f32(cfg, params, consts, prompts, arrivals, device, **kw):
     same, ties = same_tokens("fused/paged vs dense/gather", a_reqs, b_reqs,
                              cfg, params, consts, device)
     total = sum(len(r.out) for r in a_reqs)
-    say(f"engine f32 llama_1b: {len(a_reqs)} requests, {total} tokens; "
+    say(f"engine f32 {arch(cfg)}: {len(a_reqs)} requests, {total} tokens; "
         f"fused/paged == dense/gather on {same}/{total} tokens"
         + (f", ties (uid, token, top-2 gap): {ties}" if ties else "")
         + f" | path A {a_wall:.2f} s launches {a_launches}, path B "
@@ -1268,7 +1324,7 @@ def phase_sparse_f32(cfg, params, consts, prompts, arrivals, b_reqs,
     same, ties = same_tokens("sparse/paged vs dense/gather", reqs, b_reqs,
                              cfg, params, consts, device)
     total = sum(len(r.out) for r in reqs)
-    say(f"engine f32 llama_1b sparse_decode=True: sparse/paged == "
+    say(f"engine f32 {arch(cfg)} sparse_decode=True: sparse/paged == "
         f"dense/gather on {same}/{total} tokens"
         + (f", ties (uid, token, top-2 gap): {ties}" if ties else "")
         + f" | {wall:.2f} s, launches {launches}")
@@ -1321,7 +1377,7 @@ def phase_quant_f32(cfg, params, consts, prompts, arrivals, device, **kw):
     n_lin = len(linear_shapes(cfg)) * cfg.n_layers
     if st["n_matrices"] != n_lin:
         fail(f"calibrate: {st['n_matrices']} matrices, expected {n_lin}")
-    say(f"calibrate llama_1b f32 on the card (host scales and codes, "
+    say(f"calibrate {arch(cfg)} f32 on the card (host scales and codes, "
         f"torch.linalg.svd fold on the card): {t_cal:.1f} s, n_matrices "
         f"{st['n_matrices']}, {st['nnz']} int8 codes, max_abs_err "
         f"{st['max_abs_err']:.4e}")
@@ -1371,7 +1427,7 @@ def phase_quant_f32(cfg, params, consts, prompts, arrivals, device, **kw):
     same, ties = same_tokens("quant/paged vs dense/gather on dequantized "
                              "weights", q_reqs, d_reqs, cfg, dp, lc, device)
     total = sum(len(r.out) for r in q_reqs)
-    say(f"engine f32 llama_1b exec_mode quant (loaded artifact) == "
+    say(f"engine f32 {arch(cfg)} exec_mode quant (loaded artifact) == "
         f"dense/gather on the dequantized weights on {same}/{total} tokens"
         + (f", ties (uid, token, top-2 gap): {ties}" if ties else "")
         + f" | quant {q_wall:.2f} s launches {launches}, dense "
@@ -1401,7 +1457,7 @@ def check_forward(cfg, params, consts, device):
         if errs[mode] > 1e-3 * max(1.0, scale):
             fail(f"apply_lm {mode} vs dense: max abs err {errs[mode]:.3e} "
                  f"at logit scale {scale:.3e}")
-    say(f"forward f32 llama_1b: logits {want} finite, max abs err vs dense: "
+    say(f"forward f32 {arch(cfg)}: logits {want} finite, max abs err vs dense: "
         f"fused {errs['fused']:.3e}, sparse {errs['sparse']:.3e} (tol 1e-3 x "
         f"max(1, {scale:.2f}))")
 
@@ -1418,11 +1474,12 @@ def sparse_bytes_per_step(cfg, quant: bool) -> int:
 
 
 def phase_engine_bf16(cfg, params, consts, prompts, arrivals, device,
-                      exec_mode="fused", **kw):
+                      exec_mode="fused", path=None, **kw):
     """Phase 4: a serving path in bf16 (``exec_mode`` fused, sparse or
     quant, with the paged kernels), timed, with every kernel's launch
-    count read around the run."""
-    path = EXEC_PATH[exec_mode]
+    count read around the run, and each kernel of ``path`` (default the
+    exec mode's, ``EXEC_PATH``) required to have launched."""
+    path = path or EXEC_PATH[exec_mode]
     reset_launch_counts()
     reqs, stats, eng, wall = serve(cfg, params, consts, prompts, arrivals,
                                    exec_mode=exec_mode, attn_kernel="paged",
@@ -1445,7 +1502,7 @@ def phase_engine_bf16(cfg, params, consts, prompts, arrivals, device,
                  f"{sparse_bytes_per_step(cfg, exec_mode == 'quant') / 1e6:.2f}"
                  f" MB ({kernel} launches per step "
                  f"{launches[kernel] / steps:.0f})")
-    say(f"engine bf16 llama_1b ({exec_mode}: {kernel} + paged kernels): "
+    say(f"engine bf16 {arch(cfg)} ({exec_mode}: {kernel} + paged kernels): "
         f"{len(stats['completed'])}/{len(reqs)} requests done, {tokens} "
         f"tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s, "
         f"{stats['decode_steps']} decode steps, "
@@ -1685,7 +1742,7 @@ def phase_train_parity(cfg, device, gen, *, batch, seq, steps=3):
     randomize_b(params, gen)
     consts = ops.add_transposed_tiles(consts)
     torch.cuda.synchronize()
-    say(f"init llama_1b f32 for training in {time.perf_counter() - t0:.1f} s")
+    say(f"init {arch(cfg)} f32 for training in {time.perf_counter() - t0:.1f} s")
     data = SyntheticC4(cfg.vocab_size, seq, batch, seed=tc.seed)
     batches = [{"tokens": torch.from_numpy(data.next_batch()["tokens"]).to(
         device)} for _ in range(steps)]
@@ -1735,7 +1792,7 @@ def phase_train_parity(cfg, device, gen, *, batch, seq, steps=3):
             fail(f"f32 {name} training launched {launches} (expected "
                  f"{kernels}, adam8bit {want_adam})")
         del p, st
-        say(f"train f32 llama_1b {name} ({opt_name}, {mode}): {steps} steps "
+        say(f"train f32 {arch(cfg)} {name} ({opt_name}, {mode}): {steps} steps "
             f"in {wall:.2f} s, (loss, grad_norm, nonfinite) per step {rows}"
             f" | launches {launches}")
     for a_name, b_name in pairs:
@@ -1836,7 +1893,7 @@ def phase_baseline_parity(cfg, device, *, batch, seq, steps=3):
             out[update_mode] = rows
             del params, st, consts
             torch.cuda.empty_cache()
-            say(f"train f32 llama_1b {label} ({update_mode}): "
+            say(f"train f32 {arch(cfg)} {label} ({update_mode}): "
                 f"{n / 1e6:.1f} M params, init {init_s:.1f} s, {steps} steps "
                 f"in {wall:.2f} s, (loss, grad_norm, nonfinite) per step "
                 f"{rows}")
@@ -1909,7 +1966,7 @@ def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=6):
     med = statistics.median(dts[1:])
     tokens = batch * seq
     mfu = roofline.train_mfu(cfg, tokens, med)
-    say(f"train bf16 llama_1b (Trainer, {mode}): {steps} steps, losses "
+    say(f"train bf16 {arch(cfg)} (Trainer, {mode}): {steps} steps, losses "
         f"{[round(x, 4) for x in losses]} | step ms (dispatch + sync) "
         f"{[round(d * 1e3, 1) for d in dts]}, median of steps 2-{steps} "
         f"{med * 1e3:.1f} ms = {tokens / med:.0f} tokens/s, MFU "
@@ -1966,15 +2023,21 @@ def kernel_device_ms(prof, key):
             len(events))
 
 
-def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak,
-                        steps=6):
+def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak=None,
+                        steps=6, remat="none", save=True, handoff=None):
     """Phase 9: the memory path, as ``launch.train --optimizer adam8bit
     --update-mode per_layer --exec-mode fused --layer-timing`` runs it:
     the Trainer in bf16 with per-layer updates and 8-bit AdamW through the
-    adam8bit kernel, one warm-up step plus five timed, its final
-    checkpoint written. Launch counts, the kernels' shapes and the peak of
-    ``torch.cuda.max_memory_allocated`` (reset after init) are read around
-    the run; the peak must stay below the global AdamW run's."""
+    adam8bit kernel, one warm-up step plus ``steps`` - 1 timed, its final
+    checkpoint written unless ``save`` is false. Launch counts, the
+    kernels' shapes and the peak of ``torch.cuda.max_memory_allocated``
+    (reset after init) are read around the run; the peak must stay below
+    ``global_peak`` where one is given. ``remat`` is the layers' policy
+    (each sweep then runs each layer's forward twice); ``handoff``, a list
+    holding one TrainerState, is popped and trained on instead of the
+    Trainer's own init, so that, as with an init, no caller keeps the
+    first step's inputs alive (a kept optimizer-state tree pins its old
+    step counter)."""
     from repro_torch.analysis import roofline
     from repro_torch.models.common import tree_leaves
     from repro_torch.train.trainer import Trainer
@@ -1983,11 +2046,17 @@ def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak,
     tc = train_config(cfg, steps=steps, batch=batch, seq=seq,
                       ckpt_dir=ckpt_dir, optimizer="adam8bit",
                       update_mode="per_layer")
+    tc = dataclasses.replace(tc, sharding=dataclasses.replace(
+        tc.sharding, remat=remat))
     start = FirstStep()
     tr = Trainer(tc, device=device, log_fn=lambda *a: None,
                  layer_timing=True, fault_hook=start)
+    if not save:
+        tr.save = lambda *a, **k: None
     with ShapeRecorder() as rec:
-        state = tr.run()
+        state = tr.run(state=dataclasses.replace(handoff.pop(), step=0)
+                       if handoff else None)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - start.t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -2001,9 +2070,11 @@ def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak,
             h["nonfinite"] for h in hist):
         fail(f"bf16 per-layer training: losses {losses}")
     n_lin = 7 * cfg.n_layers
-    # a forward, then a forward and a backward per layer in each sweep
+    # a forward, then a forward and a backward per layer in each sweep;
+    # under remat each sweep runs each layer's forward once more
+    fwd = 5 if remat == "none" else 7
     want = {k: 0 for k in launches}
-    want.update(sl_matmul=5 * n_lin * steps, sddmm=2 * n_lin * steps,
+    want.update(sl_matmul=fwd * n_lin * steps, sddmm=2 * n_lin * steps,
                 adam8bit=per_step * steps)
     if launches != want:
         fail(f"bf16 per-layer training launched {launches}, expected {want}")
@@ -2015,24 +2086,37 @@ def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak,
     med = statistics.median(dts[1:])
     tokens = batch * seq
     mfu = roofline.train_mfu(cfg, tokens, med)
-    say(f"train bf16 llama_1b (Trainer, per_layer, adam8bit, fused): {steps} "
-        f"steps, losses {[round(x, 4) for x in losses]} | step ms (dispatch "
-        f"+ sync) {[round(d * 1e3, 1) for d in dts]}, median of steps "
-        f"2-{steps} {med * 1e3:.1f} ms = {tokens / med:.0f} tokens/s, MFU "
-        f"{100 * mfu:.3f}% of {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s (data "
-        f"sheet) | launches per step: sl_matmul "
+    init = tr.obs.get("init.seconds")
+    init = (f"init {init.value:.1f} s with "
+            f"{tr.obs.get('init.sampling_workers').value:.0f} support "
+            "sampling workers" if init is not None else "state passed in")
+    est = memory_estimate(cfg, "sltrain", "adam8bit", "per_layer")
+    nstate = state_bytes(state)
+    say(f"train bf16 {arch(cfg)} (Trainer, per_layer, adam8bit, fused, remat "
+        f"{remat}): {steps} steps, losses {[round(x, 4) for x in losses]} | "
+        f"step ms (dispatch + sync) {[round(d * 1e3, 1) for d in dts]}, "
+        f"median of steps 2-{steps} {med * 1e3:.1f} ms = {tokens / med:.0f} "
+        f"tokens/s, MFU {100 * mfu:.3f}% of {roofline.PEAK_FLOPS / 1e12:.0f} "
+        f"TFLOP/s (data sheet) | launches per step: sl_matmul "
         f"{launches['sl_matmul'] // steps}, sddmm "
         f"{launches['sddmm'] // steps}, adam8bit "
         f"{launches['adam8bit'] // steps} | train.perlayer.layer_update_ms "
         f"over {lt.count} layer updates: mean {lt.sum / lt.count:.2f} "
-        f"(histogram bucket p50 {lt.percentile(50):.0f}) | run wall "
-        f"{wall:.1f} s incl. checkpoint of step {steps} | {smi}")
-    say(f"memory bf16 llama_1b: max_memory_allocated per_layer + adam8bit "
-        f"{peak / 2**30:.2f} GiB vs SLTrain global AdamW "
-        f"{global_peak / 2**30:.2f} GiB (same script run; the memory table "
-        f"below has the estimates); the fused linear keeps tile consts for W "
-        f"and Wᵀ outside the trees ({consts_b / 2**30:.2f} GiB here)")
-    if not peak < global_peak:
+        f"(histogram bucket p50 {lt.percentile(50):.0f}) | {init} | run "
+        f"wall {wall:.1f} s"
+        + (f" incl. checkpoint of step {steps}" if save else
+           " (final checkpoint not written)") + f" | {smi}")
+    say(f"memory bf16 {arch(cfg)} per_layer + adam8bit, remat {remat}: "
+        f"max_memory_allocated {peak} B = {peak / 2**30:.3f} GiB | params + "
+        f"optimizer state {nstate / 2**30:.3f} GiB, training_estimate "
+        f"(f32 moments, int32 indices) params + optimizer "
+        f"{(est.param_bytes + est.optim_bytes) / 2**30:.3f} GiB, with grads "
+        f"and transients {est.total_bytes / 2**30:.3f} GiB | the fused "
+        f"linear's tile consts for W and Wᵀ, outside the trees, "
+        f"{consts_b / 2**30:.3f} GiB"
+        + (f" | SLTrain global AdamW {global_peak / 2**30:.2f} GiB (same "
+           "script run)" if global_peak is not None else ""))
+    if global_peak is not None and not peak < global_peak:
         fail(f"per-layer peak {peak / 2**30:.2f} GiB is not below the global "
              f"AdamW peak {global_peak / 2**30:.2f} GiB")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -2094,12 +2178,12 @@ def memory_estimate(cfg, method, optimizer, update_mode, galore_rank=None):
         fused_opt=optimizer == "adam8bit")
 
 
-def memory_line(label, row, est, cause, smi):
+def memory_line(cfg, label, row, est, cause, smi):
     """One row of the memory table, unrounded where it counts."""
     want = est.param_bytes + est.optim_bytes
     gap = row["state"] / want - 1
     tokens = row["tokens"]
-    say(f"memory bf16 llama_1b {label}: max_memory_allocated "
+    say(f"memory bf16 {arch(cfg)} {label}: max_memory_allocated "
         f"{row['peak']} B = {row['peak'] / 2**30:.3f} GiB | params + "
         f"optimizer state {row['state']} B = {row['state'] / 2**30:.3f} "
         f"GiB | training_estimate (f32 moments, int32 indices) params + "
@@ -2171,7 +2255,7 @@ def phase_memory_table(cfg, device, smi, *, batch, seq, sltrain_rows):
         est = memory_estimate(cfg, method, opt, update_mode,
                               galore_rank=row["galore_rank"])
         cause = MEMORY_GAP_CAUSE.get(mode) or MEMORY_GAP_CAUSE.get(opt)
-        gap = memory_line(label, row, est, cause, smi)
+        gap = memory_line(cfg, label, row, est, cause, smi)
         if method in ("full", "lowrank") and opt == "adamw" and \
                 abs(gap) > MEMORY_STATE_TOL:
             fail(f"memory {label}: params + optimizer state "
@@ -2180,12 +2264,13 @@ def phase_memory_table(cfg, device, smi, *, batch, seq, sltrain_rows):
         rows[label] = row
     for label, (row, opt, update_mode) in sltrain_rows.items():
         est = memory_estimate(cfg, "sltrain", opt, update_mode)
-        memory_line(label, row, est, MEMORY_GAP_CAUSE["sltrain"], smi)
+        memory_line(cfg, label, row, est, MEMORY_GAP_CAUSE["sltrain"],
+                    smi)
         rows[label] = row
     full = rows["full rank, AdamW, global"]["peak"]
     lean = rows["SLTrain, 8-bit AdamW, per_layer (fused)"]["peak"]
     paper = memory.paper_f_reduction("1b", index_bytes=4)
-    say(f"memory bf16 llama_1b: per-layer 8-bit SLTrain {lean / 2**30:.3f} "
+    say(f"memory bf16 {arch(cfg)}: per-layer 8-bit SLTrain {lean / 2**30:.3f} "
         f"GiB against full-rank global AdamW {full / 2**30:.3f} GiB: "
         f"{100 * (1 - lean / full):.2f}% less measured (peaks, activations "
         f"included), beside paper_f_reduction('1b', index_bytes=4) "
@@ -2202,12 +2287,12 @@ def phase_comparison(device):
     parameterizations at an equal token budget, at the reference example's
     default size (dim 128, 300 steps, batch 8 × seq 128) with its two
     asserts as gates, then at ``llama_60m`` (the paper config, full width)
-    for 200 steps a mode, gated only on finite losses."""
+    for 100 steps a mode, gated only on finite losses."""
     from repro_torch.analysis import pretrain_comparison as cmp
     root = os.path.join(ROOT, "build")
     os.makedirs(root, exist_ok=True)
     for label, kw in (("default size (dim 128)", dict(steps=300)),
-                      ("llama_60m", dict(size="60m", steps=200))):
+                      ("llama_60m", dict(size="60m", steps=100))):
         t0 = time.perf_counter()
         res = cmp.compare(device=device, ckpt_root=root,
                           log_fn=lambda *a: None, **kw)
@@ -2280,7 +2365,7 @@ def phase_recipe_llama_1b(cfg, device, smi, *, batch, seq, steps=60):
     med = statistics.median(h["dt"] for h in tr.metrics_history[1:])
     del tr
     torch.cuda.empty_cache()
-    say(f"recipe llama_1b: trained {steps} bf16 steps (Trainer, fused, "
+    say(f"recipe {arch(cfg)}: trained {steps} bf16 steps (Trainer, fused, "
         f"batch {batch} x seq {seq}) in {t_train:.1f} s incl. the checkpoint"
         f" of step {steps}; median step {med * 1e3:.1f} ms; loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f} | {smi}")
@@ -2292,7 +2377,7 @@ def phase_recipe_llama_1b(cfg, device, smi, *, batch, seq, steps=60):
                                                      device=device)
     torch.cuda.synchronize()
     t_cal = time.perf_counter() - t0
-    say(f"recipe llama_1b: calibrate CLI path (restore, calibrate on the "
+    say(f"recipe {arch(cfg)}: calibrate CLI path (restore, calibrate on the "
         f"card, write the artifact under build/) {t_cal:.1f} s, "
         f"{qstats['n_matrices']} matrices, {qstats['nnz']} int8 codes, "
         f"max |W - Wq| {qstats['max_abs_err']:.4e}")
@@ -2307,7 +2392,7 @@ def phase_recipe_llama_1b(cfg, device, smi, *, batch, seq, steps=60):
                                    qstats, device=device, train_steps=steps)
     torch.cuda.synchronize()
     launches = launch_counts()
-    recipe_line("llama_1b", rows, f"rows in {time.perf_counter() - t0:.1f} "
+    recipe_line(arch(cfg), rows, f"rows in {time.perf_counter() - t0:.1f} "
                 f"s, launches over the whole recipe {launches}")
     missing = [k for k in PATH_KERNELS["recipe_llama_1b"] if not launches[k]]
     if missing:
@@ -2406,7 +2491,7 @@ def phase_quant_fallback(cfg, device, ckpt_dir, new_tokens=16):
     if fb_tok != sp_tok:
         fail("quant_fallback: tokens differ from the sparse engine's")
     total = sum(len(t) for t in fb_tok)
-    say(f"quant_fallback llama_1b (trained checkpoint, exec_mode quant "
+    say(f"quant_fallback {arch(cfg)} (trained checkpoint, exec_mode quant "
         f"without int8 consts): warned {warned[0]!r}, serve.quant_fallback "
         f"1, served as exec_mode {fb_mode}; tokens == the sparse engine's on "
         f"{total}/{total} | fallback {fb_wall:.2f} s, sparse {sp_wall:.2f} "
@@ -2509,33 +2594,308 @@ def check_train_coverage(shapes, m, cfg, kernels=("sl_matmul", "sddmm")):
         + " (M, K, N), all checked above")
 
 
-def kernels_line(rows, by_path, representative):
-    """One entry per kernel: the representative case's times and bound,
-    the largest error over all of the kernel's cases; launches summed
+def representatives(cfg, rows, m, n_slots, bucket):
+    """{kernel: the shape of its representative case} among ``rows`` (one
+    config's): the training rows of sl_matmul and sddmm, the engine's
+    decode and largest prefill bucket at 32 heads, the embedding's 8-bit
+    step (bf16, weight decay on) and the sparse decode at 4 rows."""
+    leaf_rows = [r for r in rows if r["name"] == "adam8bit"
+                 and r["n"] is not None]
+    embed = [r["shape"] for r in leaf_rows if r["n"] == max(
+        x["n"] for x in leaf_rows) and r["dtype"] == torch.bfloat16
+        and r["shape"].endswith("wd 0.1")][0]
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    decode = f"{n_slots}x{d}->{f} bfloat16"
+    return {"sl_matmul": f"{m}x{d}->{f} bfloat16",
+            "paged_attention": f"32 heads, hd {hd} bfloat16",
+            "paged_prefill": f"sq={bucket} 32 heads, hd {hd} bfloat16",
+            "sddmm": f"{m}x({d},{f}) bfloat16",
+            "adam8bit": embed,
+            "sparse_matmul": decode + " f32 out",
+            "quant_sparse_matmul": decode}
+
+
+def kernels_line(rows, by_path, representative, rows_7b, representative_7b):
+    """One entry per kernel: the llama_1b representative case's times and
+    bound (and, under ``at_llama_7b``, the llama_7b one's), the largest
+    error over all of the kernel's cases at both configs; launches summed
     over the main paths' runs (serving fused, sparse and quant; training
     fused, sparse and per-layer; the quant recipe at llama_1b and at its
-    default size; the quant fallback), each path's count beside them."""
+    default size; the quant fallback; llama_7b's per-layer training and
+    fused and sparse serving), each path's count beside them."""
     out = []
     src = {"sl_matmul": SL_SOURCE, "paged_attention": PA_SOURCE,
            "paged_prefill": PA_SOURCE, "sddmm": SD_SOURCE,
            "adam8bit": AD_SOURCE, "sparse_matmul": SP_SOURCE,
            "quant_sparse_matmul": SP_SOURCE}
+    times = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, shape in representative.items():
         mine = [r for r in rows if r["name"] == name]
         rep = next(r for r in mine if r["shape"] == shape)
+        mine7 = [r for r in rows_7b if r["name"] == name]
+        rep7 = next(r for r in mine7 if r["shape"] == representative_7b[name])
         out.append({
             "name": name, "route": "cuda", "source": src[name],
             "replaces": REPLACES[name],
             "launches": sum(n[name] for n in by_path.values()),
             "launches_by_path": {p: n[name] for p, n in by_path.items()},
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-            "library_ms": rep["library_ms"], "shape": shape,
+            "max_abs_err": max(r["max_abs_err"] for r in mine + mine7),
+            **{k: rep[k] for k in times}, "shape": shape,
             "cases": len(mine),
             **{k: rep[k] for k in ("variant", "pad_ms", "library_f32_ms")
-               if k in rep}})
+               if k in rep},
+            "at_llama_7b": {"shape": rep7["shape"], "cases": len(mine7),
+                            **{k: rep7[k] for k in times}}})
     return {"kernels": out}
+
+
+# ---------------------------------------------------------------------------
+# phases 7a to 7e: llama_7b
+# ---------------------------------------------------------------------------
+
+# full-rank depths of the 7B memory fit (phase 7d); full depth does not
+# fit on one card
+DEPTHS_7B = (2, 4, 8)
+# the largest residual of that fit, as a share of its point: a global
+# AdamW step's peak adds one layer's params, grads, moments and the
+# update's new state per layer, a line in the depth, plus f32
+# temporaries of the largest leaf, whose slope changes once a stacked
+# layer leaf outgrows the embedding (between 2 and 4 layers at 7B width)
+FIT_RESIDUAL_TOL = 0.03
+
+
+def check_kernels_7b(device, cfg, m_values, n_slots, block_len, bps,
+                     buckets, m_train):
+    """Phase 7a: every kernel against its plain version at the llama_7b
+    shapes, with the same checks, timings and plans as at llama_1b: the
+    decode and prefill row counts and the training rows of sl_matmul (and
+    its dx), sddmm, sparse_matmul and quant_sparse_matmul; the paged
+    kernels at head_dim 128; adam8bit at every segment of the per-layer
+    step and over one layer's slices in one launch. Own generators, so no
+    earlier phase's draws move."""
+    timer = Timer(device)
+    gens = []
+    for seed in (10, 11, 12, 13, 14):
+        g = torch.Generator(device=device)
+        g.manual_seed(seed)
+        gens.append(g)
+    rows = check_sl_matmul(timer, gens[0], device, cfg, m_values)
+    rows += check_attention(timer, gens[1], device, cfg, n_slots, block_len,
+                            bps, buckets)
+    rows += check_sparse_decode(timer, gens[2], device, cfg, m_values)
+    rows += check_train_kernels(timer, gens[0], device, cfg, m_train)
+    rows += check_sparse_train_kernels(timer, gens[3], device, cfg, m_train)
+    rows += check_adam8bit(timer, gens[4], device, cfg)
+    del timer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_parity_7b(cfg, device, *, batch, seq, n_slots, block_len,
+                    max_len, buckets, m_values):
+    """Phase 7b: the f32 pairs of phase 6 at llama_7b's width on 2 layers
+    (fused, sparse and per-layer 8-bit against their references, 3 steps
+    each, the existing tolerances), then the f32 engine's greedy tokens
+    along fused + paged kernels and sparse + paged kernels against dense
+    + gathered attention (head_dim 128 through ``attend``)."""
+    from repro_torch.models import lm
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20)
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                                param=dataclasses.replace(
+                                    cfg.param, exec_mode="fused"))
+    phase_train_parity(cfg32, device, gen, batch=batch, seq=seq)
+    torch.cuda.empty_cache()
+    params, consts = lm.init_lm(cfg32, seed=0, device=device)
+    randomize_b(params, gen)
+    prompts, arrivals = traffic(cfg.vocab_size)
+    kw = dict(n_slots=n_slots, max_len=max_len, block_len=block_len,
+              new_tokens=16)
+    check_forward(cfg32, params, consts, device)
+    fused, b_reqs = phase_engine_f32(cfg32, params, consts, prompts,
+                                     arrivals, device, **kw)
+    sparse = phase_sparse_f32(cfg32, params, consts, prompts, arrivals,
+                              b_reqs, device, **kw)
+    check_coverage(fused, m_values, buckets)
+    check_coverage(sparse, m_values, buckets, "sparse_matmul")
+    del params, consts
+    torch.cuda.empty_cache()
+
+
+def phase_train_7b(cfg, device, smi, *, batch, seq):
+    """Phase 7c: llama_7b at full width and depth through the Trainer in
+    bf16, per-layer 8-bit SLTrain, exec_mode fused, 4 steps (one warm-up),
+    from its own pooled init; then 3 steps with remat "full" on the state
+    it left (no second init). No checkpoint is written. Gate: remat's peak
+    is not above the first run's, in the bytes the tensors requested: the
+    allocated bytes count whole cached blocks, which depend on what the
+    allocator cached before (the second run starts from the first's
+    cache), not on remat. Returns the first run's launch counts, the
+    segments adam8bit saw and its peak (max_memory_allocated)."""
+    requested = lambda: torch.cuda.memory_stats(device)[
+        "requested_bytes.all.peak"]
+    tr, state, launches, seen, _, peak = phase_perlayer_bf16(
+        cfg, device, smi, batch=batch, seq=seq, steps=4, save=False)
+    want = requested()
+    handoff = [state]
+    del tr, state
+    _, _, _, _, _, remat_peak = phase_perlayer_bf16(
+        cfg, device, smi, batch=batch, seq=seq, steps=3, remat="full",
+        save=False, handoff=handoff)
+    remat_want = requested()
+    torch.cuda.empty_cache()
+    say(f"memory bf16 {arch(cfg)} per_layer + adam8bit, peaks of the bytes "
+        f"the tensors asked for (the allocator's requested_bytes): remat "
+        f"full {remat_want} B = {remat_want / 2**30:.3f} GiB against remat "
+        f"none {want} B ({remat_want - want:+d} B); of max_memory_allocated "
+        f"(whole cached blocks): {remat_peak} B against {peak} B "
+        f"({remat_peak - peak:+d} B)")
+    if remat_want > want:
+        fail(f"remat full's tensors peak at {remat_want} B, above remat "
+             f"none's {want} B")
+    return launches, seen, peak
+
+
+def phase_memory_7b(cfg, device, smi, *, batch, seq, lean_peak):
+    """Phase 7d: the paper's 7B memory claim. Full-rank global AdamW in
+    bf16 at llama_7b's width does not fit on one card at 32 layers, so it
+    runs at DEPTHS_7B (``memory_row`` with ``n_layers`` replaced), each
+    row's params + state within MEMORY_STATE_TOL of the estimator's; its
+    peak is fitted as a + b·L by least squares (``core.memory.depth_fit``),
+    every residual within FIT_RESIDUAL_TOL of its point, and extrapolated
+    to full depth. Gate: the per-layer 8-bit SLTrain peak measured at full
+    depth (``lean_peak``, phase 7c) is below that extrapolation. SLTrain
+    with global AdamW is printed as an estimate only."""
+    from repro_torch.core import memory
+    peaks = []
+    for depth in DEPTHS_7B:
+        c = dataclasses.replace(cfg, n_layers=depth)
+        row = memory_row(c, device, mode="dense", optimizer="adamw",
+                         update_mode="global", batch=batch, seq=seq)
+        est = memory_estimate(c, "full", "adamw", "global")
+        gap = memory_line(c, "full rank, AdamW, global", row, est, None, smi)
+        if abs(gap) > MEMORY_STATE_TOL:
+            fail(f"memory {arch(c)} full rank: params + optimizer state "
+                 f"{row['state']} B is {100 * gap:+.3f}% from the "
+                 f"estimator's, beyond {100 * MEMORY_STATE_TOL}%")
+        peaks.append(row["peak"])
+    fit = memory.depth_fit(DEPTHS_7B, peaks)
+    for depth, y, r in zip(DEPTHS_7B, peaks, fit.residuals):
+        say(f"memory fit {arch(cfg)} full rank: {depth} layers, peak {y} B, "
+            f"fitted {fit.at(depth):.0f} B, residual {r:+.0f} B = "
+            f"{100 * r / y:+.3f}% (tol {100 * FIT_RESIDUAL_TOL}%)")
+        if abs(r) > FIT_RESIDUAL_TOL * y:
+            fail(f"the full-rank peak at {depth} layers is {100 * r / y:+.2f}% "
+                 f"off the fitted line, beyond {100 * FIT_RESIDUAL_TOL}%")
+    full = fit.at(cfg.n_layers)
+    est = memory_estimate(cfg, "full", "adamw", "global")
+    card = torch.cuda.get_device_properties(device).total_memory
+    say(f"memory {arch(cfg)} full rank, AdamW, global: extrapolated (not "
+        f"measured) to {cfg.n_layers} layers {full / 2**30:.3f} GiB = "
+        f"{fit.a / 2**30:.3f} + {fit.b / 2**30:.4f} GiB x {cfg.n_layers} "
+        f"layers, beside training_estimate (f32 moments) "
+        f"{est.total_bytes / 2**30:.2f} GiB with grads and transients "
+        f"({(est.param_bytes + est.optim_bytes) / 2**30:.2f} GiB params + "
+        f"optimizer) and the card's {card / 2**30:.2f} GiB | {smi}")
+    paper = memory.paper_f_reduction("7b", index_bytes=4)
+    say(f"memory bf16 {arch(cfg)}: per-layer 8-bit SLTrain "
+        f"{lean_peak / 2**30:.3f} GiB measured at full depth against "
+        f"full-rank global AdamW {full / 2**30:.3f} GiB extrapolated: "
+        f"{100 * (1 - lean_peak / full):.2f}% less, beside "
+        f"paper_f_reduction('7b', index_bytes=4) "
+        f"{100 * paper['reduction']:.1f}% ({paper['full_G']:.2f} -> "
+        f"{paper['lean_G']:.2f} GB; bf16 moments, no activations) | {smi}")
+    if not lean_peak < full:
+        fail(f"per-layer 8-bit SLTrain peak {lean_peak / 2**30:.3f} GiB is "
+             f"not below the extrapolated full-rank peak "
+             f"{full / 2**30:.3f} GiB")
+    sl = memory_estimate(cfg, "sltrain", "adamw", "global")
+    say(f"memory {arch(cfg)} SLTrain, AdamW, global: estimate only (not "
+        f"run): training_estimate {sl.total_bytes / 2**30:.2f} GiB with "
+        f"grads and transients, {(sl.param_bytes + sl.optim_bytes) / 2**30:.2f}"
+        f" GiB params + optimizer")
+
+
+def phase_serving_7b(cfg, device, *, n_slots, block_len, max_len, buckets,
+                     m_values):
+    """Phase 7e: llama_7b at full width and depth served in bf16 from one
+    pooled init (B ~ U(-1, 1), fused tile consts, which the sparse path
+    reads too): the fused and the sparse engine on the llama_1b traffic,
+    timed, launch counts read around each run, then profiled. Returns each
+    path's launch counts."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.obs import metrics as obs_metrics
+    gen = torch.Generator(device=device)
+    gen.manual_seed(30)
+    cfg16 = dataclasses.replace(cfg, param=dataclasses.replace(
+        cfg.param, exec_mode="fused"))
+    reg = obs_metrics.Registry()
+    params, consts = lm.init_lm(cfg16, seed=0, device=device, obs=reg)
+    randomize_b(params, gen)
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    say(f"init {arch(cfg16)} bf16: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, d_ff {cfg.d_ff}, head_dim {cfg.resolved_head_dim}, "
+        f"rank {cfg.param.rank}, delta {cfg.param.delta}, "
+        f"{n_params / 1e6:.1f} M params, consts "
+        f"{sum(nbytes(t) for _, t in tree_leaves(consts)) / 2**30:.2f} GiB, "
+        f"in {reg.get('init.seconds').value:.1f} s with "
+        f"{reg.get('init.sampling_workers').value:.0f} support sampling "
+        "workers")
+    prompts, arrivals = traffic(cfg.vocab_size)
+    kw = dict(n_slots=n_slots, max_len=max_len, block_len=block_len,
+              new_tokens=16)
+    by_path = {}
+    for mode, kernel in (("fused", "sl_matmul"), ("sparse", "sparse_matmul")):
+        path = f"{EXEC_PATH[mode]}_llama_7b"
+        launches, shapes, wall = phase_engine_bf16(
+            cfg16, params, consts, prompts, arrivals, device, exec_mode=mode,
+            path=path, **kw)
+        by_path[path] = launches
+        check_coverage(shapes, m_values, buckets, kernel)
+        phase_profile(cfg16, params, consts, prompts, arrivals, device, wall,
+                      exec_mode=mode, attn_kernel="paged", **kw)
+    del params, consts
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def run_7b(device, smi, *, batch, seq, n_slots, block_len, max_len, buckets,
+           m_values):
+    """Phases 7a to 7e on llama_7b; returns (kernel rows, launch counts
+    by path, the adam8bit segments the per-layer step saw)."""
+    from repro_torch.configs import llama_7b
+    cfg = llama_7b.CONFIG
+    t0 = time.perf_counter()
+    rows = check_kernels_7b(device, cfg, m_values, n_slots, block_len,
+                            max_len // block_len, buckets, batch * seq)
+    say(f"phase 7a ({arch(cfg)} kernels): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_parity_7b(cfg, device, batch=batch, seq=seq, n_slots=n_slots,
+                    block_len=block_len, max_len=max_len, buckets=buckets,
+                    m_values=m_values)
+    say(f"phase 7b ({arch(cfg)} f32 parity, 2 layers): "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cfg16 = dataclasses.replace(cfg, param=dataclasses.replace(
+        cfg.param, exec_mode="fused"))
+    with ShapeRecorder() as rec:
+        launches, seen, lean_peak = phase_train_7b(cfg16, device, smi,
+                                                   batch=batch, seq=seq)
+    check_train_coverage(rec.shapes, batch * seq, cfg)
+    check_adam8bit_coverage(seen, rows)
+    by_path = {"train_per_layer_llama_7b": launches}
+    say(f"phase 7c ({arch(cfg)} training): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_memory_7b(cfg, device, smi, batch=batch, seq=seq,
+                    lean_peak=lean_peak)
+    say(f"phase 7d ({arch(cfg)} memory): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path.update(phase_serving_7b(cfg, device, n_slots=n_slots,
+                                    block_len=block_len, max_len=max_len,
+                                    buckets=buckets, m_values=m_values))
+    say(f"phase 7e ({arch(cfg)} serving): {time.perf_counter() - t0:.1f} s")
+    return rows, by_path
 
 
 # ---------------------------------------------------------------------------
@@ -2555,7 +2915,7 @@ def run_serving(cfg, device, gen, n_slots, block_len, max_len, buckets,
     randomize_b(params, gen)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for _, t in tree_leaves(params))
-    say(f"init llama_1b: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
+    say(f"init {arch(cfg)}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
         f"{cfg.d_ff}, rank {cfg.param.rank}, {n_params / 1e6:.1f} M params, "
         f"consts {sum(nbytes(t) for _, t in tree_leaves(consts)) / 2**30:.2f} "
         f"GiB, in {time.perf_counter() - t0:.1f} s")
@@ -2611,6 +2971,7 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
     say(smi)
 
+    lap = Laps()
     t0 = time.perf_counter()
     build.build()
     say(f"build: {len(build.SOURCES)} kernels with nvcc in "
@@ -2649,10 +3010,12 @@ def main() -> int:
     ad_rows = check_adam8bit(timer, ad_gen, device, cfg)
     del timer                       # free the L2 sweep buffer
     torch.cuda.empty_cache()
+    lap("build and llama_1b kernels")
 
     by_path = run_serving(cfg, device, gen, n_slots, block_len, max_len,
                           buckets, m_values)
     torch.cuda.empty_cache()
+    lap("llama_1b serving")
 
     phase_train_parity(dataclasses.replace(
         cfg, dtype="float32", param=dataclasses.replace(
@@ -2662,6 +3025,7 @@ def main() -> int:
     phase_baseline_parity(dataclasses.replace(cfg, dtype="float32"), device,
                           batch=batch, seq=seq)
     torch.cuda.empty_cache()
+    lap("llama_1b f32 training parity")
     cfg16 = dataclasses.replace(cfg, param=dataclasses.replace(
         cfg.param, exec_mode="fused"))
     tr, state, by_path["train"], shapes, med, global_peak = \
@@ -2702,35 +3066,38 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_memory_table(cfg, device, smi, batch=batch, seq=seq,
                        sltrain_rows=sltrain_rows)
+    lap("llama_1b bf16 training and memory table")
     phase_kill_resume(device)
     phase_kill_resume(device, optimizer="adam8bit", update_mode="per_layer")
+    lap("kill/resume")
+    recipe_cfg = dataclasses.replace(cfg16, n_layers=RECIPE_LAYERS)
     by_path["recipe_llama_1b"], recipe_ckpt = phase_recipe_llama_1b(
-        cfg16, device, smi, batch=batch, seq=seq)
+        recipe_cfg, device, smi, batch=batch, seq=seq)
     torch.cuda.empty_cache()
-    by_path["serve_quant_fallback"] = phase_quant_fallback(cfg16, device,
-                                                           recipe_ckpt)
+    by_path["serve_quant_fallback"] = phase_quant_fallback(
+        recipe_cfg, device, recipe_ckpt)
     shutil.rmtree(recipe_ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
     by_path["recipe_llama_60m"] = phase_recipe_default(device)
     torch.cuda.empty_cache()
+    lap("quant recipe and fallback")
     phase_comparison(device)
+    lap("Table 2 comparison")
 
-    m = batch * seq
-    leaf_rows = [r for r in ad_rows if r["n"] is not None]
-    embed = [r["shape"] for r in leaf_rows if r["n"] == max(
-        x["n"] for x in leaf_rows) and r["dtype"] == torch.bfloat16
-        and r["shape"].endswith("wd 0.1")][0]
-    decode = f"{n_slots}x{cfg.d_model}->{cfg.d_ff} bfloat16"
-    line = kernels_line(sl_rows + at_rows + tr_rows + ad_rows + sp_rows
-                        + st_rows,
-                        by_path, {
-        "sl_matmul": f"{m}x{cfg.d_model}->{cfg.d_ff} bfloat16",
-        "paged_attention": "32 heads bfloat16",
-        "paged_prefill": f"sq={buckets[-1]} 32 heads bfloat16",
-        "sddmm": f"{m}x({cfg.d_model},{cfg.d_ff}) bfloat16",
-        "adam8bit": embed,
-        "sparse_matmul": decode + " f32 out",
-        "quant_sparse_matmul": decode})
+    rows_7b, by_path_7b = run_7b(device, smi, batch=batch, seq=seq,
+                                 n_slots=n_slots, block_len=block_len,
+                                 max_len=max_len, buckets=buckets,
+                                 m_values=m_values)
+    by_path.update(by_path_7b)
+    lap("llama_7b phases")
+
+    from repro_torch.configs import llama_7b
+    rows = sl_rows + at_rows + tr_rows + ad_rows + sp_rows + st_rows
+    line = kernels_line(
+        rows, by_path,
+        representatives(cfg, rows, batch * seq, n_slots, buckets[-1]),
+        rows_7b, representatives(llama_7b.CONFIG, rows_7b, batch * seq,
+                                 n_slots, buckets[-1]))
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -316,3 +316,31 @@ def paper_table8(size: str, delta: float = 0.03) -> Dict[str, Dict[str, float]]:
     for method in ("full", "lowrank", "relora", "galore", "sltrain"):
         out[method] = estimate(inv, method, rank=rank, delta=delta).as_dict()
     return out
+
+
+@dataclass(frozen=True)
+class DepthFit:
+    """A measured quantity (a peak's bytes) as ``a + b·depth``, fitted by
+    least squares, with each point's residual (measured minus fitted) in
+    the points' order. The port's own: the reference fits nothing."""
+    a: float
+    b: float
+    residuals: tuple
+
+    def at(self, depth: float) -> float:
+        """The line at ``depth`` (an extrapolation outside the points)."""
+        return self.a + self.b * depth
+
+
+def depth_fit(depths, values) -> DepthFit:
+    """Least-squares line through (depth, value) points; at least two
+    distinct depths."""
+    xs, ys = tuple(float(d) for d in depths), tuple(float(v) for v in values)
+    if len(xs) != len(ys) or len(set(xs)) < 2:
+        raise ValueError(f"depth_fit needs two distinct depths, one value "
+                         f"each: got depths {xs}, values {ys}")
+    mx, my = sum(xs) / len(xs), sum(ys) / len(ys)
+    b = sum((x - mx) * (y - my) for x, y in zip(xs, ys)) / \
+        sum((x - mx) ** 2 for x in xs)
+    a = my - b * mx
+    return DepthFit(a, b, tuple(y - (a + b * x) for x, y in zip(xs, ys)))

@@ -43,54 +43,42 @@ from repro_torch.core import support as support_lib
 from repro_torch.core.lowrank import uniform
 from repro_torch.device import resolve
 
-# Seed stride of the host-side re-sample when a sampled support exceeds
-# the deterministic tile_cap bound; the reference's value, so both
-# packages re-derive the same final support.
-_RESAMPLE_STRIDE = 0x9E3779B1
-_RESAMPLE_ATTEMPTS = 16
+# exec modes whose kernels read the tile consts {rows_t, cols_t, perm}
+TILED_MODES = ("fused", "sparse", "quant")
 
 
-def prepare_fused_consts(rows, cols, d_in: int, d_out: int, delta: float,
-                         support_kind: str, seed: int):
-    """Tile consts {rows_t, cols_t, perm} at the ``support.tile_cap``
-    capacity. Returns (rows, cols, consts): a support that busts the bound
-    is re-sampled with a deterministically bumped seed."""
-    from repro_torch.kernels import ops
-    cap = support_lib.tile_cap(d_in, d_out, delta, support_kind)
-    for attempt in range(_RESAMPLE_ATTEMPTS):
-        try:
-            tiles = ops.prepare_tile_consts(rows, cols, d_in, d_out, pad=cap)
-            return rows, cols, tiles
-        except ValueError:
-            rows, cols = support_lib.sample_support(
-                seed + (attempt + 1) * _RESAMPLE_STRIDE, d_in, d_out, delta,
-                support_kind)
-    raise ValueError(
-        f"fused tile capacity {cap} too small for ({d_in}, {d_out}, "
-        f"delta={delta}, {support_kind}) after {_RESAMPLE_ATTEMPTS} "
-        "re-samples — support.tile_cap bound is broken for this shape")
+def support_spec(d_in: int, d_out: int, delta: float, support_kind: str,
+                 seed: int, exec_mode: str) -> tuple:
+    """The ``support.final_support`` arguments of one linear: its seed
+    and shape, and the ``support.tile_cap`` capacity where ``exec_mode``
+    needs tile consts (None otherwise)."""
+    cap = support_lib.tile_cap(d_in, d_out, delta, support_kind) \
+        if exec_mode in TILED_MODES else None
+    return seed, d_in, d_out, delta, support_kind, cap
 
 
 def init_params(gen: torch.Generator, d_in: int, d_out: int, rank: int,
                 delta: float, dtype=torch.bfloat16,
                 support_kind: str = "row_balanced", seed: int = 0,
-                exec_mode: str = "dense", device="cuda"):
+                exec_mode: str = "dense", device="cuda", support=None):
     """(params, consts) with the reference's support, shapes and init
     laws (paper §3.3): Kaiming-uniform A, zero B, v ~ U[±1/sqrt(d_in)].
     Values come from ``gen`` (on ``device``); the support from the numpy
-    sampler keyed by ``seed``, bit-identical to the reference.
-    ``exec_mode`` "fused" and "sparse" add the tile consts {rows_t,
-    cols_t, perm} that their kernels read (the reference's sparse mode
-    emits only the support: its XLA path reads it directly)."""
+    sampler keyed by ``seed``, bit-identical to the reference, or, given
+    as ``support``, from ``support.final_support(*support_spec(...))``
+    already run (the Builder samples every linear's in a pool first).
+    ``exec_mode`` "fused", "sparse" and "quant" add the tile consts
+    {rows_t, cols_t, perm} that their kernels read, at the deterministic
+    ``support.tile_cap`` capacity (a support that busts it is re-sampled
+    with a bumped seed, as the reference does; the reference's sparse
+    mode emits only the support: its XLA path reads it directly)."""
     device = resolve(device)
     lim_a = math.sqrt(6.0 / d_in)
     lim_v = 1.0 / math.sqrt(d_in)
-    rows, cols = support_lib.sample_support(seed, d_in, d_out, delta,
-                                            support_kind)
-    tiles = None
-    if exec_mode in ("fused", "sparse", "quant"):
-        rows, cols, tiles = prepare_fused_consts(
-            rows, cols, d_in, d_out, delta, support_kind, seed)
+    if support is None:
+        support = support_lib.final_support(*support_spec(
+            d_in, d_out, delta, support_kind, seed, exec_mode))
+    rows, cols, tiles = support
     if support_kind == "row_balanced":
         k = cols.shape[0] // d_in
         v_shape = (d_in, k)
@@ -100,7 +88,8 @@ def init_params(gen: torch.Generator, d_in: int, d_out: int, rank: int,
         consts = {"rows": torch.from_numpy(rows),
                   "cols": torch.from_numpy(cols)}
     if tiles is not None:
-        consts.update(tiles)
+        consts.update(zip(support_lib.TILE_CONSTS, map(torch.from_numpy,
+                                                       tiles)))
     consts = {k: t.to(device) for k, t in consts.items()}
 
     params = {

@@ -11,10 +11,19 @@ integer seed, and never learned:
   * ``tile_layout`` — the tile-CSR layout the ``sl_matmul`` kernel reads:
     entries bucketed by 128×128 tile, padded to a uniform per-tile
     capacity with entries at local (0, 0) whose value is 0.
+  * ``final_support`` — what one SLTrain linear keeps: its support and,
+    at a capacity, its tile index arrays, re-sampled with a bumped seed
+    while a tile overflows (the reference's ``prepare_fused_consts``).
+  * ``sample_supports`` — ``final_support`` for many linears, in worker
+    processes: each support is keyed by its own seed, so the order of the
+    work changes no bit. This module imports numpy only, and a worker is
+    a fresh interpreter that imports it alone: neither torch nor the rest
+    of the port, nor the caller's main module.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import os
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -27,6 +36,25 @@ TILE = 128
 # both branches give identical supports). Module-level so tests can
 # shrink it to exercise the blocked branch on small shapes.
 DENSE_KEYS_ELEMS = 1 << 26
+
+# Seed stride of the re-sample when a sampled support exceeds a tile
+# capacity; the reference's ``_RESAMPLE_STRIDE``, so both packages
+# re-derive the same final support.
+RESAMPLE_STRIDE = 0x9E3779B1
+RESAMPLE_ATTEMPTS = 16
+
+# The tile index consts of the fused and sparse kernels, in the order
+# ``tile_index_arrays`` returns them.
+TILE_CONSTS = ("rows_t", "cols_t", "perm")
+
+# Supports of fewer summed elements (d_in·d_out over the linears) than
+# this are sampled in one process: below it (a few seconds of numpy)
+# starting workers and moving the arrays through files saves little.
+# llama_350m (302 M elements) and larger are pooled.
+POOL_MIN_ELEMS = 1 << 28
+# At most this many workers: each holds up to DENSE_KEYS_ELEMS f32 keys
+# and their int64 argpartition, ~0.8 GB.
+MAX_WORKERS = 8
 
 
 def nnz_for(d_in: int, d_out: int, delta: float, kind: str = "row_balanced") -> int:
@@ -145,3 +173,155 @@ def tile_layout(
         local[t, :c, 0] = rows[idx] % tile_r
         local[t, :c, 1] = cols[idx] % tile_c
     return perm.reshape(-1), local.reshape(-1, 2), counts.reshape(nt_r, nt_c), pad
+
+
+def tile_index_arrays(rows: np.ndarray, cols: np.ndarray, d_in: int,
+                      d_out: int, pad: Optional[int], tile_r: int = TILE,
+                      tile_c: int = TILE):
+    """Pad dims to tile multiples, bucket the support and shape the index
+    arrays: (rows_t, cols_t, perm), each int32 (K/tile_r, N/tile_c, E),
+    contiguous. Raises ``ValueError`` when a tile holds more than ``pad``
+    entries (callers re-sample)."""
+    kp = ((d_in + tile_r - 1) // tile_r) * tile_r
+    np_ = ((d_out + tile_c - 1) // tile_c) * tile_c
+    perm, local, counts, pad = tile_layout(
+        rows, cols, kp, np_, tile_r, tile_c, pad=pad)
+    nkt, nnt = kp // tile_r, np_ // tile_c
+    rt = local[:, 0].reshape(nkt, nnt, pad).astype(np.int32)
+    ct = local[:, 1].reshape(nkt, nnt, pad).astype(np.int32)
+    return rt, ct, np.ascontiguousarray(perm.reshape(nkt, nnt, pad))
+
+
+def fit_tiles(rows: np.ndarray, cols: np.ndarray, d_in: int, d_out: int,
+              delta: float, kind: str, seed: int, cap: int):
+    """(rows, cols, tile index arrays) at capacity ``cap``: a support that
+    busts it is re-sampled from ``seed + i * RESAMPLE_STRIDE`` (i = 1,
+    2, ...), as the reference's ``prepare_fused_consts`` does."""
+    for attempt in range(RESAMPLE_ATTEMPTS):
+        try:
+            return rows, cols, tile_index_arrays(rows, cols, d_in, d_out,
+                                                 pad=cap)
+        except ValueError:
+            rows, cols = sample_support(
+                seed + (attempt + 1) * RESAMPLE_STRIDE, d_in, d_out, delta,
+                kind)
+    raise ValueError(
+        f"fused tile capacity {cap} too small for ({d_in}, {d_out}, "
+        f"delta={delta}, {kind}) after {RESAMPLE_ATTEMPTS} re-samples — "
+        "support.tile_cap bound is broken for this shape")
+
+
+def final_support(seed: int, d_in: int, d_out: int, delta: float,
+                  kind: str = "row_balanced", cap: Optional[int] = None):
+    """The support one SLTrain linear keeps: (rows, cols, tiles), int32.
+    ``tiles`` is None without a capacity; with one, the tile index arrays
+    (``TILE_CONSTS``) of the support that fits it (``fit_tiles``)."""
+    rows, cols = sample_support(seed, d_in, d_out, delta, kind)
+    if cap is None:
+        return rows, cols, None
+    return fit_tiles(rows, cols, d_in, d_out, delta, kind, seed, cap)
+
+
+def default_workers(specs: Sequence[tuple]) -> int:
+    """Worker processes for ``sample_supports(specs)``: 1 below
+    ``POOL_MIN_ELEMS`` summed elements, else one per usable CPU up to
+    ``MAX_WORKERS`` and the number of specs."""
+    elems = sum(d_in * d_out for _, d_in, d_out, *_ in specs)
+    if elems < POOL_MIN_ELEMS:
+        return 1
+    cpus = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") \
+        else (os.cpu_count() or 1)
+    return max(1, min(MAX_WORKERS, cpus, len(specs)))
+
+
+def sample_supports(specs: Sequence[tuple], workers: int = 1) -> list:
+    """``final_support(*spec)`` for each spec (seed, d_in, d_out, delta,
+    kind, cap), in order. ``workers`` > 1 runs them in that many worker
+    processes, fresh interpreters that import numpy and this module only
+    (never forked: the caller may have initialised CUDA), each given a
+    share of the specs balanced by size; they write the int32 arrays as
+    ``.npy`` files into a temporary directory, which threads read back
+    here (a ``ProcessPoolExecutor``'s pipe returned a llama_7b init's ~7
+    GB no faster than one process sampled them; chip_smoke.py's phase 7c
+    on an H100 host: 121.3 s, through files 26.3 s). ``workers`` = 1
+    runs them here. Each support depends on its own spec alone, so both
+    give the same bits."""
+    specs = [tuple(s) for s in specs]
+    if workers <= 1 or len(specs) <= 1:
+        return [final_support(*s) for s in specs]
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    workers = min(workers, len(specs))
+    with tempfile.TemporaryDirectory(prefix="sltrain-supports-") as tmp:
+        _run_workers(specs, workers, tmp)
+        with ThreadPoolExecutor(workers) as pool:
+            return list(pool.map(lambda i: _load_support(tmp, i),
+                                 range(len(specs))))
+
+
+# where ``repro_torch`` lives, for the workers' ``sys.path``
+_SRC = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_WORKER = ("import sys; sys.path.insert(0, {src!r}); "
+           "from repro_torch.core.support import _worker; _worker()")
+_ARRAYS = ("rows", "cols") + TILE_CONSTS
+
+
+def _run_workers(specs, workers: int, out_dir: str) -> None:
+    """Start ``workers`` sampling processes on shares of ``specs`` (the
+    largest first, each to the least loaded worker) and wait for all;
+    raise if one fails, and leave none running."""
+    import pickle
+    import subprocess
+    import sys
+    shares = [[] for _ in range(workers)]
+    load = [0] * workers
+    for i in sorted(range(len(specs)),
+                    key=lambda i: -specs[i][1] * specs[i][2]):
+        w = load.index(min(load))
+        shares[w].append((i, specs[i]))
+        load[w] += specs[i][1] * specs[i][2]
+    cmd = [sys.executable, "-c", _WORKER.format(src=_SRC)]
+    procs = []
+    try:
+        for share in shares:
+            p = subprocess.Popen(cmd, stdin=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+            procs.append(p)
+            p.stdin.write(pickle.dumps((out_dir, share)))
+            p.stdin.close()
+        for p in procs:
+            err = p.stderr.read()
+            if p.wait():
+                raise RuntimeError(
+                    f"support sampling worker exited with {p.returncode}: "
+                    f"{err.decode(errors='replace')[-2000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.stderr.close()
+
+
+def _worker() -> None:
+    """A sampling worker's body: reads (out_dir, [(index, spec), ...]),
+    pickled by ``_run_workers``, from stdin and writes each
+    ``final_support``'s arrays to ``{out_dir}/{index}-{name}.npy``."""
+    import pickle
+    import sys
+    out_dir, share = pickle.load(sys.stdin.buffer)
+    for i, spec in share:
+        rows, cols, tiles = final_support(*spec)
+        arrays = (rows, cols) + (() if tiles is None else tiles)
+        for name, a in zip(_ARRAYS, arrays):
+            np.save(os.path.join(out_dir, f"{i}-{name}.npy"), a)
+
+
+def _load_support(out_dir: str, i: int):
+    """The (rows, cols, tiles) a worker wrote for spec ``i``."""
+    path = lambda name: os.path.join(out_dir, f"{i}-{name}.npy")
+    rows, cols = np.load(path("rows")), np.load(path("cols"))
+    if not os.path.exists(path(TILE_CONSTS[0])):
+        return rows, cols, None
+    return rows, cols, tuple(np.load(path(n)) for n in TILE_CONSTS)

@@ -30,22 +30,6 @@ from repro_torch.kernels import sparse_decode as sd_kernel
 # Tile-CSR support preparation (init time, host numpy)
 # ---------------------------------------------------------------------------
 
-def _tile_index_arrays(rows: np.ndarray, cols: np.ndarray, d_in: int,
-                       d_out: int, tile_r: int, tile_c: int,
-                       pad: int | None):
-    """Pad dims to tile multiples, bucket the support and shape the index
-    arrays: numpy (rows_t, cols_t, perm), each (K/tile_r, N/tile_c, E)
-    int32."""
-    kp = ((d_in + tile_r - 1) // tile_r) * tile_r
-    np_ = ((d_out + tile_c - 1) // tile_c) * tile_c
-    perm, local, counts, pad = support_lib.tile_layout(
-        rows, cols, kp, np_, tile_r, tile_c, pad=pad)
-    nkt, nnt = kp // tile_r, np_ // tile_c
-    rt = local[:, 0].reshape(nkt, nnt, pad).astype(np.int32)
-    ct = local[:, 1].reshape(nkt, nnt, pad).astype(np.int32)
-    return rt, ct, perm.reshape(nkt, nnt, pad)
-
-
 def prepare_tile_consts(rows: np.ndarray, cols: np.ndarray, d_in: int,
                         d_out: int, *, pad: int,
                         tile_r: int = support_lib.TILE,
@@ -55,10 +39,10 @@ def prepare_tile_consts(rows: np.ndarray, cols: np.ndarray, d_in: int,
     are baked in: the trainable ``v`` stays flat and is gathered into tile
     order through ``perm`` at each call. Raises ``ValueError`` when the
     sampled support exceeds the capacity ``pad`` (callers re-sample)."""
-    rt, ct, perm = _tile_index_arrays(rows, cols, d_in, d_out, tile_r,
-                                      tile_c, pad)
-    return {"rows_t": torch.from_numpy(rt), "cols_t": torch.from_numpy(ct),
-            "perm": torch.from_numpy(np.ascontiguousarray(perm))}
+    arrays = support_lib.tile_index_arrays(rows, cols, d_in, d_out, pad,
+                                           tile_r, tile_c)
+    return {k: torch.from_numpy(a)
+            for k, a in zip(support_lib.TILE_CONSTS, arrays)}
 
 
 def transpose_tiles(t):

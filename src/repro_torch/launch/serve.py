@@ -6,6 +6,8 @@ Usage (from the repository root, ``PYTHONPATH=src``):
   python -m repro_torch.launch.serve --arch llama_1b --paged --stream \
       --prefix-sharing --exec-mode fused
   python -m repro_torch.launch.serve --arch llama_1b --paged --sparse-decode
+  python -m repro_torch.launch.serve --arch llama_7b --paged --stream \
+      --prefix-sharing --exec-mode fused
   python -m repro_torch.launch.serve --arch llama_60m --smoke --paged \
       --ckpt-dir /path/to/train/ckpt --exec-mode sparse
   python -m repro_torch.launch.serve --arch llama_60m --smoke --paged \
@@ -34,6 +36,7 @@ import time
 import numpy as np
 
 from repro_torch.models import registry
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.engine import ServeEngine
 
@@ -51,7 +54,12 @@ def load_model(cfg, *, device, ckpt_dir=None, quant_ckpt=None):
         print(f"quant artifact: {quant_ckpt} "
               f"({qman['extra'].get('n_matrices', '?')} matrices)")
         return params, consts
-    params, consts = registry.get_api(cfg).init(cfg, 0, device=device)
+    reg = obs_metrics.Registry()
+    params, consts = registry.get_api(cfg).init(cfg, 0, device=device,
+                                                obs=reg)
+    print(f"init: {cfg.name} in {reg.get('init.seconds').value:.1f} s "
+          f"({reg.get('init.sampling_workers').value:.0f} support sampling "
+          "workers)")
     if ckpt_dir:
         from repro_torch.ckpt.checkpoint import CheckpointManager
         tree, man = CheckpointManager(ckpt_dir).restore(

@@ -10,6 +10,8 @@ Usage:
       --update-mode per_layer --exec-mode fused --layer-timing --steps 20
   python -m repro_torch.launch.train --arch llama_1b --exec-mode sparse \\
       --steps 20
+  python -m repro_torch.launch.train --arch llama_7b --update-mode per_layer \\
+      --optimizer adam8bit --exec-mode fused --steps 4
   python -m repro_torch.launch.train --arch llama_1b --mode dense   # full rank
   python -m repro_torch.launch.train --arch llama_1b --mode lowrank
   python -m repro_torch.launch.train --arch llama_1b --mode relora
@@ -22,8 +24,10 @@ trains through the ``sparse_matmul`` and ``sddmm`` kernels). The
 paper's baselines train too: ``--mode dense`` (full rank), ``lowrank``,
 ``relora`` (merging every ``relora_period`` steps) and ``--optimizer
 galore_adamw`` in either update mode; ReLoRA with ``adam8bit`` is
-refused (the reference's merge crashes on that state). Options the port
-does not run yet raise ``NotImplementedError`` naming their ROADMAP item.
+refused (the reference's merge crashes on that state). The Trainer logs
+its init's time and the processes that sampled the supports (a pool from
+llama_350m's size up). Options the port does not run yet raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 

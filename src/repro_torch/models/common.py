@@ -8,6 +8,13 @@ path strings as the reference's: each SLTrain linear samples its support
 from ``seed ^ crc32(path)`` with the numpy sampler, so supports match the
 reference bit for bit. Values come from a ``torch.Generator`` and differ
 from the reference's ``jax.random`` draws.
+
+:func:`presample` runs a model's build once with a collecting Builder
+(nothing is created, no value is drawn), samples every SLTrain linear's
+support in a pool of worker processes (``core.support.sample_supports``),
+and hands the results to the real build, which draws its values from the
+one generator in the same order as a build that samples in place: the
+params and consts are the same bits either way.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lowrank, relora, sltrain
+from repro_torch.core import support as support_lib
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -50,24 +58,37 @@ def tree_leaves(tree, prefix: str = ""):
 
 
 class Builder:
-    """Creates parameter/const trees at ``path`` on ``device``."""
+    """Creates parameter/const trees at ``path`` on ``device``.
+
+    ``plan`` says where SLTrain linears get their supports: None samples
+    each where it is built; a list makes the build a collecting pass (each
+    linear appends its (path, ``sltrain.support_spec``) and returns empty
+    trees, every tensor is a meta tensor, nothing is drawn); a dict maps
+    each linear's path to its pre-sampled support (:func:`presample`)."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device,
-                 path: str = "", seed: int = 0):
+                 path: str = "", seed: int = 0, plan=None):
         self.cfg = cfg
         self.gen = gen
         self.device = device
         self.path = path
         self.seed = seed
+        self.plan = plan
         self.dtype = DTYPES[cfg.dtype]
 
     def sub(self, name: str) -> "Builder":
         return Builder(self.cfg, self.gen, self.device, f"{self.path}/{name}",
-                       self.seed)
+                       self.seed, self.plan)
+
+    @property
+    def collecting(self) -> bool:
+        return isinstance(self.plan, list)
 
     def tensor(self, name: str, shape: Tuple[int, ...], init: str = "normal",
                fan_in: Optional[int] = None, dtype=None):
         dtype = dtype or self.dtype
+        if self.collecting:
+            return torch.empty(shape, dtype=dtype, device="meta")
         if init == "ones":
             return torch.ones(shape, dtype=dtype, device=self.device)
         if init != "normal":
@@ -90,6 +111,12 @@ class Builder:
         if pc.mode == "dense":
             params = {"w": b.tensor("w", (d_in, d_out), "normal",
                                     fan_in=d_in)}
+        elif self.collecting:
+            if pc.mode == "sltrain":
+                self.plan.append((b.path, sltrain.support_spec(
+                    d_in, d_out, pc.delta, pc.support_kind,
+                    self.seed ^ _name_hash(b.path), pc.exec_mode)))
+            params = {}
         elif pc.mode == "lowrank":
             params = lowrank.init_params(self.gen, d_in, d_out, r, b.dtype,
                                          device=self.device)
@@ -100,10 +127,30 @@ class Builder:
             params, consts = sltrain.init_params(
                 self.gen, d_in, d_out, r, pc.delta, b.dtype,
                 pc.support_kind, seed=self.seed ^ _name_hash(b.path),
-                exec_mode=pc.exec_mode, device=self.device)
+                exec_mode=pc.exec_mode, device=self.device,
+                support=None if self.plan is None else self.plan.pop(b.path))
         else:
             raise ValueError(pc.mode)
         return params, consts
+
+
+def presample(cfg: ModelConfig, seed: int, build, workers=None):
+    """(plan, workers): every SLTrain linear's support that ``build(b)``
+    (a model's init body over Builder ``b``) makes, sampled by
+    ``support.sample_supports`` with ``workers`` processes (None:
+    ``support.default_workers``) and keyed by path, as a Builder's
+    ``plan``. (None, 0) when ``cfg`` has no SLTrain linears."""
+    if cfg.param.mode != "sltrain":
+        return None, 0
+    specs: list = []
+    build(Builder(cfg, None, torch.device("meta"), seed=seed, plan=specs))
+    if not specs:
+        return None, 0
+    paths, specs = zip(*specs)
+    if workers is None:
+        workers = support_lib.default_workers(specs)
+    return (dict(zip(paths, support_lib.sample_supports(specs, workers))),
+            workers)
 
 
 def apply_linear(cfg: ModelConfig, params, consts, x):

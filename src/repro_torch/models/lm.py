@@ -10,13 +10,17 @@ views of the stacks; the per-layer train step drives its segments
 """
 from __future__ import annotations
 
+import time
+from typing import Optional
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import attention, mlp
-from repro_torch.models.common import (DTYPES, Builder, remat_wrap,
-                                       rms_norm, stack_layers, unstack)
+from repro_torch.models.common import (DTYPES, Builder, presample,
+                                       remat_wrap, rms_norm, stack_layers,
+                                       unstack)
 from repro_torch.serve.kv import PagedLayout
 
 
@@ -56,16 +60,9 @@ def _apply_block(cfg: ModelConfig, p, c, x, **cache_kw):
     return x + mlp.apply_mlp(cfg, p["mlp"], c.get("mlp", {}), h), cache
 
 
-def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
-    """(params, consts) on ``device``. Supports match the reference's
-    ``init_lm(cfg, key, seed)`` bit for bit (same Builder paths, e.g.
-    ``/blocks/p{i}/k0/attn/wq``); values come from a ``torch.Generator``
-    seeded with ``seed``."""
-    _check_family(cfg)
-    device = resolve(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    b = Builder(cfg, gen, device, seed=seed)
+def _build_lm(cfg: ModelConfig, b: Builder):
+    """The model's (params, consts), built by ``b`` in the reference's
+    Builder order."""
     params, consts = {}, {}
     params["embed"] = b.tensor("embed", (cfg.padded_vocab, cfg.d_model),
                                "normal", fan_in=cfg.d_model)
@@ -84,6 +81,35 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
                                                  cfg.padded_vocab),
                                      "normal", fan_in=cfg.d_model)
     return params, consts
+
+
+def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
+            workers: Optional[int] = None, obs=None):
+    """(params, consts) on ``device``. Supports match the reference's
+    ``init_lm(cfg, key, seed)`` bit for bit (same Builder paths, e.g.
+    ``/blocks/p{i}/k0/attn/wq``); values come from a ``torch.Generator``
+    seeded with ``seed``. The supports are sampled first, by ``workers``
+    processes (None: ``core.support.default_workers``, one process below
+    llama_350m's size; 1: this process), which changes no bit
+    (``models.common.presample``). With ``obs`` (a metrics Registry) the
+    init's wall time, to the card's last draw, and the worker count land
+    on its gauges ``init.seconds`` and ``init.sampling_workers``."""
+    _check_family(cfg)
+    device = resolve(device)
+    t0 = time.perf_counter()
+    plan, n_workers = presample(cfg, seed, lambda b: _build_lm(cfg, b),
+                                workers)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = _build_lm(cfg, Builder(cfg, gen, device, seed=seed, plan=plan))
+    if obs is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        obs.gauge("init.seconds", "wall seconds of the last model init"
+                  ).set(time.perf_counter() - t0)
+        obs.gauge("init.sampling_workers", "processes that sampled its "
+                  "SLTrain supports (0: none to sample)").set(n_workers)
+    return out
 
 
 def embed_apply(cfg: ModelConfig, params, tokens, patch_embeds=None):

@@ -27,7 +27,7 @@ class PerLayerApi:
 
 @dataclass(frozen=True)
 class ModelApi:
-    init: Callable          # (cfg, seed=0, *, device) -> (params, consts)
+    init: Callable          # (cfg, seed=0, *, device, workers, obs) -> (params, consts)
     apply: Callable         # (cfg, params, consts, batch, remat) -> (logits, aux)
     init_cache: Callable    # (cfg, batch, max_len, *, paged, ...) -> cache
     decode_step: Callable   # (cfg, params, consts, tokens, cache, index) -> (logits, cache)

@@ -266,9 +266,15 @@ class Trainer:
     def init_state(self) -> TrainerState:
         """Params and consts from the model's init (the consts gain Wᵀ's
         tile consts for the fused and sparse backwards, built once here)
-        and a fresh optimizer state."""
+        and a fresh optimizer state. The init samples the supports in a
+        pool of processes at llama_350m's size and up; its time and
+        worker count land on ``obs`` (``init.seconds``,
+        ``init.sampling_workers``) and in the log."""
         params, consts = self.api.init(self.cfg, seed=self.tc.seed,
-                                       device=self.device)
+                                       device=self.device, obs=self.obs)
+        self.log(f"[trainer] init {self.obs.get('init.seconds').value:.1f} s "
+                 f"({self.obs.get('init.sampling_workers').value:.0f} "
+                 "support sampling workers)")
         opt_state = self.optimizer.init(params)
         return TrainerState(params, opt_state, add_transposed_tiles(consts),
                             step=0)

@@ -85,7 +85,13 @@ def _sl_args(rng, m, k, n, r, delta, dtype, dev, transposed=False):
     (256, 200, 300, 8, 0.05, False),
     (sl_kernel.SMALL_M_MAX, 2048, 5461, 512, 0.03, False),
     (sl_kernel.SMALL_M_MAX + 1, 2048, 5461, 512, 0.03, False),
-    (256, 4096, 11008, 1024, 0.05, False)])
+    (256, 4096, 11008, 1024, 0.05, False),
+    # llama_7b training (M = 8 x 256 tokens, rank 1024, δ 0.05): the MLP's
+    # two forward shapes and the dx call of each
+    (2048, 4096, 11008, 1024, 0.05, False),
+    (2048, 4096, 11008, 1024, 0.05, True),
+    (2048, 11008, 4096, 1024, 0.05, False),
+    (2048, 11008, 4096, 1024, 0.05, True)])
 def test_sl_matmul_kernel_matches_plain(cuda, case, dtype):
     m, k, n, r, delta, transposed = case
     args = _sl_args(np.random.default_rng(k + n), m, k, n, r, delta, dtype,
@@ -138,9 +144,11 @@ def _sddmm_args(m, k, n, delta, dtype, dev):
             tiles["rows_t"].to(dev), tiles["cols_t"].to(dev))
 
 
-# llama_1b's training shapes: M = 8 x 256 tokens, the three projections
+# llama_1b's training shapes: M = 8 x 256 tokens, the three projections;
+# then llama_7b's (δ 0.05; 11008 = 86 x 128, so no operand is padded)
 SDDMM_TRAIN_CASES = [(2048, 2048, 5461, 0.03), (2048, 5461, 2048, 0.03),
-                     (2048, 2048, 2048, 0.03)]
+                     (2048, 2048, 2048, 0.03), (2048, 4096, 11008, 0.05),
+                     (2048, 4096, 4096, 0.05)]
 
 
 @pytest.mark.gpu
@@ -238,7 +246,10 @@ def _pools(rng, n_slots, bps, block_len, n_kv, hd, last_pos, dtype, dev):
     (4, 2, 4, 16, [13, 2, 9], 0.0, 6),
     (64, 1, 8, 256, [300, 17], 20.0, 100),
     # a 1023-key context (the bf16 decode splits it across blocks)
-    (16, 32, 1, 64, [1023, 517, 1000, -1], 0.0, 0)])
+    (16, 32, 1, 64, [1023, 517, 1000, -1], 0.0, 0),
+    # llama_7b's engine (32 heads at head_dim 128) and a 1023-key context
+    (16, 32, 1, 128, [40, 49, 58, -1], 0.0, 0),
+    (16, 32, 1, 128, [1023, 517, 1000, -1], 0.0, 0)])
 def test_paged_attention_kernel_matches_plain(cuda, case, dtype):
     block_len, n_kv, group, hd, positions, cap, win = case
     rng = np.random.default_rng(5)
@@ -383,7 +394,11 @@ PREFILL_CASES = [
     # than one block holds (64 x 4 = 256: two row blocks)
     (16, 4, 2, 64, 16, [120, 200, 0], [16, 10, 16], 0.0, 0),
     (16, 4, 2, 128, 16, [150, 37], [16, 16], 0.0, 40),
-    (16, 2, 4, 64, 64, [70, 0], [64, 50], 0.0, 0)]
+    (16, 2, 4, 64, 64, [70, 0], [64, 50], 0.0, 0),
+    # llama_7b's engine: 32 heads at head_dim 128, each suffix bucket
+    (16, 32, 1, 128, 8, [0, 16, 0, 0], [8, 8, 8, 0], 0.0, 0),
+    (16, 32, 1, 128, 16, [0, 16, 0, 0], [16, 16, 16, 0], 0.0, 0),
+    (16, 32, 1, 128, 32, [0, 16, 0, 0], [32, 32, 32, 0], 0.0, 0)]
 
 
 @pytest.mark.gpu
@@ -404,7 +419,7 @@ def test_paged_prefill_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", PREFILL_CASES[6:9] + PREFILL_CASES[-3:])
+@pytest.mark.parametrize("case", PREFILL_CASES[6:9] + PREFILL_CASES[-6:])
 def test_paged_prefill_bf16_rerun_gives_same_bits(cuda, case):
     q, kp, vp, table, offs, kw = _prefill_case(case, torch.bfloat16, cuda)
     got = pa_kernel.paged_prefill(q, kp, vp, table, offs, **kw)
@@ -526,6 +541,26 @@ def _llama_1b_layer_sizes():
     return sizes
 
 
+def _llama_7b_layer_sizes():
+    """{leaf: elements} of one layer's slices of llama_7b (d_model 4096,
+    d_ff 11008, rank 1024, δ 0.05): all 23 are whole 256-blocks, so the
+    per-layer step defers none."""
+    d, f, r = 4096, 11008, 1024
+    sizes = {"ln_attn": d, "ln_mlp": d}
+    for name, (a, b) in {"wq": (d, d), "wk": (d, d), "wv": (d, d),
+                         "wo": (d, d), "gate": (d, f), "up": (d, f),
+                         "down": (f, d)}.items():
+        sizes[f"{name}/A"] = r * b
+        sizes[f"{name}/B"] = a * r
+        sizes[f"{name}/v"] = support.nnz_for(a, b, 0.05)
+    assert all(n % 256 == 0 for n in sizes.values())
+    return sizes
+
+
+LAYER_SIZES = {"llama_1b": _llama_1b_layer_sizes,
+               "llama_7b": _llama_7b_layer_sizes}
+
+
 def _segments(rng, sizes, p_dtype, dev):
     """A segment per size: p in ``p_dtype``, g in p's dtype except the
     deferred leaf's f32 accumulator, moments quantized from random
@@ -546,16 +581,17 @@ def _segments(rng, sizes, p_dtype, dev):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(LAYER_SIZES))
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_adam8bit_group_launch_matches_per_leaf_and_plain(cuda, dtype):
-    """One grouped call over a whole llama_1b layer's segments (22 slices
-    and the ragged deferred leaf; bf16 or f32 parameters, their gradients
-    in the trainer's dtypes, clip scale 0.37), one launch per pair of p
-    and g dtypes, is bit for bit the per-leaf kernel on each segment's
-    padded f32 blocks and the plain version, segment by segment, over
-    three chained steps."""
+def test_adam8bit_group_launch_matches_per_leaf_and_plain(cuda, dtype, arch):
+    """One grouped call over a whole layer's segments (llama_1b: 22 slices
+    and the ragged deferred leaf; llama_7b: 23 slices; bf16 or f32
+    parameters, their gradients in the trainer's dtypes, clip scale 0.37),
+    one launch per pair of p and g dtypes, is bit for bit the per-leaf
+    kernel on each segment's padded f32 blocks and the plain version,
+    segment by segment, over three chained steps."""
     rng = np.random.default_rng(11)
-    segs = _segments(rng, _llama_1b_layer_sizes(), dtype, cuda)
+    segs = _segments(rng, LAYER_SIZES[arch](), dtype, cuda)
     leaf = [[t.clone() for t in s[:6]] for s in segs]
     plain = [[t.clone() for t in s[:6]] for s in segs]
     clip = torch.tensor(0.37, device=cuda)

@@ -4,7 +4,8 @@ the reference's init carried over with ``from_jax_numpy``:
 
 * 4 steps against ``repro.train.perlayer`` for AdamW (exec_mode dense),
   8-bit AdamW with the kernel dispatch (exec_mode fused: the reference's
-  Pallas kernels in interpret mode, the port's plain versions), tied
+  Pallas kernels in interpret mode, the port's plain versions; also 3
+  steps on the ``llama_7b`` smoke config, alpha 8), tied
   embeddings, ``grad_accum=2`` and GaLore-AdamW (rank 8, so that
   ``lm_head`` is projected; P is formed at step 1 and carried, so its
   column signs, the SVD's choice, cancel in every update);
@@ -58,20 +59,23 @@ CASES = {
     "grad_accum2-adam8bit": dict(opt="adam8bit", exec_mode="dense",
                                  grad_accum=2),
     "galore-dense": dict(opt="galore_adamw", exec_mode="dense"),
+    # the llama_7b smoke config (alpha 8, delta 0.05), 3 steps
+    "adam8bit-fused-llama_7b": dict(opt="adam8bit", exec_mode="fused",
+                                    arch="llama_7b", steps=3),
 }
 
 
-def _cfgs(exec_mode, tied=False):
+def _cfgs(exec_mode, tied=False, arch="llama_60m"):
     def mk(cfg):
         return dataclasses.replace(
             cfg, dtype="float32", tie_embeddings=tied,
             param=dataclasses.replace(cfg.param, exec_mode=exec_mode))
-    return (mk(jregistry.get_smoke_config("llama_60m")),
-            mk(registry.get_smoke_config("llama_60m")))
+    return (mk(jregistry.get_smoke_config(arch)),
+            mk(registry.get_smoke_config(arch)))
 
 
-def _okw(name):
-    return dict(name=name, lr=1e-3, warmup_steps=2, total_steps=STEPS,
+def _okw(name, steps=STEPS):
+    return dict(name=name, lr=1e-3, warmup_steps=2, total_steps=steps,
                 weight_decay=0.1, galore_rank=8)
 
 
@@ -118,15 +122,17 @@ def _reference_run(case):
     test restores its 8-bit state)."""
     if case not in _JAX_RUNS:
         c = CASES[case]
-        jcfg, _ = _cfgs(c["exec_mode"], c.get("tied", False))
+        steps = c.get("steps", STEPS)
+        jcfg, _ = _cfgs(c["exec_mode"], c.get("tied", False),
+                        c.get("arch", "llama_60m"))
         (jp, jc), _ = _port_init(jcfg)
-        jopt = joptim.make(JOptimizerConfig(**_okw(c["opt"])))
+        jopt = joptim.make(JOptimizerConfig(**_okw(c["opt"], steps)))
         fn = jax.jit(jperlayer.make_perlayer_train_step(
             jcfg, jregistry.get_api(jcfg), jopt,
             grad_accum=c.get("grad_accum", 1)))
         js = jopt.init(jp)
         rows = []
-        for toks in _batches(jcfg.vocab_size):
+        for toks in _batches(jcfg.vocab_size, steps):
             jp, js, m = fn(jp, js, jc, {"tokens": jnp.asarray(toks)})
             rows.append((float(m["loss"]), float(m["grad_norm"]),
                          float(m["nonfinite"])))
@@ -166,13 +172,15 @@ def _assert_moments_within_one_step(tstate, jstate):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_perlayer_matches_reference(case):
     c = CASES[case]
-    jcfg, cfg = _cfgs(c["exec_mode"], c.get("tied", False))
+    steps = c.get("steps", STEPS)
+    jcfg, cfg = _cfgs(c["exec_mode"], c.get("tied", False),
+                      c.get("arch", "llama_60m"))
     _, (tp, tc) = _port_init(jcfg)
-    opt = optimizers.make(OptimizerConfig(**_okw(c["opt"])))
+    opt = optimizers.make(OptimizerConfig(**_okw(c["opt"], steps)))
     fn = perlayer.make_perlayer_train_step(
         cfg, registry.get_api(cfg), opt, grad_accum=c.get("grad_accum", 1))
     got, params, state = _run_port(cfg, tp, tc, fn, opt,
-                                   _batches(cfg.vocab_size))
+                                   _batches(cfg.vocab_size, steps))
     want, jp, js = _reference_run(case)
     np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=0, atol=2e-5)
     np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=1e-5, atol=0)
@@ -182,7 +190,7 @@ def test_perlayer_matches_reference(case):
     for (path, a), b in zip(tl, jl):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
                                    atol=1e-4, err_msg=path)
-    assert int(state["step"]) == int(js["step"]) == STEPS
+    assert int(state["step"]) == int(js["step"]) == steps
     if c["opt"] == "adam8bit":
         _assert_moments_within_one_step(state, js)
 

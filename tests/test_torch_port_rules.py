@@ -43,6 +43,20 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(path):
                 f"{path.relative_to(ROOT)}:{node.lineno} imports {name}"
 
 
+def test_support_sampling_worker_imports_numpy_only():
+    """The init's sampling workers run ``repro_torch.core.support`` in a
+    fresh interpreter (``support._WORKER``): that import loads neither
+    torch nor jax nor the reference."""
+    from repro_torch.core import support
+    code = support._WORKER.format(src=support._SRC).replace(
+        "_worker()", "print(sorted({'torch', 'jax', 'jaxlib', 'repro'} & "
+        "set(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

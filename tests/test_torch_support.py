@@ -12,7 +12,6 @@ from repro.core import sltrain as jsltrain
 from repro.core import support as jsupport
 from repro.kernels import ops as jops
 from repro.models import registry as jregistry
-from repro_torch.core import sltrain
 from repro_torch.core import support
 from repro_torch.kernels import ops
 from repro_torch.models import registry
@@ -96,14 +95,18 @@ def test_fused_resample_fallback_matches_reference(monkeypatch):
     monkeypatch.setattr(support, "tile_cap", lambda *a, **k: cap)
     want = jsltrain.prepare_fused_consts(rows, cols, d_in, d_out, delta,
                                          "row_balanced", seed)
-    got = sltrain.prepare_fused_consts(rows, cols, d_in, d_out, delta,
-                                       "row_balanced", seed)
-    assert sltrain._RESAMPLE_STRIDE == jsltrain._RESAMPLE_STRIDE
+    got = support.fit_tiles(rows, cols, d_in, d_out, delta, "row_balanced",
+                            seed, support.tile_cap(d_in, d_out, delta))
+    assert support.RESAMPLE_STRIDE == jsltrain._RESAMPLE_STRIDE
+    assert support.RESAMPLE_ATTEMPTS == jsltrain._RESAMPLE_ATTEMPTS
     assert not np.array_equal(got[1], cols)        # it did re-sample
     np.testing.assert_array_equal(got[1], want[1])
-    for name in ("rows_t", "cols_t", "perm"):
-        np.testing.assert_array_equal(got[2][name].numpy(),
-                                      np.asarray(want[2][name]))
+    for name, arr in zip(support.TILE_CONSTS, got[2]):
+        assert arr.dtype == np.int32
+        np.testing.assert_array_equal(arr, np.asarray(want[2][name]))
+    # the init path: the same re-sample behind final_support's capacity
+    final = support.final_support(seed, d_in, d_out, delta, cap=cap)
+    np.testing.assert_array_equal(final[1], want[1])
 
 
 @pytest.mark.parametrize("exec_mode", ["dense", "fused"])

@@ -245,6 +245,18 @@ def test_model_flops_match_reference(arch):
         rtol=1e-12)
 
 
+def test_model_flops_llama_7b_counts_the_dense_model():
+    """MFU at llama_7b counts LLaMA-7B's 6.74 B dense parameters (the
+    paper's convention: 6·N·D of the full-rank model, whatever the
+    parameterization trains), 32 layers of 4·4096² + 3·4096·11008 and
+    an untied 32000 x 4096 embedding and head."""
+    cfg = registry.get_config("llama_7b")
+    layer = 4 * 4096 ** 2 + 3 * 4096 * 11008
+    assert 32 * layer + 2 * 32000 * 4096 == 6_738_149_376
+    assert roofline.param_count_active(cfg) == (6_738_149_376,) * 2
+    assert roofline.model_flops(cfg, 8 * 256) == 6.0 * 6_738_149_376 * 2048
+
+
 def test_model_flops_raise_for_unported_families():
     cfg = registry.get_config("llama_60m")
     for bad in (dataclasses.replace(cfg, moe=dataclasses.replace(
