@@ -29,11 +29,18 @@ full width and depth with random weights from a seed:
   + gathered attention; the model calibrated to int8 on the card, its
   quant artifact written under build/ and read back bit for bit, and
   served in exec_mode quant (``quant_sparse_matmul``) against a dense
-  engine on the dequantized weights. Then each of the three paths once
-  in bfloat16, timed, with every kernel's launch count read around the
-  run, then profiled;
-* training: 3 float32 train steps from one init and one data stream in
-  pairs that must agree: exec_mode "fused" (``sl_matmul`` forward and dx,
+  engine on the dequantized weights. The contiguous cache (``paged=False``,
+  the reference launcher's default: prefill token by token through the
+  (slots, 1) decode, one shared decode index) in float32: fused, sparse
+  and quant against dense, the same tokens tick for tick, and the first
+  2 requests one at a time against the paged engine, the same tokens.
+  Then each of the three paths once in bfloat16 on the paged cache,
+  timed, with every kernel's launch count read around the run, then
+  profiled, and fused (timed under the device-only profiler) and sparse
+  on the contiguous cache;
+* training: 3 float32 train steps from one init and one data stream, at
+  full width on 12 of the 24 layers (``PARITY_LAYERS``), in pairs that
+  must agree: exec_mode "fused" (``sl_matmul`` forward and dx,
   ``sddmm`` dV) against "dense" (densify + the eq.-(2) backward), "sparse"
   (``sparse_matmul`` forward and dx over Wᵀ's tiles, ``sddmm`` dV)
   against "dense", per-layer updates against the global step (AdamW),
@@ -43,7 +50,7 @@ full width and depth with random weights from a seed:
   around each run and its checkpoint written; a device-only profile of
   one more step of each;
 * the paper's baselines, (a): 3 float32 steps of ``llama_1b`` at full
-  width and depth, per-layer updates against the global step, for low
+  width on ``PARITY_LAYERS`` layers, per-layer updates against the global step, for low
   rank with AdamW, ReLoRA with AdamW merging after step 2 (the Trainer's
   merge and seeded redraw in both runs, so step 3 holds the moment reset
   too) and full rank with GaLore-AdamW refreshing P at step 3; none of
@@ -61,12 +68,21 @@ full width and depth with random weights from a seed:
   port's ``core.memory.training_estimate`` for it, its step time and the
   card's power limit; per-layer 8-bit SLTrain's peak must stay below full
   rank's, and the measured reduction is printed beside the paper's
-  estimate; and, on ``llama_60m``, runs killed at
-  step 4 and relaunched from their checkpoint (global AdamW, and
-  per-layer 8-bit AdamW) that must end bit-identical to uninterrupted
-  ones, optimizer state and 8-bit codes included;
+  estimate;
+* chaos drills on ``llama_60m`` (bfloat16, fused;
+  ``repro_torch.resilience.chaos``): ``launch.train --chaos kill@4`` in
+  its own process must exit 43 and the launcher's relaunch end
+  bit-identical to an uninterrupted run (global AdamW), as must a
+  Trainer killed by ``chaos=kill@4`` with per-layer 8-bit AdamW (8-bit
+  codes included), both under deterministic algorithms; the reference's
+  fault matrix (kill, data_corrupt, straggler, ckpt_corrupt, nonfinite)
+  counted and recovered; a relaunch past a corrupted newest checkpoint
+  resuming from the newest intact one; ``stall@T:K`` past a deadline on
+  the paged and the contiguous engine leaving no request wedged and no
+  KV block in use; and the launchers' ``--jax-profile-dir``, whose
+  ``torch.profiler`` traces must name ``sl_matmul``'s device kernels;
 * train, checkpoint, calibrate, serve (``analysis/quant_recipe.py``), at
-  ``llama_1b``'s width on 6 of its layers (``RECIPE_LAYERS``):
+  ``llama_1b``'s width on 4 of its layers (``RECIPE_LAYERS``):
   the bf16 fused ``Trainer`` for 60 steps writes a checkpoint under
   build/, the calibrate CLI's path turns it into a quant artifact on the
   card, the serve launcher's ``--ckpt-dir`` and ``--quant-ckpt`` paths
@@ -80,7 +96,7 @@ full width and depth with random weights from a seed:
 * (c) the paper's Table 2 comparison (``analysis/pretrain_comparison.py``):
   full rank, SLTrain, ReLoRA and low rank at an equal token budget, at the
   reference example's default size with its two asserts as gates, then
-  at ``llama_60m`` for 100 steps a mode, gated on finite losses;
+  at ``llama_60m`` for 10 steps a mode, gated on finite losses;
 * ``llama_7b`` (32 layers, d_model 4096, d_ff 11008, head_dim 128, rank
   1024, delta 0.05), each phase from one init whose supports are sampled
   in worker processes: (7a) every kernel against its plain version at
@@ -90,8 +106,8 @@ full width and depth with random weights from a seed:
   whose peak may not exceed the first's; (7d) full-rank global AdamW at
   2, 4 and 8 layers, its peak fitted in depth and extrapolated to 32
   layers (it does not fit on the card), the per-layer 8-bit peak gated
-  below it; (7e) the fused and sparse bf16 engines at full depth, timed
-  and profiled.
+  below it; (7e) the fused and sparse bf16 engines on 16 of the 32
+  layers (``SERVE_7B_LAYERS``), timed and profiled.
 
 Any failure exits non-zero. Without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -101,10 +117,13 @@ last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -160,11 +179,23 @@ PATH_KERNELS = {
     # engines without prefix sharing prefill with the model's own
     # attention: paged_prefill serves only a suffix after shared pages
     "serve_quant_fallback": ("sparse_matmul", "paged_attention"),
-    # llama_7b at full width and depth (phases 7c and 7e)
+    # llama_7b at full width (phase 7c at full depth, 7e on
+    # SERVE_7B_LAYERS)
     "train_per_layer_llama_7b": ("sl_matmul", "sddmm", "adam8bit"),
     "serve_llama_7b": ("sl_matmul", "paged_attention", "paged_prefill"),
     "serve_sparse_llama_7b": ("sparse_matmul", "paged_attention",
                               "paged_prefill"),
+    # the contiguous cache: prefill and decode at M = n_slots rows through
+    # the linears' kernel; attention is plain PyTorch on the rows
+    "serve_contiguous": ("sl_matmul",),
+    "serve_contiguous_sparse": ("sparse_matmul",),
+    "serve_contiguous_quant": ("quant_sparse_matmul",),
+    # the chaos drills on llama_60m (kill/relaunch, stalls)
+    "chaos_train_llama_60m": ("sl_matmul", "sddmm"),
+    "chaos_train_per_layer_llama_60m": ("sl_matmul", "sddmm", "adam8bit"),
+    "stall_paged_llama_60m": ("sl_matmul", "paged_attention",
+                              "paged_prefill"),
+    "stall_contiguous_llama_60m": ("sl_matmul",),
 }
 # the quant recipe (train fused, calibrate, serve sparse and quant)
 PATH_KERNELS["recipe_llama_1b"] = PATH_KERNELS["recipe_llama_60m"] = (
@@ -172,6 +203,12 @@ PATH_KERNELS["recipe_llama_1b"] = PATH_KERNELS["recipe_llama_60m"] = (
     "paged_attention")
 EXEC_PATH = {"fused": "serve", "sparse": "serve_sparse",
              "quant": "serve_quant"}
+# the traffic's requests served one at a time on either cache (f32): the
+# first opens with the shared prefix, the second does not
+ALONE_REQUESTS = 2
+CONTIGUOUS_PATH = {"fused": "serve_contiguous",
+                   "sparse": "serve_contiguous_sparse",
+                   "quant": "serve_contiguous_quant"}
 # f32 operations per element of one 8-bit Adam step, counted from
 # csrc/adam8bit.cu: the clip 1, dequantize 4, the moments 7, the update
 # 9, the requantize 8 (the block maxima, divisions, roundings, the shift)
@@ -188,7 +225,13 @@ SDDMM_ATOL, SDDMM_RTOL = 1e-3, 1e-4
 # fallback at llama_1b's full width on this many of its 24 layers: the
 # run must end within its time limit with the llama_7b phases, and
 # calibration's time grows with depth (~4.4 s a layer)
-RECIPE_LAYERS = 6
+RECIPE_LAYERS = 4
+# the f32 training pairs at llama_1b's full width on this many of its 24
+# layers, and llama_7b's bf16 engines (phase 7e) on this many of its 32:
+# depth cut to keep the script inside its time limit (every layer runs
+# the same code at the same shapes)
+PARITY_LAYERS = 12
+SERVE_7B_LAYERS = 16
 # f32 train parity, fused vs dense: step 1 runs from identical parameters,
 # so only the order of f32 sums differs (1e-5 relative). From step 2 on,
 # Adam divides each gradient by its own magnitude: an element whose
@@ -1183,19 +1226,28 @@ def reset_launch_counts():
 
 def serve(cfg, params, consts, prompts, arrivals, *, exec_mode, attn_kernel,
           n_slots, max_len, block_len, new_tokens, device,
-          sparse_decode=False):
-    """One engine run of the traffic through ``run_stream`` with prefix
-    sharing; returns (requests, stats, engine, wall seconds). Each
-    dispatch (one prefill or decode program) is bracketed by CUDA events:
-    ``stats["span_s"]`` is the device time from each dispatch's start to
-    its last kernel's end, summed, and ``stats["token_shapes"]`` the
-    (slots, tokens per slot) of every dispatch, from which the row counts
-    the kernels saw follow."""
+          sparse_decode=False, paged=True):
+    """One engine run of the traffic; returns (requests, stats, engine,
+    wall seconds). The paged engine runs ``run_stream`` with prefix
+    sharing; the contiguous one (``paged=False``: arrivals, ``block_len``
+    and ``attn_kernel`` unused) drains its queue as the reference's
+    launcher does, prefilling token by token through the decode step.
+    Each dispatch (one prefill or decode program) is bracketed by CUDA
+    events: ``stats["span_s"]`` is the device time from each dispatch's
+    start to its last kernel's end, summed, and ``stats["token_shapes"]``
+    the (slots, tokens per slot) of every dispatch, from which the row
+    counts the kernels saw follow."""
     from repro_torch.serve.engine import ServeEngine
-    eng = ServeEngine(cfg, params, consts, n_slots=n_slots, max_len=max_len,
-                      paged=True, block_len=block_len, exec_mode=exec_mode,
-                      sparse_decode=sparse_decode, attn_kernel=attn_kernel,
-                      prefix_sharing=True, device=device)
+    if paged:
+        eng = ServeEngine(cfg, params, consts, n_slots=n_slots,
+                          max_len=max_len, paged=True, block_len=block_len,
+                          exec_mode=exec_mode, sparse_decode=sparse_decode,
+                          attn_kernel=attn_kernel, prefix_sharing=True,
+                          device=device)
+    else:
+        eng = ServeEngine(cfg, params, consts, n_slots=n_slots,
+                          max_len=max_len, exec_mode=exec_mode,
+                          sparse_decode=sparse_decode, device=device)
     spans, shapes = [], set()
 
     def bracket(fn, kind):
@@ -1209,21 +1261,27 @@ def serve(cfg, params, consts, prompts, arrivals, *, exec_mode, attn_kernel,
             shapes.add((kind, tuple(tokens.shape)))
             return out
         return run
-    eng._prefill_fn = bracket(eng._prefill_fn, "prefill")
+    if paged:
+        eng._prefill_fn = bracket(eng._prefill_fn, "prefill")
     eng._decode_fn = bracket(eng._decode_fn, "decode")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    reqs = [eng.submit(p, max_new_tokens=new_tokens, arrival=a)
-            for p, a in zip(prompts, arrivals)]
-    stats = eng.run_stream()
+    if paged:
+        reqs = [eng.submit(p, max_new_tokens=new_tokens, arrival=a)
+                for p, a in zip(prompts, arrivals)]
+        stats = eng.run_stream()
+    else:
+        reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+        stats = eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stats["span_s"] = sum(s.elapsed_time(e) for s, e in spans) / 1e3
     stats["token_shapes"] = shapes
     bad = [(r.uid, r.status) for r in reqs if r.status != "done"]
     if bad or stats["exhausted"] or len(stats["completed"]) != len(reqs):
-        fail(f"{eng.cfg.param.exec_mode}/{attn_kernel}: requests not "
-             f"completed: {bad}")
+        fail(f"{eng.cfg.param.exec_mode}/{eng.cfg.attn_kernel}"
+             f"{'' if paged else '/contiguous'}: requests not completed: "
+             f"{bad}")
     for r in reqs:
         if len(r.out) != new_tokens or not all(0 <= t < cfg.vocab_size
                                                for t in r.out):
@@ -1365,7 +1423,7 @@ def phase_quant_f32(cfg, params, consts, prompts, arrivals, device, **kw):
     (the ``quant_sparse_matmul`` kernel + paged kernels) against a
     dense/gather engine on the dequantized weights (B', A' and v :=
     dequant(qv)): the same greedy tokens. Returns the loaded artifact's
-    trees and the quant run's dispatch shapes."""
+    trees, its dequantized params and the quant run's dispatch shapes."""
     from repro_torch.ckpt import checkpoint as ckpt
     from repro_torch.models.common import tree_leaves
     from repro_torch.quant import calibrate
@@ -1432,7 +1490,95 @@ def phase_quant_f32(cfg, params, consts, prompts, arrivals, device, **kw):
         + (f", ties (uid, token, top-2 gap): {ties}" if ties else "")
         + f" | quant {q_wall:.2f} s launches {launches}, dense "
         f"{d_wall:.2f} s")
-    return lp, lc, q_stats["token_shapes"]
+    return lp, lc, dp, q_stats["token_shapes"]
+
+
+def dispatch_ticks(reqs):
+    return [(r.t_admit, r.t_first, r.t_done) for r in reqs]
+
+
+def phase_contiguous_f32(cfg, params, consts, qparams, qconsts, dq, prompts,
+                         device, **kw):
+    """The contiguous engine (``paged=False``, the reference launcher's
+    default) in f32 on the traffic's prompts: fused (``sl_matmul``) and
+    sparse (``sparse_matmul``) against dense, and quant
+    (``quant_sparse_matmul``, the loaded artifact) against dense on the
+    dequantized weights: the same greedy tokens (a top-2 gap below 1e-4
+    the only excuse) and the same ticks. Then each of the first
+    ``ALONE_REQUESTS`` requests alone: the contiguous fused engine gives
+    the paged fused engine's tokens (the paged kernels against plain
+    attention on the rows). Returns the
+    dispatch shapes by exec mode and the launch counts of the quant
+    run."""
+    ckw = dict(kw, paged=False, attn_kernel=None, device=device)
+    shapes, dense = {}, {}
+    t0 = time.perf_counter()
+    for mode, kernel, p, c in (
+            ("fused", "sl_matmul", params, consts),
+            ("sparse", "sparse_matmul", params, consts),
+            ("quant", "quant_sparse_matmul", qparams, qconsts)):
+        dense_p = dq if mode == "quant" else params
+        if id(dense_p) not in dense:
+            reset_launch_counts()
+            dense[id(dense_p)] = serve(cfg, dense_p, c, prompts, None,
+                                       exec_mode="dense", **ckw)
+            if any(launch_counts().values()):
+                fail(f"contiguous dense launched kernels: {launch_counts()}")
+        d_reqs, _, d_eng, _ = dense[id(dense_p)]
+        reset_launch_counts()
+        reqs, stats, eng, wall = serve(cfg, p, c, prompts, None,
+                                       exec_mode=mode, **ckw)
+        launches = launch_counts()
+        if not launches[kernel] or any(
+                n for k, n in launches.items() if k != kernel):
+            fail(f"contiguous {mode} launched {launches}, only {kernel} "
+                 "expected")
+        same, ties = same_tokens(f"contiguous {mode} vs dense", reqs, d_reqs,
+                                 cfg, dense_p, c, device)
+        if dispatch_ticks(reqs) != dispatch_ticks(d_reqs) or \
+                dict(eng.dispatches) != dict(d_eng.dispatches):
+            fail(f"contiguous {mode}: ticks {dispatch_ticks(reqs)} vs dense "
+                 f"{dispatch_ticks(d_reqs)}")
+        total = sum(len(r.out) for r in reqs)
+        say(f"engine f32 {arch(cfg)} contiguous {mode} == dense"
+            f"{' on the dequantized weights' if mode == 'quant' else ''} on "
+            f"{same}/{total} tokens, tick for tick"
+            + (f", ties (uid, token, top-2 gap): {ties}" if ties else "")
+            + f" | {dict(eng.dispatches)} dispatches, {wall:.2f} s, launches "
+            f"{launches}")
+        shapes[mode] = stats["token_shapes"]
+        if mode == "quant":
+            quant_launches = launches
+    del dense
+    # one engine of each cache, each request submitted only once the one
+    # before it finished: alone in its engine, it takes slot 0, and every
+    # position it attends it wrote itself
+    from repro_torch.serve.engine import ServeEngine
+    alone = {}
+    for paged in (False, True):
+        extra = dict(paged=True, block_len=kw["block_len"],
+                     attn_kernel="paged") if paged else {}
+        eng = ServeEngine(cfg, params, consts, n_slots=kw["n_slots"],
+                          max_len=kw["max_len"], exec_mode="fused",
+                          device=device, **extra)
+        alone[paged] = []
+        for prompt in prompts[:ALONE_REQUESTS]:
+            alone[paged].append(eng.submit(prompt,
+                                           max_new_tokens=kw["new_tokens"]))
+            eng.run_until_drained()
+            if alone[paged][-1].status != "done":
+                fail(f"request alone (paged={paged}): "
+                     f"{alone[paged][-1].status}")
+    same, ties = same_tokens("each request alone, contiguous vs paged",
+                             alone[False], alone[True], cfg, params, consts,
+                             device)
+    say(f"engine f32 {arch(cfg)} one request at a time: contiguous fused == "
+        f"paged fused (paged kernels) on {same}/"
+        f"{ALONE_REQUESTS * kw['new_tokens']} tokens of the first "
+        f"{ALONE_REQUESTS} requests" + (f", ties (uid, token, top-2 gap): {ties}" if ties
+                      else "")
+        + f" | phase {time.perf_counter() - t0:.1f} s")
+    return shapes, quant_launches
 
 
 def check_forward(cfg, params, consts, device):
@@ -1474,17 +1620,30 @@ def sparse_bytes_per_step(cfg, quant: bool) -> int:
 
 
 def phase_engine_bf16(cfg, params, consts, prompts, arrivals, device,
-                      exec_mode="fused", path=None, **kw):
+                      exec_mode="fused", path=None, paged=True,
+                      profiled=False, **kw):
     """Phase 4: a serving path in bf16 (``exec_mode`` fused, sparse or
-    quant, with the paged kernels), timed, with every kernel's launch
-    count read around the run, and each kernel of ``path`` (default the
-    exec mode's, ``EXEC_PATH``) required to have launched."""
-    path = path or EXEC_PATH[exec_mode]
+    quant, with the paged kernels; or, with ``paged=False``, on the
+    contiguous cache), timed, with every kernel's launch count read around
+    the run, and each kernel of ``path`` (default the exec mode's,
+    ``EXEC_PATH`` or ``CONTIGUOUS_PATH``) required to have launched. The
+    contiguous engine must prefill with one dispatch a prompt token. With
+    ``profiled`` the run itself is timed under the device-only profiler,
+    and its busy share reported as ``phase_profile`` does."""
+    from torch.profiler import ProfilerActivity, profile
+    path = path or (EXEC_PATH if paged else CONTIGUOUS_PATH)[exec_mode]
     reset_launch_counts()
-    reqs, stats, eng, wall = serve(cfg, params, consts, prompts, arrivals,
-                                   exec_mode=exec_mode, attn_kernel="paged",
-                                   device=device, **kw)
+    with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+          else contextlib.nullcontext()) as prof:
+        reqs, stats, eng, wall = serve(cfg, params, consts, prompts,
+                                       arrivals, exec_mode=exec_mode,
+                                       attn_kernel="paged" if paged else None,
+                                       paged=paged, device=device, **kw)
     launches = launch_counts()
+    if not paged and eng.dispatches["prefill"] != sum(map(len, prompts)):
+        fail(f"bf16 contiguous {exec_mode}: {eng.dispatches['prefill']} "
+             f"prefill dispatches for {sum(map(len, prompts))} prompt "
+             "tokens")
     missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     if missing:
         fail(f"bf16 {exec_mode} serving path never launched {missing}: "
@@ -1502,7 +1661,9 @@ def phase_engine_bf16(cfg, params, consts, prompts, arrivals, device,
                  f"{sparse_bytes_per_step(cfg, exec_mode == 'quant') / 1e6:.2f}"
                  f" MB ({kernel} launches per step "
                  f"{launches[kernel] / steps:.0f})")
-    say(f"engine bf16 {arch(cfg)} ({exec_mode}: {kernel} + paged kernels): "
+    what = f"{kernel} + paged kernels" if paged else \
+        f"contiguous cache, {kernel} + plain attention"
+    say(f"engine bf16 {arch(cfg)} ({exec_mode}: {what}): "
         f"{len(stats['completed'])}/{len(reqs)} requests done, {tokens} "
         f"tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s, "
         f"{stats['decode_steps']} decode steps, "
@@ -1517,7 +1678,13 @@ def phase_engine_bf16(cfg, params, consts, prompts, arrivals, device,
     # dispatch's few input and output integers: the wall time outside the
     # dispatch spans is idle time spent on the host's scheduling; idle
     # gaps inside a span (the host launching the next op) are not seen
-    say(f"engine bf16 {exec_mode} dispatch spans, same run: {span:.3f} s of "
+    if profiled:
+        say_busy(prof, f"bf16 engine run, exec_mode {exec_mode}"
+                 f"{'' if paged else ' (contiguous)'} (timed above, "
+                 f"{stats['decode_steps']} decode steps, device-only "
+                 "profiler on)", wall)
+    say(f"engine bf16 {exec_mode}{'' if paged else ' contiguous'} dispatch "
+        f"spans, same run: {span:.3f} s of "
         f"device time from each dispatch's start to its last kernel's end, "
         f"of wall {wall:.3f} s: idle between dispatches "
         f"{100 * (1 - span / wall):.1f}% (CUDA events around each dispatch)")
@@ -1552,30 +1719,48 @@ def phase_profile(cfg, params, consts, prompts, arrivals, device,
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, stats, _, wall = serve(cfg, params, consts, prompts, arrivals,
                                   device=device, **kw)
+    say_busy(prof, f"bf16 engine run, exec_mode {kw['exec_mode']} "
+             f"({stats['decode_steps']} decode steps, device-only profiler "
+             f"on)", wall, f" (unprofiled run {plain_wall:.3f} s)")
+
+
+def say_busy(prof, label, wall, extra=""):
+    """Print a profiled run's device busy share and its kernels by device
+    time (``device_busy``)."""
     busy = device_busy(prof)
     if busy is None:
         say("profile: the profiler recorded no device time (not measured)")
         return
     busy_us, top = busy
-    say(f"profile bf16 engine run, exec_mode {kw['exec_mode']} "
-        f"({stats['decode_steps']} decode steps, "
-        f"device-only profiler on): wall {wall:.3f} s (unprofiled run "
-        f"{plain_wall:.3f} s), device busy {busy_us / 1e6:.3f} s = "
-        f"{100 * busy_us / 1e6 / wall:.1f}% (idle "
+    say(f"profile {label}: wall {wall:.3f} s{extra}, device busy "
+        f"{busy_us / 1e6:.3f} s = {100 * busy_us / 1e6 / wall:.1f}% (idle "
         f"{100 - 100 * busy_us / 1e6 / wall:.1f}%, same run); device time by "
         "kernel: " + "; ".join(f"{n[:48]} {pct:.1f}%" for n, pct in top))
+
+
+def device_events(prof):
+    """[(name, start µs, end µs)] of the device activity a profiler
+    recorded, read from its kineto results: ``prof.events()`` builds an
+    object for every event, the runtime calls' too, at tens of µs each,
+    seconds for one engine run. Only durations and overlaps are used, so
+    the kineto clock's other origin changes nothing."""
+    cuda = torch.autograd.DeviceType.CUDA
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if raw is None:
+        return [(e.name, e.time_range.start, e.time_range.end)
+                for e in prof.events() if e.device_type == cuda]
+    return [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+            for e in raw.events() if e.device_type() == cuda]
 
 
 def device_busy(prof, n_top: int = 6):
     """(busy µs, [(kernel name, % of device time)] for the top ``n_top``)
     from a profiler's device events: busy is the union of the kernels'
     intervals. None when the profiler recorded no device activity."""
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_events(prof)
     if not events:
         return None
-    busy_us, spans = 0.0, sorted((e.time_range.start, e.time_range.end)
-                                 for e in events)
+    busy_us, spans = 0.0, sorted((s, e) for _, s, e in events)
     cur_s, cur_e = spans[0]
     for s, e in spans[1:]:                      # union of kernel intervals
         if s > cur_e:
@@ -1585,11 +1770,9 @@ def device_busy(prof, n_top: int = 6):
             cur_e = max(cur_e, e)
     busy_us += cur_e - cur_s
     by_name = {}
-    for e in events:
-        n = e.name.replace("void ", "").replace("(anonymous namespace)::",
-                                                "")
-        by_name[n] = by_name.get(n, 0.0) + \
-            (e.time_range.end - e.time_range.start)
+    for name, s, e in events:
+        n = name.replace("void ", "").replace("(anonymous namespace)::", "")
+        by_name[n] = by_name.get(n, 0.0) + (e - s)
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
     return busy_us, [(n, 100 * t / total) for n, t in top]
@@ -2016,11 +2199,8 @@ def phase_train_profile(tr, state, device, med_s, label="train step",
 def kernel_device_ms(prof, key):
     """(device ms, launches) of the profiled kernels whose name holds
     ``key``."""
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA and
-              key in e.name]
-    return (sum(e.time_range.end - e.time_range.start for e in events) / 1e3,
-            len(events))
+    events = [(s, e) for name, s, e in device_events(prof) if key in name]
+    return sum(e - s for s, e in events) / 1e3, len(events)
 
 
 def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak=None,
@@ -2287,12 +2467,13 @@ def phase_comparison(device):
     parameterizations at an equal token budget, at the reference example's
     default size (dim 128, 300 steps, batch 8 × seq 128) with its two
     asserts as gates, then at ``llama_60m`` (the paper config, full width)
-    for 100 steps a mode, gated only on finite losses."""
+    for 10 steps a mode (cut from 100 to keep the script inside its time
+    limit), gated only on finite losses."""
     from repro_torch.analysis import pretrain_comparison as cmp
     root = os.path.join(ROOT, "build")
     os.makedirs(root, exist_ok=True)
     for label, kw in (("default size (dim 128)", dict(steps=300)),
-                      ("llama_60m", dict(size="60m", steps=100))):
+                      ("llama_60m", dict(size="60m", steps=10))):
         t0 = time.perf_counter()
         res = cmp.compare(device=device, ckpt_root=root,
                           log_fn=lambda *a: None, **kw)
@@ -2515,69 +2696,6 @@ def check_adam8bit_coverage(seen, rows):
         "checked above")
 
 
-def phase_kill_resume(device, optimizer="adamw", update_mode="global"):
-    """Phase 10: the Trainer on llama_60m (full width, bf16, fused) with a
-    checkpoint every 3 steps, killed at step 4 by ``fault_hook`` and
-    relaunched, ends bit-identical to an uninterrupted run: every param
-    leaf and every optimizer-state leaf (the 8-bit codes and scales
-    included). Runs under torch.use_deterministic_algorithms: the
-    embedding's backward accumulates by index, which is not deterministic
-    on CUDA otherwise."""
-    from repro_torch.configs import llama_60m
-    from repro_torch.optim.optimizers import tree_leaves
-    from repro_torch.train.trainer import Trainer
-
-    class Kill(Exception):
-        pass
-
-    def hook(step):
-        if step == 4:
-            raise Kill()
-    cfg = dataclasses.replace(llama_60m.CONFIG, param=dataclasses.replace(
-        llama_60m.CONFIG.param, exec_mode="fused"))
-    root = os.path.join(ROOT, "build", "chip_smoke_resume")
-    shutil.rmtree(root, ignore_errors=True)
-    quiet = dict(device=device, log_fn=lambda *a: None)
-    mk = lambda d: train_config(cfg, steps=6, batch=8, seq=256,
-                                ckpt_dir=os.path.join(root, d), ckpt_every=3,
-                                optimizer=optimizer, update_mode=update_mode)
-    torch.use_deterministic_algorithms(True)
-    try:
-        t0 = time.perf_counter()
-        ref = Trainer(mk("a"), **quiet).run()
-        try:
-            Trainer(mk("b"), fault_hook=hook, **quiet).run()
-            fail("kill/resume: the fault hook never fired")
-        except Kill:
-            pass
-        tr = Trainer(mk("b"), **quiet)
-        got = tr.run()
-        wall = time.perf_counter() - t0
-    finally:
-        torch.use_deterministic_algorithms(False)
-    shutil.rmtree(root, ignore_errors=True)
-    if tr.metrics_history[0]["step"] != 4:
-        fail(f"kill/resume: relaunch did not resume at step 4 "
-             f"({tr.metrics_history[0]['step']})")
-    out = {}
-    for what, a, b in (("param", ref.params, got.params),
-                       ("optimizer-state", ref.opt_state, got.opt_state)):
-        a, b = tree_leaves(a), tree_leaves(b)
-        same = sum(bool(torch.equal(x, y)) for x, y in zip(a, b))
-        if same != len(a) or len(a) != len(b):
-            fail(f"kill/resume {optimizer} {update_mode}: {len(a) - same} "
-                 f"of {len(a)} {what} leaves differ from the uninterrupted "
-                 "run")
-        out[what] = f"{same}/{len(a)}"
-    n8 = sum(t.dtype == torch.int8 for t in tree_leaves(got.opt_state))
-    say(f"kill/resume llama_60m (bf16, fused, {optimizer}, {update_mode}, "
-        f"deterministic algorithms): killed at step 4, resumed from step 3, "
-        f"{out['param']} param leaves and {out['optimizer-state']} "
-        f"optimizer-state leaves ({n8} of them int8 codes) bit-identical to "
-        f"the uninterrupted run after 6 steps ({wall:.1f} s for the three "
-        "runs)")
-
-
 def check_train_coverage(shapes, m, cfg, kernels=("sl_matmul", "sddmm")):
     """Every (M, K, N) the trainer gave ``kernels`` was checked in the
     kernel phases (the forward and dx calls and sddmm at the three
@@ -2619,10 +2737,11 @@ def kernels_line(rows, by_path, representative, rows_7b, representative_7b):
     """One entry per kernel: the llama_1b representative case's times and
     bound (and, under ``at_llama_7b``, the llama_7b one's), the largest
     error over all of the kernel's cases at both configs; launches summed
-    over the main paths' runs (serving fused, sparse and quant; training
-    fused, sparse and per-layer; the quant recipe at llama_1b and at its
-    default size; the quant fallback; llama_7b's per-layer training and
-    fused and sparse serving), each path's count beside them."""
+    over the main paths' runs (serving fused, sparse and quant on the
+    paged and the contiguous cache; training fused, sparse and per-layer;
+    the chaos drills; the quant recipe at llama_1b and at its default
+    size; the quant fallback; llama_7b's per-layer training and fused and
+    sparse serving), each path's count beside them."""
     out = []
     src = {"sl_matmul": SL_SOURCE, "paged_attention": PA_SOURCE,
            "paged_prefill": PA_SOURCE, "sddmm": SD_SOURCE,
@@ -2647,6 +2766,401 @@ def kernels_line(rows, by_path, representative, rows_7b, representative_7b):
             "at_llama_7b": {"shape": rep7["shape"], "cases": len(mine7),
                             **{k: rep7[k] for k in times}}})
     return {"kernels": out}
+
+
+# ---------------------------------------------------------------------------
+# chaos drills and the profiler hook (llama_60m)
+# ---------------------------------------------------------------------------
+
+# the chaos drills' training: llama_60m at full width, bf16, exec_mode
+# fused, the reference trainer's batch, as the launcher runs it
+CHAOS_ARGV = ["--arch", "llama_60m", "--exec-mode", "fused", "--steps", "6",
+              "--batch", "8", "--seq", "256", "--log-every", "100",
+              "--device", "cuda"]
+# the train launcher as a program (what ``python -m`` runs), in a fresh
+# process with deterministic algorithms on, so its steps give the bits an
+# uninterrupted run in this process gives (the embedding's backward
+# accumulates by index, which is not deterministic on CUDA otherwise)
+LAUNCHER = ("import runpy, torch; torch.use_deterministic_algorithms(True); "
+            "runpy.run_module('repro_torch.launch.train', "
+            "run_name='__main__', alter_sys=True)")
+# the serve-side stall drills: a stall far longer than the deadline, so
+# the stalled request must time out and release its slot (and pages)
+STALL_SPEC, STALL_DEADLINE = "stall@6:100000", 400
+# the reference's fault matrix (tests/test_fault_tolerance.py)
+FAULT_MATRIX = ("kill@3,data_corrupt@2,straggler@2:30,ckpt_corrupt@4,"
+                "nonfinite@4")
+
+
+def chaos_cfg():
+    from repro_torch.configs import llama_60m
+    return dataclasses.replace(llama_60m.CONFIG, param=dataclasses.replace(
+        llama_60m.CONFIG.param, exec_mode="fused"))
+
+
+def same_checkpoints(what, a_dir, b_dir, step):
+    """Every array of step ``step``'s checkpoint in ``a_dir`` and
+    ``b_dir`` (params and optimizer state, 8-bit codes included) equal bit
+    for bit; returns the array count."""
+    load = lambda d: np.load(os.path.join(d, f"step_{step:08d}",
+                                          "arrays.npz"))
+    a, b = load(a_dir), load(b_dir)
+    if sorted(a.files) != sorted(b.files):
+        fail(f"{what}: checkpoints hold other arrays")
+    differ = [k for k in a.files if a[k].dtype != b[k].dtype
+              or a[k].tobytes() != b[k].tobytes()]
+    if differ:
+        fail(f"{what}: {len(differ)} of {len(a.files)} checkpoint arrays "
+             f"differ from the uninterrupted run's, e.g. {differ[:3]}")
+    return len(a.files)
+
+
+def check_relaunch(what, ref_hist, hist, first_steps):
+    """The relaunch began at one of ``first_steps`` and each of its losses
+    equals the uninterrupted run's at that step, bit for bit."""
+    first = hist[0]["step"]
+    if first not in first_steps:
+        fail(f"{what}: the relaunch began at step {first}")
+    losses = {h["step"]: h["loss"] for h in ref_hist}
+    if any(h["loss"] != losses[h["step"]] for h in hist):
+        fail(f"{what}: relaunch losses {[h['loss'] for h in hist]} vs "
+             f"uninterrupted {losses}")
+    return first
+
+
+def phase_chaos_kill_launcher(device, root):
+    """``python -m repro_torch.launch.train --chaos kill@4`` on llama_60m
+    (bf16, fused, global AdamW) in its own process must exit 43; its
+    relaunch (the launcher again, in this process) must end bit-identical
+    to an uninterrupted launcher run: the relaunch's losses and every
+    param and optimizer-state array of the step-6 checkpoint. All three
+    runs under deterministic algorithms. The killed run checkpoints every
+    2 steps in the background: its process may die with step 4's write in
+    flight, so the relaunch resumes from step 2 or 4. Returns the launch
+    counts of the two runs in this process."""
+    from repro_torch.launch import train as train_launcher
+    a, b = (os.path.join(root, f"launcher_{x}") for x in "ab")
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            ref = train_launcher.main(CHAOS_ARGV + ["--ckpt-dir", a,
+                                                    "--ckpt-every", "3"])
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        out = subprocess.run(
+            [sys.executable, "-c", LAUNCHER, *CHAOS_ARGV, "--ckpt-dir", b,
+             "--ckpt-every", "2", "--chaos", "kill@4"], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=600)
+        if out.returncode != 43:
+            fail(f"launch.train --chaos kill@4 exited {out.returncode}, not "
+                 f"43: {out.stderr[-2000:]}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            got = train_launcher.main(CHAOS_ARGV + ["--ckpt-dir", b,
+                                                    "--ckpt-every", "2"])
+        launches = launch_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    what = "chaos kill@4 (launcher, adamw, global)"
+    first = check_relaunch(what, ref.metrics_history, got.metrics_history,
+                           (3, 5))
+    n = same_checkpoints(what, a, b, 6)
+    say(f"chaos kill@4 llama_60m (bf16, fused, adamw, global, "
+        f"deterministic algorithms): launch.train --chaos kill@4 in its own "
+        f"process exited 43; the launcher's relaunch resumed at step "
+        f"{first}, its losses and all {n} arrays of its step-6 checkpoint "
+        f"bit-identical to an uninterrupted launcher run "
+        f"({time.perf_counter() - t0:.1f} s for the three runs)")
+    return launches
+
+
+def phase_chaos_kill_trainer(device, root, optimizer, update_mode):
+    """``Trainer(chaos=kill@4)`` on llama_60m (bf16, fused, deterministic
+    algorithms), checkpointing every 3 steps, must raise SystemExit(43)
+    and count the kill; the relaunch resumes from step 3 and ends
+    bit-identical to an uninterrupted run (losses, and every param and
+    optimizer-state array of the step-6 checkpoint, 8-bit codes
+    included). Returns the launch counts of the three runs."""
+    from repro_torch.resilience import ChaosEngine
+    from repro_torch.train.trainer import Trainer
+    name = f"{optimizer}_{update_mode}"
+    a, b = (os.path.join(root, f"{name}_{x}") for x in "ab")
+    mk = lambda d: train_config(chaos_cfg(), steps=6, batch=8, seq=256,
+                                ckpt_dir=d, ckpt_every=3, optimizer=optimizer,
+                                update_mode=update_mode)
+    quiet = dict(device=device, log_fn=lambda *x: None)
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        reset_launch_counts()
+        ref = Trainer(mk(a), **quiet)
+        ref.run()
+        killed = Trainer(mk(b), chaos=ChaosEngine.parse("kill@4"), **quiet)
+        try:
+            killed.run()
+            fail(f"chaos kill@4 {name}: the kill never fired")
+        except SystemExit as e:
+            if e.code != 43:
+                fail(f"chaos kill@4 {name}: exit code {e.code}, not 43")
+        got = Trainer(mk(b), **quiet)
+        got.run()
+        launches = launch_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if killed.obs.snapshot()["resilience.faults_injected{kind=kill}"][
+            "value"] != 1:
+        fail(f"chaos kill@4 {name}: the kill was not counted")
+    what = f"chaos kill@4 ({name})"
+    check_relaunch(what, ref.metrics_history, got.metrics_history, (4,))
+    n = same_checkpoints(what, a, b, 6)
+    say(f"chaos kill@4 llama_60m (bf16, fused, {optimizer}, {update_mode}, "
+        f"deterministic algorithms): Trainer(chaos=kill@4) raised "
+        f"SystemExit(43), counted; the relaunch resumed at step 4, its "
+        f"losses and all {n} arrays of its step-6 checkpoint (8-bit codes "
+        f"and scales included) bit-identical to the uninterrupted run "
+        f"({time.perf_counter() - t0:.1f} s for the three runs)")
+    return launches
+
+
+def phase_fault_matrix(device, root):
+    """The reference's fault matrix on llama_60m (bf16, fused): kill@3,
+    then a relaunch with the same chaos engine and registry, where
+    ckpt_corrupt@4 damages the newest checkpoint right before nonfinite@4
+    forces a rollback past it; data_corrupt and straggler fire on the way.
+    Every kind must be counted once and recovered from (the run ends at
+    step 6 with a finite loss, a rollback, a skipped step and a dropped
+    batch). Then ``ckpt_corrupt@5,kill@5``: the relaunch must warn and
+    resume from step 2, the newest intact checkpoint."""
+    import warnings
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.resilience import ChaosEngine
+    from repro_torch.train.trainer import Trainer
+    t0 = time.perf_counter()
+    d = os.path.join(root, "matrix")
+    # synchronous writes, and the reference's default of 3 kept: a
+    # corrupted newest checkpoint leaves older intact ones to fall back to
+    tc = dataclasses.replace(train_config(
+        chaos_cfg(), steps=6, batch=8, seq=256, ckpt_dir=d, ckpt_every=2),
+        keep_ckpts=3)
+    reg = obs_metrics.Registry()
+    engine = ChaosEngine.parse(FAULT_MATRIX, seed=0)
+    kw = dict(device=device, log_fn=lambda *x: None, chaos=engine,
+              max_skips=1, obs=reg)
+    try:
+        Trainer(tc, **kw).run()
+        fail("fault matrix: kill@3 never fired")
+    except SystemExit as e:
+        if e.code != 43:
+            fail(f"fault matrix: kill@3 exited {e.code}")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        tr = Trainer(tc, **kw)
+        state = tr.run()
+    snap = {k: v["value"] for k, v in reg.snapshot().items()
+            if k.startswith("resilience.")}
+    kinds = ("kill", "data_corrupt", "straggler", "ckpt_corrupt",
+             "nonfinite")
+    injected = {k: snap.get(f"resilience.faults_injected{{kind={k}}}", 0)
+                for k in kinds}
+    if state.step != 6 or not np.isfinite(tr.metrics_history[-1]["loss"]) \
+            or any(v != 1 for v in injected.values()) \
+            or snap.get("resilience.rollbacks", 0) < 1 \
+            or snap.get("resilience.nonfinite_steps", 0) < 1 \
+            or snap.get("resilience.bad_batches", 0) < 1 \
+            or not any("corrupt" in str(w.message) for w in caught):
+        fail(f"fault matrix: step {state.step}, counters {snap}, warnings "
+             f"{[str(w.message)[:80] for w in caught]}")
+    # a corrupted newest checkpoint at a relaunch
+    d2 = os.path.join(root, "corrupt")
+    tc2 = dataclasses.replace(tc, ckpt_dir=d2)
+    killed = Trainer(tc2, device=device, log_fn=lambda *x: None,
+                     chaos=ChaosEngine.parse("ckpt_corrupt@5,kill@5"))
+    try:
+        killed.run()
+        fail("ckpt_corrupt@5,kill@5: the kill never fired")
+    except SystemExit:
+        pass
+    logs = []
+    with warnings.catch_warnings(record=True) as caught2:
+        warnings.simplefilter("always")
+        relaunch = Trainer(tc2, device=device, log_fn=logs.append)
+        state2 = relaunch.run()
+    if killed.obs.snapshot()["resilience.faults_injected{kind=ckpt_corrupt}"][
+            "value"] != 1 or state2.step != 6 or \
+            not any("resumed from step 2" in line for line in logs) or \
+            not any("corrupt" in str(w.message) for w in caught2):
+        fail(f"ckpt_corrupt relaunch: step {state2.step}, logs {logs}")
+    say(f"chaos fault matrix llama_60m (bf16, fused) '{FAULT_MATRIX}' over "
+        f"a kill and a relaunch: faults_injected {injected}, rollbacks "
+        f"{snap['resilience.rollbacks']:.0f}, non-finite steps skipped "
+        f"{snap['resilience.nonfinite_steps']:.0f}, bad batches dropped "
+        f"{snap['resilience.bad_batches']:.0f}, finished step 6 with loss "
+        f"{tr.metrics_history[-1]['loss']:.4f}; ckpt_corrupt@5 then kill@5: "
+        f"the relaunch warned and resumed from step 2 (newest intact) | "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_stall(device, *, paged):
+    """``stall@T:K`` with K far past the deadline, through the engine's
+    tick hook, on llama_60m (bf16, fused; the paged engine with the paged
+    kernels and prefix sharing via ``run_stream``, or the contiguous one
+    draining its queue): every request ends done or timed out, at least
+    the stalled one times out, nothing is left queued, resident or
+    stalled, and (paged) no KV block stays in use; the paged run's
+    completed requests give an unstalled run's tokens. Returns the launch
+    counts of the stalled run."""
+    from repro_torch.models import lm
+    from repro_torch.resilience import ChaosEngine
+    from repro_torch.serve.engine import ServeEngine
+    cfg = chaos_cfg()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params, consts = lm.init_lm(cfg, seed=0, device=device)
+    randomize_b(params, gen)
+    prompts, arrivals = traffic(cfg.vocab_size)
+    kw = dict(n_slots=4, max_len=128, device=device,
+              deadline_ticks=STALL_DEADLINE)
+    if paged:
+        kw.update(paged=True, block_len=16, attn_kernel="paged",
+                  prefix_sharing=True)
+
+    def run(spec):
+        chaos = ChaosEngine.parse(spec, seed=0) if spec else None
+        eng = ServeEngine(cfg, params, consts, **kw,
+                          tick_hook=chaos.serve_hook if chaos else None)
+        if chaos:
+            chaos.bind(eng.obs)
+        if paged:
+            reqs = [eng.submit(p, max_new_tokens=16, arrival=a)
+                    for p, a in zip(prompts, arrivals)]
+            stats = eng.run_stream()
+        else:
+            reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+            stats = eng.run_until_drained()
+        torch.cuda.synchronize()
+        return eng, reqs, stats
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    eng, reqs, stats = run(STALL_SPEC)
+    launches = launch_counts()
+    wall = time.perf_counter() - t0
+    statuses = [r.status for r in reqs]
+    snap = eng.obs.snapshot()
+    what = "paged" if paged else "contiguous"
+    if stats["exhausted"] or not set(statuses) <= {"done", "timed_out"} \
+            or "timed_out" not in statuses or eng._has_work() \
+            or eng._stall_until \
+            or snap["resilience.faults_injected{kind=stall}"]["value"] != 1 \
+            or (paged and eng.sched.blocks.blocks_in_use):
+        fail(f"stall drill ({what}): statuses {statuses}, exhausted "
+             f"{stats['exhausted']}, stalls {eng._stall_until}, snapshot "
+             f"{ {k: v for k, v in snap.items() if 'serve.' in k} }")
+    extra = ""
+    if paged:
+        _, plain, _ = run(None)
+        differ = [r.uid for r, p in zip(reqs, plain)
+                  if r.status == "done" and r.out != p.out]
+        if differ:
+            fail(f"stall drill (paged): requests {differ} gave other tokens "
+                 "than the unstalled run")
+        extra = (f"; the {statuses.count('done')} done requests' tokens "
+                 "equal an unstalled run's; blocks in use 0")
+    say(f"stall drill llama_60m (bf16, fused, {what} engine) {STALL_SPEC} "
+        f"with deadline_ticks {STALL_DEADLINE}: statuses "
+        f"{dict((s, statuses.count(s)) for s in sorted(set(statuses)))}, "
+        f"deadline_exceeded {snap['serve.deadline_exceeded']['value']:.0f}, "
+        f"{eng.clock} ticks, nothing queued, resident or stalled{extra} | "
+        f"launches {launches} | {wall:.1f} s")
+    return launches
+
+
+def profile_kernel_names(path):
+    """{kernel name: events} of the device kernels in a Chrome trace that
+    ``torch.profiler`` exported (demangled signatures, such as "void
+    (anonymous namespace)::sl_reduce_kernel<__nv_bfloat16>(...)", named
+    by their first identifier ending in "kernel")."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            found = re.findall(r"(\w+kernel)\b", e.get("name", ""))
+            name = found[0] if found else e.get("name", "")
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def source_kernels(src):
+    """The kernel names of a CUDA source of the repo."""
+    with open(os.path.join(ROOT, src)) as f:
+        text = f.read()
+    return set(re.findall(r"\b(\w+kernel)\s*\(", text))
+
+
+def phase_profiler(root):
+    """The launchers' ``--jax-profile-dir`` on the card: a contiguous
+    fused serve run of llama_60m (2 requests, 4 new tokens each) and 2
+    fused training steps write Chrome traces; the serve trace must name
+    an sl_matmul device kernel, the train trace sl_matmul's and
+    sddmm's."""
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    t0 = time.perf_counter()
+    quiet = io.StringIO()
+    with contextlib.redirect_stdout(quiet):
+        eng, reqs = serve_launcher.main([
+            "--arch", "llama_60m", "--exec-mode", "fused", "--requests",
+            "2", "--new-tokens", "4", "--jax-profile-dir",
+            os.path.join(root, "serve")])
+        tr = train_launcher.main([
+            "--arch", "llama_60m", "--exec-mode", "fused", "--steps", "2",
+            "--ckpt-dir", os.path.join(root, "ckpt"), "--jax-profile-dir",
+            os.path.join(root, "train")])
+    sl_names = source_kernels(SL_SOURCE)
+    lines = []
+    for what, path, want in (
+            ("serve", eng.trace.profile_path, ("sl_matmul",)),
+            ("train", tr.trace.profile_path, ("sl_matmul", "sddmm"))):
+        names = profile_kernel_names(path)
+        seen = {"sl_matmul": {n: c for n, c in names.items()
+                              if n in sl_names},
+                "sddmm": {n: c for n, c in names.items()
+                          if n in source_kernels(SD_SOURCE)}}
+        missing = [k for k in want if not seen[k]]
+        if missing:
+            fail(f"profiler ({what}): the trace {path} names no {missing} "
+                 f"device kernel; kernels: {sorted(names)[:20]}")
+        lines.append(f"{what} {os.path.getsize(path) / 2**20:.1f} MiB, "
+                     f"{sum(names.values())} device kernel events, "
+                     + ", ".join(f"{k} {seen[k]}" for k in want))
+    if eng.cfg.param.exec_mode != "fused" or eng.paged or \
+            any(r.status != "done" for r in reqs):
+        fail("profiler: the serve launcher did not run the contiguous "
+             "fused engine to the end")
+    say("profiler (--jax-profile-dir, torch.profiler CPU + CUDA): "
+        + " | ".join(lines) + f" | {time.perf_counter() - t0:.1f} s")
+
+
+def phase_chaos(device):
+    """The chaos drills and the profiler hook on llama_60m; returns the
+    launch counts by path."""
+    root = os.path.join(ROOT, "build", "chip_smoke_chaos")
+    shutil.rmtree(root, ignore_errors=True)
+    by_path = {
+        "chaos_train_llama_60m": phase_chaos_kill_launcher(device, root),
+        "chaos_train_per_layer_llama_60m": phase_chaos_kill_trainer(
+            device, root, "adam8bit", "per_layer")}
+    phase_fault_matrix(device, root)
+    by_path["stall_paged_llama_60m"] = phase_stall(device, paged=True)
+    by_path["stall_contiguous_llama_60m"] = phase_stall(device, paged=False)
+    phase_profiler(root)
+    shutil.rmtree(root, ignore_errors=True)
+    for path, launches in by_path.items():
+        missing = [k for k in PATH_KERNELS[path] if not launches[k]]
+        if missing:
+            fail(f"{path} never launched {missing}: {launches}")
+    return by_path
 
 
 # ---------------------------------------------------------------------------
@@ -2818,8 +3332,8 @@ def phase_memory_7b(cfg, device, smi, *, batch, seq, lean_peak):
 
 def phase_serving_7b(cfg, device, *, n_slots, block_len, max_len, buckets,
                      m_values):
-    """Phase 7e: llama_7b at full width and depth served in bf16 from one
-    pooled init (B ~ U(-1, 1), fused tile consts, which the sparse path
+    """Phase 7e: llama_7b at full width, on ``cfg``'s layers, served in
+    bf16 from one pooled init (B ~ U(-1, 1), fused tile consts, which the sparse path
     reads too): the fused and the sparse engine on the llama_1b traffic,
     timed, launch counts read around each run, then profiled. Returns each
     path's launch counts."""
@@ -2891,9 +3405,10 @@ def run_7b(device, smi, *, batch, seq, n_slots, block_len, max_len, buckets,
                     lean_peak=lean_peak)
     say(f"phase 7d ({arch(cfg)} memory): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    by_path.update(phase_serving_7b(cfg, device, n_slots=n_slots,
-                                    block_len=block_len, max_len=max_len,
-                                    buckets=buckets, m_values=m_values))
+    by_path.update(phase_serving_7b(
+        dataclasses.replace(cfg, n_layers=SERVE_7B_LAYERS), device,
+        n_slots=n_slots, block_len=block_len, max_len=max_len,
+        buckets=buckets, m_values=m_values))
     say(f"phase 7e ({arch(cfg)} serving): {time.perf_counter() - t0:.1f} s")
     return rows, by_path
 
@@ -2904,8 +3419,9 @@ def run_7b(device, smi, *, batch, seq, n_slots, block_len, max_len, buckets,
 
 def run_serving(cfg, device, gen, n_slots, block_len, max_len, buckets,
                 m_values):
-    """Phases 3 to 5 on the serving paths (fused, sparse, quant); returns
-    each path's launch counts from its bf16 run."""
+    """Phases 3 to 5 on the serving paths (fused, sparse, quant; paged,
+    then the contiguous cache); returns each path's launch counts from its
+    bf16 run."""
     from repro_torch.models import lm
     from repro_torch.models.common import tree_leaves, tree_map
     t0 = time.perf_counter()
@@ -2923,15 +3439,25 @@ def run_serving(cfg, device, gen, n_slots, block_len, max_len, buckets,
     kw = dict(n_slots=n_slots, max_len=max_len, block_len=block_len,
               new_tokens=16)
     check_forward(cfg32, params, consts, device)
+    lap = Laps()
     shapes = {"fused": set(), "sparse": set(), "quant": set()}
     fused, b_reqs = phase_engine_f32(cfg32, params, consts, prompts,
                                      arrivals, device, **kw)
     shapes["fused"] |= fused
     shapes["sparse"] |= phase_sparse_f32(cfg32, params, consts, prompts,
                                          arrivals, b_reqs, device, **kw)
-    qparams, qconsts, quant = phase_quant_f32(cfg32, params, consts, prompts,
-                                              arrivals, device, **kw)
+    lap("serving: f32 paged fused, sparse and dense")
+    qparams, qconsts, dq, quant = phase_quant_f32(cfg32, params, consts,
+                                                  prompts, arrivals, device,
+                                                  **kw)
     shapes["quant"] |= quant
+    lap("serving: calibration, artifact and f32 paged quant")
+    contiguous, quant_launches = phase_contiguous_f32(
+        cfg32, params, consts, qparams, qconsts, dq, prompts, device, **kw)
+    del dq
+    for mode, s in contiguous.items():
+        shapes[mode] |= s
+    lap("serving: f32 contiguous")
 
     cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
     to16 = lambda tree: tree_map(lambda t: t.to(torch.bfloat16), tree)
@@ -2947,6 +3473,17 @@ def run_serving(cfg, device, gen, n_slots, block_len, max_len, buckets,
         shapes[mode] |= s16
         phase_profile(cfg16, p, c, prompts, arrivals, device, wall16,
                       exec_mode=mode, attn_kernel="paged", **kw)
+    lap("serving: bf16 paged, timed and profiled")
+    # the contiguous cache in bf16: fused (its one run timed under the
+    # device-only profiler) and sparse; quant's launches are its f32 run's
+    by_path["serve_contiguous_quant"] = quant_launches
+    for mode in ("fused", "sparse"):
+        launches, s16, _ = phase_engine_bf16(
+            cfg16, params16, consts, prompts, arrivals, device,
+            exec_mode=mode, paged=False, profiled=mode == "fused", **kw)
+        by_path[CONTIGUOUS_PATH[mode]] = launches
+        shapes[mode] |= s16
+    lap("serving: bf16 contiguous")
     for mode, kernel in (("fused", "sl_matmul"), ("sparse", "sparse_matmul"),
                          ("quant", "quant_sparse_matmul")):
         check_coverage(shapes[mode], m_values, buckets, kernel)
@@ -3018,12 +3555,13 @@ def main() -> int:
     lap("llama_1b serving")
 
     phase_train_parity(dataclasses.replace(
-        cfg, dtype="float32", param=dataclasses.replace(
-            cfg.param, exec_mode="fused")), device, gen, batch=batch,
-        seq=seq)
+        cfg, dtype="float32", n_layers=PARITY_LAYERS,
+        param=dataclasses.replace(cfg.param, exec_mode="fused")), device,
+        gen, batch=batch, seq=seq)
     torch.cuda.empty_cache()
-    phase_baseline_parity(dataclasses.replace(cfg, dtype="float32"), device,
-                          batch=batch, seq=seq)
+    phase_baseline_parity(dataclasses.replace(
+        cfg, dtype="float32", n_layers=PARITY_LAYERS), device, batch=batch,
+        seq=seq)
     torch.cuda.empty_cache()
     lap("llama_1b f32 training parity")
     cfg16 = dataclasses.replace(cfg, param=dataclasses.replace(
@@ -3067,9 +3605,9 @@ def main() -> int:
     phase_memory_table(cfg, device, smi, batch=batch, seq=seq,
                        sltrain_rows=sltrain_rows)
     lap("llama_1b bf16 training and memory table")
-    phase_kill_resume(device)
-    phase_kill_resume(device, optimizer="adam8bit", update_mode="per_layer")
-    lap("kill/resume")
+    by_path.update(phase_chaos(device))
+    torch.cuda.empty_cache()
+    lap("chaos drills and profiler (llama_60m)")
     recipe_cfg = dataclasses.replace(cfg16, n_layers=RECIPE_LAYERS)
     by_path["recipe_llama_1b"], recipe_ckpt = phase_recipe_llama_1b(
         recipe_cfg, device, smi, batch=batch, seq=seq)

@@ -1,8 +1,10 @@
 """Serving launcher of the port: init a paper config with seeded random
 weights, or restore a training checkpoint, and serve batched requests
-through the paged engine.
+through the engine: the contiguous cache by default, as the reference's
+launcher, the paged one with ``--paged``.
 
 Usage (from the repository root, ``PYTHONPATH=src``):
+  python -m repro_torch.launch.serve --arch llama_1b --exec-mode fused
   python -m repro_torch.launch.serve --arch llama_1b --paged --stream \
       --prefix-sharing --exec-mode fused
   python -m repro_torch.launch.serve --arch llama_1b --paged --sparse-decode
@@ -16,6 +18,10 @@ Usage (from the repository root, ``PYTHONPATH=src``):
       --ckpt-dir /path/to/train/ckpt --exec-mode quant --quant-fallback
   python -m repro_torch.launch.serve --arch llama_60m --smoke --paged \
       --device cpu
+  python -m repro_torch.launch.serve --arch llama_60m --smoke --paged \
+      --chaos stall@4:64 --deadline-ticks 40 --device cpu
+  python -m repro_torch.launch.serve --arch llama_60m --exec-mode fused \
+      --jax-profile-dir /tmp/prof     # a torch.profiler Chrome trace
 
 ``--exec-mode`` (and ``--sparse-decode``) is applied to the config before
 init, so ``fused``, ``sparse`` and ``quant`` get the tile consts their
@@ -25,7 +31,13 @@ whatever exec mode it was trained in. ``--quant-ckpt`` serves a quant
 artifact (``python -m repro_torch.quant.calibrate``), which carries its
 own params and consts. ``--quant-fallback`` lets an exec_mode quant engine
 whose consts lack the int8 codes serve through the sparse path instead,
-with a warning. The reference's mesh and chaos flags are not ported yet.
+with a warning. ``--chaos`` injects serve faults
+(``repro_torch.resilience.chaos``: ``stall@T:K``) through the engine's
+tick hook; with it, or with a deadline or a queue cap, requests may end
+timed out or rejected, but none unfinished. ``--jax-profile-dir`` (the
+reference's spelling; ``--profile-dir`` too) records a
+``torch.profiler`` Chrome trace of the run into that directory. The
+reference's ``--use-mesh`` is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -38,6 +50,7 @@ import numpy as np
 from repro_torch.models import registry
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.resilience.chaos import ChaosEngine
 from repro_torch.serve.engine import ServeEngine
 
 
@@ -103,33 +116,51 @@ def main(argv=None):
                          "the consts lack the int8 codes, instead of "
                          "refusing to start")
     ap.add_argument("--paged", action="store_true",
-                    help="block-paged KV cache (the only cache the port has)")
+                    help="block-paged KV cache with batched prefill and "
+                         "per-slot decode positions (default: the "
+                         "contiguous cache)")
     ap.add_argument("--block-len", type=int, default=16,
-                    help="tokens per KV block")
+                    help="tokens per KV block (paged only)")
     ap.add_argument("--attn-kernel", default=None,
                     choices=("gather", "paged"),
                     help="paged read path: 'paged' runs the paged-attention "
                          "kernels, 'gather' the gathered view (default: the "
-                         "config's, 'paged')")
+                         "config's, 'paged'; 'gather' without --paged)")
     ap.add_argument("--stagger", action="store_true",
                     help="submit requests one engine step apart")
     ap.add_argument("--stream", action="store_true",
                     help="continuous batching: Poisson arrival ticks, "
-                         "served via run_stream")
+                         "served via run_stream (requires --paged)")
     ap.add_argument("--prefix-sharing", action="store_true",
                     help="copy-on-write prefix sharing of block-aligned "
-                         "prompt prefixes")
+                         "prompt prefixes (requires --paged)")
+    ap.add_argument("--use-mesh", action="store_true",
+                    help="serve on a device mesh (not ported yet)")
     ap.add_argument("--metrics-out", default=None,
                     help="append one registry snapshot JSONL line here")
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome-trace JSON of engine spans and "
                          "request lifecycles")
+    ap.add_argument("--jax-profile-dir", "--profile-dir", dest="profile_dir",
+                    default=None,
+                    help="record a torch.profiler Chrome trace of the run "
+                         "into this directory (the reference's jax.profiler "
+                         "hook)")
+    ap.add_argument("--chaos", default=None,
+                    help="fault-injection spec (repro_torch.resilience."
+                         "chaos), e.g. 'stall@4:64': freezes one active slot "
+                         "for 64 ticks at tick 4; the engine must drain with "
+                         "no request unfinished")
     ap.add_argument("--deadline-ticks", type=int, default=None)
     ap.add_argument("--deadline-ms", type=float, default=None)
     ap.add_argument("--max-queue", type=int, default=None)
     args = ap.parse_args(argv)
-    if not args.paged:
-        ap.error("the port serves with the paged KV cache only: pass --paged")
+    if args.use_mesh:
+        raise NotImplementedError(
+            "--use-mesh is not ported yet (ROADMAP queue A item 10: "
+            "distribution); the port serves on one card")
+    if (args.stream or args.prefix_sharing) and not args.paged:
+        ap.error("--stream/--prefix-sharing require --paged")
 
     if args.sparse_decode and args.exec_mode is not None:
         ap.error("pass either --sparse-decode or --exec-mode, not both")
@@ -149,16 +180,22 @@ def main(argv=None):
     params, consts = load_model(cfg, device=args.device,
                                 ckpt_dir=args.ckpt_dir,
                                 quant_ckpt=args.quant_ckpt)
-    trace = obs_trace.Trace(enabled=bool(args.trace_out))
+    trace = obs_trace.Trace(enabled=bool(args.trace_out or args.profile_dir),
+                            profile_dir=args.profile_dir)
+    trace.start()
+    chaos = ChaosEngine.parse(args.chaos) if args.chaos else None
     eng = ServeEngine(cfg, params, consts, n_slots=args.slots,
-                      max_len=args.max_len, paged=True,
+                      max_len=args.max_len, paged=args.paged,
                       block_len=args.block_len,
                       attn_kernel=args.attn_kernel,
                       prefix_sharing=args.prefix_sharing, trace=trace,
                       max_queue=args.max_queue,
                       deadline_ticks=args.deadline_ticks,
                       deadline_ms=args.deadline_ms,
+                      tick_hook=chaos.serve_hook if chaos else None,
                       quant_fallback=args.quant_fallback, device=args.device)
+    if chaos is not None:
+        chaos.bind(eng.obs)
     rng = np.random.default_rng(0)
     prompts = []
     shared = rng.integers(3, cfg.vocab_size, size=16).tolist()
@@ -194,13 +231,14 @@ def main(argv=None):
             r.status not in ("done", "rejected", "timed_out") for r in reqs):
         raise SystemExit(f"requests left unfinished: "
                          f"{[(r.uid, r.status) for r in reqs]}")
-    degraded = args.deadline_ticks is not None or \
+    degraded = args.chaos or args.deadline_ticks is not None or \
         args.deadline_ms is not None or args.max_queue is not None
     if not degraded and len(stats["completed"]) != len(reqs):
         raise SystemExit(f"{len(stats['completed'])} of {len(reqs)} "
                          "requests completed")
     total_toks = sum(len(r.out) for r in reqs)
-    mode = f"paged/{eng.cfg.attn_kernel}" + ("/stream" if args.stream else "")
+    mode = f"paged/{eng.cfg.attn_kernel}" if args.paged else "legacy"
+    mode += "/stream" if args.stream else ""
     print(f"served {len(reqs)} requests, {total_toks} tokens in {dt:.2f}s "
           f"({total_toks/dt:.1f} tok/s, {stats['decode_steps']} decode steps,"
           f" {eng.dispatches['prefill']} prefill dispatches, {mode},"
@@ -222,9 +260,13 @@ def main(argv=None):
                   f"(max={tt[-1]}) | p50={hw.percentile(50):.1f}ms "
                   f"p99={hw.percentile(99):.1f}ms wall")
     if eng.timed_out or eng.rejected:
-        print(f"  resilience: {stats['summary']}")
+        print(f"  resilience: {stats['summary']} "
+              f"({len(eng.timed_out)} past deadline, "
+              f"{len(eng.rejected)} shed at submit)")
     for r in reqs[:4]:
         print(f"  req {r.uid}: prompt {r.prompt} -> {r.out}")
+    if trace.stop():
+        print(f"  profile: {trace.profile_path}")
     if args.metrics_out:
         eng.obs.write_jsonl(args.metrics_out,
                             extra={"run": "serve", "arch": args.arch,
@@ -233,6 +275,7 @@ def main(argv=None):
     if args.trace_out:
         n = trace.export(args.trace_out)
         print(f"  trace: {n} events -> {args.trace_out}")
+    return eng, reqs
 
 
 if __name__ == "__main__":

@@ -17,6 +17,10 @@ Usage:
   python -m repro_torch.launch.train --arch llama_1b --mode relora
   python -m repro_torch.launch.train --arch llama_1b --mode dense \\
       --optimizer galore_adamw --update-mode per_layer
+  python -m repro_torch.launch.train --arch llama_60m --exec-mode fused \\
+      --steps 6 --ckpt-every 3 --chaos kill@4          # exits 43 at step 4
+  python -m repro_torch.launch.train --arch llama_60m --steps 6 \\
+      --jax-profile-dir /tmp/prof          # a torch.profiler Chrome trace
 
 The flags are the reference's. ``--exec-mode`` is applied to the config
 before init, so ``fused`` and ``sparse`` get their tile consts (``sparse``
@@ -26,8 +30,13 @@ paper's baselines train too: ``--mode dense`` (full rank), ``lowrank``,
 galore_adamw`` in either update mode; ReLoRA with ``adam8bit`` is
 refused (the reference's merge crashes on that state). The Trainer logs
 its init's time and the processes that sampled the supports (a pool from
-llama_350m's size up). Options the port does not run yet raise
-``NotImplementedError`` naming their ROADMAP item.
+llama_350m's size up). ``--chaos`` injects the reference's fault matrix
+(``repro_torch.resilience.chaos``, seeded with ``--seed``): an injected
+kill exits 43, a preemption signal checkpoints and exits 42.
+``--jax-profile-dir`` (the reference's spelling; ``--profile-dir`` too)
+records a ``torch.profiler`` Chrome trace of the run into that
+directory. Options the port does not run yet (a mesh, multipod, fsdp)
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from repro_torch.configs.base import (OptimizerConfig, ShardingConfig,
                                       TrainConfig)
 from repro_torch.models import registry
 from repro_torch.obs import trace as obs_trace
+from repro_torch.resilience.chaos import ChaosEngine
 from repro_torch.train.trainer import Trainer
 
 
@@ -76,14 +86,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "--multipod and --use-mesh are not ported yet (ROADMAP queue A "
             "item 10: distribution); the port trains on one card")
-    if args.chaos:
-        raise NotImplementedError(
-            "--chaos is not ported yet (ROADMAP queue A item 8)")
-    if args.jax_profile_dir:
-        raise NotImplementedError(
-            "--jax-profile-dir records a jax.profiler trace; the port has "
-            "no counterpart yet (ROADMAP queue A item 8: observability "
-            "wiring)")
 
 
 def main(argv=None):
@@ -131,9 +133,15 @@ def main(argv=None):
     ap.add_argument("--layer-timing", action="store_true",
                     help="with --update-mode per_layer: record per-layer "
                          "update times (train.perlayer.layer_update_ms)")
-    ap.add_argument("--jax-profile-dir", default=None)
+    ap.add_argument("--jax-profile-dir", "--profile-dir", dest="profile_dir",
+                    default=None,
+                    help="record a torch.profiler Chrome trace of the run "
+                         "into this directory (the reference's jax.profiler "
+                         "hook)")
     ap.add_argument("--chaos", default=None,
-                    help="fault-injection spec 'kind@step[:arg],...'")
+                    help="fault-injection spec 'kind@step[:arg],...' "
+                         "(repro_torch.resilience.chaos), e.g. 'kill@3' or "
+                         "'nonfinite@5,straggler@4:50'")
     ap.add_argument("--max-rollbacks", type=int, default=2,
                     help="checkpoint rollbacks tolerated before the "
                          "trainer gives up on a persistent divergence")
@@ -146,13 +154,22 @@ def main(argv=None):
     args = ap.parse_args(argv)
     _refuse_unported(args)
 
+    chaos = ChaosEngine.parse(args.chaos, seed=args.seed) if args.chaos \
+        else None
     tc = build_train_config(args)
-    trace = obs_trace.Trace(enabled=bool(args.trace_out))
+    trace = obs_trace.Trace(enabled=bool(args.trace_out or args.profile_dir),
+                            profile_dir=args.profile_dir)
     trainer = Trainer(tc, device=args.device, trace=trace,
                       metrics_out=args.metrics_out,
                       max_rollbacks=args.max_rollbacks,
-                      layer_timing=args.layer_timing)
-    state = trainer.run()
+                      layer_timing=args.layer_timing, chaos=chaos)
+    trace.start()
+    try:
+        state = trainer.run()
+    finally:
+        # an injected kill (exit 43) still leaves its profile behind
+        if trace.stop():
+            print(f"profile: {trace.profile_path}")
     print(f"final step {state.step}: "
           f"loss={trainer.metrics_history[-1]['loss']:.4f}")
     if args.trace_out:

@@ -1,7 +1,7 @@
-"""Causal multi-head attention with RoPE over the paged KV cache, ported
-from ``repro.models.attention`` for the llama family (GQA-ready; the
-gemma2/qwen3 extras — sliding windows, logit softcap, QK-norm, qkv bias —
-wait for ROADMAP queue A item 9).
+"""Causal multi-head attention with RoPE over the paged or the contiguous
+KV cache, ported from ``repro.models.attention`` for the llama family
+(GQA-ready; the gemma2/qwen3 extras — sliding windows, logit softcap,
+QK-norm, qkv bias — wait for ROADMAP queue A item 9).
 
 How a paged read runs is ``cfg.attn_kernel``:
 
@@ -18,6 +18,14 @@ How a paged read runs is ``cfg.attn_kernel``:
 Prefill without per-slot offsets (all rows start at 0) attends its own
 just-computed k/v through ``_attend``, as the reference does (XLA there,
 with no Pallas kernel).
+
+The contiguous cache (no block table; one (max_len, Hkv, hd) row per
+slot) is read by ``_attend`` over the whole row, as the reference reads it
+outside any Pallas kernel. Its writes keep the reference's index rules: a
+scalar index is a ``dynamic_update_slice`` (a negative start wraps once,
+then the start is clamped so the update fits), a (B,) vector an
+``.at[rows, cols].set`` (a negative column wraps once, a column still out
+of range is dropped).
 """
 from __future__ import annotations
 
@@ -76,13 +84,42 @@ def _live_view(pool, table):
     return torch.where(live[:, :, None, None], view, torch.zeros_like(view))
 
 
+def _contiguous(cfg: ModelConfig, cache, q, k, v, q_pos, idx, per_slot,
+                prefill):
+    """Write k/v into the contiguous cache rows {"k", "v"} (B, max_len,
+    Hkv, hd) in place, then attend: a scalar-index prefill its local k/v,
+    everything else the whole row, masked by q_pos >= k_pos (unwritten
+    positions at or below q_pos are zeros with logit 0, as in the
+    reference)."""
+    ck, cv = cache["k"], cache["v"]
+    bsz, sq = k.shape[:2]
+    max_len = ck.shape[1]
+    if per_slot:
+        cols = torch.where(q_pos < 0, q_pos + max_len, q_pos)
+        keep = (cols >= 0) & (cols < max_len)
+        rows = torch.arange(bsz, device=cols.device)[:, None].expand_as(cols)
+        for c, new in ((ck, k), (cv, v)):
+            c[rows[keep], cols[keep]] = new[keep].to(c.dtype)
+    else:
+        start = int(idx) + (max_len if int(idx) < 0 else 0)
+        start = min(max(start, 0), max_len - sq)
+        ck[:, start:start + sq] = k.to(ck.dtype)
+        cv[:, start:start + sq] = v.to(cv.dtype)
+        if prefill:
+            return _attend(cfg, q, k, v, q_pos, q_pos)
+    k_pos = torch.arange(max_len, device=q.device)
+    return _attend(cfg, q, ck, cv, q_pos, k_pos)
+
+
 def apply_attention(cfg: ModelConfig, params, consts, x, *,
                     cache: Optional[dict] = None, cache_index=None,
                     block_table=None, prefill: bool = False):
     """Causal self-attention; returns (y, cache).
 
     Without a cache: attention over the input itself (the forward of
-    ``apply_lm``). With a paged cache {"k", "v"} (pools of one layer) and
+    ``apply_lm``). With a cache and no ``block_table``: the contiguous
+    rows of one layer (see the module docstring). With a paged cache
+    {"k", "v"} (pools of one layer) and
     ``block_table`` (B, blocks_per_slot): k/v are scattered through the
     table (in place) at ``cache_index`` — a scalar or a (B,) per-slot
     position vector — and the read runs as ``cfg.attn_kernel`` says (see
@@ -112,9 +149,8 @@ def apply_attention(cfg: ModelConfig, params, consts, x, *,
     if cache is None:
         return lin("wo", _attend(cfg, q, k, v, q_pos, q_pos)), None
     if block_table is None:
-        raise NotImplementedError(
-            "the contiguous KV cache is not ported yet (ROADMAP queue A item "
-            "6: the paged=False engine path); pass a block_table")
+        return lin("wo", _contiguous(cfg, cache, q, k, v, q_pos, idx,
+                                     per_slot, prefill)), cache
 
     positions = q_pos if per_slot else q_pos[None].expand(bsz, sq)
     ck = kv_lib.scatter(cache["k"], block_table, positions, k)

@@ -1,5 +1,5 @@
-"""Decoder-only LM of the llama family with the paged KV-cache serving
-steps, ported from ``repro.models.lm``.
+"""Decoder-only LM of the llama family with its KV-cache serving steps
+(the paged and the contiguous cache), ported from ``repro.models.lm``.
 
 Parameters keep the reference's scan layout: per-layer leaves stacked on a
 leading axis under ``params["layers"]["k0"]`` (the reference's one-kind
@@ -196,8 +196,9 @@ def forward_saving_boundaries(cfg: ModelConfig, params, consts, tokens, *,
 
 
 def _forward(cfg: ModelConfig, params, consts, tokens, caches, **cache_kw):
-    """Embed, the layers over their paged caches (one {"k", "v"} pool
-    pair per layer), final norm and unembed: the serving steps' forward."""
+    """Embed, the layers over their caches (one {"k", "v"} pair per layer:
+    block pools or contiguous rows), final norm and unembed: the serving
+    steps' forward."""
     _check_family(cfg)
     h = embed_apply(cfg, params, tokens)
     for i, (p, c) in enumerate(_layers(cfg, params, consts)):
@@ -207,24 +208,24 @@ def _forward(cfg: ModelConfig, params, consts, tokens, caches, **cache_kw):
 
 
 # ---------------------------------------------------------------------------
-# Serving (paged KV cache)
+# Serving (KV cache)
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                paged: bool = False, block_len: int = 16, n_blocks: int = 0,
                device="cuda"):
-    """Block-paged KV cache: {"layers": {"k0": {"k", "v"}}} with pools
-    (n_layers, n_blocks, block_len, Hkv, hd) shared by every slot through a
-    block table; ``n_blocks`` defaults to full capacity plus the null
-    block. The contiguous layout (``paged=False``) is not ported yet."""
-    if not paged:
-        raise NotImplementedError(
-            "the contiguous KV cache is not ported yet (ROADMAP queue A "
-            "item 6: the paged=False engine path); pass paged=True")
+    """KV cache {"layers": {"k0": {"k", "v"}}}, zeros. Contiguous (the
+    default): leaves (n_layers, batch, max_len, Hkv, hd), one row per
+    slot. ``paged=True``: block pools (n_layers, n_blocks, block_len, Hkv,
+    hd) shared by every slot through a block table; ``n_blocks`` defaults
+    to full capacity plus the null block."""
     device = resolve(device)
-    layout = PagedLayout.plan(batch, max_len, block_len, n_blocks)
-    shape = (cfg.n_layers, layout.n_blocks, layout.block_len,
-             cfg.n_kv_heads, cfg.resolved_head_dim)
+    if paged:
+        layout = PagedLayout.plan(batch, max_len, block_len, n_blocks)
+        lead = (layout.n_blocks, layout.block_len)
+    else:
+        lead = (batch, max_len)
+    shape = (cfg.n_layers, *lead, cfg.n_kv_heads, cfg.resolved_head_dim)
     dt = DTYPES[cfg.dtype]
     return {"layers": {"k0": {
         "k": torch.zeros(shape, dtype=dt, device=device),
@@ -233,9 +234,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def _cached_forward(cfg: ModelConfig, params, consts, tokens, cache, index,
                     block_table, prefill: bool):
-    """The layer walk shared by decode_step and prefill_step. The cache's
-    pools are updated in place (views of each layer's pools); returns
-    (logits, cache)."""
+    """The layer walk shared by decode_step and prefill_step. The cache is
+    updated in place (views of each layer's leaves); returns (logits,
+    cache)."""
     pools = cache["layers"]["k0"]
     caches = [{"k": pools["k"][i], "v": pools["v"][i]}
               for i in range(pools["k"].shape[0])]
@@ -249,7 +250,8 @@ def decode_step(cfg: ModelConfig, params, consts, tokens, cache, index, *,
                 block_table=None):
     """One decode step. tokens (B, 1); index a scalar position shared by
     the batch or a (B,) per-slot vector; ``block_table`` (B,
-    blocks_per_slot) addresses the paged pools. Returns (logits, cache)."""
+    blocks_per_slot) addresses the paged pools, and without it the cache
+    is the contiguous one. Returns (logits, cache)."""
     return _cached_forward(cfg, params, consts, tokens, cache, index,
                            block_table, prefill=False)
 
@@ -258,7 +260,9 @@ def prefill_step(cfg: ModelConfig, params, consts, tokens, cache, *,
                  block_table=None, offsets=None):
     """Batched prefill of (B, S) prompts, writing K/V for their positions.
     Without ``offsets`` every row starts at position 0 and attends its own
-    tokens; ``offsets`` (B,) switches to chunked suffix prefill at
+    tokens (on the contiguous cache every row is written, so the whole
+    batch must be fresh); ``offsets`` (B,) switches to chunked suffix
+    prefill at
     offsets[s] + [0, S), attending the slot's prior pages in place (the
     shared-prefix path). Returns (logits (B, S, V), cache)."""
     index = 0 if offsets is None else offsets.to(torch.int32)

@@ -1,6 +1,9 @@
 """Context-manager spans exporting Chrome trace-event JSON (loadable in
-``chrome://tracing`` / Perfetto) — a copy of ``repro.obs.trace`` without
-its ``jax.profiler`` hook, stdlib only.
+``chrome://tracing`` / Perfetto) — a copy of ``repro.obs.trace``, whose
+``jax.profiler`` hook becomes a ``torch.profiler`` one: with
+``profile_dir``, :meth:`Trace.start` and :meth:`Trace.stop` bracket a
+profiler session (CPU activity, plus CUDA activity where a card is
+present) that exports a Chrome trace into that directory.
 
 Two timebases coexist in exported traces:
 
@@ -78,8 +81,12 @@ class Trace:
     """Span recorder. All mutation goes through ``_append`` (locked);
     events accumulate in memory until :meth:`export`."""
 
-    def __init__(self, enabled: bool = True):
+    def __init__(self, enabled: bool = True,
+                 profile_dir: Optional[str] = None):
         self.enabled = enabled
+        self._profile_dir = profile_dir
+        self._profiler = None
+        self.profile_path: Optional[str] = None   # set by stop()
         self.pid = os.getpid()
         self._epoch_ns = time.perf_counter_ns()
         self._events: List[Dict[str, Any]] = []
@@ -129,6 +136,35 @@ class Trace:
     def _append(self, ev: Dict[str, Any]) -> None:
         with self._lock:
             self._events.append(ev)
+
+    # -- torch.profiler hook (with profile_dir) ----------------------------
+    def start(self) -> None:
+        """Begin a ``torch.profiler`` session when constructed with
+        ``profile_dir`` (no-op otherwise)."""
+        if self._profile_dir and self._profiler is None:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=acts)
+            self._profiler.start()
+
+    def stop(self) -> Optional[str]:
+        """End the session and write its Chrome trace into
+        ``profile_dir`` as ``torch_trace.<pid>.<n>.json``; returns the path
+        (None when no session ran)."""
+        if self._profiler is None:
+            return None
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        os.makedirs(self._profile_dir, exist_ok=True)
+        n = sum(f.startswith(f"torch_trace.{self.pid}.")
+                for f in os.listdir(self._profile_dir))
+        self.profile_path = os.path.join(
+            self._profile_dir, f"torch_trace.{self.pid}.{n}.json")
+        prof.export_chrome_trace(self.profile_path)
+        return self.profile_path
 
     # -- export -----------------------------------------------------------
     @property

@@ -1,6 +1,7 @@
 """Serving engine: continuous batching over fixed slots with a paged KV
 cache, copy-on-write prefix sharing, batched (suffix-)prefill and per-slot
-decode positions — the paged path of ``repro.serve.engine``.
+decode positions, or the contiguous cache of the reference's legacy path
+— a port of ``repro.serve.engine``.
 
 Two run loops: :meth:`ServeEngine.run_until_drained` (admit whatever is
 queued and run to empty) and :meth:`ServeEngine.run_stream` (requests
@@ -9,10 +10,26 @@ free up). With ``prefix_sharing=True`` an admission whose prompt matches a
 resident block-aligned prefix attaches those pages read-only and prefills
 only the divergent suffix through the chunked paged-prefill path.
 
-K/V lives in block pools (serve/kv.py) addressed through a per-slot block
-table; the scheduler (serve/scheduler.py) assigns slots and allocates and
-frees blocks. Prefill is batched (one forward per admission batch);
-decode is per-slot (a (n_slots,) position vector). With
+Two cache layouts share the engine API:
+
+* ``paged=True``: K/V lives in block pools (serve/kv.py) addressed through
+  a per-slot block table; the scheduler (serve/scheduler.py) assigns
+  slots and allocates and frees blocks. Prefill is batched (one forward
+  per admission batch); decode is per-slot (a (n_slots,) position
+  vector).
+* ``paged=False`` (the default, as in the reference): one contiguous
+  (n_slots, max_len) cache. Each prompt is prefilled by stepping it
+  through the (n_slots, 1) decode one token a dispatch, with token 0 in
+  every other row, so every slot's row is written at that index; decode
+  writes every row at one shared index, the largest position among the
+  runnable slots. Both are the reference's semantics kept bit for bit,
+  warts included (ROADMAP queue C): a request's tokens can depend on
+  what shares the engine with it. Attention reads the rows with plain
+  PyTorch, as the reference's XLA does; ``attn_kernel="paged"`` is
+  refused there, and the config's default "paged" falls back to
+  "gather". ``prefix_sharing`` and ``run_stream`` need the paged cache.
+
+On the paged cache, with
 ``attn_kernel="paged"`` the reads go through the hand-written
 paged-attention kernels; with ``"gather"`` through the gathered view.
 Every linear runs as ``exec_mode`` says: ``"fused"`` through the
@@ -31,11 +48,14 @@ reference engine, on the port's copy of ``repro.obs``. Resilience: every
 submitted request reaches a terminal ``Request.status`` — ``done``,
 ``rejected`` (``max_queue`` shedding), ``timed_out`` (tick or wall
 deadlines) or ``failed`` (a run loop's step budget ran out; calling it
-again resumes).
+again resumes). ``tick_hook(engine)`` runs at the top of every engine
+step (``resilience.chaos.ChaosEngine.serve_hook`` wires ``stall@T:K``),
+and :meth:`ServeEngine.stall_slot` freezes a slot for K ticks: the loop
+decodes around it, and when every active slot is stalled the clock still
+advances, so stalls and deadlines expire.
 
-Not ported yet, and refused when asked for: the contiguous ``paged=False``
-cache, a device ``mesh`` and the ``tick_hook`` fault-injection hook
-(ROADMAP queue A items 6, 8 and 10).
+Not ported yet, and refused when asked for: a device ``mesh`` (ROADMAP
+queue A item 10).
 """
 from __future__ import annotations
 
@@ -117,12 +137,8 @@ class ServeEngine:
                  deadline_ms: Optional[float] = None,
                  tick_hook=None, quant_fallback: bool = False,
                  device="cuda"):
-        if not paged:
-            raise _not_ported("the contiguous KV cache (paged=False)", 6)
         if mesh is not None:
             raise _not_ported("serving on a device mesh", 10)
-        if tick_hook is not None:
-            raise _not_ported("the tick_hook fault-injection hook", 8)
         if exec_mode is not None:
             # the explicit serve-time mode supersedes the sparse_decode
             # shorthand
@@ -175,6 +191,19 @@ class ServeEngine:
         if cfg.attn_kernel not in ("gather", "paged"):
             raise ValueError(f"attn_kernel {cfg.attn_kernel!r}: expected "
                              "'gather' or 'paged'")
+        if cfg.attn_kernel == "paged" and not paged:
+            if attn_kernel is not None:
+                raise ValueError("attn_kernel='paged' requires the paged KV "
+                                 "cache (paged=True): the kernel reads block "
+                                 "pools, not the contiguous layout")
+            # the config's default is "paged": a contiguous engine has no
+            # pools to stream, so it reads through the gathered path, as
+            # the reference falls back
+            cfg = dataclasses.replace(cfg, attn_kernel="gather")
+        if prefix_sharing and not paged:
+            raise ValueError("prefix_sharing requires the paged KV cache "
+                             "(paged=True): sharing attaches block-table "
+                             "entries, which the contiguous layout lacks")
         self.device = resolve(device)
         self.cfg = cfg
         self.params, self.consts = params, consts
@@ -188,15 +217,25 @@ class ServeEngine:
         self.obs = obs if obs is not None else obs_metrics.Registry()
         self.trace = trace if trace is not None else \
             obs_trace.Trace(enabled=False)
-        self.layout = PagedLayout.plan(n_slots, max_len, block_len, n_blocks)
-        self.cache = self.api.init_cache(cfg, n_slots, max_len, paged=True,
-                                         block_len=block_len,
-                                         n_blocks=self.layout.n_blocks,
-                                         device=self.device)
-        self.sched = Scheduler(n_slots, max_len, self.layout,
-                               prefix_sharing=prefix_sharing, obs=self.obs)
-        self._prefill_fn = step_lib.make_prefill_step(cfg, self.api)
+        if paged:
+            self.layout = PagedLayout.plan(n_slots, max_len, block_len,
+                                           n_blocks)
+            self.cache = self.api.init_cache(
+                cfg, n_slots, max_len, paged=True, block_len=block_len,
+                n_blocks=self.layout.n_blocks, device=self.device)
+            self.sched = Scheduler(n_slots, max_len, self.layout,
+                                   prefix_sharing=prefix_sharing,
+                                   obs=self.obs)
+            self._prefill_fn = step_lib.make_prefill_step(cfg, self.api)
+        else:
+            self.cache = self.api.init_cache(cfg, n_slots, max_len,
+                                             device=self.device)
+            self.sched = None
         self._decode_fn = step_lib.make_serve_step(cfg, self.api)
+        # the contiguous path's host state: next position, slot owner, queue
+        self.pos = np.zeros(n_slots, dtype=np.int32)
+        self.slot_req: List[Optional[Request]] = [None] * n_slots
+        self.queue: List[Request] = []
         self.completed: List[Request] = []
         self._parked = False          # any active slot waiting for blocks
         self._uid = 0
@@ -232,6 +271,8 @@ class ServeEngine:
         self.max_queue = max_queue
         self.default_deadline_ticks = deadline_ticks
         self._deadline_s = None if deadline_ms is None else deadline_ms / 1e3
+        self.tick_hook = tick_hook
+        self._stall_until: Dict[int, int] = {}
         self.rejected: List[Request] = []
         self.timed_out: List[Request] = []
         self._c_rejected = self.obs.counter(
@@ -283,14 +324,15 @@ class ServeEngine:
         if len(prompt) >= self.max_len:
             raise ValueError(f"prompt of {len(prompt)} tokens ≥ max_len "
                              f"{self.max_len}")
-        need = blocks_for(len(prompt) + 1, self.layout.block_len)
-        usable = self.layout.n_blocks - 1
-        if need > usable:
-            # admission is FIFO with break-on-first-misfit: a request the
-            # whole pool cannot hold would starve everything behind it
-            raise ValueError(
-                f"prompt needs {need} blocks but the pool only has "
-                f"{usable}: raise n_blocks or shorten the prompt")
+        if self.paged:
+            need = blocks_for(len(prompt) + 1, self.layout.block_len)
+            usable = self.layout.n_blocks - 1
+            if need > usable:
+                # admission is FIFO with break-on-first-misfit: a request
+                # the whole pool cannot hold would starve everything behind
+                raise ValueError(
+                    f"prompt needs {need} blocks but the pool only has "
+                    f"{usable}: raise n_blocks or shorten the prompt")
         self._uid += 1
         req = Request(self._uid, list(prompt), max_new_tokens,
                       arrival=int(arrival or 0),
@@ -299,7 +341,7 @@ class ServeEngine:
                                       if deadline_ticks is not None
                                       else self.default_deadline_ticks))
         self._c_sub.inc()
-        queue = self.sched.queue
+        queue = self._queue()
         if self.max_queue is not None and len(queue) >= self.max_queue:
             req.status = "rejected"
             req.fail_reason = (f"admission queue full ({len(queue)} queued "
@@ -307,8 +349,14 @@ class ServeEngine:
             self.rejected.append(req)
             self._c_rejected.inc()
             return req
-        self.sched.submit(req)
+        if self.paged:
+            self.sched.submit(req)
+        else:
+            self.queue.append(req)
         return req
+
+    def _queue(self) -> List[Request]:
+        return self.sched.queue if self.paged else self.queue
 
     def _complete(self, req: Request) -> None:
         req.done = True
@@ -350,7 +398,18 @@ class ServeEngine:
                          dur_us=(req.t_done - tf) * k, tid=req.uid,
                          cat="request", args=args)
 
-    # -- resilience: deadlines, budget exhaustion -----------------------------
+    # -- resilience: stalls, deadlines, budget exhaustion ---------------------
+    def stall_slot(self, slot: int, ticks: int) -> None:
+        """Freeze ``slot`` until the clock passes ``clock + ticks`` (the
+        ``stall@T:K`` fault). The decode loop steps around a stalled slot:
+        its position does not advance and no token is consumed. Repeated
+        stalls extend the horizon, never shorten it."""
+        self._stall_until[slot] = max(self._stall_until.get(slot, 0),
+                                      self.clock + int(ticks))
+
+    def _runnable(self, active) -> List[int]:
+        return [s for s in active if self._stall_until.get(s, 0) <= self.clock]
+
     def _deadline_exceeded(self, req: Request, now: int) -> bool:
         if req.deadline_ticks is not None and \
                 now - req.arrival >= req.deadline_ticks:
@@ -376,18 +435,35 @@ class ServeEngine:
 
     def _expire_deadlines(self, now: int) -> None:
         """Cancel queued and active requests past their deadline; an
-        active slot's pages go back to the pool through ``sched.finish``."""
-        queue = self.sched.queue
+        active slot's pages go back to the pool through ``sched.finish``,
+        and a stall on the freed slot is cleared."""
+        queue = self._queue()
         for req in [r for r in queue if self._deadline_exceeded(r, now)]:
             queue.remove(req)
             self._cancel(req, f"deadline exceeded at tick {now} while "
                               "queued (never admitted)")
-        for s in list(self.sched.active_slots):
-            req = self.sched.slot_req[s]
+        for s in self._active():
+            req = self._slot_req(s)
             if self._deadline_exceeded(req, now):
                 self._cancel(req, f"deadline exceeded at tick {now} "
                                   f"with {len(req.out)} tokens decoded")
-                self.sched.finish(s)
+                self._release(s)
+
+    def _active(self) -> List[int]:
+        if self.paged:
+            return list(self.sched.active_slots)
+        return [s for s in range(self.n_slots) if self.slot_req[s]]
+
+    def _slot_req(self, slot: int) -> Request:
+        return (self.sched.slot_req if self.paged else self.slot_req)[slot]
+
+    def _release(self, slot: int) -> None:
+        """Free a finished or cancelled request's slot (and its pages)."""
+        if self.paged:
+            self.sched.finish(slot)
+        else:
+            self.slot_req[slot] = None
+        self._stall_until.pop(slot, None)
 
     def _revive_failed(self) -> None:
         """Requests a prior bounded run marked ``failed`` are still queued
@@ -395,7 +471,7 @@ class ServeEngine:
         for req in self._unfinished():
             if req.status == "failed":
                 req.status = "queued" if any(req is q for q in
-                                             self.sched.queue) else "active"
+                                             self._queue()) else "active"
                 req.fail_reason = None
 
     def _finish_run(self, max_steps: int, warn: bool) -> Dict[str, Any]:
@@ -474,7 +550,7 @@ class ServeEngine:
                 req.resume = None
             if len(req.out) >= req.max_new_tokens:
                 self._complete(req)
-                self.sched.finish(s)
+                self._release(s)
 
     def _evict_for_progress(self, active) -> None:
         """All active slots are parked: preempt the youngest request so the
@@ -495,20 +571,29 @@ class ServeEngine:
                 "n_blocks or lower n_slots/max_len")
 
     def _step_paged(self, now: Optional[int] = None) -> int:
+        if self.tick_hook is not None:
+            self.tick_hook(self)
         self._expire_deadlines(self.clock if now is None else now)
         self._admit_paged(now)
         active = self.sched.active_slots
         if not active:
             return 0
+        runnable = self._runnable(active)
+        if not runnable:
+            # every active slot is stalled: burn a tick anyway, so stalls
+            # and deadlines expire instead of the loop spinning
+            self.clock += 1
+            return 0
         # grow pages for this step's write; slots the pool cannot hold are
         # parked and retry once other requests release blocks
-        ready = set(self.sched.ensure_decode_blocks(active))
-        self._parked = bool(set(active) - ready)
+        ready = set(self.sched.ensure_decode_blocks(runnable))
+        self._parked = bool(set(runnable) - ready)
         if not ready:
-            self._evict_for_progress(active)
+            self._evict_for_progress(runnable)
             return 0
-        # parked slots keep tok=0: their garbage K/V write lands at a
-        # position their pos never advanced past
+        # stalled and parked slots keep tok=0: their garbage K/V write
+        # lands at a position their pos never advanced past, so their real
+        # token overwrites it before it is first attended
         tok = np.zeros((self.n_slots, 1), np.int32)
         for s in ready:
             tok[s, 0] = self.sched.slot_req[s].out[-1]
@@ -538,17 +623,99 @@ class ServeEngine:
             if len(req.out) >= req.max_new_tokens or \
                     int(self.sched.pos[s]) >= self.max_len - 1:
                 self._complete(req)
-                self.sched.finish(s)
+                self._release(s)
         return len(ready)
 
+    # -- contiguous path ------------------------------------------------------
+    def _prefill(self, slot: int, req: Request) -> None:
+        """Prefill by stepping the prompt through the (n_slots, 1) decode,
+        one dispatch and one tick a token, token 0 in the other rows (so
+        every row is written at that index). The last step's prediction is
+        the request's first token."""
+        self.pos[slot] = 0
+        req.t_admit, req.wall_admit = self.clock, time.perf_counter()
+        req.status = "active"
+        nxt = None
+        for t in req.prompt:
+            tok = np.zeros((self.n_slots, 1), np.int32)
+            tok[slot, 0] = t
+            self._c_prefill["tokens_total"].inc()
+            self._c_prefill["tokens_prefilled"].inc()
+            self._c_disp["prefill"].inc()
+            self.clock += 1
+            with self.trace.span("serve.prefill_dispatch", cat="engine"):
+                nxt, _, self.cache = self._decode_fn(
+                    self.params, self.consts, self._tensor(tok), self.cache,
+                    int(self.pos[slot]))
+            self.pos[slot] += 1
+        with self.trace.span("serve.device_sync", cat="engine"):
+            req.out = [int(nxt[slot, 0])]
+        req.t_first = self.clock
+        req.wall_first = time.perf_counter()
+
+    def _refill(self) -> None:
+        for s in range(self.n_slots):
+            if self.slot_req[s] is None and self.queue:
+                req = self.queue.pop(0)
+                self._prefill(s, req)
+                if len(req.out) >= req.max_new_tokens:
+                    self._complete(req)
+                else:
+                    self.slot_req[s] = req
+
+    def _step_legacy(self) -> int:
+        if self.tick_hook is not None:
+            self.tick_hook(self)
+        self._expire_deadlines(self.clock)
+        self._refill()
+        active = self._active()
+        if not active:
+            return 0
+        runnable = self._runnable(active)
+        if not runnable:
+            self.clock += 1   # all stalled: burn a tick so stalls expire
+            return 0
+        tok = np.zeros((self.n_slots, 1), np.int32)
+        for s in runnable:
+            tok[s, 0] = self.slot_req[s].out[-1]
+        # one index shared by the batch: the largest runnable position (a
+        # lagging slot's K/V is written at that offset; the reference's
+        # wart, which the paged path's per-slot vector removes)
+        idx = int(max(self.pos[s] for s in runnable))
+        self._c_disp["decode"].inc()
+        self.clock += 1
+        with self.trace.span("serve.decode_dispatch", cat="engine",
+                             slots=len(runnable)):
+            nxt, _, self.cache = self._decode_fn(
+                self.params, self.consts, self._tensor(tok), self.cache, idx)
+        with self.trace.span("serve.device_sync", cat="engine"):
+            nxt = nxt.cpu().numpy()
+        self._steps += 1
+        for s in runnable:
+            req = self.slot_req[s]
+            req.out.append(int(nxt[s, 0]))
+            self.pos[s] += 1
+            if len(req.out) >= req.max_new_tokens or \
+                    self.pos[s] >= self.max_len - 1:
+                self._complete(req)
+                self._release(s)
+        return len(runnable)
+
     def step(self) -> int:
-        """One engine step: admit + batched prefill + one batched decode
-        over all active slots. Returns the number of slots stepped."""
-        return self._step_paged()
+        """One engine step: admit (paged: one batched prefill; contiguous:
+        a token-by-token prefill of each admitted prompt) and one batched
+        decode over the runnable slots. Returns the number of slots
+        stepped."""
+        return self._step_paged() if self.paged else self._step_legacy()
+
+    def _has_work(self) -> bool:
+        if self.paged:
+            return self.sched.has_work
+        return bool(self.queue) or any(r is not None for r in self.slot_req)
 
     def _unfinished(self) -> List[Request]:
-        active = [self.sched.slot_req[s] for s in self.sched.active_slots]
-        return active + list(self.sched.queue)
+        return [self._slot_req(s) for s in self._active()] + \
+            list(self._queue())
 
     def run_until_drained(self, max_steps: int = 10_000) -> Dict[str, Any]:
         """Step until every request finished or ``max_steps`` ran out;
@@ -557,7 +724,7 @@ class ServeEngine:
         "summary"}."""
         self._revive_failed()
         for _ in range(max_steps):
-            if not self.sched.has_work:
+            if not self._has_work():
                 break
             self.step()
         return self._finish_run(max_steps, warn=True)
@@ -566,8 +733,12 @@ class ServeEngine:
         """Continuous batching: every iteration admits arrived requests
         into freed slots (one batched suffix-prefill), then runs one
         batched decode over all active slots; an idle engine fast-forwards
-        its clock to the next arrival. Returns the same dict as
-        :meth:`run_until_drained`."""
+        its clock to the next arrival. Requires the paged engine. Returns
+        the same dict as :meth:`run_until_drained`."""
+        if not self.paged:
+            raise ValueError("run_stream requires the paged engine "
+                             "(paged=True): continuous admission recycles "
+                             "slots through the block-table scheduler")
         self._revive_failed()
         for _ in range(max_steps):
             if not self.sched.has_work:

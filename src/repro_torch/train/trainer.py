@@ -18,7 +18,14 @@ As in the reference:
   * corrupt batches (token ids out of range) are dropped on the host and
     the cursor advances (bounded retries),
   * checkpoints are checksummed; restore falls back to the newest intact
-    step (ckpt/checkpoint.py).
+    step (ckpt/checkpoint.py),
+  * ``chaos=ChaosEngine.parse(spec)`` (``resilience/chaos.py``; the
+    launcher's ``--chaos``) injects the fault matrix: kills before a step
+    (exit 43), checkpoint corruption, corrupt batches at the batch
+    boundary, a NaN loss scale (``batch["chaos_scale"]``, carried on
+    every step once a ``nonfinite`` fault is scheduled) and stragglers
+    inside the timed window; injections are counted as
+    ``resilience.faults_injected{kind=...}``.
 Every recovery event lands on the obs registry
 (``resilience.nonfinite_steps``, ``resilience.rollbacks``,
 ``resilience.bad_batches``) and the trace (``resilience.rollback``,
@@ -37,7 +44,7 @@ whose number is a multiple of ``relora_period``, as the reference does
 (:func:`_make_relora_merge`). ReLoRA with 8-bit AdamW is refused at
 construction: the reference's merge crashes on that state at the first
 merge (ROADMAP queue C). Not ported yet, and raising: a mesh (ROADMAP
-queue A item 10), chaos injection (item 8).
+queue A item 10).
 """
 from __future__ import annotations
 
@@ -152,7 +159,7 @@ class StepTimeWatchdog:
         return slow
 
 
-def _check_supported(tc: TrainConfig, mesh, chaos) -> None:
+def _check_supported(tc: TrainConfig, mesh) -> None:
     """Raise on what the port does not run yet, naming its ROADMAP item."""
     sh, pc = tc.sharding, tc.model.param
     if mesh is not None or sh.fsdp or sh.pod_grad_compression:
@@ -160,10 +167,6 @@ def _check_supported(tc: TrainConfig, mesh, chaos) -> None:
             "a mesh, fsdp and pod gradient compression are not ported yet "
             "(ROADMAP queue A item 10: distribution); the port trains on "
             "one card")
-    if chaos is not None:
-        raise NotImplementedError(
-            "chaos injection is not ported yet (ROADMAP queue A item 8); "
-            "fault_hook and the non-finite gate are")
     if sh.update_mode not in ("global", "per_layer"):
         raise ValueError(f"unknown update_mode {sh.update_mode!r}: "
                          "expected 'global' or 'per_layer'")
@@ -189,11 +192,12 @@ class Trainer:
                  trace: Optional[obs_trace.Trace] = None,
                  metrics_out: Optional[str] = None,
                  layer_timing: bool = False):
-        _check_supported(tc, mesh, chaos)
+        _check_supported(tc, mesh)
         self.device = resolve(device)
         self.tc = tc
         self.log = log_fn
         self.fault_hook = fault_hook
+        self.chaos = chaos
         # -- resilience policy (module docstring) --
         self.max_skips = max_skips
         self.max_rollbacks = max_rollbacks
@@ -243,6 +247,8 @@ class Trainer:
         self._c_bad_batches = self.obs.counter(
             "resilience.bad_batches",
             help="corrupt data batches dropped by host-side validation")
+        if self.chaos is not None:
+            self.chaos.bind(self.obs)
         self._layer_timing = layer_timing
         self._train_step = self._build_train_step()
         self._relora_merge = _make_relora_merge(self.cfg) \
@@ -311,10 +317,13 @@ class Trainer:
 
     # -- resilience -------------------------------------------------------------
     def _next_valid_batch(self, step: int):
-        """Next data batch, validated on the host; a corrupt batch is
-        dropped and the cursor advances."""
+        """Next data batch, validated on the host; a corrupt batch (a chaos
+        fault or a real pipeline fault) is dropped and the cursor
+        advances."""
         for _ in range(8):
             batch = self.data.next_batch()
+            if self.chaos is not None:
+                batch = self.chaos.corrupt_batch(step, batch)
             toks = batch["tokens"]
             if toks.dtype.kind in "iu" and \
                     bool(((toks >= 0) & (toks < self.cfg.vocab_size)).all()):
@@ -368,6 +377,10 @@ class Trainer:
         self._install_signal_handlers()
         tokens_per_step = tc.global_batch * tc.seq_len
         while state.step < total:
+            if self.chaos is not None:
+                # injected kills and checkpoint corruption (a kill raises
+                # ChaosKill, a SystemExit(43) the relaunch recovers from)
+                self.chaos.train_hook(state.step, ckpt_dir=tc.ckpt_dir)
             if self.fault_hook:
                 self.fault_hook(state.step)  # test hook: may raise/kill
             with self.trace.span("train.step", cat="train",
@@ -375,6 +388,13 @@ class Trainer:
                 t0 = time.perf_counter()
                 with self.trace.span("train.data", cat="train"):
                     batch_np = self._next_valid_batch(state.step)
+                    if self.chaos is not None and self.chaos.wants_poison:
+                        # the key rides along on every step (1.0 off the
+                        # fault), so the step's inputs keep one structure
+                        batch_np = dict(batch_np)
+                        batch_np["chaos_scale"] = np.full(
+                            (batch_np["tokens"].shape[0],),
+                            self.chaos.poison_scale(state.step), np.float32)
                     batch = {k: torch.from_numpy(np.asarray(v)).to(
                         self.device) for k, v in batch_np.items()}
                 t1 = time.perf_counter()
@@ -382,6 +402,8 @@ class Trainer:
                     params, opt_state, metrics = self._train_step(
                         state.params, state.opt_state, state.consts, batch)
                 t2 = time.perf_counter()
+                if self.chaos is not None:
+                    self.chaos.straggle(state.step)   # inside the dt window
                 with self.trace.span("train.sync", cat="train"):
                     row = {k: float(v) for k, v in metrics.items()}
                 t3 = time.perf_counter()

@@ -1011,3 +1011,94 @@ def test_wrappers_refuse_bad_inputs(cuda):
         sddmm_kernel.sddmm(xs, xs.float(), st, st)
     with pytest.raises(ValueError, match="contiguous"):
         sddmm_kernel.sddmm(xs, xs.t().contiguous().t(), st, st)
+
+
+def _smoke_engine_pair(cuda, exec_mode):
+    """The f32 llama_60m smoke model with B drawn U(-1, 1) on the CPU, and
+    the same weights on the card; (cfg, cpu trees, card trees)."""
+    import dataclasses
+
+    from repro_torch.models import registry
+    from repro_torch.models.common import tree_map
+    cfg = registry.get_smoke_config("llama_60m")
+    cfg = dataclasses.replace(cfg, dtype="float32", param=dataclasses.replace(
+        cfg.param, exec_mode=exec_mode))
+    params, consts = registry.get_api(cfg).init(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+
+    def fill(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                fill(v)
+            elif k == "B":
+                v.uniform_(-1.0, 1.0, generator=gen)
+    fill(params)
+    on = lambda t: tree_map(lambda x: x.to(cuda), t)
+    return cfg, (params, consts), (on(params), on(consts))
+
+
+def _serve_all(eng, prompts, new_tokens=6):
+    reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    stats = eng.run_until_drained()
+    assert not stats["exhausted"]
+    return [(r.uid, r.status, r.out, r.t_first, r.t_done) for r in reqs]
+
+
+ENGINE_PROMPTS = [[5, 9, 11], [7, 3, 200, 31, 8, 14, 30], [4, 4],
+                  [9, 2, 21, 17, 3]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exec_mode", ["fused", "sparse"])
+def test_contiguous_engine_on_card_matches_cpu(cuda, exec_mode):
+    """The contiguous (paged=False) engine: the card's kernels (sl_matmul
+    or sparse_matmul at M = n_slots) give the CPU's plain versions' tokens
+    and ticks, and each prompt token is one prefill dispatch."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg, host, card = _smoke_engine_pair(cuda, exec_mode)
+    kernel = {"fused": sl_kernel.sl_matmul,
+              "sparse": sd_kernel.sparse_matmul}[exec_mode]
+    runs = []
+    for device, (p, c) in (("cpu", host), (cuda, card)):
+        eng = ServeEngine(cfg, p, c, n_slots=2, max_len=32, device=device)
+        n0 = kernel.launches
+        runs.append(_serve_all(eng, ENGINE_PROMPTS))
+        assert (kernel.launches > n0) == (device == cuda)
+        assert eng.dispatches["prefill"] == sum(map(len, ENGINE_PROMPTS))
+    assert runs[1] == runs[0]
+
+
+@pytest.mark.gpu
+def test_paged_stall_slot_on_card_keeps_tokens(cuda):
+    """``stall@T:K`` on the paged engine with the paged kernels and prefix
+    sharing: the stalled slot's garbage writes never reach its tokens
+    (they equal the unstalled run's), every block is freed, and the card
+    agrees with the CPU tick for tick."""
+    from repro_torch.resilience import ChaosEngine
+    from repro_torch.serve.engine import ServeEngine
+    cfg, host, card = _smoke_engine_pair(cuda, "fused")
+    shared = list(range(40, 56))
+    prompts = [shared + [3, 9], [7, 13, 5], shared + [11], [8, 2, 6, 1]]
+    kw = dict(n_slots=3, max_len=48, paged=True, block_len=8,
+              attn_kernel="paged", prefix_sharing=True)
+    runs = {}
+    for device, (p, c) in (("cpu", host), (cuda, card)):
+        for spec in (None, "stall@2:5"):
+            chaos = ChaosEngine.parse(spec, seed=3) if spec else None
+            eng = ServeEngine(cfg, p, c, device=device,
+                              tick_hook=chaos.serve_hook if chaos else None,
+                              **kw)
+            n0 = pa_kernel.paged_attention.launches
+            runs[device, spec] = _serve_all(eng, prompts)
+            assert eng.sched.blocks.blocks_in_use == 0
+            assert (pa_kernel.paged_attention.launches > n0) == \
+                (device == cuda)
+            if chaos:
+                assert chaos._fired and not eng._stall_until
+    assert runs[cuda, "stall@2:5"] == runs["cpu", "stall@2:5"]
+    assert runs[cuda, None] == runs["cpu", None]
+    assert [r[2] for r in runs[cuda, "stall@2:5"]] == \
+        [r[2] for r in runs[cuda, None]]
+    # the stall cost ticks: some request completes later
+    assert any(a[4] > b[4] for a, b in zip(runs[cuda, "stall@2:5"],
+                                           runs[cuda, None]))

@@ -88,10 +88,17 @@ def test_unported_options_raise():
     cfg = _smoke()
     params, consts = lm.init_lm(cfg, device="cpu")
     kw = dict(max_len=32, device="cpu")
-    for bad in (dict(paged=False), dict(paged=True, mesh=object()),
-                dict(paged=True, tick_hook=lambda e: None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServeEngine(cfg, params, consts, **kw, **bad)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeEngine(cfg, params, consts, paged=True, mesh=object(), **kw)
+    # the contiguous cache and the tick hook run now
+    ticks = []
+    for ok in (dict(paged=False), dict(paged=True, tick_hook=ticks.append),
+               dict(paged=False, tick_hook=ticks.append)):
+        eng = ServeEngine(cfg, params, consts, **kw, **ok)
+        req = eng.submit([5, 9, 11], max_new_tokens=2)
+        eng.run_until_drained()
+        assert req.status == "done" and len(req.out) == 2
+    assert ticks and all(isinstance(e, ServeEngine) for e in ticks)
     # sparse and quant decode run now, and check their consts up front
     for bad in (dict(exec_mode="sparse"), dict(sparse_decode=True),
                 dict(exec_mode="quant"),
@@ -120,14 +127,60 @@ def test_train_entry_points_need_a_card_unless_cpu(no_card, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--fsdp", "--use-mesh"],
-    ["--use-mesh"], ["--multipod"], ["--chaos", "kill@3"],
-    ["--jax-profile-dir", "x"]],
+    ["--use-mesh"], ["--multipod"]],
     ids=lambda f: " ".join(f))
 def test_train_launcher_unported_options_raise(flags, tmp_path):
     from repro_torch.launch import train
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(["--smoke", "--steps", "1", "--device", "cpu",
                     "--ckpt-dir", str(tmp_path), *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--chaos", "kill@3"], ["--jax-profile-dir", "x"]],
+    ids=lambda f: " ".join(f))
+def test_train_launcher_chaos_and_profile_options_now_run(flags, tmp_path):
+    """``--chaos`` and ``--jax-profile-dir`` (refused until they were
+    ported) run one step; a kill scheduled past the last step never fires,
+    and the profile directory gets a Chrome trace."""
+    from repro_torch.launch import train
+    flags = [str(tmp_path / f) if f == "x" else f for f in flags]
+    tr = train.main(["--smoke", "--steps", "1", "--batch", "2", "--seq",
+                     "8", "--device", "cpu", "--ckpt-dir",
+                     str(tmp_path / "ck"), *flags])
+    assert len(tr.metrics_history) == 1
+    if "--chaos" in flags:
+        assert tr.chaos is not None and not tr.chaos._fired
+    else:
+        assert tr.trace.profile_path.startswith(str(tmp_path / "x"))
+        assert os.path.getsize(tr.trace.profile_path) > 0
+
+
+def test_launchers_chaos_kill_and_stall_run(tmp_path):
+    """``python -m repro_torch.launch.train --chaos kill@2`` exits 43
+    before step 3, and its relaunch resumes from a checkpoint (step 2's,
+    or step 1's when the process died with step 2's background write in
+    flight); the serve launcher's ``--chaos stall`` with a deadline on
+    either cache ends with no request unfinished."""
+    from repro_torch.launch import serve, train
+    argv = ["--smoke", "--steps", "3", "--batch", "2", "--seq", "8",
+            "--ckpt-every", "1", "--device", "cpu", "--ckpt-dir",
+            str(tmp_path)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *argv, "--chaos", "kill@2"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 43, out.stderr[-2000:]
+    tr = train.main(argv)
+    assert [r["step"] for r in tr.metrics_history] in ([3], [2, 3])
+    for paged in ([], ["--paged"]):
+        eng, reqs = serve.main(
+            ["--smoke", "--requests", "3", "--slots", "2", "--max-len", "32",
+             "--new-tokens", "4", "--chaos", "stall@2:40",
+             "--deadline-ticks", "20", "--device", "cpu", *paged])
+        assert {r.status for r in reqs} <= {"done", "timed_out"}
+        assert eng.obs.snapshot()[
+            "resilience.faults_injected{kind=stall}"]["value"] == 1
 
 
 @pytest.mark.parametrize("flags", [
@@ -160,9 +213,16 @@ def test_trainer_unported_options_raise(tmp_path):
                                           TrainConfig)
     from repro_torch.train.trainer import Trainer
     tc = TrainConfig(model=_smoke(), ckpt_dir=str(tmp_path))
-    for kw in (dict(mesh=object()), dict(chaos=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(tc, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(tc, device="cpu", mesh=object())
+    # chaos= runs now: one step, the schedule bound to the registry
+    from repro_torch.resilience import ChaosEngine
+    tr = Trainer(dataclasses.replace(tc, steps=1, global_batch=2, seq_len=8,
+                                     ckpt_dir=str(tmp_path / "chaos")),
+                 device="cpu", log_fn=lambda *a: None,
+                 chaos=ChaosEngine.parse("data_corrupt@0"))
+    assert tr.run().step == 1
+    assert tr.obs.snapshot()["resilience.bad_batches"]["value"] == 1
     for sc in (ShardingConfig(pod_grad_compression=True),
                ShardingConfig(fsdp=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
