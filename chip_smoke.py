@@ -21,7 +21,8 @@ rerun; the bfloat16 ``paged_prefill`` against its rerun, with the launch
 plans printed; ``sparse_matmul`` also at the sparse-mode training
 calls, M = 2048 tokens, forward and dx with f32 output, each against its
 rerun). Then it drives the paths on the paper's ``llama_1b`` config at
-full width and depth with random weights from a seed:
+full width (serving on 12 of its 24 layers) with random weights from a
+seed:
 
 * serving: the paged engine in float32 along paths that must give the
   same greedy tokens: fused ``sl_matmul`` + paged kernels, and
@@ -45,7 +46,7 @@ full width and depth with random weights from a seed:
   (``sparse_matmul`` forward and dx over Wᵀ's tiles, ``sddmm`` dV)
   against "dense", per-layer updates against the global step (AdamW),
   and per-layer 8-bit AdamW through the ``adam8bit`` kernel against
-  global 8-bit AdamW; then the ``Trainer`` in bfloat16 for 6 steps in
+  global 8-bit AdamW; then the ``Trainer`` in bfloat16 for 4 steps in
   exec_mode fused and in sparse, timed, with the launch counts read
   around each run and its checkpoint written; a device-only profile of
   one more step of each;
@@ -56,7 +57,7 @@ full width and depth with random weights from a seed:
   too) and full rank with GaLore-AdamW refreshing P at step 3; none of
   them may launch a kernel of the port;
 * the memory path: the ``Trainer`` in bfloat16 with per-layer updates and
-  8-bit AdamW (``adam8bit``, one launch a group of the sweep) for 6
+  8-bit AdamW (``adam8bit``, one launch a group of the sweep) for 4
   steps, timed, with launch counts, per-layer update times and its peak
   device memory, which must stay below the global AdamW run's, and a
   device-only profile of one more step with ``adam8bit``'s device time;
@@ -106,8 +107,33 @@ full width and depth with random weights from a seed:
   whose peak may not exceed the first's; (7d) full-rank global AdamW at
   2, 4 and 8 layers, its peak fitted in depth and extrapolated to 32
   layers (it does not fit on the card), the per-layer 8-bit peak gated
-  below it; (7e) the fused and sparse bf16 engines on 16 of the 32
-  layers (``SERVE_7B_LAYERS``), timed and profiled.
+  below it; (7e) the fused and sparse bf16 engines on 8 of the 32
+  layers (``SERVE_7B_LAYERS``), timed and profiled;
+* the gemma2 family (``gemma2_2b``: 26 layers of local/global pairs,
+  d_model 2304, 8 heads over 4 kv heads of 256, d_ff 9216, vocab 256000
+  tied, softcaps 50/30, window 4096, rank 576) and ``paligemma_3b``:
+  (g1) every kernel at the new shapes in bf16 against its plain version
+  (``sl_matmul``, ``sddmm``, ``sparse_matmul``, ``quant_sparse_matmul``
+  at gemma2's five projection shapes; ``adam8bit`` at every segment of
+  gemma2's per-layer step, the 590 M-element tied embedding included;
+  the paged kernels at head_dim 256, the prefill on the tensor cores'
+  wide kernel, the decode at a 4320-key context past the window;
+  paligemma's MQA at group 8; ``sl_matmul`` at paligemma's and
+  qwen2.5's widest shapes); (g2) f32 at gemma2's width on 4 layers
+  (``GEMMA_PARITY_LAYERS``): 3 train steps fused against dense, fused
+  and sparse engine tokens against dense + gathered attention; (g3)
+  gemma2_2b in bf16 at full depth: the fused and sparse paged engines
+  (tokens/s, busy share), a 4300-token request past the window held
+  step by step against the gathered read on the same engine
+  (``LONG_LOGIT_TOL``), and 3 Trainer steps of global AdamW and of
+  per-layer 8-bit AdamW; (g4) paligemma_3b on 2 layers
+  (``PALI_LAYERS``) with seeded patch embeddings: an f32 train step
+  fused against dense, f32 engine tokens against dense, a bf16 train step
+  and a bf16 engine run.
+
+To stay inside its time limit with the gemma2 phases: llama_1b's serving
+phases run on 12 of its 24 layers (``SERVE_LAYERS``), its bf16 Trainer
+runs take 4 steps (``TRAIN_STEPS``), llama_7b's engines 8 of 32 layers.
 
 Any failure exits non-zero. Without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -149,9 +175,15 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # so only the order of f32 sums differs (and, in bf16, the one rounding
 # of each W tile or output element that such an order can tip).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+DTYPES = (torch.bfloat16, torch.float32)
 # a full L2 (50 MB) sweep before each timed launch: the serving path
 # reads every weight once per step, so it finds them cold in L2
 FLUSH_BYTES = 256 << 20
+# a spin on the card after each sweep, before the start event (~0.3 ms at
+# the H100's clocks): the host queues every launch of the timed call
+# while it runs, so a call of several launches (a library call on a
+# gathered view) is timed on the device alone, not at the host's pace
+HOST_AHEAD_CYCLES = 1 << 19
 
 SL_SOURCE = "src/repro_torch/kernels/csrc/sl_matmul.cu"
 PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
@@ -231,7 +263,11 @@ RECIPE_LAYERS = 4
 # depth cut to keep the script inside its time limit (every layer runs
 # the same code at the same shapes)
 PARITY_LAYERS = 12
-SERVE_7B_LAYERS = 16
+SERVE_7B_LAYERS = 8
+# llama_1b's serving phases (f32 and bf16, paged and contiguous, the
+# calibration) on this many of its 24 layers: cut from full depth to pay
+# for the gemma2 phases
+SERVE_LAYERS = 12
 # f32 train parity, fused vs dense: step 1 runs from identical parameters,
 # so only the order of f32 sums differs (1e-5 relative). From step 2 on,
 # Adam divides each gradient by its own magnitude: an element whose
@@ -239,6 +275,9 @@ SERVE_7B_LAYERS = 16
 # losses and norms agree only to 1e-3 relative.
 TRAIN_TOL_STEP1 = 1e-5
 TRAIN_TOL_LATER = 1e-3
+# bf16 Trainer runs of llama_1b (fused, sparse, per-layer 8-bit): one
+# warm-up step and the rest timed (6 steps before gemma2's phases came)
+TRAIN_STEPS = 4
 
 
 def say(*parts) -> None:
@@ -254,7 +293,7 @@ def arch(cfg) -> str:
     phase cut it ("llama_7b at 2 of 32 layers")."""
     from repro_torch.models import registry
     name = cfg.name.replace("-", "_")
-    if name not in registry.PAPER_ARCHS:
+    if name not in registry.PAPER_ARCHS + registry.ARCHS:
         return name
     full = registry.get_config(name).n_layers
     return name if cfg.n_layers == full else \
@@ -280,7 +319,8 @@ def support_tiles(seed, d_in, d_out, delta):
 
 class Timer:
     """Median device time of one call, by CUDA events around each launch,
-    with the L2 cache swept before every launch."""
+    with the L2 cache swept before every launch and the card kept busy
+    (HOST_AHEAD_CYCLES) until the host has queued the call."""
 
     def __init__(self, device):
         self.flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8,
@@ -292,6 +332,7 @@ class Timer:
         pairs = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(HOST_AHEAD_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -474,15 +515,14 @@ def dname(dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
-def check_sl_matmul(timer, gen, device, cfg, m_values):
+def check_sl_matmul(timer, gen, device, cfg, m_values, dtypes=DTYPES):
     """Every row count the engine gives the kernel (a decode batch and
     each prefill bucket times the slots), so each variant of the kernel
     is held against the plain version; in bf16 both variants are timed
     at each, which places the crossover."""
-    d, f = cfg.d_model, cfg.d_ff
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for (d_in, d_out) in ((d, d), (d, f), (f, d)):
+    for dtype in dtypes:
+        for (d_in, d_out) in proj_shapes(cfg):
             for m in m_values:
                 args = sl_case(gen, device, d_in, d_out, m, dtype,
                                cfg.param.rank, cfg.param.delta,
@@ -516,7 +556,7 @@ def sparse_decode_case(gen, device, d_in, d_out, delta, seed):
     return sp, qp, rows.shape[0]
 
 
-def check_sparse_decode(timer, gen, device, cfg, m_values):
+def check_sparse_decode(timer, gen, device, cfg, m_values, dtypes=DTYPES):
     """sparse_matmul and quant_sparse_matmul against their plain versions
     at every (M, K, N) the llama_1b engine gives them (M: the decode batch
     and each prefill bucket times the slots) and with the output the
@@ -532,13 +572,12 @@ def check_sparse_decode(timer, gen, device, cfg, m_values):
     over the memory rate, or 2·M·nnz operations, the larger."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import sparse_decode as spk
-    d, f = cfg.d_model, cfg.d_ff
     rows = []
-    for (d_in, d_out) in ((d, d), (d, f), (f, d)):
+    for (d_in, d_out) in proj_shapes(cfg):
         sp, qp, nnz = sparse_decode_case(gen, device, d_in, d_out,
                                          cfg.param.delta,
                                          seed=d_in * 7 + d_out)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             for m in m_values:
                 x = torch.randn((m, d_in), generator=gen,
                                 device=device).to(dtype)
@@ -679,15 +718,14 @@ def time_sddmm(timer, label, x, dy, rt, ct, dtype, nnz):
     return row
 
 
-def check_train_kernels(timer, gen, device, cfg, m):
+def check_train_kernels(timer, gen, device, cfg, m, dtypes=DTYPES):
     """The training path's kernel calls at M = batch x seq tokens, for each
     projection shape: the forward sl_matmul, the dx sl_matmul on the
     transposed factors and Wᵀ's tile consts, and sddmm."""
     from repro_torch.kernels import ops
-    d, f = cfg.d_model, cfg.d_ff
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for (d_in, d_out) in ((d, d), (d, f), (f, d)):
+    for dtype in dtypes:
+        for (d_in, d_out) in proj_shapes(cfg):
             x, B, A, v_t, rt, ct, scale = sl_case(
                 gen, device, d_in, d_out, m, dtype, cfg.param.rank,
                 cfg.param.delta, cfg.param.alpha, seed=d_in * 7 + d_out)
@@ -738,10 +776,9 @@ def check_sparse_train_kernels(timer, gen, device, cfg, m):
     larger."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import sparse_decode as spk
-    d, f = cfg.d_model, cfg.d_ff
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for (d_in, d_out) in ((d, d), (d, f), (f, d)):
+    for dtype in DTYPES:
+        for (d_in, d_out) in proj_shapes(cfg):
             fwd, dx, nnz = sparse_train_case(
                 gen, device, d_in, d_out, m, dtype, cfg.param.delta,
                 seed=d_in * 7 + d_out)
@@ -783,29 +820,47 @@ def check_sparse_train_kernels(timer, gen, device, cfg, m):
 
 
 def linear_shapes(cfg):
-    """{name: (d_in, d_out)} of one llama layer's SLTrain linears."""
+    """{name: (d_in, d_out)} of one layer's SLTrain linears."""
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
     return {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
             "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d),
             "gate": (d, f), "up": (d, f), "down": (f, d)}
 
 
+def proj_shapes(cfg):
+    """The distinct (d_in, d_out) of one layer's linears, in order: three
+    for the llama configs (d→d, d→d_ff, d_ff→d), five for gemma2's."""
+    return list(dict.fromkeys(linear_shapes(cfg).values()))
+
+
+def pattern_len(cfg) -> int:
+    """Blocks in one period of the layer stack (2 for gemma2's local and
+    global pair), the unit the per-layer sweep updates at a time."""
+    return len(cfg.attn_pattern or ("global",))
+
+
 def layer_slices(cfg):
-    """({leaf: elements} of one layer's slices that the per-layer step
-    updates in the layer's group, {leaf: elements} of the whole stacked
+    """({leaf: elements} of one period's slices that the per-layer step
+    updates in the period's group, {leaf: elements} of the whole stacked
     leaves it defers, whose slices are no whole number of 256-blocks) on
-    ``cfg`` (an SLTrain llama config)."""
+    ``cfg`` (an SLTrain config; a period is one layer but for gemma2's
+    pairs, whose leaves are named by kind)."""
     from repro_torch.core import support
     d, pc = cfg.d_model, cfg.param
-    per_layer = {"ln_attn": d, "ln_mlp": d}
+    norms = ["ln_attn", "ln_mlp"] + (["ln_attn_post", "ln_mlp_post"]
+                                     if cfg.use_post_norms else [])
+    one = {n: d for n in norms}
     for name, (a, b) in linear_shapes(cfg).items():
         r = max(4, min(pc.rank, min(a, b) // 2))
-        per_layer[f"{name}.A"] = r * b
-        per_layer[f"{name}.B"] = a * r
-        per_layer[f"{name}.v"] = support.nnz_for(a, b, pc.delta,
-                                                 pc.support_kind)
+        one[f"{name}.A"] = r * b
+        one[f"{name}.B"] = a * r
+        one[f"{name}.v"] = support.nnz_for(a, b, pc.delta,
+                                           pc.support_kind)
+    kinds = pattern_len(cfg)
+    per_layer = one if kinds == 1 else {
+        f"k{j}/{k}": n for j in range(kinds) for k, n in one.items()}
     sliced = {k: n for k, n in per_layer.items() if n % 256 == 0}
-    deferred = {k: cfg.n_layers * n for k, n in per_layer.items()
+    deferred = {k: cfg.n_layers // kinds * n for k, n in per_layer.items()
                 if n % 256}
     return sliced, deferred
 
@@ -823,9 +878,11 @@ def adam8bit_sizes(cfg):
     for name, n in deferred.items():
         names.setdefault((n, True), []).append(f"{name} deferred")
     names.setdefault((cfg.d_model, False), []).append("ln_f")
+    # a tied embedding's gradient is f32: it sums the head's and the
+    # embedding's cotangents (train/perlayer.py)
     for name in ["embed"] + ([] if cfg.tie_embeddings else ["lm_head"]):
-        names.setdefault((cfg.padded_vocab * cfg.d_model, False),
-                         []).append(name)
+        names.setdefault((cfg.padded_vocab * cfg.d_model,
+                          cfg.tie_embeddings), []).append(name)
     return {", ".join(v): k for k, v in names.items()}
 
 
@@ -885,7 +942,7 @@ def adam8bit_bytes(segs):
     return sum(nbytes(*s[:6]) + nbytes(s.p, *s[2:6]) for s in segs)
 
 
-def check_adam8bit(timer, gen, device, cfg, steps=3):
+def check_adam8bit(timer, gen, device, cfg, steps=3, dtypes=DTYPES):
     """The adam8bit kernel against its plain version at every segment
     the llama_1b per-layer step gives it, in bf16 and f32 params, the
     gradient in the trainer's dtype (p's; f32 for a deferred leaf's
@@ -901,7 +958,7 @@ def check_adam8bit(timer, gen, device, cfg, steps=3):
     from repro_torch.kernels import ref
     clip = torch.tensor(CLIP, device=device)
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         for label, (n, deferred) in adam8bit_sizes(cfg).items():
             g_dtype = torch.float32 if deferred else dtype
             for decay in (False, True):
@@ -942,7 +999,8 @@ def check_adam8bit_layer(timer, gen, device, cfg, clip, steps):
     segs = [adam8bit_case(gen, device, n, torch.bfloat16, torch.bfloat16,
                           not name.startswith("ln"))
             for name, n in sliced.items()]
-    label = f"layer group ({len(segs)} slices) bfloat16"
+    label = f"layer group ({len(segs)} slices) bfloat16" if \
+        pattern_len(cfg) == 1 else f"period group ({len(segs)} slices) bfloat16"
     scalars, plain = adam8bit_steps(label, segs, clip, device, steps)
     t_k = timer.ms(lambda: adk.adam8bit_group(segs, scalars, clip))
     t_leaf = timer.ms(lambda: [adk.adam8bit_group([s], scalars, clip)
@@ -952,8 +1010,10 @@ def check_adam8bit_layer(timer, gen, device, cfg, clip, steps):
     n = sum(s.p.numel() for s in segs)
     moved = adam8bit_bytes(segs) + nbytes(scalars, clip)
     b, by = bound_ms(moved, ADAM8BIT_OPS * n, torch.float32)
+    launches = -(-len(segs) // adk.MAX_SEGMENTS)
     say(f"kernel adam8bit {label}, n={n}: {steps} steps bit-identical to "
-        f"the plain version, one launch a step | kernel {t_k:.4f} ms, "
+        f"the plain version, {launches} launch{'es' * (launches > 1)} a "
+        f"step | kernel {t_k:.4f} ms, "
         f"per-leaf launches {t_leaf:.4f} ms ({len(segs)} launches), plain "
         f"{t_p:.4f} ms, bound {b:.4f} ms ({by}, {moved / 1e6:.1f} MB)")
     return dict(name="adam8bit", shape=label, n=None, dtype=torch.bfloat16,
@@ -986,17 +1046,22 @@ def attn_case(gen, device, dtype, *, n_slots, n_kv, group, hd, block_len,
     return k_pool, v_pool, table.to(device), pos.to(device)
 
 
-def live_kv_bytes(k_pool, table, last_pos):
+def live_kv_bytes(k_pool, table, last_pos, window=0):
     """Bytes of K and V in the blocks a slot can see (non-null entries up
-    to the block of its last query position)."""
+    to the block of its last query position), and their keys; with a
+    ``window``, only the keys inside it, as the kernels read them."""
     bl = k_pool.shape[1]
-    per_block = k_pool[0].numel() * k_pool.element_size()
+    per_key = k_pool[0, 0].numel() * k_pool.element_size()
     t = table.cpu()
     n = 0
     for s in range(t.shape[0]):
-        for j in range(min(t.shape[1], int(last_pos[s]) // bl + 1)):
-            n += int(t[s, j] != 0)
-    return 2 * n * per_block, n * bl
+        last = int(last_pos[s])
+        lo = max(0, last - window + 1) if window > 0 else 0
+        for j in range(min(t.shape[1], last // bl + 1)):
+            if t[s, j] != 0:
+                n += max(0, min(bl * (j + 1), last + 1) - max(bl * j, lo)) \
+                    if window > 0 else bl
+    return 2 * n * per_key, n
 
 
 def sdpa_on_view(q, k_pool, v_pool, table, qpos, scale):
@@ -1060,7 +1125,7 @@ def decode_row(timer, label, q, kp, vp, tbl, pos, kw):
                  f"of the group, {plan.splits} splits, "
                  f"{n_slots * n_kv * plan.row_blocks * plan.splits} blocks; "
                  "a rerun bit-identical")
-    kv_b, keys_live = live_kv_bytes(kp, tbl, pos)
+    kv_b, keys_live = live_kv_bytes(kp, tbl, pos, kw.get("window", 0))
     ops_ = 4.0 * n_kv * group * keys_live * hd
     b, by = bound_ms(nbytes(q, tbl, pos, got) + kv_b, ops_, dtype)
     t_k = timer.ms(lambda: pak.paged_attention(q, kp, vp, tbl, pos, **kw))
@@ -1901,7 +1966,8 @@ def param_rel_diff(a, b):
     return worst
 
 
-def phase_train_parity(cfg, device, gen, *, batch, seq, steps=3):
+def phase_train_parity(cfg, device, gen, *, batch, seq, steps=3,
+                       names=None):
     """Phase 6: f32 training from one init and one SyntheticC4 stream,
     through the train steps the Trainer runs, in pairs that must agree:
     exec_mode fused (sl_matmul forward and dx, sddmm dV) against dense
@@ -1912,7 +1978,9 @@ def phase_train_parity(cfg, device, gen, *, batch, seq, steps=3):
     kernel against global 8-bit AdamW (its plain update). B is drawn at
     random, as for serving, so that step 1 covers the low-rank half of
     the forward, dx and dA too (B = 0 makes dA exactly 0). The per-layer
-    steps update their params in place: each run starts from a copy."""
+    steps update their params in place: each run starts from a copy.
+    ``names`` picks a subset of the runs (the pairs among them are
+    checked)."""
     from repro_torch.data.pipeline import SyntheticC4
     from repro_torch.kernels import ops
     from repro_torch.models import registry
@@ -1946,6 +2014,9 @@ def phase_train_parity(cfg, device, gen, *, batch, seq, steps=3):
     pairs = (("fused", "dense"), ("sparse", "dense"),
              ("per_layer adamw", "fused"),
              ("per_layer adam8bit", "global adam8bit"))
+    if names is not None:
+        runs = {k: v for k, v in runs.items() if k in names}
+        pairs = [p for p in pairs if set(p) <= set(names)]
     out, first = {}, {}
     for name, (c, opt_name, mode, kernels) in runs.items():
         opt = optimizers.make(dataclasses.replace(tc.optim, name=opt_name))
@@ -2112,11 +2183,12 @@ class FirstStep:
             self.t0 = time.perf_counter()
 
 
-def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=6):
+def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=TRAIN_STEPS,
+                     save=True):
     """Phase 7: the Trainer in bf16 in ``cfg``'s exec mode (fused, or
-    sparse), as the launcher runs it: one warm-up step plus five timed,
-    its final checkpoint written. Launch counts and the shapes the
-    kernels saw are read around the run."""
+    sparse), as the launcher runs it: one warm-up step plus ``steps`` - 1
+    timed, its final checkpoint written unless ``save`` is false. Launch
+    counts and the shapes the kernels saw are read around the run."""
     from repro_torch.analysis import roofline
     from repro_torch.train.trainer import Trainer
     mode = cfg.param.exec_mode
@@ -2127,6 +2199,8 @@ def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=6):
     start = FirstStep()
     tr = Trainer(tc, device=device, log_fn=lambda *a: None,
                  fault_hook=start)
+    if not save:
+        tr.save = lambda *a, **k: None
     with ShapeRecorder() as rec:
         state = tr.run()
     wall = time.perf_counter() - start.t0
@@ -2157,7 +2231,8 @@ def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=6):
         f"(data sheet) | launches per step: {linear} "
         f"{launches[linear] // steps}, sddmm {launches['sddmm'] // steps}"
         f" | max_memory_allocated {peak / 2**30:.2f} GiB | run wall "
-        f"{wall:.1f} s incl. checkpoint of step {steps} | {smi}")
+        f"{wall:.1f} s" + (f" incl. checkpoint of step {steps}" if save else
+                           " (final checkpoint not written)") + f" | {smi}")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     return tr, state, launches, rec.shapes, med, peak
 
@@ -2204,7 +2279,8 @@ def kernel_device_ms(prof, key):
 
 
 def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak=None,
-                        steps=6, remat="none", save=True, handoff=None):
+                        steps=TRAIN_STEPS, remat="none", save=True,
+                        handoff=None):
     """Phase 9: the memory path, as ``launch.train --optimizer adam8bit
     --update-mode per_layer --exec-mode fused --layer-timing`` runs it:
     the Trainer in bf16 with per-layer updates and 8-bit AdamW through the
@@ -2258,11 +2334,13 @@ def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak=None,
                 adam8bit=per_step * steps)
     if launches != want:
         fail(f"bf16 per-layer training launched {launches}, expected {want}")
+    # one update group a period (a layer; gemma2's local/global pair)
+    periods = cfg.n_layers // pattern_len(cfg)
     lt = tr.obs.get("train.perlayer.layer_update_ms")
-    if lt is None or lt.count != cfg.n_layers * steps:
+    if lt is None or lt.count != periods * steps:
         fail("per-layer timing recorded "
-             f"{None if lt is None else lt.count} layer updates, expected "
-             f"{cfg.n_layers * steps}")
+             f"{None if lt is None else lt.count} period updates, expected "
+             f"{periods * steps}")
     med = statistics.median(dts[1:])
     tokens = batch * seq
     mfu = roofline.train_mfu(cfg, tokens, med)
@@ -2270,7 +2348,6 @@ def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak=None,
     init = (f"init {init.value:.1f} s with "
             f"{tr.obs.get('init.sampling_workers').value:.0f} support "
             "sampling workers" if init is not None else "state passed in")
-    est = memory_estimate(cfg, "sltrain", "adam8bit", "per_layer")
     nstate = state_bytes(state)
     say(f"train bf16 {arch(cfg)} (Trainer, per_layer, adam8bit, fused, remat "
         f"{remat}): {steps} steps, losses {[round(x, 4) for x in losses]} | "
@@ -2286,12 +2363,17 @@ def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak=None,
         f"wall {wall:.1f} s"
         + (f" incl. checkpoint of step {steps}" if save else
            " (final checkpoint not written)") + f" | {smi}")
+    if cfg.family == "llama":
+        est = memory_estimate(cfg, "sltrain", "adam8bit", "per_layer")
+        est = (f"training_estimate (f32 moments, int32 indices) params + "
+               f"optimizer {(est.param_bytes + est.optim_bytes) / 2**30:.3f}"
+               f" GiB, with grads and transients "
+               f"{est.total_bytes / 2**30:.3f} GiB")
+    else:       # core.memory's inventory is the llama layer's
+        est = "training_estimate not modeled for this family"
     say(f"memory bf16 {arch(cfg)} per_layer + adam8bit, remat {remat}: "
         f"max_memory_allocated {peak} B = {peak / 2**30:.3f} GiB | params + "
-        f"optimizer state {nstate / 2**30:.3f} GiB, training_estimate "
-        f"(f32 moments, int32 indices) params + optimizer "
-        f"{(est.param_bytes + est.optim_bytes) / 2**30:.3f} GiB, with grads "
-        f"and transients {est.total_bytes / 2**30:.3f} GiB | the fused "
+        f"optimizer state {nstate / 2**30:.3f} GiB, {est} | the fused "
         f"linear's tile consts for W and Wᵀ, outside the trees, "
         f"{consts_b / 2**30:.3f} GiB"
         + (f" | SLTrain global AdamW {global_peak / 2**30:.2f} GiB (same "
@@ -2700,8 +2782,10 @@ def check_train_coverage(shapes, m, cfg, kernels=("sl_matmul", "sddmm")):
     """Every (M, K, N) the trainer gave ``kernels`` was checked in the
     kernel phases (the forward and dx calls and sddmm at the three
     projection shapes)."""
-    d, f = cfg.d_model, cfg.d_ff
-    checked = {(m, a, b) for a, b in ((d, d), (d, f), (f, d))}
+    # the forward calls at each projection shape, the dx calls at its
+    # transpose
+    checked = {(m, a, b) for a, b in proj_shapes(cfg)} | \
+        {(m, b, a) for a, b in proj_shapes(cfg)}
     for k in kernels:
         seen = shapes[k]
         if not seen or not seen <= checked:
@@ -2733,15 +2817,18 @@ def representatives(cfg, rows, m, n_slots, bucket):
             "quant_sparse_matmul": decode}
 
 
-def kernels_line(rows, by_path, representative, rows_7b, representative_7b):
+def kernels_line(rows, by_path, representative, rows_7b, representative_7b,
+                 rows_g, representative_g):
     """One entry per kernel: the llama_1b representative case's times and
-    bound (and, under ``at_llama_7b``, the llama_7b one's), the largest
-    error over all of the kernel's cases at both configs; launches summed
-    over the main paths' runs (serving fused, sparse and quant on the
-    paged and the contiguous cache; training fused, sparse and per-layer;
-    the chaos drills; the quant recipe at llama_1b and at its default
-    size; the quant fallback; llama_7b's per-layer training and fused and
-    sparse serving), each path's count beside them."""
+    bound (and, under ``at_llama_7b`` and ``at_gemma2_2b``, the llama_7b
+    and the gemma2_2b one's), the largest error over all of the kernel's
+    cases at every config; launches summed over the main paths' runs
+    (serving fused, sparse and quant on the paged and the contiguous
+    cache; training fused, sparse and per-layer; the chaos drills; the
+    quant recipe at llama_1b and at its default size; the quant fallback;
+    llama_7b's per-layer training and fused and sparse serving; gemma2_2b's
+    serving, long request and training, paligemma_3b's), each path's count
+    beside them."""
     out = []
     src = {"sl_matmul": SL_SOURCE, "paged_attention": PA_SOURCE,
            "paged_prefill": PA_SOURCE, "sddmm": SD_SOURCE,
@@ -2753,18 +2840,24 @@ def kernels_line(rows, by_path, representative, rows_7b, representative_7b):
         rep = next(r for r in mine if r["shape"] == shape)
         mine7 = [r for r in rows_7b if r["name"] == name]
         rep7 = next(r for r in mine7 if r["shape"] == representative_7b[name])
+        mine_g = [r for r in rows_g if r["name"] == name]
+        rep_g = next(r for r in mine_g
+                     if r["shape"] == representative_g[name])
         out.append({
             "name": name, "route": "cuda", "source": src[name],
             "replaces": REPLACES[name],
             "launches": sum(n[name] for n in by_path.values()),
             "launches_by_path": {p: n[name] for p, n in by_path.items()},
-            "max_abs_err": max(r["max_abs_err"] for r in mine + mine7),
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in mine + mine7 + mine_g),
             **{k: rep[k] for k in times}, "shape": shape,
             "cases": len(mine),
             **{k: rep[k] for k in ("variant", "pad_ms", "library_f32_ms")
                if k in rep},
             "at_llama_7b": {"shape": rep7["shape"], "cases": len(mine7),
-                            **{k: rep7[k] for k in times}}})
+                            **{k: rep7[k] for k in times}},
+            "at_gemma2_2b": {"shape": rep_g["shape"], "cases": len(mine_g),
+                             **{k: rep_g[k] for k in times}}})
     return {"kernels": out}
 
 
@@ -3414,6 +3507,493 @@ def run_7b(device, smi, *, batch, seq, n_slots, block_len, max_len, buckets,
 
 
 # ---------------------------------------------------------------------------
+# phases g1 to g4: the gemma2 family, paligemma_3b and qwen2.5's kernel rows
+# ---------------------------------------------------------------------------
+
+# gemma2_2b's f32 parity (phase g2) on this many of its 26 layers (two
+# local/global periods) and paligemma_3b (phase g4) on this many of its 18
+GEMMA_PARITY_LAYERS = 4
+PALI_LAYERS = 2
+# phase g3's long request: a prompt past gemma2's 4096-key window, then
+# new tokens, on one slot whose table spans LONG_MAX_LEN keys
+LONG_PROMPT, LONG_NEW, LONG_MAX_LEN = 4300, 16, 4320
+# the long request's logits at each step, paged kernels against the
+# gathered read on the same engine (bf16 at full depth; the final softcap
+# bounds them at ±30): the two reads round the attention's f32 sums in
+# another order before one bf16 rounding, and 26 layers carry that on
+# (0.078 at worst on an H100). A gathered read that drops the local
+# layers' window strays ~0.59 or more at every step there: the phase
+# checks at each run that this faulty read passes the limit at each step
+LONG_LOGIT_TOL = 0.25
+# paligemma's vlm batch: the trainer's batch with seeded patch embeddings
+PALI_BATCH, PALI_SEQ = 4, 512
+PATH_KERNELS.update({
+    "serve_gemma2_2b": PATH_KERNELS["serve"],
+    "serve_sparse_gemma2_2b": PATH_KERNELS["serve_sparse"],
+    "serve_long_gemma2_2b": PATH_KERNELS["serve"],
+    "train_gemma2_2b": PATH_KERNELS["train"],
+    "train_per_layer_gemma2_2b": PATH_KERNELS["train_per_layer"],
+    # paligemma_3b at PALI_LAYERS: one bf16 train step, a bf16 engine run
+    "train_paligemma_3b": PATH_KERNELS["train"],
+    "serve_paligemma_3b": PATH_KERNELS["serve"],
+})
+
+
+def attn_label(cfg, extra=""):
+    """A head_dim-256 attention case's label: its arch and shape."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    return (f"{cfg.name.split('-')[0]} {cfg.n_kv_heads} kv heads, group "
+            f"{group}, hd {cfg.resolved_head_dim}{extra}")
+
+
+def check_attention_wide(timer, gen, device, cfg, n_slots, block_len, bps,
+                         sqs, long_context):
+    """The bf16 paged kernels at a head_dim-256 family's shapes, each
+    against its plain version (and its rerun, bit for bit), timed beside
+    SDPA on the gathered view without the softcap (no library call
+    computes it): the decode at the engine's shapes, the prefill on the
+    tensor cores (prefill_tc_wide_kernel) at each suffix bucket in
+    ``sqs``, with the config's softcap and, for a local layer, its window;
+    with ``long_context`` the decode at LONG_MAX_LEN keys (positions past
+    the window) for a local and a global layer."""
+    hd = cfg.resolved_head_dim
+    n_kv, group = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    win = cfg.sliding_window if "local" in cfg.attn_pattern else 0
+    kw = dict(scale=(cfg.query_pre_attn_scalar or hd) ** -0.5,
+              softcap=cfg.attn_logit_softcap, window=win)
+    cap = f", softcap {kw['softcap']:g}" if kw["softcap"] else ""
+    tags = cap + (f", window {win}" if win else "")
+    rows = []
+    positions = [min(bps * block_len - 1, 40 + 9 * s) for s in
+                 range(n_slots - 1)] + [-1]          # last slot idle
+    offsets = [16 * (s % 2) for s in range(n_slots - 1)] + [0]
+    dtype = torch.bfloat16
+    kp, vp, tbl, pos = attn_case(
+        gen, device, dtype, n_slots=n_slots, n_kv=n_kv, group=group, hd=hd,
+        block_len=block_len, bps=bps, positions=positions)
+    q = torch.randn((n_slots, n_kv, group, hd), generator=gen,
+                    device=device).to(dtype)
+    rows.append(decode_row(timer, attn_label(cfg, tags), q, kp, vp, tbl,
+                           pos, kw))
+    for sq in sqs:
+        rows.append(check_prefill(timer, gen, device, dtype,
+                                  attn_label(cfg, tags), n_kv, group, hd,
+                                  block_len, bps, sq, offsets, positions,
+                                  kw))
+    if long_context:
+        # two slots past the window, one at its edge, a short one (some
+        # splits of its table hold no live key)
+        long_pos = (LONG_MAX_LEN - 1, LONG_PROMPT - 1, cfg.sliding_window,
+                    20)
+        lbps = LONG_MAX_LEN // block_len
+        kp, vp, tbl, pos = attn_case(
+            gen, device, dtype, n_slots=len(long_pos), n_kv=n_kv,
+            group=group, hd=hd, block_len=block_len, bps=lbps,
+            positions=long_pos)
+        q = torch.randn((len(long_pos), n_kv, group, hd), generator=gen,
+                        device=device).to(dtype)
+        for w in ([win, 0] if win else [0]):
+            layer = f", window {w}, local" if w else ", global"
+            rows.append(decode_row(
+                timer, attn_label(cfg, f"{cap}{layer}, {LONG_MAX_LEN}-key "
+                                  "context"),
+                q, kp, vp, tbl, pos, dict(kw, window=w)))
+        del kp, vp
+    return rows
+
+
+def check_kernels_families(device, cfgs, m_values, n_slots, block_len, bps,
+                           buckets, m_train):
+    """Phase g1: every kernel at the new shapes in bf16, the model's type,
+    with the checks of the llama_1b phases (plain version, rerun bit for
+    bit, plans, timings beside the plain version, the bound and one
+    library call): ``sl_matmul`` at gemma2_2b's five projection shapes
+    (ranks 576 and 512) at every engine row count and at M = ``m_train``
+    with its dx, ``sddmm`` there too, ``sparse_matmul`` and
+    ``quant_sparse_matmul`` at every engine row count, ``adam8bit`` at
+    every segment gemma2's per-layer step updates (the 590 M-element tied
+    embedding with its f32 gradient included) and over one period's
+    slices; the paged kernels at head_dim 256 (gemma2: 4 kv heads, group
+    2, softcap 50, window 4096, and a 4320-key context; paligemma: MQA,
+    group 8); ``sl_matmul`` at paligemma's and qwen2.5's widest decode
+    shapes (kernel rows only). Own generators, so no earlier phase's
+    draws move."""
+    g2, pali, qwen = cfgs
+    timer = Timer(device)
+    gens = []
+    for seed in (40, 41, 42, 43, 44):
+        g = torch.Generator(device=device)
+        g.manual_seed(seed)
+        gens.append(g)
+    bf16 = (torch.bfloat16,)
+    rows = check_sl_matmul(timer, gens[0], device, g2, m_values, bf16)
+    rows += check_attention_wide(timer, gens[1], device, g2, n_slots,
+                                 block_len, bps, buckets, True)
+    rows += check_attention_wide(timer, gens[1], device, pali, n_slots,
+                                 block_len, bps, buckets, False)
+    rows += check_sparse_decode(timer, gens[2], device, g2, m_values, bf16)
+    rows += check_train_kernels(timer, gens[0], device, g2, m_train, bf16)
+    rows += check_adam8bit(timer, gens[4], device, g2, dtypes=bf16)
+    torch.cuda.empty_cache()
+    for cfg, shapes in ((pali, [(pali.d_model, pali.d_ff),
+                                (pali.d_model, pali.n_kv_heads
+                                 * pali.resolved_head_dim)]),
+                        (qwen, [(qwen.d_model, qwen.d_ff)])):
+        for d_in, d_out in shapes:
+            pc = cfg.param
+            args = sl_case(gens[3], device, d_in, d_out, n_slots,
+                           torch.bfloat16, pc.rank, pc.delta, pc.alpha,
+                           seed=d_in * 7 + d_out)
+            rows.append(time_sl_matmul(
+                timer, f"{n_slots}x{d_in}->{d_out} bfloat16 "
+                f"({cfg.name.split('-')[0]})", args, torch.bfloat16))
+            del args
+    del timer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_parity_gemma2(cfg, device, *, batch, seq, n_slots, block_len,
+                        max_len):
+    """Phase g2: gemma2_2b at full width on GEMMA_PARITY_LAYERS layers
+    (two local/global periods) in f32: 3 train steps in exec_mode fused
+    against dense (the loss and gradient-norm gaps, TRAIN_TOL_*); the
+    plain forward, fused and sparse against dense; and the 8-request
+    traffic on the paged engine, fused + paged kernels and sparse + paged
+    kernels each giving dense + gathered attention's tokens, request by
+    request (ties in the dense logits excepted)."""
+    from repro_torch.models import lm
+    gen = torch.Generator(device=device)
+    gen.manual_seed(50)
+    cfg32 = dataclasses.replace(cfg, n_layers=GEMMA_PARITY_LAYERS,
+                                dtype="float32", param=dataclasses.replace(
+                                    cfg.param, exec_mode="fused"))
+    phase_train_parity(cfg32, device, gen, batch=batch, seq=seq,
+                       names=("fused", "dense"))
+    torch.cuda.empty_cache()
+    params, consts = lm.init_lm(cfg32, seed=0, device=device)
+    randomize_b(params, gen)
+    check_forward(cfg32, params, consts, device)
+    prompts, arrivals = traffic(cfg.vocab_size)
+    kw = dict(n_slots=n_slots, max_len=max_len, block_len=block_len,
+              new_tokens=16)
+    _, b_reqs = phase_engine_f32(cfg32, params, consts, prompts, arrivals,
+                                 device, **kw)
+    phase_sparse_f32(cfg32, params, consts, prompts, arrivals, b_reqs,
+                     device, **kw)
+    del params, consts
+    torch.cuda.empty_cache()
+
+
+def phase_long_gemma2(cfg, params, consts, device):
+    """Phase g3's long request: a LONG_PROMPT-token prompt, then LONG_NEW
+    new tokens, on a one-slot paged engine with prefix sharing (so its
+    prefill runs the tensor-core ``paged_prefill`` over 4300 queries, the
+    local layers' windows inside it) in bf16. Every dispatch first runs
+    two gathered reads (``attn_kernel="gather"``) on the same cache: one
+    with the local layers' window dropped (a faulty read), then the sound
+    one; then the kernels' read, which writes the cache the engine
+    continues from. The kernels' logits are held to the sound read's
+    within LONG_LOGIT_TOL at each step, and their greedy tokens must agree
+    (a top-2 gap in the gathered logits below the difference excepted);
+    the faulty read must stray past LONG_LOGIT_TOL at every step, or the
+    limit could not tell a read that ignores the window. The gathered
+    reads' launches are taken out of the counts: returns the counts of the
+    kernels' read alone."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import step as step_lib
+    eng = ServeEngine(cfg, params, consts, n_slots=1, max_len=LONG_MAX_LEN,
+                      paged=True, block_len=16, prefix_sharing=True,
+                      attn_kernel="paged", device=device)
+    gcfg = dataclasses.replace(eng.cfg, attn_kernel="gather")
+    fcfg = dataclasses.replace(gcfg, sliding_window=0)
+
+    def steps(c):
+        return {"decode": step_lib.make_serve_step(c, eng.api),
+                "prefill": step_lib.make_prefill_step(c, eng.api)}
+    gather, fault = steps(gcfg), steps(fcfg)
+    diffs = []
+    side = {k: 0 for k in launch_counts()}
+
+    def three_reads(kind, paged_fn):
+        def run(params, consts, tokens, cache, *args, **kwargs):
+            before = launch_counts()
+            _, f_logits, cache = fault[kind](params, consts, tokens, cache,
+                                             *args, **kwargs)
+            g_tok, g_logits, cache = gather[kind](params, consts, tokens,
+                                                  cache, *args, **kwargs)
+            for k, v in launch_counts().items():
+                side[k] += v - before[k]
+            p_tok, p_logits, cache = paged_fn(params, consts, tokens, cache,
+                                              *args, **kwargs)
+            # the logits that pick the token: the prompt's last position
+            # (the prefill's lengths[0] - 1), or the decode step's one
+            n = min(max(int(args[0][0]) - 1, 0), tokens.shape[1] - 1) \
+                if kind == "prefill" else 0
+            f, g, p = (x[0, n].float() for x in (f_logits, g_logits,
+                                                 p_logits))
+            top = torch.topk(g, 2).values
+            diffs.append(((p - g).abs().max().item(), int(p_tok[0, 0]),
+                          int(g_tok[0, 0]), (top[0] - top[1]).item(),
+                          bool(torch.isfinite(p).all()),
+                          (f - g).abs().max().item(), kind))
+            return p_tok, p_logits, cache
+        return run
+    eng._prefill_fn = three_reads("prefill", eng._prefill_fn)
+    eng._decode_fn = three_reads("decode", eng._decode_fn)
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(3, cfg.vocab_size, size=LONG_PROMPT).tolist()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    req = eng.submit(prompt, max_new_tokens=LONG_NEW)
+    stats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v - side[k] for k, v in launch_counts().items()}
+    if req.status != "done" or len(req.out) != LONG_NEW or \
+            stats["exhausted"]:
+        fail(f"long request: status {req.status}, {len(req.out)} tokens")
+    missing = [k for k in PATH_KERNELS["serve_long_gemma2_2b"]
+               if launches[k] == 0]
+    if missing:
+        fail(f"long request never launched {missing}: {launches}")
+    # one sl_matmul a projection a layer a dispatch, each read; the
+    # gathered reads launch no paged kernel, the kernels' read one a layer
+    n_lin = 7 * cfg.n_layers * len(diffs)
+    n_prefill = cfg.n_layers * sum(d[6] == "prefill" for d in diffs)
+    want = {"sl_matmul": (n_lin, 2 * n_lin), "paged_prefill": (n_prefill, 0),
+            "paged_attention": (cfg.n_layers * len(diffs) - n_prefill, 0)}
+    for k, (own, gathered) in want.items():
+        if launches[k] != own or side[k] != gathered:
+            fail(f"long request {k} launches: {launches[k]} by the kernels' "
+                 f"read (want {own}), {side[k]} by the gathered reads (want "
+                 f"{gathered})")
+    worst = max(d[0] for d in diffs)
+    fault_least = min(d[5] for d in diffs)
+    for i, (d, pt, gt, gap, finite, *_) in enumerate(diffs):
+        if not finite or d > LONG_LOGIT_TOL:
+            fail(f"long request step {i}: paged vs gathered logits differ "
+                 f"by {d:.4f} (tol {LONG_LOGIT_TOL}), finite {finite}")
+        if pt != gt and gap > d:
+            fail(f"long request step {i}: token {pt} vs gathered {gt}, "
+                 f"top-2 gap {gap:.4f} above the logits' difference")
+    if not fault_least > LONG_LOGIT_TOL:
+        fail(f"long request: a gathered read without the window strays "
+             f"only {fault_least:.4f} at some step, inside the tol "
+             f"{LONG_LOGIT_TOL}")
+    say(f"engine bf16 {arch(cfg)} long request: prompt {LONG_PROMPT} "
+        f"tokens past the {cfg.sliding_window}-key window, {LONG_NEW} new, "
+        f"{len(diffs)} dispatches each read three times (gathered without "
+        f"the window, gathered, then the kernels) | max |logit difference| "
+        f"per step, kernels vs gathered {[round(d[0], 4) for d in diffs]}, "
+        f"worst {worst:.4f} (tol {LONG_LOGIT_TOL}); gathered without the "
+        f"window vs gathered {[round(d[5], 4) for d in diffs]}, least "
+        f"{fault_least:.4f} | tokens equal on "
+        f"{sum(d[1] == d[2] for d in diffs)}/{len(diffs)} | wall "
+        f"{wall:.2f} s (three reads) | the kernels' read launched "
+        f"{launches}, the gathered reads {side}")
+    return launches
+
+
+def run_gemma2_bf16(cfg, device, smi, *, batch, seq, n_slots, block_len,
+                    max_len, buckets, m_values, rows):
+    """Phase g3: gemma2_2b at full width and depth in bf16 from one pooled
+    init (B ~ U(-1, 1), fused tile consts, which the sparse path reads
+    too): the fused and the sparse paged engine on the 8-request traffic,
+    timed under the device-only profiler (tokens/s and busy share) with
+    launch counts read around each; the long request; then the Trainer,
+    3 steps of global AdamW (fused) and 3 of per-layer 8-bit AdamW, its
+    own init each, no checkpoint written. Returns each path's launch
+    counts."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.obs import metrics as obs_metrics
+    gen = torch.Generator(device=device)
+    gen.manual_seed(60)
+    cfg16 = dataclasses.replace(cfg, param=dataclasses.replace(
+        cfg.param, exec_mode="fused"))
+    reg = obs_metrics.Registry()
+    params, consts = lm.init_lm(cfg16, seed=0, device=device, obs=reg)
+    randomize_b(params, gen)
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    say(f"init {arch(cfg16)} bf16: {cfg.n_layers} layers ({cfg.attn_pattern}"
+        f" periods), d_model {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads} "
+        f"heads over {cfg.n_kv_heads} of {cfg.resolved_head_dim}, vocab "
+        f"{cfg.padded_vocab} tied, rank {cfg.param.rank}, delta "
+        f"{cfg.param.delta}, {n_params / 1e6:.1f} M params, consts "
+        f"{sum(nbytes(t) for _, t in tree_leaves(consts)) / 2**30:.2f} GiB, "
+        f"in {reg.get('init.seconds').value:.1f} s with "
+        f"{reg.get('init.sampling_workers').value:.0f} support sampling "
+        "workers")
+    prompts, arrivals = traffic(cfg.vocab_size)
+    kw = dict(n_slots=n_slots, max_len=max_len, block_len=block_len,
+              new_tokens=16)
+    by_path = {}
+    for mode, kernel in (("fused", "sl_matmul"), ("sparse", "sparse_matmul")):
+        path = f"{EXEC_PATH[mode]}_gemma2_2b"
+        launches, shapes, _ = phase_engine_bf16(
+            cfg16, params, consts, prompts, arrivals, device, exec_mode=mode,
+            path=path, profiled=True, **kw)
+        by_path[path] = launches
+        check_coverage(shapes, m_values, buckets, kernel)
+    by_path["serve_long_gemma2_2b"] = phase_long_gemma2(cfg16, params,
+                                                        consts, device)
+    del params, consts
+    torch.cuda.empty_cache()
+    with ShapeRecorder() as rec:
+        tr, state, by_path["train_gemma2_2b"], _, _, peak = \
+            phase_train_bf16(cfg16, device, smi, batch=batch, seq=seq,
+                             steps=3, save=False)
+    check_train_coverage(rec.shapes, batch * seq, cfg)
+    del tr, state
+    torch.cuda.empty_cache()
+    tr, state, by_path["train_per_layer_gemma2_2b"], seen, _, _ = \
+        phase_perlayer_bf16(cfg16, device, smi, batch=batch, seq=seq,
+                            steps=3, save=False, global_peak=peak)
+    check_adam8bit_coverage(seen, rows)
+    del tr, state
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_paligemma(cfg, device, *, n_slots, block_len, max_len):
+    """Phase g4: paligemma_3b at full width on PALI_LAYERS layers, with
+    PALI_BATCH x PALI_SEQ batches whose first n_patches positions are
+    seeded patch embeddings (the stub frontend's output): one f32 train
+    step in exec_mode fused against dense (loss and gradient norm within
+    TRAIN_TOL_STEP1), and the f32 engine on the 8-request traffic, fused +
+    paged kernels (MQA, group 8, head_dim 256) against dense + gathered
+    attention, the same tokens; then the same in bf16: one fused train
+    step (finite, launching ``sl_matmul`` and ``sddmm``) and the fused
+    engine run (its paged kernels at group 8 in bf16). Returns the bf16
+    paths' launch counts."""
+    from repro_torch.data.pipeline import SyntheticC4
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm, registry
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import optimizers
+    from repro_torch.train import step as step_lib
+    gen = torch.Generator(device=device)
+    gen.manual_seed(70)
+    cfg32 = dataclasses.replace(cfg, n_layers=PALI_LAYERS, dtype="float32",
+                                param=dataclasses.replace(
+                                    cfg.param, exec_mode="fused"))
+    params, consts = lm.init_lm(cfg32, seed=0, device=device)
+    randomize_b(params, gen)
+    consts = ops.add_transposed_tiles(consts)
+    data = SyntheticC4(cfg.vocab_size, PALI_SEQ, PALI_BATCH, seed=0)
+    batch = {"tokens": torch.from_numpy(data.next_batch()["tokens"]).to(
+        device), "patches": torch.randn(
+        (PALI_BATCH, cfg.n_patches, cfg.d_model), generator=gen,
+        device=device)}
+    api = registry.get_api(cfg32)
+    tc = train_config(cfg32, steps=1, batch=PALI_BATCH, seq=PALI_SEQ,
+                      ckpt_dir="")
+    out = {}
+    for mode in ("fused", "dense"):
+        c = dataclasses.replace(cfg32, param=dataclasses.replace(
+            cfg32.param, exec_mode=mode))
+        opt = optimizers.make(tc.optim)
+        reset_launch_counts()
+        _, _, m = step_lib.make_train_step(c, api, opt)(
+            params, opt.init(params), consts, batch)
+        out[mode] = (float(m["loss"]), float(m["grad_norm"]),
+                     launch_counts())
+    for i, what in ((0, "loss"), (1, "grad_norm")):
+        gap = abs(out["fused"][i] - out["dense"][i]) / abs(out["dense"][i])
+        if not gap <= TRAIN_TOL_STEP1:
+            fail(f"paligemma f32 train step {what}: fused "
+                 f"{out['fused'][i]} vs dense {out['dense'][i]} (relative "
+                 f"{gap:.3e} > {TRAIN_TOL_STEP1})")
+    if not (out["fused"][2]["sl_matmul"] and out["fused"][2]["sddmm"]) or \
+            any(out["dense"][2].values()):
+        fail(f"paligemma f32 train step launches: {out}")
+    say(f"train f32 {arch(cfg32)} one step with {cfg.n_patches} patch "
+        f"embeddings a row ({PALI_BATCH}x{PALI_SEQ}): fused (loss, "
+        f"grad_norm) {out['fused'][:2]} vs dense {out['dense'][:2]}, "
+        f"relative gaps {abs(out['fused'][0] / out['dense'][0] - 1):.3e}, "
+        f"{abs(out['fused'][1] / out['dense'][1] - 1):.3e} (tol "
+        f"{TRAIN_TOL_STEP1}) | fused launches {out['fused'][2]}")
+    prompts, arrivals = traffic(cfg.vocab_size)
+    kw = dict(n_slots=n_slots, max_len=max_len, block_len=block_len,
+              new_tokens=16)
+    phase_engine_f32(cfg32, params, consts, prompts, arrivals, device, **kw)
+
+    by_path = {}
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    params16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    del params
+    batch16 = dict(batch, patches=batch["patches"].to(torch.bfloat16))
+    opt = optimizers.make(tc.optim)
+    reset_launch_counts()
+    _, _, m = step_lib.make_train_step(cfg16, api, opt)(
+        params16, opt.init(params16), consts, batch16)
+    loss = float(m["loss"])
+    by_path["train_paligemma_3b"] = launch_counts()
+    if not np.isfinite(loss) or float(m["nonfinite"]):
+        fail(f"paligemma bf16 train step: loss {loss}")
+    say(f"train bf16 {arch(cfg16)} one fused step with patch embeddings: "
+        f"loss {loss:.4f}, grad_norm {float(m['grad_norm']):.4f} | "
+        f"launches {by_path['train_paligemma_3b']}")
+    by_path["serve_paligemma_3b"], _, _ = phase_engine_bf16(
+        cfg16, params16, consts, prompts, arrivals, device,
+        exec_mode="fused", path="serve_paligemma_3b", **kw)
+    del params16, consts
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def representatives_families(rows, n_slots, m, bucket):
+    """{kernel: the shape of its representative case} among phase g1's
+    rows: gemma2_2b's widest projection (2304 -> 9216) at training and
+    decode rows, its decode at the engine's shapes and its prefill at the
+    largest bucket (head_dim 256, softcap 50, window 4096), the tied
+    embedding's 8-bit step."""
+    def pick(name, pred):
+        return next(r["shape"] for r in rows
+                    if r["name"] == name and pred(r["shape"]))
+    decode = f"{n_slots}x2304->9216 bfloat16"
+    return {"sl_matmul": f"{m}x2304->9216 bfloat16",
+            "paged_attention": pick("paged_attention", lambda s: "gemma2"
+                                    in s and "context" not in s),
+            "paged_prefill": pick("paged_prefill", lambda s: s.startswith(
+                f"sq={bucket} gemma2")),
+            "sddmm": f"{m}x(2304,9216) bfloat16",
+            "adam8bit": pick("adam8bit", lambda s: s.startswith("embed")
+                             and s.endswith("wd 0.1")),
+            "sparse_matmul": decode + " f32 out",
+            "quant_sparse_matmul": decode}
+
+
+def run_families(device, smi, *, batch, seq, n_slots, block_len, max_len,
+                 buckets, m_values):
+    """Phases g1 to g4; returns (phase g1's kernel rows, launch counts by
+    path)."""
+    from repro_torch.models import registry
+    cfgs = [registry.get_config(a) for a in
+            ("gemma2_2b", "paligemma_3b", "qwen2_5_32b")]
+    g2 = cfgs[0]
+    lap = Laps()
+    rows = check_kernels_families(device, cfgs, m_values, n_slots,
+                                  block_len, max_len // block_len, buckets,
+                                  batch * seq)
+    lap(f"phase g1 ({arch(g2)}, paligemma_3b, qwen2_5_32b kernels)")
+    phase_parity_gemma2(g2, device, batch=batch, seq=seq, n_slots=n_slots,
+                        block_len=block_len, max_len=max_len)
+    lap(f"phase g2 ({arch(g2)} f32 parity, {GEMMA_PARITY_LAYERS} layers)")
+    by_path = run_gemma2_bf16(g2, device, smi, batch=batch, seq=seq,
+                              n_slots=n_slots, block_len=block_len,
+                              max_len=max_len, buckets=buckets,
+                              m_values=m_values, rows=rows)
+    lap(f"phase g3 ({arch(g2)} bf16 serving and training)")
+    by_path.update(phase_paligemma(cfgs[1], device, n_slots=n_slots,
+                                   block_len=block_len, max_len=max_len))
+    lap(f"phase g4 (paligemma_3b, {PALI_LAYERS} layers)")
+    return rows, by_path
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3549,7 +4129,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("build and llama_1b kernels")
 
-    by_path = run_serving(cfg, device, gen, n_slots, block_len, max_len,
+    by_path = run_serving(dataclasses.replace(cfg, n_layers=SERVE_LAYERS),
+                          device, gen, n_slots, block_len, max_len,
                           buckets, m_values)
     torch.cuda.empty_cache()
     lap("llama_1b serving")
@@ -3628,6 +4209,12 @@ def main() -> int:
                                  m_values=m_values)
     by_path.update(by_path_7b)
     lap("llama_7b phases")
+    rows_g, by_path_g = run_families(device, smi, batch=batch, seq=seq,
+                                     n_slots=n_slots, block_len=block_len,
+                                     max_len=max_len, buckets=buckets,
+                                     m_values=m_values)
+    by_path.update(by_path_g)
+    lap("gemma2_2b and paligemma_3b phases")
 
     from repro_torch.configs import llama_7b
     rows = sl_rows + at_rows + tr_rows + ad_rows + sp_rows + st_rows
@@ -3635,7 +4222,9 @@ def main() -> int:
         rows, by_path,
         representatives(cfg, rows, batch * seq, n_slots, buckets[-1]),
         rows_7b, representatives(llama_7b.CONFIG, rows_7b, batch * seq,
-                                 n_slots, buckets[-1]))
+                                 n_slots, buckets[-1]),
+        rows_g, representatives_families(rows_g, n_slots, batch * seq,
+                                         buckets[-1]))
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

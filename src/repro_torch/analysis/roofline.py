@@ -15,12 +15,16 @@ PEAK_FLOPS = 989e12        # bf16 FLOP/s per card (H100 SXM data sheet)
 
 def param_count_active(cfg) -> Tuple[float, float]:
     """(total_params, active_params) analytic estimate for 6·N·D: the dense
-    llama model's matrix sizes, as the reference counts them. The MoE and
-    SSM counts wait for their families."""
-    if cfg.family != "llama" or cfg.moe.n_experts or not cfg.d_ff:
+    model's matrix sizes, as the reference counts them, for the llama,
+    gemma2 and vlm families (gemma2's post-norms and biases are not
+    counted, as the reference counts neither). The MoE and SSM counts wait
+    for their families (ROADMAP queue A items 9b and 9)."""
+    if cfg.family not in ("llama", "gemma2", "vlm") or cfg.moe.n_experts \
+            or not cfg.d_ff:
         raise NotImplementedError(
             f"param_count_active: {cfg.name} (family {cfg.family!r}) is not "
-            "ported yet (ROADMAP queue A item 9: the other model families)")
+            "ported yet (ROADMAP queue A item 9b: MoE; item 9: the SSM and "
+            "encoder families)")
     d, L, V = cfg.d_model, cfg.n_layers, cfg.padded_vocab
     hd = cfg.resolved_head_dim
     attn = d * (cfg.n_heads * hd) + 2 * d * (cfg.n_kv_heads * hd) \

@@ -114,7 +114,20 @@
 // each goes through its own PV MMA: P is carried to ~2^-17 relative
 // instead of 2^-9, for 2x the PV MMAs of a stage, which is not what
 // bounds the kernel. l sums the f32 p. hd must be a multiple of 16, at
-// most 128 (the wrapper raises otherwise).
+// most 128.
+//
+// prefill_tc_wide_kernel (prefill in bf16 at hd 144 .. 256: gemma2 and
+// paligemma take 256) is the same math in the same order, laid out for
+// the register file: at hd 256 the layout above would hold 64 registers
+// of Q fragments and 128 of f32 O a thread before S. Here a pair of warps
+// shares each 16 query rows: both form the same S and softmax, and each
+// accumulates O for half of the head dims (64 registers); Q sits in
+// shared memory and each k step loads its fragment with ldmatrix. The two
+// 64-key K/V stages (~135 KB at hd 256) and Q's rows (~34 KB at 64 rows)
+// take the opt-in dynamic shared memory, one block an SM. The duplicated
+// QK^T doubles a stage's S MMAs; at prefill's shapes (4 slots x 32
+// queries) the kernel waits on its page loads, not on the MMAs. Above 256
+// the wrapper raises: there is no other bf16 path to fall back to.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -562,6 +575,236 @@ prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 prefill on the tensor cores above head_dim 128 (gemma2, paligemma)
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_MAX_CHUNKS = 8;      // 16-dim chunks of O a warp holds
+
+// K and V, two stages each, then Q's rows of the block, rows of hd + 8
+// bf16; a flag per staged key
+size_t wide_smem_bytes(int hd, int row_warps) {
+  return (size_t)(2 * 2 * KS + 16 * row_warps) * (hd + 8) * sizeof(bf16) +
+         2 * KS * sizeof(int);
+}
+
+// grid (n_slots, Hkv, row blocks), 64 * row_warps threads; hd a multiple
+// of 16 in (128, 256]. Block z owns rows [z * 16 * row_warps, ...) of its
+// (slot, kv head); warps 2w and 2w + 1 share the 16 of them from 16 * w:
+// both form the same S = Q K^T and the same softmax (the same MMAs in the
+// same order, so the same bits), and warp 2w + c accumulates O for the
+// c-th half of the head dims' 16-wide chunks. Q's fragments come from
+// shared memory by ldmatrix at each k step. So a thread holds 64 f32 of O
+// and 32 of S, where prefill_tc_kernel's layout would hold 128 of O and 64
+// of Q's fragments at hd 256.
+__global__ void __launch_bounds__(TC_MAX_WARPS * 32)
+prefill_tc_wide_kernel(const bf16* __restrict__ q,
+                       const bf16* __restrict__ kp,
+                       const bf16* __restrict__ vp,
+                       const int* __restrict__ table,
+                       const int* __restrict__ offsets,
+                       bf16* __restrict__ out, int sq, int n_kv, int group,
+                       int hd, int block_len, int bps, float scale,
+                       float softcap, int window) {
+  const int KT = hd / 16, LDS = hd + 8, CH = hd / 8, HW = hd / 2;
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  const int row_warps = blockDim.x >> 6;
+  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);    // [2][KS][LDS]
+  bf16* Vs = Ks + 2 * KS * LDS;                   // [2][KS][LDS]
+  bf16* Qs = Vs + 2 * KS * LDS;                   // [16 * row_warps][LDS]
+  int* seen = reinterpret_cast<int*>(Qs + 16 * row_warps * LDS);  // [2][KS]
+
+  const int s = blockIdx.x, h = blockIdx.y;
+  const int n_rows = sq * group;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = warp >> 1, half = warp & 1;
+  const int rb0 = blockIdx.z * 16 * row_warps;
+  const int rb1 = min(rb0 + 16 * row_warps, n_rows);
+  // this warp's chunks of O's head dims: [kc0, kc1)
+  const int kc0 = half * ((KT + 1) / 2), kc1 = min(KT, kc0 + (KT + 1) / 2);
+  const int off = offsets[s];
+  const int qmin = off + rb0 / group, qmax = off + (rb1 - 1) / group;
+  const int klo = window > 0 ? max(0, qmin - window + 1) : 0;
+  const int khi = min(bps * block_len - 1, qmax);
+  const int n_stages = khi >= klo ? (khi - klo) / KS + 1 : 0;
+
+  auto load_stage = [&](int st) {
+    const int buf = st & 1, kb = klo + st * KS;
+    bf16* kd = Ks + buf * KS * LDS;
+    bf16* vd = Vs + buf * KS * LDS;
+    for (int e = tid; e < KS * CH; e += blockDim.x) {
+      const int kk = e / CH, c = e % CH, kpos = kb + kk;
+      const int phys =
+          kpos <= khi ? table[(size_t)s * bps + kpos / block_len] : 0;
+      const bool ok = phys != 0;
+      const size_t src =
+          (((size_t)phys * block_len + kpos % block_len) * n_kv + h) * hd +
+          8 * c;
+      cp_async16(kd + kk * LDS + 8 * c, ok ? kp + src : kp, ok ? 16 : 0);
+      cp_async16(vd + kk * LDS + 8 * c, ok ? vp + src : vp, ok ? 16 : 0);
+      if (c == 0) seen[buf * KS + kk] = ok;
+    }
+    cp_async_commit();
+  };
+  if (n_stages > 0) load_stage(0);
+
+  // the block's Q rows into shared memory, 4 bytes a thread at a time
+  // (zeros past the last row); the first stage's barrier publishes them
+  for (int e = tid; e < 16 * row_warps * HW; e += blockDim.x) {
+    const int lr = e / HW, c2 = e - lr * HW, rr = rb0 + lr;
+    uint32_t v = 0u;
+    if (rr < rb1)
+      v = *reinterpret_cast<const uint32_t*>(
+          q + ((((size_t)s * sq + rr / group) * n_kv + h) * group +
+               rr % group) * hd + 2 * c2);
+    *reinterpret_cast<uint32_t*>(Qs + lr * LDS + 2 * c2) = v;
+  }
+
+  // this thread's two rows: 0 = g, 1 = g + 8 of the pair's 16
+  const int r0 = rb0 + 16 * rw + g;
+  const bool warp_live = rb0 + 16 * rw < rb1;
+  bool row_ok[2];
+  int qpos[2];
+  size_t qoff[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int rr = r0 + 8 * u;
+    row_ok[u] = rr < rb1;
+    qpos[u] = off + rr / group;
+    qoff[u] = ((((size_t)s * sq + rr / group) * n_kv + h) * group +
+               rr % group) * hd;
+  }
+  const bf16* qa = Qs + (16 * rw + (lane & 15)) * LDS + 8 * (lane >> 4);
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[2 * WIDE_MAX_CHUNKS][4];
+#pragma unroll
+  for (int j = 0; j < 2 * WIDE_MAX_CHUNKS; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
+
+  for (int st = 0; st < n_stages; ++st) {
+    if (st + 1 < n_stages) {
+      load_stage(st + 1);
+      cp_async_wait<1>();       // this stage's copies have landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();            // ... everyone's, and its flags (and Q)
+    const int buf = st & 1, kb = klo + st * KS;
+    const bf16* kd = Ks + buf * KS * LDS;
+    const bf16* vd = Vs + buf * KS * LDS;
+    const int* sn = seen + buf * KS;
+    if (warp_live) {
+      // S = Q K^T over the stage's 64 keys: 8 n-tiles of 8 keys, the k
+      // steps in order as prefill_tc_kernel takes them
+      float sc[KS / 8][4];
+#pragma unroll
+      for (int j = 0; j < KS / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[j][i] = 0.f;
+      for (int ks = 0; ks < KT; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(a, qa + 16 * ks);
+#pragma unroll
+        for (int j = 0; j < KS / 8; j += 2) {
+          uint32_t b[4];
+          ldsm_x4(b, kd + (8 * j + (lane & 7) + 8 * (lane >> 4)) * LDS +
+                         16 * ks + 8 * ((lane >> 3) & 1));
+          mma16816(sc[j], a, b[0], b[1]);
+          mma16816(sc[j + 1], a, b[2], b[3]);
+        }
+      }
+      // scale, softcap, masks, online softmax; sc becomes p
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float mx = NEG_INF;
+        unsigned okb = 0;
+#pragma unroll
+        for (int j = 0; j < KS / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int kk = 8 * j + 2 * t + c, kpos = kb + kk;
+            float v = sc[j][2 * u + c] * scale;
+            if (softcap > 0.f) v = tanhf(v / softcap) * softcap;
+            const bool ok = row_ok[u] && sn[kk] && kpos <= qpos[u] &&
+                            (window <= 0 || qpos[u] - kpos < window);
+            okb |= (unsigned)ok << (2 * j + c);
+            sc[j][2 * u + c] = ok ? v : NEG_INF;
+            mx = fmaxf(mx, sc[j][2 * u + c]);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[u], mx);
+        const float alpha = expf(m[u] - m_new);
+        float psum = 0.f;
+#pragma unroll
+        for (int j = 0; j < KS / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = (okb >> (2 * j + c)) & 1u
+                                ? expf(sc[j][2 * u + c] - m_new)
+                                : 0.f;
+            sc[j][2 * u + c] = p;
+            psum += p;
+          }
+        psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+        psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+        l[u] = alpha * l[u] + psum;
+        m[u] = m_new;
+#pragma unroll
+        for (int j = 0; j < 2 * WIDE_MAX_CHUNKS; ++j) {
+          o[j][2 * u] *= alpha;
+          o[j][2 * u + 1] *= alpha;
+        }
+      }
+      // O += P V over this warp's chunks, P as a bf16 high part and a
+      // bf16 remainder
+#pragma unroll
+      for (int kc = 0; kc < KS / 16; ++kc) {
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float a = sc[2 * kc + (i >> 1)][2 * (i & 1)];
+          const float b = sc[2 * kc + (i >> 1)][2 * (i & 1) + 1];
+          hi[i] = pack2(a, b);
+          lo[i] = pack2(rest(a), rest(b));
+        }
+#pragma unroll
+        for (int dd = 0; dd < WIDE_MAX_CHUNKS; ++dd) {
+          const int dn = kc0 + dd;
+          if (dn < kc1) {
+            uint32_t b[4];
+            ldsm_x4_t(b, vd + (16 * kc + (lane & 7) +
+                               8 * ((lane >> 3) & 1)) * LDS +
+                             16 * dn + 8 * (lane >> 4));
+            mma16816(o[2 * dd], hi, b[0], b[1]);
+            mma16816(o[2 * dd + 1], hi, b[2], b[3]);
+            mma16816(o[2 * dd], lo, b[0], b[1]);
+            mma16816(o[2 * dd + 1], lo, b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();            // the buffer is free for stage st + 2
+  }
+
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    if (!row_ok[u]) continue;
+    bf16* orow = out + qoff[u] + 16 * kc0;
+#pragma unroll
+    for (int j = 0; j < 2 * WIDE_MAX_CHUNKS; ++j) {
+      if (j < 2 * (kc1 - kc0)) {
+        const float a = l[u] > 0.f ? o[j][2 * u] / l[u] : 0.f;
+        const float b = l[u] > 0.f ? o[j][2 * u + 1] / l[u] : 0.f;
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) = pack2(a, b);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bf16 decode: keys split across warps and blocks
 // ---------------------------------------------------------------------------
 
@@ -950,6 +1193,24 @@ cudaError_t launch_tc(const void* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
+cudaError_t launch_tc_wide(const void* q, const void* kp, const void* vp,
+                           const int* table, const int* offsets, void* out,
+                           int n_slots, int sq, int n_kv, int group, int hd,
+                           int block_len, int bps, float scale,
+                           float softcap, int window, int warps,
+                           int row_blocks, cudaStream_t stream) {
+  static OncePerDevice smem_attr;
+  cudaError_t err = allow_max_smem(smem_attr, prefill_tc_wide_kernel);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_slots, n_kv, row_blocks);
+  prefill_tc_wide_kernel<<<grid, 32 * warps,
+                           wide_smem_bytes(hd, warps / 2), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
+      static_cast<const bf16*>(vp), table, offsets, static_cast<bf16*>(out),
+      sq, n_kv, group, hd, block_len, bps, scale, softcap, window);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). dtype: 0 = float32, 1 = bf16.
@@ -993,10 +1254,11 @@ extern "C" int paged_attention_launch(
   }
 }
 
-// Prefill: f32 runs attend; bf16 runs the tensor-core kernel, for hd a
-// multiple of 16 up to 128, with warps (1 .. 8, 16 query rows each) and
-// row_blocks from the wrapper's prefill_plan covering sq * group rows
-// (f32 ignores both).
+// Prefill: f32 runs attend; bf16 runs a tensor-core kernel on the
+// wrapper's prefill_plan: for hd a multiple of 16 up to 128,
+// prefill_tc_kernel with warps (1 .. 8, 16 query rows each); above 128 up
+// to 256, prefill_tc_wide_kernel with warps (2, 4, 6 or 8, a pair per 16
+// query rows); row_blocks cover sq * group rows (f32 ignores both).
 extern "C" int paged_prefill_launch(const void* q, const void* k_pool,
                                     const void* v_pool, const int* table,
                                     const int* offsets, void* out,
@@ -1010,6 +1272,15 @@ extern "C" int paged_prefill_launch(const void* q, const void* k_pool,
     return (int)launch_prefill_f32(q, k_pool, v_pool, table, offsets, out,
                                    n_slots, sq, n_kv, group, hd, block_len,
                                    bps, scale, softcap, window, s);
+  if (hd > 128) {
+    if (hd % 16 || hd > 16 * 2 * WIDE_MAX_CHUNKS || warps < 2 ||
+        warps > TC_MAX_WARPS || warps % 2 ||
+        row_blocks * (warps / 2) * 16 < sq * group)
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_tc_wide(q, k_pool, v_pool, table, offsets, out,
+                               n_slots, sq, n_kv, group, hd, block_len, bps,
+                               scale, softcap, window, warps, row_blocks, s);
+  }
   if (warps < 1 || warps > TC_MAX_WARPS ||
       row_blocks * warps * 16 < sq * group)
     return (int)cudaErrorInvalidValue;

@@ -15,8 +15,9 @@ The bf16 decode splits each slot's live keys across warps and, where the
 card would sit idle, across blocks: :func:`decode_plan` picks its warps,
 rows and splits from the shapes alone, and :func:`decode_launch` runs a
 plan (a forced split count). The bf16 prefill runs on the tensor cores,
-16 query rows a warp: :func:`prefill_plan` picks its warps per block and
-row blocks from the shapes alone. f32 decode and prefill run the first
+16 query rows a warp (a pair of warps above head_dim 128):
+:func:`prefill_plan` picks its warps per block and row blocks from the
+shapes alone. f32 decode and prefill run the first
 kernel (``attend``).
 """
 from __future__ import annotations
@@ -39,7 +40,10 @@ MAX_BLOCK_LEN = 128      # MAX_T * 32 in the kernel
 TC_ROWS_PER_WARP = 16    # the m16 of mma.sync m16n8k16
 TC_MAX_WARPS = 8
 TC_KEYS_PER_STAGE = 64   # keys staged in shared memory at a time
-TC_MAX_HEAD_DIM = 128
+TC_MAX_HEAD_DIM = 256
+# above this head_dim a pair of warps shares each 16 rows, each holding
+# half of O's head dims (csrc's prefill_tc_wide_kernel)
+TC_PAIR_HEAD_DIM = 128
 # the bf16 decode (csrc's decode_bf16_kernel)
 DECODE_KEYS_PER_WARP = 32   # keys a warp stages at a time, one a lane
 DECODE_MAX_WARPS = 4
@@ -117,27 +121,37 @@ def decode_plan(n_slots: int, n_kv: int, group: int, hd: int, keys: int,
 
 class PrefillPlan(NamedTuple):
     """The bf16 prefill's grid for sq * group query rows per (slot, kv
-    head): ``warps`` per block (16 rows each), ``row_blocks`` blocks, and
-    the rows of the last m16 tiles past the end, which the kernel masks
-    and never stores."""
+    head): ``warps`` per block (16 rows each, or above
+    ``TC_PAIR_HEAD_DIM`` a pair of warps per 16 rows), ``row_blocks``
+    blocks, and the rows of the last m16 tiles past the end, which the
+    kernel masks and never stores."""
     warps: int
     row_blocks: int
     masked_rows: int
 
 
+def prefill_warps_per_tile(hd: int) -> int:
+    """Warps that share one 16-row tile of the bf16 prefill: 2 above
+    ``TC_PAIR_HEAD_DIM`` (each holds half of O's head dims), else 1."""
+    return 2 if hd > TC_PAIR_HEAD_DIM else 1
+
+
 def prefill_plan(sq: int, group: int, hd: int) -> PrefillPlan:
-    """All sq * group rows of a (slot, kv head) in one block, one warp per
-    16 of them, up to ``TC_MAX_WARPS``; more rows take more blocks. Raises
-    for a head_dim the MMA path does not take (a multiple of 16, at most
+    """All sq * group rows of a (slot, kv head) in one block, one 16-row
+    tile per warp (per pair of warps above ``TC_PAIR_HEAD_DIM``), up to
+    ``TC_MAX_WARPS`` warps; more rows take more blocks. Raises for a
+    head_dim the MMA path does not take (a multiple of 16, at most
     ``TC_MAX_HEAD_DIM``): there is no other bf16 path to fall back to."""
     if hd % 16 or not 0 < hd <= TC_MAX_HEAD_DIM:
         raise ValueError(f"paged_prefill: bf16 head_dim {hd} must be a "
                          f"multiple of 16 up to {TC_MAX_HEAD_DIM}")
+    pair = prefill_warps_per_tile(hd)
     rows = sq * group
-    warps = max(1, min(TC_MAX_WARPS, -(-rows // TC_ROWS_PER_WARP)))
-    per_block = warps * TC_ROWS_PER_WARP
+    tiles = max(1, min(TC_MAX_WARPS // pair, -(-rows // TC_ROWS_PER_WARP)))
+    per_block = tiles * TC_ROWS_PER_WARP
     row_blocks = max(1, -(-rows // per_block))
-    return PrefillPlan(warps, row_blocks, row_blocks * per_block - rows)
+    return PrefillPlan(tiles * pair, row_blocks,
+                       row_blocks * per_block - rows)
 
 
 def _lib():
@@ -279,7 +293,7 @@ def paged_prefill(q, k_pool, v_pool, block_table, offsets, *,
     already scattered into the pools. Returns (n_slots, sq, Hkv, group,
     hd) in q.dtype; rows with nothing to attend give exact zeros. bf16
     runs on the tensor cores and takes a head_dim that is a multiple of
-    16 up to 128 (:func:`prefill_plan`); f32 takes any up to 256."""
+    16 up to 256 (:func:`prefill_plan`); f32 takes any up to 256."""
     if q.device.type == "cpu":
         return ref.paged_prefill_ref(q, k_pool, v_pool, block_table,
                                      offsets, scale=scale, softcap=softcap,

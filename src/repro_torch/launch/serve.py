@@ -1,4 +1,5 @@
-"""Serving launcher of the port: init a paper config with seeded random
+"""Serving launcher of the port: init a config (the paper's, or a gemma2,
+vlm or dense llama-variant arch) with seeded random
 weights, or restore a training checkpoint, and serve batched requests
 through the engine: the contiguous cache by default, as the reference's
 launcher, the paged one with ``--paged``.
@@ -9,6 +10,8 @@ Usage (from the repository root, ``PYTHONPATH=src``):
       --prefix-sharing --exec-mode fused
   python -m repro_torch.launch.serve --arch llama_1b --paged --sparse-decode
   python -m repro_torch.launch.serve --arch llama_7b --paged --stream \
+      --prefix-sharing --exec-mode fused
+  python -m repro_torch.launch.serve --arch gemma2_2b --paged --stream \
       --prefix-sharing --exec-mode fused
   python -m repro_torch.launch.serve --arch llama_60m --smoke --paged \
       --ckpt-dir /path/to/train/ckpt --exec-mode sparse

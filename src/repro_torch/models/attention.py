@@ -1,7 +1,11 @@
-"""Causal multi-head attention with RoPE over the paged or the contiguous
-KV cache, ported from ``repro.models.attention`` for the llama family
-(GQA-ready; the gemma2/qwen3 extras — sliding windows, logit softcap,
-QK-norm, qkv bias — wait for ROADMAP queue A item 9).
+"""Causal GQA attention with RoPE over the paged or the contiguous KV
+cache, ported from ``repro.models.attention``: qkv bias (qwen2.5), the
+``query_pre_attn_scalar`` scale, the attention-logit softcap and sliding
+windows (gemma2). QK-norm (qwen3) waits for ROADMAP queue A item 9b, and
+``lm._check_family`` refuses it.
+
+Scores follow the reference's order everywhere: q · scale in f32, the
+product with k in f32, the softcap, then the causal and window masks.
 
 How a paged read runs is ``cfg.attn_kernel``:
 
@@ -35,7 +39,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.common import Builder, apply_linear, rope
+from repro_torch.models.common import Builder, apply_linear, rope, softcap
 from repro_torch.serve import kv as kv_lib
 
 NEG_INF = -1e30
@@ -46,9 +50,10 @@ def init_attention(b: Builder, cfg: ModelConfig):
     hd = cfg.resolved_head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
     params, consts = {}, {}
-    for name, d_in, d_out in (("wq", d, nh * hd), ("wk", d, nkv * hd),
-                              ("wv", d, nkv * hd), ("wo", nh * hd, d)):
-        p, c = b.linear(name, d_in, d_out)
+    for name, d_in, d_out, bias in (
+            ("wq", d, nh * hd, cfg.qkv_bias), ("wk", d, nkv * hd, cfg.qkv_bias),
+            ("wv", d, nkv * hd, cfg.qkv_bias), ("wo", nh * hd, d, False)):
+        p, c = b.linear(name, d_in, d_out, bias=bias)
         params[name] = p
         if c:
             consts[name] = c
@@ -56,19 +61,25 @@ def init_attention(b: Builder, cfg: ModelConfig):
 
 
 def _scale(cfg: ModelConfig) -> float:
-    return cfg.resolved_head_dim ** -0.5
+    return (cfg.query_pre_attn_scalar or cfg.resolved_head_dim) ** -0.5
 
 
-def _attend(cfg: ModelConfig, q, k, v, q_pos, k_pos):
+def _attend(cfg: ModelConfig, q, k, v, q_pos, k_pos, window: int = 0):
     """Plain causal softmax attention in f32. q (B,Sq,H,hd); k,v
-    (B,Sk,Hkv,hd); q_pos (Sq,) or per-slot (B,Sq); k_pos (Sk,)."""
+    (B,Sk,Hkv,hd); q_pos (Sq,) or per-slot (B,Sq); k_pos (Sk,). A key is
+    seen by a query at or after it, and with ``window`` > 0 by one fewer
+    than ``window`` positions after it."""
     bsz, sq, nh, hd = q.shape
     nkv = k.shape[2]
     qg = q.reshape(bsz, sq, nkv, nh // nkv, hd)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float() * _scale(cfg),
                      k.float())
+    s = softcap(s, cfg.attn_logit_softcap)
     qp = q_pos if q_pos.dim() == 2 else q_pos[None]
-    mask = qp[:, :, None] >= k_pos[None, None, :]           # (B|1, Sq, Sk)
+    lag = qp[:, :, None] - k_pos[None, None, :]             # (B|1, Sq, Sk)
+    mask = lag >= 0
+    if window > 0:
+        mask = mask & (lag < window)
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float()).to(q.dtype)
@@ -85,7 +96,7 @@ def _live_view(pool, table):
 
 
 def _contiguous(cfg: ModelConfig, cache, q, k, v, q_pos, idx, per_slot,
-                prefill):
+                prefill, window):
     """Write k/v into the contiguous cache rows {"k", "v"} (B, max_len,
     Hkv, hd) in place, then attend: a scalar-index prefill its local k/v,
     everything else the whole row, masked by q_pos >= k_pos (unwritten
@@ -106,15 +117,17 @@ def _contiguous(cfg: ModelConfig, cache, q, k, v, q_pos, idx, per_slot,
         ck[:, start:start + sq] = k.to(ck.dtype)
         cv[:, start:start + sq] = v.to(cv.dtype)
         if prefill:
-            return _attend(cfg, q, k, v, q_pos, q_pos)
+            return _attend(cfg, q, k, v, q_pos, q_pos, window)
     k_pos = torch.arange(max_len, device=q.device)
-    return _attend(cfg, q, ck, cv, q_pos, k_pos)
+    return _attend(cfg, q, ck, cv, q_pos, k_pos, window)
 
 
 def apply_attention(cfg: ModelConfig, params, consts, x, *,
-                    cache: Optional[dict] = None, cache_index=None,
-                    block_table=None, prefill: bool = False):
-    """Causal self-attention; returns (y, cache).
+                    window: int = 0, cache: Optional[dict] = None,
+                    cache_index=None, block_table=None,
+                    prefill: bool = False):
+    """Causal self-attention, over the last ``window`` positions when it is
+    > 0 (a local layer); returns (y, cache).
 
     Without a cache: attention over the input itself (the forward of
     ``apply_lm``). With a cache and no ``block_table``: the contiguous
@@ -147,29 +160,31 @@ def apply_attention(cfg: ModelConfig, params, consts, x, *,
     k = rope(k, rpos, cfg.rope_theta)
 
     if cache is None:
-        return lin("wo", _attend(cfg, q, k, v, q_pos, q_pos)), None
+        return lin("wo", _attend(cfg, q, k, v, q_pos, q_pos, window)), None
     if block_table is None:
         return lin("wo", _contiguous(cfg, cache, q, k, v, q_pos, idx,
-                                     per_slot, prefill)), cache
+                                     per_slot, prefill, window)), cache
 
     positions = q_pos if per_slot else q_pos[None].expand(bsz, sq)
     ck = kv_lib.scatter(cache["k"], block_table, positions, k)
     cv = kv_lib.scatter(cache["v"], block_table, positions, v)
     paged = cfg.attn_kernel == "paged"
+    kern = dict(scale=_scale(cfg), softcap=cfg.attn_logit_softcap,
+                window=window)
     if not prefill:
         if paged and sq == 1 and per_slot:
             o = kernel_ops.paged_attention(q[:, 0], ck, cv, block_table, idx,
-                                           scale=_scale(cfg))
+                                           **kern)
             return lin("wo", o.reshape(bsz, 1, nh * hd)), cache
         k, v = _live_view(ck, block_table), _live_view(cv, block_table)
         k_pos = torch.arange(k.shape[1], device=x.device)
     elif per_slot:
         if paged:
             o = kernel_ops.paged_prefill_attention(q, ck, cv, block_table,
-                                                   idx, scale=_scale(cfg))
+                                                   idx, **kern)
             return lin("wo", o.reshape(bsz, sq, nh * hd)), cache
         k, v = _live_view(ck, block_table), _live_view(cv, block_table)
         k_pos = torch.arange(k.shape[1], device=x.device)
     else:
         k_pos = q_pos                  # attend local k/v, not the pools
-    return lin("wo", _attend(cfg, q, k, v, q_pos, k_pos)), cache
+    return lin("wo", _attend(cfg, q, k, v, q_pos, k_pos, window)), cache

@@ -91,6 +91,8 @@ class Builder:
             return torch.empty(shape, dtype=dtype, device="meta")
         if init == "ones":
             return torch.ones(shape, dtype=dtype, device=self.device)
+        if init == "zeros":
+            return torch.zeros(shape, dtype=dtype, device=self.device)
         if init != "normal":
             raise ValueError(init)
         fan = fan_in if fan_in is not None else (
@@ -99,16 +101,19 @@ class Builder:
                         dtype=torch.float32)
         return (t * (1.0 / math.sqrt(fan))).to(dtype)
 
-    def linear(self, name: str, d_in: int, d_out: int):
+    def linear(self, name: str, d_in: int, d_out: int, adapted: bool = True,
+               bias: bool = False):
         """(params, consts) of one linear, parameterized as
         ``cfg.param.mode`` says: a full-rank ``w``, low-rank ``B``/``A``,
-        ReLoRA's ``W0``/``B``/``A`` or SLTrain factors."""
+        ReLoRA's ``W0``/``B``/``A`` or SLTrain factors. ``adapted=False``
+        keeps it full rank whatever the mode (the reference's MoE router);
+        ``bias`` adds a zero-initialized ``bias`` leaf (qwen2.5's qkv)."""
         pc = self.cfg.param
         b = self.sub(name)
         consts: dict = {}
         # per-matrix effective rank: global rank capped at half the min dim
         r = max(4, min(pc.rank, min(d_in, d_out) // 2))
-        if pc.mode == "dense":
+        if not adapted or pc.mode == "dense":
             params = {"w": b.tensor("w", (d_in, d_out), "normal",
                                     fan_in=d_in)}
         elif self.collecting:
@@ -131,6 +136,8 @@ class Builder:
                 support=None if self.plan is None else self.plan.pop(b.path))
         else:
             raise ValueError(pc.mode)
+        if bias:
+            params["bias"] = b.tensor("bias", (d_out,), "zeros")
         return params, consts
 
 
@@ -153,19 +160,26 @@ def presample(cfg: ModelConfig, seed: int, build, workers=None):
             workers)
 
 
-def apply_linear(cfg: ModelConfig, params, consts, x):
+def apply_linear(cfg: ModelConfig, params, consts, x, adapted: bool = True):
+    """x @ W (+ bias, added in y's dtype as the reference adds it), W as
+    the params hold it; ``adapted=False`` reads a full-rank ``w``."""
     pc = cfg.param
-    if "w" in params:
-        return x @ params["w"]
-    # per-matrix scale alpha/r_eff (r_eff capped at init)
-    scale = pc.alpha / params["B"].shape[-1]
-    if pc.mode == "lowrank":
-        return lowrank.lr_matmul(x, params, scale)
-    if pc.mode == "relora":
-        return relora.rl_matmul(x, params, scale)
-    if pc.mode == "sltrain":
-        return sltrain.sl_matmul(x, params, consts, scale, pc.exec_mode)
-    raise ValueError(pc.mode)
+    if not adapted or "w" in params:
+        y = x @ params["w"]
+    else:
+        # per-matrix scale alpha/r_eff (r_eff capped at init)
+        scale = pc.alpha / params["B"].shape[-1]
+        if pc.mode == "lowrank":
+            y = lowrank.lr_matmul(x, params, scale)
+        elif pc.mode == "relora":
+            y = relora.rl_matmul(x, params, scale)
+        elif pc.mode == "sltrain":
+            y = sltrain.sl_matmul(x, params, consts, scale, pc.exec_mode)
+        else:
+            raise ValueError(pc.mode)
+    if "bias" in params:
+        y = y + params["bias"].to(y.dtype)
+    return y
 
 
 def stack_layers(builder: Builder, fn, n: int, name: str = "layer"):
@@ -226,11 +240,22 @@ def unstack(tree, n: int):
 # Normalization / activations / rope
 # ---------------------------------------------------------------------------
 
-def rms_norm(x, weight, eps: float = 1e-6):
-    """RMS norm computed in f32, returned in x.dtype."""
+def rms_norm(x, weight, eps: float = 1e-6, plus_one: bool = False):
+    """RMS norm computed in f32, returned in x.dtype; ``plus_one`` scales
+    by (1 + w) in f32 (the gemma convention)."""
     xf = x.float()
     n = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (n * weight.float()).to(x.dtype)
+    w = weight.float()
+    if plus_one:
+        w = 1.0 + w
+    return (n * w).to(x.dtype)
+
+
+def softcap(x, cap: float):
+    """cap · tanh(x / cap); the identity for cap <= 0."""
+    if cap <= 0:
+        return x
+    return torch.tanh(x / cap) * cap
 
 
 def rope(x, pos, theta: float = 10000.0):
@@ -251,3 +276,10 @@ def rope(x, pos, theta: float = 10000.0):
 
 def silu(x):
     return x * torch.sigmoid(x)
+
+
+def gelu(x):
+    """GELU, tanh approximation, as ``jax.nn.gelu(approximate=True)``
+    writes it: x · ½(1 + tanh(√(2/π)(x + 0.044715 x³)))."""
+    c = math.sqrt(2.0 / math.pi)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x)))))

@@ -1,15 +1,24 @@
-"""Decoder-only LM of the llama family with its KV-cache serving steps
-(the paged and the contiguous cache), ported from ``repro.models.lm``.
+"""Decoder-only LM of the llama, gemma2 and vlm families with its
+KV-cache serving steps (the paged and the contiguous cache), ported from
+``repro.models.lm``.
 
-Parameters keep the reference's scan layout: per-layer leaves stacked on a
-leading axis under ``params["layers"]["k0"]`` (the reference's one-kind
-layer pattern of the llama family), so a reference checkpoint maps onto
-them leaf for leaf. The forward walks the layers in a Python loop over
-views of the stacks; the per-layer train step drives its segments
-(``embed_apply``, ``period_apply``, ``head_apply``) one at a time.
+Parameters keep the reference's scan layout: the layers are stacked in
+*pattern periods* on a leading axis, ``params["layers"]["k{j}"]`` holding
+the period's j-th block of each kind (``attn_pattern``: the llama
+families' one global block, gemma2's ("local", "global") pair), so a
+reference checkpoint maps onto them leaf for leaf. The forward walks the
+periods in a Python loop over views of the stacks; the per-layer train
+step drives its segments (``embed_apply``, ``period_apply``,
+``head_apply``) one period at a time.
+
+The gemma conventions (families gemma2 and vlm): norms scale by (1 + w)
+and start at zero under ``use_post_norms`` (and ``ln_f`` always), the
+token embedding is scaled by √d_model rounded to the weight's dtype, the
+MLP is GeGLU, and the final logits are softcapped in f32.
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import Optional
 
@@ -19,45 +28,77 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import attention, mlp
 from repro_torch.models.common import (DTYPES, Builder, presample,
-                                       remat_wrap, rms_norm, stack_layers,
-                                       unstack)
+                                       remat_wrap, rms_norm, softcap,
+                                       stack_layers, unstack)
 from repro_torch.serve.kv import PagedLayout
+
+_GEMMA = ("gemma2", "vlm")
+_LM_FAMILIES = ("llama",) + _GEMMA
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """The port runs the llama family as the paper configs use it; the
-    other families and the llama variants' extras (qwen2.5's qkv bias,
-    gemma2's windows and softcaps, qwen3's QK-norm, MoE) raise."""
-    extras = (cfg.moe.n_experts or cfg.use_post_norms or cfg.attn_pattern
-              or cfg.qkv_bias or cfg.qk_norm or cfg.attn_logit_softcap
-              or cfg.final_logit_softcap or cfg.query_pre_attn_scalar)
-    if cfg.family != "llama" or extras:
+    """The port runs the llama, gemma2 and vlm families without experts;
+    MoE, QK-norm (qwen3) and the non-lm families raise."""
+    if cfg.family == "moe" or cfg.moe.n_experts or cfg.qk_norm:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE blocks and QK-norm are not ported yet (ROADMAP "
+            "queue A item 9b: MoE with the grouped expert launch, the "
+            "per-layer sweep's dense prefix and QK-norm)")
+    if cfg.family not in _LM_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name} (family {cfg.family!r}) is not ported yet (ROADMAP "
-            "queue A item 9: the other model families); the port runs the "
-            "llama family of the paper configs")
+            "queue A item 9: mamba2, xlstm and whisper come after 9b)")
+
+
+def _pattern(cfg: ModelConfig):
+    """The kinds of one period's blocks, as the reference's ``_pattern``."""
+    pat = cfg.attn_pattern or ("global",)
+    if cfg.n_layers % len(pat):
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} not "
+                         f"divisible by pattern {pat}")
+    return pat
+
+
+def _window_for(cfg: ModelConfig, kind: str) -> int:
+    return cfg.sliding_window if kind == "local" else 0
+
+
+def _norm(cfg: ModelConfig, x, w):
+    return rms_norm(x, w, cfg.norm_eps, plus_one=cfg.family in _GEMMA)
 
 
 def _init_block(b: Builder, cfg: ModelConfig):
     params, consts = {}, {}
-    params["ln_attn"] = b.tensor("ln_attn", (cfg.d_model,), "ones")
+    norm_init = "zeros" if cfg.use_post_norms else "ones"
+    params["ln_attn"] = b.tensor("ln_attn", (cfg.d_model,), norm_init)
     params["attn"], c = attention.init_attention(b.sub("attn"), cfg)
     if c:
         consts["attn"] = c
-    params["ln_mlp"] = b.tensor("ln_mlp", (cfg.d_model,), "ones")
+    params["ln_mlp"] = b.tensor("ln_mlp", (cfg.d_model,), norm_init)
+    if cfg.use_post_norms:
+        params["ln_attn_post"] = b.tensor("ln_attn_post", (cfg.d_model,),
+                                          "zeros")
+        params["ln_mlp_post"] = b.tensor("ln_mlp_post", (cfg.d_model,),
+                                         "zeros")
     params["mlp"], c = mlp.init_mlp(b.sub("mlp"), cfg)
     if c:
         consts["mlp"] = c
     return params, consts
 
 
-def _apply_block(cfg: ModelConfig, p, c, x, **cache_kw):
-    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+def _apply_block(cfg: ModelConfig, p, c, x, *, window: int, **cache_kw):
     a, cache = attention.apply_attention(cfg, p["attn"], c.get("attn", {}),
-                                         h, **cache_kw)
+                                         _norm(cfg, x, p["ln_attn"]),
+                                         window=window, **cache_kw)
+    if cfg.use_post_norms:
+        a = _norm(cfg, a, p["ln_attn_post"])
     x = x + a
-    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    return x + mlp.apply_mlp(cfg, p["mlp"], c.get("mlp", {}), h), cache
+    m = mlp.apply_mlp(cfg, p["mlp"], c.get("mlp", {}),
+                      _norm(cfg, x, p["ln_mlp"]),
+                      act="gelu" if cfg.family in _GEMMA else "silu")
+    if cfg.use_post_norms:
+        m = _norm(cfg, m, p["ln_mlp_post"])
+    return x + m, cache
 
 
 def _build_lm(cfg: ModelConfig, b: Builder):
@@ -66,16 +107,22 @@ def _build_lm(cfg: ModelConfig, b: Builder):
     params, consts = {}, {}
     params["embed"] = b.tensor("embed", (cfg.padded_vocab, cfg.d_model),
                                "normal", fan_in=cfg.d_model)
+    pat = _pattern(cfg)
 
     def init_period(bb: Builder):
-        p, c = _init_block(bb.sub("k0"), cfg)
-        return {"k0": p}, ({"k0": c} if c else {})
+        ps, cs = {}, {}
+        for j in range(len(pat)):
+            ps[f"k{j}"], c = _init_block(bb.sub(f"k{j}"), cfg)
+            if c:
+                cs[f"k{j}"] = c
+        return ps, cs
 
     params["layers"], cl = stack_layers(b.sub("blocks"), init_period,
-                                        cfg.n_layers, "p")
+                                        cfg.n_layers // len(pat), "p")
     if cl:
         consts["layers"] = cl
-    params["ln_f"] = b.tensor("ln_f", (cfg.d_model,), "ones")
+    params["ln_f"] = b.tensor("ln_f", (cfg.d_model,),
+                              "zeros" if cfg.family in _GEMMA else "ones")
     if not cfg.tie_embeddings:
         params["lm_head"] = b.tensor("lm_head", (cfg.d_model,
                                                  cfg.padded_vocab),
@@ -113,37 +160,47 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
 
 
 def embed_apply(cfg: ModelConfig, params, tokens, patch_embeds=None):
-    """The model's input segment: the token embedding. Takes only the
-    params it reads ({"embed": leaf}), so the per-layer sweep can
-    differentiate it against exactly that leaf. (Patch embeddings are the
-    vlm family's, not ported: ROADMAP queue A item 9.)"""
+    """The model's input segment: the token embedding (scaled by √d_model
+    in the weight's dtype for the gemma families), and for the vlm family
+    ``patch_embeds`` (B, n_patches, d) in place of the first n_patches
+    positions. Takes only the params it reads ({"embed": leaf}), so the
+    per-layer sweep can differentiate it against exactly that leaf."""
+    h = params["embed"][tokens.long()]
+    if cfg.family in _GEMMA:
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
+                             device=h.device)
     if patch_embeds is not None:
-        raise NotImplementedError(
-            "patch embeddings (the vlm family) are not ported yet (ROADMAP "
-            "queue A item 9: the other model families)")
-    return params["embed"][tokens.long()]
+        h = torch.cat([patch_embeds.to(h.dtype),
+                       h[:, patch_embeds.shape[1]:]], dim=1)
+    return h
 
 
 def period_apply(cfg: ModelConfig, p, c, x):
-    """One layer of the stack (the llama pattern's one-block period):
-    (params {"k0": ...}, consts, x) → (x', aux). The per-layer backward
-    sweep differentiates this exact function, so the train forward and
-    the sweep's recompute cannot drift. The llama family has no auxiliary
-    loss: aux is 0.0."""
-    x, _ = _apply_block(cfg, p["k0"], c.get("k0", {}), x)
+    """One period of the stack, its blocks in pattern order, each local
+    block over the sliding window: (params {"k0": ...}, consts, x) → (x',
+    aux). The per-layer backward sweep differentiates this exact function,
+    so the train forward and the sweep's recompute cannot drift. These
+    families have no auxiliary loss: aux is 0.0."""
+    for j, kind in enumerate(_pattern(cfg)):
+        x, _ = _apply_block(cfg, p[f"k{j}"], c.get(f"k{j}", {}), x,
+                            window=_window_for(cfg, kind))
     return x, 0.0
 
 
 def head_apply(cfg: ModelConfig, params, h):
-    """Final norm and unembed. ``params`` needs only the head leaves:
-    {"ln_f", "lm_head"} (untied) or {"ln_f", "embed"} (tied)."""
-    h = rms_norm(h, params["ln_f"], cfg.norm_eps)
+    """Final norm and unembed (the final softcap in f32 where the config
+    has one). ``params`` needs only the head leaves: {"ln_f", "lm_head"}
+    (untied) or {"ln_f", "embed"} (tied)."""
+    h = _norm(cfg, h, params["ln_f"])
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ w.to(h.dtype)
+    logits = h @ w.to(h.dtype)
+    if cfg.final_logit_softcap > 0:
+        logits = softcap(logits.float(), cfg.final_logit_softcap)
+    return logits
 
 
-def _layers(cfg: ModelConfig, params, consts):
-    """The per-layer (params, consts) views of the stacks, in order."""
+def _periods(cfg: ModelConfig, params, consts):
+    """The per-period (params, consts) views of the stacks, in order."""
     n = params["layers"]["k0"]["ln_attn"].shape[0]
     return zip(unstack(params["layers"], n),
                unstack(consts.get("layers", {}), n))
@@ -151,23 +208,25 @@ def _layers(cfg: ModelConfig, params, consts):
 
 def _walk(cfg: ModelConfig, params, consts, h, *, remat: str = "none",
           saves=None):
-    """The layer stack, as ``apply_lm`` and ``forward_saving_boundaries``
-    both run it; ``saves`` (a list) receives each layer's input."""
+    """The period stack, as ``apply_lm`` and ``forward_saving_boundaries``
+    both run it; ``saves`` (a list) receives each period's input."""
     _check_family(cfg)
     step = remat_wrap(lambda p, c, x: period_apply(cfg, p, c, x), remat)
-    for p, c in _layers(cfg, params, consts):
+    for p, c in _periods(cfg, params, consts):
         if saves is not None:
             saves.append(h)
         h, _ = step(p, c, h)
     return h
 
 
-def apply_lm(cfg: ModelConfig, params, consts, tokens, *,
+def apply_lm(cfg: ModelConfig, params, consts, tokens, *, patch_embeds=None,
              remat: str = "none"):
     """tokens (B, S) → (logits (B, S, V), aux 0.0): the plain causal
     forward, differentiable in the params (the train step's forward),
-    each layer under the ``remat`` policy (``models.common.remat_wrap``)."""
-    h = embed_apply(cfg, params, tokens)
+    each period under the ``remat`` policy (``models.common.remat_wrap``).
+    For the vlm family ``patch_embeds`` (B, n_patches, d) replace the
+    first n_patches positions."""
+    h = embed_apply(cfg, params, tokens, patch_embeds)
     h = _walk(cfg, params, consts, h, remat=remat)
     return head_apply(cfg, params, h), 0.0
 
@@ -175,16 +234,16 @@ def apply_lm(cfg: ModelConfig, params, consts, tokens, *,
 def forward_saving_boundaries(cfg: ModelConfig, params, consts, tokens, *,
                               patch_embeds=None):
     """The same forward as :func:`apply_lm` up to the final norm, run
-    without autograd, keeping each layer's input: the roots the per-layer
-    backward sweep (``train/perlayer.py``) re-runs one layer at a time
+    without autograd, keeping each period's input: the roots the per-layer
+    backward sweep (``train/perlayer.py``) re-runs one period at a time
     from. The saved boundaries are the only activations kept across
-    layers.
+    periods.
 
-    Returns a dict, as the reference's for the llama family (``xs`` a list
+    Returns a dict, as the reference's for these families (``xs`` a list
     where the reference stacks the inputs):
-      xs    — the n layers' (B, S, d) inputs, the embedding's output first,
-      h_top — the last layer's output (the head's input),
-      aux   — (n_layers,) f32 zeros (the llama family has no aux loss).
+      xs    — the periods' (B, S, d) inputs, the embedding's output first,
+      h_top — the last period's output (the head's input),
+      aux   — (n_periods,) f32 zeros (no aux loss).
     """
     with torch.no_grad():
         h0 = embed_apply(cfg, params, tokens, patch_embeds)
@@ -195,18 +254,6 @@ def forward_saving_boundaries(cfg: ModelConfig, params, consts, tokens, *,
                                device=h0.device)}
 
 
-def _forward(cfg: ModelConfig, params, consts, tokens, caches, **cache_kw):
-    """Embed, the layers over their caches (one {"k", "v"} pair per layer:
-    block pools or contiguous rows), final norm and unembed: the serving
-    steps' forward."""
-    _check_family(cfg)
-    h = embed_apply(cfg, params, tokens)
-    for i, (p, c) in enumerate(_layers(cfg, params, consts)):
-        h, _ = _apply_block(cfg, p["k0"], c.get("k0", {}), h,
-                            cache=caches[i], **cache_kw)
-    return head_apply(cfg, params, h)
-
-
 # ---------------------------------------------------------------------------
 # Serving (KV cache)
 # ---------------------------------------------------------------------------
@@ -214,36 +261,49 @@ def _forward(cfg: ModelConfig, params, consts, tokens, caches, **cache_kw):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                paged: bool = False, block_len: int = 16, n_blocks: int = 0,
                device="cuda"):
-    """KV cache {"layers": {"k0": {"k", "v"}}}, zeros. Contiguous (the
-    default): leaves (n_layers, batch, max_len, Hkv, hd), one row per
-    slot. ``paged=True``: block pools (n_layers, n_blocks, block_len, Hkv,
-    hd) shared by every slot through a block table; ``n_blocks`` defaults
-    to full capacity plus the null block."""
+    """KV cache {"layers": {"k{j}": {"k", "v"}}}, zeros, one pair of
+    stacks per kind of the pattern (a local and a global one for gemma2),
+    each on a leading axis of the periods. Contiguous (the default):
+    leaves (n_periods, batch, max_len, Hkv, hd), one row per slot.
+    ``paged=True``: block pools (n_periods, n_blocks, block_len, Hkv, hd)
+    shared by every slot through a block table; ``n_blocks`` defaults to
+    full capacity plus the null block."""
+    _check_family(cfg)
     device = resolve(device)
+    pat = _pattern(cfg)
     if paged:
         layout = PagedLayout.plan(batch, max_len, block_len, n_blocks)
         lead = (layout.n_blocks, layout.block_len)
     else:
         lead = (batch, max_len)
-    shape = (cfg.n_layers, *lead, cfg.n_kv_heads, cfg.resolved_head_dim)
+    shape = (cfg.n_layers // len(pat), *lead, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
     dt = DTYPES[cfg.dtype]
-    return {"layers": {"k0": {
+    return {"layers": {f"k{j}": {
         "k": torch.zeros(shape, dtype=dt, device=device),
-        "v": torch.zeros(shape, dtype=dt, device=device)}}}
+        "v": torch.zeros(shape, dtype=dt, device=device)}
+        for j in range(len(pat))}}
 
 
 def _cached_forward(cfg: ModelConfig, params, consts, tokens, cache, index,
                     block_table, prefill: bool):
-    """The layer walk shared by decode_step and prefill_step. The cache is
-    updated in place (views of each layer's leaves); returns (logits,
-    cache)."""
-    pools = cache["layers"]["k0"]
-    caches = [{"k": pools["k"][i], "v": pools["v"][i]}
-              for i in range(pools["k"].shape[0])]
-    logits = _forward(cfg, params, consts, tokens, caches,
-                      cache_index=index, block_table=block_table,
-                      prefill=prefill)
-    return logits, cache
+    """The walk shared by decode_step and prefill_step: embed, each
+    period's blocks over their kind's cache (views of the stacks, updated
+    in place), each local block over the window, final norm and unembed.
+    Returns (logits, cache)."""
+    _check_family(cfg)
+    pat = _pattern(cfg)
+    h = embed_apply(cfg, params, tokens)
+    pools = cache["layers"]
+    for i, (p, c) in enumerate(_periods(cfg, params, consts)):
+        for j, kind in enumerate(pat):
+            kv = pools[f"k{j}"]
+            h, _ = _apply_block(cfg, p[f"k{j}"], c.get(f"k{j}", {}), h,
+                                window=_window_for(cfg, kind),
+                                cache={"k": kv["k"][i], "v": kv["v"][i]},
+                                cache_index=index, block_table=block_table,
+                                prefill=prefill)
+    return head_apply(cfg, params, h), cache
 
 
 def decode_step(cfg: ModelConfig, params, consts, tokens, cache, index, *,

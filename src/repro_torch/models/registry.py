@@ -1,8 +1,8 @@
-"""Uniform model API, ported from ``repro.models.registry``: the llama
-family exposes init / apply / init_cache / decode_step / prefill_step and
-the segmented per-layer API, so the engine, the trainers and the tests
-stay arch-agnostic. Other families raise until their
-slice lands (ROADMAP queue A item 9)."""
+"""Uniform model API, ported from ``repro.models.registry``: the llama,
+gemma2 and vlm families expose init / apply / init_cache / decode_step /
+prefill_step and the segmented per-layer API, so the engine, the trainers
+and the tests stay arch-agnostic. The other families raise until their
+slice lands (ROADMAP queue A items 9b and 9)."""
 from __future__ import annotations
 
 import importlib
@@ -40,7 +40,8 @@ def _lm_api() -> ModelApi:
     from repro_torch.models import lm
 
     def apply(cfg, params, consts, batch, remat="none"):
-        return lm.apply_lm(cfg, params, consts, batch["tokens"], remat=remat)
+        return lm.apply_lm(cfg, params, consts, batch["tokens"],
+                           patch_embeds=batch.get("patches"), remat=remat)
 
     def forward_boundaries(cfg, params, consts, batch):
         return lm.forward_saving_boundaries(
@@ -53,26 +54,43 @@ def _lm_api() -> ModelApi:
                     lm.prefill_step, perlayer=pl)
 
 
-_FAMILY_API = {"llama": _lm_api}
+_FAMILY_API = {"llama": _lm_api, "gemma2": _lm_api, "vlm": _lm_api}
+# the families still to port, with their ROADMAP item
+_WAITING = {"moe": "9b (MoE with the grouped expert launch, the per-layer "
+                   "sweep's dense prefix and QK-norm)",
+            "mamba_hybrid": "9 (mamba2, after 9b)",
+            "xlstm": "9 (xlstm, after 9b)",
+            "whisper": "9 (whisper, after 9b)"}
 
-# paper configs the port ships (repro_torch.configs.<arch>)
+# configs the port ships (repro_torch.configs.<arch>): the paper's, and
+# the families without experts
 PAPER_ARCHS = ("llama_60m", "llama_130m", "llama_350m", "llama_1b", "llama_7b")
+ARCHS = ("gemma2_2b", "paligemma_3b", "qwen2_5_32b", "yi_34b", "llama3_405b")
+# the reference's archs that wait, with their family
+_WAITING_ARCHS = {"qwen3_moe_235b": "moe", "deepseek_moe_16b": "moe",
+                  "zamba2_7b": "mamba_hybrid", "xlstm_350m": "xlstm",
+                  "whisper_large_v3": "whisper"}
+
+
+def _not_ported(what: str, family: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue A item "
+        f"{_WAITING.get(family, '9: the other model families')})")
 
 
 def get_api(cfg: ModelConfig) -> ModelApi:
     if cfg.family not in _FAMILY_API:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue A item "
-            "9: the other model families)")
+        raise _not_ported(f"family {cfg.family!r}", cfg.family)
     return _FAMILY_API[cfg.family]()
 
 
 def _config_module(arch: str):
     name = arch.replace("-", "_")
-    if name not in PAPER_ARCHS:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP queue A item 9); the "
-            f"port ships {', '.join(PAPER_ARCHS)}")
+    if name in _WAITING_ARCHS:
+        raise _not_ported(f"arch {arch!r}", _WAITING_ARCHS[name])
+    if name not in PAPER_ARCHS + ARCHS:
+        raise ValueError(f"unknown arch {arch!r}; the port ships "
+                         f"{', '.join(PAPER_ARCHS + ARCHS)}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -202,7 +202,7 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
         if "dense_layers" in params:
             raise NotImplementedError(
                 "the MoE dense-layer prefix of the sweep is not ported yet "
-                "(ROADMAP queue A item 9: the other model families)")
+                "(ROADMAP queue A item 9b: MoE)")
         chaos_scale = None
         if "chaos_scale" in batch:
             chaos_scale = torch.mean(batch["chaos_scale"].float())

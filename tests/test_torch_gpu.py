@@ -282,7 +282,14 @@ DECODE_CASES = [
     (64, 1, 8, 256, [300, 17], 20.0, 100),
     (16, 8, 4, 64, [40, 49, 58, -1], 0.0, 24),
     (16, 32, 1, 64, [1023, 517, 1000, -1], 0.0, 0),
-    (16, 8, 4, 64, [1023, 517, 1000, -1], 30.0, 0)]
+    (16, 8, 4, 64, [1023, 517, 1000, -1], 30.0, 0),
+    # gemma2_2b's local layers (4 kv heads, group 2, hd 256, softcap 50,
+    # window 4096) past a 4096-key context; short slots beside a long one
+    # leave some splits of the long table no live key
+    (16, 4, 2, 256, [4299, 4100, 100, -1], 50.0, 4096),
+    (16, 4, 2, 256, [4299, 20, 3, -1], 50.0, 4096),
+    # paligemma_3b's MQA (1 kv head, group 8 = DECODE_MAX_ROWS)
+    (16, 1, 8, 256, [4299, 517, 30, -1], 0.0, 0)]
 
 
 def _decode_case(case, dev, seed=5):
@@ -399,11 +406,22 @@ PREFILL_CASES = [
     (16, 32, 1, 128, 8, [0, 16, 0, 0], [8, 8, 8, 0], 0.0, 0),
     (16, 32, 1, 128, 16, [0, 16, 0, 0], [16, 16, 16, 0], 0.0, 0),
     (16, 32, 1, 128, 32, [0, 16, 0, 0], [32, 32, 32, 0], 0.0, 0)]
+# head_dim 256 (prefill_tc_wide_kernel in bf16): gemma2_2b's engine (4 kv
+# heads, group 2, softcap 50) at a suffix bucket, with a window that
+# starts mid-page, over several stages; paligemma_3b's MQA (group 8: four
+# row blocks); and a head_dim of 9 chunks (the pair's halves differ)
+HD256_PREFILL_CASES = [
+    (16, 4, 2, 256, 32, [0, 16, 0, 0], [32, 32, 32, 0], 50.0, 0),
+    (16, 4, 2, 256, 32, [40, 0, 90], [32, 20, 32], 50.0, 24),
+    (16, 4, 2, 256, 64, [130, 0], [64, 40], 50.0, 100),
+    (16, 1, 8, 256, 32, [0, 16, 0, 0], [32, 32, 32, 0], 0.0, 0),
+    (16, 1, 8, 256, 16, [48, 5], [16, 16], 50.0, 40),
+    (16, 2, 2, 144, 16, [70, 0], [16, 9], 0.0, 0)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", PREFILL_CASES)
+@pytest.mark.parametrize("case", PREFILL_CASES + HD256_PREFILL_CASES)
 def test_paged_prefill_kernel_matches_plain(cuda, case, dtype):
     q, kp, vp, table, offs, kw = _prefill_case(case, dtype, cuda)
     lengths = case[6]
@@ -419,7 +437,8 @@ def test_paged_prefill_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", PREFILL_CASES[6:9] + PREFILL_CASES[-6:])
+@pytest.mark.parametrize("case", PREFILL_CASES[6:9] + PREFILL_CASES[-6:] +
+                         HD256_PREFILL_CASES)
 def test_paged_prefill_bf16_rerun_gives_same_bits(cuda, case):
     q, kp, vp, table, offs, kw = _prefill_case(case, torch.bfloat16, cuda)
     got = pa_kernel.paged_prefill(q, kp, vp, table, offs, **kw)
@@ -964,8 +983,8 @@ def test_wrappers_refuse_bad_inputs(cuda):
     tbl = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         pa_kernel.paged_attention(q, pool, pool, tbl, tbl[:, 0], scale=1.0)
-    # the bf16 prefill takes a head_dim that is a multiple of 16 up to 128
-    for hd in (24, 256):
+    # the bf16 prefill takes a head_dim that is a multiple of 16 up to 256
+    for hd in (24, 272):
         qp = torch.zeros((2, 4, 1, 1, hd), dtype=torch.bfloat16,
                          device=cuda)
         pp = torch.zeros((3, 16, 1, hd), dtype=torch.bfloat16, device=cuda)

@@ -435,10 +435,28 @@ def test_paged_prefill_plan(sq, group, hd, want):
     assert p.masked_rows < pa_kernel.TC_ROWS_PER_WARP * p.warps
 
 
-@pytest.mark.parametrize("hd", [8, 24, 100, 144, 256])
+@pytest.mark.parametrize("sq, group, hd, want", [
+    # above head_dim 128 a pair of warps shares each 16 rows: gemma2's
+    # prefill (group 2) at each suffix bucket, paligemma's MQA (group 8:
+    # 256 rows, 4 blocks of 64), and a head_dim of 9 chunks
+    (8, 2, 256, (2, 1, 0)), (32, 2, 256, (8, 1, 0)),
+    (32, 8, 256, (8, 4, 0)), (16, 2, 144, (4, 1, 0)), (5, 1, 160, (2, 1, 11)),
+    (40, 2, 256, (8, 2, 48))])
+def test_paged_prefill_plan_pairs_warps_above_head_dim_128(sq, group, hd,
+                                                           want):
+    p = pa_kernel.prefill_plan(sq, group, hd)
+    assert tuple(p) == want
+    assert pa_kernel.prefill_warps_per_tile(hd) == 2
+    tiles = p.warps // 2
+    assert tiles * pa_kernel.TC_ROWS_PER_WARP * p.row_blocks == \
+        sq * group + p.masked_rows
+    assert p.masked_rows < pa_kernel.TC_ROWS_PER_WARP * tiles
+
+
+@pytest.mark.parametrize("hd", [8, 24, 100, 136, 264, 272, 512])
 def test_paged_prefill_plan_refuses_head_dims_off_the_mma_path(hd):
-    """bf16 prefill has only the tensor-core kernel: a head_dim that is not
-    a multiple of 16 up to 128 raises instead of falling back."""
+    """bf16 prefill has only the tensor-core kernels: a head_dim that is
+    not a multiple of 16 up to 256 raises instead of falling back."""
     with pytest.raises(ValueError, match="head_dim"):
         pa_kernel.prefill_plan(8, 1, hd)
 

@@ -106,7 +106,7 @@ def test_unported_options_raise():
         with pytest.raises(ValueError):
             ServeEngine(cfg, params, consts, paged=True, **kw, **bad)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_config("gemma2_2b")
+        registry.get_config("qwen3_moe_235b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.get_api(dataclasses.replace(cfg, family="moe"))
 
