@@ -21,7 +21,7 @@ rerun; the bfloat16 ``paged_prefill`` against its rerun, with the launch
 plans printed; ``sparse_matmul`` also at the sparse-mode training
 calls, M = 2048 tokens, forward and dx with f32 output, each against its
 rerun). Then it drives the paths on the paper's ``llama_1b`` config at
-full width (serving on 12 of its 24 layers) with random weights from a
+full width (serving on 8 of its 24 layers) with random weights from a
 seed:
 
 * serving: the paged engine in float32 along paths that must give the
@@ -40,7 +40,7 @@ seed:
   profiled, and fused (timed under the device-only profiler) and sparse
   on the contiguous cache;
 * training: 3 float32 train steps from one init and one data stream, at
-  full width on 12 of the 24 layers (``PARITY_LAYERS``), in pairs that
+  full width on 8 of the 24 layers (``PARITY_LAYERS``), in pairs that
   must agree: exec_mode "fused" (``sl_matmul`` forward and dx,
   ``sddmm`` dV) against "dense" (densify + the eq.-(2) backward), "sparse"
   (``sparse_matmul`` forward and dx over Wᵀ's tiles, ``sddmm`` dV)
@@ -129,11 +129,33 @@ seed:
   per-layer 8-bit AdamW; (g4) paligemma_3b on 2 layers
   (``PALI_LAYERS``) with seeded patch embeddings: an f32 train step
   fused against dense, f32 engine tokens against dense, a bf16 train step
-  and a bf16 engine run.
+  and a bf16 engine run;
+* MoE (``deepseek_moe_16b``: 64 routed experts top-6 of d_ff 1408 and 2
+  shared, a dense first layer of d_ff 10944, d_model 2048, rank 512;
+  ``qwen3_moe_235b``: 128 experts top-8 of d_ff 1536, d_model 4096, rank
+  768, GQA group 16, QK-norm): (m1) the grouped launches over an expert
+  stack in bf16, ``sl_matmul_grouped`` at deepseek's expert shapes at 1,
+  15 and 240 rows an expert (decode, prefill, training; with the
+  training dx) and ``sddmm_grouped`` at 240, and at qwen3's at 1 and 240,
+  each bit for bit a loop of single launches and within tolerance of its
+  plain version, timed beside the loop, the plain version,
+  ``torch.bmm`` and its bound; the paged kernels at qwen3's group 16;
+  (m2) deepseek at full width in f32 on 2 layers (the dense one and an
+  MoE one): the forward fused and sparse against dense, and the fused
+  and sparse engines' tokens against dense + gathered attention tick for
+  tick, a first difference excused only by a routing near-tie
+  (``ROUTE_MARGIN``) or a logit tie; (m3) deepseek in bf16: the fused
+  engine on 8 of its 28 layers (``MOE_SERVE_LAYERS``), timed and
+  profiled, its launches asserted per dispatch (56 ``sl_matmul``, 21
+  ``sl_matmul_grouped``), its tokens against dense under the same
+  excuses; the Trainer on 4 layers, 3 steps of global AdamW and of
+  per-layer 8-bit AdamW (step ms, MFU from active parameters, peak, the
+  aux loss).
 
-To stay inside its time limit with the gemma2 phases: llama_1b's serving
-phases run on 12 of its 24 layers (``SERVE_LAYERS``), its bf16 Trainer
-runs take 4 steps (``TRAIN_STEPS``), llama_7b's engines 8 of 32 layers.
+To stay inside its time limit with the gemma2 and MoE phases: llama_1b's
+serving phases run on 8 of its 24 layers (``SERVE_LAYERS``) and its f32
+training pairs on 8 (``PARITY_LAYERS``), its bf16 Trainer runs take 4
+steps (``TRAIN_STEPS``), llama_7b's engines 8 of 32 layers.
 
 Any failure exits non-zero. Without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -261,13 +283,14 @@ RECIPE_LAYERS = 4
 # the f32 training pairs at llama_1b's full width on this many of its 24
 # layers, and llama_7b's bf16 engines (phase 7e) on this many of its 32:
 # depth cut to keep the script inside its time limit (every layer runs
-# the same code at the same shapes)
-PARITY_LAYERS = 12
+# the same code at the same shapes); the pairs from 12 to 8 layers to pay
+# for the MoE phases
+PARITY_LAYERS = 8
 SERVE_7B_LAYERS = 8
 # llama_1b's serving phases (f32 and bf16, paged and contiguous, the
 # calibration) on this many of its 24 layers: cut from full depth to pay
-# for the gemma2 phases
-SERVE_LAYERS = 12
+# for the gemma2 phases (12), then the MoE phases (8)
+SERVE_LAYERS = 8
 # f32 train parity, fused vs dense: step 1 runs from identical parameters,
 # so only the order of f32 sums differs (1e-5 relative). From step 2 on,
 # Adam divides each gradient by its own magnitude: an element whose
@@ -379,7 +402,12 @@ def ptxas_report(log: str):
     for line in log.splitlines():
         line = line.strip()
         if "Compiling entry function" in line:
-            name = kernel_name(line.split("'")[1])
+            mangled = line.split("'")[1]
+            name = kernel_name(mangled)
+            # a kernel templated on one bool (sl_matmul's kGrouped)
+            for flag, tag in (("ILb1E", "<true>"), ("ILb0E", "<false>")):
+                if f"{name}{flag}" in mangled:
+                    name += tag
         elif "spill" in line:
             spill = line
         elif "registers" in line:
@@ -1277,7 +1305,9 @@ def _wrappers():
             pak.paged_attention, "paged_prefill": pak.paged_prefill,
             "sddmm": sdk.sddmm, "adam8bit": adk.adam8bit_update,
             "sparse_matmul": spk.sparse_matmul,
-            "quant_sparse_matmul": spk.quant_sparse_matmul}
+            "quant_sparse_matmul": spk.quant_sparse_matmul,
+            "sl_matmul_grouped": slk.sl_matmul_grouped,
+            "sddmm_grouped": sdk.sddmm_grouped}
 
 
 def launch_counts():
@@ -1291,7 +1321,7 @@ def reset_launch_counts():
 
 def serve(cfg, params, consts, prompts, arrivals, *, exec_mode, attn_kernel,
           n_slots, max_len, block_len, new_tokens, device,
-          sparse_decode=False, paged=True):
+          sparse_decode=False, paged=True, route_log=None):
     """One engine run of the traffic; returns (requests, stats, engine,
     wall seconds). The paged engine runs ``run_stream`` with prefix
     sharing; the contiguous one (``paged=False``: arrivals, ``block_len``
@@ -1301,7 +1331,11 @@ def serve(cfg, params, consts, prompts, arrivals, *, exec_mode, attn_kernel,
     events: ``stats["span_s"]`` is the device time from each dispatch's
     start to its last kernel's end, summed, and ``stats["token_shapes"]``
     the (slots, tokens per slot) of every dispatch, from which the row
-    counts the kernels saw follow."""
+    counts the kernels saw follow. With ``route_log`` (a ``RouteLog``)
+    each dispatch sets its index there, and ``stats`` gains
+    ``outs_before`` (each request's output count before each dispatch)
+    and ``top2_gaps`` (each dispatch's least top-2 gap of the logits it
+    samples from), at a host sync a dispatch."""
     from repro_torch.serve.engine import ServeEngine
     if paged:
         eng = ServeEngine(cfg, params, consts, n_slots=n_slots,
@@ -1314,9 +1348,13 @@ def serve(cfg, params, consts, prompts, arrivals, *, exec_mode, attn_kernel,
                           max_len=max_len, exec_mode=exec_mode,
                           sparse_decode=sparse_decode, device=device)
     spans, shapes = [], set()
+    held, outs_before, gaps = [], [], []
 
     def bracket(fn, kind):
         def run(params, consts, tokens, *args, **kwargs):
+            if route_log is not None:
+                route_log.dispatch = len(spans)
+                outs_before.append([len(r.out) for r in held])
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -1324,6 +1362,16 @@ def serve(cfg, params, consts, prompts, arrivals, *, exec_mode, attn_kernel,
             e.record()
             spans.append((s, e))
             shapes.add((kind, tuple(tokens.shape)))
+            if route_log is not None:
+                lg = out[1][..., :cfg.vocab_size].float()
+                if kind == "prefill":
+                    last = (args[1].long() - 1).clamp(0, lg.shape[1] - 1)
+                    lg = lg[torch.arange(lg.shape[0], device=lg.device),
+                            last]
+                else:
+                    lg = lg[:, -1]
+                top = lg.topk(2, dim=-1).values
+                gaps.append(float((top[:, 0] - top[:, 1]).min()))
             return out
         return run
     if paged:
@@ -1334,7 +1382,11 @@ def serve(cfg, params, consts, prompts, arrivals, *, exec_mode, attn_kernel,
     if paged:
         reqs = [eng.submit(p, max_new_tokens=new_tokens, arrival=a)
                 for p, a in zip(prompts, arrivals)]
-        stats = eng.run_stream()
+        held.extend(reqs)
+        try:
+            stats = eng.run_stream()
+        except RouteDiverged as stop:
+            stats = {"diverged_at": stop.args[0]}
     else:
         reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
         stats = eng.run_until_drained()
@@ -1342,6 +1394,9 @@ def serve(cfg, params, consts, prompts, arrivals, *, exec_mode, attn_kernel,
     wall = time.perf_counter() - t0
     stats["span_s"] = sum(s.elapsed_time(e) for s, e in spans) / 1e3
     stats["token_shapes"] = shapes
+    stats["outs_before"], stats["top2_gaps"] = outs_before, gaps
+    if "diverged_at" in stats:
+        return reqs, stats, eng, wall
     bad = [(r.uid, r.status) for r in reqs if r.status != "done"]
     if bad or stats["exhausted"] or len(stats["completed"]) != len(reqs):
         fail(f"{eng.cfg.param.exec_mode}/{eng.cfg.attn_kernel}"
@@ -1686,7 +1741,7 @@ def sparse_bytes_per_step(cfg, quant: bool) -> int:
 
 def phase_engine_bf16(cfg, params, consts, prompts, arrivals, device,
                       exec_mode="fused", path=None, paged=True,
-                      profiled=False, **kw):
+                      profiled=False, want_per_dispatch=None, **kw):
     """Phase 4: a serving path in bf16 (``exec_mode`` fused, sparse or
     quant, with the paged kernels; or, with ``paged=False``, on the
     contiguous cache), timed, with every kernel's launch count read around
@@ -1694,7 +1749,9 @@ def phase_engine_bf16(cfg, params, consts, prompts, arrivals, device,
     ``EXEC_PATH`` or ``CONTIGUOUS_PATH``) required to have launched. The
     contiguous engine must prefill with one dispatch a prompt token. With
     ``profiled`` the run itself is timed under the device-only profiler,
-    and its busy share reported as ``phase_profile`` does."""
+    and its busy share reported as ``phase_profile`` does. With
+    ``want_per_dispatch`` ({kernel: launches}) each count must be exactly
+    that many a dispatch."""
     from torch.profiler import ProfilerActivity, profile
     path = path or (EXEC_PATH if paged else CONTIGUOUS_PATH)[exec_mode]
     reset_launch_counts()
@@ -1720,6 +1777,10 @@ def phase_engine_bf16(cfg, params, consts, prompts, arrivals, device,
     ticks = sorted(r.t_first - r.arrival for r in reqs)
     span = stats["span_s"]
     steps = stats["decode_steps"] + eng.dispatches["prefill"]
+    for k, n in (want_per_dispatch or {}).items():
+        if launches[k] != n * steps:
+            fail(f"bf16 {exec_mode} serving launched {k} {launches[k]} "
+                 f"times in {steps} dispatches, expected {n} a dispatch")
     extra = ""
     if exec_mode != "fused":
         extra = (f" | modeled sparse-term bytes per step "
@@ -1933,26 +1994,28 @@ def adam8bit_launches_per_step(optimizer, params, opt_state):
     from repro_torch.models.common import tree_leaves
     f32 = torch.float32
     tied = "lm_head" not in params
-    head, layer, deferred, embed = Counter(), Counter(), Counter(), Counter()
-    n_layers = 0
+    head, embed = Counter(), Counter()
+    groups = {}       # a stacked group: (layers, per-layer, deferred)
     for path, leaf in tree_leaves(params):
         parts = tuple(path.split("/"))
         dt = leaf.dtype
         if parts[0] == "embed":
             embed[(dt, f32 if tied else dt)] += 1
-        elif parts[0] != "layers":
+        elif parts[0] not in ("layers", "dense_layers"):
             head[(dt, dt)] += 1
         else:
-            n_layers = leaf.shape[0]
+            n, layer, deferred = groups.setdefault(
+                parts[0], (leaf.shape[0], Counter(), Counter()))
             st = optimizer.stack_state(optimizer.leaf_state(opt_state, parts),
-                                       leaf, n_layers)
+                                       leaf, n)
             if st is None:
                 deferred[(dt, f32)] += 1
             else:
                 layer[(dt, dt)] += 1
     launches = lambda c: sum(-(-k // MAX_SEGMENTS) for k in c.values())
-    return launches(head) + n_layers * launches(layer) + \
-        launches(deferred) + launches(embed)
+    return launches(head) + launches(embed) + sum(
+        n * launches(layer) + launches(deferred)
+        for n, layer, deferred in groups.values())
 
 
 def param_rel_diff(a, b):
@@ -2212,14 +2275,19 @@ def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=TRAIN_STEPS,
     if len(hist) != steps or not all(np.isfinite(losses)) or any(
             h["nonfinite"] for h in hist):
         fail(f"bf16 {mode} training: losses {losses}")
-    n_lin = 7 * cfg.n_layers
-    # forward + dx of each linear on its kernel, dV on sddmm
+    n_lin, n_grouped = linear_counts(cfg)
+    # forward + dx of each linear on its kernel, dV on sddmm; each expert
+    # stack's linear the same on the grouped launches
     linear = {"fused": "sl_matmul", "sparse": "sparse_matmul"}[mode]
     want = {k: 0 for k in launches}
     want.update({linear: 2 * n_lin * steps, "sddmm": n_lin * steps})
+    if n_grouped:
+        want.update(sl_matmul_grouped=2 * n_grouped * steps,
+                    sddmm_grouped=n_grouped * steps)
     if launches != want:
         fail(f"bf16 {mode} training launched {launches}, expected {want} "
-             f"({n_lin} linears x {steps} steps: forward + dx, dV)")
+             f"({n_lin} linears and {n_grouped} expert stacks x {steps} "
+             "steps: forward + dx, dV)")
     med = statistics.median(dts[1:])
     tokens = batch * seq
     mfu = roofline.train_mfu(cfg, tokens, med)
@@ -2230,7 +2298,9 @@ def phase_train_bf16(cfg, device, smi, *, batch, seq, steps=TRAIN_STEPS,
         f"{100 * mfu:.3f}% of {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s "
         f"(data sheet) | launches per step: {linear} "
         f"{launches[linear] // steps}, sddmm {launches['sddmm'] // steps}"
-        f" | max_memory_allocated {peak / 2**30:.2f} GiB | run wall "
+        + (f", sl_matmul_grouped {launches['sl_matmul_grouped'] // steps}, "
+           f"sddmm_grouped {launches['sddmm_grouped'] // steps}"
+           if n_grouped else "") + f" | max_memory_allocated {peak / 2**30:.2f} GiB | run wall "
         f"{wall:.1f} s" + (f" incl. checkpoint of step {steps}" if save else
                            " (final checkpoint not written)") + f" | {smi}")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -2325,17 +2395,22 @@ def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak=None,
     if len(hist) != steps or not all(np.isfinite(losses)) or any(
             h["nonfinite"] for h in hist):
         fail(f"bf16 per-layer training: losses {losses}")
-    n_lin = 7 * cfg.n_layers
+    n_lin, n_grouped = linear_counts(cfg)
     # a forward, then a forward and a backward per layer in each sweep;
     # under remat each sweep runs each layer's forward once more
     fwd = 5 if remat == "none" else 7
     want = {k: 0 for k in launches}
     want.update(sl_matmul=fwd * n_lin * steps, sddmm=2 * n_lin * steps,
                 adam8bit=per_step * steps)
+    if n_grouped:
+        want.update(sl_matmul_grouped=fwd * n_grouped * steps,
+                    sddmm_grouped=2 * n_grouped * steps)
     if launches != want:
         fail(f"bf16 per-layer training launched {launches}, expected {want}")
-    # one update group a period (a layer; gemma2's local/global pair)
-    periods = cfg.n_layers // pattern_len(cfg)
+    # one update group a period (a layer; gemma2's local/global pair) and
+    # a dense-prefix block
+    n_dense = cfg.moe.first_k_dense if cfg.moe.n_experts else 0
+    periods = (cfg.n_layers - n_dense) // pattern_len(cfg) + n_dense
     lt = tr.obs.get("train.perlayer.layer_update_ms")
     if lt is None or lt.count != periods * steps:
         fail("per-layer timing recorded "
@@ -2357,7 +2432,10 @@ def phase_perlayer_bf16(cfg, device, smi, *, batch, seq, global_peak=None,
         f"TFLOP/s (data sheet) | launches per step: sl_matmul "
         f"{launches['sl_matmul'] // steps}, sddmm "
         f"{launches['sddmm'] // steps}, adam8bit "
-        f"{launches['adam8bit'] // steps} | train.perlayer.layer_update_ms "
+        f"{launches['adam8bit'] // steps}"
+        + (f", sl_matmul_grouped {launches['sl_matmul_grouped'] // steps}, "
+           f"sddmm_grouped {launches['sddmm_grouped'] // steps}"
+           if n_grouped else "") + " | train.perlayer.layer_update_ms "
         f"over {lt.count} layer updates: mean {lt.sum / lt.count:.2f} "
         f"(histogram bucket p50 {lt.percentile(50):.0f}) | {init} | run "
         f"wall {wall:.1f} s"
@@ -2818,7 +2896,7 @@ def representatives(cfg, rows, m, n_slots, bucket):
 
 
 def kernels_line(rows, by_path, representative, rows_7b, representative_7b,
-                 rows_g, representative_g):
+                 rows_g, representative_g, rows_m, representative_m):
     """One entry per kernel: the llama_1b representative case's times and
     bound (and, under ``at_llama_7b`` and ``at_gemma2_2b``, the llama_7b
     and the gemma2_2b one's), the largest error over all of the kernel's
@@ -2827,15 +2905,24 @@ def kernels_line(rows, by_path, representative, rows_7b, representative_7b,
     cache; training fused, sparse and per-layer; the chaos drills; the
     quant recipe at llama_1b and at its default size; the quant fallback;
     llama_7b's per-layer training and fused and sparse serving; gemma2_2b's
-    serving, long request and training, paligemma_3b's), each path's count
-    beside them."""
+    serving, long request and training, paligemma_3b's; deepseek_moe_16b's
+    serving and training), each path's count beside them. ``sl_matmul``'s
+    and ``sddmm``'s launches count their grouped launches over an expert
+    stack too (one launch a stage of all experts), by path under
+    ``grouped_launches_by_path``; ``at_deepseek_moe_16b`` holds their
+    grouped representative case (with the loop of single launches' time),
+    ``at_qwen3_moe_235b`` the paged kernels' at qwen3's GQA group 16."""
     out = []
     src = {"sl_matmul": SL_SOURCE, "paged_attention": PA_SOURCE,
            "paged_prefill": PA_SOURCE, "sddmm": SD_SOURCE,
            "adam8bit": AD_SOURCE, "sparse_matmul": SP_SOURCE,
            "quant_sparse_matmul": SP_SOURCE}
     times = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    grouped_of = {"sl_matmul": "sl_matmul_grouped", "sddmm": "sddmm_grouped"}
     for name, shape in representative.items():
+        g_name = grouped_of.get(name)
+        n_grouped = {p: n.get(g_name, 0) for p, n in by_path.items()
+                     if g_name and n.get(g_name, 0)}
         mine = [r for r in rows if r["name"] == name]
         rep = next(r for r in mine if r["shape"] == shape)
         mine7 = [r for r in rows_7b if r["name"] == name]
@@ -2846,10 +2933,11 @@ def kernels_line(rows, by_path, representative, rows_7b, representative_7b,
         out.append({
             "name": name, "route": "cuda", "source": src[name],
             "replaces": REPLACES[name],
-            "launches": sum(n[name] for n in by_path.values()),
+            "launches": sum(n[name] for n in by_path.values())
+            + sum(n_grouped.values()),
             "launches_by_path": {p: n[name] for p, n in by_path.items()},
-            "max_abs_err": max(r["max_abs_err"]
-                               for r in mine + mine7 + mine_g),
+            "max_abs_err": max(r["max_abs_err"] for r in mine + mine7 + mine_g
+                               + [r for r in rows_m if r["name"] == name]),
             **{k: rep[k] for k in times}, "shape": shape,
             "cases": len(mine),
             **{k: rep[k] for k in ("variant", "pad_ms", "library_f32_ms")
@@ -2858,6 +2946,18 @@ def kernels_line(rows, by_path, representative, rows_7b, representative_7b,
                             **{k: rep7[k] for k in times}},
             "at_gemma2_2b": {"shape": rep_g["shape"], "cases": len(mine_g),
                              **{k: rep_g[k] for k in times}}})
+        if name in representative_m:
+            mine_m = [r for r in rows_m if r["name"] == name]
+            rep_m = next(r for r in mine_m
+                         if r["shape"] == representative_m[name])
+            key = "at_deepseek_moe_16b" if g_name else "at_qwen3_moe_235b"
+            out[-1][key] = {"shape": rep_m["shape"], "cases": len(mine_m),
+                            **{k: rep_m[k] for k in times}}
+            if g_name:
+                out[-1][key].update(
+                    loop_ms=rep_m["loop_ms"], experts=rep_m["experts"],
+                    grouped_launches=sum(n_grouped.values()))
+                out[-1]["grouped_launches_by_path"] = n_grouped
     return {"kernels": out}
 
 
@@ -3994,6 +4094,597 @@ def run_families(device, smi, *, batch, seq, n_slots, block_len, max_len,
 
 
 # ---------------------------------------------------------------------------
+# MoE: deepseek_moe_16b and qwen3_moe_235b (phases m1 to m3)
+# ---------------------------------------------------------------------------
+
+# m2: deepseek_moe_16b at full width in f32 on its dense first layer and
+# one MoE layer; m3: bf16 serving on 8 of its 28 layers (1 dense + 7
+# MoE, as llama_7b serves on SERVE_7B_LAYERS) and the Trainer on 4 (1 +
+# 3), 3 steps each
+MOE_PARITY_LAYERS = 2
+MOE_SERVE_LAYERS = 8
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_STEPS = 3
+# the routing-margin excuse: two paths' routers see the same tokens
+# through linears that round in another order, so a token whose k-th and
+# (k+1)-th router probabilities lie closer than the paths' difference may
+# take another expert, and from that dispatch on the co-batched slots'
+# capacity and everything after differ. The first routing difference
+# between two runs is excused when the reference run's gap between the
+# k-th and (k+1)-th probability of every token whose experts differ is
+# at most this: in f32 the paths' probabilities differ by ~1e-7; in bf16
+# each layer's outputs differ by an ulp or so (0.4%), which after 8
+# layers moves a router logit by a few hundredths and a probability of up
+# to ~0.25 by up to ~1.4e-2 (the smoke config's 8 experts on the CPU's
+# plain versions, fused against dense)
+ROUTE_MARGIN = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# the logit-tie excuse, where tokens differ first with the routing equal:
+# the reference run's least top-2 logit gap in that dispatch at most this
+# (f32: the llama phases' 1e-4; bf16: one ulp of a logit of 16 to 32)
+MOE_TIE = {torch.float32: 1e-4, torch.bfloat16: 0.125}
+# the SLTrain linears of the deepseek_moe_16b blocks: a dense block's 7
+# (4 attention, 3 MLP); an MoE block's 4 attention and 3 shared-expert
+# linears single, its 3 routed-expert linears one grouped launch each
+PATH_KERNELS.update({
+    "serve_deepseek_moe_16b": ("sl_matmul", "sl_matmul_grouped",
+                               "paged_attention", "paged_prefill"),
+    "train_deepseek_moe_16b": ("sl_matmul", "sl_matmul_grouped", "sddmm",
+                               "sddmm_grouped"),
+    "train_per_layer_deepseek_moe_16b": ("sl_matmul", "sl_matmul_grouped",
+                                         "sddmm", "sddmm_grouped",
+                                         "adam8bit"),
+})
+
+
+def linear_counts(cfg):
+    """(single-matrix SLTrain linears, grouped expert-stack linears) one
+    forward of ``cfg`` runs."""
+    m = cfg.moe
+    n_moe = cfg.n_layers - m.first_k_dense if m.n_experts else 0
+    single = 7 * (cfg.n_layers - n_moe) + \
+        (4 + 3 * bool(m.n_shared_experts)) * n_moe
+    return single, 3 * n_moe
+
+
+class RouteDiverged(Exception):
+    """Raised by a ``RouteLog`` with ``until`` at the first MoE call that
+    routes otherwise than the run it follows."""
+
+
+class RouteLog:
+    """While active, records every MoE block's routing (wrapping
+    ``models.mlp.route``): per call, the dispatch index it ran in
+    (``dispatch``, set by ``serve``), the top-k expert ids and the router
+    probabilities, copied to the host (a sync per call: untimed runs
+    only). With ``until`` (another run's log) it raises ``RouteDiverged``
+    after recording the first call whose top-k expert sets differ from
+    that run's: from there on the two runs' states differ, and nothing
+    after it is compared."""
+
+    def __init__(self, until=None):
+        self.calls = []
+        self.dispatch = 0
+        self.until = until
+
+    def __enter__(self):
+        from repro_torch.models import mlp
+        self._orig = orig = mlp.route
+
+        def rec(cfg, probs, *a, **k):
+            out = orig(cfg, probs, *a, **k)
+            ids = out[1].cpu()
+            self.calls.append((self.dispatch, ids,
+                               probs.detach().float().cpu()))
+            if self.until is not None:
+                other = self.until.calls[len(self.calls) - 1][1]
+                if not torch.equal(ids.sort(-1).values,
+                                   other.sort(-1).values):
+                    raise RouteDiverged(self.dispatch)
+            return out
+        mlp.route = rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mlp
+        mlp.route = self._orig
+
+
+def route_divergence(a_log, b_log):
+    """The first MoE call whose top-k expert sets differ between run a and
+    the reference run b: (dispatch, the largest k/(k+1) probability gap in
+    run b over the tokens whose sets differ, max |Δp| of that call, tokens
+    that differ), or None when every call routed alike."""
+    if len(a_log.calls) != len(b_log.calls) and b_log.until is None:
+        fail(f"MoE runs made {len(a_log.calls)} and {len(b_log.calls)} "
+             "router calls")
+    for (d, ia, pa), (_, ib, pb) in zip(a_log.calls, b_log.calls):
+        diff = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+        if bool(diff.any()):
+            k = ib.shape[-1]
+            top = pb.sort(-1, descending=True).values
+            gap = (top[..., k - 1] - top[..., k])[diff]
+            return (d, float(gap.max()), float((pa - pb).abs().max()),
+                    int(diff.sum()))
+    return None
+
+
+def moe_same_tokens(what, a, b, dtype):
+    """Greedy tokens of run ``a`` against the reference run ``b``, each a
+    (requests, stats, RouteLog) of one engine over the same traffic. Up to
+    the first dispatch where either the routing or a token differs, every
+    token must be equal. That first difference must be excused: a
+    routing difference by ROUTE_MARGIN (run b's probability gap at the
+    flipped tokens), a token difference with the routing equal by
+    MOE_TIE (run b's least top-2 logit gap in that dispatch); from that
+    dispatch on the runs' states differ (capacity couples the co-batched
+    slots) and tokens are counted, not compared. Returns (equal tokens
+    before the first difference, total, excuse text)."""
+    a_reqs, a_stats, a_log = a
+    b_reqs, b_stats, b_log = b
+    before = a_stats["outs_before"]
+
+    def dispatch_of(r, i):            # the dispatch that produced token i
+        return max(d for d, n in enumerate(before) if n[r] <= i)
+    d_tok = None
+    for r, (ra, rb) in enumerate(zip(a_reqs, b_reqs)):
+        for i, (ta, tb) in enumerate(zip(ra.out, rb.out)):
+            if ta != tb:
+                d = dispatch_of(r, i)
+                d_tok = d if d_tok is None else min(d_tok, d)
+                break
+    div = route_divergence(a_log, b_log)
+    total = sum(len(r.out) for r in a_reqs)
+    d0 = min(x for x in (d_tok, div and div[0]) if x is not None) \
+        if (d_tok is not None or div) else None
+    if d0 is None:
+        return total, total, "none needed"
+    same = sum(1 for r, ra in enumerate(a_reqs) for i in range(len(ra.out))
+               if dispatch_of(r, i) < d0)
+    after = total - same
+    if div is not None and div[0] <= d0:
+        d, gap, dp, n = div
+        if gap > ROUTE_MARGIN[dtype]:
+            fail(f"{what}: routing differs at dispatch {d} ({n} tokens) "
+                 f"with a k/k+1 probability gap of {gap:.3e} in the "
+                 f"reference run, above ROUTE_MARGIN {ROUTE_MARGIN[dtype]} "
+                 f"(max |Δp| {dp:.3e}): not a near-tie")
+        return same, total, (
+            f"routing margin: experts differ first at dispatch {d} for {n} "
+            f"tokens, k/k+1 gap <= {gap:.3e} (bound {ROUTE_MARGIN[dtype]}, "
+            f"max |Δp| there {dp:.3e}); covers the {after} tokens from that "
+            "dispatch on")
+    gap = b_stats["top2_gaps"][d0]
+    if gap > MOE_TIE[dtype]:
+        fail(f"{what}: tokens differ first at dispatch {d0} with the routing "
+             f"equal and a least top-2 logit gap of {gap:.3e} (bound "
+             f"{MOE_TIE[dtype]}): not a tie")
+    return same, total, (
+        f"logit tie: tokens differ first at dispatch {d0} with equal "
+        f"routing, least top-2 gap {gap:.3e} (bound {MOE_TIE[dtype]}); "
+        f"covers the {after} tokens from that dispatch on")
+
+
+def serve_logged(cfg, params, consts, prompts, arrivals, *, exec_mode,
+                 attn_kernel, device, until=None, **kw):
+    """One engine run (``serve``) with its routing recorded: (requests,
+    stats, RouteLog), stats with each dispatch's outputs-before counts
+    and least top-2 logit gap. With ``until`` (another run's log) the run
+    stops at its first routing difference from that run, its requests
+    holding the tokens made so far."""
+    with RouteLog(until) as log:
+        reqs, stats, _, _ = serve(cfg, params, consts, prompts, arrivals,
+                                  exec_mode=exec_mode,
+                                  attn_kernel=attn_kernel, device=device,
+                                  route_log=log, **kw)
+    return reqs, stats, log
+
+
+def grouped_case(gen, device, n_exp, m, d_in, d_out, dtype, rank, delta,
+                 alpha, n_supports=4):
+    """A stack of ``n_exp`` expert linears at real width: expert e on the
+    (e % n_supports)-th sampled support (sampling 128 full-width supports
+    would take the host seconds), its own x (m rows), B, A and v; the tile
+    consts and Wᵀ's stacked. Returns (x, B, A, v_t, rows_t, cols_t,
+    scale, Wᵀ's tiles, nnz)."""
+    from repro_torch.kernels import ops
+    r = max(4, min(rank, min(d_in, d_out) // 2))
+    sup = [support_tiles(d_in * 7 + d_out + s, d_in, d_out, delta)
+           for s in range(n_supports)]
+    tiles = {k: torch.stack([sup[e % n_supports][2][k]
+                             for e in range(n_exp)]).to(device)
+             for k in sup[0][2]}
+    tiles = ops.add_transposed_tiles(tiles)
+    nnz = sup[0][0].shape[0]
+
+    def u(shape, lim):
+        return ((torch.rand(shape, generator=gen, device=device) * 2 - 1)
+                * lim).to(dtype)
+    x = torch.randn((n_exp, m, d_in), generator=gen, device=device).to(dtype)
+    B = u((n_exp, d_in, r), 1.0)
+    A = u((n_exp, r, d_out), (6.0 / d_in) ** 0.5)
+    v = u((n_exp, nnz), d_in ** -0.5)
+    v_t = ops._gather_tiles_grouped(v, tiles["perm"])
+    return (x, B, A, v_t, tiles["rows_t"], tiles["cols_t"], alpha / r,
+            tiles, nnz * n_exp)
+
+
+def time_sl_matmul_grouped(timer, label, args, dtype, nnz):
+    """One grouped sl_matmul case: bit for bit a loop of single launches
+    (and its own rerun), within TOL of the plain version (a loop of
+    ``ref.sl_matmul_ref``), timed beside the loop, the plain version and
+    ``torch.bmm`` on the pre-densified bf16 W stack. The loop's time
+    includes the host's enqueue of its E launches where the Timer's spin
+    does not cover it: the cost a loop over the stack pays. The bound
+    takes, for each expert, the fewer operations of densifying W and
+    multiplying or of the factored form (as ``time_sl_matmul``), and every
+    operand once."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sl_matmul as slk
+    x, B, A, v_t, rt, ct, scale = args
+    n_exp, m, d_in = x.shape
+    r, d_out = A.shape[1:]
+
+    def loop():
+        return torch.stack([slk.sl_matmul(x[e], B[e], A[e], v_t[e], rt[e],
+                                          ct[e], scale)
+                            for e in range(n_exp)])
+
+    def plain():
+        return torch.stack([ref.sl_matmul_ref(x[e], B[e], A[e], v_t[e],
+                                              rt[e], ct[e], scale)
+                            for e in range(n_exp)])
+    got = slk.sl_matmul_grouped(*args)
+    if not torch.equal(got, loop()):
+        fail(f"sl_matmul_grouped {label}: differs from a loop of single "
+             "launches")
+    if not torch.equal(got, slk.sl_matmul_grouped(*args)):
+        fail(f"sl_matmul_grouped {label}: a rerun gave other bits")
+    err = compare(f"sl_matmul_grouped {label}", got, plain(), dtype)
+    W = torch.stack([ref.densify_tiles(B[e], A[e], v_t[e], rt[e], ct[e],
+                                       scale, dtype)[:d_in, :d_out]
+                     for e in range(n_exp)])
+    t_g = timer.ms(lambda: slk.sl_matmul_grouped(*args))
+    t_loop = timer.ms(loop)
+    t_p = timer.ms(plain, reps=5)
+    t_l = timer.ms(lambda: torch.bmm(x, W))
+    del W
+    dense_ops = n_exp * (2.0 * d_in * d_out * r + 2.0 * m * d_in * d_out)
+    fact_ops = n_exp * 2.0 * m * r * (d_in + d_out) + 2.0 * m * nnz
+    ops_ = min(dense_ops, fact_ops)
+    b, by = bound_ms(nbytes(x, B, A, got) + support_bytes(nnz, v_t, rt, ct),
+                     ops_, dtype)
+    variant = slk.plan(m, d_in, d_out, r, dtype).variant
+    say(f"kernel sl_matmul_grouped {label} ({variant}, {n_exp} experts, one "
+        f"launch a stage): bit for bit a loop of {n_exp} single launches | "
+        f"max_abs_err vs plain {err:.3e} (tol {TOL[dtype]}) | grouped "
+        f"{t_g:.4f} ms, loop of single launches {t_loop:.4f} ms, plain "
+        f"{t_p:.4f} ms, torch.bmm on the dense W stack {t_l:.4f} ms, bound "
+        f"{b:.4f} ms ({by}, {ops_ / 1e9:.2f} GFLOP)")
+    return dict(name="sl_matmul", shape=label, grouped=True,
+                experts=n_exp, max_abs_err=err, tol=TOL[dtype], ms=t_g,
+                loop_ms=t_loop, plain_ms=t_p, library_ms=t_l, bound_ms=b,
+                bound_by=by, variant=variant)
+
+
+def time_sddmm_grouped(timer, label, x, dy, rt, ct, dtype, nnz):
+    """One grouped sddmm case: bit for bit a loop of single launches (and
+    its rerun), within the sddmm tolerances of the plain version (a loop
+    of ``ref.sddmm_ref``), timed beside the loop, the plain version and
+    ``torch.bmm`` of xᵀ·dy in bf16 with the gather; bound 2·M·nnz
+    operations over the stack and every operand once."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sddmm as sdk
+    n_exp, m, _ = x.shape
+
+    def loop():
+        return torch.stack([sdk.sddmm(x[e], dy[e], rt[e], ct[e])
+                            for e in range(n_exp)])
+
+    def plain():
+        return torch.stack([ref.sddmm_ref(x[e], dy[e], rt[e], ct[e])
+                            for e in range(n_exp)])
+    got = sdk.sddmm_grouped(x, dy, rt, ct)
+    if not torch.equal(got, loop()):
+        fail(f"sddmm_grouped {label}: differs from a loop of single launches")
+    if not torch.equal(got, sdk.sddmm_grouped(x, dy, rt, ct)):
+        fail(f"sddmm_grouped {label}: a rerun gave other bits")
+    want = plain()
+    err = (got - want).abs()
+    if not torch.isfinite(got).all() or bool(
+            (err > SDDMM_ATOL + SDDMM_RTOL * want.abs()).any()):
+        fail(f"sddmm_grouped {label}: kernel disagrees with its plain "
+             f"version: max abs err {err.max().item():.3e}")
+    err = float(err.max().item())
+    e_idx = torch.arange(n_exp, device=x.device).view(n_exp, 1, 1, 1)
+    rows_all, cols_all = zip(*(ref._tile_coords(rt[e], ct[e])
+                               for e in range(n_exp)))
+    gr, gc = torch.stack(rows_all), torch.stack(cols_all)
+    xt = x.transpose(1, 2)
+
+    def lib():
+        return torch.bmm(xt, dy, out_dtype=torch.float32)[e_idx, gr, gc] \
+            if dtype == torch.bfloat16 else torch.bmm(xt, dy)[e_idx, gr, gc]
+    t_g = timer.ms(lambda: sdk.sddmm_grouped(x, dy, rt, ct))
+    t_loop = timer.ms(loop)
+    t_p = timer.ms(plain, reps=5)
+    t_l = timer.ms(lib)
+    ops_ = 2.0 * m * nnz
+    b, by = bound_ms(nbytes(x, dy) + support_bytes(nnz, rt, ct, got), ops_,
+                     dtype)
+    say(f"kernel sddmm_grouped {label} ({n_exp} experts, one launch): bit "
+        f"for bit a loop of {n_exp} single launches | max_abs_err vs plain "
+        f"{err:.3e} (atol {SDDMM_ATOL} rtol {SDDMM_RTOL}) | grouped "
+        f"{t_g:.4f} ms, loop of single launches {t_loop:.4f} ms, plain "
+        f"{t_p:.4f} ms, torch.bmm bf16 (out_dtype f32) + gather {t_l:.4f} "
+        f"ms, bound {b:.4f} ms ({by}, {ops_ / 1e9:.2f} GFLOP)")
+    return dict(name="sddmm", shape=label, grouped=True, experts=n_exp,
+                max_abs_err=err, tol=SDDMM_ATOL, ms=t_g, loop_ms=t_loop,
+                plain_ms=t_p, library_ms=t_l, bound_ms=b, bound_by=by)
+
+
+def check_kernels_moe(device, cfgs, n_slots, block_len, bps, buckets,
+                      m_train_rows):
+    """Phase m1: the grouped launches at the experts' shapes in bf16:
+    ``sl_matmul_grouped`` at deepseek_moe_16b's (64 experts, 2048 -> 1408
+    and 1408 -> 2048, rank 512) at the rows an expert takes at decode (1),
+    prefill (15) and training (``m_train_rows``), with the training dx,
+    and ``sddmm_grouped`` at training rows; qwen3_moe_235b's (128 experts,
+    4096 -> 1536 and 1536 -> 4096, rank 768) at 1 and ``m_train_rows``
+    rows; the paged kernels at qwen3's GQA group 16, head_dim 128. Own
+    generators, so no earlier phase's draws move."""
+    deep, qwen = cfgs
+    timer = Timer(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(70)
+    bf16 = torch.bfloat16
+    rows = []
+    for cfg, ms_, train in ((deep, (1, 15, m_train_rows), True),
+                            (qwen, (1, m_train_rows), False)):
+        pc, m = cfg.param, cfg.moe
+        tag = cfg.name.split("-")[0]
+        for d_in, d_out in ((cfg.d_model, m.d_ff_expert),
+                            (m.d_ff_expert, cfg.d_model)):
+            for rows_e in ms_:
+                x, B, A, v_t, rt, ct, scale, tiles, nnz = grouped_case(
+                    gen, device, m.n_experts, rows_e, d_in, d_out, bf16,
+                    pc.rank, pc.delta, pc.alpha)
+                label = (f"{m.n_experts}x{rows_e}x{d_in}->{d_out} bfloat16 "
+                         f"({tag})")
+                rows.append(time_sl_matmul_grouped(
+                    timer, label, (x, B, A, v_t, rt, ct, scale), bf16, nnz))
+                if train and rows_e == m_train_rows and d_in == cfg.d_model:
+                    dy = torch.randn((m.n_experts, rows_e, d_out),
+                                     generator=gen, device=device).to(bf16)
+                    from repro_torch.kernels import ops
+                    rows.append(time_sl_matmul_grouped(
+                        timer, f"dx {m.n_experts}x{rows_e}x{d_out}->{d_in} "
+                        f"bfloat16 ({tag})",
+                        (dy, A.transpose(1, 2).contiguous(),
+                         B.transpose(1, 2).contiguous(),
+                         ops.transpose_tiles(v_t), tiles["rows_tT"],
+                         tiles["cols_tT"], scale), bf16, nnz))
+                    rows.append(time_sddmm_grouped(
+                        timer, f"{m.n_experts}x{rows_e}x({d_in},{d_out}) "
+                        f"bfloat16 ({tag})", x, dy, rt, ct, bf16, nnz))
+                    del dy
+                del x, B, A, v_t, rt, ct, tiles
+                torch.cuda.empty_cache()
+    rows += check_attention_wide(timer, gen, device, qwen, n_slots,
+                                 block_len, bps, buckets, False)
+    del timer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def moe_init(cfg, device, gen, label):
+    """A pooled init of ``cfg`` with B ~ U(-1, 1), and its size line."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.obs import metrics as obs_metrics
+    reg = obs_metrics.Registry()
+    params, consts = lm.init_lm(cfg, seed=0, device=device, obs=reg)
+    randomize_b(params, gen)
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    m = cfg.moe
+    say(f"init {arch(cfg)} {label}: {m.first_k_dense} dense + "
+        f"{cfg.n_layers - m.first_k_dense} MoE layers ({m.n_experts} experts "
+        f"top-{m.top_k} + {m.n_shared_experts} shared, d_ff_expert "
+        f"{m.d_ff_expert}, dense d_ff {m.d_ff_dense}), d_model {cfg.d_model}, "
+        f"rank {cfg.param.rank}, delta {cfg.param.delta}, "
+        f"{n_params / 1e6:.1f} M params, consts "
+        f"{sum(nbytes(t) for _, t in tree_leaves(consts)) / 2**30:.2f} GiB, "
+        f"in {reg.get('init.seconds').value:.1f} s with "
+        f"{reg.get('init.sampling_workers').value:.0f} support sampling "
+        "workers")
+    return params, consts
+
+
+def moe_compare(what, cfg, params, consts, prompts, arrivals, device, dtype,
+                mode, **kw):
+    """Engine tokens of exec_mode ``mode`` against exec_mode dense, both
+    reading the cache through the paged kernels, tick for tick under the
+    routing-margin and logit-tie excuses (``moe_same_tokens``). Not
+    against the gathered read: a prefill's padding positions past a
+    prompt's end (in pages the table leaves null) and an idle slot's row
+    route too and take capacity, and the two reads give those rows other
+    values, so the co-batched requests' routing differs by more than
+    rounding (on the smoke config, 16 padding rows of the first prefill
+    differ by up to 0.2 in probability)."""
+    a = serve_logged(cfg, params, consts, prompts, arrivals,
+                     exec_mode=mode, attn_kernel="paged", device=device, **kw)
+    b = serve_logged(cfg, params, consts, prompts, arrivals,
+                     exec_mode="dense", attn_kernel="paged", device=device,
+                     until=a[2], **kw)
+    same, total, excuse = moe_same_tokens(what, a, b, dtype)
+    say(f"engine {dname(dtype)} {arch(cfg)} {mode} vs dense, paged kernels: "
+        f"{same}/{total} tokens equal before the first difference | "
+        f"excuse: {excuse} | router calls {len(a[2].calls)} and "
+        f"{len(b[2].calls)}" + (" (the dense run stopped at the first "
+                                "routing difference)"
+                                if "diverged_at" in b[1] else ""))
+
+
+def phase_parity_moe(cfg, device, *, n_slots, block_len, max_len):
+    """Phase m2: deepseek_moe_16b at full width in f32 on
+    MOE_PARITY_LAYERS layers (its dense first layer and one MoE layer):
+    the plain forward of 4 x 32 tokens (a prefill's batch) in fused
+    (grouped sl_matmul over the experts) and sparse (sparse_matmul on each
+    expert's slice) against dense, the logits within 1e-3 x max(1, scale)
+    where the routing is equal (else the routing margin must excuse it);
+    then the 8-request traffic on the paged engine, fused and sparse
+    against dense + gathered attention, tick for tick
+    (``moe_compare``)."""
+    from repro_torch.models import lm
+    gen = torch.Generator(device=device)
+    gen.manual_seed(80)
+    cfg32 = dataclasses.replace(cfg, n_layers=MOE_PARITY_LAYERS,
+                                dtype="float32", param=dataclasses.replace(
+                                    cfg.param, exec_mode="fused"))
+    params, consts = moe_init(cfg32, device, gen, "f32")
+    toks = torch.randint(3, cfg.vocab_size, (n_slots, 32), generator=gen,
+                         device=device)
+    out, logs = {}, {}
+    for mode in ("fused", "sparse", "dense"):
+        c = dataclasses.replace(cfg32, param=dataclasses.replace(
+            cfg32.param, exec_mode=mode))
+        with torch.no_grad(), RouteLog() as logs[mode]:
+            out[mode], aux = lm.apply_lm(c, params, consts, toks)
+        if not torch.isfinite(out[mode]).all() or not 0.5 < float(aux) < 4:
+            fail(f"forward f32 {mode}: non-finite logits or aux {float(aux)}")
+    scale = out["dense"].abs().max().item()
+    for mode in ("fused", "sparse"):
+        div = route_divergence(logs[mode], logs["dense"])
+        err = (out[mode] - out["dense"]).abs().max().item()
+        if div is None:
+            if err > 1e-3 * max(1.0, scale):
+                fail(f"forward f32 {mode} vs dense: max abs err {err:.3e} "
+                     f"at logit scale {scale:.3e}, routing equal")
+            note = "routing equal"
+        elif div[1] > ROUTE_MARGIN[torch.float32]:
+            fail(f"forward f32 {mode} vs dense: routing differs with a gap "
+                 f"of {div[1]:.3e}")
+        else:
+            note = (f"routing differs for {div[3]} tokens at a gap <= "
+                    f"{div[1]:.3e} (excused), logits not compared")
+        say(f"forward f32 {arch(cfg32)} {mode} vs dense, {tuple(toks.shape)} "
+            f"tokens: max abs err {err:.3e} (tol 1e-3 x max(1, {scale:.2f}))"
+            f", {note}")
+    prompts, arrivals = traffic(cfg.vocab_size)
+    kw = dict(n_slots=n_slots, max_len=max_len, block_len=block_len,
+              new_tokens=16)
+    for mode in ("fused", "sparse"):
+        reset_launch_counts()
+        moe_compare(f"f32 {mode}", cfg32, params, consts, prompts, arrivals,
+                    device, torch.float32, mode, **kw)
+    del params, consts
+    torch.cuda.empty_cache()
+
+
+def phase_moe_bf16(cfg, device, smi, *, batch, seq, n_slots, block_len,
+                   max_len, buckets):
+    """Phase m3: deepseek_moe_16b in bf16 at full width. Serving on
+    MOE_SERVE_LAYERS layers: the fused paged engine on the 8-request
+    traffic, timed under the device-only profiler (tokens/s, busy share),
+    its launches asserted exactly per dispatch (one single ``sl_matmul``
+    for each attention, shared-expert and dense-MLP linear; one
+    ``sl_matmul_grouped`` for each routed-expert linear of each MoE
+    layer); then its tokens against dense + gathered attention under the
+    routing-margin excuse. Then the Trainer on MOE_TRAIN_LAYERS layers,
+    MOE_TRAIN_STEPS steps of global AdamW (fused) and of per-layer 8-bit
+    AdamW: step ms, MFU from active parameters, peak memory, the aux
+    loss; finite losses. Returns each path's launch counts."""
+    lap = Laps()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(90)
+    cfg16 = dataclasses.replace(cfg, n_layers=MOE_SERVE_LAYERS,
+                                param=dataclasses.replace(
+                                    cfg.param, exec_mode="fused"))
+    params, consts = moe_init(cfg16, device, gen, "bf16")
+    prompts, arrivals = traffic(cfg.vocab_size)
+    kw = dict(n_slots=n_slots, max_len=max_len, block_len=block_len,
+              new_tokens=16)
+    single, grouped = linear_counts(cfg16)
+    by_path = {}
+    path = "serve_deepseek_moe_16b"
+    launches, shapes, _ = phase_engine_bf16(
+        cfg16, params, consts, prompts, arrivals, device, exec_mode="fused",
+        path=path, profiled=True,
+        want_per_dispatch={"sl_matmul": single, "sl_matmul_grouped": grouped},
+        **kw)
+    by_path[path] = launches
+    lap("m3: init and the timed, profiled fused engine")
+    say(f"engine bf16 {arch(cfg16)}: {single} sl_matmul and {grouped} "
+        f"sl_matmul_grouped launches a dispatch (asserted); a loop over the "
+        f"experts would launch {single + grouped * cfg.moe.n_experts}")
+    moe_compare("bf16 fused", cfg16, params, consts, prompts, arrivals,
+                device, torch.bfloat16, "fused", **kw)
+    lap("m3: fused against dense, routing logged")
+    del params, consts
+    torch.cuda.empty_cache()
+    cfg_t = dataclasses.replace(cfg16, n_layers=MOE_TRAIN_LAYERS)
+    single, grouped = linear_counts(cfg_t)
+    tr, state, by_path["train_deepseek_moe_16b"], _, _, peak = \
+        phase_train_bf16(cfg_t, device, smi, batch=batch, seq=seq,
+                         steps=MOE_TRAIN_STEPS, save=False)
+    say(f"train bf16 {arch(cfg_t)} global AdamW: aux per step "
+        f"{[round(h['aux'], 4) for h in tr.metrics_history]}")
+    lap("m3: Trainer, global AdamW")
+    del tr, state
+    torch.cuda.empty_cache()
+    tr, state, by_path["train_per_layer_deepseek_moe_16b"], _, _, _ = \
+        phase_perlayer_bf16(cfg_t, device, smi, batch=batch, seq=seq,
+                            steps=MOE_TRAIN_STEPS, save=False,
+                            global_peak=peak)
+    say(f"train bf16 {arch(cfg_t)} per-layer 8-bit: aux per step "
+        f"{[round(h['aux'], 4) for h in tr.metrics_history]}")
+    del tr, state
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def representatives_moe(rows, n_slots, m_train_rows, bucket):
+    """{kernel: the shape of its representative MoE case} among phase m1's
+    rows: the grouped launches at deepseek_moe_16b's 2048 -> 1408 experts
+    at training rows; the paged kernels at qwen3's group 16."""
+    def pick(name, pred):
+        return next(r["shape"] for r in rows
+                    if r["name"] == name and pred(r["shape"]))
+    return {"sl_matmul": f"64x{m_train_rows}x2048->1408 bfloat16 (deepseek)",
+            "sddmm": f"64x{m_train_rows}x(2048,1408) bfloat16 (deepseek)",
+            "paged_attention": pick("paged_attention",
+                                    lambda s: s.startswith("qwen3")),
+            "paged_prefill": pick("paged_prefill", lambda s: s.startswith(
+                f"sq={bucket} qwen3"))}
+
+
+def run_moe(device, smi, *, batch, seq, n_slots, block_len, max_len,
+            buckets):
+    """Phases m1 to m3; returns (phase m1's kernel rows, launch counts by
+    path)."""
+    from repro_torch.models import registry
+    deep = registry.get_config("deepseek_moe_16b")
+    qwen = registry.get_config("qwen3_moe_235b")
+    lap = Laps()
+    # rows an expert takes in training: 8 x 256 tokens, top-6 of 64 at
+    # capacity factor 1.25
+    m_train = int(max(1, 1.25 * batch * seq * deep.moe.top_k
+                      / deep.moe.n_experts))
+    rows = check_kernels_moe(device, (deep, qwen), n_slots, block_len,
+                             max_len // block_len, buckets, m_train)
+    lap("phase m1 (deepseek_moe_16b and qwen3_moe_235b kernels)")
+    phase_parity_moe(deep, device, n_slots=n_slots, block_len=block_len,
+                     max_len=max_len)
+    lap(f"phase m2 (deepseek_moe_16b f32 parity, {MOE_PARITY_LAYERS} "
+        "layers)")
+    by_path = phase_moe_bf16(deep, device, smi, batch=batch, seq=seq,
+                             n_slots=n_slots, block_len=block_len,
+                             max_len=max_len, buckets=buckets)
+    lap("phase m3 (deepseek_moe_16b bf16 serving and training)")
+    return rows, by_path, representatives_moe(rows, n_slots, m_train,
+                                              buckets[-1])
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -4215,6 +4906,11 @@ def main() -> int:
                                      m_values=m_values)
     by_path.update(by_path_g)
     lap("gemma2_2b and paligemma_3b phases")
+    rows_m, by_path_m, representative_m = run_moe(
+        device, smi, batch=batch, seq=seq, n_slots=n_slots,
+        block_len=block_len, max_len=max_len, buckets=buckets)
+    by_path.update(by_path_m)
+    lap("deepseek_moe_16b and qwen3_moe_235b phases")
 
     from repro_torch.configs import llama_7b
     rows = sl_rows + at_rows + tr_rows + ad_rows + sp_rows + st_rows
@@ -4224,7 +4920,8 @@ def main() -> int:
         rows_7b, representatives(llama_7b.CONFIG, rows_7b, batch * seq,
                                  n_slots, buckets[-1]),
         rows_g, representatives_families(rows_g, n_slots, batch * seq,
-                                         buckets[-1]))
+                                         buckets[-1]),
+        rows_m, representative_m)
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

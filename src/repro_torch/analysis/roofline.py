@@ -14,21 +14,35 @@ PEAK_FLOPS = 989e12        # bf16 FLOP/s per card (H100 SXM data sheet)
 
 
 def param_count_active(cfg) -> Tuple[float, float]:
-    """(total_params, active_params) analytic estimate for 6·N·D: the dense
+    """(total_params, active_params) analytic estimate for 6·N·D: the
     model's matrix sizes, as the reference counts them, for the llama,
-    gemma2 and vlm families (gemma2's post-norms and biases are not
-    counted, as the reference counts neither). The MoE and SSM counts wait
-    for their families (ROADMAP queue A items 9b and 9)."""
-    if cfg.family not in ("llama", "gemma2", "vlm") or cfg.moe.n_experts \
-            or not cfg.d_ff:
+    gemma2, vlm and MoE families (gemma2's post-norms and biases are not
+    counted, as the reference counts neither). With experts, the active
+    count takes the top-k routed and the shared experts of each MoE layer
+    and the dense prefix's MLPs, and both counts an untied head (the
+    reference's). The SSM and encoder families wait for their slice
+    (ROADMAP queue A item 9)."""
+    if cfg.family not in ("llama", "gemma2", "vlm", "moe") or \
+            not (cfg.d_ff or cfg.moe.n_experts):
         raise NotImplementedError(
             f"param_count_active: {cfg.name} (family {cfg.family!r}) is not "
-            "ported yet (ROADMAP queue A item 9b: MoE; item 9: the SSM and "
-            "encoder families)")
+            "ported yet (ROADMAP queue A item 9: the SSM and encoder "
+            "families)")
     d, L, V = cfg.d_model, cfg.n_layers, cfg.padded_vocab
     hd = cfg.resolved_head_dim
     attn = d * (cfg.n_heads * hd) + 2 * d * (cfg.n_kv_heads * hd) \
         + (cfg.n_heads * hd) * d
+    m = cfg.moe
+    if m.n_experts > 0:
+        expert = 3 * d * (m.d_ff_expert or cfg.d_ff)
+        ffn_total = (m.n_experts + m.n_shared_experts) * expert
+        ffn_active = (m.top_k + m.n_shared_experts) * expert
+        dense_extra = m.first_k_dense * 3 * d * (m.d_ff_dense or cfg.d_ff)
+        n_moe_layers = L - m.first_k_dense
+        total = L * attn + n_moe_layers * ffn_total + dense_extra + 2 * V * d
+        active = L * attn + n_moe_layers * ffn_active + dense_extra \
+            + 2 * V * d
+        return float(total), float(active)
     ffn = 3 * d * cfg.d_ff
     total = L * (attn + ffn) + (V * d if cfg.tie_embeddings else 2 * V * d)
     return float(total), float(total)

@@ -60,6 +60,14 @@
 // slots of the tile in registers (a tile with more than SPT * THREADS
 // slots is split over blockIdx.z); one fmaf per slot and token, in
 // ascending m. Every load is bounds-checked, so no operand is copied.
+//
+// Grouped launch (sddmm_grouped_launch): E (x, dy, support) triples of one
+// shape stacked on a leading expert axis (an MoE layer's experts, batched
+// under the reference's vmap). The expert is the outermost grid index
+// (blockIdx.z; the f32 kernel folds it with its slot groups) and moves
+// each pointer by its stride before the first load; a single call is
+// the case E = 1, so a grouped launch gives the bits of a loop of single
+// launches.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,7 +92,8 @@ constexpr int MC = 32;        // token rows staged per chunk
 __global__ void __launch_bounds__(THREADS)
 sddmm_kernel(const float* __restrict__ x, const float* __restrict__ dy,
              const int* __restrict__ rows_t, const int* __restrict__ cols_t,
-             float* __restrict__ out, int M, int K, int N, int cap) {
+             float* __restrict__ out, int M, int K, int N, int cap,
+             int nkt) {
   __shared__ float xs[MC * TILE];
   __shared__ float ds[MC * TILE];
 
@@ -92,8 +101,14 @@ sddmm_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   const int nnt = gridDim.x;
   const int k0 = kt * TILE, n0 = nt * TILE;
   const int tid = threadIdx.x;
+  const int groups = (cap + SPT * THREADS - 1) / (SPT * THREADS);
+  const size_t ex = blockIdx.z / groups;        // the expert
+  x += ex * M * K;
+  dy += ex * M * N;
+  const size_t tstride = (size_t)nkt * nnt * cap;
+  rows_t += ex * tstride; cols_t += ex * tstride; out += ex * tstride;
   const size_t tbase = ((size_t)kt * nnt + nt) * (size_t)cap;
-  const int e0 = blockIdx.z * (SPT * THREADS) + tid;
+  const int e0 = (blockIdx.z % groups) * (SPT * THREADS) + tid;
 
   int r[SPT], c[SPT];
   float acc[SPT];
@@ -132,11 +147,12 @@ sddmm_kernel(const float* __restrict__ x, const float* __restrict__ dy,
 
 cudaError_t launch_f32(const float* x, const float* dy, const int* rows_t,
                        const int* cols_t, float* out, int M, int K, int N,
-                       int nkt, int nnt, int cap, cudaStream_t stream) {
+                       int nkt, int nnt, int cap, int E,
+                       cudaStream_t stream) {
   const int groups = (cap + SPT * THREADS - 1) / (SPT * THREADS);
-  const dim3 grid(nnt, nkt, groups);
+  const dim3 grid(nnt, nkt, E * groups);
   sddmm_kernel<<<grid, THREADS, 0, stream>>>(x, dy, rows_t, cols_t, out, M,
-                                              K, N, cap);
+                                              K, N, cap, nkt);
   return cudaGetLastError();
 }
 
@@ -168,6 +184,11 @@ sddmm_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   extern __shared__ __align__(16) uint8_t tc_smem[];
   uint8_t* smem = align_smem(tc_smem);
   const int nt = blockIdx.x, kt = blockIdx.y, nnt = gridDim.x;
+  const size_t ex = blockIdx.z;                 // the expert
+  x += ex * M * ldx;
+  dy += ex * M * ldd;
+  const size_t tstride = (size_t)gridDim.y * nnt * cap;
+  rows_t += ex * tstride; cols_t += ex * tstride; out += ex * tstride;
   const int k0 = kt * TILE, n0 = nt * TILE;
   const int tid = threadIdx.x, wg = tid >> 7;
   const int nch = (M + TC_MC - 1) / TC_MC;
@@ -255,7 +276,7 @@ sddmm_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 
 cudaError_t launch_tc(const bf16* x, const bf16* dy, const int* rows_t,
                       const int* cols_t, float* out, int M, int ldx, int ldd,
-                      int nkt, int nnt, int cap, cudaStream_t stream) {
+                      int nkt, int nnt, int cap, int E, cudaStream_t stream) {
   if (ldx % 8 != 0 || ldd % 8 != 0 ||
       (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(dy) & 15) != 0)
@@ -267,29 +288,33 @@ cudaError_t launch_tc(const bf16* x, const bf16* dy, const int* rows_t,
         TC_SMEM);
   });
   if (err != cudaSuccess) return err;
-  sddmm_tc_kernel<<<dim3(nnt, nkt), THREADS, TC_SMEM, stream>>>(
+  sddmm_tc_kernel<<<dim3(nnt, nkt, E), THREADS, TC_SMEM, stream>>>(
       x, dy, rows_t, cols_t, out, M, ldx, ldd, cap);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). dtype: 0 = float32, 1 = bf16.
-// For bf16, ldx and ldd are the row lengths of x and dy: multiples of 8,
-// 16-byte aligned rows, zeros past K and N (K and N for f32). Returns the
-// cudaError_t of the launch (0 = success).
-extern "C" int sddmm_launch(const void* x, const void* dy, const int* rows_t,
-                            const int* cols_t, float* out, int M, int K,
-                            int N, int nkt, int nnt, int cap, int ldx,
-                            int ldd, int dtype, void* stream) {
+// Plain C entry point (bound with ctypes) of E sddmm calls of one shape
+// (E = 1 for one call), each operand stacked contiguously on a leading
+// expert axis: x (E, M, ldx), dy (E, M, ldd), rows_t/cols_t and out (E,
+// nkt, nnt, cap). dtype: 0 = float32, 1 = bf16. For bf16, ldx and ldd are the row lengths of x
+// and dy: multiples of 8, 16-byte aligned rows, zeros past K and N (K
+// and N for f32). Returns the cudaError_t of the launch (0 = success).
+extern "C" int sddmm_grouped_launch(const void* x, const void* dy,
+                                    const int* rows_t, const int* cols_t,
+                                    float* out, int M, int K, int N, int nkt,
+                                    int nnt, int cap, int ldx, int ldd,
+                                    int dtype, int E, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E < 1 || E > 65535) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return (int)launch_tc(static_cast<const bf16*>(x),
                           static_cast<const bf16*>(dy), rows_t, cols_t, out,
-                          M, ldx, ldd, nkt, nnt, cap, s);
+                          M, ldx, ldd, nkt, nnt, cap, E, s);
   return (int)launch_f32(static_cast<const float*>(x),
                          static_cast<const float*>(dy), rows_t, cols_t, out,
-                         M, K, N, nkt, nnt, cap, s);
+                         M, K, N, nkt, nnt, cap, E, s);
 }
 
 extern "C" const char* kernel_error_string(int err) {

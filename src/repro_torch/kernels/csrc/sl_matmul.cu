@@ -64,6 +64,22 @@
 // * Deterministic: no float atomics in device memory, every f32 sum in a
 //   fixed order, so a rerun gives the same bits.
 //
+// Grouped launch (sl_matmul_grouped_launch, the one entry point): E
+// linears of one shape at once, each operand stacked on a leading axis
+// (an MoE layer's experts, which the TPU kernel runs batched under the
+// reference's vmap over the expert stack). Every kernel takes the expert
+// as its outermost grid index (blockIdx.z; the f32 small-M kernel folds
+// it with its row blocks) and moves each pointer by that expert's stride
+// (struct Stack) before its first load; the reduce walks E * M * N
+// outputs. A single linear is the case E = 1, so an expert's device
+// code, its sums and their order are those of a single launch: a grouped
+// launch gives the bits of a loop of single launches. The two bf16
+// densifying kernels, held to 128 registers for two blocks an SM, take
+// the offsets only in their grouped instantiation (kGrouped): the
+// offsets' registers would spill in a single launch. Scratch grows by E
+// (the two-stage Wt: E * nnt*128 * nkt*128 bf16, 369 MB at 64 experts
+// of 2048 -> 1408).
+//
 // f32: the CUDA-core kernels of the first port (the tensor cores have no
 // f32 mode apart from TF32, which the port never turns on), unchanged:
 // * Every (k-tile, n-tile[, row block]) is its own block, writing an f32
@@ -87,6 +103,12 @@ constexpr int TILE = 128;        // W tile edge (support.TILE)
 constexpr int RK = 32;           // rank chunk staged in shared memory
 constexpr int BST = TILE + 1;    // padded row stride of the B chunk
 constexpr int THREADS = 256;
+
+// Per-expert element strides of a grouped launch: the kernels move each
+// pointer by its stride times the expert's index.
+struct Stack {
+  size_t x, B, A, t, partial, w, y;
+};
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 
@@ -182,7 +204,7 @@ sl_tile_kernel(const T* __restrict__ x, const T* __restrict__ B,
                const T* __restrict__ A, const float* __restrict__ v_t,
                const int* __restrict__ rows_t, const int* __restrict__ cols_t,
                float* __restrict__ partial, int M, int K, int N, int r,
-               int cap, float scale) {
+               int cap, float scale, Stack st) {
   extern __shared__ float smem[];
   float* Wt = smem;                       // [TILE][TILE]
   float* Bs = Wt + TILE * TILE;           // [RK][BST]  (B chunk, transposed)
@@ -191,8 +213,13 @@ sl_tile_kernel(const T* __restrict__ x, const T* __restrict__ B,
 
   const int nt = blockIdx.x, kt = blockIdx.y;
   const int k0 = kt * TILE, n0 = nt * TILE;
-  const int m0 = blockIdx.z * (2 * RPT);
+  const int nrb = (M + 2 * RPT - 1) / (2 * RPT);   // row blocks an expert
+  const size_t ex = blockIdx.z / nrb;
+  const int m0 = (blockIdx.z % nrb) * (2 * RPT);
   const int tid = threadIdx.x;
+  x += ex * st.x; B += ex * st.B; A += ex * st.A;
+  v_t += ex * st.t; rows_t += ex * st.t; cols_t += ex * st.t;
+  partial += ex * st.partial;
 
   densify_tile<T>(B, A, v_t, rows_t, cols_t, Wt, Bs, As, kt, nt, gridDim.x,
                   K, N, r, cap, scale);
@@ -241,7 +268,7 @@ sl_tile_loop_kernel(const T* __restrict__ x, const T* __restrict__ B,
                     const int* __restrict__ rows_t,
                     const int* __restrict__ cols_t,
                     float* __restrict__ partial, int M, int K, int N, int r,
-                    int cap, float scale) {
+                    int cap, float scale, Stack st) {
   extern __shared__ float smem[];
   float* Wt = smem;                       // [TILE][TILE]
   float* Bs = Wt + TILE * TILE;           // [RK][BST]  (B, then x, chunks)
@@ -251,6 +278,10 @@ sl_tile_loop_kernel(const T* __restrict__ x, const T* __restrict__ B,
   const int k0 = kt * TILE, n0 = nt * TILE;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
+  const size_t ex = blockIdx.z;
+  x += ex * st.x; B += ex * st.B; A += ex * st.A;
+  v_t += ex * st.t; rows_t += ex * st.t; cols_t += ex * st.t;
+  partial += ex * st.partial;
 
   densify_tile<T>(B, A, v_t, rows_t, cols_t, Wt, Bs, As, kt, nt, gridDim.x,
                   K, N, r, cap, scale);
@@ -300,14 +331,18 @@ sl_tile_loop_kernel(const T* __restrict__ x, const T* __restrict__ B,
   }
 }
 
-// y[m, n] = T(sum over k-tiles, in order, of partial[kt, m, n]).
+// y[e, m, n] = T(sum over k-tiles, in order, of partial[e, kt, m, n]),
+// for E experts' (nkt, M, N) partials and (M, N) outputs, stacked.
 template <typename T>
 __global__ void sl_reduce_kernel(const float* __restrict__ partial,
-                                 T* __restrict__ y, int nkt, size_t mn) {
+                                 T* __restrict__ y, int nkt, size_t mn,
+                                 size_t total) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
+  if (i >= total) return;
+  const size_t e = i / mn, j = i - e * mn;
+  const float* p = partial + e * (size_t)nkt * mn + j;
   float s = 0.f;
-  for (int kt = 0; kt < nkt; ++kt) s += partial[(size_t)kt * mn + i];
+  for (int kt = 0; kt < nkt; ++kt) s += p[(size_t)kt * mn];
   y[i] = from_f<T>(s);
 }
 
@@ -316,18 +351,18 @@ cudaError_t launch_rpt(const void* x, const void* B, const void* A,
                        const float* v_t, const int* rows_t,
                        const int* cols_t, float* partial, int M, int K,
                        int N, int r, int nkt, int nnt, int cap, float scale,
-                       cudaStream_t stream) {
+                       int E, Stack st, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (TILE * TILE + RK * BST + RK * TILE + 2 * RPT * TILE);
   cudaError_t err = cudaFuncSetAttribute(
       sl_tile_kernel<T, RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(nnt, nkt, (M + 2 * RPT - 1) / (2 * RPT));
+  const dim3 grid(nnt, nkt, E * ((M + 2 * RPT - 1) / (2 * RPT)));
   sl_tile_kernel<T, RPT><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(B),
       static_cast<const T*>(A), v_t, rows_t, cols_t, partial, M, K, N, r,
-      cap, scale);
+      cap, scale, st);
   return cudaGetLastError();
 }
 
@@ -336,17 +371,17 @@ cudaError_t launch_loop(const void* x, const void* B, const void* A,
                         const float* v_t, const int* rows_t,
                         const int* cols_t, float* partial, int M, int K,
                         int N, int r, int nkt, int nnt, int cap, float scale,
-                        cudaStream_t stream) {
+                        int E, Stack st, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (TILE * TILE + RK * BST + RK * TILE);
   cudaError_t err = cudaFuncSetAttribute(
       sl_tile_loop_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(nnt, nkt, 1);
+  const dim3 grid(nnt, nkt, E);
   sl_tile_loop_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(B),
       static_cast<const T*>(A), v_t, rows_t, cols_t, partial, M, K, N, r,
-      cap, scale);
+      cap, scale, st);
   return cudaGetLastError();
 }
 
@@ -354,23 +389,24 @@ template <typename T>
 cudaError_t launch(const void* x, const void* B, const void* A,
                    const float* v_t, const int* rows_t, const int* cols_t,
                    float* partial, void* y, int M, int K, int N, int r,
-                   int nkt, int nnt, int cap, float scale,
+                   int nkt, int nnt, int cap, float scale, int E, Stack st,
                    cudaStream_t stream) {
   cudaError_t err;
   if (M <= 8)
     err = launch_rpt<T, 4>(x, B, A, v_t, rows_t, cols_t, partial, M, K, N, r,
-                           nkt, nnt, cap, scale, stream);
+                           nkt, nnt, cap, scale, E, st, stream);
   else if (M <= 32)
     err = launch_rpt<T, 16>(x, B, A, v_t, rows_t, cols_t, partial, M, K, N,
-                            r, nkt, nnt, cap, scale, stream);
+                            r, nkt, nnt, cap, scale, E, st, stream);
   else
     err = launch_loop<T>(x, B, A, v_t, rows_t, cols_t, partial, M, K, N, r,
-                         nkt, nnt, cap, scale, stream);
+                         nkt, nnt, cap, scale, E, st, stream);
   if (err != cudaSuccess) return err;
-  const size_t mn = (size_t)M * N;
+  const size_t mn = (size_t)M * N, total = mn * E;
   const int threads = 256;
-  sl_reduce_kernel<T><<<(unsigned)((mn + threads - 1) / threads), threads, 0,
-                        stream>>>(partial, static_cast<T*>(y), nkt, mn);
+  sl_reduce_kernel<T><<<(unsigned)((total + threads - 1) / threads), threads,
+                        0, stream>>>(partial, static_cast<T*>(y), nkt, mn,
+                                     total);
   return cudaGetLastError();
 }
 
@@ -559,16 +595,23 @@ __host__ __device__ __forceinline__ int x_tile_offset(int mt) {
 // memory and multiplies all of x's rows (padded to 16) by it with
 // mma.sync; writes the f32 partial[kt, :M, n0:n0+128]. Each warp owns 16
 // columns of the product. x has rows of ldx elements (a multiple of 8).
+template <bool kGrouped>
 __global__ void __launch_bounds__(THREADS, 2)
 sl_tc_tile_kernel(const bf16* __restrict__ x, const bf16* __restrict__ B,
                   const bf16* __restrict__ A, const float* __restrict__ v_t,
                   const int* __restrict__ rows_t,
                   const int* __restrict__ cols_t, float* __restrict__ partial,
                   int M, int K, int N, int r, int ldx, int ldb, int lda,
-                  int cap, float scale) {
+                  int cap, float scale, Stack st) {
   extern __shared__ __align__(16) uint8_t tc_smem[];
   uint8_t* smem = align_smem(tc_smem);
   const int nt = blockIdx.x, kt = blockIdx.y;
+  if (kGrouped) {
+    const size_t ex = blockIdx.z;
+    x += ex * st.x; B += ex * st.B; A += ex * st.A;
+    v_t += ex * st.t; rows_t += ex * st.t; cols_t += ex * st.t;
+    partial += ex * st.partial;
+  }
   const int k0 = kt * TILE, n0 = nt * TILE;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int mt = (M + 15) / 16;
@@ -662,16 +705,24 @@ sl_tc_tile_kernel(const bf16* __restrict__ x, const bf16* __restrict__ B,
 // to bf16, transposed, into Wt[(n0 + c) * ldw + k0 + kk] (Wt is
 // (nnt*128, nkt*128), K-major for the GEMM's B operand). Rows past K and
 // columns past N come out exactly 0.
+template <bool kGrouped>
 __global__ void __launch_bounds__(THREADS, 2)
 sl_tc_densify_kernel(const bf16* __restrict__ B, const bf16* __restrict__ A,
                      const float* __restrict__ v_t,
                      const int* __restrict__ rows_t,
                      const int* __restrict__ cols_t, bf16* __restrict__ Wt,
-                     int K, int r, int ldb, int lda, int cap, float scale) {
+                     int K, int r, int ldb, int lda, int cap, float scale,
+                     Stack st) {
   extern __shared__ __align__(16) uint8_t tc_smem[];
   uint8_t* smem = align_smem(tc_smem);
   const int nt = blockIdx.x, kt = blockIdx.y;
   const int ldw = gridDim.y * TILE;
+  if (kGrouped) {
+    const size_t ex = blockIdx.z;
+    B += ex * st.B; A += ex * st.A;
+    v_t += ex * st.t; rows_t += ex * st.t; cols_t += ex * st.t;
+    Wt += ex * st.w;
+  }
   densify_tc(B, A, v_t, rows_t, cols_t, smem, kt, nt, gridDim.x, K, r, ldb,
              lda, cap, scale, [] {});
   const float* Wf = reinterpret_cast<const float*>(smem);
@@ -731,11 +782,13 @@ static_assert(GM * YLD * (int)sizeof(bf16) <= GSTAGES * GSTAGE_BYTES,
 __global__ void __launch_bounds__(THREADS, 1)
 sl_tc_gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ Wt,
                   bf16* __restrict__ y, int M, int ldx, int N, int nrows_w,
-                  int ldw) {
+                  int ldw, Stack st) {
   extern __shared__ __align__(16) uint8_t tc_smem[];
   uint8_t* smem = align_smem(tc_smem);
   const int tid = threadIdx.x, wg = tid >> 7;
   const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
+  const size_t ex = blockIdx.z;
+  x += ex * st.x; Wt += ex * st.w; y += ex * st.y;
   const int nk = ldw / GK;
 
   auto load_stage = [&](int s) {
@@ -825,22 +878,25 @@ cudaError_t launch_bf16_single(const bf16* x, const bf16* B, const bf16* A,
                                const int* cols_t, float* partial, bf16* y,
                                int M, int K, int N, int r, int nkt, int nnt,
                                int cap, int ldx, int ldb, int lda,
-                               float scale, cudaStream_t stream) {
+                               float scale, int E, Stack st,
+                               cudaStream_t stream) {
   if (M > SMALL_M_ROWS) return cudaErrorInvalidValue;
   const int mt = (M + 15) / 16;
   const int x_end = x_tile_offset(mt) + 16 * mt * LD * (int)sizeof(bf16);
   const int smem = SMEM_ALIGN + (x_end > DENSE_BYTES ? x_end : DENSE_BYTES);
+  const auto kernel = E > 1 ? sl_tc_tile_kernel<true>
+                            : sl_tc_tile_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      sl_tc_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  sl_tc_tile_kernel<<<dim3(nnt, nkt), THREADS, smem, stream>>>(
+  kernel<<<dim3(nnt, nkt, E), THREADS, smem, stream>>>(
       x, B, A, v_t, rows_t, cols_t, partial, M, K, N, r, ldx, ldb, lda, cap,
-      scale);
+      scale, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t mn = (size_t)M * N;
-  sl_reduce_kernel<bf16><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
-      partial, y, nkt, mn);
+  const size_t mn = (size_t)M * N, total = mn * E;
+  sl_reduce_kernel<bf16><<<(unsigned)((total + 255) / 256), 256, 0,
+                           stream>>>(partial, y, nkt, mn, total);
   return cudaGetLastError();
 }
 
@@ -849,58 +905,65 @@ cudaError_t launch_bf16_two_stage(const bf16* x, const bf16* B,
                                   const int* rows_t, const int* cols_t,
                                   bf16* Wt, bf16* y, int M, int K, int N,
                                   int r, int nkt, int nnt, int cap, int ldx,
-                                  int ldb, int lda, float scale,
-                                  cudaStream_t stream) {
+                                  int ldb, int lda, float scale, int E,
+                                  Stack st, cudaStream_t stream) {
   const int dsmem = SMEM_ALIGN + DENSE_BYTES;
+  const auto densify = E > 1 ? sl_tc_densify_kernel<true>
+                             : sl_tc_densify_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      sl_tc_densify_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dsmem);
+      densify, cudaFuncAttributeMaxDynamicSharedMemorySize, dsmem);
   if (err != cudaSuccess) return err;
-  sl_tc_densify_kernel<<<dim3(nnt, nkt), THREADS, dsmem, stream>>>(
-      B, A, v_t, rows_t, cols_t, Wt, K, r, ldb, lda, cap, scale);
+  densify<<<dim3(nnt, nkt, E), THREADS, dsmem, stream>>>(
+      B, A, v_t, rows_t, cols_t, Wt, K, r, ldb, lda, cap, scale, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(sl_tc_gemm_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              GEMM_SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + GN - 1) / GN, (M + GM - 1) / GM);
+  const dim3 grid((N + GN - 1) / GN, (M + GM - 1) / GM, E);
   sl_tc_gemm_kernel<<<grid, THREADS, GEMM_SMEM, stream>>>(
-      x, Wt, y, M, ldx, N, nnt * TILE, nkt * TILE);
+      x, Wt, y, M, ldx, N, nnt * TILE, nkt * TILE, st);
   return cudaGetLastError();
 }
 }  // namespace
 
-// Plain C entry point (bound with ctypes). variant: 0 = f32 (partial),
-// 1 = bf16 single pass (partial), 2 = bf16 two stage (w_t). For bf16,
-// ldx, ldb and lda are the row strides of x, B and A (multiples of 8,
-// 16-byte aligned rows; zeros past K, r and N). partial: f32 scratch of
-// nkt * M * N elements; w_t: bf16 scratch of nnt*128 * nkt*128; each may
-// be null where its variant does not use it. Returns the cudaError_t of
+// Plain C entry point (bound with ctypes) of E linears of one shape
+// (E = 1 for one linear), each operand stacked contiguously on a leading
+// expert axis: x (E, M, ldx), B (E, K, ldb), A (E, r, lda),
+// v_t/rows_t/cols_t (E, nkt, nnt, cap), y (E, M, N); scratch partial (E,
+// nkt, M, N) f32 or w_t (E, nnt*128, nkt*128) bf16. variant: 0 = f32 (partial), 1 = bf16 single
+// pass (partial), 2 = bf16 two stage (w_t). For bf16, ldx, ldb and lda
+// are the row strides of x, B and A (multiples of 8, 16-byte aligned
+// rows; zeros past K, r and N); for f32 they are K, r and N. Scratch
+// that a variant does not use may be null. Returns the cudaError_t of
 // the launches (0 = success).
-extern "C" int sl_matmul_launch(const void* x, const void* B, const void* A,
-                                const float* v_t, const int* rows_t,
-                                const int* cols_t, float* partial, void* w_t,
-                                void* y, int M, int K, int N, int r, int nkt,
-                                int nnt, int cap, int ldx, int ldb, int lda,
-                                float scale, int variant, void* stream) {
+extern "C" int sl_matmul_grouped_launch(
+    const void* x, const void* B, const void* A, const float* v_t,
+    const int* rows_t, const int* cols_t, float* partial, void* w_t,
+    void* y, int M, int K, int N, int r, int nkt, int nnt, int cap, int ldx,
+    int ldb, int lda, float scale, int variant, int E, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E < 1 || E > 65535) return (int)cudaErrorInvalidValue;
+  const Stack st{(size_t)M * ldx, (size_t)K * ldb, (size_t)r * lda,
+                 (size_t)nkt * nnt * cap, (size_t)nkt * M * N,
+                 (size_t)nnt * TILE * nkt * TILE, (size_t)M * N};
   switch (variant) {
     case 0:
       return (int)launch<float>(x, B, A, v_t, rows_t, cols_t, partial, y, M,
-                                K, N, r, nkt, nnt, cap, scale, s);
+                                K, N, r, nkt, nnt, cap, scale, E, st, s);
     case 1:
       return (int)launch_bf16_single(
           static_cast<const bf16*>(x), static_cast<const bf16*>(B),
           static_cast<const bf16*>(A), v_t, rows_t, cols_t, partial,
           static_cast<bf16*>(y), M, K, N, r, nkt, nnt, cap, ldx, ldb, lda,
-          scale, s);
+          scale, E, st, s);
     case 2:
       return (int)launch_bf16_two_stage(
           static_cast<const bf16*>(x), static_cast<const bf16*>(B),
           static_cast<const bf16*>(A), v_t, rows_t, cols_t,
           static_cast<bf16*>(w_t), static_cast<bf16*>(y), M, K, N, r, nkt,
-          nnt, cap, ldx, ldb, lda, scale, s);
+          nnt, cap, ldx, ldb, lda, scale, E, st, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

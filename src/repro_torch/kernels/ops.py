@@ -1,7 +1,9 @@
 """Wrappers around the kernels, as ``repro.kernels.ops`` has them: the
 tile-CSR support preparation, the flat-``v`` tile gather, the SLTrain
 linear of ``exec_mode="fused"`` (a ``torch.autograd.Function`` whose
-forward and dx run ``sl_matmul`` and whose dV runs ``sddmm``), the 8-bit
+forward and dx run ``sl_matmul`` and whose dV runs ``sddmm``; and its
+grouped form over an MoE layer's stacked experts, one launch of each
+kernel for all of them), the 8-bit
 Adam step on a list of leaves in one launch and on one leaf of any
 shape, the paged-attention calls with the
 GQA regroup, the factored decode of ``exec_mode="sparse"`` and
@@ -76,21 +78,12 @@ def add_transposed_tiles(consts):
 def _gather_tiles(v, perm):
     """Flat trainable v → f32 tile values through the layout permutation;
     padding slots (perm == -1) get exactly 0."""
-    vf = v.reshape(-1).float()
-    safe = perm.clamp(0, vf.shape[0] - 1).long()
-    return torch.where(perm >= 0, vf[safe], torch.zeros((), device=vf.device))
+    return _gather_tiles_grouped(v[None], perm[None])[0]
 
 
 def _scatter_tiles(dv_t, perm, numel: int):
-    """f32 tile grads → flat f32 grad of v through ``perm``. Every valid
-    perm entry appears exactly once (the tile-layout invariant), so a
-    plain indexed assignment is exact and no accumulating scatter is
-    needed: the result is the same on every run. Padding slots all write
-    one spare element past the end, which is dropped."""
-    idx = torch.where(perm >= 0, perm, numel).reshape(-1).long()
-    flat = torch.zeros(numel + 1, dtype=torch.float32, device=dv_t.device)
-    flat[idx] = dv_t.reshape(-1)
-    return flat[:numel]
+    """f32 tile grads → flat f32 grad of v through ``perm``."""
+    return _scatter_tiles_grouped(dv_t[None], perm[None], numel)[0]
 
 
 def sl_matmul(x, B, A, v_t, rows_t, cols_t, scale: float):
@@ -191,6 +184,96 @@ def sl_linear(x, B, A, v, rows_t, cols_t, perm, scale: float, *,
     them."""
     return _SLLinear.apply(x, B, A, v, rows_t, cols_t, perm, rows_tT,
                            cols_tT, scale)
+
+
+# ---------------------------------------------------------------------------
+# The fused linear over a stack of experts: grouped sl_matmul and sddmm
+# ---------------------------------------------------------------------------
+
+def _gather_tiles_grouped(v, perm):
+    """:func:`_gather_tiles` of each expert: v (E, ...) flat per expert,
+    perm (E, nkt, nnt, cap) → f32 (E, nkt, nnt, cap); padding slots
+    (perm == -1) get exactly 0."""
+    n_exp = perm.shape[0]
+    vf = v.reshape(n_exp, -1).float()
+    safe = perm.reshape(n_exp, -1).clamp(0, vf.shape[1] - 1).long()
+    vals = torch.gather(vf, 1, safe).reshape(perm.shape)
+    return torch.where(perm >= 0, vals, torch.zeros((), device=vf.device))
+
+
+def _scatter_tiles_grouped(dv_t, perm, per_expert: int):
+    """:func:`_scatter_tiles` of each expert: f32 (E, per_expert) grads of
+    the flat v stack. Every valid perm entry appears exactly once an
+    expert (the tile-layout invariant), so a plain scatter is exact and no
+    accumulating one is needed: the result is the same on every run.
+    Padding slots all write one spare column past the end, which is
+    dropped."""
+    n_exp = perm.shape[0]
+    idx = torch.where(perm >= 0, perm, per_expert).reshape(n_exp, -1).long()
+    flat = torch.zeros((n_exp, per_expert + 1), dtype=torch.float32,
+                       device=dv_t.device)
+    flat.scatter_(1, idx, dv_t.reshape(n_exp, -1))
+    return flat[:, :per_expert]
+
+
+def _lowrank_grads_grouped(x, dy, B, A, scale: float):
+    """:func:`_lowrank_grads` of each expert as batched f32 products: x (E,
+    M, K), dy (E, M, N) → (dB, dA). These products sit outside any Pallas
+    kernel in the reference (XLA's batched dots under its vmap)."""
+    f32 = torch.float32
+    xf, dyf = x.to(f32), dy.to(f32)
+    xB = torch.bmm(xf, B.to(f32))                                # (E, M, r)
+    dA = (scale * torch.bmm(xB.transpose(1, 2), dyf)).to(A.dtype)
+    dyA = torch.bmm(dyf, A.to(f32).transpose(1, 2))              # (E, M, r)
+    dB = (scale * torch.bmm(xf.transpose(1, 2), dyA)).to(B.dtype)
+    return dB, dA
+
+
+class _SLLinearGrouped(torch.autograd.Function):
+    """y[e] = x[e] @ (scale·B[e]·A[e] ⊕ V[e]) for a stack of E fused
+    linears of one shape (an MoE layer's experts): the forward is one
+    grouped ``sl_matmul`` launch, dx one grouped ``sl_matmul`` on the
+    transposed factors and Wᵀ's tiles, dV one grouped ``sddmm``, dB and dA
+    batched f32 products. Residuals are factored-sized, as
+    :class:`_SLLinear`'s."""
+
+    @staticmethod
+    def forward(ctx, x, B, A, v, rows_t, cols_t, perm, rows_tT, cols_tT,
+                scale):
+        v_t = _gather_tiles_grouped(v, perm)
+        ctx.save_for_backward(x, B, A, v, v_t, rows_t, cols_t, perm,
+                              rows_tT, cols_tT)
+        ctx.scale = scale
+        return sl_kernel.sl_matmul_grouped(x, B, A, v_t, rows_t, cols_t,
+                                           scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, B, A, v, v_t, rows_t, cols_t, perm, rows_tT, cols_tT = \
+            ctx.saved_tensors
+        _need_transposed_tiles(rows_tT, "sl_linear_grouped")
+        scale = ctx.scale
+        dy = dy.to(x.dtype).contiguous()
+        dB, dA = _lowrank_grads_grouped(x, dy, B, A, scale)
+        dv_t = sddmm_kernel.sddmm_grouped(x, dy, rows_t, cols_t)
+        dx = sl_kernel.sl_matmul_grouped(
+            dy, A.transpose(1, 2).contiguous(), B.transpose(1, 2).contiguous(),
+            transpose_tiles(v_t), rows_tT, cols_tT, scale)
+        dv = _scatter_tiles_grouped(dv_t, perm, v[0].numel())
+        return (dx.to(x.dtype), dB, dA, dv.reshape(v.shape).to(v.dtype),
+                None, None, None, None, None, None)
+
+
+def sl_linear_grouped(x, B, A, v, rows_t, cols_t, perm, scale: float, *,
+                      rows_tT=None, cols_tT=None):
+    """:func:`sl_linear` over a stack of E experts' linears of one shape:
+    x (E, M, K), B (E, K, r), A (E, r, N), the flat v stack (E, ...), the
+    tile consts (E, nkt, nnt, cap) and, for the backward, Wᵀ's (E, nnt,
+    nkt, cap) (:func:`add_transposed_tiles` builds them on stacked consts
+    too); differentiable in x, B, A and v. Returns (E, M, N)."""
+    return _SLLinearGrouped.apply(x.contiguous(), B.contiguous(),
+                                  A.contiguous(), v, rows_t, cols_t, perm,
+                                  rows_tT, cols_tT, scale)
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,13 @@ kernel or raises, never falls back.
 :func:`plan` says, from the shapes alone, which bf16 operand the wrapper
 copies with padded rows first (a width that is not a multiple of 8:
 llama_1b's d_ff = 5461), as ``sl_matmul`` does.
+
+:func:`sddmm_grouped` runs E calls of one shape (an MoE layer's experts,
+stacked on a leading axis) in one launch, the expert the grid's outermost
+index: the counterpart of the TPU kernel batched under the reference's
+vmap. Each expert's device code is the single launch's, so it gives the
+bits of a loop of :func:`sddmm`; its plain version is that loop over
+:func:`repro_torch.kernels.ref.sddmm_ref`.
 """
 from __future__ import annotations
 
@@ -51,9 +58,9 @@ def plan(m: int, k: int, n: int, dtype) -> Plan:
 
 def _lib():
     lib = build.library("sddmm")
-    fn = lib.sddmm_launch
+    fn = lib.sddmm_grouped_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 9 + [_P]
+        fn.argtypes = [_P] * 5 + [_I] * 10 + [_P]
         fn.restype = _I
     return lib
 
@@ -86,7 +93,7 @@ def pad_operands(p: Plan, x, dy):
     """x and dy as the bf16 kernel of plan ``p`` reads them: each one that
     ``p`` pads (or whose base is not 16-byte aligned) copied with
     zero-padded rows by ``sl_pad_rows`` on the current stream, the other
-    as it is."""
+    as it is (stacks too)."""
     return sl_kernel.pad_rows(x, p.x_pad), sl_kernel.pad_rows(dy, p.dy_pad)
 
 
@@ -101,26 +108,69 @@ def sddmm(x, dy, rows_t, cols_t):
     if x.device.type != "cuda":
         raise ValueError(f"sddmm: unsupported device {x.device}")
     _check(x, dy, rows_t, cols_t)
-    m, k = x.shape
-    n = dy.shape[1]
-    nkt, nnt, cap = rows_t.shape
-    if m == 0:
-        return torch.zeros((nkt, nnt, cap), dtype=torch.float32,
-                           device=x.device)
-    p = plan(m, k, n, x.dtype)
-    if p.variant != "f32":
-        x, dy = pad_operands(p, x, dy)
-    out = torch.empty((nkt, nnt, cap), dtype=torch.float32, device=x.device)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.sddmm_launch(x.data_ptr(), dy.data_ptr(), rows_t.data_ptr(),
-                               cols_t.data_ptr(), out.data_ptr(), m, k, n,
-                               nkt, nnt, cap, x.shape[1], dy.shape[1],
-                               _DTYPES[x.dtype], stream)
-    build.check(lib, err, "sddmm")
+    out = _launch(x[None], dy[None], rows_t[None], cols_t[None])[0]
     sddmm.launches += 1
     return out
 
 
 sddmm.launches = 0
+
+
+def sddmm_grouped(x, dy, rows_t, cols_t):
+    """dv_t (E, nkt, nnt, cap) f32 for E calls of one shape stacked on the
+    leading axis: x (E, M, K), dy (E, M, N) of one dtype, rows_t/cols_t
+    int32 (E, nkt, nnt, cap); each expert as :func:`sddmm`. On the card
+    one launch with the expert as the outer grid index; on the CPU a loop
+    of the plain version."""
+    if x.device.type == "cpu":
+        return torch.stack([ref.sddmm_ref(*t) for t in
+                            zip(x, dy, rows_t, cols_t)])
+    if x.device.type != "cuda":
+        raise ValueError(f"sddmm_grouped: unsupported device {x.device}")
+    if x.dim() != 3 or dy.dim() != 3 or rows_t.dim() != 4 or \
+            cols_t.dim() != 4:
+        raise ValueError("sddmm_grouped: x (E, M, K), dy (E, M, N) and the "
+                         "tile consts (E, nkt, nnt, cap) expected")
+    n_exp = x.shape[0]
+    if any(t.shape[0] != n_exp for t in (dy, rows_t, cols_t)):
+        raise ValueError("sddmm_grouped: operands stack different expert "
+                         "counts")
+    if not 1 <= n_exp <= 65535:
+        raise ValueError(f"sddmm_grouped: {n_exp} experts; the grid takes "
+                         "1 to 65535")
+    _check(x[0], dy[0], rows_t[0], cols_t[0])
+    for name, t in (("x", x), ("dy", dy), ("rows_t", rows_t),
+                    ("cols_t", cols_t)):
+        if not t.is_contiguous():
+            raise ValueError(f"sddmm_grouped: {name} must be contiguous")
+    out = _launch(x, dy, rows_t, cols_t)
+    sddmm_grouped.launches += 1
+    return out
+
+
+def _launch(x, dy, rows_t, cols_t):
+    """``sddmm_grouped_launch`` on E stacked calls (E = 1 for one): dv_t
+    (E, nkt, nnt, cap) f32."""
+    n_exp, m, k = x.shape
+    n = dy.shape[2]
+    _, nkt, nnt, cap = rows_t.shape
+    if m == 0:
+        return torch.zeros((n_exp, nkt, nnt, cap), dtype=torch.float32,
+                           device=x.device)
+    p = plan(m, k, n, x.dtype)
+    if p.variant != "f32":
+        x, dy = pad_operands(p, x, dy)
+    out = torch.empty((n_exp, nkt, nnt, cap), dtype=torch.float32,
+                      device=x.device)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.sddmm_grouped_launch(
+            x.data_ptr(), dy.data_ptr(), rows_t.data_ptr(), cols_t.data_ptr(),
+            out.data_ptr(), m, k, n, nkt, nnt, cap, x.shape[2], dy.shape[2],
+            _DTYPES[x.dtype], n_exp, stream)
+    build.check(lib, err, "sddmm")
+    return out
+
+
+sddmm_grouped.launches = 0

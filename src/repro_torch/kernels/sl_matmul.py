@@ -10,6 +10,14 @@ a CUDA tensor launches the kernel or raises, never falls back.
 keeps the CUDA-core kernels with f32 partials; bf16 runs on the tensor
 cores, in one pass with small f32 partials up to ``SMALL_M_MAX`` rows and
 in two stages (a bf16 W in scratch, then an in-block k loop) above.
+
+:func:`sl_matmul_grouped` runs E linears of one shape (an MoE layer's
+experts, stacked on a leading axis) in one launch per stage of the same
+plan, the expert the grid's outermost index: the counterpart of the TPU
+kernel batched under the reference's vmap over the expert stack. Each
+expert's device code is the single launch's, so it gives the bits of a
+loop of :func:`sl_matmul`; its plain version is that loop over
+:func:`repro_torch.kernels.ref.sl_matmul_ref`.
 """
 from __future__ import annotations
 
@@ -70,9 +78,9 @@ def plan(m: int, k: int, n: int, r: int, dtype,
 
 def _lib():
     lib = build.library("sl_matmul")
-    fn = lib.sl_matmul_launch
+    fn = lib.sl_matmul_grouped_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 9 + [_I] * 10 + [ctypes.c_float, _I, _P]
+        fn.argtypes = [_P] * 9 + [_I] * 10 + [ctypes.c_float, _I, _I, _P]
         fn.restype = _I
         lib.sl_pad_rows.argtypes = [_P, _P, _I, _I, _I, _P]
         lib.sl_pad_rows.restype = _I
@@ -113,6 +121,29 @@ def _check(x, B, A, v_t, rows_t, cols_t):
             raise ValueError(f"sl_matmul: {name} must be contiguous")
 
 
+def _check_grouped(x, B, A, v_t, rows_t, cols_t):
+    """The checks of :func:`_check` for each expert of a stack, and one
+    expert count on every operand's leading axis."""
+    if x.dim() != 3 or B.dim() != 3 or A.dim() != 3 or v_t.dim() != 4 or \
+            rows_t.dim() != 4 or cols_t.dim() != 4:
+        raise ValueError(
+            f"sl_matmul_grouped: x (E, M, K), B (E, K, r), A (E, r, N) and "
+            f"the tile consts (E, nkt, nnt, cap) expected, got "
+            f"{[tuple(t.shape) for t in (x, B, A, v_t, rows_t, cols_t)]}")
+    n_exp = x.shape[0]
+    if any(t.shape[0] != n_exp for t in (B, A, v_t, rows_t, cols_t)):
+        raise ValueError("sl_matmul_grouped: operands stack different "
+                         "expert counts")
+    if not 1 <= n_exp <= 65535:
+        raise ValueError(f"sl_matmul_grouped: {n_exp} experts; the grid "
+                         "takes 1 to 65535")
+    _check(x[0], B[0], A[0], v_t[0], rows_t[0], cols_t[0])
+    for name, t in (("x", x), ("B", B), ("A", A), ("v_t", v_t),
+                    ("rows_t", rows_t), ("cols_t", cols_t)):
+        if not t.is_contiguous():
+            raise ValueError(f"sl_matmul_grouped: {name} must be contiguous")
+
+
 def _padded(lib, stream, t, shape):
     """A copy of ``t`` of ``shape`` (or of t's own shape), the rows
     padded with zeros to a multiple of 8, made by the kernel library's pad
@@ -134,20 +165,25 @@ def pad_rows(t, shape):
     time reads it: ``t`` itself where ``shape`` is None and its base is
     16-byte aligned, else a copy of ``shape`` (or of t's own shape) with
     zero-padded rows, made by the library's pad kernel on the current
-    stream."""
+    stream. A stack (E, rows, cols) is padded as its E·rows rows, each
+    matrix to ``shape``."""
     _cuda_only(t)
     if shape is None and t.data_ptr() % 16 == 0:
         return t
     lib = _lib()
+    cols = t.shape[-1]
+    ld = shape[1] if shape else cols
     with torch.cuda.device(t.device):
-        return _padded(lib, torch.cuda.current_stream(t.device).cuda_stream,
-                       t, shape)
+        out = _padded(lib, torch.cuda.current_stream(t.device).cuda_stream,
+                      t.reshape(-1, cols), (t.numel() // cols, ld))
+    return out.reshape(*t.shape[:-1], ld)
 
 
 def pad_operands(p: Plan, x, B, A):
     """x, B and A as the bf16 variants of plan ``p`` read them: each one
     that ``p`` pads (or whose base is not 16-byte aligned) copied with
-    zero-padded rows on the current stream, the others as they are."""
+    zero-padded rows on the current stream, the others as they are
+    (stacks too)."""
     return tuple(pad_rows(t, shape) for t, shape in
                  ((x, p.x_pad), (B, p.b_pad), (A, p.a_pad)))
 
@@ -169,18 +205,59 @@ def sl_matmul(x, B, A, v_t, rows_t, cols_t, scale: float):
 
 def launch(p: Plan, x, B, A, v_t, rows_t, cols_t, scale: float):
     """The kernels of plan ``p`` on CUDA operands that :func:`sl_matmul`
-    accepts; it counts one launch. :func:`sl_matmul` passes the plan of
-    the shapes; a caller that times or tests one bf16 variant against the
-    other passes ``plan(..., small_m_max=0)``."""
+    accepts (the grouped launch of one linear); it counts one launch.
+    :func:`sl_matmul` passes the plan of the shapes; a caller that times
+    or tests one bf16 variant against the other passes ``plan(...,
+    small_m_max=0)``."""
+    y = _launch(p, *(t[None] for t in (x, B, A, v_t, rows_t, cols_t)),
+                scale)[0]
+    sl_matmul.launches += 1
+    return y
+
+
+sl_matmul.launches = 0
+
+
+def sl_matmul_grouped(x, B, A, v_t, rows_t, cols_t, scale: float):
+    """y (E, M, N) = x[e] @ (scale·B[e]·A[e] ⊕ V[e]) for each of E
+    linears of one shape, stacked on the leading axis: x (E, M, K), B (E,
+    K, r), A (E, r, N), v_t f32 and rows_t/cols_t int32 (E, nkt, nnt,
+    cap). On the card one launch per stage of ``plan(M, K, N, r,
+    dtype)``; on the CPU a loop of the plain version."""
+    if x.device.type == "cpu":
+        return torch.stack([ref.sl_matmul_ref(*t, scale) for t in
+                            zip(x, B, A, v_t, rows_t, cols_t)])
     _cuda_only(x)
-    m, k = x.shape
-    r, n = A.shape
-    nkt, nnt, cap = rows_t.shape
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    _check_grouped(x, B, A, v_t, rows_t, cols_t)
+    _, m, k = x.shape
+    r, n = A.shape[1:]
+    return launch_grouped(plan(m, k, n, r, x.dtype), x, B, A, v_t, rows_t,
+                          cols_t, scale)
+
+
+def launch_grouped(p: Plan, x, B, A, v_t, rows_t, cols_t, scale: float):
+    """The kernels of plan ``p`` over a stack of E linears that
+    :func:`sl_matmul_grouped` accepts, one launch a stage with the expert
+    as the outer grid index; it counts one launch."""
+    y = _launch(p, x, B, A, v_t, rows_t, cols_t, scale)
+    sl_matmul_grouped.launches += 1
+    return y
+
+
+def _launch(p: Plan, x, B, A, v_t, rows_t, cols_t, scale: float):
+    """``sl_matmul_grouped_launch`` on E stacked linears (E = 1 for one):
+    y (E, M, N). Scratch grows by E (the two-stage variant's bf16 Wᵀ
+    stack: E·nnt·128·nkt·128 elements)."""
+    _cuda_only(x)
+    n_exp, m, k = x.shape
+    r, n = A.shape[1:]
+    _, nkt, nnt, cap = rows_t.shape
+    y = torch.empty((n_exp, m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return y
     scratch = lambda shape, dt: (
-        torch.empty(shape, dtype=dt, device=x.device) if shape else None)
+        torch.empty((n_exp, *shape), dtype=dt, device=x.device)
+        if shape else None)
     partial = scratch(p.partial, torch.float32)
     w_t = scratch(p.w_t, torch.bfloat16)
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -188,15 +265,14 @@ def launch(p: Plan, x, B, A, v_t, rows_t, cols_t, scale: float):
         x, B, A = pad_operands(p, x, B, A)
     lib = _lib()
     with torch.cuda.device(x.device):
-        err = lib.sl_matmul_launch(
+        err = lib.sl_matmul_grouped_launch(
             x.data_ptr(), B.data_ptr(), A.data_ptr(), v_t.data_ptr(),
             rows_t.data_ptr(), cols_t.data_ptr(), ptr(partial), ptr(w_t),
-            y.data_ptr(), m, k, n, r, nkt, nnt, cap, x.shape[1],
-            B.shape[1], A.shape[1], float(scale), _VARIANTS[p.variant],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            y.data_ptr(), m, k, n, r, nkt, nnt, cap, x.shape[-1],
+            B.shape[-1], A.shape[-1], float(scale), _VARIANTS[p.variant],
+            n_exp, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "sl_matmul")
-    sl_matmul.launches += 1
     return y
 
 
-sl_matmul.launches = 0
+sl_matmul_grouped.launches = 0

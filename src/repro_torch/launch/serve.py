@@ -1,5 +1,5 @@
 """Serving launcher of the port: init a config (the paper's, or a gemma2,
-vlm or dense llama-variant arch) with seeded random
+vlm, dense llama-variant or MoE arch) with seeded random
 weights, or restore a training checkpoint, and serve batched requests
 through the engine: the contiguous cache by default, as the reference's
 launcher, the paged one with ``--paged``.
@@ -13,6 +13,8 @@ Usage (from the repository root, ``PYTHONPATH=src``):
       --prefix-sharing --exec-mode fused
   python -m repro_torch.launch.serve --arch gemma2_2b --paged --stream \
       --prefix-sharing --exec-mode fused
+  python -m repro_torch.launch.serve --arch deepseek_moe_16b --smoke \
+      --paged --prefix-sharing --exec-mode fused --device cpu
   python -m repro_torch.launch.serve --arch llama_60m --smoke --paged \
       --ckpt-dir /path/to/train/ckpt --exec-mode sparse
   python -m repro_torch.launch.serve --arch llama_60m --smoke --paged \

@@ -14,6 +14,8 @@ Usage:
       --optimizer adam8bit --exec-mode fused --steps 4
   python -m repro_torch.launch.train --arch gemma2_2b --exec-mode fused \\
       --steps 3             # also paligemma_3b, qwen2_5_32b, yi_34b, llama3_405b
+  python -m repro_torch.launch.train --arch deepseek_moe_16b --smoke \
+      --exec-mode fused --device cpu   # MoE; also qwen3_moe_235b
   python -m repro_torch.launch.train --arch llama_1b --mode dense   # full rank
   python -m repro_torch.launch.train --arch llama_1b --mode lowrank
   python -m repro_torch.launch.train --arch llama_1b --mode relora

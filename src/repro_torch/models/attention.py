@@ -1,8 +1,8 @@
 """Causal GQA attention with RoPE over the paged or the contiguous KV
 cache, ported from ``repro.models.attention``: qkv bias (qwen2.5), the
 ``query_pre_attn_scalar`` scale, the attention-logit softcap and sliding
-windows (gemma2). QK-norm (qwen3) waits for ROADMAP queue A item 9b, and
-``lm._check_family`` refuses it.
+windows (gemma2), and QK-norm (qwen3: an RMS norm of each head's q and k,
+after the heads are split and before rope, on every path).
 
 Scores follow the reference's order everywhere: q · scale in f32, the
 product with k in f32, the softcap, then the causal and window masks.
@@ -39,7 +39,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.common import Builder, apply_linear, rope, softcap
+from repro_torch.models.common import (Builder, apply_linear, rms_norm,
+                                       rope, softcap)
 from repro_torch.serve import kv as kv_lib
 
 NEG_INF = -1e30
@@ -57,6 +58,9 @@ def init_attention(b: Builder, cfg: ModelConfig):
         params[name] = p
         if c:
             consts[name] = c
+    if cfg.qk_norm:
+        params["q_norm"] = b.tensor("q_norm", (hd,), "ones")
+        params["k_norm"] = b.tensor("k_norm", (hd,), "ones")
     return params, consts
 
 
@@ -147,6 +151,9 @@ def apply_attention(cfg: ModelConfig, params, consts, x, *,
     q = lin("wq", x).reshape(bsz, sq, nh, hd)
     k = lin("wk", x).reshape(bsz, sq, nkv, hd)
     v = lin("wv", x).reshape(bsz, sq, nkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
 
     idx = 0 if cache_index is None else cache_index
     per_slot = torch.is_tensor(idx) and idx.dim() == 1

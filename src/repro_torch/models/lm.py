@@ -1,4 +1,4 @@
-"""Decoder-only LM of the llama, gemma2 and vlm families with its
+"""Decoder-only LM of the llama, gemma2, vlm and MoE families with its
 KV-cache serving steps (the paged and the contiguous cache), ported from
 ``repro.models.lm``.
 
@@ -6,10 +6,15 @@ Parameters keep the reference's scan layout: the layers are stacked in
 *pattern periods* on a leading axis, ``params["layers"]["k{j}"]`` holding
 the period's j-th block of each kind (``attn_pattern``: the llama
 families' one global block, gemma2's ("local", "global") pair), so a
-reference checkpoint maps onto them leaf for leaf. The forward walks the
-periods in a Python loop over views of the stacks; the per-layer train
-step drives its segments (``embed_apply``, ``period_apply``,
-``head_apply``) one period at a time.
+reference checkpoint maps onto them leaf for leaf. The MoE family's
+blocks hold an MoE feed-forward (``mlp.apply_moe``) and return its aux
+loss; its ``first_k_dense`` dense blocks (deepseek) sit before the
+periods in their own stack ``params["dense_layers"]`` (Builder path
+``/dense/dl{i}``, cache entry ``"dense_layers"``). The forward walks the
+dense prefix, then the periods, in Python loops over views of the stacks;
+the per-layer train step drives its segments (``embed_apply``,
+``dense_apply``, ``period_apply``, ``head_apply``) one block or period at
+a time.
 
 The gemma conventions (families gemma2 and vlm): norms scale by (1 + w)
 and start at zero under ``use_post_norms`` (and ``ln_f`` always), the
@@ -33,30 +38,43 @@ from repro_torch.models.common import (DTYPES, Builder, presample,
 from repro_torch.serve.kv import PagedLayout
 
 _GEMMA = ("gemma2", "vlm")
-_LM_FAMILIES = ("llama",) + _GEMMA
+_LM_FAMILIES = ("llama", "moe") + _GEMMA
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """The port runs the llama, gemma2 and vlm families without experts;
-    MoE, QK-norm (qwen3) and the non-lm families raise."""
-    if cfg.family == "moe" or cfg.moe.n_experts or cfg.qk_norm:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks and QK-norm are not ported yet (ROADMAP "
-            "queue A item 9b: MoE with the grouped expert launch, the "
-            "per-layer sweep's dense prefix and QK-norm)")
+    """The port runs the llama, gemma2, vlm and MoE families; the non-lm
+    families raise, and so does exec_mode quant on a model with experts
+    (its calibration of the expert stack waits with ROADMAP item 4b)."""
     if cfg.family not in _LM_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name} (family {cfg.family!r}) is not ported yet (ROADMAP "
-            "queue A item 9: mamba2, xlstm and whisper come after 9b)")
+            "queue A item 9: mamba2, xlstm and whisper)")
+    if cfg.moe.n_experts and cfg.param.mode == "sltrain" and \
+            cfg.param.exec_mode == "quant":
+        raise NotImplementedError(
+            f"{cfg.name}: exec_mode 'quant' on an MoE expert stack is not "
+            "ported yet (ROADMAP queue A item 4b: quant at full width, MoE "
+            "included); serve it in exec_mode fused or sparse")
+
+
+def _n_dense(cfg: ModelConfig) -> int:
+    """The dense blocks before the periods: ``first_k_dense`` with
+    experts, else none."""
+    return cfg.moe.first_k_dense if cfg.moe.n_experts > 0 else 0
 
 
 def _pattern(cfg: ModelConfig):
-    """The kinds of one period's blocks, as the reference's ``_pattern``."""
+    """The kinds of one period's blocks, as the reference's ``_pattern``;
+    the layers after the dense prefix fill whole periods."""
     pat = cfg.attn_pattern or ("global",)
-    if cfg.n_layers % len(pat):
+    if (cfg.n_layers - _n_dense(cfg)) % len(pat):
         raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} not "
                          f"divisible by pattern {pat}")
     return pat
+
+
+def _n_periods(cfg: ModelConfig) -> int:
+    return (cfg.n_layers - _n_dense(cfg)) // len(_pattern(cfg))
 
 
 def _window_for(cfg: ModelConfig, kind: str) -> int:
@@ -67,7 +85,8 @@ def _norm(cfg: ModelConfig, x, w):
     return rms_norm(x, w, cfg.norm_eps, plus_one=cfg.family in _GEMMA)
 
 
-def _init_block(b: Builder, cfg: ModelConfig):
+def _init_block(b: Builder, cfg: ModelConfig, use_moe: bool,
+                d_ff_dense: int = 0):
     params, consts = {}, {}
     norm_init = "zeros" if cfg.use_post_norms else "ones"
     params["ln_attn"] = b.tensor("ln_attn", (cfg.d_model,), norm_init)
@@ -80,25 +99,37 @@ def _init_block(b: Builder, cfg: ModelConfig):
                                           "zeros")
         params["ln_mlp_post"] = b.tensor("ln_mlp_post", (cfg.d_model,),
                                          "zeros")
-    params["mlp"], c = mlp.init_mlp(b.sub("mlp"), cfg)
-    if c:
-        consts["mlp"] = c
+    if use_moe:
+        params["moe"], c = mlp.init_moe(b.sub("moe"), cfg)
+        if c:
+            consts["moe"] = c
+    else:
+        params["mlp"], c = mlp.init_mlp(b.sub("mlp"), cfg,
+                                        d_ff=d_ff_dense or cfg.d_ff)
+        if c:
+            consts["mlp"] = c
     return params, consts
 
 
 def _apply_block(cfg: ModelConfig, p, c, x, *, window: int, **cache_kw):
+    """One block: (x', cache, aux), aux the MoE block's load-balancing
+    loss (an f32 tensor) or 0.0 for a dense block."""
     a, cache = attention.apply_attention(cfg, p["attn"], c.get("attn", {}),
                                          _norm(cfg, x, p["ln_attn"]),
                                          window=window, **cache_kw)
     if cfg.use_post_norms:
         a = _norm(cfg, a, p["ln_attn_post"])
     x = x + a
-    m = mlp.apply_mlp(cfg, p["mlp"], c.get("mlp", {}),
-                      _norm(cfg, x, p["ln_mlp"]),
-                      act="gelu" if cfg.family in _GEMMA else "silu")
+    h = _norm(cfg, x, p["ln_mlp"])
+    aux = 0.0
+    if "moe" in p:
+        m, aux = mlp.apply_moe(cfg, p["moe"], c.get("moe", {}), h)
+    else:
+        m = mlp.apply_mlp(cfg, p["mlp"], c.get("mlp", {}), h,
+                          act="gelu" if cfg.family in _GEMMA else "silu")
     if cfg.use_post_norms:
         m = _norm(cfg, m, p["ln_mlp_post"])
-    return x + m, cache
+    return x + m, cache, aux
 
 
 def _build_lm(cfg: ModelConfig, b: Builder):
@@ -107,18 +138,27 @@ def _build_lm(cfg: ModelConfig, b: Builder):
     params, consts = {}, {}
     params["embed"] = b.tensor("embed", (cfg.padded_vocab, cfg.d_model),
                                "normal", fan_in=cfg.d_model)
+    use_moe = cfg.moe.n_experts > 0
     pat = _pattern(cfg)
+    n_dense = _n_dense(cfg)
+    if n_dense:
+        params["dense_layers"], cd = stack_layers(
+            b.sub("dense"), lambda bb: _init_block(bb, cfg, False,
+                                                   cfg.moe.d_ff_dense),
+            n_dense, "dl")
+        if cd:
+            consts["dense_layers"] = cd
 
     def init_period(bb: Builder):
         ps, cs = {}, {}
         for j in range(len(pat)):
-            ps[f"k{j}"], c = _init_block(bb.sub(f"k{j}"), cfg)
+            ps[f"k{j}"], c = _init_block(bb.sub(f"k{j}"), cfg, use_moe)
             if c:
                 cs[f"k{j}"] = c
         return ps, cs
 
     params["layers"], cl = stack_layers(b.sub("blocks"), init_period,
-                                        cfg.n_layers // len(pat), "p")
+                                        _n_periods(cfg), "p")
     if cl:
         consts["layers"] = cl
     params["ln_f"] = b.tensor("ln_f", (cfg.d_model,),
@@ -179,12 +219,22 @@ def period_apply(cfg: ModelConfig, p, c, x):
     """One period of the stack, its blocks in pattern order, each local
     block over the sliding window: (params {"k0": ...}, consts, x) → (x',
     aux). The per-layer backward sweep differentiates this exact function,
-    so the train forward and the sweep's recompute cannot drift. These
-    families have no auxiliary loss: aux is 0.0."""
+    so the train forward and the sweep's recompute cannot drift. aux sums
+    the period's MoE aux losses (an f32 tensor); it is 0.0 for the
+    families without experts."""
+    aux = 0.0
     for j, kind in enumerate(_pattern(cfg)):
-        x, _ = _apply_block(cfg, p[f"k{j}"], c.get(f"k{j}", {}), x,
-                            window=_window_for(cfg, kind))
-    return x, 0.0
+        x, _, a = _apply_block(cfg, p[f"k{j}"], c.get(f"k{j}", {}), x,
+                               window=_window_for(cfg, kind))
+        aux = aux + a
+    return x, aux
+
+
+def dense_apply(cfg: ModelConfig, p, c, x):
+    """One block of the MoE family's dense prefix (global attention, a
+    dense MLP of ``d_ff_dense``): (params, consts, x) → (x', aux 0.0)."""
+    x, _, aux = _apply_block(cfg, p, c, x, window=0)
+    return x, aux
 
 
 def head_apply(cfg: ModelConfig, params, h):
@@ -199,36 +249,62 @@ def head_apply(cfg: ModelConfig, params, h):
     return logits
 
 
-def _periods(cfg: ModelConfig, params, consts):
-    """The per-period (params, consts) views of the stacks, in order."""
-    n = params["layers"]["k0"]["ln_attn"].shape[0]
-    return zip(unstack(params["layers"], n),
-               unstack(consts.get("layers", {}), n))
+def _stack(params, consts, group: str):
+    """The per-block (params, consts) views of one stacked group
+    (``"layers"``: its periods; ``"dense_layers"``: the dense prefix), in
+    order; none where the model has no such group."""
+    if group not in params:
+        return []
+    n = params[group]["ln_attn"].shape[0] if group == "dense_layers" else \
+        params[group]["k0"]["ln_attn"].shape[0]
+    return list(zip(unstack(params[group], n),
+                    unstack(consts.get(group, {}), n)))
 
 
 def _walk(cfg: ModelConfig, params, consts, h, *, remat: str = "none",
           saves=None):
-    """The period stack, as ``apply_lm`` and ``forward_saving_boundaries``
-    both run it; ``saves`` (a list) receives each period's input."""
+    """The dense prefix, then the period stack, as ``apply_lm`` and
+    ``forward_saving_boundaries`` both run them. Returns (h, aux of the
+    dense blocks, aux of the periods), each aux a list a block or period;
+    ``saves`` ({"dense_layers": [], "layers": []}) receives each block's
+    and period's input."""
     _check_family(cfg)
-    step = remat_wrap(lambda p, c, x: period_apply(cfg, p, c, x), remat)
-    for p, c in _periods(cfg, params, consts):
-        if saves is not None:
-            saves.append(h)
-        h, _ = step(p, c, h)
-    return h
+    auxes = {}
+    for group, fn in (("dense_layers", dense_apply),
+                      ("layers", period_apply)):
+        step = remat_wrap(lambda p, c, x, fn=fn: fn(cfg, p, c, x), remat)
+        auxes[group] = []
+        for p, c in _stack(params, consts, group):
+            if saves is not None:
+                saves[group].append(h)
+            h, a = step(p, c, h)
+            auxes[group].append(a)
+    return h, auxes["dense_layers"], auxes["layers"]
+
+
+def _aux_stack(auxes, device):
+    """The per-block aux losses as an f32 (n,) tensor."""
+    return torch.stack([torch.as_tensor(a, dtype=torch.float32,
+                                        device=device) for a in auxes]) \
+        if auxes else torch.zeros(0, dtype=torch.float32, device=device)
 
 
 def apply_lm(cfg: ModelConfig, params, consts, tokens, *, patch_embeds=None,
              remat: str = "none"):
-    """tokens (B, S) → (logits (B, S, V), aux 0.0): the plain causal
-    forward, differentiable in the params (the train step's forward),
-    each period under the ``remat`` policy (``models.common.remat_wrap``).
-    For the vlm family ``patch_embeds`` (B, n_patches, d) replace the
-    first n_patches positions."""
+    """tokens (B, S) → (logits (B, S, V), aux): the plain causal forward,
+    differentiable in the params (the train step's forward), each block
+    and period under the ``remat`` policy (``models.common.remat_wrap``).
+    aux is the sum of the MoE blocks' aux losses (the dense prefix's,
+    then the periods'), an f32 tensor; 0.0 for the families without
+    experts. For the vlm family ``patch_embeds`` (B, n_patches, d) replace
+    the first n_patches positions."""
     h = embed_apply(cfg, params, tokens, patch_embeds)
-    h = _walk(cfg, params, consts, h, remat=remat)
-    return head_apply(cfg, params, h), 0.0
+    h, aux_d, aux_p = _walk(cfg, params, consts, h, remat=remat)
+    aux = 0.0
+    if cfg.moe.n_experts > 0:
+        aux = _aux_stack(aux_d, h.device).sum() + \
+            _aux_stack(aux_p, h.device).sum()
+    return head_apply(cfg, params, h), aux
 
 
 def forward_saving_boundaries(cfg: ModelConfig, params, consts, tokens, *,
@@ -239,19 +315,25 @@ def forward_saving_boundaries(cfg: ModelConfig, params, consts, tokens, *,
     from. The saved boundaries are the only activations kept across
     periods.
 
-    Returns a dict, as the reference's for these families (``xs`` a list
-    where the reference stacks the inputs):
-      xs    — the periods' (B, S, d) inputs, the embedding's output first,
-      h_top — the last period's output (the head's input),
-      aux   — (n_periods,) f32 zeros (no aux loss).
+    Returns a dict, as the reference's (the inputs as lists where the
+    reference stacks them):
+      dense_xs  — the dense prefix blocks' (B, S, d) inputs, the
+                  embedding's output first (None without a prefix),
+      xs        — the periods' (B, S, d) inputs,
+      h_top     — the last period's output (the head's input),
+      aux_dense — (n_dense,) f32 aux losses of the prefix (None without),
+      aux       — (n_periods,) f32 aux losses of the periods (zeros for
+                  the families without experts).
     """
     with torch.no_grad():
         h0 = embed_apply(cfg, params, tokens, patch_embeds)
-        xs = []
-        h_top = _walk(cfg, params, consts, h0, saves=xs)
-    return {"xs": xs, "h_top": h_top,
-            "aux": torch.zeros(len(xs), dtype=torch.float32,
-                               device=h0.device)}
+        saves = {"dense_layers": [], "layers": []}
+        h_top, aux_d, aux_p = _walk(cfg, params, consts, h0, saves=saves)
+    dense = "dense_layers" in params
+    return {"dense_xs": saves["dense_layers"] if dense else None,
+            "xs": saves["layers"], "h_top": h_top,
+            "aux_dense": _aux_stack(aux_d, h0.device) if dense else None,
+            "aux": _aux_stack(aux_p, h0.device)}
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +345,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda"):
     """KV cache {"layers": {"k{j}": {"k", "v"}}}, zeros, one pair of
     stacks per kind of the pattern (a local and a global one for gemma2),
-    each on a leading axis of the periods. Contiguous (the default):
+    each on a leading axis of the periods, and {"dense_layers": {"k",
+    "v"}} on a leading axis of the MoE family's dense prefix. Contiguous
+    (the default):
     leaves (n_periods, batch, max_len, Hkv, hd), one row per slot.
     ``paged=True``: block pools (n_periods, n_blocks, block_len, Hkv, hd)
     shared by every slot through a block table; ``n_blocks`` defaults to
@@ -276,33 +360,43 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         lead = (layout.n_blocks, layout.block_len)
     else:
         lead = (batch, max_len)
-    shape = (cfg.n_layers // len(pat), *lead, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
+    tail = (*lead, cfg.n_kv_heads, cfg.resolved_head_dim)
     dt = DTYPES[cfg.dtype]
-    return {"layers": {f"k{j}": {
-        "k": torch.zeros(shape, dtype=dt, device=device),
-        "v": torch.zeros(shape, dtype=dt, device=device)}
-        for j in range(len(pat))}}
+
+    def kv(n):
+        return {"k": torch.zeros((n, *tail), dtype=dt, device=device),
+                "v": torch.zeros((n, *tail), dtype=dt, device=device)}
+    cache = {"layers": {f"k{j}": kv(_n_periods(cfg))
+                        for j in range(len(pat))}}
+    if _n_dense(cfg):
+        cache["dense_layers"] = kv(_n_dense(cfg))
+    return cache
 
 
 def _cached_forward(cfg: ModelConfig, params, consts, tokens, cache, index,
                     block_table, prefill: bool):
-    """The walk shared by decode_step and prefill_step: embed, each
-    period's blocks over their kind's cache (views of the stacks, updated
-    in place), each local block over the window, final norm and unembed.
-    Returns (logits, cache)."""
+    """The walk shared by decode_step and prefill_step: embed, the dense
+    prefix's blocks over their cache, then each period's blocks over their
+    kind's cache (views of the stacks, updated in place), each local
+    block over the window, final norm and unembed. Returns (logits,
+    cache)."""
     _check_family(cfg)
     pat = _pattern(cfg)
     h = embed_apply(cfg, params, tokens)
+    kw = dict(cache_index=index, block_table=block_table, prefill=prefill)
+    for i, (p, c) in enumerate(_stack(params, consts, "dense_layers")):
+        kv = cache["dense_layers"]
+        h, _, _ = _apply_block(cfg, p, c, h, window=0,
+                               cache={"k": kv["k"][i], "v": kv["v"][i]},
+                               **kw)
     pools = cache["layers"]
-    for i, (p, c) in enumerate(_periods(cfg, params, consts)):
+    for i, (p, c) in enumerate(_stack(params, consts, "layers")):
         for j, kind in enumerate(pat):
             kv = pools[f"k{j}"]
-            h, _ = _apply_block(cfg, p[f"k{j}"], c.get(f"k{j}", {}), h,
-                                window=_window_for(cfg, kind),
-                                cache={"k": kv["k"][i], "v": kv["v"][i]},
-                                cache_index=index, block_table=block_table,
-                                prefill=prefill)
+            h, _, _ = _apply_block(cfg, p[f"k{j}"], c.get(f"k{j}", {}), h,
+                                   window=_window_for(cfg, kind),
+                                   cache={"k": kv["k"][i], "v": kv["v"][i]},
+                                   **kw)
     return head_apply(cfg, params, h), cache
 
 

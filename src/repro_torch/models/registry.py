@@ -1,8 +1,8 @@
 """Uniform model API, ported from ``repro.models.registry``: the llama,
-gemma2 and vlm families expose init / apply / init_cache / decode_step /
-prefill_step and the segmented per-layer API, so the engine, the trainers
-and the tests stay arch-agnostic. The other families raise until their
-slice lands (ROADMAP queue A items 9b and 9)."""
+gemma2, vlm and MoE families expose init / apply / init_cache /
+decode_step / prefill_step and the segmented per-layer API, so the
+engine, the trainers and the tests stay arch-agnostic. The other families
+raise until their slice lands (ROADMAP queue A item 9)."""
 from __future__ import annotations
 
 import importlib
@@ -22,6 +22,7 @@ class PerLayerApi:
     forward_boundaries: Callable  # (cfg, params, consts, batch) -> dict
     embed: Callable               # (cfg, {"embed": leaf}, tokens, patches) -> h0
     period: Callable              # (cfg, p_period, c_period, x) -> (x', aux)
+    dense: Callable               # (cfg, p_block, c_block, x) -> (x', aux)
     head: Callable                # (cfg, head_params, h_top) -> logits
 
 
@@ -49,26 +50,25 @@ def _lm_api() -> ModelApi:
             patch_embeds=batch.get("patches"))
 
     pl = PerLayerApi(forward_boundaries, lm.embed_apply, lm.period_apply,
-                     lm.head_apply)
+                     lm.dense_apply, lm.head_apply)
     return ModelApi(lm.init_lm, apply, lm.init_cache, lm.decode_step,
                     lm.prefill_step, perlayer=pl)
 
 
-_FAMILY_API = {"llama": _lm_api, "gemma2": _lm_api, "vlm": _lm_api}
+_FAMILY_API = {"llama": _lm_api, "gemma2": _lm_api, "vlm": _lm_api,
+               "moe": _lm_api}
 # the families still to port, with their ROADMAP item
-_WAITING = {"moe": "9b (MoE with the grouped expert launch, the per-layer "
-                   "sweep's dense prefix and QK-norm)",
-            "mamba_hybrid": "9 (mamba2, after 9b)",
-            "xlstm": "9 (xlstm, after 9b)",
-            "whisper": "9 (whisper, after 9b)"}
+_WAITING = {"mamba_hybrid": "9 (mamba2)",
+            "xlstm": "9 (xlstm)",
+            "whisper": "9 (whisper)"}
 
 # configs the port ships (repro_torch.configs.<arch>): the paper's, and
-# the families without experts
+# the other lm families (gemma2, vlm, the dense llama variants, MoE)
 PAPER_ARCHS = ("llama_60m", "llama_130m", "llama_350m", "llama_1b", "llama_7b")
-ARCHS = ("gemma2_2b", "paligemma_3b", "qwen2_5_32b", "yi_34b", "llama3_405b")
+ARCHS = ("gemma2_2b", "paligemma_3b", "qwen2_5_32b", "yi_34b", "llama3_405b",
+         "deepseek_moe_16b", "qwen3_moe_235b")
 # the reference's archs that wait, with their family
-_WAITING_ARCHS = {"qwen3_moe_235b": "moe", "deepseek_moe_16b": "moe",
-                  "zamba2_7b": "mamba_hybrid", "xlstm_350m": "xlstm",
+_WAITING_ARCHS = {"zamba2_7b": "mamba_hybrid", "xlstm_350m": "xlstm",
                   "whisper_large_v3": "whisper"}
 
 

@@ -208,6 +208,11 @@ def calibrate_model(cfg, params, consts, **kw):
     if pc.mode != "sltrain":
         raise ValueError(f"quant calibration targets mode='sltrain' "
                          f"(got {pc.mode!r})")
+    if cfg.moe.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: quant calibration of an MoE expert stack is not "
+            "ported yet (ROADMAP queue A item 4b: quant at full width, MoE "
+            "included)")
     return calibrate_tree(params, consts, alpha=pc.alpha, delta=pc.delta,
                           support_kind=pc.support_kind, **kw)
 

@@ -65,6 +65,14 @@ head cotangent is recomputed at the embedding step of each pass.
 saves boundaries per microbatch, and at each layer the sweep re-runs the
 layer's backward once per microbatch and sums the layer's gradients in
 f32 (divided by the count), so the gradients held stay one layer's.
+
+The MoE family: each block's backward takes the cotangent (dh, aux_coef)
+of its (output, aux loss), so the router learns from the load-balancing
+loss as in the global step; the aux losses of the forward (averaged over
+microbatches) go into the loss and the metrics. Its dense prefix
+(``params["dense_layers"]``) is swept after the periods, as a group of its
+own with the same slicing and deferral: head → periods → dense prefix →
+embedding.
 """
 from __future__ import annotations
 
@@ -93,15 +101,33 @@ def _sq(grads):
 def _grads(fn, tree, args, ct):
     """Gradients of ``fn(tree, *args)`` with cotangent ``ct``, on a graph
     of its own: (leaf grads of ``tree`` in sorted-path order, grads of
-    ``args``, the output detached). The inputs are left untouched (the
+    ``args``, the (first) output detached). ``fn`` may return a tuple of
+    outputs for a tuple of cotangents; where it returns one output for a
+    tuple, the first cotangent is its. The inputs are left untouched (the
     graph runs on detached aliases of them)."""
     live = tree_map(lambda t: t.detach().requires_grad_(True), tree)
     leaves = [t for _, t in tree_leaves(live)]
     live_args = [a.detach().requires_grad_(True) for a in args]
     with torch.enable_grad():
         out = fn(live, *live_args)
+    if not isinstance(out, tuple) and isinstance(ct, tuple):
+        ct = ct[0]
     gs = torch.autograd.grad(out, leaves + live_args, ct)
-    return list(gs[:len(leaves)]), list(gs[len(leaves):]), out.detach()
+    first = out[0] if isinstance(out, tuple) else out
+    return list(gs[:len(leaves)]), list(gs[len(leaves):]), first.detach()
+
+
+def _with_aux(layer_fn):
+    """A layer's (x', aux) as the outputs a backward differentiates: the
+    pair where aux is a tensor in the graph (an MoE block's), x' alone
+    where it is the dense blocks' constant 0.0. Takes cotangents (dh,
+    aux_ct) either way."""
+    def fn(p, x):
+        y, aux = layer_fn(p, x)
+        if torch.is_tensor(aux) and aux.requires_grad:
+            return y, aux
+        return y
+    return fn
 
 
 def _write(dst, src):
@@ -156,8 +182,10 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
         group_upd = optimizer.update_group_fused
     tied = cfg.tie_embeddings
     n_mb = grad_accum
-    layer_fn = remat_wrap(lambda p, c, x: plapi.period(cfg, p, c, x)[0],
-                          remat)
+    seg_fns = {group: remat_wrap(lambda p, c, x, seg=seg: seg(cfg, p, c, x),
+                                 remat)
+               for group, seg in (("layers", plapi.period),
+                                  ("dense_layers", plapi.dense))}
 
     hist = None
     if layer_timing is not None:
@@ -182,27 +210,26 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
         for p, g, ls, nd in items:
             update_leaf(ctx, ls, p, g, full_ndim=nd)
 
-    def layer_grads(p_l, c_l, x_l, dh):
+    def layer_grads(layer_fn, p_l, c_l, x_l, dh, aux_ct):
         """One layer's param grads (sorted-leaf order; the f32 mean over
-        microbatches when n_mb > 1) and its input cotangents."""
+        microbatches when n_mb > 1) and its input cotangents; the layer's
+        aux loss, where it has one, takes the cotangent ``aux_ct``."""
+        fn = _with_aux(lambda p, x: layer_fn(p, c_l, x))
+
+        def one(x_m, dh_m):
+            return _grads(fn, p_l, [x_m], (dh_m, aux_ct))
         if n_mb == 1:
-            gp, (dx,), _ = _grads(lambda p, x: layer_fn(p, c_l, x), p_l,
-                                  [x_l[0]], dh[0])
+            gp, (dx,), _ = one(x_l[0], dh[0])
             return gp, [dx]
         acc, dxs = None, []
         for x_m, dh_m in zip(x_l, dh):
-            gp, (dx,), _ = _grads(lambda p, x: layer_fn(p, c_l, x), p_l,
-                                  [x_m], dh_m)
+            gp, (dx,), _ = one(x_m, dh_m)
             gp = [g.float() for g in gp]
             acc = gp if acc is None else [a + g for a, g in zip(acc, gp)]
             dxs.append(dx)
         return [a / n_mb for a in acc], dxs
 
     def train_step(params, opt_state, consts, batch):
-        if "dense_layers" in params:
-            raise NotImplementedError(
-                "the MoE dense-layer prefix of the sweep is not ported yet "
-                "(ROADMAP queue A item 9b: MoE)")
         chaos_scale = None
         if "chaos_scale" in batch:
             chaos_scale = torch.mean(batch["chaos_scale"].float())
@@ -222,13 +249,21 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
         toks = [mb["tokens"] for mb in mbs]
         patches = [mb.get("patches") for mb in mbs]
         h_tops = [b["h_top"] for b in bnds]
-        n_layers = len(bnds[0]["xs"])
-        xs = [[b["xs"][i] for b in bnds] for i in range(n_layers)]
-        aux_total = sum(b["aux"].sum() for b in bnds)
+        groups = [g for g in ("layers", "dense_layers") if g in params]
+        bkey = {"layers": "xs", "dense_layers": "dense_xs"}
+        xs = {g: [list(x) for x in zip(*(b[bkey[g]] for b in bnds))]
+              for g in groups}
+        aux_total = 0.0
+        for b in bnds:
+            aux_b = b["aux"].sum()
+            if b.get("aux_dense") is not None:
+                aux_b = b["aux_dense"].sum() + aux_b
+            aux_total = aux_total + aux_b
         if n_mb > 1:
             aux_total = aux_total / n_mb
         device = h_tops[0].device
         one = torch.ones((), dtype=torch.float32, device=device)
+        aux_ct = torch.tensor(aux_coef, dtype=torch.float32, device=device)
         emb0 = params["embed"] if tied else None
         hp = {"ln_f": params["ln_f"]}
         if not tied:
@@ -286,22 +321,28 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
                 d = d.float() + head_embed_cotangent(ln_f)
             return d
 
-        p_stack = params["layers"]
-        paths = [p for p, _ in tree_leaves(p_stack)]
-        leaves = [t for _, t in tree_leaves(p_stack)]
-        p_layers = unstack(p_stack, n_layers)
-        c_layers = unstack(consts.get("layers", {}), n_layers)
+        def stack_views(group):
+            """(sorted paths, leaves, per-layer param and const views)."""
+            p_stack = params[group]
+            n = len(xs[group])
+            return ([p for p, _ in tree_leaves(p_stack)],
+                    [t for _, t in tree_leaves(p_stack)],
+                    unstack(p_stack, n),
+                    unstack(consts.get(group, {}), n))
 
         # ---- pass 1: the exact global grad norm (norm sweep) -----------
         d_head, dhs, ce = head_grads()
         loss = ce + aux_coef * aux_total
         total_sq = _sq(d_head)
         del d_head
-        acc = 0.0
-        for i in reversed(range(n_layers)):
-            gp, dhs = layer_grads(p_layers[i], c_layers[i], xs[i], dhs)
-            acc = acc + _sq(gp)
-        total_sq = total_sq + acc
+        for group in groups:
+            _, _, p_layers, c_layers = stack_views(group)
+            acc = 0.0
+            for i in reversed(range(len(p_layers))):
+                gp, dhs = layer_grads(seg_fns[group], p_layers[i],
+                                      c_layers[i], xs[group][i], dhs, aux_ct)
+                acc = acc + _sq(gp)
+            total_sq = total_sq + acc
         total_sq = total_sq + _sq([embed_total(dhs, params["ln_f"])])
         gnorm = torch.sqrt(total_sq)
         ctx, stats = optimizer.prepare(opt_state, gnorm)
@@ -333,34 +374,39 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
             state, (key,)), None) for key, g in zip(head_keys, d_head)])
         del d_head
 
-        stacked, deferred = {}, {}
-        for path, leaf in zip(paths, leaves):
-            ls = optimizer.leaf_state(state, ("layers",) +
-                                      tuple(path.split("/")))
-            st = optimizer.stack_state(ls, leaf, n_layers)
-            if st is None:
-                deferred[path] = torch.zeros(leaf.shape, dtype=torch.float32,
-                                             device=leaf.device)
-            else:
-                stacked[path] = st
-        for i in reversed(range(n_layers)):
-            gp, dhs = layer_grads(p_layers[i], c_layers[i], xs[i], dhs)
-            items = []
-            for path, leaf, g in zip(paths, leaves, gp):
-                if path in deferred:
-                    deferred[path][i] = g
-                    continue
-                ls_i = tree_map(lambda t: t[i], stacked[path])
-                items.append((leaf[i], g, ls_i, leaf.dim()))
-            update_group(ctx, items)
-            del gp, items
-            stamp()
-        update_group(ctx, [
-            (leaf, deferred[path],
-             optimizer.leaf_state(state, ("layers",) + tuple(path.split("/"))),
-             None)
-            for path, leaf in zip(paths, leaves) if path in deferred])
-        deferred.clear()
+        for group in groups:
+            paths, leaves, p_layers, c_layers = stack_views(group)
+            n_layers = len(p_layers)
+            stacked, deferred = {}, {}
+            for path, leaf in zip(paths, leaves):
+                ls = optimizer.leaf_state(state, (group,) +
+                                          tuple(path.split("/")))
+                st = optimizer.stack_state(ls, leaf, n_layers)
+                if st is None:
+                    deferred[path] = torch.zeros(leaf.shape,
+                                                 dtype=torch.float32,
+                                                 device=leaf.device)
+                else:
+                    stacked[path] = st
+            for i in reversed(range(n_layers)):
+                gp, dhs = layer_grads(seg_fns[group], p_layers[i],
+                                      c_layers[i], xs[group][i], dhs, aux_ct)
+                items = []
+                for path, leaf, g in zip(paths, leaves, gp):
+                    if path in deferred:
+                        deferred[path][i] = g
+                        continue
+                    ls_i = tree_map(lambda t: t[i], stacked[path])
+                    items.append((leaf[i], g, ls_i, leaf.dim()))
+                update_group(ctx, items)
+                del gp, items
+                stamp()
+            update_group(ctx, [
+                (leaf, deferred[path],
+                 optimizer.leaf_state(state, (group,) +
+                                      tuple(path.split("/"))), None)
+                for path, leaf in zip(paths, leaves) if path in deferred])
+            deferred.clear()
 
         d_embed = embed_total(dhs, ln_f0)
         update_group(ctx, [(params["embed"], d_embed,

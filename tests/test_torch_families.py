@@ -420,18 +420,22 @@ def test_model_flops_match_reference(arch):
 
 
 def test_waiting_families_raise_with_their_roadmap_item():
-    for arch, item in (("qwen3_moe_235b", "9b"), ("deepseek_moe_16b", "9b"),
-                       ("zamba2_7b", "item 9 "), ("xlstm_350m", "item 9 "),
+    """The SSM and encoder archs wait for ROADMAP item 9; QK-norm and
+    experts on a llama-family config (the MoE slice's options) now
+    init."""
+    for arch, item in (("zamba2_7b", "item 9 "), ("xlstm_350m", "item 9 "),
                        ("whisper_large_v3", "item 9 ")):
         with pytest.raises(NotImplementedError, match=item):
             registry.get_config(arch)
     cfg = registry.get_smoke_config("qwen2_5_32b")
-    for bad in (dataclasses.replace(cfg, qk_norm=True),
-                dataclasses.replace(cfg, moe=dataclasses.replace(
-                    cfg.moe, n_experts=4))):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            registry.get_api(bad).init(bad, device="cpu")
-    for fam in ("mamba_hybrid", "xlstm", "whisper", "moe"):
+    for ok in (dataclasses.replace(cfg, qk_norm=True),
+               dataclasses.replace(cfg, moe=dataclasses.replace(
+                   cfg.moe, n_experts=4))):
+        params, _ = registry.get_api(ok).init(ok, device="cpu")
+        blk = params["layers"]["k0"]
+        assert ("q_norm" in blk["attn"]) == ok.qk_norm
+        assert ("moe" in blk) == (ok.moe.n_experts > 0)
+    for fam in ("mamba_hybrid", "xlstm", "whisper"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
             registry.get_api(dataclasses.replace(cfg, family=fam))
 

@@ -1121,3 +1121,183 @@ def test_paged_stall_slot_on_card_keeps_tokens(cuda):
     # the stall cost ticks: some request completes later
     assert any(a[4] > b[4] for a, b in zip(runs[cuda, "stall@2:5"],
                                            runs[cuda, None]))
+
+
+# ---------------------------------------------------------------------------
+# the grouped launches over an MoE layer's expert stack
+# ---------------------------------------------------------------------------
+
+def _grouped_args(m, n_exp, k, n, r, delta, dtype, dev, transposed=False,
+                  n_supports=4, seed=7):
+    """A stack of E linears of one shape: x (E, m, k), B, A, the f32 tile
+    values and the tile consts (E, nkt, nnt, cap), scale; expert e takes
+    the (e % n_supports)-th sampled support (sampling 128 full-width
+    supports would cost the host seconds) and its own x, B, A and v. With
+    ``transposed``, the dx call's operands: dy (E, m, n), Aᵀ, Bᵀ and Wᵀ's
+    tile consts."""
+    rng = np.random.default_rng(seed)
+    cap = support.tile_cap(k, n, delta)
+    tiles = []
+    for s in range(min(n_supports, n_exp)):
+        rows, cols = support.sample_support(seed + s, k, n, delta)
+        tiles.append(ops.add_transposed_tiles(ops.prepare_tile_consts(
+            rows, cols, k, n, pad=cap)))
+    st = {name: torch.stack([tiles[e % len(tiles)][name]
+                             for e in range(n_exp)]).to(dev)
+          for name in tiles[0]}
+    v = _rand(rng, (n_exp, rows.shape[0]), torch.float32, dev, k ** -0.5)
+    v_t = ops._gather_tiles_grouped(v, st["perm"])
+    B = _rand(rng, (n_exp, k, r), dtype, dev, 1.0)
+    A = _rand(rng, (n_exp, r, n), dtype, dev, (6.0 / k) ** 0.5)
+    if transposed:
+        return (_rand(rng, (n_exp, m, n), dtype, dev),
+                A.transpose(1, 2).contiguous(),
+                B.transpose(1, 2).contiguous(), ops.transpose_tiles(v_t),
+                st["rows_tT"], st["cols_tT"], 8.0 / r)
+    return (_rand(rng, (n_exp, m, k), dtype, dev), B, A, v_t, st["rows_t"],
+            st["cols_t"], 8.0 / r)
+
+
+# (m rows an expert, E, K, N, r, delta, transposed): smoke shapes (ragged
+# against the 128 tiles), deepseek_moe_16b's experts (64 of 2048 -> 1408
+# and 1408 -> 2048, rank 512) at decode (1 row an expert), prefill (15)
+# and training (240) rows and the dx call, qwen3_moe_235b's (128 of
+# 4096 -> 1536 and 1536 -> 4096, rank 768) at 1 and 240 rows
+GROUPED_CASES = [
+    (5, 8, 64, 32, 8, 0.05, False), (40, 3, 200, 136, 16, 0.05, True),
+    (130, 2, 136, 264, 8, 0.05, False),
+    (1, 64, 2048, 1408, 512, 0.03, False),
+    (15, 64, 2048, 1408, 512, 0.03, False),
+    (240, 64, 2048, 1408, 512, 0.03, False),
+    (240, 64, 1408, 2048, 512, 0.03, False),
+    (240, 64, 2048, 1408, 512, 0.03, True),
+    (1, 128, 4096, 1536, 768, 0.03, False),
+    (240, 128, 1536, 4096, 768, 0.03, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", GROUPED_CASES)
+def test_sl_matmul_grouped_matches_loop_and_plain(cuda, case, dtype):
+    """One grouped launch over the expert stack gives the bits of a loop
+    of single ``sl_matmul`` launches, each expert within the tolerance of
+    the plain version, and counts one launch."""
+    if dtype == torch.float32 and case[1] * case[0] > 4096:
+        pytest.skip("f32 runs the CUDA-core kernels; held at smoke shapes")
+    m, n_exp, k, n, r, delta, transposed = case
+    args = _grouped_args(m, n_exp, k, n, r, delta, dtype, cuda, transposed)
+    x, B, A, v_t, rt, ct, scale = args
+    n0 = sl_kernel.sl_matmul_grouped.launches
+    y = sl_kernel.sl_matmul_grouped(*args)
+    assert sl_kernel.sl_matmul_grouped.launches == n0 + 1
+    for e in range(n_exp):
+        one = sl_kernel.sl_matmul(x[e], B[e], A[e], v_t[e], rt[e], ct[e],
+                                  scale)
+        assert torch.equal(y[e], one), e
+        if e % max(1, n_exp // 8) == 0:
+            _close(y[e], ref.sl_matmul_ref(x[e], B[e], A[e], v_t[e], rt[e],
+                                           ct[e], scale), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [(5, 8, 64, 32, 0.05), (97, 3, 333, 261, 0.05),
+                                  (240, 64, 2048, 1408, 0.03),
+                                  (240, 64, 1408, 2048, 0.03),
+                                  (240, 128, 4096, 1536, 0.03)])
+def test_sddmm_grouped_matches_loop_and_plain(cuda, case, dtype):
+    """One grouped ``sddmm`` launch gives the bits of a loop of single
+    launches, each expert within the tolerance of the plain version."""
+    m, n_exp, k, n, delta = case
+    if dtype == torch.float32 and n_exp * m > 4096:
+        pytest.skip("f32 samples on the CUDA cores; held at smoke shapes")
+    x, _, _, _, rt, ct, _ = _grouped_args(m, n_exp, k, n, 8, delta, dtype,
+                                          cuda)
+    dy = _rand(np.random.default_rng(3), (n_exp, m, n), dtype, cuda)
+    n0 = sddmm_kernel.sddmm_grouped.launches
+    dv = sddmm_kernel.sddmm_grouped(x, dy, rt, ct)
+    assert sddmm_kernel.sddmm_grouped.launches == n0 + 1
+    for e in range(n_exp):
+        assert torch.equal(dv[e], sddmm_kernel.sddmm(x[e], dy[e], rt[e],
+                                                     ct[e])), e
+        if e % max(1, n_exp // 8) == 0:
+            want = ref.sddmm_ref(x[e], dy[e], rt[e], ct[e])
+            torch.testing.assert_close(dv[e], want, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sl_linear_grouped_backward_on_card_matches_cpu(cuda, dtype):
+    """The grouped fused linear's forward and backward (grouped sl_matmul,
+    grouped sddmm, grouped sl_matmul on the transposed support, batched
+    f32 dB and dA) on the card against the same call on the CPU."""
+    host = _grouped_args(70, 4, 200, 136, 16, 0.05, dtype, "cpu")
+    x, B, A = host[:3]
+    rng = np.random.default_rng(2)
+    k, n = 200, 136
+    rows, cols = support.sample_support(3, k, n, 0.05)
+    tiles = ops.add_transposed_tiles(ops.prepare_tile_consts(
+        rows, cols, k, n, pad=support.tile_cap(k, n, 0.05)))
+    st = {name: torch.stack([t] * 4) for name, t in tiles.items()}
+    v = _rand(rng, (4, k, rows.shape[0] // k), dtype, "cpu", 0.1)
+    dy = _rand(rng, (4, 70, n), dtype, "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_(True) for t in (x, B, A, v)]
+        t = {name: c.to(dev) for name, c in st.items()}
+        y = ops.sl_linear_grouped(*leaves, t["rows_t"], t["cols_t"],
+                                  t["perm"], 0.5, rows_tT=t["rows_tT"],
+                                  cols_tT=t["cols_tT"])
+        out[str(dev)] = [y] + list(torch.autograd.grad(y, leaves,
+                                                       dy.to(dev)))
+    for name, g, w in zip(("y", "dx", "dB", "dA", "dv"), out["cuda"],
+                          out["cpu"]):
+        assert g.dtype == w.dtype, name
+        scale = max(1.0, float(w.detach().float().abs().max()))
+        torch.testing.assert_close(g.detach().float().cpu(),
+                                   w.detach().float(),
+                                   atol=TOL[dtype] * scale, rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exec_mode", ["fused", "sparse"])
+def test_moe_engine_on_card_matches_cpu(cuda, exec_mode):
+    """The deepseek_moe_16b smoke model (dense first layer, 8 experts
+    top-2, a shared expert) in f32 on the paged engine with prefix
+    sharing: the card's kernels (the grouped ``sl_matmul`` over each
+    layer's experts in fused; ``sparse_matmul`` on each expert's slice in
+    sparse) give the CPU's tokens and ticks."""
+    import dataclasses
+
+    from repro_torch.models import registry
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve.engine import ServeEngine
+    cfg = registry.get_smoke_config("deepseek_moe_16b")
+    cfg = dataclasses.replace(cfg, dtype="float32", param=dataclasses.replace(
+        cfg.param, exec_mode="fused"))
+    params, consts = registry.get_api(cfg).init(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+
+    def fill(tree):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                fill(val)
+            elif key == "B":
+                val.uniform_(-1.0, 1.0, generator=gen)
+    fill(params)
+    on = lambda t: tree_map(lambda v: v.to(cuda), t)
+    kernel = {"fused": sl_kernel.sl_matmul_grouped,
+              "sparse": sd_kernel.sparse_matmul}[exec_mode]
+    shared = list(range(40, 56))
+    prompts = [shared + [3, 9], [7, 13, 5], shared + [11], [8, 2, 6, 1]]
+    kw = dict(n_slots=3, max_len=48, paged=True, block_len=8,
+              prefix_sharing=True, exec_mode=exec_mode)
+    runs = []
+    for device, (p, c) in (("cpu", (params, consts)),
+                           (cuda, (on(params), on(consts)))):
+        eng = ServeEngine(cfg, p, c, device=device, **kw)
+        n0 = kernel.launches
+        runs.append(_serve_all(eng, prompts))
+        assert (kernel.launches > n0) == (device == cuda)
+    assert runs[1] == runs[0]

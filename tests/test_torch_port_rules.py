@@ -106,9 +106,9 @@ def test_unported_options_raise():
         with pytest.raises(ValueError):
             ServeEngine(cfg, params, consts, paged=True, **kw, **bad)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_config("qwen3_moe_235b")
+        registry.get_config("zamba2_7b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_api(dataclasses.replace(cfg, family="moe"))
+        registry.get_api(dataclasses.replace(cfg, family="mamba_hybrid"))
 
 
 def test_train_entry_points_need_a_card_unless_cpu(no_card, tmp_path):
