@@ -14,20 +14,16 @@ PEAK_FLOPS = 989e12        # bf16 FLOP/s per card (H100 SXM data sheet)
 
 
 def param_count_active(cfg) -> Tuple[float, float]:
-    """(total_params, active_params) analytic estimate for 6·N·D: the
-    model's matrix sizes, as the reference counts them, for the llama,
-    gemma2, vlm and MoE families (gemma2's post-norms and biases are not
-    counted, as the reference counts neither). With experts, the active
-    count takes the top-k routed and the shared experts of each MoE layer
-    and the dense prefix's MLPs, and both counts an untied head (the
-    reference's). The SSM and encoder families wait for their slice
-    (ROADMAP queue A item 9)."""
-    if cfg.family not in ("llama", "gemma2", "vlm", "moe") or \
-            not (cfg.d_ff or cfg.moe.n_experts):
-        raise NotImplementedError(
-            f"param_count_active: {cfg.name} (family {cfg.family!r}) is not "
-            "ported yet (ROADMAP queue A item 9: the SSM and encoder "
-            "families)")
+    """(total_params, active_params) analytic estimate for 6·N·D, counted
+    exactly as the reference counts it: per layer the attention's four
+    projections and a gated MLP of ``d_ff`` (8·d² where ``d_ff`` is 0,
+    the reference's "ssm-ish fallback"), plus the embedding and an untied
+    head. With experts, the active count takes the top-k routed and the
+    shared experts of each MoE layer and the dense prefix's MLPs. gemma2's
+    post-norms and biases are not counted. For the zamba2 hybrid every
+    layer counts as an attention + MLP block, for xLSTM as an attention
+    block + 8·d², for whisper the decoder's layers only: the reference's
+    analytic count, not the models' true parameter counts."""
     d, L, V = cfg.d_model, cfg.n_layers, cfg.padded_vocab
     hd = cfg.resolved_head_dim
     attn = d * (cfg.n_heads * hd) + 2 * d * (cfg.n_kv_heads * hd) \
@@ -43,7 +39,7 @@ def param_count_active(cfg) -> Tuple[float, float]:
         active = L * attn + n_moe_layers * ffn_active + dense_extra \
             + 2 * V * d
         return float(total), float(active)
-    ffn = 3 * d * cfg.d_ff
+    ffn = 3 * d * cfg.d_ff if cfg.d_ff else 8 * d * d   # ssm-ish fallback
     total = L * (attn + ffn) + (V * d if cfg.tie_embeddings else 2 * V * d)
     return float(total), float(total)
 

@@ -2,7 +2,9 @@
 cache, ported from ``repro.models.attention``: qkv bias (qwen2.5), the
 ``query_pre_attn_scalar`` scale, the attention-logit softcap and sliding
 windows (gemma2), and QK-norm (qwen3: an RMS norm of each head's q and k,
-after the heads are split and before rope, on every path).
+after the heads are split and before rope, on every path); and for the
+whisper family no rope, a non-causal encoder attention and a
+cross-attention whose k and v come from the encoder's output.
 
 Scores follow the reference's order everywhere: q · scale in f32, the
 product with k in f32, the softcap, then the causal and window masks.
@@ -46,7 +48,11 @@ from repro_torch.serve import kv as kv_lib
 NEG_INF = -1e30
 
 
-def init_attention(b: Builder, cfg: ModelConfig):
+def init_attention(b: Builder, cfg: ModelConfig, cross: bool = False):
+    """The q, k, v, o linears (with qkv bias where the config has it) and
+    the QK-norm weights. ``cross`` (whisper's cross-attention) builds the
+    same linears, as the reference's does: only the call differs, which
+    projects k and v from its ``kv_source``."""
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
@@ -68,11 +74,13 @@ def _scale(cfg: ModelConfig) -> float:
     return (cfg.query_pre_attn_scalar or cfg.resolved_head_dim) ** -0.5
 
 
-def _attend(cfg: ModelConfig, q, k, v, q_pos, k_pos, window: int = 0):
-    """Plain causal softmax attention in f32. q (B,Sq,H,hd); k,v
-    (B,Sk,Hkv,hd); q_pos (Sq,) or per-slot (B,Sq); k_pos (Sk,). A key is
-    seen by a query at or after it, and with ``window`` > 0 by one fewer
-    than ``window`` positions after it."""
+def _attend(cfg: ModelConfig, q, k, v, q_pos, k_pos, window: int = 0,
+            causal: bool = True):
+    """Plain softmax attention in f32. q (B,Sq,H,hd); k,v (B,Sk,Hkv,hd);
+    q_pos (Sq,) or per-slot (B,Sq); k_pos (Sk,). ``causal``: a key is seen
+    by a query at or after it; and with ``window`` > 0 by one fewer than
+    ``window`` positions after it. Without either every key is seen (the
+    whisper encoder and cross-attention) and no mask is formed."""
     bsz, sq, nh, hd = q.shape
     nkv = k.shape[2]
     qg = q.reshape(bsz, sq, nkv, nh // nkv, hd)
@@ -81,10 +89,11 @@ def _attend(cfg: ModelConfig, q, k, v, q_pos, k_pos, window: int = 0):
     s = softcap(s, cfg.attn_logit_softcap)
     qp = q_pos if q_pos.dim() == 2 else q_pos[None]
     lag = qp[:, :, None] - k_pos[None, None, :]             # (B|1, Sq, Sk)
-    mask = lag >= 0
+    mask = lag >= 0 if causal else None
     if window > 0:
-        mask = mask & (lag < window)
-    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+        mask = lag < window if mask is None else mask & (lag < window)
+    if mask is not None:
+        s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float()).to(q.dtype)
     return o.reshape(bsz, sq, nh * hd)
@@ -129,9 +138,16 @@ def _contiguous(cfg: ModelConfig, cache, q, k, v, q_pos, idx, per_slot,
 def apply_attention(cfg: ModelConfig, params, consts, x, *,
                     window: int = 0, cache: Optional[dict] = None,
                     cache_index=None, block_table=None,
-                    prefill: bool = False):
+                    prefill: bool = False, causal: bool = True,
+                    kv_source=None):
     """Causal self-attention, over the last ``window`` positions when it is
     > 0 (a local layer); returns (y, cache).
+
+    ``causal=False`` attends every key (the whisper encoder, without a
+    cache). ``kv_source`` (B, Sk, d) makes it a cross-attention: k and v
+    are projected from it, every key is seen, the cache is neither read
+    nor written and is returned as it came. Rope rotates q and k except
+    in the whisper family and in a cross-attention, as in the reference.
 
     Without a cache: attention over the input itself (the forward of
     ``apply_lm``). With a cache and no ``block_table``: the contiguous
@@ -148,9 +164,10 @@ def apply_attention(cfg: ModelConfig, params, consts, x, *,
     lin = lambda n, t: apply_linear(cfg, params[n], consts.get(n, {}), t)
     bsz, sq = x.shape[0], x.shape[1]
 
+    kv_in = x if kv_source is None else kv_source
     q = lin("wq", x).reshape(bsz, sq, nh, hd)
-    k = lin("wk", x).reshape(bsz, sq, nkv, hd)
-    v = lin("wv", x).reshape(bsz, sq, nkv, hd)
+    k = lin("wk", kv_in).reshape(bsz, kv_in.shape[1], nkv, hd)
+    v = lin("wv", kv_in).reshape(bsz, kv_in.shape[1], nkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -162,12 +179,18 @@ def apply_attention(cfg: ModelConfig, params, consts, x, *,
         q_pos = idx.long()[:, None] + steps[None]               # (B, Sq)
     else:
         q_pos = steps + int(idx)                                # (Sq,)
-    rpos = q_pos if per_slot else q_pos[None]
-    q = rope(q, rpos, cfg.rope_theta)
-    k = rope(k, rpos, cfg.rope_theta)
+    if kv_source is not None:
+        k_pos = torch.arange(k.shape[1], device=x.device)
+        return lin("wo", _attend(cfg, q, k, v, q_pos, k_pos, window,
+                                 causal)), cache
+    if cfg.family != "whisper":
+        rpos = q_pos if per_slot else q_pos[None]
+        q = rope(q, rpos, cfg.rope_theta)
+        k = rope(k, rpos, cfg.rope_theta)
 
     if cache is None:
-        return lin("wo", _attend(cfg, q, k, v, q_pos, q_pos, window)), None
+        return lin("wo", _attend(cfg, q, k, v, q_pos, q_pos, window,
+                                 causal)), None
     if block_table is None:
         return lin("wo", _contiguous(cfg, cache, q, k, v, q_pos, idx,
                                      per_slot, prefill, window)), cache

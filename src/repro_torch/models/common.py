@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import functools
 import math
+import time
 import zlib
 from typing import Optional, Tuple
 
@@ -28,6 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lowrank, relora, sltrain
 from repro_torch.core import support as support_lib
+from repro_torch.device import resolve
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -93,10 +95,13 @@ class Builder:
             return torch.ones(shape, dtype=dtype, device=self.device)
         if init == "zeros":
             return torch.zeros(shape, dtype=dtype, device=self.device)
-        if init != "normal":
-            raise ValueError(init)
         fan = fan_in if fan_in is not None else (
             shape[0] if len(shape) >= 2 else shape[-1])
+        if init == "kaiming":
+            return lowrank.uniform(self.gen, shape, math.sqrt(6.0 / fan),
+                                   dtype, self.device)
+        if init != "normal":
+            raise ValueError(init)
         t = torch.randn(shape, generator=self.gen, device=self.device,
                         dtype=torch.float32)
         return (t * (1.0 / math.sqrt(fan))).to(dtype)
@@ -158,6 +163,40 @@ def presample(cfg: ModelConfig, seed: int, build, workers=None):
         workers = support_lib.default_workers(specs)
     return (dict(zip(paths, support_lib.sample_supports(specs, workers))),
             workers)
+
+
+def init_model(cfg: ModelConfig, seed: int, build, *, device="cuda",
+               workers: Optional[int] = None, obs=None):
+    """(params, consts) of ``build(b)`` (a model's init body over Builder
+    ``b``) on ``device``: its SLTrain supports sampled first by
+    ``workers`` processes (:func:`presample`; None:
+    ``core.support.default_workers``), then the values drawn from one
+    generator seeded with ``seed``. With ``obs`` (a metrics Registry) the
+    init's wall time, to the card's last draw, and the worker count land
+    on its gauges ``init.seconds`` and ``init.sampling_workers``."""
+    device = resolve(device)
+    t0 = time.perf_counter()
+    plan, n_workers = presample(cfg, seed, build, workers)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = build(Builder(cfg, gen, device, seed=seed, plan=plan))
+    if obs is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        obs.gauge("init.seconds", "wall seconds of the last model init"
+                  ).set(time.perf_counter() - t0)
+        obs.gauge("init.sampling_workers", "processes that sampled its "
+                  "SLTrain supports (0: none to sample)").set(n_workers)
+    return out
+
+
+def contiguous_only(paged) -> None:
+    """Refuse a paged cache (``paged`` true, or a block table) for a family
+    that serves on the contiguous cache only: it has no prefill_step, as
+    in the reference (the zamba2 hybrid, xLSTM, whisper)."""
+    if paged is not None and paged is not False:
+        raise ValueError("this family serves on the contiguous cache only: "
+                         "it has no prefill_step, as in the reference")
 
 
 def apply_linear(cfg: ModelConfig, params, consts, x, adapted: bool = True):
@@ -249,6 +288,17 @@ def rms_norm(x, weight, eps: float = 1e-6, plus_one: bool = False):
     if plus_one:
         w = 1.0 + w
     return (n * w).to(x.dtype)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm computed in f32 (mean, then the mean of squared
+    deviations, ``rsqrt(var + eps)``), scaled and shifted in f32 and
+    returned in x.dtype, as the reference's ``layer_norm``."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    n = (xf - mu) * torch.rsqrt(var + eps)
+    return (n * weight.float() + bias.float()).to(x.dtype)
 
 
 def softcap(x, cap: float):

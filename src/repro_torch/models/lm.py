@@ -24,7 +24,6 @@ MLP is GeGLU, and the final logits are softcapped in f32.
 from __future__ import annotations
 
 import math
-import time
 from typing import Optional
 
 import torch
@@ -32,7 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import attention, mlp
-from repro_torch.models.common import (DTYPES, Builder, presample,
+from repro_torch.models.common import (DTYPES, Builder, init_model,
                                        remat_wrap, rms_norm, softcap,
                                        stack_layers, unstack)
 from repro_torch.serve.kv import PagedLayout
@@ -42,13 +41,14 @@ _LM_FAMILIES = ("llama", "moe") + _GEMMA
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """The port runs the llama, gemma2, vlm and MoE families; the non-lm
-    families raise, and so does exec_mode quant on a model with experts
-    (its calibration of the expert stack waits with ROADMAP item 4b)."""
+    """This module runs the llama, gemma2, vlm and MoE families (the
+    others have their own modules, reached through ``registry.get_api``);
+    exec_mode quant on a model with experts raises (its calibration of
+    the expert stack waits with ROADMAP item 4b)."""
     if cfg.family not in _LM_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}) is not ported yet (ROADMAP "
-            "queue A item 9: mamba2, xlstm and whisper)")
+        raise ValueError(
+            f"{cfg.name} (family {cfg.family!r}) is not a decoder-only lm "
+            "family: run it through registry.get_api(cfg)")
     if cfg.moe.n_experts and cfg.param.mode == "sltrain" and \
             cfg.param.exec_mode == "quant":
         raise NotImplementedError(
@@ -178,25 +178,11 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     seeded with ``seed``. The supports are sampled first, by ``workers``
     processes (None: ``core.support.default_workers``, one process below
     llama_350m's size; 1: this process), which changes no bit
-    (``models.common.presample``). With ``obs`` (a metrics Registry) the
-    init's wall time, to the card's last draw, and the worker count land
-    on its gauges ``init.seconds`` and ``init.sampling_workers``."""
+    (``models.common.init_model``, which also records the init's time
+    and worker count on ``obs``)."""
     _check_family(cfg)
-    device = resolve(device)
-    t0 = time.perf_counter()
-    plan, n_workers = presample(cfg, seed, lambda b: _build_lm(cfg, b),
-                                workers)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    out = _build_lm(cfg, Builder(cfg, gen, device, seed=seed, plan=plan))
-    if obs is not None:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        obs.gauge("init.seconds", "wall seconds of the last model init"
-                  ).set(time.perf_counter() - t0)
-        obs.gauge("init.sampling_workers", "processes that sampled its "
-                  "SLTrain supports (0: none to sample)").set(n_workers)
-    return out
+    return init_model(cfg, seed, lambda b: _build_lm(cfg, b), device=device,
+                      workers=workers, obs=obs)
 
 
 def embed_apply(cfg: ModelConfig, params, tokens, patch_embeds=None):

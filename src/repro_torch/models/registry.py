@@ -1,8 +1,10 @@
-"""Uniform model API, ported from ``repro.models.registry``: the llama,
-gemma2, vlm and MoE families expose init / apply / init_cache /
-decode_step / prefill_step and the segmented per-layer API, so the
-engine, the trainers and the tests stay arch-agnostic. The other families
-raise until their slice lands (ROADMAP queue A item 9)."""
+"""Uniform model API, ported from ``repro.models.registry``: every family
+exposes init / apply / init_cache / decode_step, so the engine, the
+trainers and the tests stay arch-agnostic. The llama, gemma2, vlm and MoE
+families add prefill_step (the paged engine) and the segmented per-layer
+API; the zamba2 hybrid, xLSTM and whisper families have neither, as in
+the reference, so they serve on the contiguous cache and train with the
+global update."""
 from __future__ import annotations
 
 import importlib
@@ -55,39 +57,61 @@ def _lm_api() -> ModelApi:
                     lm.prefill_step, perlayer=pl)
 
 
-_FAMILY_API = {"llama": _lm_api, "gemma2": _lm_api, "vlm": _lm_api,
-               "moe": _lm_api}
-# the families still to port, with their ROADMAP item
-_WAITING = {"mamba_hybrid": "9 (mamba2)",
-            "xlstm": "9 (xlstm)",
-            "whisper": "9 (whisper)"}
+def _hybrid_api() -> ModelApi:
+    from repro_torch.models import mamba2
 
-# configs the port ships (repro_torch.configs.<arch>): the paper's, and
-# the other lm families (gemma2, vlm, the dense llama variants, MoE)
+    def apply(cfg, params, consts, batch, remat="none"):
+        return mamba2.apply_hybrid(cfg, params, consts, batch["tokens"],
+                                   remat=remat)
+
+    return ModelApi(mamba2.init_hybrid, apply, mamba2.init_hybrid_cache,
+                    mamba2.hybrid_decode_step)
+
+
+def _xlstm_api() -> ModelApi:
+    from repro_torch.models import xlstm
+
+    def apply(cfg, params, consts, batch, remat="none"):
+        return xlstm.apply_xlstm(cfg, params, consts, batch["tokens"],
+                                 remat=remat)
+
+    return ModelApi(xlstm.init_xlstm, apply, xlstm.init_xlstm_cache,
+                    xlstm.xlstm_decode_step)
+
+
+def _whisper_api() -> ModelApi:
+    from repro_torch.models import whisper
+
+    def apply(cfg, params, consts, batch, remat="none"):
+        return whisper.apply_whisper(cfg, params, consts, batch["tokens"],
+                                     batch["frames"], remat=remat)
+
+    return ModelApi(whisper.init_whisper, apply, whisper.init_whisper_cache,
+                    whisper.whisper_decode_step)
+
+
+_FAMILY_API = {
+    "llama": _lm_api, "moe": _lm_api, "gemma2": _lm_api, "vlm": _lm_api,
+    "mamba_hybrid": _hybrid_api, "xlstm": _xlstm_api, "whisper": _whisper_api,
+}
+
+# configs the port ships (repro_torch.configs.<arch>): the paper's and
+# every other arch of the reference
 PAPER_ARCHS = ("llama_60m", "llama_130m", "llama_350m", "llama_1b", "llama_7b")
 ARCHS = ("gemma2_2b", "paligemma_3b", "qwen2_5_32b", "yi_34b", "llama3_405b",
-         "deepseek_moe_16b", "qwen3_moe_235b")
-# the reference's archs that wait, with their family
-_WAITING_ARCHS = {"zamba2_7b": "mamba_hybrid", "xlstm_350m": "xlstm",
-                  "whisper_large_v3": "whisper"}
-
-
-def _not_ported(what: str, family: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue A item "
-        f"{_WAITING.get(family, '9: the other model families')})")
+         "deepseek_moe_16b", "qwen3_moe_235b", "zamba2_7b", "xlstm_350m",
+         "whisper_large_v3")
 
 
 def get_api(cfg: ModelConfig) -> ModelApi:
     if cfg.family not in _FAMILY_API:
-        raise _not_ported(f"family {cfg.family!r}", cfg.family)
+        raise ValueError(f"unknown family {cfg.family!r}; the port runs "
+                         f"{', '.join(sorted(_FAMILY_API))}")
     return _FAMILY_API[cfg.family]()
 
 
 def _config_module(arch: str):
     name = arch.replace("-", "_")
-    if name in _WAITING_ARCHS:
-        raise _not_ported(f"arch {arch!r}", _WAITING_ARCHS[name])
     if name not in PAPER_ARCHS + ARCHS:
         raise ValueError(f"unknown arch {arch!r}; the port ships "
                          f"{', '.join(PAPER_ARCHS + ARCHS)}")

@@ -16,7 +16,9 @@ Two cache layouts share the engine API:
   a per-slot block table; the scheduler (serve/scheduler.py) assigns
   slots and allocates and frees blocks. Prefill is batched (one forward
   per admission batch); decode is per-slot (a (n_slots,) position
-  vector).
+  vector). It needs the family's ``prefill_step``: the zamba2 hybrid,
+  xLSTM and whisper families have none and raise ``ValueError``, as in
+  the reference.
 * ``paged=False`` (the default, as in the reference): one contiguous
   (n_slots, max_len) cache. Each prompt is prefilled by stepping it
   through the (n_slots, 1) decode one token a dispatch, with token 0 in
@@ -221,6 +223,9 @@ class ServeEngine:
         self.trace = trace if trace is not None else \
             obs_trace.Trace(enabled=False)
         if paged:
+            if self.api.prefill_step is None:
+                raise ValueError(f"family {cfg.family!r} has no prefill_step;"
+                                 " the paged engine requires one")
             self.layout = PagedLayout.plan(n_slots, max_len, block_len,
                                            n_blocks)
             self.cache = self.api.init_cache(

@@ -172,6 +172,14 @@ def _check_supported(tc: TrainConfig, mesh) -> None:
                          "expected 'global' or 'per_layer'")
     if pc.mode not in ("dense", "lowrank", "relora", "sltrain"):
         raise ValueError(f"unknown param.mode {pc.mode!r}")
+    if tc.model.family == "whisper":
+        raise ValueError(
+            f"{tc.model.name}: the Trainer's data (SyntheticC4) carries "
+            "tokens and no 'frames', which whisper's apply reads; the "
+            "reference's Trainer dies on it with KeyError: 'frames' "
+            "(ROADMAP queue C, reference behaviour 10). Train whisper "
+            "through train.step.make_train_step with a batch holding "
+            "'frames'")
     if pc.mode == "relora" and tc.optim.name == "adam8bit":
         raise ValueError(
             "ReLoRA with adam8bit is refused: the reference's merge "

@@ -420,13 +420,20 @@ def test_model_flops_match_reference(arch):
 
 
 def test_waiting_families_raise_with_their_roadmap_item():
-    """The SSM and encoder archs wait for ROADMAP item 9; QK-norm and
-    experts on a llama-family config (the MoE slice's options) now
-    init."""
-    for arch, item in (("zamba2_7b", "item 9 "), ("xlstm_350m", "item 9 "),
-                       ("whisper_large_v3", "item 9 ")):
-        with pytest.raises(NotImplementedError, match=item):
-            registry.get_config(arch)
+    """The SSM and encoder archs (ROADMAP item 9) load now, and get_api
+    returns their families' APIs, without prefill_step or the per-layer
+    API, as the reference's; QK-norm and experts on a llama-family config
+    (the MoE slice's options) init."""
+    from repro_torch.models import mamba2, whisper, xlstm
+    for arch, fam, mod in (("zamba2_7b", "mamba_hybrid", mamba2),
+                           ("xlstm_350m", "xlstm", xlstm),
+                           ("whisper_large_v3", "whisper", whisper)):
+        cfg, jcfg = registry.get_config(arch), jregistry.get_config(arch)
+        assert cfg.family == fam and cfg.hash() == jcfg.hash()
+        api, japi = registry.get_api(cfg), jregistry.get_api(jcfg)
+        assert api.init.__module__ == mod.__name__
+        assert (api.prefill_step, api.perlayer) == (None, None) == \
+            (japi.prefill_step, japi.perlayer)
     cfg = registry.get_smoke_config("qwen2_5_32b")
     for ok in (dataclasses.replace(cfg, qk_norm=True),
                dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -435,9 +442,8 @@ def test_waiting_families_raise_with_their_roadmap_item():
         blk = params["layers"]["k0"]
         assert ("q_norm" in blk["attn"]) == ok.qk_norm
         assert ("moe" in blk) == (ok.moe.n_experts > 0)
-    for fam in ("mamba_hybrid", "xlstm", "whisper"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
-            registry.get_api(dataclasses.replace(cfg, family=fam))
+    with pytest.raises(ValueError, match="unknown family"):
+        registry.get_api(dataclasses.replace(cfg, family="rwkv"))
 
 
 @pytest.mark.parametrize("arch", ["gemma2_2b", "paligemma_3b"])

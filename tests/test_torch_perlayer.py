@@ -329,13 +329,13 @@ def test_perlayer_unported_options_raise():
     opt = optimizers.make(OptimizerConfig())
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 10"):
         perlayer.make_perlayer_train_step(cfg, api, opt, grad_specs={})
-    # the dense prefix of the MoE family is ported; a family whose blocks
-    # the port lacks raises at the sweep's forward
-    fn = perlayer.make_perlayer_train_step(
-        dataclasses.replace(cfg, family="xlstm"), api, opt)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
-        fn({"embed": torch.zeros((8, 4))}, {}, {},
-           {"tokens": torch.zeros((1, 2), dtype=torch.int32)})
+    # the SSM and encoder families expose no per-layer API, and the sweep
+    # refuses them as the reference's does
+    for fam in ("mamba_hybrid", "xlstm", "whisper"):
+        other = dataclasses.replace(cfg, family=fam)
+        with pytest.raises(ValueError, match="does not expose one"):
+            perlayer.make_perlayer_train_step(other, registry.get_api(other),
+                                              opt)
     with pytest.raises(ValueError, match="slice API"):
         perlayer.make_perlayer_train_step(
             cfg, api, dataclasses.replace(opt, stack_state=None))

@@ -105,10 +105,12 @@ def test_unported_options_raise():
                 dict(exec_mode="sparse", sparse_decode=True)):
         with pytest.raises(ValueError):
             ServeEngine(cfg, params, consts, paged=True, **kw, **bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_config("zamba2_7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_api(dataclasses.replace(cfg, family="mamba_hybrid"))
+    # the SSM and encoder families run now, on the contiguous cache only
+    for arch in ("zamba2_7b", "xlstm_350m", "whisper_large_v3"):
+        assert registry.get_config(arch).family in (
+            "mamba_hybrid", "xlstm", "whisper")
+    api = registry.get_api(dataclasses.replace(cfg, family="mamba_hybrid"))
+    assert api.prefill_step is None and api.perlayer is None
 
 
 def test_train_entry_points_need_a_card_unless_cpu(no_card, tmp_path):
@@ -283,3 +285,21 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _run_smoke(tmp_path)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["zamba2_7b", "xlstm_350m",
+                                  "whisper_large_v3"])
+def test_paged_engine_needs_a_prefill_step(arch):
+    """A paged engine for a family without ``prefill_step`` raises
+    ValueError at construction, as the reference's does
+    (``repro.serve.engine``), before it builds a cache; the contiguous
+    engine serves."""
+    cfg = registry.get_smoke_config(arch)
+    params, consts = registry.get_api(cfg).init(cfg, 0, device="cpu")
+    with pytest.raises(ValueError, match="has no prefill_step"):
+        ServeEngine(cfg, params, consts, paged=True, max_len=32,
+                    device="cpu")
+    eng = ServeEngine(cfg, params, consts, max_len=32, device="cpu")
+    req = eng.submit([5, 9, 11], max_new_tokens=2)
+    eng.run_until_drained()
+    assert req.status == "done" and len(req.out) == 2

@@ -258,13 +258,20 @@ def test_model_flops_llama_7b_counts_the_dense_model():
 
 
 def test_model_flops_raise_for_unported_families():
-    """The SSM and encoder families raise naming ROADMAP item 9; experts
-    on a llama config are counted now (the MoE family is ported)."""
-    cfg = registry.get_config("llama_60m")
-    for bad in (dataclasses.replace(cfg, family="whisper"),
-                dataclasses.replace(cfg, family="mamba2", d_ff=0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
-            roofline.model_flops(bad, 2048)
+    """The SSM and encoder families are counted now, as the reference
+    counts them (its "ssm-ish" 8·d² where d_ff is 0; whisper's decoder
+    only); experts on a llama config are counted too."""
+    for arch in ("zamba2_7b", "xlstm_350m", "whisper_large_v3"):
+        got, jcfg = registry.get_config(arch), jregistry.get_config(arch)
+        assert roofline.param_count_active(got) == \
+            jroofline.param_count_active(jcfg)
+        assert roofline.model_flops(got, 2048) == \
+            jroofline.model_flops(jcfg, 2048) > 0
+    cfg, jcfg = registry.get_config("llama_60m"), \
+        jregistry.get_config("llama_60m")
+    for kw in (dict(family="whisper"), dict(family="mamba2", d_ff=0)):
+        assert roofline.model_flops(dataclasses.replace(cfg, **kw), 2048) \
+            == jroofline.model_flops(dataclasses.replace(jcfg, **kw), 2048)
     moe = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                            n_experts=4))
     total, active = roofline.param_count_active(moe)
