@@ -21,7 +21,7 @@ rerun; the bfloat16 ``paged_prefill`` against its rerun, with the launch
 plans printed; ``sparse_matmul`` also at the sparse-mode training
 calls, M = 2048 tokens, forward and dx with f32 output, each against its
 rerun). Then it drives the paths on the paper's ``llama_1b`` config at
-full width (serving on 4 of its 24 layers) with random weights from a
+full width (serving on 2 of its 24 layers) with random weights from a
 seed:
 
 * serving: the paged engine in float32 along paths that must give the
@@ -40,7 +40,7 @@ seed:
   profiled, and fused (timed under the device-only profiler) and sparse
   on the contiguous cache;
 * training: 3 float32 train steps from one init and one data stream, at
-  full width on 4 of the 24 layers (``PARITY_LAYERS``), in pairs that
+  full width on 2 of the 24 layers (``PARITY_LAYERS``), in pairs that
   must agree: exec_mode "fused" (``sl_matmul`` forward and dx,
   ``sddmm`` dV) against "dense" (densify + the eq.-(2) backward), "sparse"
   (``sparse_matmul`` forward and dx over Wᵀ's tiles, ``sddmm`` dV)
@@ -83,7 +83,7 @@ seed:
   KV block in use; and the launchers' ``--jax-profile-dir``, whose
   ``torch.profiler`` traces must name ``sl_matmul``'s device kernels;
 * train, checkpoint, calibrate, serve (``analysis/quant_recipe.py``), at
-  ``llama_1b``'s width on 4 of its layers (``RECIPE_LAYERS``):
+  ``llama_1b``'s width on 2 of its layers (``RECIPE_LAYERS``):
   the bf16 fused ``Trainer`` for 60 steps writes a checkpoint under
   build/, the calibrate CLI's path turns it into a quant artifact on the
   card, the serve launcher's ``--ckpt-dir`` and ``--quant-ckpt`` paths
@@ -97,7 +97,7 @@ seed:
 * (c) the paper's Table 2 comparison (``analysis/pretrain_comparison.py``):
   full rank, SLTrain, ReLoRA and low rank at an equal token budget, at the
   reference example's default size with its two asserts as gates, then
-  at ``llama_60m`` for 10 steps a mode, gated on finite losses;
+  at ``llama_60m`` for 5 steps a mode, gated on finite losses;
 * ``llama_7b`` (32 layers, d_model 4096, d_ff 11008, head_dim 128, rank
   1024, delta 0.05), each phase from one init whose supports are sampled
   in worker processes: (7a) every kernel against its plain version at
@@ -107,8 +107,15 @@ seed:
   whose peak may not exceed the first's; (7d) full-rank global AdamW at
   2, 4 and 8 layers, its peak fitted in depth and extrapolated to 32
   layers (it does not fit on the card), the per-layer 8-bit peak gated
-  below it; (7e) the fused and sparse bf16 engines on 4 of the 32
-  layers (``SERVE_7B_LAYERS``), timed and profiled;
+  below it; (7e) the fused and sparse bf16 engines on
+  ``SERVE_7B_LAYERS`` of the 32 layers, timed and profiled; (7f) quant
+  on ``QUANT_7B_LAYERS`` of them: the recipe's train -> checkpoint ->
+  calibrate (seconds a matrix) -> artifact written and read back ->
+  sparse and quant engines, its rows (greedy match or mean |dlogit|
+  against the sparse engine, modeled decode bytes) under the
+  reference's gates, then the loaded artifact in f32: the quant
+  engine's tokens against dense + gathered attention on the dequantized
+  weights;
 * the gemma2 family (``gemma2_2b``: 26 layers of local/global pairs,
   d_model 2304, 8 heads over 4 kv heads of 256, d_ff 9216, vocab 256000
   tied, softcaps 50/30, window 4096, rank 576) and ``paligemma_3b``:
@@ -119,10 +126,14 @@ seed:
   the paged kernels at head_dim 256, the prefill on the tensor cores'
   wide kernel, the decode at a 4320-key context past the window;
   paligemma's MQA at group 8; ``sl_matmul`` at paligemma's and
-  qwen2.5's widest shapes); (g2) f32 at gemma2's width on 4 layers
-  (``GEMMA_PARITY_LAYERS``): 3 train steps fused against dense, fused
-  and sparse engine tokens against dense + gathered attention; (g3)
-  gemma2_2b in bf16 at full depth: the fused and sparse paged engines
+  qwen2.5's widest shapes); (g2) f32 at gemma2's width on 2 layers
+  (``GEMMA_PARITY_LAYERS``, one local and one global): 3 train steps fused against dense, fused
+  and sparse engine tokens against dense + gathered attention; the
+  model calibrated on the card, the quant engine's tokens against dense
+  + gathered attention on the dequantized weights, and its calibration
+  in bf16 served in exec_mode quant (timed, profiled, one
+  ``quant_sparse_matmul`` a linear a dispatch asserted); (g3)
+  gemma2_2b in bf16 on 4 of 26 layers: the fused and sparse paged engines
   (tokens/s, busy share), a 4300-token request past the window held
   step by step against the gathered read on the same engine
   (``LONG_LOGIT_TOL``), and 3 Trainer steps of global AdamW and of
@@ -139,18 +150,26 @@ seed:
   training dx) and ``sddmm_grouped`` at 240, and at qwen3's at 1 and 240,
   each bit for bit a loop of single launches and within tolerance of its
   plain version, timed beside the loop, the plain version,
-  ``torch.bmm`` and its bound; the paged kernels at qwen3's group 16;
-  (m2) deepseek at full width in f32 on 2 layers (the dense one and an
-  MoE one): the forward fused and sparse against dense, and the fused
-  and sparse engines' tokens against dense + gathered attention tick for
+  ``torch.bmm`` and its bound; ``sparse_matmul_grouped`` (f32 out) and
+  ``quant_sparse_matmul_grouped`` the same way at both configs' expert
+  shapes, timed at 1 and 240 rows an expert, checked untimed at every
+  other row count the engine gives them; the paged kernels at qwen3's
+  group 16; (m2) deepseek at full width in f32 on 2 layers
+  (``MOE_PARITY_LAYERS``: the dense one and an MoE one): the forward
+  fused and sparse against dense, the fused and sparse engines' tokens
+  against dense and sparse's against fused, on the paged read, tick for
   tick, a first difference excused only by a routing near-tie
-  (``ROUTE_MARGIN``) or a logit tie; (m3) deepseek in bf16: the fused
-  engine on 4 of its 28 layers (``MOE_SERVE_LAYERS``), timed and
-  profiled, its launches asserted per dispatch (56 ``sl_matmul``, 21
-  ``sl_matmul_grouped``), its tokens against dense under the same
-  excuses; the Trainer on 4 layers, 3 steps of global AdamW and of
-  per-layer 8-bit AdamW (step ms, MFU from active parameters, peak, the
-  aux loss);
+  (``ROUTE_MARGIN``) or a logit tie; the model calibrated on the card
+  (each routed expert's slice a matrix) and the quant engine's tokens
+  against the sparse engine's on the dequantized weights; (m3) that
+  model and its calibration in bf16: the fused, sparse and quant engines,
+  timed and profiled, their launches asserted per dispatch (one single
+  launch a dense, attention or shared-expert linear, one grouped launch
+  a routed-expert linear: a loop would launch 64 of them), every row
+  count an expert took checked in m1, the fused tokens against dense
+  under the same excuses; the Trainer on 2 layers, 3 steps of global
+  AdamW and of per-layer 8-bit AdamW (step ms, MFU from active
+  parameters, peak, the aux loss);
 * the SSM and encoder families (``zamba2_7b``: 81 Mamba2 layers of
   d_model 3584 with one shared attention + MLP block after every 6;
   ``xlstm_350m``: 24 layers, 7 mLSTM + 1 sLSTM a super block;
@@ -168,18 +187,29 @@ seed:
   ``TRAIN_TOL_LATER`` and ``SPREAD_FACTOR`` times the spread a 1e-7 move
   of the init makes; (h3) bf16: the contiguous engine on the 8-request
   traffic, fused (profiled) and sparse, launches asserted per dispatch
-  (zamba2 on ``HYBRID_LAYERS`` = 13 of 81 layers, whisper on
-  ``WHISPER_SERVE_LAYERS`` = 8 of 32 decoder layers, xlstm at full
-  depth), and 3 train steps of global AdamW fused and sparse (the
+  (zamba2 on ``HYBRID_LAYERS`` = 7 of 81 layers, xlstm on
+  ``XLSTM_BF16_LAYERS`` = 8 of 24, whisper on ``WHISPER_SERVE_LAYERS`` =
+  2 of 32 decoder layers), and 3 train steps of global AdamW fused and sparse (the
   Trainer; whisper's train step with seeded frames at
   ``WHISPER_TRAIN_BATCH`` = 3), with step ms, the reference's MFU, the
   true parameter count and the peak.
 
-To stay inside its time limit with the gemma2, MoE, SSM and encoder
-phases: llama_1b's serving phases run on 4 of its 24 layers
-(``SERVE_LAYERS``) and its f32 training pairs on 4 (``PARITY_LAYERS``),
-its bf16 Trainer runs take 4 steps (``TRAIN_STEPS``), llama_7b's engines
-4 of 32 layers, deepseek_moe_16b's bf16 engine 4 of 28.
+To stay inside its time limit with the gemma2, MoE, SSM, encoder and
+quant phases: llama_1b's serving phases run on 2 of its 24 layers
+(``SERVE_LAYERS``), the quant recipe and fallback on 2
+(``RECIPE_LAYERS``) and its f32 training pairs on 2 (``PARITY_LAYERS``),
+its bf16 Trainer runs take 4 steps (``TRAIN_STEPS``); llama_7b's engines
+run on 2 of 32 (``SERVE_7B_LAYERS``), its quant path on 2
+(``QUANT_7B_LAYERS``); gemma2_2b's f32 phase on 2 of 26
+(``GEMMA_PARITY_LAYERS``), its bf16 phase on 4 (``GEMMA_BF16_LAYERS``);
+deepseek_moe_16b's bf16 engines on its 2 f32
+parity layers and its Trainer on 2 of 28 (``MOE_TRAIN_LAYERS``);
+zamba2 in bf16 on 7 of 81 (``HYBRID_LAYERS``), xlstm on 8 of 24
+(``XLSTM_BF16_LAYERS``), whisper's serving on 2 of 32 decoder layers
+(``WHISPER_SERVE_LAYERS``); the Table 2 comparison at ``llama_60m`` takes
+5 steps a mode. Each support is sampled once a run and reused by every
+later init of its model (``core.support.keep_supports``), and the killed
+launcher's process runs beside the uninterrupted run it is held against.
 
 Any failure exits non-zero. Without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -276,9 +306,10 @@ PATH_KERNELS = {
     "stall_contiguous_llama_60m": ("sl_matmul",),
 }
 # the quant recipe (train fused, calibrate, serve sparse and quant)
-PATH_KERNELS["recipe_llama_1b"] = PATH_KERNELS["recipe_llama_60m"] = (
-    "sl_matmul", "sddmm", "sparse_matmul", "quant_sparse_matmul",
-    "paged_attention")
+PATH_KERNELS["recipe_llama_1b"] = PATH_KERNELS["recipe_llama_60m"] = \
+    PATH_KERNELS["recipe_llama_7b"] = (
+        "sl_matmul", "sddmm", "sparse_matmul", "quant_sparse_matmul",
+        "paged_attention")
 EXEC_PATH = {"fused": "serve", "sparse": "serve_sparse",
              "quant": "serve_quant"}
 # the traffic's requests served one at a time on either cache (f32): the
@@ -310,20 +341,30 @@ def sddmm_atol(m: int) -> float:
 # the quant recipe (train, checkpoint, calibrate, serve) and the quant
 # fallback at llama_1b's full width on this many of its 24 layers: the
 # run must end within its time limit with the llama_7b phases, and
-# calibration's time grows with depth (~4.4 s a layer)
-RECIPE_LAYERS = 4
+# calibration's time grows with depth (~4.4 s a layer); 4 until the
+# quant phases at full width came
+RECIPE_LAYERS = 2
 # the f32 training pairs at llama_1b's full width on this many of its 24
 # layers, and llama_7b's bf16 engines (phase 7e) on this many of its 32:
 # depth cut to keep the script inside its time limit (every layer runs
 # the same code at the same shapes); the pairs from 12 to 8 layers to pay
-# for the MoE phases, both to 4 for the SSM and encoder phases
-PARITY_LAYERS = 4
-SERVE_7B_LAYERS = 4
+# for the MoE phases, both to 4 for the SSM and encoder phases, the
+# engines to 2 for the quant phases, the pairs to 2 when a slower host
+# took the script past its limit
+PARITY_LAYERS = 2
+SERVE_7B_LAYERS = 2
+# llama_7b's quant path (phase 7f: train, checkpoint, calibrate, artifact,
+# serve, the recipe's gates, the f32 tokens) on this many of its 32
+# layers, its Trainer for this many steps: calibration takes seconds a
+# 4096 x 11008 matrix, 7 of them a layer (the full depth's calibration
+# and ~13 GB checkpoint run once outside the script, PERF.md)
+QUANT_7B_LAYERS = 2
+QUANT_7B_STEPS = 30
 # llama_1b's serving phases (f32 and bf16, paged and contiguous, the
 # calibration) on this many of its 24 layers: cut from full depth to pay
-# for the gemma2 phases (12), the MoE phases (8), then the SSM and encoder
-# phases (4)
-SERVE_LAYERS = 4
+# for the gemma2 phases (12), the MoE phases (8), the SSM and encoder
+# phases (4), then the quant phases (2)
+SERVE_LAYERS = 2
 # f32 train parity, fused vs dense: step 1 runs from identical parameters,
 # so only the order of f32 sums differs (1e-5 relative). From step 2 on,
 # Adam divides each gradient by its own magnitude: an element whose
@@ -340,6 +381,9 @@ SPREAD_FACTOR = 2.0
 # bf16 Trainer runs of llama_1b (fused, sparse, per-layer 8-bit): one
 # warm-up step and the rest timed (6 steps before gemma2's phases came)
 TRAIN_STEPS = 4
+# host memory for the supports the run keeps between inits (a full-depth
+# llama_7b's take ~7 GB)
+KEEP_SUPPORT_BYTES = 10 << 30
 
 
 def say(*parts) -> None:
@@ -443,10 +487,12 @@ def ptxas_report(log: str):
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             name = kernel_name(mangled)
-            # a kernel templated on one bool (sl_matmul's kGrouped)
-            for flag, tag in (("ILb1E", "<true>"), ("ILb0E", "<false>")):
-                if f"{name}{flag}" in mangled:
+            # a kernel templated on a bool (sl_matmul's and
+            # sparse_split_kernel's kGrouped)
+            for flag, tag in (("Lb1E", "<true>"), ("Lb0E", "<false>")):
+                if flag in mangled:
                     name += tag
+                    break
         elif "spill" in line:
             spill = line
         elif "registers" in line:
@@ -1348,7 +1394,9 @@ def _wrappers():
             "sparse_matmul": spk.sparse_matmul,
             "quant_sparse_matmul": spk.quant_sparse_matmul,
             "sl_matmul_grouped": slk.sl_matmul_grouped,
-            "sddmm_grouped": sdk.sddmm_grouped}
+            "sddmm_grouped": sdk.sddmm_grouped,
+            "sparse_matmul_grouped": spk.sparse_matmul_grouped,
+            "quant_sparse_matmul_grouped": spk.quant_sparse_matmul_grouped}
 
 
 def launch_counts():
@@ -1556,13 +1604,24 @@ def phase_sparse_f32(cfg, params, consts, prompts, arrivals, b_reqs,
 def dequantized(qparams, qconsts):
     """The params of a calibrated tree with every SLTrain linear's v
     replaced by dequant(qv) in v's own (COO) order: each tile slot's code
-    times its column's scale, put back through the layout's ``perm``.
-    Densified with the error-folded B', A', that is the weight the int8
-    decode computes with."""
+    times its column's scale, put back through the layout's ``perm`` (the
+    tile consts', or, in a tree calibrated from an exec_mode dense init
+    that has none, rebuilt on the host from the support as
+    ``quant.layout`` built the slots). Densified with the error-folded
+    B', A', that is the weight the int8 decode computes with."""
+    from repro_torch.core import support
     from repro_torch.kernels import ops
 
-    def one(v, qv_t, cols_q, qscale, perm):
+    def one(v, qv_t, cols_q, qscale, perm, cols, rows=None):
         nnt = qscale.shape[0]
+        if perm is None:
+            c = cols.cpu().numpy()
+            r = rows.cpu().numpy() if rows is not None else np.repeat(
+                np.arange(c.shape[0], dtype=np.int32), c.shape[1])
+            nkt, _, cap = qv_t.shape
+            perm = torch.from_numpy(support.tile_index_arrays(
+                r, c.reshape(-1), nkt * 128, nnt * 128, cap)[2]).to(
+                qv_t.device)
         nt = torch.arange(nnt, device=qv_t.device).view(1, nnt, 1)
         vals = qv_t.float() * qscale.reshape(-1)[cols_q.long() + 128 * nt]
         return ops._scatter_tiles(vals, perm, v.numel()).reshape(v.shape)
@@ -1572,22 +1631,25 @@ def dequantized(qparams, qconsts):
             v = p["v"]
             lead = v.shape[:-2] if "rows" not in c else v.shape[:-1]
             n = int(np.prod(lead))
-            flat = [t.reshape((n,) + tuple(t.shape[len(lead):])) for t in
-                    (v, c["qv_t"], c["cols_q"], c["qscale"], c["perm"])]
-            out = torch.stack([one(*(t[i] for t in flat)) for i in range(n)])
+            flat = [None if t is None else
+                    t.reshape((n,) + tuple(t.shape[len(lead):])) for t in
+                    (v, c["qv_t"], c["cols_q"], c["qscale"], c.get("perm"),
+                     c["cols"], c.get("rows"))]
+            out = torch.stack([one(*(None if t is None else t[i]
+                                     for t in flat)) for i in range(n)])
             return {**p, "v": out.reshape(v.shape).to(v.dtype)}
         return {k: walk(x, c.get(k, {})) if isinstance(x, dict) else x
                 for k, x in p.items()}
     return walk(qparams, qconsts)
 
 
-def phase_quant_f32(cfg, params, consts, prompts, arrivals, device, **kw):
-    """Calibrate llama_1b on the card, write the quant artifact under
-    build/ and load it back bit for bit, then serve it in exec_mode quant
-    (the ``quant_sparse_matmul`` kernel + paged kernels) against a
-    dense/gather engine on the dequantized weights (B', A' and v :=
-    dequant(qv)): the same greedy tokens. Returns the loaded artifact's
-    trees, its dequantized params and the quant run's dispatch shapes."""
+def calibrate_on_card(cfg, params, consts, device, artifact=True):
+    """Calibrate ``cfg``'s model on the card (host scales, codes and
+    layout; the error fold with torch on the card), every SLTrain linear
+    one matrix and every routed expert of a layer one more, timed per
+    matrix; with ``artifact`` write the quant artifact under build/ and
+    load it back, every leaf bit for bit. Returns the (loaded) calibrated
+    params and consts."""
     from repro_torch.ckpt import checkpoint as ckpt
     from repro_torch.models.common import tree_leaves
     from repro_torch.quant import calibrate
@@ -1596,13 +1658,18 @@ def phase_quant_f32(cfg, params, consts, prompts, arrivals, device, **kw):
     qp, qc, st = calibrate.calibrate_model(cfg, params, consts)
     torch.cuda.synchronize()
     t_cal = time.perf_counter() - t0
-    n_lin = len(linear_shapes(cfg)) * cfg.n_layers
+    single, grouped = linear_counts(cfg)
+    n_lin = single + grouped * cfg.moe.n_experts
     if st["n_matrices"] != n_lin:
         fail(f"calibrate: {st['n_matrices']} matrices, expected {n_lin}")
-    say(f"calibrate {arch(cfg)} f32 on the card (host scales and codes, "
-        f"torch.linalg.svd fold on the card): {t_cal:.1f} s, n_matrices "
-        f"{st['n_matrices']}, {st['nnz']} int8 codes, max_abs_err "
-        f"{st['max_abs_err']:.4e}")
+    say(f"calibrate {arch(cfg)} {cfg.dtype} on the "
+        f"card (host scales and codes, float64 eigh fold on the card): "
+        f"{t_cal:.1f} s, n_matrices {st['n_matrices']} ({single} single"
+        + (f", {grouped} expert stacks of {cfg.moe.n_experts}"
+           if grouped else "") + f"), {t_cal / n_lin:.3f} s a matrix, "
+        f"{st['nnz']} int8 codes, max_abs_err {st['max_abs_err']:.4e}")
+    if not artifact:
+        return qp, qc
     art = os.path.join(ROOT, "build", "chip_smoke_quant")
     t0 = time.perf_counter()
     ckpt.save_quant_artifact(art, qp, qc, config_hash=cfg.hash(), extra=st)
@@ -1627,34 +1694,57 @@ def phase_quant_f32(cfg, params, consts, prompts, arrivals, device, **kw):
     say(f"quant artifact: {size / 2**30:.2f} GiB under build/, saved in "
         f"{t_save:.1f} s, loaded in {t_load:.1f} s, {n_leaves} leaves bit "
         "for bit")
-    del qp, qc
+    return lp, lc
 
+
+def quant_engine_f32(cfg, qparams, qconsts, prompts, arrivals, device,
+                     **kw):
+    """Serve a calibrated f32 model in exec_mode quant (the
+    ``quant_sparse_matmul`` kernel + paged kernels; ``serve_quant``'s
+    kernels must launch, no other linear kernel) against a dense/gather
+    engine on the dequantized weights (B', A' and v := dequant(qv)): the
+    same greedy tokens, a top-2 tie the only excuse. Returns the dequantized params
+    and the quant run's dispatch shapes."""
     reset_launch_counts()
-    q_reqs, q_stats, _, q_wall = serve(cfg, lp, lc, prompts, arrivals,
-                                       exec_mode="quant",
+    q_reqs, q_stats, _, q_wall = serve(cfg, qparams, qconsts, prompts,
+                                       arrivals, exec_mode="quant",
                                        attn_kernel="paged", device=device,
                                        **kw)
     launches = launch_counts()
     if not all(launches[k] for k in PATH_KERNELS["serve_quant"]) or \
             launches["sl_matmul"] or launches["sparse_matmul"]:
         fail(f"quant/paged launched the wrong kernels: {launches}")
-    dp = dequantized(lp, lc)
+    dp = dequantized(qparams, qconsts)
     reset_launch_counts()
-    d_reqs, _, _, d_wall = serve(cfg, dp, lc, prompts, arrivals,
+    d_reqs, _, _, d_wall = serve(cfg, dp, qconsts, prompts, arrivals,
                                  exec_mode="dense", attn_kernel="gather",
                                  device=device, **kw)
     if any(launch_counts().values()):
         fail(f"dense/gather on dequantized weights launched kernels: "
              f"{launch_counts()}")
     same, ties = same_tokens("quant/paged vs dense/gather on dequantized "
-                             "weights", q_reqs, d_reqs, cfg, dp, lc, device)
+                             "weights", q_reqs, d_reqs, cfg, dp, qconsts,
+                             device)
     total = sum(len(r.out) for r in q_reqs)
-    say(f"engine f32 {arch(cfg)} exec_mode quant (loaded artifact) == "
-        f"dense/gather on the dequantized weights on {same}/{total} tokens"
+    say(f"engine f32 {arch(cfg)} exec_mode quant == dense/gather on the "
+        f"dequantized weights on {same}/{total} tokens"
         + (f", ties (uid, token, top-2 gap): {ties}" if ties else "")
         + f" | quant {q_wall:.2f} s launches {launches}, dense "
         f"{d_wall:.2f} s")
-    return lp, lc, dp, q_stats["token_shapes"]
+    return dp, q_stats["token_shapes"]
+
+
+def phase_quant_f32(cfg, params, consts, prompts, arrivals, device, **kw):
+    """Calibrate llama_1b on the card, write the quant artifact under
+    build/ and load it back bit for bit (``calibrate_on_card``), then
+    serve it in exec_mode quant against a dense/gather engine on the
+    dequantized weights (``quant_engine_f32``). Returns the loaded
+    artifact's trees, its dequantized params and the quant run's dispatch
+    shapes."""
+    lp, lc = calibrate_on_card(cfg, params, consts, device)
+    dp, shapes = quant_engine_f32(cfg, lp, lc, prompts, arrivals, device,
+                                  **kw)
+    return lp, lc, dp, shapes
 
 
 def dispatch_ticks(reqs):
@@ -2713,13 +2803,13 @@ def phase_comparison(device):
     parameterizations at an equal token budget, at the reference example's
     default size (dim 128, 300 steps, batch 8 × seq 128) with its two
     asserts as gates, then at ``llama_60m`` (the paper config, full width)
-    for 10 steps a mode (cut from 100 to keep the script inside its time
-    limit), gated only on finite losses."""
+    for 5 steps a mode (cut from 100, then 10, to keep the script inside
+    its time limit), gated only on finite losses."""
     from repro_torch.analysis import pretrain_comparison as cmp
     root = os.path.join(ROOT, "build")
     os.makedirs(root, exist_ok=True)
     for label, kw in (("default size (dim 128)", dict(steps=300)),
-                      ("llama_60m", dict(size="60m", steps=10))):
+                      ("llama_60m", dict(size="60m", steps=5))):
         t0 = time.perf_counter()
         res = cmp.compare(device=device, ckpt_root=root,
                           log_fn=lambda *a: None, **kw)
@@ -2759,23 +2849,25 @@ def recipe_line(label, rows, extra=""):
         f"{quant_recipe.MIN_BYTES_REDUCTION})")
 
 
-def phase_recipe_llama_1b(cfg, device, smi, *, batch, seq, steps=60):
-    """The quant recipe of ``analysis/quant_recipe.py`` at llama_1b full
-    width, through the launchers' code paths: the bf16 fused Trainer for
-    ``steps`` steps at batch x seq (AdamW, lr 3e-3, the launcher's warmup)
-    writes its checkpoint under build/; the calibrate CLI's path
-    (``calibrate.calibrate_checkpoint``) turns it into a quant artifact on
-    the card, timed; the serve launcher's ``--ckpt-dir`` path
-    (``serve.load_model``) restores it into a sparse engine's init and its
-    ``--quant-ckpt`` path loads the artifact for a quant engine; then the
-    recipe's rows and the reference's gates. Returns the launch counts of
-    the whole recipe and the checkpoint's directory."""
+def phase_recipe(cfg, device, smi, *, batch, seq, steps=60):
+    """The quant recipe of ``analysis/quant_recipe.py`` at ``cfg``'s full
+    width (llama_1b, llama_7b), through the launchers' code paths: the
+    bf16 fused Trainer for ``steps`` steps at batch x seq (AdamW, lr
+    3e-3, the launcher's warmup) writes its checkpoint under build/; the
+    calibrate CLI's path (``calibrate.calibrate_checkpoint``) turns it
+    into a quant artifact on the card, timed, with its size; the serve
+    launcher's ``--ckpt-dir`` path (``serve.load_model``) restores it
+    into a sparse engine's init and its ``--quant-ckpt`` path loads the
+    artifact back for a quant engine; then the recipe's rows and the
+    reference's gates. Returns the launch counts of the whole recipe, the
+    checkpoint's directory and the loaded quant params and consts."""
     from repro_torch.analysis import quant_recipe
     from repro_torch.launch import serve as serve_launcher
     from repro_torch.quant import calibrate
     from repro_torch.train.trainer import Trainer
-    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_recipe_ckpt")
-    art = os.path.join(ROOT, "build", "chip_smoke_recipe_quant")
+    name = cfg.name.replace("-", "_")
+    ckpt_dir = os.path.join(ROOT, "build", f"chip_smoke_recipe_ckpt_{name}")
+    art = os.path.join(ROOT, "build", f"chip_smoke_recipe_quant_{name}")
     for d in (ckpt_dir, art):
         shutil.rmtree(d, ignore_errors=True)
     reset_launch_counts()
@@ -2804,16 +2896,25 @@ def phase_recipe_llama_1b(cfg, device, smi, *, batch, seq, steps=60):
                                                      device=device)
     torch.cuda.synchronize()
     t_cal = time.perf_counter() - t0
+    dir_bytes = lambda d: sum(os.path.getsize(os.path.join(r, f))
+                              for r, _, fs in os.walk(d) for f in fs)
     say(f"recipe {arch(cfg)}: calibrate CLI path (restore, calibrate on the "
         f"card, write the artifact under build/) {t_cal:.1f} s, "
+        f"{t_cal / qstats['n_matrices']:.3f} s a matrix, "
         f"{qstats['n_matrices']} matrices, {qstats['nnz']} int8 codes, "
-        f"max |W - Wq| {qstats['max_abs_err']:.4e}")
+        f"max |W - Wq| {qstats['max_abs_err']:.4e}; checkpoint "
+        f"{dir_bytes(ckpt_dir) / 2**30:.2f} GiB, artifact "
+        f"{dir_bytes(art) / 2**30:.2f} GiB")
     sp_cfg = quant_recipe.with_exec_mode(cfg, "sparse")
     params, consts = serve_launcher.load_model(sp_cfg, device=device,
                                                ckpt_dir=ckpt_dir)
+    t0 = time.perf_counter()
     qparams, qconsts = serve_launcher.load_model(
         quant_recipe.with_exec_mode(cfg, "quant"), device=device,
         quant_ckpt=art)
+    torch.cuda.synchronize()
+    say(f"recipe {arch(cfg)}: the artifact read back by the serve "
+        f"launcher's --quant-ckpt path in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     rows = quant_recipe.quant_rows(sp_cfg, params, consts, qparams, qconsts,
                                    qstats, device=device, train_steps=steps)
@@ -2821,11 +2922,11 @@ def phase_recipe_llama_1b(cfg, device, smi, *, batch, seq, steps=60):
     launches = launch_counts()
     recipe_line(arch(cfg), rows, f"rows in {time.perf_counter() - t0:.1f} "
                 f"s, launches over the whole recipe {launches}")
-    missing = [k for k in PATH_KERNELS["recipe_llama_1b"] if not launches[k]]
+    missing = [k for k in PATH_KERNELS[f"recipe_{name}"] if not launches[k]]
     if missing:
-        fail(f"recipe llama_1b never launched {missing}: {launches}")
+        fail(f"recipe {name} never launched {missing}: {launches}")
     shutil.rmtree(art, ignore_errors=True)
-    return launches, ckpt_dir
+    return launches, ckpt_dir, qparams, qconsts
 
 
 def phase_recipe_default(device, steps=60):
@@ -2993,11 +3094,13 @@ def kernels_line(rows, by_path, representative, rows_7b, representative_7b,
     quant recipe at llama_1b and at its default size; the quant fallback;
     llama_7b's per-layer training and fused and sparse serving; gemma2_2b's
     serving, long request and training, paligemma_3b's; deepseek_moe_16b's
-    serving and training), each path's count beside them. ``sl_matmul``'s
-    and ``sddmm``'s launches count their grouped launches over an expert
-    stack too (one launch a stage of all experts), by path under
-    ``grouped_launches_by_path``; ``at_deepseek_moe_16b`` holds their
-    grouped representative case (with the loop of single launches' time),
+    serving and training; the llama_7b quant path; gemma2_2b's quant
+    serving), each path's count beside them. ``sl_matmul``'s, ``sddmm``'s,
+    ``sparse_matmul``'s and ``quant_sparse_matmul``'s launches count their
+    grouped launches over an expert stack too (one launch a stage of all
+    experts), by path under ``grouped_launches_by_path``;
+    ``at_deepseek_moe_16b`` holds their grouped representative case (with
+    the loop of single launches' time),
     ``at_qwen3_moe_235b`` the paged kernels' at qwen3's GQA group 16;
     ``at_ssm_families`` the linears' kernels' timed cases at zamba2_7b's,
     xlstm_350m's and whisper_large_v3's shapes (phase h1, whose untimed
@@ -3008,7 +3111,9 @@ def kernels_line(rows, by_path, representative, rows_7b, representative_7b,
            "adam8bit": AD_SOURCE, "sparse_matmul": SP_SOURCE,
            "quant_sparse_matmul": SP_SOURCE}
     times = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    grouped_of = {"sl_matmul": "sl_matmul_grouped", "sddmm": "sddmm_grouped"}
+    grouped_of = {k: f"{k}_grouped" for k in
+                  ("sl_matmul", "sddmm", "sparse_matmul",
+                   "quant_sparse_matmul")}
     for name, shape in representative.items():
         g_name = grouped_of.get(name)
         n_grouped = {p: n.get(g_name, 0) for p, n in by_path.items()
@@ -3132,25 +3237,31 @@ def phase_chaos_kill_launcher(device, root):
     a, b = (os.path.join(root, f"launcher_{x}") for x in "ab")
     t0 = time.perf_counter()
     torch.use_deterministic_algorithms(True)
+    # the killed run's process starts first and runs beside the
+    # uninterrupted one: they share no directory
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    killed = subprocess.Popen(
+        [sys.executable, "-c", LAUNCHER, *CHAOS_ARGV, "--ckpt-dir", b,
+         "--ckpt-every", "2", "--chaos", "kill@4"], cwd=ROOT, env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     try:
         reset_launch_counts()
         with contextlib.redirect_stdout(io.StringIO()):
             ref = train_launcher.main(CHAOS_ARGV + ["--ckpt-dir", a,
                                                     "--ckpt-every", "3"])
-        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        out = subprocess.run(
-            [sys.executable, "-c", LAUNCHER, *CHAOS_ARGV, "--ckpt-dir", b,
-             "--ckpt-every", "2", "--chaos", "kill@4"], cwd=ROOT, env=env,
-            capture_output=True, text=True, timeout=600)
-        if out.returncode != 43:
-            fail(f"launch.train --chaos kill@4 exited {out.returncode}, not "
-                 f"43: {out.stderr[-2000:]}")
+        _, err = killed.communicate(timeout=600)
+        if killed.returncode != 43:
+            fail(f"launch.train --chaos kill@4 exited {killed.returncode}, "
+                 f"not 43: {err[-2000:]}")
         with contextlib.redirect_stdout(io.StringIO()):
             got = train_launcher.main(CHAOS_ARGV + ["--ckpt-dir", b,
                                                     "--ckpt-every", "2"])
         launches = launch_counts()
     finally:
         torch.use_deterministic_algorithms(False)
+        if killed.poll() is None:
+            killed.kill()
+            killed.wait()
     what = "chaos kill@4 (launcher, adamw, global)"
     first = check_relaunch(what, ref.metrics_history, got.metrics_history,
                            (3, 5))
@@ -3664,6 +3775,38 @@ def phase_serving_7b(cfg, device, *, n_slots, block_len, max_len, buckets,
     return by_path
 
 
+def phase_quant_7b(cfg, device, smi, *, batch, seq, n_slots, block_len,
+                   max_len):
+    """Phase 7f: quant at llama_7b's full width on QUANT_7B_LAYERS of its
+    32 layers: the recipe's train -> checkpoint -> calibrate -> artifact
+    -> serve path (``phase_recipe``: QUANT_7B_STEPS bf16 fused Trainer
+    steps, the checkpoint under build/, the calibrate CLI's path on the
+    card timed per matrix, the artifact written and read back by the
+    serve launcher's ``--quant-ckpt`` path, the sparse and quant engines,
+    the recipe's rows, greedy match or mean |dlogit| against the sparse
+    engine and the modeled decode bytes, and the reference's gates); then
+    the loaded artifact in f32: the quant engine's tokens against a dense
+    engine with gathered attention on the dequantized weights
+    (``quant_engine_f32``). Returns the recipe's launch counts."""
+    from repro_torch.models.common import tree_map
+    cfg16 = dataclasses.replace(cfg, n_layers=QUANT_7B_LAYERS,
+                                param=dataclasses.replace(
+                                    cfg.param, exec_mode="fused"))
+    launches, ckpt_dir, qparams, qconsts = phase_recipe(
+        cfg16, device, smi, batch=batch, seq=seq, steps=QUANT_7B_STEPS)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    qparams = tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                       qparams)
+    prompts, arrivals = traffic(cfg.vocab_size)
+    quant_engine_f32(cfg32, qparams, qconsts, prompts, arrivals, device,
+                     n_slots=n_slots, max_len=max_len, block_len=block_len,
+                     new_tokens=16)
+    del qparams, qconsts
+    torch.cuda.empty_cache()
+    return launches
+
+
 def run_7b(device, smi, *, batch, seq, n_slots, block_len, max_len, buckets,
            m_values):
     """Phases 7a to 7e on llama_7b; returns (kernel rows, launch counts
@@ -3700,6 +3843,12 @@ def run_7b(device, smi, *, batch, seq, n_slots, block_len, max_len, buckets,
         n_slots=n_slots, block_len=block_len, max_len=max_len,
         buckets=buckets, m_values=m_values))
     say(f"phase 7e ({arch(cfg)} serving): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["recipe_llama_7b"] = phase_quant_7b(
+        cfg, device, smi, batch=batch, seq=seq, n_slots=n_slots,
+        block_len=block_len, max_len=max_len)
+    say(f"phase 7f ({arch(cfg)} quant, {QUANT_7B_LAYERS} layers): "
+        f"{time.perf_counter() - t0:.1f} s")
     return rows, by_path
 
 
@@ -3707,10 +3856,15 @@ def run_7b(device, smi, *, batch, seq, n_slots, block_len, max_len, buckets,
 # phases g1 to g4: the gemma2 family, paligemma_3b and qwen2.5's kernel rows
 # ---------------------------------------------------------------------------
 
-# gemma2_2b's f32 parity (phase g2) on this many of its 26 layers (two
-# local/global periods) and paligemma_3b (phase g4) on this many of its 18
-GEMMA_PARITY_LAYERS = 4
+# gemma2_2b's f32 parity and quant (phase g2) on this many of its 26
+# layers (one local/global period; two before a slower host took the
+# script past its limit) and paligemma_3b (phase g4) on this many of its 18
+GEMMA_PARITY_LAYERS = 2
 PALI_LAYERS = 2
+# gemma2_2b in bf16 (phase g3: serving, the long request, training) on
+# this many of its 26 layers (two local/global periods; four before the
+# script outgrew its limit, full depth before the quant phases)
+GEMMA_BF16_LAYERS = 4
 # phase g3's long request: a prompt past gemma2's 4096-key window, then
 # new tokens, on one slot whose table spans LONG_MAX_LEN keys
 LONG_PROMPT, LONG_NEW, LONG_MAX_LEN = 4300, 16, 4320
@@ -3727,6 +3881,7 @@ PALI_BATCH, PALI_SEQ = 4, 512
 PATH_KERNELS.update({
     "serve_gemma2_2b": PATH_KERNELS["serve"],
     "serve_sparse_gemma2_2b": PATH_KERNELS["serve_sparse"],
+    "serve_quant_gemma2_2b": PATH_KERNELS["serve_quant"],
     "serve_long_gemma2_2b": PATH_KERNELS["serve"],
     "train_gemma2_2b": PATH_KERNELS["train"],
     "train_per_layer_gemma2_2b": PATH_KERNELS["train_per_layer"],
@@ -3830,7 +3985,8 @@ def check_kernels_families(device, cfgs, m_values, n_slots, block_len, bps,
                                  block_len, bps, buckets, False)
     rows += check_sparse_decode(timer, gens[2], device, g2, m_values, bf16)
     rows += check_train_kernels(timer, gens[0], device, g2, m_train, bf16)
-    rows += check_adam8bit(timer, gens[4], device, g2, dtypes=bf16)
+    rows += check_adam8bit(timer, gens[4], device, dataclasses.replace(
+        g2, n_layers=GEMMA_BF16_LAYERS), dtypes=bf16)
     torch.cuda.empty_cache()
     for cfg, shapes in ((pali, [(pali.d_model, pali.d_ff),
                                 (pali.d_model, pali.n_kv_heads
@@ -3851,15 +4007,22 @@ def check_kernels_families(device, cfgs, m_values, n_slots, block_len, bps,
 
 
 def phase_parity_gemma2(cfg, device, *, batch, seq, n_slots, block_len,
-                        max_len):
+                        max_len, buckets, m_values):
     """Phase g2: gemma2_2b at full width on GEMMA_PARITY_LAYERS layers
-    (two local/global periods) in f32: 3 train steps in exec_mode fused
+    (one local/global period) in f32: 3 train steps in exec_mode fused
     against dense (the loss and gradient-norm gaps, TRAIN_TOL_*); the
     plain forward, fused and sparse against dense; and the 8-request
     traffic on the paged engine, fused + paged kernels and sparse + paged
     kernels each giving dense + gathered attention's tokens, request by
-    request (ties in the dense logits excepted)."""
+    request (ties in the dense logits excepted). Then quant: the model
+    calibrated on the card, served in exec_mode quant against dense +
+    gathered attention on the dequantized weights (``quant_engine_f32``),
+    and its calibration cast to bf16 served in exec_mode quant on the
+    paged engine, timed under the device-only profiler, one
+    ``quant_sparse_matmul`` launch a linear a dispatch (asserted). Returns
+    the bf16 quant run's launch counts by path."""
     from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
     gen = torch.Generator(device=device)
     gen.manual_seed(50)
     cfg32 = dataclasses.replace(cfg, n_layers=GEMMA_PARITY_LAYERS,
@@ -3878,8 +4041,24 @@ def phase_parity_gemma2(cfg, device, *, batch, seq, n_slots, block_len,
                                  device, **kw)
     phase_sparse_f32(cfg32, params, consts, prompts, arrivals, b_reqs,
                      device, **kw)
+    qparams, qconsts = calibrate_on_card(cfg32, params, consts, device,
+                                         artifact=False)
     del params, consts
+    quant_engine_f32(cfg32, qparams, qconsts, prompts, arrivals, device,
+                     **kw)
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    qparams = tree_map(lambda t: t.to(torch.bfloat16)
+                       if t.is_floating_point() else t, qparams)
+    path = "serve_quant_gemma2_2b"
+    single, _ = linear_counts(cfg16)
+    launches, shapes, _ = phase_engine_bf16(
+        cfg16, qparams, qconsts, prompts, arrivals, device,
+        exec_mode="quant", path=path, profiled=True,
+        want_per_dispatch={"quant_sparse_matmul": single}, **kw)
+    check_coverage(shapes, m_values, buckets, "quant_sparse_matmul")
+    del qparams, qconsts
     torch.cuda.empty_cache()
+    return {path: launches}
 
 
 def phase_long_gemma2(cfg, params, consts, device):
@@ -3995,7 +4174,8 @@ def phase_long_gemma2(cfg, params, consts, device):
 
 def run_gemma2_bf16(cfg, device, smi, *, batch, seq, n_slots, block_len,
                     max_len, buckets, m_values, rows):
-    """Phase g3: gemma2_2b at full width and depth in bf16 from one pooled
+    """Phase g3: gemma2_2b at full width in bf16 on GEMMA_BF16_LAYERS
+    layers from one pooled
     init (B ~ U(-1, 1), fused tile consts, which the sparse path reads
     too): the fused and the sparse paged engine on the 8-request traffic,
     timed under the device-only profiler (tokens/s and busy share) with
@@ -4008,13 +4188,14 @@ def run_gemma2_bf16(cfg, device, smi, *, batch, seq, n_slots, block_len,
     from repro_torch.obs import metrics as obs_metrics
     gen = torch.Generator(device=device)
     gen.manual_seed(60)
-    cfg16 = dataclasses.replace(cfg, param=dataclasses.replace(
-        cfg.param, exec_mode="fused"))
+    cfg16 = dataclasses.replace(cfg, n_layers=GEMMA_BF16_LAYERS,
+                                param=dataclasses.replace(
+                                    cfg.param, exec_mode="fused"))
     reg = obs_metrics.Registry()
     params, consts = lm.init_lm(cfg16, seed=0, device=device, obs=reg)
     randomize_b(params, gen)
     n_params = sum(t.numel() for _, t in tree_leaves(params))
-    say(f"init {arch(cfg16)} bf16: {cfg.n_layers} layers ({cfg.attn_pattern}"
+    say(f"init {arch(cfg16)} bf16: {cfg16.n_layers} layers ({cfg.attn_pattern}"
         f" periods), d_model {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads} "
         f"heads over {cfg.n_kv_heads} of {cfg.resolved_head_dim}, vocab "
         f"{cfg.padded_vocab} tied, rank {cfg.param.rank}, delta "
@@ -4176,13 +4357,16 @@ def run_families(device, smi, *, batch, seq, n_slots, block_len, max_len,
                                   block_len, max_len // block_len, buckets,
                                   batch * seq)
     lap(f"phase g1 ({arch(g2)}, paligemma_3b, qwen2_5_32b kernels)")
-    phase_parity_gemma2(g2, device, batch=batch, seq=seq, n_slots=n_slots,
-                        block_len=block_len, max_len=max_len)
-    lap(f"phase g2 ({arch(g2)} f32 parity, {GEMMA_PARITY_LAYERS} layers)")
-    by_path = run_gemma2_bf16(g2, device, smi, batch=batch, seq=seq,
+    by_path = phase_parity_gemma2(
+        g2, device, batch=batch, seq=seq, n_slots=n_slots,
+        block_len=block_len, max_len=max_len, buckets=buckets,
+        m_values=m_values)
+    lap(f"phase g2 ({arch(g2)} f32 parity and quant, {GEMMA_PARITY_LAYERS} "
+        "layers)")
+    by_path.update(run_gemma2_bf16(g2, device, smi, batch=batch, seq=seq,
                               n_slots=n_slots, block_len=block_len,
                               max_len=max_len, buckets=buckets,
-                              m_values=m_values, rows=rows)
+                              m_values=m_values, rows=rows))
     lap(f"phase g3 ({arch(g2)} bf16 serving and training)")
     by_path.update(phase_paligemma(cfgs[1], device, n_slots=n_slots,
                                    block_len=block_len, max_len=max_len))
@@ -4195,12 +4379,13 @@ def run_families(device, smi, *, batch, seq, n_slots, block_len, max_len,
 # ---------------------------------------------------------------------------
 
 # m2: deepseek_moe_16b at full width in f32 on its dense first layer and
-# one MoE layer; m3: bf16 serving on 4 of its 28 layers (1 dense + 3
-# MoE, as llama_7b serves on SERVE_7B_LAYERS; 8 before the SSM and
-# encoder phases) and the Trainer on 4 (1 + 3), 3 steps each
+# one MoE layer, calibrated there; m3: bf16 serving (fused, sparse,
+# quant) on that model and its calibration cast to bf16 (4 of 28 layers
+# before the quant phases: calibrating 3 MoE layers' 576 expert matrices
+# would cost the run minutes) and the Trainer on 2 (1 + 1; 4 before the
+# quant phases), 3 steps each
 MOE_PARITY_LAYERS = 2
-MOE_SERVE_LAYERS = 4
-MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_STEPS = 3
 # the routing-margin excuse: two paths' routers see the same tokens
 # through linears that round in another order, so a token whose k-th and
@@ -4225,6 +4410,11 @@ MOE_TIE = {torch.float32: 1e-4, torch.bfloat16: 0.125}
 PATH_KERNELS.update({
     "serve_deepseek_moe_16b": ("sl_matmul", "sl_matmul_grouped",
                                "paged_attention", "paged_prefill"),
+    "serve_sparse_deepseek_moe_16b": ("sparse_matmul", "sparse_matmul_grouped",
+                                      "paged_attention", "paged_prefill"),
+    "serve_quant_deepseek_moe_16b": ("quant_sparse_matmul",
+                                     "quant_sparse_matmul_grouped",
+                                     "paged_attention", "paged_prefill"),
     "train_deepseek_moe_16b": ("sl_matmul", "sl_matmul_grouped", "sddmm",
                                "sddmm_grouped"),
     "train_per_layer_deepseek_moe_16b": ("sl_matmul", "sl_matmul_grouped",
@@ -4519,6 +4709,110 @@ def time_sddmm_grouped(timer, label, x, dy, rt, ct, dtype, nnz):
                 plain_ms=t_p, library_ms=t_l, bound_ms=b, bound_by=by)
 
 
+def grouped_sparse_case(gen, device, n_exp, d_in, d_out, delta,
+                        n_supports=4):
+    """A stack of ``n_exp`` experts' sparse terms at real width in both
+    decode layouts: expert e on the (e % n_supports)-th sampled support,
+    its own values v ~ U(±1/sqrt(d_in)) as f32 tile-CSR, and its own int8
+    codes (uniform in ±127 on the support, 0 on padding slots) and
+    per-channel scales (U(0.5, 1)/(127·sqrt(d_in))). Returns ((v_t,
+    rows_t, cols_t), (qv_t, rows_q, cols_q, qscale), the stack's nnz)."""
+    from repro_torch.kernels import ops
+    sup = [support_tiles(d_in * 7 + d_out + s, d_in, d_out, delta)
+           for s in range(n_supports)]
+    tiles = {k: torch.stack([sup[e % n_supports][2][k]
+                             for e in range(n_exp)]).to(device)
+             for k in ("rows_t", "cols_t", "perm")}
+    nnz = sup[0][0].shape[0]
+    perm = tiles["perm"]
+    v = (torch.rand((n_exp, nnz), generator=gen, device=device) * 2 - 1) \
+        * d_in ** -0.5
+    codes = torch.randint(-127, 128, perm.shape, generator=gen,
+                          device=device).to(torch.int8)
+    qv_t = torch.where(perm >= 0, codes, torch.zeros_like(codes))
+    qscale = (torch.rand((n_exp, perm.shape[2], 128), generator=gen,
+                         device=device) * 0.5 + 0.5) * d_in ** -0.5 / 127
+    sp = (ops._gather_tiles_grouped(v, perm), tiles["rows_t"],
+          tiles["cols_t"])
+    qp = (qv_t, tiles["rows_t"].to(torch.int16),
+          tiles["cols_t"].to(torch.int16), qscale)
+    return sp, qp, nnz * n_exp
+
+
+def time_sparse_grouped(timer, label, x, sp, qp, d_out, nnz, timed=True):
+    """The grouped sparse-decode launches at one expert-stack shape:
+    ``sparse_matmul_grouped`` with an f32 y for a bf16 x (as exec_mode
+    sparse's linear calls it) and ``quant_sparse_matmul_grouped``, each
+    bit for bit a loop of single launches (and its own rerun), within the
+    tolerance of y's dtype of the plain version (a loop of the single
+    plain versions). ``timed``: each beside the loop (its time includes
+    the host's enqueue of its E launches where the Timer's spin does not
+    cover it: the cost a loop over the stack pays), the plain version and
+    ``torch.bmm`` on the pre-densified bf16 S stack (dequantized for the
+    int8 layout); bound: x, the stack's nnz entries (values and indices,
+    or codes and indices, and the scales) and y moved once, or 2·M·nnz
+    operations, the larger."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_decode as spk
+    n_exp, m, d_in = x.shape
+    dtype = x.dtype
+    rows = []
+    for name, grouped, single, plain, args, out in (
+            ("sparse_matmul", spk.sparse_matmul_grouped, spk.sparse_matmul,
+             ref.sparse_matmul_ref, sp,
+             [torch.float32] if dtype != torch.float32 else []),
+            ("quant_sparse_matmul", spk.quant_sparse_matmul_grouped,
+             spk.quant_sparse_matmul, ref.quant_sparse_matmul_ref, qp, [])):
+        def each(fn):
+            return torch.stack([fn(x[e], *(a[e] for a in args), d_out, *out)
+                                for e in range(n_exp)])
+        got = grouped(x, *args, d_out, *out)
+        lbl = label + (" f32 out" if out else "")
+        if not torch.equal(got, each(single)):
+            fail(f"{grouped.__name__} {lbl}: differs from a loop of single "
+                 "launches")
+        if not torch.equal(got, grouped(x, *args, d_out, *out)):
+            fail(f"{grouped.__name__} {lbl}: a rerun gave other bits")
+        err = compare(f"{grouped.__name__} {lbl}", got, each(plain),
+                      got.dtype)
+        row = dict(name=name, shape=lbl, grouped=True, experts=n_exp,
+                   max_abs_err=err, tol=TOL[got.dtype])
+        if timed:
+            S = torch.stack([
+                ref._tile_dense(*(a[e] for a in args[:3]))
+                * (args[3][e].reshape(1, -1) if len(args) > 3 else 1.0)
+                for e in range(n_exp)])[:, :d_in, :d_out].to(dtype)
+            lib = (lambda: torch.bmm(x, S, out_dtype=torch.float32)) if out \
+                else (lambda: torch.bmm(x, S))
+            t_g = timer.ms(lambda: grouped(x, *args, d_out, *out))
+            t_loop = timer.ms(lambda: each(single))
+            t_p = timer.ms(lambda: each(plain), reps=5)
+            t_l = timer.ms(lib)
+            del S
+            ops_ = 2.0 * m * nnz
+            moved = nbytes(x, got, *args[3:]) + support_bytes(nnz,
+                                                              *args[:3])
+            b, by = bound_ms(moved, ops_, dtype)
+            row.update(ms=t_g, loop_ms=t_loop, plain_ms=t_p, library_ms=t_l,
+                       bound_ms=b, bound_by=by)
+            say(f"kernel {grouped.__name__} {lbl} ({n_exp} experts, one "
+                f"launch, {spk.plan(m, d_in, d_out).splits} splits an "
+                f"expert): bit for bit a loop of {n_exp} single launches | "
+                f"max_abs_err vs plain {err:.3e} (tol {TOL[got.dtype]}) | "
+                f"grouped {t_g:.4f} ms, loop of single launches "
+                f"{t_loop:.4f} ms, plain {t_p:.4f} ms, torch.bmm on the "
+                f"dense{' dequantized' if len(args) > 3 else ''} S stack "
+                f"{t_l:.4f} ms, bound {b:.4f} ms ({by}, {moved / 1e6:.2f} "
+                "MB)")
+        else:
+            say(f"kernel {grouped.__name__} {lbl} ({n_exp} experts, one "
+                f"launch): bit for bit a loop of {n_exp} single launches | "
+                f"max_abs_err vs plain {err:.3e} (tol {TOL[got.dtype]}), "
+                "untimed")
+        rows.append(row)
+    return rows
+
+
 def check_kernels_moe(device, cfgs, n_slots, block_len, bps, buckets,
                       m_train_rows):
     """Phase m1: the grouped launches at the experts' shapes in bf16:
@@ -4527,20 +4821,41 @@ def check_kernels_moe(device, cfgs, n_slots, block_len, bps, buckets,
     prefill (15) and training (``m_train_rows``), with the training dx,
     and ``sddmm_grouped`` at training rows; qwen3_moe_235b's (128 experts,
     4096 -> 1536 and 1536 -> 4096, rank 768) at 1 and ``m_train_rows``
-    rows; the paged kernels at qwen3's GQA group 16, head_dim 128. Own
-    generators, so no earlier phase's draws move."""
+    rows; the grouped ``sparse_matmul`` and ``quant_sparse_matmul``
+    (``time_sparse_grouped``) at both configs' expert shapes, timed at 1
+    and ``m_train_rows`` rows an expert of the d_model -> d_ff_expert
+    linears and checked untimed at every other row count the MoE engine
+    gives them (``moe_rows``); the paged kernels at qwen3's GQA group 16,
+    head_dim 128. Own generators, so no earlier phase's draws move."""
     deep, qwen = cfgs
     timer = Timer(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(70)
+    sgen = torch.Generator(device=device)
+    sgen.manual_seed(71)
     bf16 = torch.bfloat16
     rows = []
-    for cfg, ms_, train in ((deep, (1, 15, m_train_rows), True),
-                            (qwen, (1, m_train_rows), False)):
+    engine_rows = moe_rows(deep, n_slots, buckets)
+    for cfg, ms_, train, sparse_ms in (
+            (deep, (1, 15, m_train_rows), True,
+             sorted(set(engine_rows) | {m_train_rows})),
+            (qwen, (1, m_train_rows), False, (1, m_train_rows))):
         pc, m = cfg.param, cfg.moe
         tag = cfg.name.split("-")[0]
         for d_in, d_out in ((cfg.d_model, m.d_ff_expert),
                             (m.d_ff_expert, cfg.d_model)):
+            sp, qp, nnz = grouped_sparse_case(sgen, device, m.n_experts,
+                                              d_in, d_out, pc.delta)
+            for rows_e in sparse_ms:
+                x = torch.randn((m.n_experts, rows_e, d_in), generator=sgen,
+                                device=device).to(bf16)
+                rows += time_sparse_grouped(
+                    timer, f"{m.n_experts}x{rows_e}x{d_in}->{d_out} "
+                    f"bfloat16 ({tag})", x, sp, qp, d_out, nnz,
+                    timed=d_in == cfg.d_model and rows_e in (1, m_train_rows))
+                del x
+            del sp, qp
+            torch.cuda.empty_cache()
             for rows_e in ms_:
                 x, B, A, v_t, rt, ct, scale, tiles, nnz = grouped_case(
                     gen, device, m.n_experts, rows_e, d_in, d_out, bf16,
@@ -4573,6 +4888,17 @@ def check_kernels_moe(device, cfgs, n_slots, block_len, bps, buckets,
     return rows
 
 
+def moe_rows(cfg, n_slots, buckets):
+    """The rows an expert takes at each dispatch of the MoE paged engine
+    (``models/mlp.py::route``'s capacity, every row of the dispatch
+    routing): a decode step's ``n_slots`` rows, each prefill bucket's
+    ``n_slots`` x bucket."""
+    m = cfg.moe
+    return sorted({min(int(max(1, 1.25 * t * m.top_k / m.n_experts)),
+                       t * m.top_k)
+                   for t in (n_slots,) + tuple(n_slots * b for b in buckets)})
+
+
 def moe_init(cfg, device, gen, label):
     """A pooled init of ``cfg`` with B ~ U(-1, 1), and its size line."""
     from repro_torch.models import lm
@@ -4597,27 +4923,37 @@ def moe_init(cfg, device, gen, label):
 
 
 def moe_compare(what, cfg, params, consts, prompts, arrivals, device, dtype,
-                mode, **kw):
-    """Engine tokens of exec_mode ``mode`` against exec_mode dense, both
-    reading the cache through the paged kernels, tick for tick under the
-    routing-margin and logit-tie excuses (``moe_same_tokens``). Not
-    against the gathered read: a prefill's padding positions past a
-    prompt's end (in pages the table leaves null) and an idle slot's row
-    route too and take capacity, and the two reads give those rows other
-    values, so the co-batched requests' routing differs by more than
-    rounding (on the smoke config, 16 padding rows of the first prefill
-    differ by up to 0.2 in probability)."""
-    a = serve_logged(cfg, params, consts, prompts, arrivals,
-                     exec_mode=mode, attn_kernel="paged", device=device, **kw)
-    b = serve_logged(cfg, params, consts, prompts, arrivals,
-                     exec_mode="dense", attn_kernel="paged", device=device,
-                     until=a[2], **kw)
+                mode, a=None, base_mode="dense", base_params=None, **kw):
+    """Engine tokens of exec_mode ``mode`` (run ``a``, or a new run)
+    against exec_mode ``base_mode`` (on ``base_params``, default
+    ``params``), both reading the cache through the paged kernels, tick
+    for tick under the routing-margin and logit-tie excuses
+    (``moe_same_tokens``). Not against the gathered read: a prefill's
+    padding positions past a prompt's end (in pages the table leaves
+    null) and an idle slot's row route too and take capacity, and the two
+    reads give those rows other values, so the co-batched requests'
+    routing differs by more than rounding (on the smoke config, 16
+    padding rows of the first prefill differ by up to 0.2 in
+    probability). Returns run ``a``."""
+    a = a or serve_logged(cfg, params, consts, prompts, arrivals,
+                          exec_mode=mode, attn_kernel="paged", device=device,
+                          **kw)
+    b = serve_logged(cfg, params if base_params is None else base_params,
+                     consts, prompts, arrivals, exec_mode=base_mode,
+                     attn_kernel="paged", device=device, until=a[2], **kw)
+    moe_say_same(what, cfg, mode, base_mode, a, b, dtype)
+    return a
+
+
+def moe_say_same(what, cfg, mode, base_mode, a, b, dtype):
+    """Print (and gate, ``moe_same_tokens``) run ``a``'s tokens against
+    the reference run ``b``'s."""
     same, total, excuse = moe_same_tokens(what, a, b, dtype)
-    say(f"engine {dname(dtype)} {arch(cfg)} {mode} vs dense, paged kernels: "
-        f"{same}/{total} tokens equal before the first difference | "
-        f"excuse: {excuse} | router calls {len(a[2].calls)} and "
-        f"{len(b[2].calls)}" + (" (the dense run stopped at the first "
-                                "routing difference)"
+    say(f"engine {dname(dtype)} {arch(cfg)} {mode} vs {base_mode}, paged "
+        f"kernels: {same}/{total} tokens equal before the first difference "
+        f"| excuse: {excuse} | router calls {len(a[2].calls)} and "
+        f"{len(b[2].calls)}" + (f" (the {base_mode} run stopped at the "
+                                "first routing difference)"
                                 if "diverged_at" in b[1] else ""))
 
 
@@ -4625,12 +4961,16 @@ def phase_parity_moe(cfg, device, *, n_slots, block_len, max_len):
     """Phase m2: deepseek_moe_16b at full width in f32 on
     MOE_PARITY_LAYERS layers (its dense first layer and one MoE layer):
     the plain forward of 4 x 32 tokens (a prefill's batch) in fused
-    (grouped sl_matmul over the experts) and sparse (sparse_matmul on each
-    expert's slice) against dense, the logits within 1e-3 x max(1, scale)
+    (grouped sl_matmul over the experts) and sparse (grouped
+    sparse_matmul) against dense, the logits within 1e-3 x max(1, scale)
     where the routing is equal (else the routing margin must excuse it);
-    then the 8-request traffic on the paged engine, fused and sparse
-    against dense + gathered attention, tick for tick
-    (``moe_compare``)."""
+    then the 8-request traffic on the paged engine, fused and sparse each
+    against dense and sparse against fused, tick for tick
+    (``moe_compare``); then the model calibrated on the card (each routed
+    expert's slice its own matrix) and served in exec_mode quant (one
+    grouped ``quant_sparse_matmul`` launch a routed-expert linear)
+    against the sparse engine on the dequantized weights, tick for tick.
+    Returns (params, consts, quant params, quant consts) for phase m3."""
     from repro_torch.models import lm
     gen = torch.Generator(device=device)
     gen.manual_seed(80)
@@ -4669,57 +5009,103 @@ def phase_parity_moe(cfg, device, *, n_slots, block_len, max_len):
     prompts, arrivals = traffic(cfg.vocab_size)
     kw = dict(n_slots=n_slots, max_len=max_len, block_len=block_len,
               new_tokens=16)
+    runs = {}
     for mode in ("fused", "sparse"):
         reset_launch_counts()
-        moe_compare(f"f32 {mode}", cfg32, params, consts, prompts, arrivals,
-                    device, torch.float32, mode, **kw)
-    del params, consts
-    torch.cuda.empty_cache()
+        runs[mode] = moe_compare(f"f32 {mode}", cfg32, params, consts,
+                                 prompts, arrivals, device, torch.float32,
+                                 mode, **kw)
+    moe_say_same("f32 sparse vs fused", cfg32, "sparse", "fused",
+                 runs["sparse"], runs["fused"], torch.float32)
+    qparams, qconsts = calibrate_on_card(cfg32, params, consts, device,
+                                         artifact=False)
+    reset_launch_counts()
+    q_run = serve_logged(cfg32, qparams, qconsts, prompts, arrivals,
+                         exec_mode="quant", attn_kernel="paged",
+                         device=device, **kw)
+    launches = launch_counts()
+    path = "serve_quant_deepseek_moe_16b"
+    if not all(launches[k] for k in PATH_KERNELS[path]) or any(
+            launches[k] for k in ("sl_matmul", "sl_matmul_grouped",
+                                  "sparse_matmul", "sparse_matmul_grouped")):
+        fail(f"f32 quant {arch(cfg32)} launched the wrong kernels: "
+             f"{launches}")
+    moe_compare("f32 quant", cfg32, qparams, qconsts, prompts, arrivals,
+                device, torch.float32, "quant", a=q_run, base_mode="sparse",
+                base_params=dequantized(qparams, qconsts), **kw)
+    say(f"engine f32 {arch(cfg32)} quant launches {launches}")
+    return params, consts, qparams, qconsts
 
 
-def phase_moe_bf16(cfg, device, smi, *, batch, seq, n_slots, block_len,
-                   max_len, buckets):
-    """Phase m3: deepseek_moe_16b in bf16 at full width. Serving on
-    MOE_SERVE_LAYERS layers: the fused paged engine on the 8-request
-    traffic, timed under the device-only profiler (tokens/s, busy share),
-    its launches asserted exactly per dispatch (one single ``sl_matmul``
-    for each attention, shared-expert and dense-MLP linear; one
-    ``sl_matmul_grouped`` for each routed-expert linear of each MoE
-    layer); then its tokens against dense + gathered attention under the
+def phase_moe_bf16(cfg, device, smi, model, *, batch, seq, n_slots,
+                   block_len, max_len, buckets, m_train_rows):
+    """Phase m3: deepseek_moe_16b in bf16 at full width. Serving on phase
+    m2's MOE_PARITY_LAYERS-layer model and its calibration, cast to bf16
+    (``model``: params, consts, quant params, quant consts): the fused,
+    sparse and quant paged engines on the 8-request traffic, each timed
+    under the device-only profiler (tokens/s, busy share), their launches
+    asserted exactly per dispatch (one single launch for each attention,
+    shared-expert and dense-MLP linear; one grouped launch over the
+    experts for each routed-expert linear of each MoE layer:
+    ``sl_matmul_grouped``, ``sparse_matmul_grouped`` or
+    ``quant_sparse_matmul_grouped``), every row count an expert took in
+    the sparse and quant runs one that phase m1 checked; the fused
+    engine's tokens against dense + the paged read under the
     routing-margin excuse. Then the Trainer on MOE_TRAIN_LAYERS layers,
     MOE_TRAIN_STEPS steps of global AdamW (fused) and of per-layer 8-bit
     AdamW: step ms, MFU from active parameters, peak memory, the aux
     loss; finite losses. Returns each path's launch counts."""
+    from repro_torch.models.common import tree_map
     lap = Laps()
-    gen = torch.Generator(device=device)
-    gen.manual_seed(90)
-    cfg16 = dataclasses.replace(cfg, n_layers=MOE_SERVE_LAYERS,
+    to16 = lambda tree: tree_map(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t, tree)
+    params, consts, qparams, qconsts = model
+    params, qparams = to16(params), to16(qparams)
+    cfg16 = dataclasses.replace(cfg, n_layers=MOE_PARITY_LAYERS,
                                 param=dataclasses.replace(
                                     cfg.param, exec_mode="fused"))
-    params, consts = moe_init(cfg16, device, gen, "bf16")
     prompts, arrivals = traffic(cfg.vocab_size)
     kw = dict(n_slots=n_slots, max_len=max_len, block_len=block_len,
               new_tokens=16)
     single, grouped = linear_counts(cfg16)
+    checked = set(moe_rows(cfg, n_slots, buckets)) | {m_train_rows}
+    expert_shapes = {(cfg.d_model, cfg.moe.d_ff_expert),
+                     (cfg.moe.d_ff_expert, cfg.d_model)}
     by_path = {}
-    path = "serve_deepseek_moe_16b"
-    launches, shapes, _ = phase_engine_bf16(
-        cfg16, params, consts, prompts, arrivals, device, exec_mode="fused",
-        path=path, profiled=True,
-        want_per_dispatch={"sl_matmul": single, "sl_matmul_grouped": grouped},
-        **kw)
-    by_path[path] = launches
-    lap("m3: init and the timed, profiled fused engine")
-    say(f"engine bf16 {arch(cfg16)}: {single} sl_matmul and {grouped} "
-        f"sl_matmul_grouped launches a dispatch (asserted); a loop over the "
-        f"experts would launch {single + grouped * cfg.moe.n_experts}")
+    for mode, p, c, kernels in (
+            ("fused", params, consts, ("sl_matmul", "sl_matmul_grouped")),
+            ("sparse", params, consts, ("sparse_matmul",
+                                        "sparse_matmul_grouped")),
+            ("quant", qparams, qconsts, ("quant_sparse_matmul",
+                                         "quant_sparse_matmul_grouped"))):
+        path = f"{EXEC_PATH[mode]}_deepseek_moe_16b"
+        with ShapeRecorder() as rec:
+            launches, _, _ = phase_engine_bf16(
+                cfg16, p, c, prompts, arrivals, device, exec_mode=mode,
+                path=path, profiled=True,
+                want_per_dispatch=dict(zip(kernels, (single, grouped))),
+                **kw)
+        by_path[path] = launches
+        seen = {m for m, k, n in rec.shapes["sparse_matmul"]
+                if (k, n) in expert_shapes}
+        if not seen <= checked:
+            fail(f"bf16 {mode} {arch(cfg16)}: experts took rows "
+                 f"{sorted(seen)}; phase m1 checked {sorted(checked)}")
+        say(f"engine bf16 {arch(cfg16)} {mode}: {single} {kernels[0]} and "
+            f"{grouped} {kernels[1]} launches a dispatch (asserted); a loop "
+            f"over the experts would launch "
+            f"{single + grouped * cfg.moe.n_experts}"
+            + (f"; rows an expert {sorted(seen)}, all checked in m1"
+               if mode != "fused" else ""))
+        lap(f"m3: bf16 {mode} engine, timed and profiled")
     moe_compare("bf16 fused", cfg16, params, consts, prompts, arrivals,
                 device, torch.bfloat16, "fused", **kw)
     lap("m3: fused against dense, routing logged")
-    del params, consts
+    del params, consts, qparams, qconsts, model
     torch.cuda.empty_cache()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(90)
     cfg_t = dataclasses.replace(cfg16, n_layers=MOE_TRAIN_LAYERS)
-    single, grouped = linear_counts(cfg_t)
     tr, state, by_path["train_deepseek_moe_16b"], _, _, peak = \
         phase_train_bf16(cfg_t, device, smi, batch=batch, seq=seq,
                          steps=MOE_TRAIN_STEPS, save=False)
@@ -4748,6 +5134,8 @@ def representatives_moe(rows, n_slots, m_train_rows, bucket):
                     if r["name"] == name and pred(r["shape"]))
     return {"sl_matmul": f"64x{m_train_rows}x2048->1408 bfloat16 (deepseek)",
             "sddmm": f"64x{m_train_rows}x(2048,1408) bfloat16 (deepseek)",
+            "sparse_matmul": "64x1x2048->1408 bfloat16 (deepseek) f32 out",
+            "quant_sparse_matmul": "64x1x2048->1408 bfloat16 (deepseek)",
             "paged_attention": pick("paged_attention",
                                     lambda s: s.startswith("qwen3")),
             "paged_prefill": pick("paged_prefill", lambda s: s.startswith(
@@ -4769,13 +5157,15 @@ def run_moe(device, smi, *, batch, seq, n_slots, block_len, max_len,
     rows = check_kernels_moe(device, (deep, qwen), n_slots, block_len,
                              max_len // block_len, buckets, m_train)
     lap("phase m1 (deepseek_moe_16b and qwen3_moe_235b kernels)")
-    phase_parity_moe(deep, device, n_slots=n_slots, block_len=block_len,
-                     max_len=max_len)
-    lap(f"phase m2 (deepseek_moe_16b f32 parity, {MOE_PARITY_LAYERS} "
-        "layers)")
-    by_path = phase_moe_bf16(deep, device, smi, batch=batch, seq=seq,
+    model = phase_parity_moe(deep, device, n_slots=n_slots,
+                             block_len=block_len, max_len=max_len)
+    lap(f"phase m2 (deepseek_moe_16b f32 parity and quant, "
+        f"{MOE_PARITY_LAYERS} layers)")
+    by_path = phase_moe_bf16(deep, device, smi, model, batch=batch, seq=seq,
                              n_slots=n_slots, block_len=block_len,
-                             max_len=max_len, buckets=buckets)
+                             max_len=max_len, buckets=buckets,
+                             m_train_rows=m_train)
+    del model
     lap("phase m3 (deepseek_moe_16b bf16 serving and training)")
     return rows, by_path, representatives_moe(rows, n_slots, m_train,
                                               buckets[-1])
@@ -4794,12 +5184,15 @@ SSM_ARCHS = ("zamba2_7b", "xlstm_350m", "whisper_large_v3")
 SSM_PARITY_CUT = {"zamba2_7b": dict(n_layers=7),
                   "xlstm_350m": dict(n_layers=8),
                   "whisper_large_v3": dict(n_layers=2, encoder_layers=2)}
-# h3: zamba2 in bf16 on this many of its 81 layers (2 super blocks of 6
+# h3: zamba2 in bf16 on this many of its 81 layers (a super block of 6
 # and a tail of 1; hybrid_attn_every stays 6), for time: its serving and
 # training at full depth would take ~3 pooled inits of 2.4 B params and
-# more than the script's remaining budget. xlstm and whisper run at full
-# depth.
-HYBRID_LAYERS = 13
+# more than the script's remaining budget (13 layers, 2 super blocks,
+# before the quant phases). xlstm on XLSTM_BF16_LAYERS of its 24 (one
+# super block of 7 mLSTM and 1 sLSTM; full depth before the quant
+# phases), whisper's training at full depth.
+HYBRID_LAYERS = 7
+XLSTM_BF16_LAYERS = 8
 SSM_TRAIN_STEPS = 3
 # whisper's bf16 training batch (x 256 decoder tokens, each with 1500
 # encoder frames): the plain encoder attention keeps the B·H·1500² f32
@@ -4810,8 +5203,10 @@ WHISPER_TRAIN_BATCH = 3
 # encoder, which the engine never runs, keeps its 32): each dispatch runs
 # 10 SLTrain linears a layer, the cross-attention's k and v at 1500 rows
 # a slot, and at ~0.7 ms of host time a linear call the 124 dispatches
-# took 28.7 s (fused) and 40.2 s (sparse) at full depth on the H100
-WHISPER_SERVE_LAYERS = 8
+# took 28.7 s (fused) and 40.2 s (sparse) at full depth on the H100 (8
+# layers before the quant phases, 4 until a slower host took the script
+# past its limit)
+WHISPER_SERVE_LAYERS = 2
 for _a in SSM_ARCHS:
     PATH_KERNELS.update({
         f"serve_contiguous_{_a}": ("sl_matmul",),
@@ -5190,6 +5585,8 @@ def phase_ssm_bf16(cfg, device, smi, *, batch, seq, n_slots, block_len,
     gen.manual_seed(125 + SSM_ARCHS.index(name))
     if cfg.family == "mamba_hybrid":
         cfg = dataclasses.replace(cfg, n_layers=HYBRID_LAYERS)
+    if cfg.family == "xlstm":
+        cfg = dataclasses.replace(cfg, n_layers=XLSTM_BF16_LAYERS)
     serve_layers = WHISPER_SERVE_LAYERS if cfg.family == "whisper" else \
         cfg.n_layers
     cfg16 = dataclasses.replace(cfg, n_layers=serve_layers,
@@ -5370,6 +5767,14 @@ def run_serving(cfg, device, gen, n_slots, block_len, max_len, buckets,
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
+    from repro_torch.core import support
+    # the phases init the same models again and again (each dtype, exec
+    # mode and depth cut, each Trainer): each support is sampled once
+    with support.keep_supports(KEEP_SUPPORT_BYTES):
+        return run()
+
+
+def run() -> int:
     from repro_torch.configs import llama_1b
     from repro_torch.kernels import build
 
@@ -5487,7 +5892,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("chaos drills and profiler (llama_60m)")
     recipe_cfg = dataclasses.replace(cfg16, n_layers=RECIPE_LAYERS)
-    by_path["recipe_llama_1b"], recipe_ckpt = phase_recipe_llama_1b(
+    by_path["recipe_llama_1b"], recipe_ckpt, _, _ = phase_recipe(
         recipe_cfg, device, smi, batch=batch, seq=seq)
     torch.cuda.empty_cache()
     by_path["serve_quant_fallback"] = phase_quant_fallback(

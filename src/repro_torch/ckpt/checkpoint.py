@@ -52,7 +52,9 @@ class CheckpointCorruptError(RuntimeError):
 
 
 def _crc(arr: np.ndarray) -> int:
-    return int(zlib.crc32(np.ascontiguousarray(arr).tobytes()))
+    # the crc of arr.tobytes(), read in place (zlib takes the buffer)
+    return int(zlib.crc32(np.ascontiguousarray(arr).reshape(-1).view(
+        np.uint8)))
 
 
 def _manifest_digest(manifest: Dict[str, Any]) -> str:
@@ -63,12 +65,17 @@ def _manifest_digest(manifest: Dict[str, Any]) -> str:
 
 
 def _to_numpy(t) -> Tuple[np.ndarray, str]:
-    """(array as stored, logical dtype name) of one leaf."""
+    """(array as stored, logical dtype name) of one leaf, contiguous and in
+    memory of its own: a device leaf's host copy is that already, a host
+    leaf is copied."""
+    on_host = t.device.type == "cpu"
     t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16).copy(), _BF16
-    arr = t.numpy().copy()
-    return arr, str(arr.dtype)
+    bf16 = t.dtype == torch.bfloat16
+    arr = t.view(torch.int16).numpy().view(np.uint16) if bf16 else t.numpy()
+    # .copy(), not np.ascontiguousarray: that turns a 0-d array into (1,)
+    if on_host or not arr.flags.c_contiguous:
+        arr = arr.copy()
+    return arr, _BF16 if bf16 else str(arr.dtype)
 
 
 def _flatten_with_paths(tree):

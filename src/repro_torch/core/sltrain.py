@@ -206,10 +206,7 @@ def sl_matmul(x, params, consts, scale: float, exec_mode: str = "dense"):
     if exec_mode in ("sparse", "quant"):
         return _decode(x, params, consts, scale, exec_mode)
     if exec_mode == "fused":
-        if "perm" not in consts:
-            raise ValueError(
-                "exec_mode='fused' needs tile consts {rows_t, cols_t, perm} "
-                "— init the layer with exec_mode='fused'")
+        check_exec_consts(exec_mode, x, params, consts)
         from repro_torch.kernels import ops
         return ops.sl_linear(x, params["B"], params["A"], params["v"],
                              consts["rows_t"], consts["cols_t"],
@@ -225,10 +222,11 @@ def sl_matmul(x, params, consts, scale: float, exec_mode: str = "dense"):
                            consts["rows"], consts["cols"], scale)
 
 
-def _decode(x, params, consts, scale: float, exec_mode: str):
-    """The factored path of exec_mode "sparse" (trainable) / "quant"
-    (forward-only)."""
-    from repro_torch.kernels import ops
+def check_exec_consts(exec_mode: str, x, params, consts) -> bool:
+    """Raise where the consts lack what exec_mode "fused", "sparse" or
+    "quant" reads, or where a gradient is wanted of the serve-only quant
+    mode; returns whether a gradient is wanted (of x or a param). Shared
+    by the single linear and an MoE layer's grouped expert stack."""
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, *params.values()))
     if exec_mode == "quant":
@@ -241,13 +239,23 @@ def _decode(x, params, consts, scale: float, exec_mode: str):
                 "exec_mode='quant' needs quantized consts {qv_t, rows_q, "
                 "cols_q, qscale} — run repro_torch.quant.calibrate on the "
                 "trained checkpoint and serve the exported artifact")
+    elif "perm" not in consts:
+        init = "'sparse' or 'fused'" if exec_mode == "sparse" else "'fused'"
+        raise ValueError(
+            f"exec_mode={exec_mode!r} needs tile consts {{rows_t, cols_t, "
+            f"perm}} — init the layer with exec_mode={init}")
+    return needs_grad
+
+
+def _decode(x, params, consts, scale: float, exec_mode: str):
+    """The factored path of exec_mode "sparse" (trainable) / "quant"
+    (forward-only)."""
+    from repro_torch.kernels import ops
+    needs_grad = check_exec_consts(exec_mode, x, params, consts)
+    if exec_mode == "quant":
         return ops.sl_quant_decode(x, params["B"], params["A"],
                                    consts["qv_t"], consts["rows_q"],
                                    consts["cols_q"], consts["qscale"], scale)
-    if "perm" not in consts:
-        raise ValueError(
-            "exec_mode='sparse' needs tile consts {rows_t, cols_t, perm} — "
-            "init the layer with exec_mode='sparse' or 'fused'")
     if needs_grad:
         return ops.sl_sparse_linear(x, params["B"], params["A"], params["v"],
                                     consts["rows_t"], consts["cols_t"],

@@ -16,12 +16,16 @@ integer seed, and never learned:
     while a tile overflows (the reference's ``prepare_fused_consts``).
   * ``sample_supports`` — ``final_support`` for many linears, in worker
     processes: each support is keyed by its own seed, so the order of the
-    work changes no bit. This module imports numpy only, and a worker is
-    a fresh interpreter that imports it alone: neither torch nor the rest
-    of the port, nor the caller's main module.
+    work changes no bit; ``keep_supports`` lets a process that inits one
+    model several times sample each support once. This module imports
+    numpy only, and a worker is a fresh interpreter that imports it
+    alone: neither torch nor the rest of the port, nor the caller's main
+    module.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import os
 from typing import Optional, Sequence, Tuple
 
@@ -245,8 +249,21 @@ def sample_supports(specs: Sequence[tuple], workers: int = 1) -> list:
     GB no faster than one process sampled them; chip_smoke.py's phase 7c
     on an H100 host: 121.3 s, through files 26.3 s). ``workers`` = 1
     runs them here. Each support depends on its own spec alone, so both
-    give the same bits."""
+    give the same bits. Inside ``keep_supports`` a spec sampled before is
+    not sampled again (see there)."""
     specs = [tuple(s) for s in specs]
+    if _KEPT is None:
+        return _sample(specs, workers)
+    todo = [s for s in dict.fromkeys(specs) if s not in _KEPT]
+    new = dict(zip(todo, _sample(todo, min(workers,
+                                           default_workers(todo)))))
+    out = [_copy(new[s] if s in new else _KEPT[s]) for s in specs]
+    for spec, res in new.items():
+        _keep(spec, res)
+    return out
+
+
+def _sample(specs: list, workers: int) -> list:
     if workers <= 1 or len(specs) <= 1:
         return [final_support(*s) for s in specs]
     import tempfile
@@ -257,6 +274,52 @@ def sample_supports(specs: Sequence[tuple], workers: int = 1) -> list:
         with ThreadPoolExecutor(workers) as pool:
             return list(pool.map(lambda i: _load_support(tmp, i),
                                  range(len(specs))))
+
+
+# What ``sample_supports`` sampled inside ``keep_supports``, by spec,
+# oldest first, and the bytes it holds; None outside it.
+_KEPT: Optional["collections.OrderedDict"] = None
+_KEPT_MAX = 0
+_kept_bytes = 0
+
+
+@contextlib.contextmanager
+def keep_supports(max_bytes: int):
+    """Within the block, ``sample_supports`` keeps what it samples, up to
+    ``max_bytes`` of arrays (the oldest dropped first), and answers a spec
+    it kept with a copy in place of sampling it again: the same bits,
+    since a support depends on its spec alone. For a program that inits
+    one model several times (in several dtypes, exec modes or depth
+    cuts); a process that inits once gains nothing from it."""
+    global _KEPT, _KEPT_MAX, _kept_bytes
+    _KEPT, _KEPT_MAX, _kept_bytes = collections.OrderedDict(), max_bytes, 0
+    try:
+        yield
+    finally:
+        _KEPT, _KEPT_MAX, _kept_bytes = None, 0, 0
+
+
+def _arrays(res) -> tuple:
+    rows, cols, tiles = res
+    return (rows, cols) + (() if tiles is None else tuple(tiles))
+
+
+def _copy(res):
+    rows, cols, tiles = res
+    return (rows.copy(), cols.copy(),
+            None if tiles is None else tuple(t.copy() for t in tiles))
+
+
+def _keep(spec: tuple, res) -> None:
+    global _kept_bytes
+    size = sum(a.nbytes for a in _arrays(res))
+    if size > _KEPT_MAX:
+        return
+    while _kept_bytes + size > _KEPT_MAX:
+        _kept_bytes -= sum(a.nbytes for a in _arrays(
+            _KEPT.popitem(last=False)[1]))
+    _KEPT[spec] = res
+    _kept_bytes += size
 
 
 # where ``repro_torch`` lives, for the workers' ``sys.path``

@@ -14,10 +14,11 @@ Properties the framework relies on:
   * checkpointable: ``state_dict()``/``restore()`` round-trips the cursor,
   * cheap: the Markov walk is vectorized across the batch; per step cost is
     O(seq · batch) table lookups (the transition top-k table is precomputed
-    once at init).
+    once a process for each (vocab, seed)).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, Iterator
 
@@ -38,6 +39,36 @@ class DataState:
     @staticmethod
     def from_dict(d) -> "DataState":
         return DataState(int(d["seed"]), int(d["step"]))
+
+
+@functools.lru_cache(maxsize=8)
+def _transition_table(vocab_size: int, seed: int):
+    """(ids, cdf, n_states): the top-k transition table of ``seed``'s
+    source over ``vocab_size`` tokens, read-only. Computed once a process
+    for each (vocab, seed) and shared by every source built on it: at a
+    256 K vocabulary it is seconds of numpy, and a run that builds several
+    trainers on one model would otherwise redo it for each."""
+    rng = np.random.default_rng(np.uint64(seed))
+    r = 16
+    n_states = min(vocab_size, _MAX_STATES)
+    U = rng.standard_normal((n_states, r)).astype(np.float32)
+    V = rng.standard_normal((r, vocab_size)).astype(np.float32)
+    bias = (rng.standard_normal((vocab_size,)) * 0.5).astype(np.float32)
+    ids = np.empty((n_states, _TOPK), dtype=np.int32)
+    cdf = np.empty((n_states, _TOPK), dtype=np.float32)
+    for lo in range(0, n_states, 512):
+        hi = min(lo + 512, n_states)
+        logits = U[lo:hi] @ V + bias            # (chunk, vocab)
+        top = np.argpartition(logits, -_TOPK, axis=1)[:, -_TOPK:]
+        lt = np.take_along_axis(logits, top, axis=1) / 1.2
+        p = np.exp(lt - lt.max(axis=1, keepdims=True))
+        p /= p.sum(axis=1, keepdims=True)
+        ids[lo:hi] = top.astype(np.int32)
+        cdf[lo:hi] = np.cumsum(p, axis=1)
+    cdf[:, -1] = 1.0 + 1e-6
+    ids.setflags(write=False)
+    cdf.setflags(write=False)
+    return ids, cdf, n_states
 
 
 class SyntheticC4:
@@ -64,26 +95,8 @@ class SyntheticC4:
         self.mean_doc_len = mean_doc_len
         self.state = DataState(seed=seed, step=0)
 
-        # Precompute the top-k transition table once (chunked, init-time).
-        rng = np.random.default_rng(np.uint64(seed))
-        r = 16
-        n_states = min(vocab_size, _MAX_STATES)
-        U = rng.standard_normal((n_states, r)).astype(np.float32)
-        V = rng.standard_normal((r, vocab_size)).astype(np.float32)
-        bias = (rng.standard_normal((vocab_size,)) * 0.5).astype(np.float32)
-        ids = np.empty((n_states, _TOPK), dtype=np.int32)
-        cdf = np.empty((n_states, _TOPK), dtype=np.float32)
-        for lo in range(0, n_states, 512):
-            hi = min(lo + 512, n_states)
-            logits = U[lo:hi] @ V + bias            # (chunk, vocab)
-            top = np.argpartition(logits, -_TOPK, axis=1)[:, -_TOPK:]
-            lt = np.take_along_axis(logits, top, axis=1) / 1.2
-            p = np.exp(lt - lt.max(axis=1, keepdims=True))
-            p /= p.sum(axis=1, keepdims=True)
-            ids[lo:hi] = top.astype(np.int32)
-            cdf[lo:hi] = np.cumsum(p, axis=1)
-        cdf[:, -1] = 1.0 + 1e-6
-        self._ids, self._cdf, self._n_states = ids, cdf, n_states
+        self._ids, self._cdf, self._n_states = _transition_table(
+            vocab_size, seed)
 
     # -- checkpointing -------------------------------------------------------
     def state_dict(self) -> Dict[str, int]:

@@ -10,7 +10,9 @@ GQA regroup, the factored decode of ``exec_mode="sparse"`` and
 ``"quant"`` (the low-rank term as f32 matmuls, the sparse term through
 the ``sparse_matmul`` or ``quant_sparse_matmul`` kernel), and the
 trainable sparse linear (a ``torch.autograd.Function`` whose forward and
-dx run ``sparse_matmul`` and whose dV runs ``sddmm``).
+dx run ``sparse_matmul`` and whose dV runs ``sddmm``); the decode and the
+trainable sparse linear also over an MoE layer's stacked experts, one
+grouped launch of each kernel for all of them.
 
 Dispatch follows the tensors: on the CPU each kernel wrapper runs its
 plain PyTorch version, on a CUDA tensor it launches the kernel or raises.
@@ -113,14 +115,16 @@ def sddmm(x, dy, rows_t, cols_t):
 
 def _lowrank_grads(xf, dyf, B, A, scale: float):
     """(dB, dA, dy·Aᵀ in f32) of the low-rank term for x (M, K), dy (M,
-    N). The products take f32 operands and give f32 results, as the
-    reference's ``preferred_element_type=f32`` does: a bf16 product
-    returning bf16 would round the token contraction through bf16."""
+    N), or of each expert's for a stack x (E, M, K), dy (E, M, N) (batched
+    products: XLA's batched dots under the reference's vmap). The products
+    take f32 operands and give f32 results, as the reference's
+    ``preferred_element_type=f32`` does: a bf16 product returning bf16
+    would round the token contraction through bf16."""
     f32 = torch.float32
     xB = xf.to(f32) @ B.to(f32)                                  # (M, r)
-    dA = (scale * (xB.T @ dyf.to(f32))).to(A.dtype)
-    dyA = dyf.to(f32) @ A.to(f32).T                              # (M, r)
-    dB = (scale * (xf.to(f32).T @ dyA)).to(B.dtype)
+    dA = (scale * (xB.mT @ dyf.to(f32))).to(A.dtype)
+    dyA = dyf.to(f32) @ A.to(f32).mT                             # (M, r)
+    dB = (scale * (xf.to(f32).mT @ dyA)).to(B.dtype)
     return dB, dA, dyA
 
 
@@ -216,19 +220,6 @@ def _scatter_tiles_grouped(dv_t, perm, per_expert: int):
     return flat[:, :per_expert]
 
 
-def _lowrank_grads_grouped(x, dy, B, A, scale: float):
-    """:func:`_lowrank_grads` of each expert as batched f32 products: x (E,
-    M, K), dy (E, M, N) → (dB, dA). These products sit outside any Pallas
-    kernel in the reference (XLA's batched dots under its vmap)."""
-    f32 = torch.float32
-    xf, dyf = x.to(f32), dy.to(f32)
-    xB = torch.bmm(xf, B.to(f32))                                # (E, M, r)
-    dA = (scale * torch.bmm(xB.transpose(1, 2), dyf)).to(A.dtype)
-    dyA = torch.bmm(dyf, A.to(f32).transpose(1, 2))              # (E, M, r)
-    dB = (scale * torch.bmm(xf.transpose(1, 2), dyA)).to(B.dtype)
-    return dB, dA
-
-
 class _SLLinearGrouped(torch.autograd.Function):
     """y[e] = x[e] @ (scale·B[e]·A[e] ⊕ V[e]) for a stack of E fused
     linears of one shape (an MoE layer's experts): the forward is one
@@ -254,7 +245,7 @@ class _SLLinearGrouped(torch.autograd.Function):
         _need_transposed_tiles(rows_tT, "sl_linear_grouped")
         scale = ctx.scale
         dy = dy.to(x.dtype).contiguous()
-        dB, dA = _lowrank_grads_grouped(x, dy, B, A, scale)
+        dB, dA, _ = _lowrank_grads(x, dy, B, A, scale)
         dv_t = sddmm_kernel.sddmm_grouped(x, dy, rows_t, cols_t)
         dx = sl_kernel.sl_matmul_grouped(
             dy, A.transpose(1, 2).contiguous(), B.transpose(1, 2).contiguous(),
@@ -400,7 +391,8 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table, offsets, *,
 
 def _lowrank_f32(xf, B, A, scale: float):
     """(x·B)·A·scale with f32 operands and results: bf16 intermediate
-    roundings would drift from the densified path."""
+    roundings would drift from the densified path. x (M, K), or a stack
+    (E, M, K) with B (E, K, r) and A (E, r, N): batched products."""
     f32 = torch.float32
     return ((xf.to(f32) @ B.to(f32)) @ A.to(f32)) * scale
 
@@ -435,6 +427,33 @@ def sl_quant_decode(x, B, A, qv_t, rows_q, cols_q, qscale, scale: float):
     y_sp = sd_kernel.quant_sparse_matmul(xf, qv_t, rows_q, cols_q, qscale, n)
     y = _lowrank_f32(xf, B, A, scale) + y_sp.to(torch.float32)
     return y.to(x.dtype).reshape(*lead, n)
+
+
+def sl_decode_grouped(x, B, A, v_t, rows_t, cols_t, scale: float):
+    """:func:`sl_decode` over a stack of E experts' linears of one shape
+    (an MoE layer's, under the reference's vmap): x (E, M, K), B (E, K,
+    r), A (E, r, N), the f32 tile values and their int32 indices (E, nkt,
+    nnt, cap). The low-rank term is batched f32 products, the sparse term
+    one ``sparse_matmul_grouped`` launch with an f32 output; summed in f32
+    and rounded once to x.dtype. Returns (E, M, N)."""
+    x = x.contiguous()
+    y_sp = sd_kernel.sparse_matmul_grouped(x, v_t, rows_t, cols_t,
+                                           A.shape[-1], torch.float32)
+    return (_lowrank_f32(x, B, A, scale) + y_sp).to(x.dtype)
+
+
+def sl_quant_decode_grouped(x, B, A, qv_t, rows_q, cols_q, qscale,
+                            scale: float):
+    """:func:`sl_quant_decode` over a stack of E experts' linears of one
+    shape: x (E, M, K), B (E, K, r), A (E, r, N), the int8 layout (E, nkt,
+    nnt, cap) and qscale (E, nnt, 128). The low-rank term is batched f32
+    products, the sparse term one ``quant_sparse_matmul_grouped`` launch;
+    summed in f32 and rounded to x.dtype. Returns (E, M, N)."""
+    x = x.contiguous()
+    y_sp = sd_kernel.quant_sparse_matmul_grouped(x, qv_t, rows_q, cols_q,
+                                                 qscale, A.shape[-1])
+    return (_lowrank_f32(x, B, A, scale) + y_sp.to(torch.float32)).to(
+        x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -498,3 +517,46 @@ def sl_sparse_linear(x, B, A, v, rows_t, cols_t, perm, scale: float, *,
     without them."""
     return _SLSparse.apply(x, B, A, v, rows_t, cols_t, perm, rows_tT,
                            cols_tT, scale)
+
+
+class _SLSparseGrouped(torch.autograd.Function):
+    """:class:`_SLSparse` over a stack of E experts' linears of one shape:
+    the forward is :func:`sl_decode_grouped` (one ``sparse_matmul_grouped``
+    launch), dx one ``sparse_matmul_grouped`` launch over Wᵀ's tiles plus
+    batched f32 products, dV one ``sddmm_grouped`` launch, dB and dA
+    batched f32 products."""
+
+    @staticmethod
+    def forward(ctx, x, B, A, v, rows_t, cols_t, perm, rows_tT, cols_tT,
+                scale):
+        v_t = _gather_tiles_grouped(v, perm)
+        ctx.save_for_backward(x, B, A, v, v_t, rows_t, cols_t, perm,
+                              rows_tT, cols_tT)
+        ctx.scale = scale
+        return sl_decode_grouped(x, B, A, v_t, rows_t, cols_t, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, B, A, v, v_t, rows_t, cols_t, perm, rows_tT, cols_tT = \
+            ctx.saved_tensors
+        _need_transposed_tiles(rows_tT, "the grouped sparse linear's")
+        scale = ctx.scale
+        dy = dy.to(x.dtype).contiguous()
+        dB, dA, dyA = _lowrank_grads(x, dy, B, A, scale)
+        dv_t = sddmm_kernel.sddmm_grouped(x, dy, rows_t, cols_t)
+        dx_sp = sd_kernel.sparse_matmul_grouped(
+            dy, transpose_tiles(v_t), rows_tT, cols_tT, x.shape[-1],
+            torch.float32)
+        dx = scale * (dyA @ B.to(torch.float32).mT) + dx_sp
+        dv = _scatter_tiles_grouped(dv_t, perm, v[0].numel())
+        return (dx.to(x.dtype), dB, dA, dv.reshape(v.shape).to(v.dtype),
+                None, None, None, None, None, None)
+
+
+def sl_sparse_linear_grouped(x, B, A, v, rows_t, cols_t, perm, scale: float,
+                             *, rows_tT=None, cols_tT=None):
+    """:func:`sl_sparse_linear` over a stack of E experts' linears of one
+    shape (shapes as :func:`sl_linear_grouped`'s); differentiable in x, B,
+    A and v. Returns (E, M, N)."""
+    return _SLSparseGrouped.apply(x.contiguous(), B, A, v, rows_t, cols_t,
+                                  perm, rows_tT, cols_tT, scale)

@@ -15,6 +15,15 @@ Both kernels split the k-tiles of each n-tile across blocks: :func:`plan`
 picks the split count and the scratch it needs from the shapes and the
 card's SM count alone, and :func:`launch` (``sparse_matmul``) and
 :func:`quant_launch` (``quant_sparse_matmul``) run a plan.
+
+:func:`sparse_matmul_grouped` and :func:`quant_sparse_matmul_grouped` run
+E products of one shape (an MoE layer's experts, stacked on a leading
+axis) in one launch, the expert folded into the grid's z with its split:
+the counterpart of the TPU kernels batched under the reference's vmap over
+the expert stack. Each expert keeps the single product's plan, so the
+result is the bits of a loop of single launches; the plain version is
+that loop over the single plain version. A single product is the
+kernels' case E = 1 of the same C entry point.
 """
 from __future__ import annotations
 
@@ -92,9 +101,9 @@ def plan(m: int, k: int, n: int, sms: int = SMS,
 def _lib():
     lib = build.library("sparse_decode")
     if lib.sparse_matmul_launch.argtypes is None:
-        lib.sparse_matmul_launch.argtypes = [_P] * 7 + [_I] * 10 + [_P]
+        lib.sparse_matmul_launch.argtypes = [_P] * 7 + [_I] * 11 + [_P]
         lib.sparse_matmul_launch.restype = _I
-        lib.quant_sparse_matmul_launch.argtypes = [_P] * 8 + [_I] * 9 + [_P]
+        lib.quant_sparse_matmul_launch.argtypes = [_P] * 8 + [_I] * 10 + [_P]
         lib.quant_sparse_matmul_launch.restype = _I
     return lib
 
@@ -118,18 +127,22 @@ def counter_scratch(device, stream: int, n: int):
 
 
 def _check(what, x, n, tiles):
-    """Raise on what the kernel does not take: x (M, K) f32/bf16, and the
-    tile arrays ((name, tensor, dtype, shape) entries) on x's device,
-    contiguous, shaped for ceil(K/128) x ceil(n/128) tiles."""
-    if x.dim() != 2:
-        raise ValueError(f"{what}: x must be (M, K), got {tuple(x.shape)}")
+    """Raise on what the kernel does not take: x (M, K) f32/bf16, or (E,
+    M, K) for a grouped call, and the tile arrays ((name, tensor, dtype,
+    shape) entries, each with x's leading E) on x's device, contiguous,
+    shaped for ceil(K/128) x ceil(n/128) tiles."""
+    grouped = what.endswith("_grouped")
+    if x.dim() != 2 + grouped:
+        want = "(E, M, K)" if grouped else "(M, K)"
+        raise ValueError(f"{what}: x must be {want}, got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"{what}: x dtype {x.dtype} not in {list(_DTYPES)}")
-    k = x.shape[1]
-    lead = (-(-k // TILE), -(-n // TILE))
+    k = x.shape[-1]
+    stack = tuple(x.shape[:1]) if grouped else ()
+    lead = stack + (-(-k // TILE), -(-n // TILE))
     cap = tiles[0][1].shape[-1]
     for name, t, dt, shape in tiles:
-        want = shape if shape is not None else lead + (cap,)
+        want = stack + shape if shape is not None else lead + (cap,)
         if tuple(t.shape) != want or t.dtype != dt:
             raise ValueError(f"{what}: {name} must be {dt} {want}, got "
                              f"{t.dtype} {tuple(t.shape)}")
@@ -159,6 +172,22 @@ def sparse_matmul(x, v_t, rows_t, cols_t, n: int, out_dtype=None):
                 (v_t, rows_t, cols_t), n, out_dtype)
 
 
+def sparse_matmul_grouped(x, v_t, rows_t, cols_t, n: int, out_dtype=None):
+    """y (E, M, n) = x[e] @ S[e] for a stack of E products of one shape:
+    x (E, M, K), v_t f32 and rows_t/cols_t int32 (E, ceil(K/128),
+    ceil(n/128), cap). On the card one launch of :func:`sparse_matmul`'s
+    kernel on the plan of one (M, K, n) product; on the CPU a loop of the
+    plain version."""
+    if x.device.type == "cpu":
+        return torch.stack([ref.sparse_matmul_ref(*t, n, out_dtype)
+                            for t in zip(x, v_t, rows_t, cols_t)])
+    out_dtype = _check_sparse(x, v_t, rows_t, cols_t, n, out_dtype,
+                              "sparse_matmul_grouped")
+    return _run(_grouped_plan("sparse_matmul_grouped", x, n),
+                sparse_matmul_grouped, x, (v_t, rows_t, cols_t), n,
+                out_dtype)
+
+
 def launch(p: Plan, x, v_t, rows_t, cols_t, n: int, out_dtype=None):
     """The ``sparse_matmul`` kernel on plan ``p`` for CUDA operands that
     :func:`sparse_matmul` accepts; it counts one launch.
@@ -169,15 +198,16 @@ def launch(p: Plan, x, v_t, rows_t, cols_t, n: int, out_dtype=None):
     return _run(p, sparse_matmul, x, (v_t, rows_t, cols_t), n, out_dtype)
 
 
-def _check_sparse(x, v_t, rows_t, cols_t, n, out_dtype):
+def _check_sparse(x, v_t, rows_t, cols_t, n, out_dtype,
+                  what="sparse_matmul"):
     """Raise on what the kernel does not take; returns y's dtype."""
     if x.device.type != "cuda":
-        raise ValueError(f"sparse_matmul: unsupported device {x.device}")
+        raise ValueError(f"{what}: unsupported device {x.device}")
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if out_dtype not in (x.dtype, torch.float32):
-        raise TypeError(f"sparse_matmul: y in {out_dtype} for x in "
+        raise TypeError(f"{what}: y in {out_dtype} for x in "
                         f"{x.dtype}; y is x's dtype or float32")
-    _check("sparse_matmul", x, n, (
+    _check(what, x, n, (
         ("v_t", v_t, torch.float32, None),
         ("rows_t", rows_t, torch.int32, None),
         ("cols_t", cols_t, torch.int32, None)))
@@ -199,6 +229,23 @@ def quant_sparse_matmul(x, qv_t, rows_q, cols_q, qscale, n: int):
                 quant_sparse_matmul, x, (qv_t, rows_q, cols_q, qscale), n)
 
 
+def quant_sparse_matmul_grouped(x, qv_t, rows_q, cols_q, qscale, n: int):
+    """y (E, M, n) = x[e] @ dequant(S[e]) in x.dtype for a stack of E
+    products of one shape: x (E, M, K), qv_t int8 and rows_q/cols_q int16
+    (E, ceil(K/128), ceil(n/128), cap), qscale f32 (E, ceil(n/128), 128).
+    On the card one launch of :func:`quant_sparse_matmul`'s kernel on the
+    plan of one (M, K, n) product; on the CPU a loop of the plain
+    version."""
+    if x.device.type == "cpu":
+        return torch.stack([ref.quant_sparse_matmul_ref(*t, n) for t in
+                            zip(x, qv_t, rows_q, cols_q, qscale)])
+    _check_quant(x, qv_t, rows_q, cols_q, qscale, n,
+                 "quant_sparse_matmul_grouped")
+    return _run(_grouped_plan("quant_sparse_matmul_grouped", x, n),
+                quant_sparse_matmul_grouped, x,
+                (qv_t, rows_q, cols_q, qscale), n)
+
+
 def quant_launch(p: Plan, x, qv_t, rows_q, cols_q, qscale, n: int):
     """The ``quant_sparse_matmul`` kernel on plan ``p`` for CUDA operands
     that :func:`quant_sparse_matmul` accepts; it counts one launch. A
@@ -209,15 +256,26 @@ def quant_launch(p: Plan, x, qv_t, rows_q, cols_q, qscale, n: int):
     return _run(p, quant_sparse_matmul, x, (qv_t, rows_q, cols_q, qscale), n)
 
 
-def _check_quant(x, qv_t, rows_q, cols_q, qscale, n):
+def _check_quant(x, qv_t, rows_q, cols_q, qscale, n,
+                 what="quant_sparse_matmul"):
     if x.device.type != "cuda":
-        raise ValueError(f"quant_sparse_matmul: unsupported device "
-                         f"{x.device}")
-    _check("quant_sparse_matmul", x, n, (
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    _check(what, x, n, (
         ("qv_t", qv_t, torch.int8, None),
         ("rows_q", rows_q, torch.int16, None),
         ("cols_q", cols_q, torch.int16, None),
         ("qscale", qscale, torch.float32, (-(-n // TILE), TILE))))
+
+
+def _grouped_plan(what, x, n: int) -> Plan:
+    """The plan of one of the stack's (M, K, n) products; raise where the
+    grid's z (experts x splits) would pass its limit of 65535."""
+    n_exp, m, k = x.shape
+    p = plan(m, k, n, _sms(x))
+    if not 1 <= n_exp * p.splits <= 65535:
+        raise ValueError(f"{what}: {n_exp} experts x {p.splits} splits; "
+                         "the grid's z takes 1..65535")
+    return p
 
 
 def _check_plan(what, p: Plan, x, n: int):
@@ -228,35 +286,40 @@ def _check_plan(what, p: Plan, x, n: int):
 
 
 def _run(p: Plan, wrapper, x, consts, n: int, out_dtype=None):
-    """Launch the kernel of ``wrapper`` (``sparse_matmul`` or
-    ``quant_sparse_matmul``) on plan ``p`` for x (M, K) and S's arrays
-    ``consts`` into a new (M, n) output, with the plan's partials and
-    counters as scratch; raise if the launch returned a CUDA error, else
-    count it. ``out_dtype`` (``sparse_matmul`` only) is y's dtype; without
-    it y is in x.dtype."""
+    """Launch the kernel of ``wrapper`` (``sparse_matmul``,
+    ``quant_sparse_matmul`` or their grouped forms) on plan ``p`` for x
+    (M, K), or (E, M, K) with every array of ``consts`` stacked likewise,
+    and S's arrays ``consts`` into a new (M, n) or (E, M, n) output, with
+    the plan's partials and counters (E times a product's) as scratch;
+    raise if the launch returned a CUDA error, else count it.
+    ``out_dtype`` (``sparse_matmul`` only) is y's dtype; without it y is
+    in x.dtype."""
     what = wrapper.__name__
-    m, k = x.shape
+    m, k = x.shape[-2:]
+    n_exp = x.shape[0] if x.dim() == 3 else 1
     # the C entry's dtype codes: x's, then sparse_matmul's y's
     codes = [_DTYPES[x.dtype]]
     if out_dtype is not None:
         codes.append(_DTYPES[out_dtype])
-    y = torch.empty((m, n), dtype=out_dtype or x.dtype, device=x.device)
+    y = torch.empty(x.shape[:-1] + (n,), dtype=out_dtype or x.dtype,
+                    device=x.device)
     if m == 0 or n == 0:
         return y
     stream = torch.cuda.current_stream(x.device).cuda_stream
     partial = counter = None          # held until the launch is queued
     if p.partial:
-        partial = torch.empty(p.partial, dtype=torch.float32,
+        partial = torch.empty((n_exp,) + p.partial, dtype=torch.float32,
                               device=x.device)
-        counter = counter_scratch(x.device, stream, p.counters)
+        counter = counter_scratch(x.device, stream, n_exp * p.counters)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _lib()
+    entry = getattr(lib, f"{what.removesuffix('_grouped')}_launch")
     with torch.cuda.device(x.device):
-        err = getattr(lib, f"{what}_launch")(
+        err = entry(
             x.data_ptr(), *(t.data_ptr() for t in consts), y.data_ptr(),
             ptr(partial), ptr(counter), m, k, n, -(-k // TILE),
             -(-n // TILE), consts[1].shape[-1], p.rows_per_block, p.splits,
-            *codes, stream)
+            *codes, n_exp, stream)
     build.check(lib, err, what)
     wrapper.launches += 1
     return y
@@ -264,3 +327,5 @@ def _run(p: Plan, wrapper, x, consts, n: int, out_dtype=None):
 
 sparse_matmul.launches = 0
 quant_sparse_matmul.launches = 0
+sparse_matmul_grouped.launches = 0
+quant_sparse_matmul_grouped.launches = 0

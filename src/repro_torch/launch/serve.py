@@ -270,6 +270,10 @@ def main(argv=None):
               f"{len(eng.rejected)} shed at submit)")
     for r in reqs[:4]:
         print(f"  req {r.uid}: prompt {r.prompt} -> {r.out}")
+    if args.device != "cpu":
+        import torch
+        print(f"  peak device memory: "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if trace.stop():
         print(f"  profile: {trace.profile_path}")
     if args.metrics_out:

@@ -176,6 +176,10 @@ def main(argv=None):
             print(f"profile: {trace.profile_path}")
     print(f"final step {state.step}: "
           f"loss={trainer.metrics_history[-1]['loss']:.4f}")
+    if args.device != "cpu":
+        import torch
+        print(f"peak device memory: "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if args.trace_out:
         n = trace.export(args.trace_out)
         print(f"trace: {n} events -> {args.trace_out}")

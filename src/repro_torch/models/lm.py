@@ -42,19 +42,11 @@ _LM_FAMILIES = ("llama", "moe") + _GEMMA
 
 def _check_family(cfg: ModelConfig) -> None:
     """This module runs the llama, gemma2, vlm and MoE families (the
-    others have their own modules, reached through ``registry.get_api``);
-    exec_mode quant on a model with experts raises (its calibration of
-    the expert stack waits with ROADMAP item 4b)."""
+    others have their own modules, reached through ``registry.get_api``)."""
     if cfg.family not in _LM_FAMILIES:
         raise ValueError(
             f"{cfg.name} (family {cfg.family!r}) is not a decoder-only lm "
             "family: run it through registry.get_api(cfg)")
-    if cfg.moe.n_experts and cfg.param.mode == "sltrain" and \
-            cfg.param.exec_mode == "quant":
-        raise NotImplementedError(
-            f"{cfg.name}: exec_mode 'quant' on an MoE expert stack is not "
-            "ported yet (ROADMAP queue A item 4b: quant at full width, MoE "
-            "included); serve it in exec_mode fused or sparse")
 
 
 def _n_dense(cfg: ModelConfig) -> int:

@@ -9,12 +9,16 @@ ties (a stable descending sort), renormalized gates, the capacity
 its expert's queue from a stable sort by expert id, overflowing slots
 dropped (gate 0). The experts run as one stack: in exec_mode fused every
 expert linear of a layer is one grouped ``sl_matmul`` launch
-(``kernels/ops.sl_linear_grouped``), the reference's Pallas call batched
-under its vmap; the other modes loop over the stack, each expert's slice
-through ``apply_linear`` (exec_mode sparse through the ``sparse_matmul``
-kernel). The combine is deterministic: each token sums its k weighted
-expert outputs in f32 in k order, where the reference scatter-adds them
-(its order is XLA's), so the two agree to f32 rounding, not bit for bit.
+(``kernels/ops.sl_linear_grouped``), in exec_mode sparse one grouped
+``sparse_matmul`` launch (``ops.sl_decode_grouped``, or
+``ops.sl_sparse_linear_grouped`` where a gradient is wanted) and in
+exec_mode quant one grouped ``quant_sparse_matmul`` launch
+(``ops.sl_quant_decode_grouped``): the reference's Pallas calls batched
+under its vmap. exec_mode dense loops over the stack, each expert's slice
+through ``apply_linear``. The combine is deterministic: each token sums
+its k weighted expert outputs in f32 in k order, where the reference
+scatter-adds them (its order is XLA's), so the two agree to f32
+rounding, not bit for bit.
 """
 from __future__ import annotations
 
@@ -85,19 +89,30 @@ def init_moe(b: Builder, cfg: ModelConfig):
 def _expert_linear(cfg: ModelConfig, p, c, x):
     """x (E, M, d_in) through the stack of E linears ``p``/``c`` (leaves
     with a leading expert axis) → (E, M, d_out): one grouped launch of
-    the fused kernels in exec_mode fused, else each expert's slice
-    through ``apply_linear``."""
+    the kernels in exec_mode fused, sparse and quant (what each mode's
+    single linear checks, ``core.sltrain.sl_matmul`` checks here), else
+    each expert's slice through ``apply_linear``."""
     pc = cfg.param
-    if pc.mode == "sltrain" and pc.exec_mode == "fused" and "B" in p:
-        if "perm" not in c:
-            raise ValueError(
-                "exec_mode='fused' needs tile consts {rows_t, cols_t, perm} "
-                "— init the layer with exec_mode='fused'")
+    mode = pc.exec_mode
+    if pc.mode == "sltrain" and mode != "dense" and "B" in p:
+        from repro_torch.core import sltrain
         from repro_torch.kernels import ops
-        return ops.sl_linear_grouped(
-            x, p["B"], p["A"], p["v"], c["rows_t"], c["cols_t"], c["perm"],
-            pc.alpha / p["B"].shape[-1], rows_tT=c.get("rows_tT"),
-            cols_tT=c.get("cols_tT"))
+        scale = pc.alpha / p["B"].shape[-1]
+        needs_grad = sltrain.check_exec_consts(mode, x, p, c)
+        if mode == "quant":
+            return ops.sl_quant_decode_grouped(
+                x, p["B"], p["A"], c["qv_t"], c["rows_q"], c["cols_q"],
+                c["qscale"], scale)
+        if mode == "sparse" and not needs_grad:
+            return ops.sl_decode_grouped(
+                x, p["B"], p["A"],
+                ops._gather_tiles_grouped(p["v"], c["perm"]), c["rows_t"],
+                c["cols_t"], scale)
+        linear = ops.sl_linear_grouped if mode == "fused" else \
+            ops.sl_sparse_linear_grouped
+        return linear(x, p["B"], p["A"], p["v"], c["rows_t"], c["cols_t"],
+                      c["perm"], scale, rows_tT=c.get("rows_tT"),
+                      cols_tT=c.get("cols_tT"))
     n = x.shape[0]
     cs = unstack(c, n) if c else [{}] * n
     return torch.stack([apply_linear(cfg, pe, ce, xe) for pe, ce, xe in

@@ -9,7 +9,8 @@ Per SLTrain linear (params {B, A, v}, consts {cols[, rows]}):
 3. quantize the sparse values ``v`` to int8 codes against those scales,
 4. fold the residual quantization error ``E = V − dequant(qv)`` into the
    low-rank factors: ``scale·B'·A'`` is the best rank-r approximation of
-   ``scale·B·A + E``, from an SVD,
+   ``scale·B·A + E`` (its top r singular triplets, from the eigenpairs of
+   its smaller Gram matrix in float64: :func:`_fold`),
 5. bake the codes into the quantized tile-CSR layout
    (:mod:`repro_torch.quant.layout`).
 
@@ -18,14 +19,18 @@ the layout are bit for bit the reference's on the same inputs. Step 4 and
 the error statistics run with torch on the device the params live on: on
 the card that is what keeps calibrating llama_1b (168 matrices of
 2048×2048 and 2048×5461) short, where a host SVD of each takes seconds.
-An SVD's singular pairs are unique only up to sign, so B' and A' may
-differ in sign from the reference's pair by pair; ``scale·B'·A'`` and the
-statistics do not.
+Singular pairs are unique only up to sign, so B' and A' may differ in
+sign from the reference's SVD pair by pair; ``scale·B'·A'`` and the
+statistics do not (they agree to the reference's own f32 rounding).
 
-:func:`calibrate_tree` walks a model's (params, consts) trees, layer-stacked
+:func:`calibrate_tree` walks a model's (params, consts) trees, stacked
 leaves included, and returns the quantized twin: params with B/A replaced,
 consts with {qv_t, rows_q, cols_q, qscale} added per linear; everything
-else passes through. CLI:
+else passes through. A stacked linear's lead may nest (an MoE layer
+stack's routed experts: layers × experts); every slice is its own matrix,
+with its own support, and is quantized in the reference's order, one
+slice after another (the fold too: one eigendecomposition a slice).
+CLI (the checkpoint of either package, MoE configs included):
 
   PYTHONPATH=src python -m repro_torch.quant.calibrate --arch llama_60m \\
       --smoke --ckpt-dir /path/to/train/ckpt --out /path/to/artifact \\
@@ -64,6 +69,35 @@ def _flat_support(v, c: dict) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     return rows, cols, _host(v).reshape(-1)
 
 
+def _fold(M: torch.Tensor, r: int, scale: float):
+    """(B', A') in f32 with ``scale·B'·A'`` the best rank-``r``
+    approximation of ``M``, split as an SVD splits it (B' = U·√(σ/scale),
+    A' = √(σ/scale)·Vᵀ over the top ``r`` singular triplets). The triplets
+    come from the eigenpairs of M's smaller Gram matrix in float64 (σ² = λ,
+    the other side's vectors M·v/σ or Mᵀ·u/σ), not from an SVD of M: in
+    float64 the squared condition number costs nothing at f32 output, and
+    on the card cuSOLVER's eigensolver takes a fraction of its QR-based
+    SVD's time (gesvd; its Jacobi SVD stops at a looser tolerance than the
+    LAPACK SVD the reference runs)."""
+    M64 = M.double()
+    m, n = M64.shape
+    tall = m >= n
+    lam, Q = torch.linalg.eigh(M64.T @ M64 if tall else M64 @ M64.T)
+    # eigh sorts ascending: the top r, largest first
+    Q = Q[:, -r:].flip(-1)
+    sig = torch.sqrt(torch.clamp(lam[-r:].flip(-1), min=0.0))
+    root = torch.sqrt(sig / scale)
+    # 1/√(σ·scale) turns M·v (or Mᵀ·u) into u·√(σ/scale); a zero σ's
+    # pair adds nothing to the product, as in an SVD
+    inv = torch.where(sig > 0, 1.0 / torch.sqrt(sig * scale).clamp(
+        min=torch.finfo(torch.float64).tiny), torch.zeros_like(sig))
+    if tall:
+        B2, A2 = (M64 @ Q) * inv[None, :], root[:, None] * Q.T
+    else:
+        B2, A2 = Q * root[None, :], inv[:, None] * (Q.T @ M64)
+    return B2.float(), A2.float()
+
+
 def quantize_linear(p: dict, c: dict, *, alpha: float, delta: float,
                     support_kind: str,
                     clip_percentile: Optional[float] = None,
@@ -99,14 +133,7 @@ def quantize_linear(p: dict, c: dict, *, alpha: float, delta: float,
         M = torch.from_numpy(BA).to(dev)
         M.index_put_(idx, torch.from_numpy(vf - deq).to(dev),
                      accumulate=True)
-        # on the card, cuSOLVER's QR-based gesvd: the default Jacobi
-        # method (gesvdj) stops at a looser tolerance than the LAPACK SVD
-        # the reference runs
-        U, S, Vh = torch.linalg.svd(
-            M, full_matrices=False, driver="gesvd" if M.is_cuda else None)
-        root = torch.sqrt(torch.clamp(S[:r], min=0.0) / scale)
-        B2 = U[:, :r] * root[None, :]
-        A2 = root[:, None] * Vh[:r]
+        B2, A2 = _fold(M, r, scale)
     else:
         B2 = torch.from_numpy(B).to(dev)
         A2 = torch.from_numpy(A).to(dev)
@@ -130,9 +157,9 @@ def _quantize_stacked(p: dict, c: dict, *, alpha: float, delta: float,
                       clip_percentile: Optional[float],
                       fold_error: bool, stats: dict) -> Tuple[dict, dict]:
     """Quantize one linear whose leaves may carry leading stack dims (layer
-    stacking prepends axes to every leaf; supports differ per slice):
-    loop over the flattened lead and re-stack. Shapes are deterministic
-    (tile_cap), so the stack is never ragged."""
+    stacking prepends axes to every leaf, an expert stack one more;
+    supports differ per slice): loop over the flattened lead and re-stack.
+    Shapes are deterministic (tile_cap), so the stack is never ragged."""
     lead = tuple(p["B"].shape[:-2])
     if not lead:
         new_p, qc, st = quantize_linear(
@@ -208,11 +235,6 @@ def calibrate_model(cfg, params, consts, **kw):
     if pc.mode != "sltrain":
         raise ValueError(f"quant calibration targets mode='sltrain' "
                          f"(got {pc.mode!r})")
-    if cfg.moe.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: quant calibration of an MoE expert stack is not "
-            "ported yet (ROADMAP queue A item 4b: quant at full width, MoE "
-            "included)")
     return calibrate_tree(params, consts, alpha=pc.alpha, delta=pc.delta,
                           support_kind=pc.support_kind, **kw)
 
@@ -274,6 +296,9 @@ def main(argv=None):
     print(f"quant artifact: {stats['n_matrices']} matrices, "
           f"{stats['nnz']} int8 codes, max |W - Wq| = "
           f"{stats['max_abs_err']:.3e} -> {path}")
+    if args.device != "cpu":
+        print(f"peak device memory: "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
 
 if __name__ == "__main__":

@@ -161,9 +161,6 @@ class ServeEngine:
         # fail at construction, not at the first dispatch, when the consts
         # lack what the decode kernels read
         mode = cfg.param.exec_mode if cfg.param.mode == "sltrain" else None
-        if mode == "quant" and cfg.moe.n_experts:
-            raise _not_ported("exec_mode 'quant' on an MoE expert stack",
-                              "4b (quant at full width, MoE included)")
         quant_fell_back = False
         if mode == "quant" and "qv_t" not in _all_keys(consts):
             # quant_fallback: serve through the sparse path instead, but

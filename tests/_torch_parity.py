@@ -27,6 +27,9 @@ from repro_torch.ckpt.convert import from_jax_numpy
 from repro_torch.kernels import ops
 from repro_torch.models import registry
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 # f32 logits, caches and states: sums in another order (|logits| ~5)
 TOL = 1e-4
 # the contiguous engine's traffic: staggered prompt lengths on 2 slots,

@@ -67,6 +67,9 @@ from repro_torch.train import perlayer
 from repro_torch.train import step as step_lib
 from repro_torch.train import trainer as trainer_lib
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 STEPS = 3

@@ -51,6 +51,9 @@ from repro_torch.optim.optimizers import tree_leaves
 from repro_torch.resilience import chaos
 from repro_torch.train.trainer import Trainer, TrainerState
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 # ---------------------------------------------------------------------------
 # the harness
 # ---------------------------------------------------------------------------

@@ -39,6 +39,9 @@ from repro_torch.models import registry
 from repro_torch.resilience import ChaosEngine
 from repro_torch.serve.engine import ServeEngine
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 TOL = 1e-4
 
 

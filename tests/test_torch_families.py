@@ -65,6 +65,9 @@ from repro_torch.serve.engine import ServeEngine
 from repro_torch.train import perlayer
 from repro_torch.train import step as step_lib
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 ARCHS = ("gemma2_2b", "paligemma_3b", "qwen2_5_32b", "yi_34b", "llama3_405b")
 TOL = 1e-4
 STEPS = 3

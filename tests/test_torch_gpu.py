@@ -1260,18 +1260,142 @@ def test_sl_linear_grouped_backward_on_card_matches_cpu(cuda, dtype):
                                    atol=TOL[dtype] * scale, rtol=TOL[dtype])
 
 
+def _grouped_decode_args(m, n_exp, k, n, delta, dtype, dev, n_supports=4,
+                         seed=9):
+    """x (E, m, k) and a stack of E supports in both sparse-decode layouts:
+    (v_t, rows_t, cols_t) for ``sparse_matmul_grouped`` and (qv_t,
+    rows_q, cols_q, qscale) for ``quant_sparse_matmul_grouped``; expert e
+    takes the (e % n_supports)-th sampled support and its own values,
+    codes and scales."""
+    rng = np.random.default_rng(seed)
+    cap = support.tile_cap(k, n, delta)
+    sups = [support.sample_support(seed + s, k, n, delta)
+            for s in range(min(n_supports, n_exp))]
+    sp, qp = [], []
+    for e in range(n_exp):
+        rows, cols = sups[e % len(sups)]
+        tiles = ops.prepare_tile_consts(rows, cols, k, n, pad=cap)
+        v = rng.uniform(-1, 1, rows.shape).astype(np.float32) * k ** -0.5
+        sp.append((ops._gather_tiles(torch.from_numpy(v), tiles["perm"]),
+                   tiles["rows_t"], tiles["cols_t"]))
+        qv = rng.integers(-127, 128, rows.shape).astype(np.int8)
+        sc = rng.uniform(1e-3, 1e-2, n).astype(np.float32)
+        q = layout.build_quant_consts(rows, cols, qv, sc, k, n, delta,
+                                      "row_balanced")
+        qp.append(tuple(q[key] for key in ("qv_t", "rows_q", "cols_q",
+                                           "qscale")))
+    stack = lambda parts: [torch.stack(t).to(dev) for t in zip(*parts)]
+    return _rand(rng, (n_exp, m, k), dtype, dev), stack(sp), stack(qp)
+
+
+# (m rows an expert, E, K, N, delta): one expert (the single product's
+# case), smoke and ragged shapes, deepseek_moe_16b's experts (64 of 2048
+# -> 1408 and 1408 -> 2048) and qwen3_moe_235b's (128 of 4096 -> 1536) at
+# decode (1 row an expert) and prefill/training (240) rows
+GROUPED_DECODE_CASES = [
+    (4, 1, 200, 300, 0.05), (5, 8, 64, 32, 0.05), (40, 3, 200, 136, 0.05),
+    (1, 64, 2048, 1408, 0.03), (240, 64, 2048, 1408, 0.03),
+    (240, 64, 1408, 2048, 0.03), (1, 128, 4096, 1536, 0.03),
+    (240, 128, 4096, 1536, 0.03),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("exec_mode", ["fused", "sparse"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", GROUPED_DECODE_CASES)
+def test_sparse_decode_grouped_matches_loop_and_plain(cuda, case, dtype):
+    """One ``sparse_matmul_grouped`` launch (x's dtype and an f32 y, the
+    latter as exec_mode sparse calls it) and one
+    ``quant_sparse_matmul_grouped`` launch over the expert stack give the
+    bits of a loop of single launches, each expert within the tolerance
+    of the plain version, and count one launch each."""
+    m, n_exp, k, n, delta = case
+    x, sp, qp = _grouped_decode_args(m, n_exp, k, n, delta, dtype, cuda)
+    for grouped, single, plain, args, kw in (
+            (sd_kernel.sparse_matmul_grouped, sd_kernel.sparse_matmul,
+             ref.sparse_matmul_ref, sp, {}),
+            (sd_kernel.sparse_matmul_grouped, sd_kernel.sparse_matmul,
+             ref.sparse_matmul_ref, sp, {"out_dtype": torch.float32}),
+            (sd_kernel.quant_sparse_matmul_grouped,
+             sd_kernel.quant_sparse_matmul, ref.quant_sparse_matmul_ref, qp,
+             {})):
+        n0 = grouped.launches
+        y = grouped(x, *args, n, **kw)
+        torch.cuda.synchronize()
+        assert grouped.launches == n0 + 1
+        assert y.shape == (n_exp, m, n)
+        assert y.dtype == kw.get("out_dtype", dtype)
+        for e in range(n_exp):
+            one = single(x[e], *(a[e] for a in args), n, **kw)
+            assert torch.equal(y[e], one), (grouped.__name__, e)
+            if e % max(1, n_exp // 8) == 0:
+                _close(y[e], plain(x[e], *(a[e] for a in args), n, **kw),
+                       dtype)
+
+
+@pytest.mark.gpu
+def test_grouped_sparse_wrappers_refuse_bad_inputs(cuda):
+    """The grouped wrappers raise on what the kernel does not take: x not
+    (E, M, K), a tile array or the scales without the stack's E."""
+    x, sp, qp = _grouped_decode_args(2, 3, 200, 136, 0.05, torch.bfloat16,
+                                     cuda)
+    with pytest.raises(ValueError, match=r"x must be \(E, M, K\)"):
+        sd_kernel.sparse_matmul_grouped(x[0], *sp, 136)
+    with pytest.raises(ValueError, match="rows_t must be"):
+        sd_kernel.sparse_matmul_grouped(x, sp[0], sp[1][:2], sp[2], 136)
+    with pytest.raises(ValueError, match="qscale must be"):
+        sd_kernel.quant_sparse_matmul_grouped(x, *qp[:3], qp[3][0], 136)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sparse_linear_grouped_backward_on_card_matches_cpu(cuda, dtype):
+    """The grouped trainable sparse linear's forward and backward (grouped
+    sparse_matmul forward and dx, grouped sddmm, batched f32 dB and dA)
+    on the card against the same call on the CPU, and the grouped quant
+    decode's forward."""
+    host = _grouped_args(70, 4, 200, 136, 16, 0.05, dtype, "cpu")
+    x, B, A = host[:3]
+    rng = np.random.default_rng(2)
+    k, n = 200, 136
+    rows, cols = support.sample_support(3, k, n, 0.05)
+    tiles = ops.add_transposed_tiles(ops.prepare_tile_consts(
+        rows, cols, k, n, pad=support.tile_cap(k, n, 0.05)))
+    st = {name: torch.stack([t] * 4) for name, t in tiles.items()}
+    v = _rand(rng, (4, k, rows.shape[0] // k), dtype, "cpu", 0.1)
+    dy = _rand(rng, (4, 70, n), dtype, "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_(True) for t in (x, B, A, v)]
+        t = {name: c.to(dev) for name, c in st.items()}
+        y = ops.sl_sparse_linear_grouped(
+            *leaves, t["rows_t"], t["cols_t"], t["perm"], 0.5,
+            rows_tT=t["rows_tT"], cols_tT=t["cols_tT"])
+        out[str(dev)] = [y] + list(torch.autograd.grad(y, leaves,
+                                                       dy.to(dev)))
+    for name, g, w in zip(("y", "dx", "dB", "dA", "dv"), out["cuda"],
+                          out["cpu"]):
+        assert g.dtype == w.dtype, name
+        scale = max(1.0, float(w.detach().float().abs().max()))
+        torch.testing.assert_close(g.detach().float().cpu(),
+                                   w.detach().float(),
+                                   atol=TOL[dtype] * scale, rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exec_mode", ["fused", "sparse", "quant"])
 def test_moe_engine_on_card_matches_cpu(cuda, exec_mode):
     """The deepseek_moe_16b smoke model (dense first layer, 8 experts
     top-2, a shared expert) in f32 on the paged engine with prefix
-    sharing: the card's kernels (the grouped ``sl_matmul`` over each
-    layer's experts in fused; ``sparse_matmul`` on each expert's slice in
-    sparse) give the CPU's tokens and ticks."""
+    sharing: the card's kernels (one grouped launch over each layer's
+    experts a linear: ``sl_matmul_grouped`` in fused,
+    ``sparse_matmul_grouped`` in sparse, ``quant_sparse_matmul_grouped``
+    on the calibrated model in quant) give the CPU's tokens and ticks."""
     import dataclasses
 
     from repro_torch.models import registry
     from repro_torch.models.common import tree_map
+    from repro_torch.quant import calibrate
     from repro_torch.serve.engine import ServeEngine
     cfg = registry.get_smoke_config("deepseek_moe_16b")
     cfg = dataclasses.replace(cfg, dtype="float32", param=dataclasses.replace(
@@ -1286,9 +1410,12 @@ def test_moe_engine_on_card_matches_cpu(cuda, exec_mode):
             elif key == "B":
                 val.uniform_(-1.0, 1.0, generator=gen)
     fill(params)
+    if exec_mode == "quant":
+        params, consts, _ = calibrate.calibrate_model(cfg, params, consts)
     on = lambda t: tree_map(lambda v: v.to(cuda), t)
     kernel = {"fused": sl_kernel.sl_matmul_grouped,
-              "sparse": sd_kernel.sparse_matmul}[exec_mode]
+              "sparse": sd_kernel.sparse_matmul_grouped,
+              "quant": sd_kernel.quant_sparse_matmul_grouped}[exec_mode]
     shared = list(range(40, 56))
     prompts = [shared + [3, 9], [7, 13, 5], shared + [11], [8, 2, 6, 1]]
     kw = dict(n_slots=3, max_len=48, paged=True, block_len=8,
@@ -1301,3 +1428,20 @@ def test_moe_engine_on_card_matches_cpu(cuda, exec_mode):
         runs.append(_serve_all(eng, prompts))
         assert (kernel.launches > n0) == (device == cuda)
     assert runs[1] == runs[0]
+
+
+@pytest.mark.gpu
+def test_checkpoint_of_device_leaves_round_trips(cuda, tmp_path):
+    """Leaves on the card (a 0-d step counter, bf16, a transposed view)
+    are written from their host copies and restored with their shapes,
+    dtypes and bits."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    tree = {"step": torch.tensor(7, dtype=torch.int32, device=cuda),
+            "w": torch.randn(5, 3, device=cuda).to(torch.bfloat16),
+            "t": torch.randn(4, 6, device=cuda).T}
+    cm = CheckpointManager(str(tmp_path))
+    cm.save(1, tree)
+    got, _ = cm.restore({k: torch.zeros_like(v) for k, v in tree.items()})
+    for k, v in tree.items():
+        assert got[k].shape == v.shape and got[k].dtype == v.dtype, k
+        assert torch.equal(got[k], v), k

@@ -19,6 +19,9 @@ from repro_torch.core import support
 from repro_torch.models import common, lm, registry
 from repro_torch.models.common import tree_leaves
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 
 def _cfg(arch, exec_mode, smoke=True):
     cfg = registry.get_smoke_config(arch) if smoke else \
@@ -117,6 +120,33 @@ def test_pooled_supports_match_reference_at_7b_paths():
         assert tiles is None
         np.testing.assert_array_equal(rows, want[0])
         np.testing.assert_array_equal(cols, want[1])
+
+
+def test_kept_supports_sample_each_spec_once(monkeypatch):
+    """Inside ``keep_supports`` a second init of the same model samples
+    nothing and is bit-identical to an init outside it; what it hands out
+    are copies (a caller's writes reach no later init), a budget below a
+    support keeps nothing, and the block leaves nothing kept."""
+    cfg = _cfg("llama_60m", "fused")
+    want = lm.init_lm(cfg, 3, device="cpu", workers=1)
+    calls = []
+    real = support.final_support
+    monkeypatch.setattr(support, "final_support",
+                        lambda *a, **k: calls.append(a) or real(*a, **k))
+    n = len(_specs(cfg, 3))
+    with support.keep_supports(1 << 30):
+        first = lm.init_lm(cfg, 3, device="cpu", workers=1)
+        assert len(calls) == n
+        for _, t in tree_leaves(first[1]):
+            t.zero_()
+        second = lm.init_lm(cfg, 3, device="cpu", workers=1)
+        assert len(calls) == n
+    _assert_same_trees(want, second)
+    assert support._KEPT is None
+    with support.keep_supports(1):
+        lm.init_lm(cfg, 3, device="cpu", workers=1)
+        lm.init_lm(cfg, 3, device="cpu", workers=1)
+    assert len(calls) == 3 * n
 
 
 def test_failing_worker_raises():

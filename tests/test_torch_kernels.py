@@ -25,6 +25,9 @@ from repro_torch.kernels import paged_attention as pa_kernel
 from repro_torch.kernels import sddmm as sddmm_kernel
 from repro_torch.kernels import sl_matmul as sl_kernel
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -43,6 +43,9 @@ from repro.models import common as jcommon
 from repro.models import mamba2 as jmamba2
 from repro_torch.models import mamba2, registry
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 ARCH = "zamba2_7b"
 
 

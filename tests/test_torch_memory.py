@@ -35,6 +35,9 @@ from repro_torch.kernels import adam8bit as adam8bit_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.optim import optimizers, quant
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 SIZES = [255, 256, 257, 64 * 256 + 3]
 
 

@@ -18,15 +18,25 @@ non-zero (the init's zeros and ones would hide bugs in those paths):
 * the paged engine's tokens tick for tick in dense, fused and sparse, and
   the reference's co-batching behaviour (capacity follows every slot of
   the batch, ROADMAP queue C reference behaviour 8);
-* the supports and tile consts of the port's own init, the 6·N·D counts
-  and the refusal of exec_mode quant (ROADMAP item 4b).
+* the supports and tile consts of the port's own init, the 6·N·D counts;
+* exec_mode quant on the expert stack: the grouped sparse-decode
+  kernels' plain versions and the grouped decode ops against a loop of
+  the single ones (E = 1 too), the calibration of both configs (each
+  expert's codes, scales and layout bit for bit, the fold and
+  ``max_abs_err`` as ``test_torch_quant.py`` holds a single linear), the
+  quant forward logits, the paged and contiguous engines' tokens tick
+  for tick on one calibrated artifact, and the calibrate CLI and the
+  serve launcher on deepseek's smoke config (a checkpoint of either
+  package).
 
 ``tests/test_torch_moe_train.py`` holds the training side.
 
 Tolerances: logits and K/V 1e-4 absolute and relative (f32, sums in
 another order; the combine sums each token's k slots in k order where the
 reference scatter-adds them in XLA's order); aux 1e-6 (a mean of f32
-probabilities); the grouped kernels' plain paths bit for bit.
+probabilities); the grouped kernels' plain paths bit for bit; the
+calibration's fold 1e-5 of its largest entry and ``max_abs_err`` 1e-6
+(``FOLD_RTOL``, ``ERR_ATOL``: an SVD in another library, f32).
 """
 import dataclasses
 import functools
@@ -38,22 +48,33 @@ import pytest
 import torch
 
 from repro.analysis import roofline as jroofline
+from repro.ckpt import checkpoint as jckpt
 from repro.models import common as jcommon
 from repro.models import mlp as jmlp
 from repro.models import registry as jregistry
+from repro.quant import calibrate as jcalibrate
 from repro.serve.engine import ServeEngine as JaxEngine
 from repro_torch.analysis import roofline
+from repro_torch.ckpt import checkpoint as ckpt_lib
 from repro_torch.ckpt.convert import from_jax_numpy
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sddmm as sddmm_kernel
 from repro_torch.kernels import sl_matmul as sl_kernel
+from repro_torch.kernels import sparse_decode as sd_kernel
 from repro_torch.models import common, mlp, registry
 from repro_torch.models.common import tree_leaves
+from repro_torch.quant import calibrate
 from repro_torch.serve.engine import ServeEngine
+
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
 
 ARCHS = ("deepseek_moe_16b", "qwen3_moe_235b")
 TOL = 1e-4
 AUX_TOL = 1e-6
+FOLD_RTOL = 1e-5
+ERR_ATOL = 1e-6
+QUANT_KEYS = ("qv_t", "rows_q", "cols_q", "qscale")
 
 
 def _cfgs(arch, exec_mode="fused", attn_kernel="paged", **kw):
@@ -370,17 +391,25 @@ def _traffic(vocab, n=5):
     return prompts, np.cumsum(rng.poisson(2.0, size=n))
 
 
-def _run_engines(arch, exec_mode, prompts, arrivals, new_tokens=8, **kw):
-    jparams, jconsts, tparams, tconsts = _weights(arch)
+def _run_engines(arch, exec_mode, prompts, arrivals, new_tokens=8,
+                 weights=None, **kw):
+    """Each request's (uid, status, tokens, ticks) from the reference's
+    engine and the port's on ``weights`` (``_weights(arch)`` by
+    default): paged, streamed with ``arrivals``; with ``paged=False`` the
+    contiguous engine, every request submitted at once and drained."""
+    jparams, jconsts, tparams, tconsts = weights or _weights(arch)
     jcfg, cfg = _cfgs(arch, exec_mode)
-    kw = dict(n_slots=3, max_len=48, paged=True, block_len=8, **kw)
+    kw = {**dict(n_slots=3, max_len=48, paged=True, block_len=8), **kw}
     runs = []
     for e in (JaxEngine(jcfg, jparams, jconsts, **kw),
               ServeEngine(cfg, tparams, tconsts, device="cpu", **kw)):
-        reqs = [e.submit(p, max_new_tokens=new_tokens, arrival=int(a))
-                for p, a in zip(prompts, arrivals)]
-        stats = e.run_stream()
-        assert not stats["exhausted"]
+        if kw["paged"]:
+            reqs = [e.submit(p, max_new_tokens=new_tokens, arrival=int(a))
+                    for p, a in zip(prompts, arrivals)]
+            assert not e.run_stream()["exhausted"]
+        else:
+            reqs = [e.submit(p, max_new_tokens=new_tokens) for p in prompts]
+            e.run_until_drained()
         runs.append([(r.uid, r.status, r.out, r.t_first, r.t_done)
                      for r in reqs])
     return runs
@@ -463,16 +492,257 @@ def test_model_flops_match_reference(arch):
 
 
 def test_quant_on_moe_raises_naming_item_4b():
-    """exec_mode quant on an expert stack waits with ROADMAP item 4b: the
-    init, the engine and the calibration refuse it."""
-    from repro_torch.quant import calibrate
+    """Nothing raises naming ROADMAP item 4b any more: exec_mode quant on
+    an expert stack inits (no quant consts yet), the engine takes the
+    calibrated model and the calibration takes the expert stack, one
+    matrix per layer and expert, in the reference's count."""
     _, cfg = _cfgs("deepseek_moe_16b", "quant")
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        registry.get_api(cfg).init(cfg, device="cpu")
-    _, _, tparams, tconsts = _weights("deepseek_moe_16b")
+    registry.get_api(cfg).init(cfg, device="cpu")
+    _, _, jst, tqp, tqc, tst = _quant("deepseek_moe_16b")
     _, fused = _cfgs("deepseek_moe_16b")
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        ServeEngine(fused, tparams, tconsts, exec_mode="quant", paged=True,
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        calibrate.calibrate_model(fused, tparams, tconsts)
+    eng = ServeEngine(fused, tqp, tqc, exec_mode="quant", paged=True,
+                      device="cpu")
+    assert eng.cfg.param.exec_mode == "quant" and not eng.quant_fell_back
+    m = fused.moe
+    n_moe = fused.n_layers - m.first_k_dense
+    assert tst["n_matrices"] == jst["n_matrices"] >= 3 * m.n_experts * n_moe
+
+
+# ---------------------------------------------------------------------------
+# exec_mode quant on the expert stack
+# ---------------------------------------------------------------------------
+
+def _decode_stack(n_exp, m, d_in, d_out, dtype, seed=4):
+    """``_stack_case``'s E linears with each support also in the int8
+    layout (codes and scales drawn): x, B, A, v, the tile consts, (v_t,
+    rows_t, cols_t) and (qv_t, rows_q, cols_q, qscale), each stacked on
+    the expert axis."""
+    from repro_torch.core import support
+    from repro_torch.quant import layout
+    x, B, A, v, st = _stack_case(n_exp, m, d_in, d_out, 8, dtype, seed)
+    rng = np.random.default_rng(seed)
+    qs = []
+    for e in range(n_exp):
+        rows, cols = support.sample_support(seed * 100 + e, d_in, d_out,
+                                            0.05)
+        qv = rng.integers(-127, 128, rows.shape).astype(np.int8)
+        sc = rng.uniform(1e-3, 1e-2, d_out).astype(np.float32)
+        q = layout.build_quant_consts(rows, cols, qv, sc, d_in, d_out, 0.05,
+                                      "row_balanced")
+        qs.append([q[k] for k in QUANT_KEYS])
+    sp = (ops._gather_tiles_grouped(v, st["perm"]), st["rows_t"],
+          st["cols_t"])
+    return x, B, A, v, st, sp, [torch.stack(t) for t in zip(*qs)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_exp", [1, 3])
+def test_grouped_decode_plain_paths_are_a_loop(n_exp, dtype):
+    """``sparse_matmul_grouped`` (x's dtype and f32 out) and
+    ``quant_sparse_matmul_grouped`` on the CPU give the bits of a loop of
+    the single plain versions, and ``ops.sl_decode_grouped`` /
+    ``ops.sl_quant_decode_grouped`` the bits of a loop of
+    ``ops.sl_decode`` / ``ops.sl_quant_decode``, at a ragged shape (K and
+    N not multiples of 128) and at one expert."""
+    x, B, A, _, _, sp, qp = _decode_stack(n_exp, 5, 200, 136, dtype)
+    n = 136
+    y = sd_kernel.sparse_matmul_grouped(x, *sp, n)
+    y32 = sd_kernel.sparse_matmul_grouped(x, *sp, n, torch.float32)
+    yq = sd_kernel.quant_sparse_matmul_grouped(x, *qp, n)
+    d = ops.sl_decode_grouped(x, B, A, *sp, 0.5)
+    dq = ops.sl_quant_decode_grouped(x, B, A, *qp, 0.5)
+    assert (y.dtype, y32.dtype, yq.dtype, d.dtype, dq.dtype) == \
+        (dtype, torch.float32, dtype, dtype, dtype)
+    for e in range(n_exp):
+        s1 = [t[e] for t in sp]
+        q1 = [t[e] for t in qp]
+        assert torch.equal(y[e], ref.sparse_matmul_ref(x[e], *s1, n))
+        assert torch.equal(y32[e], ref.sparse_matmul_ref(x[e], *s1, n,
+                                                         torch.float32))
+        assert torch.equal(yq[e], ref.quant_sparse_matmul_ref(x[e], *q1, n))
+        assert torch.equal(d[e], ops.sl_decode(x[e], B[e], A[e], *s1, 0.5))
+        assert torch.equal(dq[e], ops.sl_quant_decode(x[e], B[e], A[e], *q1,
+                                                      0.5))
+
+
+def test_grouped_sparse_linear_matches_single_linears():
+    """``ops.sl_sparse_linear_grouped`` (exec_mode sparse training on the
+    expert stack): the forward bit for bit a loop of
+    ``ops.sl_sparse_linear``, and x, B, A and v's gradients equal the
+    loop's (the batched f32 products on the CPU to 1e-6)."""
+    x, B, A, v, st = _stack_case(4, 6, 144, 130, 8, torch.float32, seed=2)
+    st = ops.add_transposed_tiles(st)
+    dy = torch.randn((4, 6, 130), generator=torch.Generator().manual_seed(3))
+    leaves = [t.clone().requires_grad_(True) for t in (x, B, A, v)]
+    y = ops.sl_sparse_linear_grouped(*leaves, st["rows_t"], st["cols_t"],
+                                     st["perm"], 0.25, rows_tT=st["rows_tT"],
+                                     cols_tT=st["cols_tT"])
+    grads = torch.autograd.grad(y, leaves, dy)
+    for e in range(4):
+        one = [t[e].clone().requires_grad_(True) for t in (x, B, A, v)]
+        ye = ops.sl_sparse_linear(*one, st["rows_t"][e], st["cols_t"][e],
+                                  st["perm"][e], 0.25,
+                                  rows_tT=st["rows_tT"][e],
+                                  cols_tT=st["cols_tT"][e])
+        assert torch.equal(y[e], ye)
+        for g, ge in zip(grads, torch.autograd.grad(ye, one, dy[e])):
+            torch.testing.assert_close(g[e], ge, atol=1e-6, rtol=1e-6)
+
+
+_QUANT = {}
+
+
+def _quant(arch):
+    """(reference params, consts, stats, port params, consts, stats): each
+    package's calibration of ``_weights(arch)``, cached per arch."""
+    if arch not in _QUANT:
+        jparams, jconsts, tparams, tconsts = _weights(arch)
+        jcfg, cfg = _cfgs(arch)
+        _QUANT[arch] = (jcalibrate.calibrate_model(jcfg, jparams, jconsts)
+                        + calibrate.calibrate_model(cfg, tparams, tconsts))
+    return _QUANT[arch]
+
+
+def _quant_weights(arch):
+    """The reference's calibrated artifact as each package loads it: the
+    same params and consts on both sides of an engine comparison."""
+    jqp, jqc = _quant(arch)[:2]
+    tp, tc = from_jax_numpy(jax.tree.map(np.asarray, jqp),
+                            jax.tree.map(np.asarray, jqc), device="cpu")
+    return jqp, jqc, tp, tc
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_expert_stack_calibration_matches_reference(arch):
+    """Every matrix of the model, each routed expert's slice of each
+    layer included: codes, scales and the ``qv_t/rows_q/cols_q/qscale``
+    layout bit for bit; ``scale·B'·A'`` within ``FOLD_RTOL`` of the
+    reference's (relative to its largest entry) slice by slice;
+    ``max_abs_err`` within ``ERR_ATOL``; no code is −128."""
+    jqp, jqc, jst, tqp, tqc, tst = _quant(arch)
+    assert (tst["n_matrices"], tst["nnz"], tst["format"]) == \
+        (jst["n_matrices"], jst["nnz"], jst["format"])
+    assert abs(tst["max_abs_err"] - jst["max_abs_err"]) <= ERR_ATOL
+    want = dict(tree_leaves(jax.tree.map(np.asarray, jqc)))
+    have = {p: v for p, v in tree_leaves(tqc)
+            if p.split("/")[-1] in QUANT_KEYS}
+    assert sorted(have) == sorted(p for p in want
+                                  if p.split("/")[-1] in QUANT_KEYS)
+    assert any("/experts/" in p for p in have)
+    for p, v in have.items():
+        np.testing.assert_array_equal(v.numpy(), want[p], err_msg=p)
+        if p.endswith("qv_t"):
+            assert int(v.min()) >= -127
+    wp = dict(tree_leaves(jax.tree.map(np.asarray, jqp)))
+    hp = dict(tree_leaves(tqp))
+    assert sorted(hp) == sorted(wp)
+    alpha = _cfgs(arch)[1].param.alpha
+    for p in wp:
+        if not p.endswith("/B"):
+            continue
+        a = p[:-1] + "A"
+        r = wp[p].shape[-1]
+        got = [t.numpy().astype(np.float64) for t in (hp[p], hp[a])]
+        ref_ = [np.asarray(t, np.float64) for t in (wp[p], wp[a])]
+        lead = wp[p].shape[:-2]
+        flat = lambda t: t.reshape((-1,) + t.shape[len(lead):])
+        for gb, ga, wb, wa in zip(*map(flat, got + ref_)):
+            want_f = (alpha / r) * (wb @ wa)
+            np.testing.assert_allclose((alpha / r) * (gb @ ga), want_f,
+                                       rtol=0, atol=FOLD_RTOL * np.abs(
+                                           want_f).max(), err_msg=p)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_quant_forward_matches_reference(arch):
+    """The logits and aux of exec_mode quant under ``jax.jit`` and in the
+    port, on one calibrated artifact (the reference's, loaded by each
+    package; the port's own calibration is held to it above)."""
+    jqp, jqc, tqp, tqc = _quant_weights(arch)
+    jcfg, cfg = _cfgs(arch, "quant")
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    japi = jregistry.get_api(jcfg)
+    jl, jaux = jax.jit(lambda p, c, b: japi.apply(jcfg, p, c, b))(
+        jqp, jqc, {"tokens": jnp.asarray(toks)})
+    with torch.no_grad():
+        tl, aux = registry.get_api(cfg).apply(
+            cfg, tqp, tqc, {"tokens": torch.from_numpy(toks)})
+    _close(tl, jl)
+    np.testing.assert_allclose(float(aux), float(jaux), atol=AUX_TOL,
+                               rtol=AUX_TOL)
+
+
+@pytest.mark.parametrize("cache_kind", ["paged", "contiguous"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_quant_engine_matches_reference(arch, cache_kind):
+    """Tokens and ticks of exec_mode quant on one calibrated artifact (the
+    reference's, loaded by each package), tick for tick: the paged
+    engine with prefix sharing and the contiguous (legacy) engine."""
+    _, cfg = _cfgs(arch)
+    prompts, arrivals = _traffic(cfg.vocab_size)
+    kw = dict(prefix_sharing=True) if cache_kind == "paged" else \
+        dict(paged=False)
+    ref_run, port_run = _run_engines(arch, "quant", prompts, arrivals,
+                                     weights=_quant_weights(arch), **kw)
+    assert port_run == ref_run
+    assert any(r[2] for r in port_run)
+
+
+def _run_main(fn, argv):
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn(argv)
+    return out.getvalue()
+
+
+@pytest.mark.parametrize("writer", ["port_trainer", "reference"])
+def test_calibrate_cli_and_quant_launcher_on_moe(tmp_path, writer):
+    """``python -m repro_torch.quant.calibrate --arch deepseek_moe_16b``
+    on a checkpoint of either package (the port's train launcher, or the
+    reference's ``arrays.npz`` of its own init with B drawn) gives the
+    codes, scales and layout of the reference's calibrate CLI on the same
+    checkpoint, and the serve launcher serves the artifact in exec_mode
+    quant."""
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as train_launch
+    arch = "deepseek_moe_16b"
+    ck = str(tmp_path / "ckpt")
+    if writer == "port_trainer":
+        train_launch.main(["--arch", arch, "--smoke", "--steps", "1",
+                           "--batch", "2", "--seq", "8", "--device", "cpu",
+                           "--exec-mode", "fused", "--ckpt-dir", ck])
+    else:
+        jcfg = jregistry.get_smoke_config(arch)
+        jp, _ = jregistry.get_api(jcfg).init(jcfg, jax.random.PRNGKey(0),
+                                             seed=0)
+        rng = np.random.default_rng(4)
+        jp = jax.tree_util.tree_map_with_path(
+            lambda p, leaf: jnp.asarray(rng.uniform(-0.5, 0.5, leaf.shape),
+                                        leaf.dtype)
+            if str(p[-1].key) == "B" else leaf, jp)
+        jckpt.CheckpointManager(ck).save(3, {"params": jp},
+                                         config_hash=jcfg.hash())
+    art, jart = str(tmp_path / "artifact"), str(tmp_path / "artifact_ref")
+    argv = ["--arch", arch, "--smoke", "--ckpt-dir", ck]
+    out = _run_main(calibrate.main, argv + ["--out", art, "--device", "cpu"])
+    _run_main(jcalibrate.main, argv + ["--out", jart])
+    _, tc, man = ckpt_lib.load_quant_artifact(art, device="cpu")
+    _, jc, jman = jckpt.load_quant_artifact(jart)
+    n = jman["extra"]["n_matrices"]
+    assert out.startswith(f"quant artifact: {n} matrices")
+    assert man["config_hash"] == jman["config_hash"]
+    assert man["extra"]["nnz"] == jman["extra"]["nnz"]
+    want = dict(tree_leaves(jax.tree.map(np.asarray, jc)))
+    have = dict(tree_leaves(tc))
+    assert sorted(have) == sorted(want)
+    for p in want:
+        np.testing.assert_array_equal(have[p].numpy(), want[p], err_msg=p)
+    out = _run_main(serve_launch.main, [
+        "--arch", arch, "--smoke", "--paged", "--requests", "2", "--slots",
+        "2", "--max-len", "32", "--new-tokens", "3", "--device", "cpu",
+        "--exec-mode", "quant", "--quant-ckpt", art])
+    assert f"quant artifact: {art} ({n} matrices)" in out
+    assert "served 2 requests, 6 tokens" in out and "exec_mode=quant" in out

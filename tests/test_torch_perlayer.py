@@ -51,6 +51,9 @@ from repro_torch.optim import optimizers
 from repro_torch.train import perlayer
 from repro_torch.train import step as step_lib
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 STEPS = 4
 CASES = {
     "adamw-dense": dict(opt="adamw", exec_mode="dense"),

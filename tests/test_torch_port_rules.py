@@ -21,6 +21,9 @@ from repro_torch.core import sltrain
 from repro_torch.models import lm, registry
 from repro_torch.serve.engine import ServeEngine
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]

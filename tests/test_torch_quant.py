@@ -42,6 +42,9 @@ from repro_torch.ckpt.convert import from_jax_numpy
 from repro_torch.models.common import tree_leaves
 from repro_torch.quant import calibrate, layout
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 FOLD_RTOL = 1e-5
 ERR_ATOL = 1e-6
 
@@ -311,6 +314,39 @@ def test_calibrate_cli_and_quant_launcher_on_cpu(tmp_path):
         serve.main(base + ["--sparse-decode", "--exec-mode", "sparse"])
     with pytest.raises(ValueError, match="needs calibrated consts"):
         serve.main(base + ["--exec-mode", "quant"])
+
+
+def test_perlayer_8bit_fused_checkpoint_calibrates_and_serves(tmp_path):
+    """The launchers in the order of the 7B memory path's round trip:
+    per-layer 8-bit AdamW in exec_mode fused, the calibrate CLI on its
+    checkpoint (the reference's calibrator gives the same codes), then
+    the quant engine. On the CPU no launcher prints a device peak."""
+    from repro_torch.launch import serve, train
+    ck = str(tmp_path / "train")
+    out = _run(train.main, ["--smoke", "--steps", "1", "--batch", "2",
+                            "--seq", "8", "--update-mode", "per_layer",
+                            "--optimizer", "adam8bit", "--exec-mode",
+                            "fused", "--device", "cpu", "--ckpt-dir", ck])
+    art = str(tmp_path / "artifact")
+    out += _run(calibrate.main, ["--arch", "llama_60m", "--smoke",
+                                 "--ckpt-dir", ck, "--out", art, "--device",
+                                 "cpu"])
+    assert "quant artifact: 14 matrices" in out
+    jart = str(tmp_path / "artifact_ref")
+    _run(jcalibrate.main, ["--arch", "llama_60m", "--smoke", "--ckpt-dir",
+                           ck, "--out", jart])
+    _, tc, _ = ckpt.load_quant_artifact(art, device="cpu")
+    _, jc, _ = jckpt.load_quant_artifact(jart)
+    got, want = _flat(tc), _jflat(jc)
+    assert set(got) == set(want)
+    for key in want:
+        _same(got[key], want[key], key)
+    out += _run(serve.main, ["--arch", "llama_60m", "--smoke", "--paged",
+                             "--requests", "2", "--slots", "2", "--max-len",
+                             "32", "--new-tokens", "3", "--device", "cpu",
+                             "--exec-mode", "quant", "--quant-ckpt", art])
+    assert "served 2 requests, 6 tokens" in out and "exec_mode=quant" in out
+    assert "peak device memory" not in out
 
 
 

@@ -31,6 +31,9 @@ from repro_torch.serve import kv
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import Scheduler
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 TOL = 1e-4
 
 

@@ -63,6 +63,9 @@ from repro_torch.serve.engine import ServeEngine
 from repro_torch.train import perlayer
 from repro_torch.train import step as step_lib
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 RTOL = 1e-5
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

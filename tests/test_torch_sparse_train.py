@@ -46,6 +46,9 @@ from repro_torch.optim import optimizers
 from repro_torch.train import perlayer
 from repro_torch.train import step as step_lib
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 RTOL = 1e-5
 STEPS = 3
 TRAIN_TOL_STEP1 = 1e-5

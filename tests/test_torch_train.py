@@ -57,6 +57,9 @@ from repro_torch.optim.optimizers import tree_leaves
 from repro_torch.train import step as step_lib
 from repro_torch.train.trainer import Trainer
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -96,6 +99,21 @@ def test_synthetic_c4_bit_identical_to_reference(host):
                                   c.next_batch()["tokens"])
     with pytest.raises(ValueError, match="different data seed"):
         c.restore({"seed": 8, "step": 0})
+
+
+def test_synthetic_c4_shares_one_read_only_table_per_vocab_and_seed():
+    """Sources of one (vocab, seed) share one transition table, computed
+    once and read-only; another seed gets its own; each still gives the
+    reference's batches."""
+    a, b = SyntheticC4(512, 24, 4, seed=7), SyntheticC4(512, 24, 4, seed=7)
+    c = SyntheticC4(512, 24, 4, seed=8)
+    assert a._ids is b._ids and a._cdf is b._cdf
+    assert not (a._ids.flags.writeable or a._cdf.flags.writeable)
+    assert not np.array_equal(a._cdf, c._cdf)
+    for src, seed in ((b, 7), (c, 8)):
+        np.testing.assert_array_equal(
+            src.next_batch()["tokens"],
+            JaxC4(512, 24, 4, seed=seed).next_batch()["tokens"])
 
 
 # ---------------------------------------------------------------------------

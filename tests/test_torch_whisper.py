@@ -41,6 +41,9 @@ from repro.models import common as jcommon
 from repro.models import whisper as jwhisper
 from repro_torch.models import registry, whisper
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 ARCH = "whisper_large_v3"
 
 

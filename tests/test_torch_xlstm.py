@@ -39,6 +39,9 @@ from repro.models import common as jcommon
 from repro.models import xlstm as jxlstm
 from repro_torch.models import registry, xlstm
 
+# one intra-op thread a worker: pytest-xdist runs a worker per core
+torch.set_num_threads(1)
+
 ARCH = "xlstm_350m"
 
 
