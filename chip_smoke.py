@@ -192,7 +192,26 @@ seed:
   2 of 32 decoder layers), and 3 train steps of global AdamW fused and sparse (the
   Trainer; whisper's train step with seeded frames at
   ``WHISPER_TRAIN_BATCH`` = 3), with step ms, the reference's MFU, the
-  true parameter count and the peak.
+  true parameter count and the peak;
+* training on a device mesh (phase dist, ``run_dist``): ``llama_7b`` at
+  full width on ``DIST_LAYERS`` = 2 layers, f32, ``DIST_STEPS`` = 3
+  steps from one init, on one world of ``DIST_WORLD`` = 4 ranks, each a
+  process on the one card, over the gloo backend (asked for here: NCCL
+  refuses two ranks on one device; a group's ranks exchange data
+  through host memory), in ``DIST_RUNS``' order: (model 2) fused; (data
+  2, model 2) fsdp fused; (model 4) fused, d_ff's 86 column tiles
+  unsplit beside a sharded A; (pod 4) with int8 gradient compression;
+  (data 2, model 2) fsdp per-layer 8-bit fused; (model 2) dense and
+  sparse: each against the one-process run on the card (``check_pair``),
+  the int8 run against its plain version in one process and, at step 1,
+  the uncompressed run (``INT8_TOL``); ``int8_psum`` over the world bit
+  for bit against its plain version; each run's launches summed over its
+  ranks (``DIST_KERNELS``), its collectives timed (``CollectiveLog``);
+  then run 2's configuration in bf16 for ``DIST_BF16_STEPS`` steps, each
+  rank's step ms, peak and modelled ``dist.collective_bytes``; then
+  ``sl_matmul``, ``sddmm``, ``sparse_matmul`` at a TP-2 rank's local
+  shapes and ``adam8bit`` on an fsdp shard against their plain versions,
+  timed.
 
 To stay inside its time limit with the gemma2, MoE, SSM, encoder and
 quant phases: llama_1b's serving phases run on 2 of its 24 layers
@@ -207,7 +226,8 @@ parity layers and its Trainer on 2 of 28 (``MOE_TRAIN_LAYERS``);
 zamba2 in bf16 on 7 of 81 (``HYBRID_LAYERS``), xlstm on 8 of 24
 (``XLSTM_BF16_LAYERS``), whisper's serving on 2 of 32 decoder layers
 (``WHISPER_SERVE_LAYERS``); the Table 2 comparison at ``llama_60m`` takes
-5 steps a mode. Each support is sampled once a run and reused by every
+5 steps a mode; the dist phase's bf16 run takes 2 steps. Each support is
+sampled once a run and reused by every
 later init of its model (``core.support.keep_supports``), and the killed
 launcher's process runs beside the uninterrupted run it is held against.
 
@@ -889,49 +909,54 @@ def check_sparse_train_kernels(timer, gen, device, cfg, m):
     tolerance of y's dtype. Bound: x, the support's entries (f32 value and
     two int32 indices) and y moved once, or 2·M·nnz operations, the
     larger."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import sparse_decode as spk
     rows = []
     for dtype in DTYPES:
         for (d_in, d_out) in proj_shapes(cfg):
             fwd, dx, nnz = sparse_train_case(
                 gen, device, d_in, d_out, m, dtype, cfg.param.delta,
                 seed=d_in * 7 + d_out)
-            out = torch.float32
             for what, (x, sp, n) in (("", fwd), ("dx ", dx)):
-                k = x.shape[1]
-                label = (f"{what}{m}x{k}->{n} {dname(dtype)}"
-                         + (" f32 out" if dtype != out else ""))
-                got = spk.sparse_matmul(x, *sp, n, out)
-                want = ref.sparse_matmul_ref(x, *sp, n, out)
-                torch.cuda.synchronize()
-                tol = TOL[got.dtype]
-                err = compare(f"sparse_matmul {label}", got, want, got.dtype)
-                if not torch.equal(got, spk.sparse_matmul(x, *sp, n, out)):
-                    fail(f"sparse_matmul {label}: a rerun on the same inputs "
-                         "gave other bits")
-                S = ref._tile_dense(*sp)[:k, :n].to(dtype).contiguous()
-                lib, lib_name = matmul_call(x, S, out)
-                t_k = timer.ms(lambda: spk.sparse_matmul(x, *sp, n, out))
-                t_p = timer.ms(lambda: ref.sparse_matmul_ref(x, *sp, n, out))
-                t_l = timer.ms(lib)
-                ops_ = 2.0 * m * nnz
-                moved = nbytes(x, got) + support_bytes(nnz, *sp)
-                b, by = bound_ms(moved, ops_, dtype)
-                p = spk.plan(m, k, n, torch.cuda.get_device_properties(
-                    device).multi_processor_count)
-                rows.append(dict(name="sparse_matmul", shape=label,
-                                 max_abs_err=err, tol=tol, ms=t_k,
-                                 plain_ms=t_p, library_ms=t_l, bound_ms=b,
-                                 bound_by=by))
-                say(f"kernel sparse_matmul {label} (training; {p.splits} "
-                    f"split, {p.blocks} blocks of {p.rows_per_block} rows): "
-                    f"max_abs_err {err:.3e} (tol {tol}), a rerun bit "
-                    f"for bit | kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-                    f"{lib_name} on dense S {t_l:.4f} ms, bound {b:.4f} ms "
-                    f"({by}, {moved / 1e6:.2f} MB, {ops_ / 1e9:.2f} GFLOP)")
-                del S
+                label = (f"{what}{m}x{x.shape[1]}->{n} {dname(dtype)}"
+                         + (" f32 out" if dtype != torch.float32 else ""))
+                rows.append(time_sparse_train(timer, label, x, sp, n, dtype,
+                                              nnz, device))
     return rows
+
+
+def time_sparse_train(timer, label, x, sp, n, dtype, nnz, device):
+    """One sparse_matmul call of the trainable sparse linear (f32 out):
+    against the plain version and its own rerun bit for bit, timed beside
+    them and one library call on the pre-densified S."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_decode as spk
+    out = torch.float32
+    m, k = x.shape
+    got = spk.sparse_matmul(x, *sp, n, out)
+    want = ref.sparse_matmul_ref(x, *sp, n, out)
+    torch.cuda.synchronize()
+    tol = TOL[got.dtype]
+    err = compare(f"sparse_matmul {label}", got, want, got.dtype)
+    if not torch.equal(got, spk.sparse_matmul(x, *sp, n, out)):
+        fail(f"sparse_matmul {label}: a rerun on the same inputs gave other "
+             "bits")
+    S = ref._tile_dense(*sp)[:k, :n].to(dtype).contiguous()
+    lib, lib_name = matmul_call(x, S, out)
+    t_k = timer.ms(lambda: spk.sparse_matmul(x, *sp, n, out))
+    t_p = timer.ms(lambda: ref.sparse_matmul_ref(x, *sp, n, out))
+    t_l = timer.ms(lib)
+    ops_ = 2.0 * m * nnz
+    moved = nbytes(x, got) + support_bytes(nnz, *sp)
+    b, by = bound_ms(moved, ops_, dtype)
+    p = spk.plan(m, k, n, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+    say(f"kernel sparse_matmul {label} (training; {p.splits} split, "
+        f"{p.blocks} blocks of {p.rows_per_block} rows): max_abs_err "
+        f"{err:.3e} (tol {tol}), a rerun bit for bit | kernel {t_k:.4f} ms, "
+        f"plain {t_p:.4f} ms, {lib_name} on dense S {t_l:.4f} ms, bound "
+        f"{b:.4f} ms ({by}, {moved / 1e6:.2f} MB, {ops_ / 1e9:.2f} GFLOP)")
+    return dict(name="sparse_matmul", shape=label, max_abs_err=err, tol=tol,
+                ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b,
+                bound_by=by)
 
 
 def linear_shapes(cfg):
@@ -2289,13 +2314,14 @@ def phase_train_parity(cfg, device, gen, *, batch, seq, steps=3,
         check_pair(out, a_name, b_name, pdiff, later)
 
 
-def check_pair(out, a_name, b_name, extra="", later=None):
+def check_pair(out, a_name, b_name, extra="", later=None,
+               first=TRAIN_TOL_STEP1):
     """Fail unless run ``a_name``'s (loss, grad_norm, nonfinite) rows
-    agree with ``b_name``'s: step 1 to TRAIN_TOL_STEP1 relative, later
-    steps to TRAIN_TOL_LATER (or ``later[i]`` at step i + 1), every value
-    finite and no step skipped."""
+    agree with ``b_name``'s: step 1 to ``first`` (TRAIN_TOL_STEP1)
+    relative, later steps to TRAIN_TOL_LATER (or ``later[i]`` at step
+    i + 1), every value finite and no step skipped."""
     for i, (f, d) in enumerate(zip(out[a_name], out[b_name])):
-        tol = TRAIN_TOL_STEP1 if i == 0 else (
+        tol = first if i == 0 else (
             later[i] if later else TRAIN_TOL_LATER)
         for what, a, b in (("loss", f[0], d[0]), ("grad_norm", f[1], d[1])):
             rel = abs(a - b) / max(abs(b), 1e-12)
@@ -2308,7 +2334,7 @@ def check_pair(out, a_name, b_name, extra="", later=None):
     after = [f"{t:.2e}" for t in later[1:]] if later else TRAIN_TOL_LATER
     say(f"train f32 parity: {a_name} vs {b_name} largest relative "
         f"difference of loss and grad norm per step "
-        f"{[f'{r:.2e}' for r in rel]} (tol {TRAIN_TOL_STEP1} at step 1, "
+        f"{[f'{r:.2e}' for r in rel]} (tol {first} at step 1, "
         f"{after} after){extra}")
 
 
@@ -3084,7 +3110,7 @@ def representatives(cfg, rows, m, n_slots, bucket):
 
 def kernels_line(rows, by_path, representative, rows_7b, representative_7b,
                  rows_g, representative_g, rows_m, representative_m,
-                 rows_h, representative_h):
+                 rows_h, representative_h, rows_d, representative_d):
     """One entry per kernel: the llama_1b representative case's times and
     bound (and, under ``at_llama_7b`` and ``at_gemma2_2b``, the llama_7b
     and the gemma2_2b one's), the largest error over all of the kernel's
@@ -3104,7 +3130,10 @@ def kernels_line(rows, by_path, representative, rows_7b, representative_7b,
     ``at_qwen3_moe_235b`` the paged kernels' at qwen3's GQA group 16;
     ``at_ssm_families`` the linears' kernels' timed cases at zamba2_7b's,
     xlstm_350m's and whisper_large_v3's shapes (phase h1, whose untimed
-    cases count in ``max_abs_err`` and ``cases``)."""
+    cases count in ``max_abs_err`` and ``cases``); ``at_dist`` the dist
+    phase's local-shape case (llama_7b's d_ff projection on a rank of a
+    TP-2 mesh; adam8bit on an fsdp shard), whose launches are the dist
+    runs' (paths "dist ...")."""
     out = []
     src = {"sl_matmul": SL_SOURCE, "paged_attention": PA_SOURCE,
            "paged_prefill": PA_SOURCE, "sddmm": SD_SOURCE,
@@ -3132,7 +3161,7 @@ def kernels_line(rows, by_path, representative, rows_7b, representative_7b,
             + sum(n_grouped.values()),
             "launches_by_path": {p: n[name] for p, n in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in mine + mine7 + mine_g
-                               + [r for r in rows_m + rows_h
+                               + [r for r in rows_m + rows_h + rows_d
                                   if r["name"] == name]),
             **{k: rep[k] for k in times}, "shape": shape,
             "cases": len(mine),
@@ -3154,6 +3183,13 @@ def kernels_line(rows, by_path, representative, rows_7b, representative_7b,
                     loop_ms=rep_m["loop_ms"], experts=rep_m["experts"],
                     grouped_launches=sum(n_grouped.values()))
                 out[-1]["grouped_launches_by_path"] = n_grouped
+        if name in representative_d:
+            mine_d = [r for r in rows_d if r["name"] == name]
+            rep_d = next(r for r in mine_d
+                         if r["shape"] == representative_d[name])
+            out[-1]["at_dist"] = {"shape": rep_d["shape"],
+                                  "cases": len(mine_d),
+                                  **{k: rep_d[k] for k in times}}
         if name in representative_h:
             mine_h = [r for r in rows_h if r["name"] == name]
             out[-1]["at_ssm_families"] = {"cases": len(mine_h), **{
@@ -5764,6 +5800,545 @@ def run_serving(cfg, device, gen, n_slots, block_len, max_len, buckets,
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase dist: training on a device mesh, four ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# llama_7b at full width on this many of its 32 layers, f32, DIST_STEPS
+# steps from one init and one data stream, on one gloo world of DIST_WORLD
+# ranks, each a process on the one card (gloo stages every collective
+# through host memory; NCCL refuses two ranks on one device)
+DIST_LAYERS = 2
+DIST_STEPS = 3
+DIST_WORLD = 4
+# name: (mesh shape, axis names, exec_mode, update_mode, optimizer, fsdp,
+# int8 pod compression), run in this order; a mesh of fewer ranks than
+# the world runs on its first ranks while the others wait
+DIST_RUNS = {
+    "model 2, fused, AdamW": (
+        (1, 2), ("data", "model"), "fused", "global", "adamw", False, False),
+    "data 2 x model 2, fsdp, fused, AdamW": (
+        (2, 2), ("data", "model"), "fused", "global", "adamw", True, False),
+    "model 4, fused, AdamW": (
+        (1, 4), ("data", "model"), "fused", "global", "adamw", False, False),
+    "pod 4, int8 compression, fused, AdamW": (
+        (4,), ("pod",), "fused", "global", "adamw", False, True),
+    "data 2 x model 2, fsdp, per-layer 8-bit, fused": (
+        (2, 2), ("data", "model"), "fused", "per_layer", "adam8bit", True,
+        False),
+    "model 2, dense, AdamW": (
+        (1, 2), ("data", "model"), "dense", "global", "adamw", False, False),
+    "model 2, sparse, AdamW": (
+        (1, 2), ("data", "model"), "sparse", "global", "adamw", False, False),
+}
+# the bf16 run, timed: run 2's configuration, a warm-up step and a timed
+# one (cut from 3 steps for the phase's time)
+DIST_BF16 = "data 2 x model 2, fsdp, fused, AdamW"
+DIST_BF16_STEPS = 2
+# the kernels each run must launch (summed over its ranks)
+DIST_KERNELS = {"fused": ("sl_matmul", "sddmm"),
+                "sparse": ("sparse_matmul", "sddmm"), "dense": (),
+                # and per-layer 8-bit AdamW in exec_mode fused
+                "adam8bit": ("adam8bit",)}
+# the int8 run (4) is held to the compressed step's plain version in one
+# process (int8_one_process) at the f32 gates, and at step 1, from the
+# same params, to the uncompressed run at INT8_TOL: each pod rounds its
+# gradient once onto the shared grid (half a step, absmax/254, of each
+# block), the sum is exact and divided by n_pods; a Gaussian block's
+# absmax is ~3.5 times its rms, so an element's error is ~0.8% of the
+# pods' rms gradient at most, and the norm moves far less. Later steps
+# are not held to the uncompressed run: Adam's first steps scale a
+# near-zero element's update to ~lr whatever its sign, so an int8
+# rounding moves the trajectory by more than rounding does (6.3e-2 in
+# the step-2 gradient norm on an H100)
+INT8_TOL = 1e-2
+# int8_psum on the card against its plain version: elements per rank (a
+# ragged tail) with its first block all zero
+INT8_ELEMS = (1 << 20) + 77
+
+
+def dist_config(cfg, exec_mode, dtype="float32"):
+    return dataclasses.replace(cfg, n_layers=DIST_LAYERS, dtype=dtype,
+                               param=dataclasses.replace(
+                                   cfg.param, exec_mode=exec_mode))
+
+
+def dist_train(cfg, params, consts, mesh, *, update_mode, optimizer, fsdp,
+               compression, batch, seq, device="cuda", steps=DIST_STEPS):
+    """``steps`` Trainer steps of ``cfg`` from ``params`` (cloned) on
+    ``mesh`` (None: one process): (loss, grad_norm, nonfinite) a step, the
+    kernels' launches in the steps, the median later step's ms, the
+    seconds before the first step, the peak device memory after init and
+    the modelled collective bytes a step. (``device`` "cpu" rehearses it:
+    no peak.)"""
+    t0 = time.perf_counter()
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.trainer import Trainer
+    tc = train_config(cfg, steps=steps, batch=batch, seq=seq,
+                      ckpt_dir=os.path.join(ROOT, "build",
+                                            "chip_smoke_dist_ckpt"),
+                      optimizer=optimizer, update_mode=update_mode)
+    tc = dataclasses.replace(tc, sharding=dataclasses.replace(
+        tc.sharding, fsdp=fsdp, pod_grad_compression=compression))
+    cuda = torch.device(device).type == "cuda"
+    tr = Trainer(tc, device=device, mesh=mesh, log_fn=lambda *a: None)
+    tr.save = lambda *a, **k: None
+    # a signal ends the run with its name instead of the Trainer's
+    # checkpoint-and-exit(42)
+    tr._install_signal_handlers = lambda: None
+    state = tr.state_from(tree_map(lambda t: t.to(device, copy=True),
+                                   params),
+                          tree_map(lambda t: t.to(device), consts))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    setup = time.perf_counter() - t0
+    tr.run(state=state)
+    if cuda:
+        torch.cuda.synchronize()
+    hist = tr.metrics_history
+    wire = sum(v["value"] for k, v in tr.obs.snapshot().items()
+               if k.startswith("dist.collective_bytes"))
+    return {"rows": [(h["loss"], h["grad_norm"], h["nonfinite"])
+                     for h in hist],
+            "launches": launch_counts(),
+            "ms": statistics.median(h["dt"] for h in hist[1:]) * 1e3,
+            "setup_s": setup,
+            "peak": torch.cuda.max_memory_allocated() if cuda else 0,
+            "wire": wire / len(hist)}
+
+
+def int8_one_process(cfg, params, consts, *, batch, seq, n_pods, device):
+    """The compressed step's math in one process, the plain version of run
+    4: each pod's gradient of its rows (the batch's n_pods chunks), summed
+    as ``psum_tree`` sums them (``int8_psum_plain`` on float leaves of
+    1024 elements and more, exact elsewhere), divided by n_pods, the
+    losses averaged, then the one-card AdamW update; (loss, grad_norm,
+    nonfinite) a step."""
+    from repro_torch.data.pipeline import SyntheticC4
+    from repro_torch.dist import compression
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import optimizers
+    from repro_torch.train import step as step_lib
+    tc = train_config(cfg, steps=DIST_STEPS, batch=batch, seq=seq,
+                      ckpt_dir="")
+    opt = optimizers.make(tc.optim)
+    loss_fn = step_lib.make_loss_fn(cfg, registry.get_api(cfg))
+    p = tree_map(lambda t: t.to(device, copy=True), params)
+    st = opt.init(p)
+    consts = ops.add_transposed_tiles(consts)
+    data = SyntheticC4(cfg.vocab_size, seq, batch, seed=tc.seed)
+
+    def combine(*gs):
+        if gs[0].is_floating_point() and gs[0].numel() >= 1024:
+            return compression.int8_psum_plain(list(gs)) / n_pods
+        return sum(gs[1:], gs[0]) / n_pods
+    rows = []
+    for _ in range(DIST_STEPS):
+        toks = torch.from_numpy(data.next_batch()["tokens"]).to(device)
+        per, losses = [], []
+        for part in toks.chunk(n_pods):
+            loss, _, g = step_lib._value_and_grad(loss_fn, p, consts,
+                                                  {"tokens": part})
+            per.append(g)
+            losses.append(loss)
+        grads = tree_map(combine, *per)
+        del per
+        p, st, stats = opt.update(grads, st, p)
+        rows.append((float(sum(losses) / n_pods), float(stats["grad_norm"]),
+                     0.0))
+    return rows
+
+
+def int8_case(rank, device):
+    """Rank ``rank``'s summand of the int8_psum check: seeded, its first
+    block all zero."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(100 + rank)
+    x = torch.randn(INT8_ELEMS, generator=gen, device=device)
+    x[:256] = 0
+    return x
+
+
+class CollectiveLog:
+    """Counts, bytes (the tensors passed) and wall seconds of a rank's
+    collectives (every one goes through ``dist.compat``'s
+    ``all_reduce``, ``all_gather_into_tensor`` or
+    ``reduce_scatter_tensor``), the card synchronized first so that its
+    queued work is not counted as a collective's."""
+
+    def __init__(self, compat, device):
+        self.n, self.bytes, self.s = 0, 0, 0.0
+        for name in ("all_reduce", "all_gather_into_tensor",
+                     "reduce_scatter_tensor"):
+            setattr(compat, name, self._timed(getattr(compat, name), device))
+
+    def _timed(self, fn, device):
+        def timed(*tensors, **kw):
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*tensors, **kw)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            self.s += time.perf_counter() - t
+            self.n += 1
+            self.bytes += sum(x.numel() * x.element_size() for x in tensors
+                              if isinstance(x, torch.Tensor))
+            return out
+        return timed
+
+    def since(self, mark):
+        return {"n": self.n - mark[0], "bytes": self.bytes - mark[1],
+                "s": self.s - mark[2]}
+
+    def mark(self):
+        return self.n, self.bytes, self.s
+
+
+def dist_rank_runs(rank, world, init_path, base, batch, seq, device):
+    """The world's work on one rank: int8_psum over the world, then each
+    of DIST_RUNS of ``base`` (llama_7b) on its mesh (ranks outside a
+    smaller mesh wait at the barrier), then DIST_BF16 in bf16. Each run's
+    result carries its wall seconds and its collectives' (CollectiveLog)."""
+    import torch.distributed as dist
+    from repro_torch.dist import compat, compression
+    from repro_torch.models.common import tree_map
+    device = torch.device(device)
+    log = CollectiveLog(compat, device)
+    # the init stays in host memory: each run copies it to the card
+    init = torch.load(init_path)
+    out = {"int8": compression.int8_psum(
+        int8_case(rank, device), dist.group.WORLD).cpu()}
+    t0 = time.perf_counter()
+    for name, (shape, names, mode, um, opt, fsdp, comp) in DIST_RUNS.items():
+        size = int(np.prod(shape))
+        mesh = compat.make_mesh(shape, names, ranks=range(size))
+        if rank == 0:
+            say(f"dist rank 0: {name} from {time.perf_counter() - t0:.1f} s")
+        if mesh.member:
+            mark, t1 = log.mark(), time.perf_counter()
+            out[name] = dist_train(
+                dist_config(base, mode), init["params"], init["consts"],
+                mesh, update_mode=um, optimizer=opt, fsdp=fsdp,
+                compression=comp, batch=batch, seq=seq, device=device)
+            out[name].update(wall=time.perf_counter() - t1,
+                             collectives=log.since(mark))
+        dist.barrier()
+    shape, names, mode, um, opt, fsdp, comp = DIST_RUNS[DIST_BF16]
+    mesh = compat.make_mesh(shape, names, ranks=range(int(np.prod(shape))))
+    params16 = tree_map(lambda t: t.to(torch.bfloat16), init["params"])
+    del init["params"]
+    if mesh.member:
+        mark, t1 = log.mark(), time.perf_counter()
+        out["bf16"] = dist_train(
+            dist_config(base, mode, "bfloat16"), params16, init["consts"],
+            mesh, update_mode=um, optimizer=opt, fsdp=fsdp,
+            compression=comp, batch=batch, seq=seq, device=device,
+            steps=DIST_BF16_STEPS)
+        out["bf16"].update(wall=time.perf_counter() - t1,
+                           collectives=log.since(mark))
+    dist.barrier()
+    return out
+
+
+def dist_rank(rank, world, root, init_path, base, batch, seq, device):
+    """A rank's process: the gloo world through a FileStore under
+    ``root``, its results pickled to ``root/rank<r>.pkl``. A rank that
+    fails exits at once, so its peers' collectives fail instead of
+    waiting."""
+    import datetime
+    import pickle
+    import traceback
+    import faulthandler
+    import signal
+    import torch.distributed as dist
+    faulthandler.enable()
+    # four processes share the card's memory: segments that grow in place
+    # keep what one rank frees usable to it (set before its first CUDA
+    # allocation)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+
+    def on_signal(signum, frame):
+        raise RuntimeError(f"rank {rank} got signal {signum}")
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, on_signal)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the ranks share the host's cores with each other and the parent
+    torch.set_num_threads(2)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(root, "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=300))
+    try:
+        result = ("ok", dist_rank_runs(rank, world, init_path, base, batch,
+                                       seq, device))
+    except Exception:
+        result = ("error", traceback.format_exc())
+    with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+    if result[0] != "ok":
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def start_dist_world(init_path, base, batch, seq, device):
+    """Spawn the DIST_WORLD ranks (they run while the caller goes on);
+    :func:`join_dist_world` collects them."""
+    import torch.multiprocessing as mp
+    root = os.path.join(ROOT, "build", "chip_smoke_dist_world")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    return root, mp.start_processes(
+        dist_rank, args=(DIST_WORLD, root, init_path, base, batch, seq,
+                         device.type),
+        nprocs=DIST_WORLD, join=False, start_method="spawn")
+
+
+def join_dist_world(world):
+    """Wait for the ranks and collect their results; fail with a rank's
+    traceback if one failed."""
+    import pickle
+    root, ctx = world
+    try:
+        while not ctx.join():
+            pass
+    except Exception as e:                # a rank exited non-zero
+        failure = str(e)
+    else:
+        failure = None
+    results, errors = [], []
+    for r in range(DIST_WORLD):
+        path = os.path.join(root, f"rank{r}.pkl")
+        if not os.path.exists(path):
+            errors.append((1, f"rank {r} left no result ({failure})"))
+            continue
+        with open(path, "rb") as f:
+            status, value = pickle.load(f)
+        if status != "ok":
+            # a rank the harness stopped after another failed says so
+            errors.append((2 * ("got signal" in value),
+                           f"rank {r} failed:\n{value}"))
+        results.append(value)
+    if errors or failure:
+        fail(f"dist: {min(errors)[1] if errors else failure}")
+    shutil.rmtree(root, ignore_errors=True)
+    return results
+
+
+def dist_local_case(gen, device, cfg, m, tp, dtype):
+    """Rank 0's operands at a TP-``tp`` layout of llama_7b's gate/up
+    projection (d_model → d_ff), m local tokens: x, B, this rank's
+    columns of A and its column tiles (the island's forward and dx, and
+    its sddmm), with the support's local entry count."""
+    from repro_torch.kernels import ops
+    d_in, d_out = cfg.d_model, cfg.d_ff
+    x, B, A, v_t, rt, ct, scale = sl_case(
+        gen, device, d_in, d_out, m, dtype, cfg.param.rank, cfg.param.delta,
+        cfg.param.alpha, seed=d_in * 7 + d_out)
+    nl = v_t.shape[1] // tp
+    dl = d_out // tp
+    loc = [t[:, :nl].contiguous() for t in (v_t, rt, ct)]
+    A_l = A[:, :dl].contiguous()
+    dy = torch.randn((m, dl), generator=gen, device=device).to(dtype)
+    return (x, B, A_l, *loc, scale), dy, int((loc[0] != 0).sum()), \
+        ops.transpose_tiles
+
+
+def check_dist_kernels(timer, gen, device, cfg, *, batch, seq):
+    """B1, B2, B6 and B3 at the local shapes of the dist phase's (model
+    2) layout, against their plain versions, timed with their bounds:
+    sl_matmul's forward on rank 0's column tiles of the d_ff projection
+    (batch·seq tokens, 4096 → 11008/2) and its dx on Wᵀ's local tiles;
+    sddmm on the local tiles; sparse_matmul's forward and dx on them (f32
+    out); then adam8bit on the fsdp shard the per-layer 8-bit run of
+    (data 2, model 2) updates in one piece, a layer's gate A (its 8-bit
+    state rows split over the data ranks)."""
+    from repro_torch.kernels import adam8bit as adk
+    from repro_torch.kernels import ref
+    m, tp = batch * seq, 2
+    rows = []
+    for dtype in DTYPES:
+        args, dy, nnz, tT = dist_local_case(gen, device, cfg, m, tp, dtype)
+        x, B, A_l, v_t, rt, ct, scale = args
+        d_in, dl = x.shape[1], A_l.shape[1]
+        tag = f"TP 2 local {dname(dtype)}"
+        rows.append(time_sl_matmul(timer, f"{m}x{d_in}->{dl} {tag}", args,
+                                   dtype))
+        rows.append(time_sl_matmul(
+            timer, f"dx {m}x{dl}->{d_in} {tag}",
+            (dy, A_l.T.contiguous(), B.T.contiguous(), tT(v_t), tT(ct),
+             tT(rt), scale), dtype))
+        rows.append(time_sddmm(timer, f"{m}x({d_in},{dl}) {tag}", x, dy, rt,
+                               ct, dtype, nnz))
+        rows.append(time_sparse_train(
+            timer, f"{m}x{d_in}->{dl} {tag}" + (
+                " f32 out" if dtype != torch.float32 else ""),
+            x, [v_t, rt, ct], dl, dtype, nnz, device))
+        rows.append(time_sparse_train(
+            timer, f"dx {m}x{dl}->{d_in} {tag}" + (
+                " f32 out" if dtype != torch.float32 else ""),
+            dy, [tT(v_t), tT(ct), tT(rt)], d_in, dtype, nnz, device))
+        del args, dy, x, B, A_l, v_t, rt, ct
+    clip = torch.tensor(CLIP, device=device)
+    n = cfg.param.rank * cfg.d_ff
+    seg = adam8bit_case(gen, device, n, torch.float32, torch.float32, True)
+    label = f"fsdp shard of mlp/gate/A n={n} float32 wd 0.1"
+    scalars, plain = adam8bit_steps(label, [seg], clip, device, 3)
+    t_k = timer.ms(lambda: adk.adam8bit_group([seg], scalars, clip))
+    t_p = timer.ms(lambda: ref.adam8bit_segment_ref(
+        *plain[0], scalars, clip, decay=True))
+    moved = adam8bit_bytes([seg]) + nbytes(scalars, clip)
+    b, by = bound_ms(moved, ADAM8BIT_OPS * n, torch.float32)
+    rows.append(dict(name="adam8bit", shape=label, n=n, dtype=torch.float32,
+                     max_abs_err=0.0, tol=0.0, ms=t_k, plain_ms=t_p,
+                     library_ms=None, bound_ms=b, bound_by=by))
+    say(f"kernel adam8bit {label}: 3 steps bit-identical to the plain "
+        f"version | kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+        f"{b:.4f} ms ({by}, {moved / 1e6:.1f} MB)")
+    return rows
+
+
+def representatives_dist(batch, seq, cfg):
+    m, d, f = batch * seq, cfg.d_model, cfg.d_ff // 2
+    tag = "TP 2 local bfloat16"
+    return {"sl_matmul": f"{m}x{d}->{f} {tag}",
+            "sddmm": f"{m}x({d},{f}) {tag}",
+            "sparse_matmul": f"{m}x{d}->{f} {tag} f32 out",
+            "adam8bit": f"fsdp shard of mlp/gate/A n="
+                        f"{cfg.param.rank * cfg.d_ff} float32 wd 0.1"}
+
+
+def run_dist(device, smi, *, batch, seq, base=None):
+    """Phase dist: llama_7b at full width on DIST_LAYERS layers trained on
+    meshes of ranks that share the card, each run against the one-process
+    run of its configuration on the card (check_pair; the int8 run at
+    INT8_TOL); int8_psum over the world bit for bit against its plain
+    version; the bf16 run of DIST_BF16 with each rank's step time, peak
+    memory and modelled collective bytes; then the kernels at the local
+    shapes. Returns (kernel rows, launches by path). (``base`` replaces
+    llama_7b, and a CPU ``device`` rehearses the phase up to the kernel
+    checks, which need the card.)"""
+    from repro_torch.configs import llama_7b
+    from repro_torch.dist import compression
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    lap = Laps()
+    base = llama_7b.CONFIG if base is None else base
+    cfg32 = dist_config(base, "fused")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(30)
+    params, consts = lm.init_lm(cfg32, seed=0, device=device)
+    randomize_b(params, gen)
+    init_path = os.path.join(ROOT, "build", "chip_smoke_dist_init.pt")
+    os.makedirs(os.path.dirname(init_path), exist_ok=True)
+    torch.save({"params": tree_map(lambda t: t.cpu(), params),
+                "consts": tree_map(lambda t: t.cpu(), consts)}, init_path)
+    lap(f"dist: init {arch(cfg32)} f32, written for the ranks")
+    # the ranks start while this process runs the one-process references
+    world = start_dist_world(init_path, base, batch, seq, device)
+    single = {}
+    for name, (shape, names, mode, um, opt, fsdp, comp) in DIST_RUNS.items():
+        if comp:
+            single[name] = int8_one_process(
+                dist_config(base, mode), params, consts, batch=batch,
+                seq=seq, n_pods=int(np.prod(shape)), device=device)
+            say(f"dist: one process, {name} (its plain version): (loss, "
+                f"grad_norm, nonfinite) per step {single[name]}")
+        key = (mode, um, opt)
+        if key not in single:
+            single[key] = dist_train(
+                dist_config(base, mode), params, consts, None,
+                update_mode=um, optimizer=opt, fsdp=False,
+                compression=False, batch=batch, seq=seq, device=device)
+            say(f"dist: one process, {mode}, {um}, {opt}: (loss, grad_norm, "
+                f"nonfinite) per step {single[key]['rows']}")
+    del params, consts
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    lap("dist: one-process runs, the ranks starting beside them")
+    results = join_dist_world(world)
+    os.remove(init_path)
+    lap(f"dist: the world of {DIST_WORLD} ranks (spawn, {len(DIST_RUNS)} "
+        "f32 runs, the bf16 run)")
+    xs = [int8_case(r, device) for r in range(DIST_WORLD)]
+    want = compression.int8_psum_plain(xs).cpu()
+    if not torch.equal(results[0]["int8"], want):
+        fail("dist: int8_psum over the world differs from its plain version")
+    if not all(torch.equal(r["int8"], want) for r in results):
+        fail("dist: int8_psum gave the ranks different bits")
+    say(f"dist: int8_psum of {INT8_ELEMS} f32 elements over {DIST_WORLD} "
+        "gloo ranks (a ragged tail, a zero block) bit for bit equal to its "
+        "plain version on every rank")
+    by_path = {}
+    for name, (shape, names, mode, um, opt, fsdp, comp) in DIST_RUNS.items():
+        size = int(np.prod(shape))
+        mine = [r[name] for r in results[:size]]
+        if any(m["rows"] != mine[0]["rows"] for m in mine):
+            fail(f"dist {name}: the ranks report different metrics "
+                 f"{[m['rows'] for m in mine]}")
+        launches = {k: sum(m["launches"][k] for m in mine)
+                    for k in mine[0]["launches"]}
+        want_k = DIST_KERNELS[mode] + (DIST_KERNELS["adam8bit"] if (
+            opt, mode) == ("adam8bit", "fused") else ())
+        if any(not launches[k] for k in want_k):
+            fail(f"dist {name}: launched {launches}, expected {want_k}")
+        path = "dist " + name
+        by_path[path] = launches
+        PATH_KERNELS[path] = want_k
+        out = {name: mine[0]["rows"], "one process": single[(mode, um, opt)][
+            "rows"]}
+        if comp:
+            # against the compressed step's plain version, and at step 1
+            # (the same params) against the uncompressed run, INT8_TOL
+            out["plain version"] = single[name]
+            check_pair(out, name, "plain version")
+            check_pair({k: v[:1] for k, v in out.items()}, name,
+                       "one process", first=INT8_TOL)
+        else:
+            check_pair(out, name, "one process")
+        c = mine[0]["collectives"]
+        say(f"dist {name}: rank 0 {mine[0]['wall']:.1f} s for the run "
+            f"({mine[0]['setup_s']:.1f} s to the first step, {DIST_STEPS} "
+            f"steps), median step {mine[0]['ms']:.0f} ms; {c['n']} "
+            f"collectives, "
+            f"{c['bytes'] / 2**30:.2f} GiB through host memory, "
+            f"{c['s']:.1f} s in them")
+        say(f"dist {name} (mesh {dict(zip(names, shape))}): {DIST_STEPS} f32 "
+            f"steps, (loss, grad_norm, nonfinite) {mine[0]['rows']} | "
+            f"launches {launches}")
+    mine = [r["bf16"] for r in results[:int(np.prod(DIST_RUNS[DIST_BF16][0]))]]
+    for r, m in enumerate(mine):
+        say(f"dist bf16 {DIST_BF16}, rank {r} of 4 ranks sharing one card "
+            f"over gloo through host memory (not NCCL, not NVLink, not a "
+            f"multi-card figure; {smi}): step {m['ms']:.1f} ms, peak "
+            f"max_memory_allocated {m['peak'] / 2**30:.2f} GiB, modelled "
+            f"dist.collective_bytes {m['wire'] / 2**20:.1f} MiB a step, "
+            f"losses {[round(x[0], 4) for x in m['rows']]}")
+    if any(not np.isfinite(x[0]) or x[2] for m in mine for x in m["rows"]):
+        fail(f"dist bf16: {[m['rows'] for m in mine]}")
+    by_path["dist bf16 " + DIST_BF16] = {k: sum(m["launches"][k]
+                                               for m in mine)
+                                        for k in mine[0]["launches"]}
+    PATH_KERNELS["dist bf16 " + DIST_BF16] = DIST_KERNELS["fused"]
+    lap("dist: checks")
+    if device.type != "cuda":
+        return [], by_path
+    timer = Timer(device)
+    rows = check_dist_kernels(timer, gen, device, base, batch=batch, seq=seq)
+    del timer
+    torch.cuda.empty_cache()
+    lap("dist: kernels at the local shapes")
+    return rows, by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -5927,6 +6502,9 @@ def run() -> int:
         block_len=block_len, max_len=max_len)
     by_path.update(by_path_h)
     lap("zamba2_7b, xlstm_350m and whisper_large_v3 phases")
+    rows_d, by_path_d = run_dist(device, smi, batch=batch, seq=seq)
+    by_path.update(by_path_d)
+    lap("dist: llama_7b on meshes of ranks sharing the card")
 
     from repro_torch.configs import llama_7b
     rows = sl_rows + at_rows + tr_rows + ad_rows + sp_rows + st_rows
@@ -5937,7 +6515,8 @@ def run() -> int:
                                  n_slots, buckets[-1]),
         rows_g, representatives_families(rows_g, n_slots, batch * seq,
                                          buckets[-1]),
-        rows_m, representative_m, rows_h, representative_h)
+        rows_m, representative_m, rows_h, representative_h, rows_d,
+        representatives_dist(batch, seq, llama_7b.CONFIG))
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

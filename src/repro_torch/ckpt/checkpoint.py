@@ -17,6 +17,9 @@ Guarantees, as the reference's:
   * async: ``save(..., background=True)`` copies the tensors to host
     memory synchronously and writes on a daemon thread; ``wait()`` joins
     before the next save or exit,
+  * elastic: leaves are saved whole (a trainer on a mesh gathers its
+    shards first); ``restore(..., shardings=...)`` cuts each to this
+    rank's shard on the current mesh,
   * self-validating: restore checks the config hash,
   * corruption-detecting: restore verifies the per-array CRC32s and the
     manifest digest and raises :class:`CheckpointCorruptError` on damage;
@@ -93,14 +96,18 @@ def _to_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
-def _unflatten_like(template, flat: Dict[str, torch.Tensor], prefix=""):
+def _unflatten_like(template, flat: Dict[str, torch.Tensor], prefix="",
+                    shardings=None):
     if isinstance(template, dict):
-        return {k: _unflatten_like(v, flat, f"{prefix}{_SEP}{k}" if prefix
-                                   else str(k))
-                for k, v in template.items()}
+        return {k: _unflatten_like(
+            v, flat, f"{prefix}{_SEP}{k}" if prefix else str(k),
+            None if shardings is None else shardings[k])
+            for k, v in template.items()}
     if prefix not in flat:
         raise KeyError(f"checkpoint missing leaf {prefix!r}")
     t = flat[prefix]
+    if shardings is not None:
+        t = shardings.shard(t)
     if tuple(t.shape) != tuple(template.shape):
         raise ValueError(
             f"leaf {prefix!r}: checkpoint shape {tuple(t.shape)} != model "
@@ -249,11 +256,17 @@ class CheckpointManager:
 
     def restore(self, template: Any, *, step: Optional[int] = None,
                 config_hash: str = "", allow_config_change: bool = False,
-                verify: bool = True) -> Tuple[Any, Dict[str, Any]]:
+                shardings=None, verify: bool = True
+                ) -> Tuple[Any, Dict[str, Any]]:
         """Load a checkpoint into the structure of ``template`` (nested
         dicts of tensors): each leaf comes back on its template's device
-        and in its template's dtype. An explicit ``step`` that fails
-        verification raises :class:`CheckpointCorruptError`; ``step=None``
+        and in its template's dtype. ``shardings`` (a tree matching
+        ``template`` of ``dist.sharding.NamedSharding``) is the elastic
+        path, as the reference's: the saved leaves are whole, and each is
+        cut to this rank's shard on the current mesh, so a checkpoint
+        written on any mesh, or none, restores onto any other. An
+        explicit ``step`` that fails verification raises
+        :class:`CheckpointCorruptError`; ``step=None``
         walks newest → oldest and restores the newest intact step."""
         if step is None:
             steps = self.all_steps()
@@ -283,7 +296,8 @@ class CheckpointManager:
         dtypes = manifest.get("dtypes", {})
         tensors = {k: _to_tensor(a, dtypes.get(k, str(a.dtype)))
                    for k, a in flat.items()}
-        return _unflatten_like(template, tensors), manifest
+        return _unflatten_like(template, tensors, shardings=shardings), \
+            manifest
 
 
 # -- quant artifacts (repro_torch.quant) ---------------------------------------

@@ -154,10 +154,17 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class ShardingConfig:
-    """Sharding policy and train-step execution knobs. The port runs one
-    card: ``update_mode`` "global" or "per_layer", ``remat`` "none",
-    "full" or "dots_saveable"; fsdp and pod compression raise (ROADMAP
-    queue A item 10)."""
+    """Sharding policy and train-step execution knobs, the reference's
+    fields: ``update_mode`` "global" or "per_layer", ``remat`` "none",
+    "full" or "dots_saveable". On a mesh (``Trainer(mesh=...)``,
+    ``repro_torch.dist``) ``fsdp`` also shards params and optimizer state
+    over ``fsdp_axis``, the spec engine appending it to the first matrix
+    dim it divides, and the gradients are reduce-scattered to that
+    layout; ``pod_grad_compression`` sums the gradients over the pod axis
+    in int8 (``dist.compression``). All 12 combinations of update_mode ×
+    exec_mode (dense, sparse, fused) × fsdp train on a mesh; grad_accum
+    composes with each. Without a mesh both flags change nothing, as in
+    the reference."""
     batch_axes: Tuple[str, ...] = ("pod", "data")
     model_axis: str = "model"
     fsdp: bool = False
@@ -183,3 +190,23 @@ class TrainConfig:
     ckpt_dir: str = "/tmp/repro_ckpt"
     async_ckpt: bool = True
     keep_ckpts: int = 3
+
+
+# ---------------------------------------------------------------------------
+# Shape cells (the reference's assigned input shapes)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str       # "train" | "prefill" | "decode" | "long_decode"
+
+
+SHAPE_CELLS = (
+    ShapeCell("train_4k", 4096, 256, "train"),
+    ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    ShapeCell("decode_32k", 32768, 128, "decode"),
+    ShapeCell("long_500k", 524288, 1, "long_decode"),
+)

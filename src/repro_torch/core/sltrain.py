@@ -100,6 +100,31 @@ def init_params(gen: torch.Generator, d_in: int, d_out: int, rank: int,
     return params, consts
 
 
+def abstract_params(d_in: int, d_out: int, rank: int, delta: float,
+                    dtype=torch.bfloat16, support_kind: str = "row_balanced",
+                    exec_mode: str = "dense"):
+    """Meta-tensor twin of :func:`init_params` (shapes and dtypes, no
+    support sampled), as the reference's ``abstract_params``; the tile
+    consts' shapes are exact at the deterministic ``support.tile_cap``."""
+    nnz = support_lib.nnz_for(d_in, d_out, delta, support_kind)
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    params = {"B": meta((d_in, rank), dtype), "A": meta((rank, d_out), dtype)}
+    if support_kind == "row_balanced":
+        params["v"] = meta((d_in, nnz // d_in), dtype)
+        consts = {"cols": meta((d_in, nnz // d_in), torch.int32)}
+    else:
+        params["v"] = meta((nnz,), dtype)
+        consts = {"rows": meta((nnz,), torch.int32),
+                  "cols": meta((nnz,), torch.int32)}
+    if exec_mode in TILED_MODES:
+        tile = support_lib.TILE
+        shape = (-(-d_in // tile), -(-d_out // tile),
+                 support_lib.tile_cap(d_in, d_out, delta, support_kind))
+        consts.update({k: meta(shape, torch.int32)
+                       for k in support_lib.TILE_CONSTS})
+    return params, consts
+
+
 # ---------------------------------------------------------------------------
 # Densify
 # ---------------------------------------------------------------------------
@@ -147,9 +172,45 @@ def _grads_from_G(xf, dyf, B, A, scale: float):
     return G, dB, dA
 
 
+def _grads_distributed(x, dy, B, A, v, cols, scale: float, mesh):
+    """The reference's distributed eq. (2) (``_grads_distributed``) on a
+    mesh where ``dist.sharding.island_mesh`` engages: each rank forms only
+    its local G slice xᵀ·dy_loc (d_in × d_out/TP, its d_out columns of the
+    replicated dy), and the r- and k-sized results are summed over the
+    model ranks instead of the d_in × d_out G: dB = psum(scale·G_loc·A_locᵀ),
+    dA = scale·Bᵀ·G_loc (this rank's columns of the full leaf, zero
+    elsewhere, which ``dist.sharding.reduce_grad`` never reads), dV = G at
+    the support entries whose column is this rank's, psum'd. ``cols`` is
+    read whole (replicated, as the reference's island in_specs have it).
+    The sums over the batch ranks follow in the train step."""
+    from repro_torch.dist import compat
+    f32 = torch.float32
+    tp, m = mesh.shape["model"], mesh.coords["model"]
+    d_in, d_out = x.shape[-1], dy.shape[-1]
+    dl = d_out // tp
+    own = slice(m * dl, (m + 1) * dl)
+    xl = x.reshape(-1, d_in).to(f32)
+    dyl = dy.reshape(-1, d_out)[:, own].to(f32)
+    G = xl.T @ dyl
+    group = mesh.group("model")
+    dB = scale * (G @ A[:, own].to(f32).T)
+    compat.all_reduce(dB, group)
+    dA = torch.zeros(A.shape, dtype=f32, device=A.device)
+    dA[:, own] = scale * (B.to(f32).T @ G)
+    cl = cols.long() - m * dl
+    ok = (cl >= 0) & (cl < dl)
+    dv = torch.where(ok, G.gather(1, cl.clamp(0, dl - 1)),
+                     torch.zeros((), dtype=f32, device=G.device))
+    compat.all_reduce(dv, group)
+    return dB.to(B.dtype), dA.to(A.dtype), dv.to(v.dtype)
+
+
 class _DenseRB(torch.autograd.Function):
     """Row-balanced dense mode: y = x @ densify_rb(...). Residuals are the
-    factored params and x (Alg. 1): the backward recomputes W."""
+    factored params and x (Alg. 1): the backward recomputes W. On a mesh
+    where ``dist.sharding.island_mesh`` engages, dB, dA and dV come from
+    :func:`_grads_distributed`; dx is the full dy·Wᵀ on every rank, as the
+    reference's."""
 
     @staticmethod
     def forward(ctx, x, B, A, v, cols, scale):
@@ -164,8 +225,14 @@ class _DenseRB(torch.autograd.Function):
         dy = dy.to(x.dtype)
         xf = x.reshape(-1, x.shape[-1])
         dyf = dy.reshape(-1, dy.shape[-1])
-        G, dB, dA = _grads_from_G(xf, dyf, B, A, scale)
-        dv = G.gather(1, cols.long()).to(v.dtype)
+        from repro_torch.dist import sharding as dist_sharding
+        mesh = dist_sharding.island_mesh(x, dy.shape[-1])
+        if mesh is not None:
+            dB, dA, dv = _grads_distributed(x, dy, B, A, v, cols, scale, mesh)
+        else:
+            G, dB, dA = _grads_from_G(xf, dyf, B, A, scale)
+            dv = G.gather(1, cols.long()).to(v.dtype)
+            del G
         W = densify_rb(B, A, v, cols, scale)
         dx = (dyf @ W.T).reshape(x.shape).to(x.dtype)
         return dx, dB, dA, dv, None, None

@@ -15,7 +15,7 @@ def resolve(device="cuda") -> torch.device:
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch versions of the kernels on the CPU")
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or "
-                         "'cpu'")
+                         "'cpu' ('meta' for shapes alone)")
     return dev

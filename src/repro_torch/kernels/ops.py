@@ -10,7 +10,10 @@ GQA regroup, the factored decode of ``exec_mode="sparse"`` and
 ``"quant"`` (the low-rank term as f32 matmuls, the sparse term through
 the ``sparse_matmul`` or ``quant_sparse_matmul`` kernel), and the
 trainable sparse linear (a ``torch.autograd.Function`` whose forward and
-dx run ``sparse_matmul`` and whose dV runs ``sddmm``); the decode and the
+dx run ``sparse_matmul`` and whose dV runs ``sddmm``); on a mesh, the
+fused and the sparse linear's tensor-parallel island (each rank's column
+tiles forward and backward, the reference's ``_fused_grads_dist``); the
+decode and the
 trainable sparse linear also over an MoE layer's stacked experts, one
 grouped launch of each kernel for all of them.
 
@@ -23,6 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import support as support_lib
+from repro_torch.dist import compat
+from repro_torch.dist import sharding as dist_sharding
 from repro_torch.kernels import adam8bit as adam8bit_kernel
 from repro_torch.kernels import paged_attention as pa_kernel
 from repro_torch.kernels import sddmm as sddmm_kernel
@@ -185,9 +190,168 @@ def sl_linear(x, B, A, v, rows_t, cols_t, perm, scale: float, *,
     ``rows_tT``/``cols_tT`` are Wᵀ's tile consts for the dx call
     (:func:`add_transposed_tiles` builds them once per layer); the
     backward raises without them, and a forward-only caller never needs
-    them."""
+    them. On a mesh where the TP island engages
+    (``dist.sharding.island_mesh``) it runs :class:`_SLLinearTP`."""
+    loc = _tp_local(x, A, rows_t, cols_t, perm, rows_tT, cols_tT)
+    if loc is not None:
+        return _SLLinearTP.apply(x, B, A, v, loc, scale)
     return _SLLinear.apply(x, B, A, v, rows_t, cols_t, perm, rows_tT,
                            cols_tT, scale)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the fused and sparse linears on a rank's column tiles
+# ---------------------------------------------------------------------------
+
+class _Local:
+    """One rank's column slice of a tiled linear on a mesh whose model
+    axis has TP ranks: its d_out columns ``cols`` of A, its column tiles
+    of the tile consts (nkt, nnt/TP, cap) and of Wᵀ's (nnt/TP, nkt, cap).
+    Tile-CSR indices are local to their 128×128 tile, so the sliced consts
+    address this rank's columns with no index arithmetic; ``perm`` still
+    indexes the whole flat ``v``, which every rank holds in full."""
+
+    def __init__(self, mesh, A, rows_t, cols_t, perm, rows_tT, cols_tT):
+        tp = mesh.shape["model"]
+        m = mesh.coords["model"]
+        nl = rows_t.shape[1] // tp
+        dl = A.shape[-1] // tp
+        self.mesh, self.d_out = mesh, A.shape[-1]
+        self.cols = slice(m * dl, (m + 1) * dl)
+        tiles = slice(m * nl, (m + 1) * nl)
+        self.A = A[:, self.cols].contiguous()
+        self.rows_t = rows_t[:, tiles].contiguous()
+        self.cols_t = cols_t[:, tiles].contiguous()
+        self.perm = perm[:, tiles].contiguous()
+        self.rows_tT = None if rows_tT is None else rows_tT[tiles]
+        self.cols_tT = None if cols_tT is None else cols_tT[tiles]
+
+    def gather_out(self, y):
+        """(..., d_out) from each rank's (..., d_out/TP) columns."""
+        return dist_sharding.gather_leaf(
+            y, (None,) * (y.dim() - 1) + (("model",),), self.mesh)
+
+    def psum(self, t):
+        """f32 ``t`` summed over the model ranks (in place)."""
+        compat.all_reduce(t, self.mesh.group("model"))
+        return t
+
+    def full_dA(self, dA_loc):
+        """dA of the full (r, d_out) leaf holding this rank's columns; the
+        other columns are zero, and only this rank's are read
+        (``dist.sharding.reduce_grad`` keeps its model chunk of A)."""
+        out = torch.zeros(dA_loc.shape[:-1] + (self.d_out,),
+                          dtype=dA_loc.dtype, device=dA_loc.device)
+        out[..., self.cols] = dA_loc
+        return out
+
+    def dv(self, dv_t, v):
+        """The flat ``v``'s gradient from this rank's tile grads, summed
+        over the model ranks (each holds the support entries of its own
+        columns)."""
+        dv = _scatter_tiles(dv_t, self.perm, v.numel())
+        return self.psum(dv).reshape(v.shape).to(v.dtype)
+
+
+def _tp_lowrank_grads(xf, dyf, B, A_loc, scale: float, loc: _Local):
+    """(dB summed over the model ranks, this rank's dA columns, the
+    partial dy·Aᵀ in f32): the reference island's dA = scale·(x·B)ᵀ·dy_loc
+    and dB = psum_model(scale·xᵀ·(dy_loc·A_locᵀ)), summed in f32."""
+    f32 = torch.float32
+    xB = xf.to(f32) @ B.to(f32)
+    dA = scale * (xB.T @ dyf.to(f32))
+    dyA = dyf.to(f32) @ A_loc.to(f32).T
+    dB = loc.psum(scale * (xf.to(f32).T @ dyA))
+    return dB.to(B.dtype), dA.to(A_loc.dtype), dyA
+
+
+def _tp_dy(dy, x, loc: _Local):
+    """This rank's columns of the replicated dy, (M, d_out/TP) in x's
+    dtype."""
+    return dy[..., loc.cols].reshape(-1, loc.A.shape[-1]).to(
+        x.dtype).contiguous()
+
+
+class _SLLinearTP(torch.autograd.Function):
+    """The fused linear on a mesh (:func:`sl_linear` where
+    ``dist.sharding.island_mesh`` engages): the forward runs ``sl_matmul``
+    on this rank's column tiles and all-gathers the output columns; the
+    backward is :func:`_fused_grads_dist`."""
+
+    @staticmethod
+    def forward(ctx, x, B, A, v, loc, scale):
+        v_t = _gather_tiles(v, loc.perm)
+        ctx.save_for_backward(x, B, v, v_t)
+        ctx.loc, ctx.scale = loc, scale
+        return loc.gather_out(sl_matmul(x, B, loc.A, v_t, loc.rows_t,
+                                        loc.cols_t, scale))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, B, v, v_t = ctx.saved_tensors
+        _need_transposed_tiles(ctx.loc.rows_tT, "sl_linear")
+        dx, dB, dA, dv = _fused_grads_dist(x, B, v, v_t, ctx.scale, dy,
+                                           ctx.loc)
+        return dx, dB, dA, dv, None, None
+
+
+def _fused_grads_dist(x, B, v, v_t, scale: float, dy, loc: _Local):
+    """The reference's ``_fused_grads_dist`` on this rank's slice ``loc``:
+    (dx, dB, dA of the full leaf (this rank's columns), dv) from the
+    local columns of the replicated dy. dV by ``sddmm`` on the local
+    tiles, dx by ``sl_matmul`` on Wᵀ's local tiles, each summed over the
+    model ranks in f32 (dx, dB, dv), as the reference psums them."""
+    xf = x.reshape(-1, x.shape[-1])
+    dyf = _tp_dy(dy, x, loc)
+    dB, dA, _ = _tp_lowrank_grads(xf, dyf, B, loc.A, scale, loc)
+    dv_t = sddmm(xf, dyf, loc.rows_t, loc.cols_t)
+    dx = sl_matmul(dyf, loc.A.T.contiguous(), B.T.contiguous(),
+                   transpose_tiles(v_t), loc.rows_tT, loc.cols_tT, scale)
+    dx = loc.psum(dx.float()).to(x.dtype).reshape(x.shape)
+    return dx, dB, loc.full_dA(dA), loc.dv(dv_t, v)
+
+
+class _SLSparseTP(torch.autograd.Function):
+    """The trainable sparse linear on a mesh (:func:`sl_sparse_linear`
+    where the island engages): :func:`sl_decode` on this rank's column
+    tiles and A's columns, the output columns all-gathered; the backward
+    keeps the local slice of the replicated dy: dV by ``sddmm`` on the
+    local tiles, dx = scale·(dy·Aᵀ)·Bᵀ + dy·Sᵀ (``sparse_matmul`` over Wᵀ's
+    local tiles) summed over the model ranks in f32, dB summed, dA this
+    rank's columns."""
+
+    @staticmethod
+    def forward(ctx, x, B, A, v, loc, scale):
+        v_t = _gather_tiles(v, loc.perm)
+        ctx.save_for_backward(x, B, v, v_t)
+        ctx.loc, ctx.scale = loc, scale
+        return loc.gather_out(sl_decode(x, B, loc.A, v_t, loc.rows_t,
+                                        loc.cols_t, scale))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, B, v, v_t = ctx.saved_tensors
+        loc, scale = ctx.loc, ctx.scale
+        _need_transposed_tiles(loc.rows_tT, "the sparse linear's")
+        k = x.shape[-1]
+        xf = x.reshape(-1, k)
+        dyf = _tp_dy(dy, x, loc)
+        dB, dA, dyA = _tp_lowrank_grads(xf, dyf, B, loc.A, scale, loc)
+        dv_t = sddmm(xf, dyf, loc.rows_t, loc.cols_t)
+        dx = scale * (dyA @ B.to(torch.float32).T) + sd_kernel.sparse_matmul(
+            dyf, transpose_tiles(v_t), loc.rows_tT, loc.cols_tT, k,
+            torch.float32)
+        dx = loc.psum(dx).to(x.dtype).reshape(x.shape)
+        return dx, dB, loc.full_dA(dA), loc.dv(dv_t, v), None, None
+
+
+def _tp_local(x, A, rows_t, cols_t, perm, rows_tT, cols_tT):
+    """This rank's :class:`_Local` slice where the TP island engages for
+    this call (``dist.sharding.island_mesh``), else None."""
+    mesh = dist_sharding.island_mesh(x, A.shape[-1], nnt=rows_t.shape[1])
+    if mesh is None:
+        return None
+    return _Local(mesh, A, rows_t, cols_t, perm, rows_tT, cols_tT)
 
 
 # ---------------------------------------------------------------------------
@@ -514,7 +678,11 @@ def sl_sparse_linear(x, B, A, v, rows_t, cols_t, perm, scale: float, *,
     with the flat ``v`` gathered into tile order through ``perm``,
     differentiable in x, B, A and v. ``rows_tT``/``cols_tT`` are Wᵀ's tile
     consts for dx (:func:`add_transposed_tiles`); the backward raises
-    without them."""
+    without them. On a mesh where the TP island engages it runs
+    :class:`_SLSparseTP`."""
+    loc = _tp_local(x, A, rows_t, cols_t, perm, rows_tT, cols_tT)
+    if loc is not None:
+        return _SLSparseTP.apply(x, B, A, v, loc, scale)
     return _SLSparse.apply(x, B, A, v, rows_t, cols_t, perm, rows_tT,
                            cols_tT, scale)
 

@@ -162,8 +162,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.use_mesh:
         raise NotImplementedError(
-            "--use-mesh is not ported yet (ROADMAP queue A item 10: "
-            "distribution); the port serves on one card")
+            "--use-mesh is not ported yet (ROADMAP queue A item 10b: "
+            "serving on a mesh); the port serves on one card")
     if (args.stream or args.prefix_sharing) and not args.paged:
         ap.error("--stream/--prefix-sharing require --paged")
 

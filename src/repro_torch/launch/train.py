@@ -39,8 +39,12 @@ llama_350m's size up). ``--chaos`` injects the reference's fault matrix
 kill exits 43, a preemption signal checkpoints and exits 42.
 ``--jax-profile-dir`` (the reference's spelling; ``--profile-dir`` too)
 records a ``torch.profiler`` Chrome trace of the run into that
-directory. Options the port does not run yet (a mesh, multipod, fsdp)
-raise ``NotImplementedError`` naming their ROADMAP item.
+directory. ``--use-mesh`` (with ``--fsdp``) trains on the local mesh
+through the spec engine; ``--multipod`` under ``torchrun`` trains
+data-parallel over its world:
+
+  torchrun --nproc-per-node N -m repro_torch.launch.train --multipod \
+      --arch llama_1b --exec-mode fused --steps 20
 """
 from __future__ import annotations
 
@@ -83,13 +87,29 @@ def build_train_config(args) -> TrainConfig:
                        ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir)
 
 
-def _refuse_unported(args) -> None:
-    """The flags the Trainer never sees; the rest (optimizer, mode, fsdp)
-    it refuses itself."""
-    if args.multipod or args.use_mesh:
-        raise NotImplementedError(
-            "--multipod and --use-mesh are not ported yet (ROADMAP queue A "
-            "item 10: distribution); the port trains on one card")
+def _mesh(args):
+    """(mesh, device) of the mesh flags, as the reference's launcher
+    means them: ``--use-mesh`` the local (data 1, model 1) mesh of this
+    process; ``--multipod`` the process group of ``torchrun``'s
+    environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT; NCCL on the
+    cards, each rank on ``cuda:LOCAL_RANK``, gloo on the CPU), the
+    reference initializing ``jax.distributed`` from its JAX_* variables,
+    and a data-parallel mesh over the world (data = WORLD_SIZE, model 1)."""
+    from repro_torch.dist import compat, sharding
+    device = args.device
+    if args.use_mesh:
+        return sharding.make_local_mesh(), device
+    if not args.multipod:
+        return None, device
+    import torch
+    import torch.distributed as dist
+    if device == "cuda":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group("nccl" if device.startswith("cuda") else "gloo",
+                            init_method="env://")
+    return compat.make_mesh((dist.get_world_size(), 1),
+                            ("data", "model")), device
 
 
 def main(argv=None):
@@ -149,21 +169,37 @@ def main(argv=None):
     ap.add_argument("--max-rollbacks", type=int, default=2,
                     help="checkpoint rollbacks tolerated before the "
                          "trainer gives up on a persistent divergence")
-    ap.add_argument("--multipod", action="store_true")
-    ap.add_argument("--use-mesh", action="store_true")
-    ap.add_argument("--fsdp", action="store_true")
+    ap.add_argument("--multipod", action="store_true",
+                    help="initialize the process group from torchrun's "
+                         "environment and train data-parallel over its "
+                         "world (the reference reads JAX_* variables)")
+    ap.add_argument("--use-mesh", action="store_true",
+                    help="run under the local (data 1, model 1) mesh and "
+                         "place state via the repro_torch.dist.sharding "
+                         "spec engine")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="with --use-mesh: additionally shard params and "
+                         "optimizer state over the data axis "
+                         "(ShardingConfig.fsdp) and reduce-scatter the "
+                         "gradients to that layout")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "PyTorch versions)")
     args = ap.parse_args(argv)
-    _refuse_unported(args)
+    if args.use_mesh and args.multipod:
+        ap.error("--use-mesh builds the single-process local mesh and "
+                 "cannot be combined with --multipod")
+    if args.fsdp and not args.use_mesh:
+        ap.error("--fsdp shards state via the spec engine and needs "
+                 "--use-mesh (or a multipod mesh wired in code)")
+    mesh, device = _mesh(args)
 
     chaos = ChaosEngine.parse(args.chaos, seed=args.seed) if args.chaos \
         else None
     tc = build_train_config(args)
     trace = obs_trace.Trace(enabled=bool(args.trace_out or args.profile_dir),
                             profile_dir=args.profile_dir)
-    trainer = Trainer(tc, device=args.device, trace=trace,
+    trainer = Trainer(tc, device=device, mesh=mesh, trace=trace,
                       metrics_out=args.metrics_out,
                       max_rollbacks=args.max_rollbacks,
                       layer_timing=args.layer_timing, chaos=chaos)
@@ -180,6 +216,9 @@ def main(argv=None):
         import torch
         print(f"peak device memory: "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if args.multipod:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     if args.trace_out:
         n = trace.export(args.trace_out)
         print(f"trace: {n} events -> {args.trace_out}")

@@ -40,6 +40,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding as dist_sharding
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import (Builder, apply_linear, rms_norm,
                                        rope, softcap)
@@ -84,6 +85,14 @@ def _attend(cfg: ModelConfig, q, k, v, q_pos, k_pos, window: int = 0,
     bsz, sq, nh, hd = q.shape
     nkv = k.shape[2]
     qg = q.reshape(bsz, sq, nkv, nh // nkv, hd)
+    # the reference's sequence-parallel layout hints (identity here:
+    # dist.sharding.constrain)
+    sp = cfg.seq_shard_activations and sq > 1
+    if sp:
+        batch = dist_sharding.BATCH_AXES
+        qg = dist_sharding.constrain(qg, batch, "model", None, None, None)
+        k = dist_sharding.constrain(k, batch, None, None, None)
+        v = dist_sharding.constrain(v, batch, None, None, None)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float() * _scale(cfg),
                      k.float())
     s = softcap(s, cfg.attn_logit_softcap)

@@ -133,6 +133,11 @@ class Builder:
         elif pc.mode == "relora":
             params = relora.init_params(self.gen, d_in, d_out, r, b.dtype,
                                         device=self.device)
+        elif pc.mode == "sltrain" and \
+                torch.device(self.device).type == "meta":
+            params, consts = sltrain.abstract_params(
+                d_in, d_out, r, pc.delta, b.dtype, pc.support_kind,
+                pc.exec_mode)
         elif pc.mode == "sltrain":
             params, consts = sltrain.init_params(
                 self.gen, d_in, d_out, r, pc.delta, b.dtype,
@@ -173,8 +178,13 @@ def init_model(cfg: ModelConfig, seed: int, build, *, device="cuda",
     ``core.support.default_workers``), then the values drawn from one
     generator seeded with ``seed``. With ``obs`` (a metrics Registry) the
     init's wall time, to the card's last draw, and the worker count land
-    on its gauges ``init.seconds`` and ``init.sampling_workers``."""
+    on its gauges ``init.seconds`` and ``init.sampling_workers``. On the
+    ``"meta"`` device it is the abstract init: shapes and dtypes only."""
     device = resolve(device)
+    if device.type == "meta":
+        # the abstract init: every leaf's shape and dtype, no storage, no
+        # draw, no support sampled (the reference's init with key=None)
+        return build(Builder(cfg, None, device, seed=seed))
     t0 = time.perf_counter()
     plan, n_workers = presample(cfg, seed, build, workers)
     gen = torch.Generator(device=device)

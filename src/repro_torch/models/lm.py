@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.dist import sharding as dist_sharding
 from repro_torch.models import attention, mlp
 from repro_torch.models.common import (DTYPES, Builder, init_model,
                                        remat_wrap, rms_norm, softcap,
@@ -205,7 +206,18 @@ def period_apply(cfg: ModelConfig, p, c, x):
         x, _, a = _apply_block(cfg, p[f"k{j}"], c.get(f"k{j}", {}), x,
                                window=_window_for(cfg, kind))
         aux = aux + a
-    return x, aux
+    return _sp_constraint(cfg, x), aux
+
+
+def _sp_constraint(cfg: ModelConfig, h):
+    """The reference's sequence-parallel residual constraint: its layout
+    hint to XLA, the identity here (``dist.sharding.constrain``); the
+    port's mesh path refuses ``seq_shard_activations`` (ROADMAP queue A
+    item 10b)."""
+    if not cfg.seq_shard_activations:
+        return h
+    return dist_sharding.constrain(h, dist_sharding.BATCH_AXES,
+                                   dist_sharding.MODEL_AXIS, None)
 
 
 def dense_apply(cfg: ModelConfig, p, c, x):
@@ -254,7 +266,8 @@ def _walk(cfg: ModelConfig, params, consts, h, *, remat: str = "none",
         auxes[group] = []
         for p, c in _stack(params, consts, group):
             if saves is not None:
-                saves[group].append(h)
+                saves[group].append(dist_sharding.constrain_boundary(
+                    h, seq_sharded=cfg.seq_shard_activations))
             h, a = step(p, c, h)
             auxes[group].append(a)
     return h, auxes["dense_layers"], auxes["layers"]

@@ -363,6 +363,11 @@ def galore_adamw(oc: OptimizerConfig) -> Optimizer:
                 "step": torch.zeros((), dtype=torch.int32, device=device)}
 
     def prepare(state, gnorm):
+        from repro_torch.dist import sharding as dist_sharding
+        if dist_sharding.ambient_mesh() is not None:
+            raise NotImplementedError(
+                "GaLore-AdamW on a mesh is not ported yet (ROADMAP queue A "
+                "item 10b): its projection needs each leaf's whole gradient")
         ctx, stats = base_prepare(state, gnorm)
         # the one host read of the step: the SVD runs only at a refresh
         ctx["refresh"] = (int(ctx["step"].item()) - 1) \

@@ -57,7 +57,7 @@ decodes around it, and when every active slot is stalled the clock still
 advances, so stalls and deadlines expire.
 
 Not ported yet, and refused when asked for: a device ``mesh`` (ROADMAP
-queue A item 10).
+queue A item 10b: serving on a mesh).
 """
 from __future__ import annotations
 
@@ -140,7 +140,7 @@ class ServeEngine:
                  tick_hook=None, quant_fallback: bool = False,
                  device="cuda"):
         if mesh is not None:
-            raise _not_ported("serving on a device mesh", 10)
+            raise _not_ported("serving on a device mesh", "10b")
         if exec_mode is not None:
             # the explicit serve-time mode supersedes the sparse_decode
             # shorthand

@@ -82,12 +82,13 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding as dist_sharding
 from repro_torch.models.common import (remat_wrap, tree_leaves, tree_map,
                                        unstack)
 from repro_torch.models.registry import ModelApi
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.optim.optimizers import Optimizer
-from repro_torch.train.step import check_trainable, cross_entropy
+from repro_torch.train.step import MeshPlan, check_trainable, cross_entropy
 
 _SLICE_API = ("prepare", "update_slice", "leaf_state", "with_leaf_state",
               "stack_state", "unstack_state", "finish")
@@ -130,6 +131,23 @@ def _with_aux(layer_fn):
     return fn
 
 
+def _get(tree, keys):
+    for k in keys:
+        tree = tree[k]
+    return tree
+
+
+def _mesh_stackable(ls, leaf, n: int):
+    """On a mesh: whether a stacked leaf's state can be updated a layer
+    at a time (None: deferred to the end of the sweep, as
+    ``Optimizer.stack_state`` says on one card): AdamW's moments always;
+    8-bit state where each layer slice is a whole number of blocks."""
+    if not isinstance(ls["mu"], dict):
+        return ls
+    per, rem = divmod(leaf.numel(), n)
+    return None if rem or per % ls["mu"]["codes"].shape[-1] else ls
+
+
 def _write(dst, src):
     """Put ``src`` into ``dst``'s storage, unless an in-place update
     already did."""
@@ -141,7 +159,7 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
                              optimizer: Optimizer, *, remat: str = "none",
                              grad_accum: int = 1, aux_coef: float = 0.01,
                              fused_opt: Optional[bool] = None,
-                             grad_specs=None,
+                             grad_specs=None, state_specs=None, obs=None,
                              layer_timing: Optional[
                                  obs_metrics.Registry] = None):
     """train_step(params, opt_state, consts, batch) -> (params, opt_state,
@@ -155,8 +173,14 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
     "fused"``, so exec_mode "sparse" takes the plain optimizer slice, as
     the reference's sweep does.
     ``layer_timing`` (a registry, or None = off) records per-layer update
-    times into ``train.perlayer.layer_update_ms``. ``grad_specs`` (fsdp)
-    is not ported (ROADMAP queue A item 10) and raises."""
+    times into ``train.perlayer.layer_update_ms``. ``grad_specs`` and
+    ``state_specs`` (the spec trees of ``dist.sharding``) make it the
+    sweep on the ambient mesh (``train.step.MeshPlan``): params and state
+    are this rank's shards, updated in place; the sweep runs on the
+    gathered params, and each layer's gradients are summed over the batch
+    ranks into the specs' layout (reduce-scattered under fsdp) before its
+    update, in the norm sweep and again in the update sweep; ``obs``
+    counts the modelled bytes of those reductions."""
     plapi = api.perlayer
     if plapi is None:
         raise ValueError(f"update_mode='per_layer' needs the per-layer "
@@ -167,11 +191,14 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
             raise ValueError(f"optimizer lacks the per-layer slice API "
                              f"({fn}); update_mode='per_layer' supports "
                              "adamw, adam8bit and galore_adamw")
+    plan = None
     if grad_specs is not None:
-        raise NotImplementedError(
-            "grad_specs (fsdp gradient placement) is not ported yet "
-            "(ROADMAP queue A item 10: distribution); the port trains on "
-            "one card")
+        mesh = dist_sharding.ambient_mesh()
+        if mesh is None or state_specs is None:
+            raise ValueError("grad_specs: build the step under "
+                             "dist.sharding.use_mesh(mesh), with "
+                             "state_specs")
+        plan = MeshPlan(mesh, grad_specs, state_specs, obs)
     check_trainable(cfg)
     if fused_opt is None:
         fused_opt = cfg.param.exec_mode == "fused"
@@ -202,8 +229,12 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
         tree_map(_write, ls, new_ls)
 
     def update_group(ctx, items):
-        """A group of (p, g, ls, full_ndim) updates: one kernel launch
-        under ``group_upd``, else leaf by leaf."""
+        """A group of (p, g, ls, full_ndim) updates (on a mesh, of
+        ``MeshPlan.item``s): one kernel launch under ``group_upd``, else
+        leaf by leaf."""
+        if plan is not None:
+            plan.update(optimizer, ctx, items, fused=group_upd is not None)
+            return
         if group_upd is not None:
             group_upd(ctx, items)
             return
@@ -229,7 +260,39 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
             dxs.append(dx)
         return [a / n_mb for a in acc], dxs
 
+    def spec(keys, layer=None):
+        sp = _get(plan.p_specs, keys)
+        return sp if layer is None else dist_sharding.P(*sp[1:])
+
+    def sq(grads, keys, layer=None):
+        """Σ g² of one group's grads (on a mesh, this rank's part over the
+        reduced shards)."""
+        if plan is None:
+            return _sq(grads)
+        subs = [spec(k, layer) for k in keys]
+        return plan.sq([plan.reduce(g, sp) for g, sp in zip(grads, subs)],
+                       subs)
+
+    def item(p, g, keys, state, ndim=None, layer=None, n_layers=1):
+        """One update: (p, g, ls, full_ndim), or on a mesh its
+        ``MeshPlan.item`` (``p`` the full working leaf or layer slice)."""
+        if plan is None:
+            ls = optimizer.leaf_state(state, keys)
+            if layer is not None:
+                ls = tree_map(lambda t: t[layer], ls)
+            return p, g, ls, ndim
+        return plan.item(p, g, _get(plan.p_specs, keys),
+                         optimizer.leaf_state(state, keys),
+                         optimizer.leaf_state(plan.s_specs, keys),
+                         ndim=p.dim() if ndim is None else ndim,
+                         layer=layer, n_layers=n_layers)
+
     def train_step(params, opt_state, consts, batch):
+        shards = params
+        if plan is not None:
+            # the sweep's working copy: the full leaves (a leaf no spec
+            # splits is the shard itself)
+            params = plan.gather(shards)
         chaos_scale = None
         if "chaos_scale" in batch:
             chaos_scale = torch.mean(batch["chaos_scale"].float())
@@ -333,17 +396,24 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
         # ---- pass 1: the exact global grad norm (norm sweep) -----------
         d_head, dhs, ce = head_grads()
         loss = ce + aux_coef * aux_total
-        total_sq = _sq(d_head)
+        total_sq = sq(d_head, [(k,) for k in head_keys])
         del d_head
         for group in groups:
-            _, _, p_layers, c_layers = stack_views(group)
+            paths, _, p_layers, c_layers = stack_views(group)
+            keys = [(group,) + tuple(p.split("/")) for p in paths]
             acc = 0.0
             for i in reversed(range(len(p_layers))):
                 gp, dhs = layer_grads(seg_fns[group], p_layers[i],
                                       c_layers[i], xs[group][i], dhs, aux_ct)
-                acc = acc + _sq(gp)
+                acc = acc + sq(gp, keys, layer=i)
             total_sq = total_sq + acc
-        total_sq = total_sq + _sq([embed_total(dhs, params["ln_f"])])
+        total_sq = total_sq + sq([embed_total(dhs, params["ln_f"])],
+                                 [("embed",)])
+        if plan is not None:
+            total_sq = plan.world_sum(total_sq, device)
+            loss = plan.batch_mean(loss)
+            ce = plan.batch_mean(ce)
+            aux_total = plan.batch_mean(aux_total)
         gnorm = torch.sqrt(total_sq)
         ctx, stats = optimizer.prepare(opt_state, gnorm)
         good = torch.isfinite(loss) & torch.isfinite(gnorm)
@@ -351,7 +421,7 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
                    "nonfinite": 1.0 - good.float()}
         if not bool(good):
             # skip the update sweep: everything stays pre-step
-            return params, opt_state, metrics
+            return shards, opt_state, metrics
 
         # ---- pass 2: the update sweep (one layer's grads at a time) ----
         state = opt_state
@@ -370,8 +440,8 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
         stamp()
         ln_f0 = params["ln_f"].clone() if tied else None
         d_head, dhs, _ = head_grads()
-        update_group(ctx, [(params[key], g, optimizer.leaf_state(
-            state, (key,)), None) for key, g in zip(head_keys, d_head)])
+        update_group(ctx, [item(params[key], g, (key,), state)
+                           for key, g in zip(head_keys, d_head)])
         del d_head
 
         for group in groups:
@@ -381,7 +451,8 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
             for path, leaf in zip(paths, leaves):
                 ls = optimizer.leaf_state(state, (group,) +
                                           tuple(path.split("/")))
-                st = optimizer.stack_state(ls, leaf, n_layers)
+                st = optimizer.stack_state(ls, leaf, n_layers) \
+                    if plan is None else _mesh_stackable(ls, leaf, n_layers)
                 if st is None:
                     deferred[path] = torch.zeros(leaf.shape,
                                                  dtype=torch.float32,
@@ -396,21 +467,25 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
                     if path in deferred:
                         deferred[path][i] = g
                         continue
-                    ls_i = tree_map(lambda t: t[i], stacked[path])
-                    items.append((leaf[i], g, ls_i, leaf.dim()))
+                    if plan is None:
+                        items.append((leaf[i], g, tree_map(
+                            lambda t: t[i], stacked[path]), leaf.dim()))
+                    else:
+                        items.append(item(leaf[i], g, (group,) + tuple(
+                            path.split("/")), state, leaf.dim(), i,
+                            n_layers))
                 update_group(ctx, items)
                 del gp, items
                 stamp()
             update_group(ctx, [
-                (leaf, deferred[path],
-                 optimizer.leaf_state(state, (group,) +
-                                      tuple(path.split("/"))), None)
+                item(leaf, deferred[path], (group,) + tuple(path.split("/")),
+                     state)
                 for path, leaf in zip(paths, leaves) if path in deferred])
             deferred.clear()
 
         d_embed = embed_total(dhs, ln_f0)
-        update_group(ctx, [(params["embed"], d_embed,
-                            optimizer.leaf_state(state, ("embed",)), None)])
+        update_group(ctx, [item(params["embed"], d_embed, ("embed",),
+                                state)])
         del d_embed
         state = optimizer.finish(state, ctx)
 
@@ -422,6 +497,10 @@ def make_perlayer_train_step(cfg: ModelConfig, api: ModelApi,
                 ms = [(b - a) / 1e6 for a, b in zip(stamps, stamps[1:])]
             for t in ms:
                 hist.observe(t)
+        if plan is not None:
+            # each rank's shards from the updated working copy
+            plan.write_back(shards, params)
+            return shards, state, metrics
         return params, state, metrics
 
     return train_step

@@ -43,11 +43,24 @@ background write never sees a later step's values.
 whose number is a multiple of ``relora_period``, as the reference does
 (:func:`_make_relora_merge`). ReLoRA with 8-bit AdamW is refused at
 construction: the reference's merge crashes on that state at the first
-merge (ROADMAP queue C). Not ported yet, and raising: a mesh (ROADMAP
-queue A item 10).
+merge (ROADMAP queue C).
+
+``mesh=`` (a ``dist.sharding.Mesh`` over a ``torch.distributed`` world,
+every rank running its own Trainer) trains on the mesh, as the
+reference's ``_place`` and ``_build_train_step`` do: every rank inits the
+full state from the seed and keeps its shards of it per the spec engine
+(``sharding.fsdp`` adds the data axis), takes its rows of each global
+batch, and runs the step under ``dist.sharding.use_mesh``, so the
+linears' tensor-parallel islands engage. ``sharding.pod_grad_compression``
+on a mesh with a pod axis runs ``train.step.make_compressed_dp_step``.
+Checkpoints hold the gathered full leaves (rank 0 writes them), so they
+restore onto any mesh, or none. Still refused on a mesh (ROADMAP queue A
+item 10b): the low-rank and ReLoRA modes, GaLore-AdamW, iid supports,
+families other than llama, and ``seq_shard_activations``.
 """
 from __future__ import annotations
 
+import contextlib
 import signal
 import sys
 import time
@@ -159,14 +172,42 @@ class StepTimeWatchdog:
         return slow
 
 
-def _check_supported(tc: TrainConfig, mesh) -> None:
-    """Raise on what the port does not run yet, naming its ROADMAP item."""
-    sh, pc = tc.sharding, tc.model.param
-    if mesh is not None or sh.fsdp or sh.pod_grad_compression:
+def _check_mesh(tc: TrainConfig, mesh) -> None:
+    """Raise on what the mesh path does not run yet, naming its ROADMAP
+    item."""
+    sh, cfg = tc.sharding, tc.model
+    pc = cfg.param
+    refused = []
+    if pc.mode not in ("sltrain", "dense"):
+        refused.append(f"param.mode {pc.mode!r}")
+    if tc.optim.name not in ("adamw", "adam8bit"):
+        refused.append(f"optimizer {tc.optim.name!r}")
+    if pc.mode == "sltrain" and pc.support_kind != "row_balanced":
+        refused.append(f"{pc.support_kind!r} supports")
+    if cfg.family != "llama" or cfg.moe.n_experts:
+        refused.append(f"the {cfg.family!r} family")
+    if cfg.seq_shard_activations:
+        refused.append("seq_shard_activations")
+    if sh.pod_grad_compression and "pod" in mesh.axis_names:
+        if sh.fsdp or sh.update_mode != "global" or any(
+                n > 1 for a, n in mesh.shape.items() if a != "pod"):
+            refused.append("pod compression beside fsdp, per-layer "
+                           "updates or other mesh axes (the reference's "
+                           "compressed step shards over the pod axis "
+                           "alone)")
+    if refused:
         raise NotImplementedError(
-            "a mesh, fsdp and pod gradient compression are not ported yet "
-            "(ROADMAP queue A item 10: distribution); the port trains on "
-            "one card")
+            f"on a mesh: {', '.join(refused)} not ported yet (ROADMAP "
+            "queue A item 10b); the mesh path trains SLTrain "
+            "(row-balanced) and full-rank llama models with AdamW or "
+            "8-bit AdamW")
+
+
+def _check_supported(tc: TrainConfig, mesh) -> None:
+    """Raise on what the port does not run, naming its reason."""
+    sh, pc = tc.sharding, tc.model.param
+    if mesh is not None:
+        _check_mesh(tc, mesh)
     if sh.update_mode not in ("global", "per_layer"):
         raise ValueError(f"unknown update_mode {sh.update_mode!r}: "
                          "expected 'global' or 'per_layer'")
@@ -202,6 +243,9 @@ class Trainer:
                  layer_timing: bool = False):
         _check_supported(tc, mesh)
         self.device = resolve(device)
+        self.mesh = mesh
+        self._chips = 1 if mesh is None else mesh.size
+        self._plan = None
         self.tc = tc
         self.log = log_fn
         self.fault_hook = fault_hook
@@ -258,23 +302,86 @@ class Trainer:
         if self.chaos is not None:
             self.chaos.bind(self.obs)
         self._layer_timing = layer_timing
-        self._train_step = self._build_train_step()
+        self._train_step = self._build_train_step(None, None)
         self._relora_merge = _make_relora_merge(self.cfg) \
             if self.cfg.param.mode == "relora" else None
 
-    def _build_train_step(self):
+    def _build_train_step(self, p_specs, s_specs):
         """The step for the configured update_mode: the global step, or
         the per-layer sweep (with per-layer update timing on this
-        trainer's registry when ``layer_timing``)."""
+        trainer's registry when ``layer_timing``). On a mesh it is built
+        again by :meth:`_place` with the spec trees, which exist once the
+        state does: the int8-compressed step where pod compression is on,
+        else the step over shards."""
         sh = self.tc.sharding
+        if self._compressed():
+            return step_lib.make_compressed_dp_step(
+                self.cfg, self.api, self.optimizer, self.mesh, obs=self.obs)
         if sh.update_mode == "per_layer":
             return perlayer.make_perlayer_train_step(
                 self.cfg, self.api, self.optimizer, remat=sh.remat,
-                grad_accum=sh.grad_accum,
+                grad_accum=sh.grad_accum, grad_specs=p_specs,
+                state_specs=s_specs, obs=self.obs,
                 layer_timing=self.obs if self._layer_timing else None)
         return step_lib.make_train_step(
             self.cfg, self.api, self.optimizer, remat=sh.remat,
-            grad_accum=sh.grad_accum)
+            grad_accum=sh.grad_accum, grad_specs=p_specs,
+            state_specs=s_specs, obs=self.obs)
+
+    def _compressed(self) -> bool:
+        return (self.mesh is not None
+                and self.tc.sharding.pod_grad_compression
+                and "pod" in self.mesh.axis_names)
+
+    # -- the mesh -------------------------------------------------------------
+    def _specs(self, params, opt_state):
+        """(param specs, optimizer-state specs) of the spec engine, fsdp
+        axes included where ``sharding.fsdp`` asks for them."""
+        from repro_torch.dist import sharding as dist_sharding
+        sh = self.tc.sharding
+        fsdp_axes = (sh.fsdp_axis,) if sh.fsdp else ()
+        p_specs = dist_sharding.param_specs(params, self.mesh,
+                                            fsdp_axes=fsdp_axes)
+        return p_specs, dist_sharding.opt_state_specs(
+            opt_state, p_specs, self.mesh, fsdp_axes=fsdp_axes)
+
+    def _place(self, params, opt_state):
+        """This rank's shards of the full state, and the step rebuilt for
+        its specs (the reference's ``_place``). The consts stay whole on
+        every rank: the islands slice the column tiles they read."""
+        from repro_torch.dist import sharding as dist_sharding
+        if self._compressed():
+            return params, opt_state
+        p_specs, s_specs = self._specs(params, opt_state)
+        with dist_sharding.use_mesh(self.mesh):
+            self._train_step = self._build_train_step(p_specs, s_specs)
+        self._plan = (p_specs, s_specs)
+        return (dist_sharding.place(params, self.mesh, p_specs),
+                dist_sharding.place(opt_state, self.mesh, s_specs))
+
+    def full_state(self, state: TrainerState):
+        """(params, opt_state) of ``state`` whole: on a mesh gathered from
+        every rank's shards (every rank calls it)."""
+        if self._plan is None:
+            return state.params, state.opt_state
+        from repro_torch.dist import sharding as dist_sharding
+        p_specs, s_specs = self._plan
+        return (dist_sharding.gather(state.params, self.mesh, p_specs),
+                dist_sharding.gather(state.opt_state, self.mesh, s_specs))
+
+    def _local_batch(self, batch):
+        """This rank's rows of a global batch (``dist.sharding.batch_specs``;
+        all of it where the batch does not divide over the batch ranks)."""
+        if self.mesh is None:
+            return batch
+        from repro_torch.dist import sharding as dist_sharding
+        return dist_sharding.place(batch, self.mesh, dist_sharding.batch_specs(
+            batch, self.mesh))
+
+    def _barrier(self) -> None:
+        if self.mesh is not None and self.mesh.size > 1:
+            import torch.distributed as dist
+            dist.barrier(self.mesh.group(self.mesh.axis_names))
 
     # -- state ----------------------------------------------------------------
     def init_state(self) -> TrainerState:
@@ -289,19 +396,31 @@ class Trainer:
         self.log(f"[trainer] init {self.obs.get('init.seconds').value:.1f} s "
                  f"({self.obs.get('init.sampling_workers').value:.0f} "
                  "support sampling workers)")
+        return self.state_from(params, consts)
+
+    def state_from(self, params, consts) -> TrainerState:
+        """The step-0 state of the full ``params`` and ``consts`` (the
+        model's init's trees): a fresh optimizer state, and on a mesh this
+        rank's shards of both (every rank passes the same trees)."""
         opt_state = self.optimizer.init(params)
+        if self.mesh is not None:
+            params, opt_state = self._place(params, opt_state)
         return TrainerState(params, opt_state, add_transposed_tiles(consts),
                             step=0)
 
     def save(self, state: TrainerState, background: Optional[bool] = None
              ) -> None:
         bg = self.tc.async_ckpt if background is None else background
+        params, opt_state = self.full_state(state)
+        if self.mesh is not None and self.mesh.rank != 0:
+            self._barrier()
+            return
         self.ckpt.save(
-            state.step,
-            {"params": state.params, "opt_state": state.opt_state},
+            state.step, {"params": params, "opt_state": opt_state},
             config_hash=self.cfg.hash(),
             extra={"data": self.data.state_dict()},
-            background=bg)
+            background=bg and self.mesh is None)
+        self._barrier()
 
     def restore_or_init(self) -> TrainerState:
         state = self.init_state()
@@ -309,10 +428,12 @@ class Trainer:
             return state
         try:
             with self.trace.span("resilience.restore", cat="resilience"):
-                # step=None: checksum-verified, falls back newest → oldest
+                # step=None: checksum-verified, falls back newest → oldest;
+                # on a mesh each leaf is cut to this rank's shard
                 tree, manifest = self.ckpt.restore(
                     {"params": state.params, "opt_state": state.opt_state},
-                    config_hash=self.cfg.hash())
+                    config_hash=self.cfg.hash(),
+                    shardings=self._shardings())
         except CheckpointCorruptError as e:
             self.log(f"[trainer] every checkpoint failed verification "
                      f"({e}): starting fresh")
@@ -322,6 +443,16 @@ class Trainer:
         self.log(f"[trainer] resumed from step {latest}")
         return TrainerState(tree["params"], tree["opt_state"], state.consts,
                             step=latest)
+
+    def _shardings(self):
+        """The restore's shardings on a mesh (None off it)."""
+        if self._plan is None:
+            return None
+        from repro_torch.dist import sharding as dist_sharding
+        p_specs, s_specs = self._plan
+        return {"params": dist_sharding.named_shardings(self.mesh, p_specs),
+                "opt_state": dist_sharding.named_shardings(self.mesh,
+                                                           s_specs)}
 
     # -- resilience -------------------------------------------------------------
     def _next_valid_batch(self, step: int):
@@ -365,6 +496,15 @@ class Trainer:
                  f"batch(es) forward")
         return state
 
+    def _mesh_ctx(self):
+        """``dist.sharding.use_mesh`` of this trainer's mesh (with the
+        global batch the islands' gate reads), or nothing."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from repro_torch.dist import sharding as dist_sharding
+        return dist_sharding.use_mesh(self.mesh,
+                                      global_batch=self.tc.global_batch)
+
     # -- preemption -------------------------------------------------------------
     def _install_signal_handlers(self):
         def handler(signum, frame):
@@ -403,10 +543,12 @@ class Trainer:
                         batch_np["chaos_scale"] = np.full(
                             (batch_np["tokens"].shape[0],),
                             self.chaos.poison_scale(state.step), np.float32)
-                    batch = {k: torch.from_numpy(np.asarray(v)).to(
-                        self.device) for k, v in batch_np.items()}
+                    batch = self._local_batch(
+                        {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                         for k, v in batch_np.items()})
                 t1 = time.perf_counter()
-                with self.trace.span("train.dispatch", cat="train"):
+                with self.trace.span("train.dispatch", cat="train"), \
+                        self._mesh_ctx():
                     params, opt_state, metrics = self._train_step(
                         state.params, state.opt_state, state.consts, batch)
                 t2 = time.perf_counter()
@@ -454,7 +596,7 @@ class Trainer:
             self._g_gnorm.set(row["grad_norm"])
             self._g_tps.set(tokens_per_step / dt if dt > 0 else 0.0)
             self._g_mfu.set(roofline.train_mfu(self.cfg, tokens_per_step,
-                                               dt))
+                                               dt, self._chips))
             if state.step % tc.log_every == 0 or state.step == total:
                 self.log(f"[step {state.step:5d}] "
                          f"loss={self._g_loss.value:.4f} "

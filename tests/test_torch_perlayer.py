@@ -330,8 +330,24 @@ def test_perlayer_unported_options_raise():
     cfg = _cfgs("dense")[1]
     api = registry.get_api(cfg)
     opt = optimizers.make(OptimizerConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 10"):
+    # grad_specs (the fsdp gradient placement) runs now, on the ambient
+    # mesh: one sweep on the local mesh, and without one it is refused
+    from repro_torch.dist import sharding
+    with pytest.raises(ValueError, match="use_mesh"):
         perlayer.make_perlayer_train_step(cfg, api, opt, grad_specs={})
+    mesh = sharding.make_local_mesh()
+    params, consts = api.init(cfg, seed=0, device="cpu")
+    state = opt.init(params)
+    p_specs = sharding.param_specs(params, mesh, fsdp_axes=("data",))
+    with sharding.use_mesh(mesh):
+        step = perlayer.make_perlayer_train_step(
+            cfg, api, opt, grad_specs=p_specs,
+            state_specs=sharding.opt_state_specs(state, p_specs, mesh,
+                                                 fsdp_axes=("data",)))
+        toks = torch.randint(0, cfg.vocab_size, (2, 8))
+        _, _, m = step(params, state, ops.add_transposed_tiles(consts),
+                       {"tokens": toks})
+    assert np.isfinite(float(m["loss"])) and float(m["nonfinite"]) == 0.0
     # the SSM and encoder families expose no per-layer API, and the sweep
     # refuses them as the reference's does
     for fam in ("mamba_hybrid", "xlstm", "whisper"):

@@ -46,6 +46,15 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(path):
                 f"{path.relative_to(ROOT)}:{node.lineno} imports {name}"
 
 
+def test_port_rules_cover_the_distribution_layer():
+    """The import check above reads the distribution layer too:
+    ``repro_torch/dist/`` and ``launch/{mesh,specs}.py``."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for f in ("dist/__init__.py", "dist/compat.py", "dist/sharding.py",
+              "dist/compression.py", "launch/mesh.py", "launch/specs.py"):
+        assert f"src/repro_torch/{f}" in names, f
+
+
 def test_support_sampling_worker_imports_numpy_only():
     """The init's sampling workers run ``repro_torch.core.support`` in a
     fresh interpreter (``support._WORKER``): that import loads neither
@@ -91,7 +100,7 @@ def test_unported_options_raise():
     cfg = _smoke()
     params, consts = lm.init_lm(cfg, device="cpu")
     kw = dict(max_len=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 10b"):
         ServeEngine(cfg, params, consts, paged=True, mesh=object(), **kw)
     # the contiguous cache and the tick hook run now
     ticks = []
@@ -134,11 +143,33 @@ def test_train_entry_points_need_a_card_unless_cpu(no_card, tmp_path):
     ["--fsdp", "--use-mesh"],
     ["--use-mesh"], ["--multipod"]],
     ids=lambda f: " ".join(f))
-def test_train_launcher_unported_options_raise(flags, tmp_path):
+def test_train_launcher_unported_options_raise(flags, tmp_path, monkeypatch):
+    """The mesh flags, refused until the distribution layer was ported,
+    run one step: ``--use-mesh`` on the local (data 1, model 1) mesh
+    (``--fsdp`` with it), ``--multipod`` on a world of one process
+    started as torchrun starts one (its world of 2 is in
+    tests/test_torch_dist_train.py); ``--fsdp`` alone is refused as the
+    reference refuses it."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(["--smoke", "--steps", "1", "--device", "cpu",
-                    "--ckpt-dir", str(tmp_path), *flags])
+    if "--multipod" in flags:
+        import socket
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        for k, v in (("RANK", "0"), ("LOCAL_RANK", "0"), ("WORLD_SIZE", "1"),
+                     ("MASTER_ADDR", "localhost"), ("MASTER_PORT", str(port))):
+            monkeypatch.setenv(k, v)
+    tr = train.main(["--smoke", "--steps", "1", "--batch", "2", "--seq",
+                     "8", "--device", "cpu", "--ckpt-dir", str(tmp_path),
+                     *flags])
+    assert tr.mesh is not None and tr.mesh.shape == {"data": 1, "model": 1}
+    assert len(tr.metrics_history) == 1 and \
+        np.isfinite(tr.metrics_history[0]["loss"])
+    assert (tr._plan is not None) and tr.tc.sharding.fsdp == (
+        "--fsdp" in flags)
+    with pytest.raises(SystemExit):
+        train.main(["--smoke", "--steps", "1", "--device", "cpu", "--fsdp",
+                    "--ckpt-dir", str(tmp_path)])
 
 
 @pytest.mark.parametrize("flags", [
@@ -218,8 +249,19 @@ def test_trainer_unported_options_raise(tmp_path):
                                           TrainConfig)
     from repro_torch.train.trainer import Trainer
     tc = TrainConfig(model=_smoke(), ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(tc, device="cpu", mesh=object())
+    # a mesh runs now (ROADMAP queue A item 10a): one step on the local
+    # mesh; on a mesh the baselines are refused, naming item 10b
+    from repro_torch.dist import sharding
+    one = dict(steps=1, global_batch=2, seq_len=8)
+    tr = Trainer(dataclasses.replace(tc, **one, ckpt_dir=str(
+        tmp_path / "mesh")), device="cpu", mesh=sharding.make_local_mesh(),
+        log_fn=lambda *a: None)
+    assert tr.run().step == 1 and tr._chips == 1
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        Trainer(dataclasses.replace(tc, model=dataclasses.replace(
+            _smoke(), param=dataclasses.replace(_smoke().param,
+                                                mode="lowrank"))),
+                device="cpu", mesh=sharding.make_local_mesh())
     # chaos= runs now: one step, the schedule bound to the registry
     from repro_torch.resilience import ChaosEngine
     tr = Trainer(dataclasses.replace(tc, steps=1, global_batch=2, seq_len=8,
@@ -228,10 +270,13 @@ def test_trainer_unported_options_raise(tmp_path):
                  chaos=ChaosEngine.parse("data_corrupt@0"))
     assert tr.run().step == 1
     assert tr.obs.snapshot()["resilience.bad_batches"]["value"] == 1
-    for sc in (ShardingConfig(pod_grad_compression=True),
-               ShardingConfig(fsdp=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(dataclasses.replace(tc, sharding=sc), device="cpu")
+    # fsdp and pod compression run now; without a mesh they change
+    # nothing, as in the reference
+    for i, sc in enumerate((ShardingConfig(pod_grad_compression=True),
+                            ShardingConfig(fsdp=True))):
+        tr = Trainer(dataclasses.replace(tc, sharding=sc, **one, ckpt_dir=str(
+            tmp_path / f"sc{i}")), device="cpu", log_fn=lambda *a: None)
+        assert tr.run().step == 1
     # ReLoRA with 8-bit AdamW, which crashes the reference's merge
     with pytest.raises(ValueError, match="ROADMAP queue C"):
         Trainer(dataclasses.replace(
