@@ -211,7 +211,26 @@ seed:
   rank's step ms, peak and modelled ``dist.collective_bytes``; then
   ``sl_matmul``, ``sddmm``, ``sparse_matmul`` at a TP-2 rank's local
   shapes and ``adam8bit`` on an fsdp shard against their plain versions,
-  timed.
+  timed;
+* serving on a device mesh (phase serve-mesh, in phase dist's world
+  after its training runs): ``ServeEngine(mesh=)`` on each of
+  ``SERVE_MESH_RUNS`` in f32, the traffic above: ``llama_7b`` (phase
+  dist's init) paged fused on (model 2) and (model 4), paged sparse and
+  quant (calibrated by this process while the world trains) on (model
+  4), contiguous fused on (data 2, model 2), and ``qwen2_5_32b`` at full
+  width on ``SERVE_MESH_QWEN_LAYERS`` = 2 layers (2 kv heads a rank,
+  GQA group 5, its qkv bias drawn) paged fused on (model 4); every rank
+  all-gathers each dispatch's sampled tokens and fails unless the ranks
+  agree, and each run's tokens and ticks equal the one-process engine's
+  on the card (a top-2 tie the only excuse); then ``llama_7b`` bf16 paged
+  fused on (model 4): each rank's tokens/s and peak, its cache bytes a
+  quarter of one process's pools, and each dispatch's launches asserted
+  (one ``paged_attention`` a layer at decode, one ``paged_prefill`` a
+  layer at prefill, on 8 local heads; 7 ``sl_matmul`` a layer, 4 of them
+  on the rank's 1024 columns); then ``sl_matmul``, ``sparse_matmul`` and
+  ``quant_sparse_matmul`` at decode on a rank's column tiles and
+  ``paged_attention`` and ``paged_prefill`` on a rank's heads (qwen2.5's
+  group 5 among them) against their plain versions, timed.
 
 To stay inside its time limit with the gemma2, MoE, SSM, encoder and
 quant phases: llama_1b's serving phases run on 2 of its 24 layers
@@ -404,6 +423,11 @@ TRAIN_STEPS = 4
 # host memory for the supports the run keeps between inits (a full-depth
 # llama_7b's take ~7 GB)
 KEEP_SUPPORT_BYTES = 10 << 30
+# processes that sample the full-depth llama_1b and llama_7b supports
+# while nvcc builds (support.sample_ahead): with nvcc's five, the host's
+# 8 cores stay busy through the build
+AHEAD_1B_WORKERS = 4
+AHEAD_7B_WORKERS = 3
 
 
 def say(*parts) -> None:
@@ -3110,7 +3134,8 @@ def representatives(cfg, rows, m, n_slots, bucket):
 
 def kernels_line(rows, by_path, representative, rows_7b, representative_7b,
                  rows_g, representative_g, rows_m, representative_m,
-                 rows_h, representative_h, rows_d, representative_d):
+                 rows_h, representative_h, rows_d, representative_d,
+                 rows_s, representative_s):
     """One entry per kernel: the llama_1b representative case's times and
     bound (and, under ``at_llama_7b`` and ``at_gemma2_2b``, the llama_7b
     and the gemma2_2b one's), the largest error over all of the kernel's
@@ -3133,7 +3158,10 @@ def kernels_line(rows, by_path, representative, rows_7b, representative_7b,
     cases count in ``max_abs_err`` and ``cases``); ``at_dist`` the dist
     phase's local-shape case (llama_7b's d_ff projection on a rank of a
     TP-2 mesh; adam8bit on an fsdp shard), whose launches are the dist
-    runs' (paths "dist ...")."""
+    runs' (paths "dist ..."); ``at_serve_mesh`` the serve-mesh phase's
+    local-shape case (llama_7b's q/k/v/o decode on a rank's column tiles
+    of a TP-4 mesh; the paged kernels on its 8 heads), whose launches are
+    the serve-mesh runs' (paths "serve mesh ...")."""
     out = []
     src = {"sl_matmul": SL_SOURCE, "paged_attention": PA_SOURCE,
            "paged_prefill": PA_SOURCE, "sddmm": SD_SOURCE,
@@ -3161,7 +3189,7 @@ def kernels_line(rows, by_path, representative, rows_7b, representative_7b,
             + sum(n_grouped.values()),
             "launches_by_path": {p: n[name] for p, n in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in mine + mine7 + mine_g
-                               + [r for r in rows_m + rows_h + rows_d
+                               + [r for r in rows_m + rows_h + rows_d + rows_s
                                   if r["name"] == name]),
             **{k: rep[k] for k in times}, "shape": shape,
             "cases": len(mine),
@@ -3190,6 +3218,13 @@ def kernels_line(rows, by_path, representative, rows_7b, representative_7b,
             out[-1]["at_dist"] = {"shape": rep_d["shape"],
                                   "cases": len(mine_d),
                                   **{k: rep_d[k] for k in times}}
+        if name in representative_s:
+            mine_s = [r for r in rows_s if r["name"] == name]
+            rep_s = next(r for r in mine_s
+                         if r["shape"] == representative_s[name])
+            out[-1]["at_serve_mesh"] = {"shape": rep_s["shape"],
+                                        "cases": len(mine_s),
+                                        **{k: rep_s[k] for k in times}}
         if name in representative_h:
             mine_h = [r for r in rows_h if r["name"] == name]
             out[-1]["at_ssm_families"] = {"cases": len(mine_h), **{
@@ -6045,11 +6080,13 @@ def dist_rank_runs(rank, world, init_path, base, batch, seq, device):
     return out
 
 
-def dist_rank(rank, world, root, init_path, base, batch, seq, device):
+def dist_rank(rank, world, root, init_path, base, batch, seq, device,
+              serve):
     """A rank's process: the gloo world through a FileStore under
-    ``root``, its results pickled to ``root/rank<r>.pkl``. A rank that
-    fails exits at once, so its peers' collectives fail instead of
-    waiting."""
+    ``root``, phase dist's runs, then phase serve-mesh's
+    (``serve_mesh_rank_runs`` on ``serve``, its (paths, configs)), its
+    results pickled to ``root/rank<r>.pkl``. A rank that fails exits at
+    once, so its peers' collectives fail instead of waiting."""
     import datetime
     import pickle
     import traceback
@@ -6078,8 +6115,9 @@ def dist_rank(rank, world, root, init_path, base, batch, seq, device):
         rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=300))
     try:
-        result = ("ok", dist_rank_runs(rank, world, init_path, base, batch,
-                                       seq, device))
+        out = dist_rank_runs(rank, world, init_path, base, batch, seq, device)
+        out["serve_mesh"] = serve_mesh_rank_runs(rank, *serve, device)
+        result = ("ok", out)
     except Exception:
         result = ("error", traceback.format_exc())
     with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
@@ -6089,7 +6127,7 @@ def dist_rank(rank, world, root, init_path, base, batch, seq, device):
     dist.destroy_process_group()
 
 
-def start_dist_world(init_path, base, batch, seq, device):
+def start_dist_world(init_path, base, batch, seq, device, serve):
     """Spawn the DIST_WORLD ranks (they run while the caller goes on);
     :func:`join_dist_world` collects them."""
     import torch.multiprocessing as mp
@@ -6098,7 +6136,7 @@ def start_dist_world(init_path, base, batch, seq, device):
     os.makedirs(root)
     return root, mp.start_processes(
         dist_rank, args=(DIST_WORLD, root, init_path, base, batch, seq,
-                         device.type),
+                         device.type, serve),
         nprocs=DIST_WORLD, join=False, start_method="spawn")
 
 
@@ -6118,17 +6156,24 @@ def join_dist_world(world):
     for r in range(DIST_WORLD):
         path = os.path.join(root, f"rank{r}.pkl")
         if not os.path.exists(path):
-            errors.append((1, f"rank {r} left no result ({failure})"))
+            errors.append((1, r, f"rank {r} left no result ({failure})"))
             continue
         with open(path, "rb") as f:
             status, value = pickle.load(f)
         if status != "ok":
-            # a rank the harness stopped after another failed says so
-            errors.append((2 * ("got signal" in value),
-                           f"rank {r} failed:\n{value}"))
+            # a rank the harness stopped after another failed says so, as
+            # does one whose peer's exit closed its connection: the cause
+            # is the other rank's
+            errors.append((2 * ("got signal" in value) + (
+                "closed by peer" in value), r, f"rank {r} failed:\n{value}"))
         results.append(value)
     if errors or failure:
-        fail(f"dist: {min(errors)[1] if errors else failure}")
+        errors.sort()
+        first = errors[0] if errors else None
+        others = [f"rank {e[1]}: {e[2].strip().splitlines()[-1]}"
+                  for e in errors[1:]]
+        fail(f"dist: {first[2] if first else failure}"
+             + (f"\nthe other ranks: {others}" if others else ""))
     shutil.rmtree(root, ignore_errors=True)
     return results
 
@@ -6216,22 +6261,31 @@ def representatives_dist(batch, seq, cfg):
                         f"{cfg.param.rank * cfg.d_ff} float32 wd 0.1"}
 
 
-def run_dist(device, smi, *, batch, seq, base=None):
+def run_dist(device, smi, *, batch, seq, base=None, qwen=None,
+             beside=None):
     """Phase dist: llama_7b at full width on DIST_LAYERS layers trained on
     meshes of ranks that share the card, each run against the one-process
     run of its configuration on the card (check_pair; the int8 run at
     INT8_TOL); int8_psum over the world bit for bit against its plain
     version; the bf16 run of DIST_BF16 with each rank's step time, peak
-    memory and modelled collective bytes; then the kernels at the local
-    shapes. Returns (kernel rows, launches by path). (``base`` replaces
-    llama_7b, and a CPU ``device`` rehearses the phase up to the kernel
-    checks, which need the card.)"""
-    from repro_torch.configs import llama_7b
+    memory and modelled collective bytes; then phase serve-mesh in the
+    same world (SERVE_MESH_RUNS against the one-process engine, tick for
+    tick; SERVE_MESH_BF16 timed, its launches a dispatch and cache bytes
+    asserted); then the kernels at both phases' local shapes. Returns
+    (kernel rows, serve-mesh kernel rows, launches by path), with
+    ``beside``'s (a callable that returns launches by path: phases whose
+    checks are exact and which time no kernel, run in this process while
+    the ranks run, after the references). (``base`` and ``qwen`` replace
+    llama_7b and qwen2_5_32b, and a CPU ``device`` rehearses the phases
+    up to the kernel checks, which need the card.)"""
+    from repro_torch.configs import llama_7b, qwen2_5_32b
     from repro_torch.dist import compression
     from repro_torch.models import lm
     from repro_torch.models.common import tree_map
     lap = Laps()
     base = llama_7b.CONFIG if base is None else base
+    qwen = dataclasses.replace(qwen2_5_32b.CONFIG if qwen is None else qwen,
+                               n_layers=SERVE_MESH_QWEN_LAYERS)
     cfg32 = dist_config(base, "fused")
     gen = torch.Generator(device=device)
     gen.manual_seed(30)
@@ -6242,8 +6296,18 @@ def run_dist(device, smi, *, batch, seq, base=None):
     torch.save({"params": tree_map(lambda t: t.cpu(), params),
                 "consts": tree_map(lambda t: t.cpu(), consts)}, init_path)
     lap(f"dist: init {arch(cfg32)} f32, written for the ranks")
-    # the ranks start while this process runs the one-process references
-    world = start_dist_world(init_path, base, batch, seq, device)
+    # the one-process references on the init (phase dist's runs, the
+    # llama_7b engines, the quant calibration, written for the ranks) run
+    # before the ranks start and are freed; phase serve-mesh's qwen2.5
+    # model (7.5 GB in f32) is served beside the ranks, which wait for its
+    # file, then the phases of ``beside``
+    paths = {"llama": init_path, "qwen": os.path.join(
+        ROOT, "build", "chip_smoke_serve_qwen.pt"), "quant": os.path.join(
+        ROOT, "build", "chip_smoke_serve_quant.pt")}
+    for key in ("qwen", "quant"):
+        for p in (paths[key], paths[key] + ".failed"):
+            if os.path.exists(p):
+                os.remove(p)
     single = {}
     for name, (shape, names, mode, um, opt, fsdp, comp) in DIST_RUNS.items():
         if comp:
@@ -6260,12 +6324,43 @@ def run_dist(device, smi, *, batch, seq, base=None):
                 compression=False, batch=batch, seq=seq, device=device)
             say(f"dist: one process, {mode}, {um}, {opt}: (loss, grad_norm, "
                 f"nonfinite) per step {single[key]['rows']}")
+    refs = serve_mesh_references("llama", cfg32, params, consts, device)
+    quant_name = next(n for n, r in SERVE_MESH_RUNS.items()
+                      if r[1] == "quant")
+    refs[quant_name], quant_model = serve_mesh_quant(
+        cfg32, params, consts, paths["quant"], device)
     del params, consts
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    lap("dist: one-process runs, the ranks starting beside them")
+    lap("dist: one-process runs, serve-mesh's llama_7b engines and "
+        "calibration")
+    sm_gen = torch.Generator(device=device)
+    sm_gen.manual_seed(31)
+    cfgs = {"llama": cfg32, "qwen": serve_mesh_config(qwen, "fused"),
+            "quant": cfg32}
+    world = start_dist_world(init_path, base, batch, seq, device,
+                             (paths, cfgs))
+    try:
+        qparams, qconsts = serve_mesh_init(cfgs["qwen"], device, sm_gen)
+        refs.update(serve_mesh_references("qwen", cfgs["qwen"], qparams,
+                                          qconsts, device))
+        tmp = paths["qwen"] + ".tmp"
+        torch.save({"params": tree_map(lambda t: t.cpu(), qparams),
+                    "consts": tree_map(lambda t: t.cpu(), qconsts)}, tmp)
+        os.replace(tmp, paths["qwen"])
+    except BaseException:
+        # the ranks wait for the model: tell them it will not come
+        open(paths["qwen"] + ".failed", "w").close()
+        raise
+    del qparams, qconsts
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    lap(f"serve-mesh: {arch(cfgs['qwen'])} f32 init, one-process engine, "
+        "written for the ranks, the ranks starting beside them")
+    if beside is not None:
+        by_path_beside = beside()
+        lap("dist: the phases run beside the ranks")
     results = join_dist_world(world)
-    os.remove(init_path)
     lap(f"dist: the world of {DIST_WORLD} ranks (spawn, {len(DIST_RUNS)} "
         "f32 runs, the bf16 run)")
     xs = [int8_case(r, device) for r in range(DIST_WORLD)]
@@ -6328,15 +6423,567 @@ def run_dist(device, smi, *, batch, seq, base=None):
                                                for m in mine)
                                         for k in mine[0]["launches"]}
     PATH_KERNELS["dist bf16 " + DIST_BF16] = DIST_KERNELS["fused"]
+    if beside is not None:
+        by_path.update(by_path_beside)
     lap("dist: checks")
+
+    def loaded(key, mode="dense"):
+        def load():
+            tree = torch.load(paths[key], mmap=True)
+            return (serve_mesh_config(cfgs[key], mode),
+                    *(tree_map(lambda t: t.to(device), tree[k])
+                      for k in ("params", "consts")))
+        return load
+    qcfg, qp, qc = quant_model
+    by_path.update(serve_mesh_check(
+        results, refs, {"llama": loaded("llama"), "qwen": loaded("qwen"),
+                        "quant": lambda: (qcfg, dequantized(qp, qc), qc)},
+        cfgs, device, smi))
+    del quant_model, qp, qc
+    for p in paths.values():
+        os.remove(p)
+    lap("serve-mesh: checks")
     if device.type != "cuda":
-        return [], by_path
+        return [], [], by_path
+    torch.cuda.empty_cache()
     timer = Timer(device)
     rows = check_dist_kernels(timer, gen, device, base, batch=batch, seq=seq)
+    lap("dist: kernels at the local shapes")
+    rows_s = check_serve_mesh_kernels(timer, sm_gen, device, cfgs)
     del timer
     torch.cuda.empty_cache()
-    lap("dist: kernels at the local shapes")
-    return rows, by_path
+    lap("serve-mesh: kernels at the local shapes")
+    return rows, rows_s, by_path
+
+
+# ---------------------------------------------------------------------------
+# phase serve-mesh: serving on a device mesh, in phase dist's world
+# ---------------------------------------------------------------------------
+
+# f32 runs on the dist world's ranks, each against the one-process engine
+# on the card, tick for tick: name: (mesh shape (data, model), model,
+# paged, exec_mode). "llama" is phase dist's llama_7b init (full width,
+# DIST_LAYERS layers, B ~ U(±1)); "qwen" qwen2_5_32b at full width on
+# SERVE_MESH_QWEN_LAYERS layers (GQA: 40 q heads on 8 kv heads, hd 128,
+# its qkv bias drawn from the seed); "quant" the llama one calibrated
+SERVE_MESH_RUNS = {
+    "paged fused, model 2": ((1, 2), "llama", True, "fused"),
+    "paged fused, model 4": ((1, 4), "llama", True, "fused"),
+    "paged sparse, model 4": ((1, 4), "llama", True, "sparse"),
+    "contiguous fused, data 2 x model 2": ((2, 2), "llama", False, "fused"),
+    "qwen2.5 paged fused, model 4": ((1, 4), "qwen", True, "fused"),
+    "paged quant, model 4": ((1, 4), "quant", True, "quant"),
+}
+SERVE_MESH_QWEN_LAYERS = 2
+# the bf16 run, timed: llama_7b paged fused on (data 1, model 4)
+SERVE_MESH_BF16 = ((1, 4), "llama", True, "fused")
+SERVE_MESH_KW = dict(n_slots=4, max_len=128, block_len=16)
+# the bf16 run's pools at a deployment's size: 8192 blocks of 16 tokens
+# (4 GiB for llama_7b's 2 layers in one process): a rank allocates only
+# its share, its construction's peak asserted below the whole
+SERVE_MESH_BF16_BLOCKS = 8192
+# what a rank's construction may allocate besides its cache shard: its
+# column slices of the island linears and their transients
+SERVE_MESH_BUILD_SLACK = 256 * 2**20
+SERVE_MESH_TOKENS = 16
+# the kernels each run must launch (summed over its ranks)
+SERVE_MESH_KERNELS = {"fused": ("sl_matmul", "paged_attention",
+                                "paged_prefill"),
+                      "sparse": ("sparse_matmul", "paged_attention",
+                                 "paged_prefill"),
+                      "quant": ("quant_sparse_matmul", "paged_attention",
+                                "paged_prefill")}
+
+
+def serve_mesh_config(cfg, exec_mode, dtype="float32", n_layers=None):
+    return dataclasses.replace(
+        cfg, dtype=dtype, n_layers=n_layers or cfg.n_layers,
+        param=dataclasses.replace(cfg.param, exec_mode=exec_mode))
+
+
+def serve_mesh_engine(cfg, params, consts, *, paged, exec_mode, device,
+                      mesh=None, lockstep=None, n_blocks=0):
+    """One engine run of ``traffic`` (8 requests, SERVE_MESH_TOKENS new
+    tokens each) on SERVE_MESH_KW (``n_blocks`` paged blocks, 0: enough
+    for the slots): the paged cache through ``run_stream`` with prefix
+    sharing and the paged kernels, the contiguous one drained token by
+    token. With ``lockstep`` each dispatch's sampled tokens go through it
+    (the ranks' all-gather and check). Returns the requests (uid, tokens,
+    admit, first, done ticks), the wall seconds, each dispatch's (phase,
+    tokens' shape, kernel launches), the cache's bytes on this rank and,
+    on the card, the peak device memory its construction allocated."""
+    from repro_torch.serve.engine import ServeEngine
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    eng = ServeEngine(cfg, params, consts, paged=paged, exec_mode=exec_mode,
+                      attn_kernel="paged" if paged else None,
+                      prefix_sharing=paged, mesh=mesh, device=device,
+                      n_blocks=n_blocks, **SERVE_MESH_KW)
+    build_peak = torch.cuda.max_memory_allocated() - before if cuda else 0
+    prompts, arrivals = traffic(cfg.vocab_size)
+    per = []
+
+    def wrap(fn, kind):
+        def run(params, consts, tokens, *a, **k):
+            before = launch_counts()
+            out = fn(params, consts, tokens, *a, **k)
+            if lockstep is not None:
+                lockstep(out[0])
+            per.append((kind, tuple(tokens.shape), {
+                n: c - before[n] for n, c in launch_counts().items()
+                if c != before[n]}))
+            return out
+        return run
+    if paged:
+        eng._prefill_fn = wrap(eng._prefill_fn, "prefill")
+    eng._decode_fn = wrap(eng._decode_fn, "decode")
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if paged:
+        reqs = [eng.submit(p, max_new_tokens=SERVE_MESH_TOKENS,
+                           arrival=int(a)) for p, a in zip(prompts, arrivals)]
+        eng.run_stream()
+    else:
+        reqs = [eng.submit(p, max_new_tokens=SERVE_MESH_TOKENS)
+                for p in prompts]
+        eng.run_until_drained()
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [(r.uid, r.status, len(r.out)) for r in reqs if r.status != "done"
+           or len(r.out) != SERVE_MESH_TOKENS
+           or not all(0 <= t < cfg.vocab_size for t in r.out)]
+    if bad:
+        fail(f"serve-mesh {exec_mode}: requests not completed: {bad}")
+    cache_bytes = sum(t.numel() * t.element_size() for t in
+                      iter_leaves(eng.cache))
+    return {"requests": [(r.uid, r.out, r.t_admit, r.t_first, r.t_done)
+                         for r in reqs],
+            "wall": wall, "dispatches": per, "cache_bytes": cache_bytes,
+            "build_peak": build_peak}
+
+
+def iter_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from iter_leaves(v)
+    else:
+        yield tree
+
+
+class LocalShapes:
+    """The attention heads each paged kernel call sees and the output
+    width of each ``sl_matmul`` call while active (wrapping the
+    ``kernels.ops`` functions; the kernel wrappers and their counts are
+    untouched)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.heads, self.widths = [], []
+        self._orig = (ops.paged_attention, ops.paged_prefill_attention,
+                      ops.sl_matmul)
+        pa, pp, sl = self._orig
+
+        def rec(fn, q_dim):
+            def run(q, k_pool, *a, **k):
+                self.heads.append((fn is pp, q.shape[q_dim], k_pool.shape[2]))
+                return fn(q, k_pool, *a, **k)
+            return run
+
+        def sl_rec(x, B, A, *a, **k):
+            self.widths.append(A.shape[-1])
+            return sl(x, B, A, *a, **k)
+        ops.paged_attention, ops.paged_prefill_attention, ops.sl_matmul = \
+            rec(pa, 1), rec(pp, 2), sl_rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        (ops.paged_attention, ops.paged_prefill_attention,
+         ops.sl_matmul) = self._orig
+
+
+def serve_mesh_lockstep(mesh):
+    """The check each rank runs on a dispatch's sampled tokens: all-gather
+    them over the mesh and fail unless every rank sampled the same."""
+    from repro_torch.dist import compat
+    group = mesh.group(mesh.axis_names)
+
+    def check(nxt):
+        t = nxt.reshape(-1).to(torch.int32).contiguous()
+        out = torch.empty(mesh.size * t.numel(), dtype=t.dtype,
+                          device=t.device)
+        compat.all_gather_into_tensor(out, t, group)
+        if not bool((out.view(mesh.size, -1) == t[None]).all()):
+            raise RuntimeError(f"serve-mesh: the ranks sampled different "
+                               f"tokens: {out.view(mesh.size, -1).tolist()}")
+    return check
+
+
+def serve_mesh_rank_runs(rank, paths, cfgs, device):
+    """The serve-mesh runs on one rank of phase dist's world (ranks
+    outside a smaller mesh wait at the barrier): each of SERVE_MESH_RUNS
+    in f32, the quant run last (its calibration is written by the parent
+    while the world trains), then SERVE_MESH_BF16 in bf16, timed, with
+    its per-dispatch launches, the heads each paged kernel call saw and
+    the widths of the sl_matmul calls."""
+    import torch.distributed as dist
+    from repro_torch.dist import compat
+    from repro_torch.models.common import tree_map
+    device = torch.device(device)
+    out = {}
+
+    def load(key):
+        path = paths[key]
+        deadline = time.monotonic() + 600
+        while not os.path.exists(path):
+            if os.path.exists(path + ".failed") or \
+                    time.monotonic() > deadline:
+                raise RuntimeError(f"serve-mesh: {path} was not written")
+            time.sleep(0.5)
+        tree = torch.load(path, mmap=True)
+        return [tree_map(lambda t: t.to(device), tree[k])
+                for k in ("params", "consts")]
+    cache, meshes = {}, {}
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = compat.make_mesh(shape, ("data", "model"),
+                                             ranks=range(int(np.prod(shape))))
+        return meshes[shape]
+    for name, (shape, model, paged, mode) in sorted(
+            SERVE_MESH_RUNS.items(), key=lambda kv: kv[1][1] == "quant"):
+        mesh = mesh_of(shape)
+        if model not in cache:
+            cache.clear()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            cache[model] = load(model)
+        if mesh.member:
+            if rank == 0:
+                say(f"serve-mesh rank 0: {name}")
+            out[name] = serve_mesh_engine(
+                serve_mesh_config(cfgs[model], mode), *cache[model],
+                paged=paged, exec_mode=mode, device=device, mesh=mesh,
+                lockstep=serve_mesh_lockstep(mesh))
+        dist.barrier()
+    cache.clear()
+    shape, model, paged, mode = SERVE_MESH_BF16
+    params, consts = load(model)
+    params = tree_map(lambda t: t.to(torch.bfloat16), params)
+    mesh = mesh_of(shape)
+    if mesh.member:
+        cfg = serve_mesh_config(cfgs[model], mode, "bfloat16")
+        with LocalShapes() as rec:
+            out["bf16"] = serve_mesh_engine(
+                cfg, params, consts, paged=paged, exec_mode=mode,
+                device=device, mesh=mesh, lockstep=serve_mesh_lockstep(mesh),
+                n_blocks=SERVE_MESH_BF16_BLOCKS)
+        out["bf16"].update(
+            peak=torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else 0, heads=sorted(set(rec.heads)),
+            widths=sorted({w: rec.widths.count(w)
+                           for w in rec.widths}.items()))
+    del params, consts
+    dist.barrier()
+    return out
+
+
+def serve_mesh_init(cfg, device, gen):
+    """``cfg``'s params and consts (fused init, exec_mode fused tile
+    consts) with B ~ U(±1) and every zero bias drawn U(±0.5) from ``gen``,
+    so that the qkv bias is checked."""
+    from repro_torch.models import lm
+    params, consts = lm.init_lm(cfg, seed=0, device=device)
+    randomize_b(params, gen)
+
+    def bias(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                bias(v)
+            elif k == "bias":
+                v.uniform_(-0.5, 0.5, generator=gen)
+    bias(params)
+    return params, consts
+
+
+def serve_mesh_references(model, cfg, params, consts, device):
+    """The one-process engine on the card of each f32 serve-mesh run of
+    ``model`` (its cfg, params and consts): {run name: requests}."""
+    return {name: serve_mesh_engine(
+        serve_mesh_config(cfg, mode), params, consts, paged=paged,
+        exec_mode=mode, device=device)["requests"]
+        for name, (_, m, paged, mode) in SERVE_MESH_RUNS.items()
+        if m == model}
+
+
+def serve_mesh_quant(cfg, params, consts, path, device):
+    """Calibrate phase dist's llama_7b init (``quant.calibrate``, the
+    error fold on the card), write it to ``path`` for the ranks, and
+    serve it in one process: the quant run's reference requests."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.quant import calibrate
+    t0 = time.perf_counter()
+    qcfg = serve_mesh_config(cfg, "quant")
+    qp, qc, st = calibrate.calibrate_model(qcfg, params, consts)
+    say(f"serve-mesh: calibrated {arch(qcfg)} ({st['n_matrices']} matrices) "
+        f"in {time.perf_counter() - t0:.1f} s for the quant run")
+    ref = serve_mesh_engine(qcfg, qp, qc, paged=True, exec_mode="quant",
+                            device=device)["requests"]
+    tmp = path + ".tmp"
+    torch.save({"params": tree_map(lambda t: t.cpu(), qp),
+                "consts": tree_map(lambda t: t.cpu(), qc)}, tmp)
+    os.replace(tmp, path)
+    return ref, (qcfg, qp, qc)
+
+
+def serve_mesh_same(what, got, want, model, device):
+    """A mesh run's requests against the one-process engine's, tick for
+    tick; a token may differ only where the dense logits of ``model``
+    ((cfg, params, consts), loaded on demand) have a top-2 gap below
+    1e-4, and then that request is not compared further. Returns (equal
+    tokens, ties)."""
+    ties, same = [], 0
+    for (uid, a, *ta), (_, b, *tb) in zip(got, want):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                cfg, params, consts = model()
+                prompt = next(p for j, p in enumerate(
+                    traffic(cfg.vocab_size)[0]) if j + 1 == uid)
+                gap = top2_gap(cfg, params, consts, prompt + b[:i], device)
+                if gap >= 1e-4:
+                    fail(f"serve-mesh {what}: request {uid} token {i}: {x} "
+                         f"vs {y} in one process, top-2 gap {gap:.3e} (not "
+                         "a tie)")
+                ties.append((uid, i, gap))
+                break
+            same += 1
+        else:
+            if ta != tb:
+                fail(f"serve-mesh {what}: request {uid} ticks {ta} vs {tb} "
+                     "in one process")
+    return same, ties
+
+
+def serve_mesh_check(results, refs, models, cfgs, device, smi):
+    """The parent's checks of the serve-mesh runs: each f32 run's ranks
+    agree, its tokens equal the one-process engine's tick for tick (a
+    top-2 tie the only excuse), its kernels launched; the bf16 run's
+    ranks agree, each prints its tokens/s, peak and cache bytes (a
+    quarter of one process's pools, asserted) and its launches a
+    dispatch are asserted. Returns the launches by path."""
+    from repro_torch.models import lm
+    by_path = {}
+    cuda = device.type == "cuda"
+    for name, (shape, model, paged, mode) in SERVE_MESH_RUNS.items():
+        size = int(np.prod(shape))
+        mine = [r["serve_mesh"][name] for r in results[:size]]
+        if any(m["requests"] != mine[0]["requests"] for m in mine):
+            fail(f"serve-mesh {name}: the ranks served different requests")
+        same, ties = serve_mesh_same(name, mine[0]["requests"], refs[name],
+                                     models[model], device)
+        launches = {}
+        for m in mine:
+            for _, _, d in m["dispatches"]:
+                for k, n in d.items():
+                    launches[k] = launches.get(k, 0) + n
+        want_k = SERVE_MESH_KERNELS[mode][:None if paged else 1]
+        if cuda and any(not launches.get(k) for k in want_k):
+            fail(f"serve-mesh {name}: launched {launches}, expected {want_k}")
+        path = "serve mesh " + name
+        by_path[path] = {k: launches.get(k, 0) for k in _wrappers()}
+        PATH_KERNELS[path] = want_k
+        total = sum(len(r[1]) for r in refs[name])
+        say(f"serve-mesh {name} (mesh {dict(zip(('data', 'model'), shape))}"
+            f", f32): tokens equal the one-process engine on {same}/{total}"
+            + (f", ties (uid, token, top-2 gap) {ties}" if ties else "")
+            + f", ticks equal; {len(mine[0]['dispatches'])} dispatches, "
+            f"{mine[0]['wall']:.1f} s on rank 0; launches {launches}")
+    shape, model, paged, mode = SERVE_MESH_BF16
+    size = int(np.prod(shape))
+    mine = [r["serve_mesh"]["bf16"] for r in results[:size]]
+    if any(m["requests"] != mine[0]["requests"] for m in mine):
+        fail("serve-mesh bf16: the ranks served different requests")
+    cfg = serve_mesh_config(cfgs[model], mode, "bfloat16")
+    full = lm.init_cache(cfg, SERVE_MESH_KW["n_slots"],
+                         SERVE_MESH_KW["max_len"], paged=True,
+                         block_len=SERVE_MESH_KW["block_len"],
+                         n_blocks=SERVE_MESH_BF16_BLOCKS, device="meta")
+    full_bytes = sum(t.numel() * t.element_size() for t in iter_leaves(full))
+    tokens = sum(len(r[1]) for r in mine[0]["requests"])
+    tp = shape[1]
+    for r, m in enumerate(mine):
+        if m["cache_bytes"] * tp != full_bytes:
+            fail(f"serve-mesh bf16 rank {r}: cache {m['cache_bytes']} bytes, "
+                 f"one process's pools {full_bytes}: not 1/{tp}")
+        if cuda and m["build_peak"] > m["cache_bytes"] + \
+                SERVE_MESH_BUILD_SLACK:
+            fail(f"serve-mesh bf16 rank {r}: its construction's peak "
+                 f"{m['build_peak']} bytes exceeds its cache shard "
+                 f"{m['cache_bytes']} + {SERVE_MESH_BUILD_SLACK} (one "
+                 f"process's pools {full_bytes})")
+        say(f"serve-mesh bf16 {arch(cfg)} paged fused, rank {r} of {size} "
+            f"ranks sharing one card over gloo through host memory (not "
+            f"NCCL, not a multi-card figure; {smi}): {tokens / m['wall']:.1f} "
+            f"tokens/s ({tokens} tokens in {m['wall']:.2f} s, each "
+            f"dispatch's tokens all-gathered for the lockstep check), peak "
+            f"max_memory_allocated {m['peak'] / 2**30:.2f} GiB, cache "
+            f"{m['cache_bytes'] / 2**20:.2f} MiB (one process's pools "
+            f"{full_bytes / 2**20:.2f} MiB, {SERVE_MESH_BF16_BLOCKS} blocks), "
+            f"the construction's peak {m['build_peak'] / 2**20:.2f} MiB")
+    L = cfg.n_layers
+    local = cfg.n_heads // tp
+    want_heads = [(False, local, cfg.n_kv_heads // tp),
+                  (True, local, cfg.n_kv_heads // tp)]
+    island = 4 * L          # wq, wk, wv, wo at d_model/TP columns
+    whole = 3 * L           # gate, up (d_ff % (TP·128) != 0) and down
+    launches = {}
+    for r, m in enumerate(mine):
+        if m["heads"] != want_heads:
+            fail(f"serve-mesh bf16 rank {r}: paged kernel calls on (prefill, "
+                 f"q heads, kv heads) {m['heads']}, expected {want_heads}")
+        widths = dict(m["widths"])
+        per = {w: n // len(m["dispatches"]) for w, n in widths.items()}
+        if per != {cfg.d_model // tp: island, cfg.d_ff: 2 * L,
+                   cfg.d_model: L}:
+            fail(f"serve-mesh bf16 rank {r}: sl_matmul widths a dispatch "
+                 f"{per}")
+        for kind, shp, d in m["dispatches"]:
+            want = {"sl_matmul": island + whole,
+                    "paged_attention" if kind == "decode" else
+                    "paged_prefill": L}
+            if cuda and d != want:
+                fail(f"serve-mesh bf16 rank {r}: a {kind} dispatch of "
+                     f"{shp} launched {d}, expected {want}")
+            for k, n in d.items():
+                launches[k] = launches.get(k, 0) + n
+    path = "serve mesh bf16 paged fused, model 4"
+    by_path[path] = {k: launches.get(k, 0) for k in _wrappers()}
+    PATH_KERNELS[path] = SERVE_MESH_KERNELS["fused"]
+    say(f"serve-mesh bf16: every rank's dispatches launched one "
+        f"paged_attention a layer at decode and one paged_prefill a layer at "
+        f"prefill on {local} q heads over {cfg.n_kv_heads // tp} kv heads, "
+        f"{island + whole} sl_matmul a dispatch ({island} on the rank's "
+        f"{cfg.d_model // tp} columns); summed over ranks {launches}")
+    return by_path
+
+
+def local_tiles(t, tp):
+    """Rank 0's column tiles of a tile array (nkt, nnt, cap) at TP
+    ``tp``."""
+    return t[:, :t.shape[1] // tp].contiguous()
+
+
+def time_sparse_local(timer, label, x, sp, qp, d_out, nnz):
+    """sparse_matmul (f32 y) and quant_sparse_matmul on a rank's column
+    tiles: each against its plain version and its own rerun bit for bit,
+    timed beside the plain version, the library call on the pre-densified
+    S and its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_decode as spk
+    rows = []
+    dtype = x.dtype
+    for name, fn, plain, args, out, dense in (
+            ("sparse_matmul", spk.sparse_matmul, ref.sparse_matmul_ref, sp,
+             [torch.float32], ref._tile_dense(*sp)),
+            ("quant_sparse_matmul", spk.quant_sparse_matmul,
+             ref.quant_sparse_matmul_ref, qp, [],
+             ref._tile_dense(*qp[:3]) * qp[3].reshape(1, -1))):
+        lbl = label + (" f32 out" if out and dtype != torch.float32 else "")
+        got = fn(x, *args, d_out, *out)
+        want = plain(x, *args, d_out, *out)
+        torch.cuda.synchronize()
+        err = compare(f"{name} {lbl}", got, want, got.dtype)
+        if not torch.equal(got, fn(x, *args, d_out, *out)):
+            fail(f"{name} {lbl}: a rerun on the same inputs gave other bits")
+        S = dense[:x.shape[1], :d_out].to(dtype).contiguous()
+        lib, lib_name = matmul_call(x, S, *out)
+        t_k = timer.ms(lambda: fn(x, *args, d_out, *out))
+        t_p = timer.ms(lambda: plain(x, *args, d_out, *out))
+        t_l = timer.ms(lib)
+        moved = nbytes(x, got, *args[3:]) + support_bytes(nnz, *args[:3])
+        b, by = bound_ms(moved, 2.0 * x.shape[0] * nnz, dtype)
+        rows.append(dict(name=name, shape=lbl, max_abs_err=err,
+                         tol=TOL[got.dtype], ms=t_k, plain_ms=t_p,
+                         library_ms=t_l, bound_ms=b, bound_by=by))
+        say(f"kernel {name} {lbl}: max_abs_err {err:.3e} | kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, {lib_name} on dense S "
+            f"{t_l:.4f} ms, bound {b:.4f} ms ({by})")
+    return rows
+
+
+# the decode linears on rank 0's column tiles: (label, d_in, full d_out,
+# TP, model config key)
+SERVE_MESH_LINEARS = (
+    ("llama_7b wq..wo TP 4", 4096, 4096, 4, "llama"),
+    ("llama_7b wq..wo TP 2", 4096, 4096, 2, "llama"),
+    ("llama_7b gate/up TP 2", 4096, 11008, 2, "llama"),
+    ("qwen2.5 wq/wo TP 4", 5120, 5120, 4, "qwen"))
+# the paged kernels on a rank's heads: (label, kv heads, group)
+SERVE_MESH_HEADS = (("llama_7b TP 2, 16 local heads", 16, 1),
+                    ("llama_7b TP 4, 8 local heads", 8, 1),
+                    ("qwen2.5 TP 4, 2 local kv heads, group 5", 2, 5))
+
+
+def check_serve_mesh_kernels(timer, gen, device, cfgs):
+    """B1, B6 and B7 at decode (the engine's 4 slots) on rank 0's column
+    tiles of each of SERVE_MESH_LINEARS, and B4 and B5 (sq 32, the
+    traffic's largest prefill bucket) on each of SERVE_MESH_HEADS (hd
+    128), in bf16 and f32, against their plain versions, timed beside
+    their bounds and library calls."""
+    rows = []
+    m = SERVE_MESH_KW["n_slots"]
+    for label, d_in, d_out, tp, key in SERVE_MESH_LINEARS:
+        pc = cfgs[key].param
+        dl = d_out // tp
+        sp, qp, _ = sparse_decode_case(gen, device, d_in, d_out, pc.delta,
+                                       seed=d_in * 7 + d_out)
+        sp = [local_tiles(t, tp) for t in sp]
+        qp = [local_tiles(t, tp) for t in qp[:3]] + [
+            qp[3][:qp[3].shape[0] // tp].contiguous()]
+        nnz = int((sp[0] != 0).sum())
+        for dtype in DTYPES:
+            x, B, A, v_t, rt, ct, scale = sl_case(
+                gen, device, d_in, d_out, m, dtype, pc.rank, pc.delta,
+                pc.alpha, seed=d_in * 7 + d_out)
+            args = (x, B, A[:, :dl].contiguous(), local_tiles(v_t, tp),
+                    local_tiles(rt, tp), local_tiles(ct, tp), scale)
+            tag = f"{m}x{d_in}->{dl} {dname(dtype)} serve mesh {label}"
+            rows.append(time_sl_matmul(timer, tag, args, dtype))
+            rows += time_sparse_local(timer, tag, x, sp, qp, dl, nnz)
+            del x, B, A, v_t, rt, ct, args
+    bl, bps = SERVE_MESH_KW["block_len"], SERVE_MESH_KW["max_len"] // 16
+    hd = 128
+    positions = [40 + 9 * s for s in range(m - 1)] + [-1]
+    offsets = [16 * (s % 2) for s in range(m - 1)] + [0]
+    for label, n_kv, group in SERVE_MESH_HEADS:
+        label = f"serve mesh {label}, hd {hd}"
+        kw = dict(scale=hd ** -0.5, softcap=0.0, window=0)
+        for dtype in DTYPES:
+            kp, vp, tbl, pos = attn_case(
+                gen, device, dtype, n_slots=m, n_kv=n_kv, group=group, hd=hd,
+                block_len=bl, bps=bps, positions=positions)
+            q = torch.randn((m, n_kv, group, hd), generator=gen,
+                            device=device).to(dtype)
+            rows.append(decode_row(timer, label, q, kp, vp, tbl, pos, kw))
+            rows.append(check_prefill(timer, gen, device, dtype, label, n_kv,
+                                      group, hd, bl, bps, 32, offsets,
+                                      positions, kw))
+            del kp, vp
+    return rows
+
+
+def representatives_serve_mesh():
+    tag = "4x4096->1024 bfloat16 serve mesh llama_7b wq..wo TP 4"
+    heads = "serve mesh llama_7b TP 4, 8 local heads, hd 128"
+    return {"sl_matmul": tag, "sparse_matmul": tag + " f32 out",
+            "quant_sparse_matmul": tag,
+            "paged_attention": f"{heads} bfloat16",
+            "paged_prefill": f"sq=32 {heads} bfloat16"}
 
 
 def main() -> int:
@@ -6350,8 +6997,10 @@ def main() -> int:
 
 
 def run() -> int:
-    from repro_torch.configs import llama_1b
+    from repro_torch.configs import llama_1b, llama_7b
+    from repro_torch.core import support
     from repro_torch.kernels import build
+    from repro_torch.models import lm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6367,9 +7016,18 @@ def run() -> int:
 
     lap = Laps()
     t0 = time.perf_counter()
+    # the llama_1b and llama_7b phases init at full depth: their supports
+    # are sampled while nvcc builds and the first phases run
+    ahead = {c.name: support.sample_ahead(lm.support_specs(
+        dataclasses.replace(c, param=dataclasses.replace(
+            c.param, exec_mode="fused"))), workers)
+        for c, workers in ((llama_1b.CONFIG, AHEAD_1B_WORKERS),
+                           (llama_7b.CONFIG, AHEAD_7B_WORKERS))}
     build.build()
     say(f"build: {len(build.SOURCES)} kernels with nvcc in "
-        f"{time.perf_counter() - t0:.1f} s (parallel, sm_90a)")
+        f"{time.perf_counter() - t0:.1f} s (parallel, sm_90a; the supports "
+        f"of llama_1b and llama_7b sampled beside it by {AHEAD_1B_WORKERS} "
+        f"and {AHEAD_7B_WORKERS} workers)")
     for lib in build.SOURCES:
         for line in ptxas_report(build.build_log(lib)):
             say(f"  ptxas {lib}: {line}")
@@ -6406,6 +7064,7 @@ def run() -> int:
     torch.cuda.empty_cache()
     lap("build and llama_1b kernels")
 
+    ahead[cfg.name]()
     by_path = run_serving(dataclasses.replace(cfg, n_layers=SERVE_LAYERS),
                           device, gen, n_slots, block_len, max_len,
                           buckets, m_values)
@@ -6463,9 +7122,23 @@ def run() -> int:
     phase_memory_table(cfg, device, smi, batch=batch, seq=seq,
                        sltrain_rows=sltrain_rows)
     lap("llama_1b bf16 training and memory table")
-    by_path.update(phase_chaos(device))
-    torch.cuda.empty_cache()
-    lap("chaos drills and profiler (llama_60m)")
+
+    def beside():
+        # the chaos drills and the comparison while the dist world runs:
+        # their gates are exact (bit-identical relaunches, counted faults,
+        # the comparison's losses), and they time no kernel
+        sub = Laps()
+        out = phase_chaos(device)
+        torch.cuda.empty_cache()
+        sub("chaos drills and profiler (llama_60m), beside the ranks")
+        phase_comparison(device)
+        sub("Table 2 comparison, beside the ranks")
+        return out
+    rows_d, rows_s, by_path_d = run_dist(device, smi, batch=batch, seq=seq,
+                                         beside=beside)
+    by_path.update(by_path_d)
+    lap("dist and serve-mesh: llama_7b and qwen2.5 on meshes of ranks "
+        "sharing the card, the chaos drills and the comparison beside them")
     recipe_cfg = dataclasses.replace(cfg16, n_layers=RECIPE_LAYERS)
     by_path["recipe_llama_1b"], recipe_ckpt, _, _ = phase_recipe(
         recipe_cfg, device, smi, batch=batch, seq=seq)
@@ -6477,9 +7150,8 @@ def run() -> int:
     by_path["recipe_llama_60m"] = phase_recipe_default(device)
     torch.cuda.empty_cache()
     lap("quant recipe and fallback")
-    phase_comparison(device)
-    lap("Table 2 comparison")
 
+    ahead[llama_7b.CONFIG.name]()
     rows_7b, by_path_7b = run_7b(device, smi, batch=batch, seq=seq,
                                  n_slots=n_slots, block_len=block_len,
                                  max_len=max_len, buckets=buckets,
@@ -6502,11 +7174,7 @@ def run() -> int:
         block_len=block_len, max_len=max_len)
     by_path.update(by_path_h)
     lap("zamba2_7b, xlstm_350m and whisper_large_v3 phases")
-    rows_d, by_path_d = run_dist(device, smi, batch=batch, seq=seq)
-    by_path.update(by_path_d)
-    lap("dist: llama_7b on meshes of ranks sharing the card")
 
-    from repro_torch.configs import llama_7b
     rows = sl_rows + at_rows + tr_rows + ad_rows + sp_rows + st_rows
     line = kernels_line(
         rows, by_path,
@@ -6516,7 +7184,8 @@ def run() -> int:
         rows_g, representatives_families(rows_g, n_slots, batch * seq,
                                          buckets[-1]),
         rows_m, representative_m, rows_h, representative_h, rows_d,
-        representatives_dist(batch, seq, llama_7b.CONFIG))
+        representatives_dist(batch, seq, llama_7b.CONFIG), rows_s,
+        representatives_serve_mesh())
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -268,8 +268,16 @@ class _DenseCOO(torch.autograd.Function):
 def sl_matmul(x, params, consts, scale: float, exec_mode: str = "dense"):
     """Apply one SLTrain linear, differentiable in x and the params.
     params = {B, A, v}; consts = {cols[, rows][, rows_t, cols_t, perm,
-    rows_tT, cols_tT][, qv_t, rows_q, cols_q, qscale]}. Mode "quant" is
+    rows_tT, cols_tT][, qv_t, rows_q, cols_q, qscale]}, or on a serving
+    mesh {tp: this rank's column tiles} (its output columns all-gathered)
+    or {tp_heads: ...} (its columns kept local: ``kernels.ops.
+    serving_columns``). Mode "quant" and a rank's column slice are
     forward-only."""
+    tiles = consts.get("tp", consts.get("tp_heads"))
+    if tiles is not None:
+        from repro_torch.kernels import ops
+        return ops.sl_linear_columns(x, params["B"], params["A"], tiles,
+                                     scale, exec_mode, gather="tp" in consts)
     if exec_mode in ("sparse", "quant"):
         return _decode(x, params, consts, scale, exec_mode)
     if exec_mode == "fused":

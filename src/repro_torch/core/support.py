@@ -276,6 +276,41 @@ def _sample(specs: list, workers: int) -> list:
                                  range(len(specs))))
 
 
+def sample_ahead(specs: Sequence[tuple], workers: int):
+    """Start sampling ``specs`` in a background thread (``workers``
+    processes, as :func:`sample_supports` runs them) while the caller
+    goes on; returns ``keep``, which waits for the thread, raises what it
+    raised, and inside :func:`keep_supports` keeps what it sampled, so the
+    inits that then ask for those specs copy them: the same bits, since a
+    support depends on its spec alone. For a program whose host has idle
+    cores before a large init; the thread never touches what
+    ``keep_supports`` holds, and is no daemon: a program that ends before
+    ``keep`` waits for it, so its workers and their files end with it."""
+    import threading
+    todo = list(dict.fromkeys(tuple(s) for s in specs))
+    if _KEPT is not None:
+        todo = [s for s in todo if s not in _KEPT]
+    box = {}
+
+    def work():
+        try:
+            box["out"] = _sample(todo, workers)
+        except BaseException as e:            # re-raised by keep()
+            box["err"] = e
+    th = threading.Thread(target=work)
+    th.start()
+
+    def keep() -> None:
+        th.join()
+        if "err" in box:
+            raise box["err"]
+        if _KEPT is not None:
+            for spec, res in zip(todo, box["out"]):
+                if spec not in _KEPT:
+                    _keep(spec, res)
+    return keep
+
+
 # What ``sample_supports`` sampled inside ``keep_supports``, by spec,
 # oldest first, and the bytes it holds; None outside it.
 _KEPT: Optional["collections.OrderedDict"] = None

@@ -37,6 +37,7 @@ a value, and the port has no partitioner to hint.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 from typing import Optional, Sequence, Tuple
 
@@ -189,12 +190,20 @@ def ambient_mesh():
     return _AMBIENT[-1][0] if _AMBIENT else None
 
 
+def serving_layout():
+    """The :class:`ServingLayout` of the innermost :func:`use_mesh`, or
+    None (no mesh, or a mesh that is not serving)."""
+    return _AMBIENT[-1][2] if _AMBIENT else None
+
+
 @contextlib.contextmanager
-def use_mesh(mesh, *, global_batch: Optional[int] = None):
+def use_mesh(mesh, *, global_batch: Optional[int] = None, layout=None):
     """Make ``mesh`` ambient (read by the linears' islands) for the
     block; the port's ``with mesh:``. ``global_batch`` is the batch the
-    step's ranks share (None: one that divides over the batch ranks)."""
-    _AMBIENT.append((mesh, global_batch))
+    step's ranks share (None: one that divides over the batch ranks);
+    ``layout`` a serving mesh's :class:`ServingLayout`, read by the
+    model's cached forward."""
+    _AMBIENT.append((mesh, global_batch, layout))
     try:
         yield mesh
     finally:
@@ -215,19 +224,28 @@ def island_mesh(x, d_out: int, *, nnt: Optional[int] = None):
     dense mode at least 3 dims."""
     if not _AMBIENT:
         return None
-    mesh, global_batch = _AMBIENT[-1]
-    bt = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
-    nb = axis_size(mesh, bt)
-    nm = mesh.shape.get(MODEL_AXIS, 1) if MODEL_AXIS in mesh.axis_names \
-        else 1
+    mesh, global_batch, _ = _AMBIENT[-1]
+    nb = axis_size(mesh, BATCH_AXES)
     batch = x.shape[0] * nb if global_batch is None else global_batch
-    if (x.dim() < 3 or (nnt is not None and x.dim() != 3)
-            or x.shape[-1] > d_out or not bt or batch % nb
+    if x.dim() < 3 or (nnt is not None and x.dim() != 3):
+        return None
+    return mesh if island_engages(mesh, x.shape[-1], d_out, batch,
+                                  nnt=nnt) else None
+
+
+def island_engages(mesh, d_in: int, d_out: int, batch: int, *,
+                   nnt: Optional[int] = None) -> bool:
+    """:func:`island_mesh`'s conditions on the shapes alone: a batch axis
+    whose ranks divide the global ``batch``, a model axis of more than
+    one rank dividing ``d_out``, ``d_in <= d_out``, and for a tiled mode
+    (``nnt`` column tiles) ``d_out % (TP·128) == 0`` and ``nnt % TP ==
+    0``."""
+    bt = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
+    nm = mesh.shape[MODEL_AXIS] if MODEL_AXIS in mesh.axis_names else 1
+    if (d_in > d_out or not bt or batch % axis_size(mesh, bt)
             or nm <= 1 or d_out % nm):
-        return None
-    if nnt is not None and (d_out % (nm * 128) or nnt % nm):
-        return None
-    return mesh
+        return False
+    return nnt is None or not (d_out % (nm * 128) or nnt % nm)
 
 
 def axis_size(mesh, names) -> int:
@@ -617,6 +635,102 @@ def named_shardings(mesh, spec_tree):
     """A spec tree as :class:`NamedSharding` leaves."""
     return _map(lambda _, s: NamedSharding(mesh, s), spec_tree) \
         if isinstance(spec_tree, dict) else NamedSharding(mesh, spec_tree)
+
+
+# ---------------------------------------------------------------------------
+# Serving on a mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ServingLayout:
+    """What one rank of a serving mesh holds, decided once by
+    :func:`serving_state` and read under :func:`use_mesh` by the model's
+    cached forward: ``heads`` (m, TP) where the KV cache holds this
+    rank's share m of TP of the kv heads (attention then takes the same
+    share of the q heads: whole GQA groups), None where it holds every
+    head; ``slots`` this rank's slice of a contiguous cache's slots where
+    the batch axes ``slot_axes`` split them, None where every rank holds
+    every slot."""
+    mesh: object
+    heads: Optional[Tuple[int, int]] = None
+    slots: Optional[slice] = None
+    slot_axes: Optional[tuple] = None
+
+    def head_range(self, n: int) -> slice:
+        """This rank's contiguous range of ``n`` heads."""
+        m, tp = self.heads
+        return slice(m * n // tp, (m + 1) * n // tp)
+
+
+# the attention projections whose columns are its heads
+_HEAD_PROJECTIONS = ("wq", "wk", "wv")
+
+
+def serving_state(params, consts, cache, mesh, *, exec_mode, n_slots: int,
+                  paged: bool, attn_kernel: str, seq_sharded: bool = False,
+                  device=None):
+    """One rank's serving state, built once: (params, consts, cache,
+    :class:`ServingLayout`). ``cache`` is the engine's zero cache on the
+    meta device; the rank allocates only its shard of :func:`cache_specs`
+    (kv heads over the model axis; a contiguous cache's slots over the
+    batch axes too) on ``device``, which the attention kernels read and
+    the engine's writes update in place. In exec_mode fused, sparse and
+    quant every SLTrain linear whose island engages
+    (:func:`island_engages` at the global batch ``n_slots``) is held as
+    this rank's column slice (``kernels.ops.serving_columns``); where
+    the cache shards the heads, the q/k/v projections keep their columns,
+    which are this rank's heads, local. Every other leaf is held whole. A
+    dispatch then moves activations only: the all-gathers of the other
+    linears' output columns, of the attention heads and, on a contiguous
+    cache split over the batch axes, of the logits. A seq-sharded cache is
+    refused: the paged kernels' with :func:`cache_specs`'s ``ValueError``,
+    as the reference refuses it, any other with ``NotImplementedError``."""
+    specs = cache_specs(cache, mesh, paged=paged, attn_kernel=attn_kernel,
+                        seq_sharded=seq_sharded)
+    if seq_sharded:
+        raise NotImplementedError(
+            "a seq-sharded KV cache on a serving mesh is not ported yet "
+            "(ROADMAP queue A item 10b)")
+    cache = _zip_map(lambda t, s: torch.zeros(
+        [sl.stop - sl.start for sl in shard_slices(t.shape, s, mesh)],
+        dtype=t.dtype, device=device), cache, specs)
+    leaf, spec = cache, specs
+    while isinstance(leaf, dict):
+        key = next(iter(leaf))
+        leaf, spec = leaf[key], spec[key]
+    lay = {}
+    if axis_size(mesh, spec[-2]) > 1:
+        lay["heads"] = (mesh.coords[MODEL_AXIS], mesh.shape[MODEL_AXIS])
+    if not paged and axis_size(mesh, spec[-4]) > 1:
+        lay["slots"] = shard_slices((n_slots,), (spec[-4],), mesh)[0]
+        lay["slot_axes"] = spec[-4]
+    layout = ServingLayout(mesh, **lay)
+    if exec_mode in ("fused", "sparse", "quant"):
+        from repro_torch.kernels import ops
+
+        def walk(p, c, name):
+            if {"B", "A", "v"} <= set(p):
+                return ops.serving_columns(
+                    p, c, mesh, exec_mode, n_slots,
+                    local=layout.heads is not None
+                    and name in _HEAD_PROJECTIONS)
+            out_p, out_c = {}, dict(c)
+            for k, v in p.items():
+                if isinstance(v, dict):
+                    out_p[k], sub = walk(v, c.get(k, {}), k)
+                    if sub:
+                        out_c[k] = sub
+                else:
+                    out_p[k] = v
+            return out_p, out_c
+        params, consts = walk(params, consts, None)
+    return params, consts, cache, layout
+
+
+def gather_last(t, mesh, axes=(MODEL_AXIS,)):
+    """(..., G·n) from each rank's (..., n) over ``axes``, in their order:
+    a linear's output columns, or the attention heads."""
+    return gather_leaf(t, (None,) * (t.dim() - 1) + (tuple(axes),), mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -205,31 +205,69 @@ def sl_linear(x, B, A, v, rows_t, cols_t, perm, scale: float, *,
 
 class _Local:
     """One rank's column slice of a tiled linear on a mesh whose model
-    axis has TP ranks: its d_out columns ``cols`` of A, its column tiles
-    of the tile consts (nkt, nnt/TP, cap) and of Wᵀ's (nnt/TP, nkt, cap).
-    Tile-CSR indices are local to their 128×128 tile, so the sliced consts
-    address this rank's columns with no index arithmetic; ``perm`` still
-    indexes the whole flat ``v``, which every rank holds in full."""
+    axis has TP ranks: its d_out columns ``cols`` of A and, in ``t``, its
+    column tiles of the tile consts (..., nkt, nnt/TP, cap) and of Wᵀ's
+    (..., nnt/TP, nkt, cap), any leading dims a layer stack's. Tile-CSR
+    indices are local to their 128×128 tile, so the sliced consts address
+    this rank's columns with no index arithmetic; ``perm`` still indexes
+    the whole flat ``v``, which every rank holds in full. A training
+    island cuts one for each call (:func:`_tp_local`); a serving mesh cuts
+    one at engine construction (:func:`serving_columns`), with the tiles'
+    values already gathered (``v_t``) or quant's int8 tiles, and rebuilds
+    the holder around them in each dispatch (:func:`sl_linear_columns`).
+    :meth:`forward` is the one forward of both."""
 
-    def __init__(self, mesh, A, rows_t, cols_t, perm, rows_tT, cols_tT):
-        tp = mesh.shape["model"]
-        m = mesh.coords["model"]
-        nl = rows_t.shape[1] // tp
-        dl = A.shape[-1] // tp
-        self.mesh, self.d_out = mesh, A.shape[-1]
+    def __init__(self, mesh, A, tiles):
+        """A holder of this rank's slice: A's columns and the tiles
+        (cut by :meth:`cut`)."""
+        dl, m = A.shape[-1], mesh.coords["model"]
+        self.mesh, self.A, self.t = mesh, A, tiles
+        self.d_out = dl * mesh.shape["model"]
         self.cols = slice(m * dl, (m + 1) * dl)
+
+    @classmethod
+    def cut(cls, mesh, A, consts, keys, v=None):
+        """This rank's slice of the full ``A`` and of ``consts``' tile
+        leaves ``keys`` (and Wᵀ's ``rows_tT``/``cols_tT`` where present);
+        with ``v``, the f32 values of this rank's tiles gathered from the
+        whole ``v`` through its ``perm`` tiles, which then are dropped."""
+        tp, m = mesh.shape["model"], mesh.coords["model"]
+        nl = consts[keys[0]].shape[-2] // tp
+        dl = A.shape[-1] // tp
         tiles = slice(m * nl, (m + 1) * nl)
-        self.A = A[:, self.cols].contiguous()
-        self.rows_t = rows_t[:, tiles].contiguous()
-        self.cols_t = cols_t[:, tiles].contiguous()
-        self.perm = perm[:, tiles].contiguous()
-        self.rows_tT = None if rows_tT is None else rows_tT[tiles]
-        self.cols_tT = None if cols_tT is None else cols_tT[tiles]
+        t = {k: consts[k][..., tiles, :].contiguous() for k in keys}
+        for k in ("rows_tT", "cols_tT"):
+            if consts.get(k) is not None:
+                t[k] = consts[k][..., tiles, :, :].contiguous()
+        if v is not None:
+            perm = t.pop("perm")
+            n = int(np.prod(perm.shape[:-3]))
+            t["v_t"] = _gather_tiles_grouped(
+                v.reshape(n, -1), perm.reshape(n, *perm.shape[-3:])).reshape(
+                perm.shape)
+        return cls(mesh, A[..., m * dl:(m + 1) * dl].contiguous(), t)
+
+    def forward(self, x, B, scale: float, exec_mode: str, v_t=None,
+                gather: bool = True):
+        """y = x @ W on this rank's columns: exec_mode fused runs
+        ``sl_matmul``, sparse the factored decode (``sparse_matmul``),
+        quant its int8 form (``quant_sparse_matmul``); ``v_t`` the tile
+        values where the slice does not hold them. Then the output
+        columns are all-gathered, unless ``gather`` is False (the caller
+        reads this rank's columns alone)."""
+        t = self.t
+        if exec_mode == "quant":
+            y = sl_quant_decode(x, B, self.A, *(t[k] for k in _QUANT_TILES),
+                                scale)
+        else:
+            v_t = t["v_t"] if v_t is None else v_t
+            fn = sl_decode if exec_mode == "sparse" else sl_matmul
+            y = fn(x, B, self.A, v_t, t["rows_t"], t["cols_t"], scale)
+        return self.gather_out(y) if gather else y
 
     def gather_out(self, y):
         """(..., d_out) from each rank's (..., d_out/TP) columns."""
-        return dist_sharding.gather_leaf(
-            y, (None,) * (y.dim() - 1) + (("model",),), self.mesh)
+        return dist_sharding.gather_last(y, self.mesh)
 
     def psum(self, t):
         """f32 ``t`` summed over the model ranks (in place)."""
@@ -249,7 +287,7 @@ class _Local:
         """The flat ``v``'s gradient from this rank's tile grads, summed
         over the model ranks (each holds the support entries of its own
         columns)."""
-        dv = _scatter_tiles(dv_t, self.perm, v.numel())
+        dv = _scatter_tiles(dv_t, self.t["perm"], v.numel())
         return self.psum(dv).reshape(v.shape).to(v.dtype)
 
 
@@ -280,16 +318,15 @@ class _SLLinearTP(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, B, A, v, loc, scale):
-        v_t = _gather_tiles(v, loc.perm)
+        v_t = _gather_tiles(v, loc.t["perm"])
         ctx.save_for_backward(x, B, v, v_t)
         ctx.loc, ctx.scale = loc, scale
-        return loc.gather_out(sl_matmul(x, B, loc.A, v_t, loc.rows_t,
-                                        loc.cols_t, scale))
+        return loc.forward(x, B, scale, "fused", v_t)
 
     @staticmethod
     def backward(ctx, dy):
         x, B, v, v_t = ctx.saved_tensors
-        _need_transposed_tiles(ctx.loc.rows_tT, "sl_linear")
+        _need_transposed_tiles(ctx.loc.t.get("rows_tT"), "sl_linear")
         dx, dB, dA, dv = _fused_grads_dist(x, B, v, v_t, ctx.scale, dy,
                                            ctx.loc)
         return dx, dB, dA, dv, None, None
@@ -304,9 +341,10 @@ def _fused_grads_dist(x, B, v, v_t, scale: float, dy, loc: _Local):
     xf = x.reshape(-1, x.shape[-1])
     dyf = _tp_dy(dy, x, loc)
     dB, dA, _ = _tp_lowrank_grads(xf, dyf, B, loc.A, scale, loc)
-    dv_t = sddmm(xf, dyf, loc.rows_t, loc.cols_t)
+    t = loc.t
+    dv_t = sddmm(xf, dyf, t["rows_t"], t["cols_t"])
     dx = sl_matmul(dyf, loc.A.T.contiguous(), B.T.contiguous(),
-                   transpose_tiles(v_t), loc.rows_tT, loc.cols_tT, scale)
+                   transpose_tiles(v_t), t["rows_tT"], t["cols_tT"], scale)
     dx = loc.psum(dx.float()).to(x.dtype).reshape(x.shape)
     return dx, dB, loc.full_dA(dA), loc.dv(dv_t, v)
 
@@ -322,24 +360,24 @@ class _SLSparseTP(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, B, A, v, loc, scale):
-        v_t = _gather_tiles(v, loc.perm)
+        v_t = _gather_tiles(v, loc.t["perm"])
         ctx.save_for_backward(x, B, v, v_t)
         ctx.loc, ctx.scale = loc, scale
-        return loc.gather_out(sl_decode(x, B, loc.A, v_t, loc.rows_t,
-                                        loc.cols_t, scale))
+        return loc.forward(x, B, scale, "sparse", v_t)
 
     @staticmethod
     def backward(ctx, dy):
         x, B, v, v_t = ctx.saved_tensors
         loc, scale = ctx.loc, ctx.scale
-        _need_transposed_tiles(loc.rows_tT, "the sparse linear's")
+        t = loc.t
+        _need_transposed_tiles(t.get("rows_tT"), "the sparse linear's")
         k = x.shape[-1]
         xf = x.reshape(-1, k)
         dyf = _tp_dy(dy, x, loc)
         dB, dA, dyA = _tp_lowrank_grads(xf, dyf, B, loc.A, scale, loc)
-        dv_t = sddmm(xf, dyf, loc.rows_t, loc.cols_t)
+        dv_t = sddmm(xf, dyf, t["rows_t"], t["cols_t"])
         dx = scale * (dyA @ B.to(torch.float32).T) + sd_kernel.sparse_matmul(
-            dyf, transpose_tiles(v_t), loc.rows_tT, loc.cols_tT, k,
+            dyf, transpose_tiles(v_t), t["rows_tT"], t["cols_tT"], k,
             torch.float32)
         dx = loc.psum(dx).to(x.dtype).reshape(x.shape)
         return dx, dB, loc.full_dA(dA), loc.dv(dv_t, v), None, None
@@ -351,7 +389,65 @@ def _tp_local(x, A, rows_t, cols_t, perm, rows_tT, cols_tT):
     mesh = dist_sharding.island_mesh(x, A.shape[-1], nnt=rows_t.shape[1])
     if mesh is None:
         return None
-    return _Local(mesh, A, rows_t, cols_t, perm, rows_tT, cols_tT)
+    return _Local.cut(mesh, A, {"rows_t": rows_t, "cols_t": cols_t,
+                                "perm": perm, "rows_tT": rows_tT,
+                                "cols_tT": cols_tT}, _TILES)
+
+
+# ---------------------------------------------------------------------------
+# Serving on a mesh: the decode linears on a rank's column tiles
+# ---------------------------------------------------------------------------
+
+_TILES = ("rows_t", "cols_t", "perm")
+_QUANT_TILES = ("qv_t", "rows_q", "cols_q", "qscale")
+
+
+def serving_columns(p, c, mesh, exec_mode: str, batch: int, *,
+                    local: bool = False):
+    """(params, consts) of one SLTrain linear (leaves with any leading
+    stack dims) as a serving mesh's rank holds it, built once at engine
+    construction. Where the island engages
+    (``dist.sharding.island_engages`` at the global ``batch``): B whole,
+    this rank's :class:`_Local` slice (A's columns; exec_mode fused and
+    sparse the f32 values of its column tiles, gathered from the whole
+    ``v`` once, here, and ``rows_t``/``cols_t``; quant the int8 codes,
+    their int16 indices and the tiles' rows of ``qscale``) with its tiles
+    under consts ``"tp"``, or ``"tp_heads"`` where ``local`` (the
+    attention's q/k/v projection on a mesh whose cache shards the heads:
+    its columns are this rank's heads, kept local, the bias cut to them;
+    elsewhere the bias stays whole, added after the all-gather).
+    Elsewhere the leaves as they are."""
+    keys = _QUANT_TILES if exec_mode == "quant" else _TILES
+    if keys[0] not in c:
+        return p, c
+    if not dist_sharding.island_engages(mesh, p["B"].shape[-2],
+                                        p["A"].shape[-1], batch,
+                                        nnt=c[keys[0]].shape[-2]):
+        return p, c
+    loc = _Local.cut(mesh, p["A"], {k: c[k] for k in keys}, keys,
+                     v=None if exec_mode == "quant" else p["v"])
+    out = {"B": p["B"], "A": loc.A}
+    if "bias" in p:
+        out["bias"] = p["bias"][..., loc.cols].contiguous() if local \
+            else p["bias"]
+    return out, {"tp_heads" if local else "tp": loc.t}
+
+
+def sl_linear_columns(x, B, A, tiles, scale: float, exec_mode: str, *,
+                      gather: bool = True):
+    """y = x @ W of a linear a serving mesh holds as this rank's column
+    slice (:func:`serving_columns`), through :meth:`_Local.forward` under
+    the ambient mesh; ``gather`` False keeps this rank's columns.
+    Forward only."""
+    mesh = dist_sharding.ambient_mesh()
+    if mesh is None:
+        raise ValueError("a linear held as a rank's column slice runs under "
+                         "its serving mesh (dist.sharding.use_mesh)")
+    if torch.is_grad_enabled() and (x.requires_grad or B.requires_grad):
+        raise ValueError("a serving mesh's column slices are forward-only: "
+                         "train on a mesh through the Trainer")
+    return _Local(mesh, A, tiles).forward(x, B, scale, exec_mode,
+                                          gather=gather)
 
 
 # ---------------------------------------------------------------------------

@@ -41,8 +41,12 @@ with a warning. ``--chaos`` injects serve faults
 tick hook; with it, or with a deadline or a queue cap, requests may end
 timed out or rejected, but none unfinished. ``--jax-profile-dir`` (the
 reference's spelling; ``--profile-dir`` too) records a
-``torch.profiler`` Chrome trace of the run into that directory. The
-reference's ``--use-mesh`` is not ported yet and raises.
+``torch.profiler`` Chrome trace of the run into that directory.
+``--use-mesh`` serves on the local (data 1, model 1) mesh, as the
+reference's does (the same tokens as without it); larger meshes are
+reached through ``ServeEngine(mesh=...)`` on a ``torch.distributed``
+world. On a mesh, MoE, the families other than llama and
+``--deadline-ms`` raise, naming ROADMAP queue A item 10b.
 """
 from __future__ import annotations
 
@@ -140,7 +144,8 @@ def main(argv=None):
                     help="copy-on-write prefix sharing of block-aligned "
                          "prompt prefixes (requires --paged)")
     ap.add_argument("--use-mesh", action="store_true",
-                    help="serve on a device mesh (not ported yet)")
+                    help="serve on the local (data 1, model 1) mesh: the "
+                         "engine's placement and mesh dispatch path")
     ap.add_argument("--metrics-out", default=None,
                     help="append one registry snapshot JSONL line here")
     ap.add_argument("--trace-out", default=None,
@@ -160,10 +165,6 @@ def main(argv=None):
     ap.add_argument("--deadline-ms", type=float, default=None)
     ap.add_argument("--max-queue", type=int, default=None)
     args = ap.parse_args(argv)
-    if args.use_mesh:
-        raise NotImplementedError(
-            "--use-mesh is not ported yet (ROADMAP queue A item 10b: "
-            "serving on a mesh); the port serves on one card")
     if (args.stream or args.prefix_sharing) and not args.paged:
         ap.error("--stream/--prefix-sharing require --paged")
 
@@ -185,6 +186,10 @@ def main(argv=None):
     params, consts = load_model(cfg, device=args.device,
                                 ckpt_dir=args.ckpt_dir,
                                 quant_ckpt=args.quant_ckpt)
+    mesh = None
+    if args.use_mesh:
+        from repro_torch.dist import sharding as dist_sharding
+        mesh = dist_sharding.make_local_mesh()
     trace = obs_trace.Trace(enabled=bool(args.trace_out or args.profile_dir),
                             profile_dir=args.profile_dir)
     trace.start()
@@ -198,7 +203,8 @@ def main(argv=None):
                       deadline_ticks=args.deadline_ticks,
                       deadline_ms=args.deadline_ms,
                       tick_hook=chaos.serve_hook if chaos else None,
-                      quant_fallback=args.quant_fallback, device=args.device)
+                      quant_fallback=args.quant_fallback, mesh=mesh,
+                      device=args.device)
     if chaos is not None:
         chaos.bind(eng.obs)
     rng = np.random.default_rng(0)
@@ -244,6 +250,7 @@ def main(argv=None):
     total_toks = sum(len(r.out) for r in reqs)
     mode = f"paged/{eng.cfg.attn_kernel}" if args.paged else "legacy"
     mode += "/stream" if args.stream else ""
+    mode += "/mesh" if mesh is not None else ""
     print(f"served {len(reqs)} requests, {total_toks} tokens in {dt:.2f}s "
           f"({total_toks/dt:.1f} tok/s, {stats['decode_steps']} decode steps,"
           f" {eng.dispatches['prefill']} prefill dispatches, {mode},"

@@ -32,6 +32,16 @@ scalar index is a ``dynamic_update_slice`` (a negative start wraps once,
 then the start is clamped so the update fits), a (B,) vector an
 ``.at[rows, cols].set`` (a negative column wraps once, a column still out
 of range is dropped).
+
+On a serving mesh (``serve.engine.ServeEngine(mesh=...)``) whose
+``dist.sharding.ServingLayout`` says the cache holds a rank's share of
+the kv heads (``dist.sharding.cache_specs``), rank m of TP model ranks
+writes and attends kv heads [m·Hkv/TP, (m+1)·Hkv/TP) and their q heads
+[m·H/TP, (m+1)·H/TP), whole GQA groups since q head h reads kv head h //
+(H/Hkv), then all-gathers the output heads in order before ``wo``. A
+q/k/v projection held as the rank's column slice computes just those
+heads; one held whole is sliced. Where the cache holds every head (Hkv
+not divisible by TP) each rank attends them all.
 """
 from __future__ import annotations
 
@@ -174,9 +184,21 @@ def apply_attention(cfg: ModelConfig, params, consts, x, *,
     bsz, sq = x.shape[0], x.shape[1]
 
     kv_in = x if kv_source is None else kv_source
-    q = lin("wq", x).reshape(bsz, sq, nh, hd)
-    k = lin("wk", kv_in).reshape(bsz, kv_in.shape[1], nkv, hd)
-    v = lin("wv", kv_in).reshape(bsz, kv_in.shape[1], nkv, hd)
+    lay = dist_sharding.serving_layout()
+    if lay is not None and (lay.heads is None or kv_source is not None):
+        lay = None                      # every head on every rank
+
+    def heads(n, t, n_heads):
+        # (B, S, heads, hd); on a serving mesh whose cache holds this
+        # rank's kv heads, its share of them (a projection held as the
+        # rank's head columns gives just those)
+        y = lin(n, t).reshape(t.shape[0], t.shape[1], -1, hd)
+        if lay is None or "tp_heads" in consts.get(n, {}):
+            return y
+        return y[:, :, lay.head_range(n_heads)]
+    q = heads("wq", x, nh)
+    k = heads("wk", kv_in, nkv)
+    v = heads("wv", kv_in, nkv)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -200,10 +222,21 @@ def apply_attention(cfg: ModelConfig, params, consts, x, *,
     if cache is None:
         return lin("wo", _attend(cfg, q, k, v, q_pos, q_pos, window,
                                  causal)), None
-    if block_table is None:
-        return lin("wo", _contiguous(cfg, cache, q, k, v, q_pos, idx,
-                                     per_slot, prefill, window)), cache
+    o = _cached(cfg, cache, q, k, v, q_pos, idx, per_slot, block_table,
+                prefill, window)
+    if lay is not None:
+        o = dist_sharding.gather_last(o, lay.mesh)     # the heads, in order
+    return lin("wo", o), cache
 
+
+def _cached(cfg: ModelConfig, cache, q, k, v, q_pos, idx, per_slot,
+            block_table, prefill: bool, window: int):
+    """Write k/v into the cache and attend over it as the module docstring
+    says: (B, Sq, H·hd) for the heads of q, k and v."""
+    bsz, sq, nh, hd = q.shape
+    if block_table is None:
+        return _contiguous(cfg, cache, q, k, v, q_pos, idx, per_slot,
+                           prefill, window)
     positions = q_pos if per_slot else q_pos[None].expand(bsz, sq)
     ck = kv_lib.scatter(cache["k"], block_table, positions, k)
     cv = kv_lib.scatter(cache["v"], block_table, positions, v)
@@ -214,16 +247,16 @@ def apply_attention(cfg: ModelConfig, params, consts, x, *,
         if paged and sq == 1 and per_slot:
             o = kernel_ops.paged_attention(q[:, 0], ck, cv, block_table, idx,
                                            **kern)
-            return lin("wo", o.reshape(bsz, 1, nh * hd)), cache
+            return o.reshape(bsz, 1, nh * hd)
         k, v = _live_view(ck, block_table), _live_view(cv, block_table)
-        k_pos = torch.arange(k.shape[1], device=x.device)
+        k_pos = torch.arange(k.shape[1], device=q.device)
     elif per_slot:
         if paged:
             o = kernel_ops.paged_prefill_attention(q, ck, cv, block_table,
                                                    idx, **kern)
-            return lin("wo", o.reshape(bsz, sq, nh * hd)), cache
+            return o.reshape(bsz, sq, nh * hd)
         k, v = _live_view(ck, block_table), _live_view(cv, block_table)
-        k_pos = torch.arange(k.shape[1], device=x.device)
+        k_pos = torch.arange(k.shape[1], device=q.device)
     else:
         k_pos = q_pos                  # attend local k/v, not the pools
-    return lin("wo", _attend(cfg, q, k, v, q_pos, k_pos, window)), cache
+    return _attend(cfg, q, k, v, q_pos, k_pos, window)

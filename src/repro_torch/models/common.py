@@ -151,16 +151,24 @@ class Builder:
         return params, consts
 
 
+def support_specs(cfg: ModelConfig, seed: int, build) -> list:
+    """[(path, spec)] of every SLTrain linear's support that ``build(b)``
+    makes, in order: a collecting pass of the Builder (meta tensors, no
+    draws); [] when ``cfg`` has no SLTrain linears."""
+    specs: list = []
+    if cfg.param.mode == "sltrain":
+        build(Builder(cfg, None, torch.device("meta"), seed=seed,
+                      plan=specs))
+    return specs
+
+
 def presample(cfg: ModelConfig, seed: int, build, workers=None):
     """(plan, workers): every SLTrain linear's support that ``build(b)``
     (a model's init body over Builder ``b``) makes, sampled by
     ``support.sample_supports`` with ``workers`` processes (None:
     ``support.default_workers``) and keyed by path, as a Builder's
     ``plan``. (None, 0) when ``cfg`` has no SLTrain linears."""
-    if cfg.param.mode != "sltrain":
-        return None, 0
-    specs: list = []
-    build(Builder(cfg, None, torch.device("meta"), seed=seed, plan=specs))
+    specs = support_specs(cfg, seed, build)
     if not specs:
         return None, 0
     paths, specs = zip(*specs)

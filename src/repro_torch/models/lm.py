@@ -35,6 +35,7 @@ from repro_torch.models import attention, mlp
 from repro_torch.models.common import (DTYPES, Builder, init_model,
                                        remat_wrap, rms_norm, softcap,
                                        stack_layers, unstack)
+from repro_torch.models.common import support_specs as common_support_specs
 from repro_torch.serve.kv import PagedLayout
 
 _GEMMA = ("gemma2", "vlm")
@@ -176,6 +177,14 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     _check_family(cfg)
     return init_model(cfg, seed, lambda b: _build_lm(cfg, b), device=device,
                       workers=workers, obs=obs)
+
+
+def support_specs(cfg: ModelConfig, seed: int = 0) -> list:
+    """The support specs ``init_lm(cfg, seed)`` samples, in order: for a
+    caller that samples them ahead (``core.support.sample_ahead``)."""
+    _check_family(cfg)
+    return [s for _, s in common_support_specs(
+        cfg, seed, lambda b: _build_lm(cfg, b))]
 
 
 def embed_apply(cfg: ModelConfig, params, tokens, patch_embeds=None):
@@ -373,6 +382,14 @@ def _cached_forward(cfg: ModelConfig, params, consts, tokens, cache, index,
     cache)."""
     _check_family(cfg)
     pat = _pattern(cfg)
+    lay = dist_sharding.serving_layout()
+    rows = None if lay is None else lay.slots
+    if rows is not None:
+        # a serving mesh's contiguous cache holds this rank's slots: run
+        # their rows, then all-gather the logits over the batch axes
+        tokens = tokens[rows]
+        if torch.is_tensor(index) and index.dim() == 1:
+            index = index[rows]
     h = embed_apply(cfg, params, tokens)
     kw = dict(cache_index=index, block_table=block_table, prefill=prefill)
     for i, (p, c) in enumerate(_stack(params, consts, "dense_layers")):
@@ -388,7 +405,12 @@ def _cached_forward(cfg: ModelConfig, params, consts, tokens, cache, index,
                                    window=_window_for(cfg, kind),
                                    cache={"k": kv["k"][i], "v": kv["v"][i]},
                                    **kw)
-    return head_apply(cfg, params, h), cache
+    logits = head_apply(cfg, params, h)
+    if rows is not None:
+        logits = dist_sharding.gather_leaf(
+            logits, (lay.slot_axes,) + (None,) * (logits.dim() - 1),
+            lay.mesh)
+    return logits, cache
 
 
 def decode_step(cfg: ModelConfig, params, consts, tokens, cache, index, *,

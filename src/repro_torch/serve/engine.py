@@ -56,8 +56,29 @@ and :meth:`ServeEngine.stall_slot` freezes a slot for K ticks: the loop
 decodes around it, and when every active slot is stalled the clock still
 advances, so stalls and deadlines expire.
 
-Not ported yet, and refused when asked for: a device ``mesh`` (ROADMAP
-queue A item 10b: serving on a mesh).
+On a device ``mesh`` (a ``dist.sharding.Mesh`` over a
+``torch.distributed`` world) the engine serves the llama family SPMD:
+every rank constructs the same engine on the full params and runs the
+same scheduler, so the ranks keep the same admissions, block tables and
+tokens tick for tick. Construction places each rank's state once
+(``dist.sharding.serving_state``): it allocates only its shard of the KV
+cache as ``cache_specs`` gives it (kv heads over the model axis; a
+contiguous cache's slots over the batch axes too), and in exec_mode
+fused, sparse and quant holds the column slice of every linear whose
+tensor-parallel island engages; every other leaf stays whole. What it
+holds is the engine's ``placement`` (a ``dist.sharding.ServingLayout``),
+made ambient in each dispatch (``train.step.make_serve_step(layout=)``):
+the paged kernels read the rank's kv heads, the island linears run their
+kernel on the rank's column tiles (the q/k/v projections straight into
+its heads), and only activations are all-gathered (output columns,
+attention heads, and logits over the batch axes of a contiguous cache).
+Its tokens equal the one-process engine's. Refused on a mesh, naming
+ROADMAP queue A item 10b: MoE expert stacks, the families other than
+llama (gemma2, vlm, the SSM and encoder families), a seq-sharded cache
+(``cfg.seq_shard_activations``; on the paged kernels' cache the
+``ValueError`` of ``cache_specs``, as the reference's) and a wall-clock
+deadline (``deadline_ms``) across more than one rank, whose ranks would
+read different clocks.
 """
 from __future__ import annotations
 
@@ -72,6 +93,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.dist import sharding as dist_sharding
 from repro_torch.models import registry
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -114,6 +136,20 @@ def _not_ported(what: str, item) -> NotImplementedError:
                                f"item {item})")
 
 
+def _check_mesh(cfg: ModelConfig, mesh, deadline_ms) -> None:
+    """Refuse what serving on a mesh does not run yet (ROADMAP queue A
+    item 10b)."""
+    if cfg.moe.n_experts > 0:
+        raise _not_ported("serving MoE expert stacks on a device mesh",
+                          "10b")
+    if cfg.family != "llama":
+        raise _not_ported(f"serving the {cfg.family} family on a device "
+                          "mesh", "10b")
+    if deadline_ms is not None and mesh.size > 1:
+        raise _not_ported("a wall-clock deadline (deadline_ms) across the "
+                          "ranks of a serving mesh", "10b")
+
+
 # the consts the sparse path reads (besides params' v): what a quant
 # engine's fallback checks for
 _SPARSE_CONSTS = {"rows_t", "cols_t", "perm"}
@@ -140,7 +176,7 @@ class ServeEngine:
                  tick_hook=None, quant_fallback: bool = False,
                  device="cuda"):
         if mesh is not None:
-            raise _not_ported("serving on a device mesh", "10b")
+            _check_mesh(cfg, mesh, deadline_ms)
         if exec_mode is not None:
             # the explicit serve-time mode supersedes the sparse_decode
             # shorthand
@@ -219,6 +255,9 @@ class ServeEngine:
         self.obs = obs if obs is not None else obs_metrics.Registry()
         self.trace = trace if trace is not None else \
             obs_trace.Trace(enabled=False)
+        # on a mesh the full cache is only shapes: each rank allocates its
+        # shard (serving_state)
+        cache_device = "meta" if mesh is not None else self.device
         if paged:
             if self.api.prefill_step is None:
                 raise ValueError(f"family {cfg.family!r} has no prefill_step;"
@@ -227,16 +266,28 @@ class ServeEngine:
                                            n_blocks)
             self.cache = self.api.init_cache(
                 cfg, n_slots, max_len, paged=True, block_len=block_len,
-                n_blocks=self.layout.n_blocks, device=self.device)
+                n_blocks=self.layout.n_blocks, device=cache_device)
             self.sched = Scheduler(n_slots, max_len, self.layout,
                                    prefix_sharing=prefix_sharing,
                                    obs=self.obs)
-            self._prefill_fn = step_lib.make_prefill_step(cfg, self.api)
         else:
             self.cache = self.api.init_cache(cfg, n_slots, max_len,
-                                             device=self.device)
+                                             device=cache_device)
             self.sched = None
-        self._decode_fn = step_lib.make_serve_step(cfg, self.api)
+        self.mesh, self.placement = mesh, None
+        if mesh is not None:
+            self.params, self.consts, self.cache, self.placement = \
+                dist_sharding.serving_state(
+                    params, consts, self.cache, mesh, exec_mode=mode,
+                    n_slots=n_slots, paged=paged,
+                    attn_kernel=cfg.attn_kernel,
+                    seq_sharded=cfg.seq_shard_activations,
+                    device=self.device)
+        if paged:
+            self._prefill_fn = step_lib.make_prefill_step(
+                cfg, self.api, layout=self.placement)
+        self._decode_fn = step_lib.make_serve_step(cfg, self.api,
+                                                   layout=self.placement)
         # the contiguous path's host state: next position, slot owner, queue
         self.pos = np.zeros(n_slots, dtype=np.int32)
         self.slot_req: List[Optional[Request]] = [None] * n_slots

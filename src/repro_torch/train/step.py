@@ -14,6 +14,8 @@ waits on the device; the caller syncs when it reads a metric.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -414,30 +416,46 @@ def _greedy(logits, vocab_size: int):
         torch.int32)
 
 
-def make_serve_step(cfg: ModelConfig, api: ModelApi):
+def _on_mesh(layout, tokens):
+    """A serving mesh's layout made ambient for one dispatch of
+    ``tokens`` (its rows the global batch), as the reference runs a step
+    ``with mesh:``; nothing without one."""
+    if layout is None:
+        return contextlib.nullcontext()
+    return dist_sharding.use_mesh(layout.mesh, global_batch=tokens.shape[0],
+                                  layout=layout)
+
+
+def make_serve_step(cfg: ModelConfig, api: ModelApi, layout=None):
     """serve_step(params, consts, tokens, cache, index, block_table=None)
     -> (next_tokens (B, 1) int32, logits, cache). ``index`` is a scalar or
     a (B,) per-slot position vector; ``block_table`` addresses the paged
-    pools."""
+    pools. With ``layout`` (a serving mesh's
+    ``dist.sharding.ServingLayout``: params, consts and cache a rank's,
+    ``dist.sharding.serving_state``) every call runs under its mesh."""
     def serve_step(params, consts, tokens, cache, index, block_table=None):
-        logits, cache = api.decode_step(cfg, params, consts, tokens, cache,
-                                        index, block_table=block_table)
+        with _on_mesh(layout, tokens):
+            logits, cache = api.decode_step(cfg, params, consts, tokens,
+                                            cache, index,
+                                            block_table=block_table)
         return _greedy(logits[:, -1], cfg.vocab_size)[:, None], logits, cache
     return serve_step
 
 
-def make_prefill_step(cfg: ModelConfig, api: ModelApi):
+def make_prefill_step(cfg: ModelConfig, api: ModelApi, layout=None):
     """prefill_step(params, consts, tokens, cache, lengths,
     block_table=None, offsets=None) -> (first_tokens (B, 1) int32, logits,
     cache): a batch of prompts (B, S) runs through one forward that writes
     their K/V, and each row's first output token is sampled from
     logits[s, lengths[s] - 1]. ``offsets`` switches to chunked suffix
-    prefill (``lengths`` are then suffix lengths)."""
+    prefill (``lengths`` are then suffix lengths). ``layout`` as
+    :func:`make_serve_step`'s."""
     def prefill_step(params, consts, tokens, cache, lengths, block_table=None,
                      offsets=None):
-        logits, cache = api.prefill_step(cfg, params, consts, tokens, cache,
-                                         block_table=block_table,
-                                         offsets=offsets)
+        with _on_mesh(layout, tokens):
+            logits, cache = api.prefill_step(cfg, params, consts, tokens,
+                                             cache, block_table=block_table,
+                                             offsets=offsets)
         rows = torch.arange(tokens.shape[0], device=logits.device)
         last_idx = (lengths.long() - 1).clamp(0, tokens.shape[1] - 1)
         nxt = _greedy(logits[rows, last_idx], cfg.vocab_size)

@@ -149,6 +149,30 @@ def test_kept_supports_sample_each_spec_once(monkeypatch):
     assert len(calls) == 3 * n
 
 
+def test_supports_sampled_ahead_are_kept_for_the_init(monkeypatch):
+    """``sample_ahead`` samples an init's specs (``lm.support_specs``, the
+    Builder's order) in a background thread of 2 worker processes; its
+    ``keep`` puts them in the ``keep_supports`` cache, so the init then
+    samples nothing in this process and is bit-identical to an init
+    outside the cache. A worker's failure is raised by ``keep``."""
+    cfg = _cfg("llama_60m", "fused")
+    want = lm.init_lm(cfg, 3, device="cpu", workers=1)
+    assert lm.support_specs(cfg, 3) == [s for _, s in _specs(cfg, 3)]
+    calls = []
+    real = support.final_support
+    monkeypatch.setattr(support, "final_support",
+                        lambda *a, **k: calls.append(a) or real(*a, **k))
+    with support.keep_supports(1 << 30):
+        keep = support.sample_ahead(lm.support_specs(cfg, 3), 2)
+        keep()
+        got = lm.init_lm(cfg, 3, device="cpu", workers=1)
+    assert not calls
+    _assert_same_trees(want, got)
+    spec = (1, 128, 128, 0.3, "row_balanced", 8)
+    with pytest.raises(RuntimeError, match="too small"):
+        support.sample_ahead([spec, (2,) + spec[1:]], 2)()
+
+
 def test_failing_worker_raises():
     """A worker whose support cannot fit its capacity (every re-sample of
     a dense 128 x 128 tile busts 8 slots) exits non-zero: the caller gets

@@ -100,8 +100,16 @@ def test_unported_options_raise():
     cfg = _smoke()
     params, consts = lm.init_lm(cfg, device="cpu")
     kw = dict(max_len=32, device="cpu")
+    # serving on a mesh runs now (item 10b.1); MoE on a mesh is refused,
+    # naming item 10b
+    from repro_torch.dist import sharding
+    eng = ServeEngine(cfg, params, consts, paged=True,
+                      mesh=sharding.make_local_mesh(), **kw)
+    assert eng.submit([5, 9], max_new_tokens=2) and \
+        eng.run_until_drained()["summary"] == {"done": 1}
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 10b"):
-        ServeEngine(cfg, params, consts, paged=True, mesh=object(), **kw)
+        ServeEngine(registry.get_smoke_config("deepseek_moe_16b"), params,
+                    consts, paged=True, mesh=sharding.make_local_mesh(), **kw)
     # the contiguous cache and the tick hook run now
     ticks = []
     for ok in (dict(paged=False), dict(paged=True, tick_hook=ticks.append),
